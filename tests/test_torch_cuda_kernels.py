@@ -1,0 +1,73 @@
+"""Card-only checks of the port's CUDA kernels (K1, K6) at edge shapes.
+
+Marked ``cuda``: they skip without a CUDA device (the decision is made in a
+fixture, at run time).  On a card::
+
+    python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
+
+Tolerances as in chip_smoke.py: K1 within 2^-6 * max|plain| of its plain
+version, K6 within 2% of max|plain|.
+"""
+
+import pytest
+import torch
+
+from ucod_dpl_tpu_torch.ops.attention import packed_attention, packed_attention_reference
+from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv, layernorm_qkv_reference
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("b,l,nh", [(1, 1, 2), (2, 63, 2), (2, 65, 4), (3, 129, 6), (1, 5477, 12)])
+def test_attention_kernel_edge_lengths(dev, b, l, nh):
+    g = torch.Generator(device=dev).manual_seed(l)
+    q, k, v = (torch.randn(b, l, nh * 64, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = packed_attention(q, k, v, nh, 0.125, out=torch.full_like(q, float("nan")))
+    ref = packed_attention_reference(q, k, v, nh, 0.125).float()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize("b,l,d", [(1, 1, 256), (2, 65, 256), (3, 100, 768), (1, 300, 1024)])
+def test_layernorm_qkv_kernel_edge_shapes(dev, b, l, d):
+    g = torch.Generator(device=dev).manual_seed(d + l)
+    x = torch.randn(b, l, d, generator=g, device=dev).to(torch.bfloat16)
+    norm = {"scale": 1 + 0.1 * torch.randn(d, generator=g, device=dev),
+            "bias": 0.1 * torch.randn(d, generator=g, device=dev)}
+    lins = [{"w": torch.randn(d, d, generator=g, device=dev) / d ** 0.5,
+             "b": 0.1 * torch.randn(d, generator=g, device=dev)} for _ in range(3)]
+    outs = layernorm_qkv(x, norm, *lins, 1e-6, out=tuple(torch.full_like(x, float("nan")) for _ in range(3)))
+    for o, r in zip(outs, layernorm_qkv_reference(x, norm, *lins, 1e-6)):
+        assert torch.isfinite(o).all()
+        assert (o.float() - r.float()).abs().max().item() <= 0.02 * r.float().abs().max().item()
+
+
+def test_kernels_count_launches_and_reject_what_they_do_not_take(dev):
+    q = torch.randn(1, 70, 256, device=dev, dtype=torch.bfloat16)
+    before = packed_attention.launches
+    packed_attention(q, q, q, 4, 0.125)
+    assert packed_attention.launches == before + 1
+    with pytest.raises(TypeError):
+        packed_attention(q.float(), q.float(), q.float(), 4, 0.125)
+    with pytest.raises(ValueError):
+        packed_attention(q, q, q, 8, 0.125)  # head_dim 32
+    with pytest.raises(ValueError):
+        packed_attention(q[..., :128], q[..., :128], q[..., :128], 2, 0.125)  # not contiguous
+    norm = {"scale": torch.ones(256, device=dev), "bias": torch.zeros(256, device=dev)}
+    lin = {"w": torch.randn(256, 256, device=dev), "b": torch.zeros(256, device=dev)}
+    before = layernorm_qkv.launches
+    layernorm_qkv(q, norm, lin, lin, lin, 1e-6)
+    assert layernorm_qkv.launches == before + 1
+    with pytest.raises(TypeError):
+        layernorm_qkv(q.float(), norm, lin, lin, lin, 1e-6)
+    with pytest.raises(ValueError):  # hidden 128: 256 does not divide it
+        narrow = {"w": torch.randn(128, 128, device=dev), "b": torch.zeros(128, device=dev)}
+        layernorm_qkv(q[..., :128].contiguous(), {k: v[:128] for k, v in norm.items()},
+                      narrow, narrow, narrow, 1e-6)

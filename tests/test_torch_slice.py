@@ -1,0 +1,200 @@
+"""The port's live-inference slice against the JAX package.
+
+``fg_logits_live`` and the ViT forward run on the same weights (the JAX
+``init_dino``/``init_rev_decoder`` trees carried across by
+``ucod_dpl_tpu_torch.models.convert``) and the same numpy pixels; the JAX
+side runs its Pallas kernels in interpret mode.  Float32 tolerances are those
+of tests/test_dino_parity.py.  Also: the port's ViT against a tiny HF model
+built from its config (no download), exact weight and checkpoint round
+trips, and a jax-free import of the port.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from ucod_dpl_tpu.models import dba as JB
+from ucod_dpl_tpu.models import dino as JD
+from ucod_dpl_tpu.models import safetensors_io as JS
+from ucod_dpl_tpu_torch.models import convert as C
+from ucod_dpl_tpu_torch.models import dba as TB
+from ucod_dpl_tpu_torch.models import dino as TD
+from ucod_dpl_tpu_torch.models import safetensors_io as TS
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """hidden 128, 2 heads of 64, 3 layers: K1 and K6 are eligible on the JAX
+    side (even heads, 2 * 64 % 128 == 0, hidden % 128 == 0)."""
+    cfg = JD.DinoConfig(variant="dinov2", image_size=56, patch_size=14, hidden_size=128,
+                        num_layers=3, num_heads=2, mlp_ratio=4)
+    tcfg = TD.DinoConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
+    k1, k2 = jax.random.split(jax.random.PRNGKey(0))
+    jp, jd = JD.init_dino(k1, cfg), JB.init_rev_decoder(k2, cfg.hidden_size)
+    tp = C.dino_from_jax(jax.tree_util.tree_map(np.asarray, jp))
+    td = C.decoder_from_jax(jax.tree_util.tree_map(np.asarray, jd))
+    return cfg, tcfg, jp, jd, tp, td
+
+
+@pytest.mark.parametrize("hw,size", [((56, 56), 8), ((56, 56), None), ((70, 56), 8), ((70, 56), None)])
+def test_fg_logits_live_matches_jax(tiny, monkeypatch, hw, size):
+    cfg, tcfg, jp, jd, tp, td = tiny
+    px = np.random.default_rng(1).standard_normal((2, *hw, 3)).astype(np.float32)
+    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
+    fg_j, bg_j, _ = JB.fg_logits_live(jp, jd, jnp.asarray(px), cfg, compute_dtype=jnp.float32, size=size)
+    fg_t, bg_t, _ = TB.fg_logits_live(tp, td, torch.from_numpy(px), tcfg, compute_dtype=torch.float32,
+                                      size=size)
+    assert tuple(fg_t.shape) == fg_j.shape
+    np.testing.assert_allclose(fg_t.numpy(), np.asarray(fg_j), rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(bg_t.numpy(), np.asarray(bg_j), rtol=2e-4, atol=2e-5)
+
+
+def test_dino_forward_and_decoder_match_jax(tiny, monkeypatch):
+    """The unfolded forward (key tokens and features) and the cache-fed
+    decoder paths, including the O(C^2) orthogonality loss."""
+    cfg, tcfg, jp, jd, tp, td = tiny
+    px = np.random.default_rng(2).standard_normal((2, 70, 56, 3)).astype(np.float32)
+    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
+    out_j = JD.dino_forward(jp, jnp.asarray(px), cfg)
+    out_t = TD.dino_forward(tp, torch.from_numpy(px), tcfg)
+    assert set(out_t) == {"key_tokens", "key_features"}
+    for key in out_t:
+        np.testing.assert_allclose(out_t[key].numpy(), np.asarray(out_j[key]), rtol=1e-4, atol=1e-5)
+
+    feats = out_j["key_features"]
+    feats_t = torch.from_numpy(np.array(feats))
+    got = TB.rev_decoder_forward(td, feats_t, with_loss=True)
+    want = JB.rev_decoder_forward(jd, feats, with_loss=True)
+    got_r = TB.rev_decoder_forward_resized(td, feats_t, 9, with_loss=True)
+    want_r = JB.rev_decoder_forward_resized(jd, feats, 9, with_loss=True)
+    for g, w in zip((*got, *got_r), (*want, *want_r)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("variant,size", [("dinov2", 32), ("dinov2", 48), ("dinov1", 32), ("dinov1", 48)])
+def test_dino_forward_matches_hf(variant, size):
+    """Native and interpolated position embeddings against HF Dinov2Model /
+    ViTModel built from config (tolerances of tests/test_dino_parity.py)."""
+    if variant == "dinov2":
+        from transformers import Dinov2Config, Dinov2Model
+
+        hf_cfg = Dinov2Config(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, mlp_ratio=2,
+                              image_size=32, patch_size=8, attn_implementation="eager")
+        torch.manual_seed(0)
+        model = Dinov2Model(hf_cfg).eval()
+    else:
+        from transformers import ViTConfig, ViTModel
+
+        hf_cfg = ViTConfig(hidden_size=64, num_hidden_layers=2, num_attention_heads=4, intermediate_size=128,
+                           image_size=32, patch_size=8, attn_implementation="eager")
+        torch.manual_seed(1)
+        model = ViTModel(hf_cfg, add_pooling_layer=False).eval()
+    cfg = TD.DinoConfig(variant=variant, image_size=32, patch_size=8, hidden_size=64, num_layers=2,
+                        num_heads=4, mlp_ratio=2, layer_norm_eps=hf_cfg.layer_norm_eps,
+                        use_layerscale=variant == "dinov2")
+    params = TD.convert_hf_state_dict({k: v.numpy() for k, v in model.state_dict().items()}, cfg)
+    captured = {}
+    model.encoder.layer[-1].attention.attention.key.register_forward_hook(
+        lambda mod, inp, out: captured.__setitem__("key", out.detach())
+    )
+    x = np.random.default_rng(0).standard_normal((2, 3, size, size)).astype(np.float32)
+    kwargs = {"interpolate_pos_encoding": True} if variant == "dinov1" else {}
+    with torch.no_grad():
+        model(torch.from_numpy(x), **kwargs)
+        ours = TD.dino_forward(params, torch.from_numpy(x).permute(0, 2, 3, 1), cfg)
+    torch.testing.assert_close(ours["key_tokens"], captured["key"], rtol=1e-4, atol=1e-4)
+    g = size // 8
+    torch.testing.assert_close(ours["key_features"].reshape(2, g * g, -1), captured["key"][:, 1:],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_cast_params_matches_per_call_casts(tiny):
+    """Params cast to bf16 once give bit-for-bit the bf16 forward of the
+    float32 masters (which casts at every use); LayerNorm params, q/k/v
+    biases, the position embedding and the last layer (folded in f32) stay
+    float32."""
+    _, tcfg, _, _, tp, td = tiny
+    cast = TD.cast_params(tp, torch.bfloat16)
+    layer = cast["layers"][0]
+    assert layer["fc1"]["w"].dtype == layer["out"]["b"].dtype == layer["ls1"].dtype == torch.bfloat16
+    assert layer["q"]["w"].dtype == cast["patch_embed"]["kernel"].dtype == torch.bfloat16
+    assert layer["q"]["b"].dtype == layer["norm1"]["scale"].dtype == torch.float32
+    assert cast["pos_embed"].dtype == cast["final_norm"]["bias"].dtype == torch.float32
+    assert cast["layers"][-1]["k"]["w"].dtype == torch.float32
+    # float32 masters cast to float32 are the same tensors: no copy
+    assert TD.cast_params(tp, torch.float32)["layers"][0]["fc1"]["w"] is tp["layers"][0]["fc1"]["w"]
+    px = torch.from_numpy(np.random.default_rng(4).standard_normal((2, 70, 56, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = TB.fg_logits_live(tp, td, px, tcfg, compute_dtype=torch.bfloat16, size=8)
+        got = TB.fg_logits_live(cast, td, px, tcfg, compute_dtype=torch.bfloat16, size=8)
+        for g, w in zip(got[:2], want[:2]):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        want = TD.dino_forward(tp, px, tcfg, compute_dtype=torch.bfloat16)["key_features"]
+        got = TD.dino_forward(cast, px, tcfg, compute_dtype=torch.bfloat16)["key_features"]
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_weight_conversion_round_trips(tiny):
+    cfg, tcfg, jp, jd, tp, td = tiny
+    for a, b in zip(jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jp)),
+                    jax.tree_util.tree_leaves(C.dino_to_jax(tp))):
+        np.testing.assert_array_equal(a, b)
+    back = C.decoder_to_jax(td)
+    for name, a in jd._asdict().items():
+        np.testing.assert_array_equal(np.asarray(a), back[name])
+    assert tp["patch_embed"]["kernel"].shape == (128, 3, 14, 14)  # OIHW
+    assert tp["layers"][0]["fc1"]["w"].shape == (512, 128)  # (out, in)
+
+
+def test_decoder_checkpoints_cross_load(tiny, tmp_path):
+    """Port-written checkpoints load in the JAX package and vice versa, through
+    real files (safetensors writes raw buffers)."""
+    _, _, _, jd, _, td = tiny
+    ema = TB.init_rev_decoder(3, 128)
+    TS.save_decoder_checkpoint(str(tmp_path / "port.safetensors"), td, ema)
+    j_student, j_ema = JS.load_decoder_checkpoint(str(tmp_path / "port.safetensors"))
+    for port, jax_side in ((td, j_student), (ema, j_ema)):
+        for name, a in C.decoder_to_jax(port).items():
+            np.testing.assert_array_equal(a, np.asarray(getattr(jax_side, name)))
+    JS.save_decoder_checkpoint(str(tmp_path / "jax.safetensors"), jd, jd)
+    t_student, _ = TS.load_decoder_checkpoint(str(tmp_path / "jax.safetensors"))
+    for a, b in zip(t_student, C.decoder_from_jax(jax.tree_util.tree_map(np.asarray, jd))):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_port_imports_no_jax():
+    """Importing the port and every module of its slice must not import jax;
+    an import of jax is made to fail outright."""
+    code = (
+        "import sys\n"
+        "for m in [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]:\n"
+        "    del sys.modules[m]\n"
+        "sys.modules['jax'] = None\n"
+        "import ucod_dpl_tpu_torch\n"
+        "from ucod_dpl_tpu_torch import serving\n"
+        "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, resize\n"
+        "# serving pre-normalised arrays loads no module of the JAX package\n"
+        "assert 'ucod_dpl_tpu' not in sys.modules, sorted(sys.modules)\n"
+        "from ucod_dpl_tpu_torch.models import convert, dba, dino, safetensors_io\n"
+        "from ucod_dpl_tpu_torch.data import feature_extractor, transforms\n"
+        "from ucod_dpl_tpu_torch.engine import eval_loop\n"
+        "assert ucod_dpl_tpu_torch.Predictor is serving.Predictor\n"
+        "bad = [m for m in sys.modules if m.startswith('jax') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('NO-JAX-OK')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                         cwd=REPO, timeout=120)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "NO-JAX-OK" in out.stdout

@@ -1,0 +1,120 @@
+"""DINO feature extraction on a chosen torch device.
+
+Counterpart of :mod:`ucod_dpl_tpu.data.feature_extractor` (the reference's
+``data/utils/feature_extractor.py:31-59`` backbone wrapper): local weight
+discovery, strict loading, a compute dtype chosen by device (bf16 on CUDA,
+float32 on the CPU), and host float32 key features that are checked for
+non-finite values.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ucod_dpl_tpu_torch.models.convert import params_to
+from ucod_dpl_tpu_torch.models.dino import (
+    DinoConfig,
+    cast_params,
+    dino_forward,
+    init_dino,
+    load_hf_checkpoint,
+)
+
+logger = logging.getLogger(__name__)
+
+_DTYPE_BY_DEVICE = {"cuda": torch.bfloat16, "cpu": torch.float32}
+
+
+def _candidate_weight_paths(fe_cfg) -> list:
+    """Weight search order mirroring the reference's local->cache fallback
+    (``feature_extractor.py:15-29``)."""
+    name = fe_cfg.backbone.split("/")[-1]
+    cands = []
+    for base in (fe_cfg.get("backbone_weights"), fe_cfg.get("backbone_weight_base")):
+        if not base:
+            continue
+        base = Path(os.path.expanduser(base))
+        cands += [base, base / name, base / fe_cfg.backbone.replace("/", "--")]
+    return cands
+
+
+class FeatureExtractor:
+    """Frozen DINO backbone exposing the key-feature hook contract."""
+
+    def __init__(
+        self,
+        fe_cfg,
+        *,
+        device,
+        compute_dtype: Optional[torch.dtype] = None,
+        seed: int = 0,
+        strict: Optional[bool] = None,
+    ):
+        """``device``: where the backbone runs (no default: nothing chooses the
+        CPU because CUDA is missing).  ``compute_dtype`` defaults to bf16 on
+        CUDA and float32 on the CPU; ``params`` are held cast to it once
+        (:func:`~ucod_dpl_tpu_torch.models.dino.cast_params`).  ``strict`` (or
+        ``fe_cfg.strict_weights``):
+        missing pretrained weights raise instead of falling back to a random
+        initialisation from ``seed``."""
+        self.fe_cfg = fe_cfg
+        self.strict = fe_cfg.get("strict_weights", False) if strict is None else strict
+        self.config = DinoConfig.from_type(fe_cfg.type)
+        arch = fe_cfg.get("arch")  # architecture overrides (tests, small runs)
+        if arch:
+            self.config = dataclasses.replace(self.config, **dict(arch))
+        self.device = torch.device(device)
+        if compute_dtype is None:
+            if self.device.type not in _DTYPE_BY_DEVICE:
+                raise ValueError(f"no default compute dtype for device {self.device}")
+            compute_dtype = _DTYPE_BY_DEVICE[self.device.type]
+        self.compute_dtype = compute_dtype
+        self.params = cast_params(params_to(self._load_params(seed), self.device), compute_dtype)
+
+    def _load_params(self, seed: int):
+        for cand in _candidate_weight_paths(self.fe_cfg):
+            if cand.is_file() or (
+                cand.is_dir()
+                and ((cand / "model.safetensors").exists() or (cand / "pytorch_model.bin").exists())
+            ):
+                logger.info("Loading DINO weights from %s", cand)
+                return load_hf_checkpoint(str(cand), self.config)
+        msg = (
+            f"No local weights found for {self.fe_cfg.backbone} "
+            f"(searched {_candidate_weight_paths(self.fe_cfg)})"
+        )
+        if self.strict:
+            raise FileNotFoundError(
+                msg + "; strict weight loading is enabled (serving/eval refuses "
+                "to run on random-init features)."
+            )
+        logger.warning(msg + "; using RANDOM initialisation — features will not match pretrained DINO.")
+        return init_dino(seed, self.config)
+
+    @staticmethod
+    def _to_host_f32(t: torch.Tensor, what: str) -> np.ndarray:
+        """Device tensor -> host float32, raising on non-finite values (a
+        non-finite forward evaluates silently as all-background masks)."""
+        arr = t.float().cpu().numpy()
+        if not np.isfinite(arr).all():
+            raise FloatingPointError(
+                f"DINO forward produced non-finite {what} "
+                f"({(~np.isfinite(arr)).sum()}/{arr.size} bad) on {t.device} — "
+                "kernel or numerics regression."
+            )
+        return arr
+
+    def extract(self, images_nhwc: np.ndarray) -> np.ndarray:
+        """(B, H, W, 3) normalised images -> (B, h, w, hidden) float32 key
+        features on the host."""
+        with torch.inference_mode():
+            pixels = torch.from_numpy(np.asarray(images_nhwc, np.float32)).to(self.device)
+            out = dino_forward(self.params, pixels, self.config, compute_dtype=self.compute_dtype)
+            return self._to_host_f32(out["key_features"], "features")

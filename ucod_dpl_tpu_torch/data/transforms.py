@@ -1,0 +1,52 @@
+"""Host-side image preprocessing (NHWC numpy), jax-free.
+
+Counterpart of :mod:`ucod_dpl_tpu.data.transforms` (the reference's
+torchvision pipelines, ``data/datasets/transforms.py:8-43``): Pillow-BILINEAR
+resize, scale to [0, 1], ImageNet normalisation.  The resize uses the
+repository's native kernel (``ucod_dpl_tpu.utils.native``, bit-exact with
+Pillow) when it is available and Pillow otherwise; Pillow is imported only
+when it is needed.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
+
+
+def resize_bilinear(img, size_hw: Tuple[int, int]) -> np.ndarray:
+    """Pillow-BILINEAR resize of a PIL image or uint8 HW[C] array -> uint8
+    array.  Palette and bilevel images stay on Pillow, which resamples those
+    modes with NEAREST whatever filter is asked for."""
+    from PIL import Image
+
+    h, w = size_hw
+    if isinstance(img, Image.Image) and img.mode not in ("L", "RGB", "RGBA"):
+        return np.asarray(img.resize((w, h), Image.BILINEAR))
+    arr = np.asarray(img)
+    if arr.dtype == np.uint8:
+        from ucod_dpl_tpu.utils import native
+
+        out = native.resize_u8_native(arr, size_hw)
+        if out is not None:
+            return out
+    if not isinstance(img, Image.Image):
+        img = Image.fromarray(img)
+    return np.asarray(img.resize((w, h), Image.BILINEAR))
+
+
+def to_array(img) -> np.ndarray:
+    """ToTensor equivalent: HWC float32 in [0, 1]."""
+    arr = np.asarray(img, dtype=np.float32) / 255.0
+    return arr[:, :, None] if arr.ndim == 2 else arr
+
+
+def image_transform(img, size_hw: Optional[Tuple[int, int]]) -> np.ndarray:
+    """Resize (optional) + ToTensor + ImageNet-normalise -> (H, W, 3) float32."""
+    if size_hw is not None:
+        img = resize_bilinear(img, size_hw)
+    return (to_array(img) - IMAGENET_MEAN) / IMAGENET_STD

@@ -1,0 +1,314 @@
+"""DINO ViT feature extractor in PyTorch (DINOv2 ``dinov2-base`` and DINOv1
+``dino-vitb8`` architectures).
+
+Counterpart of :mod:`ucod_dpl_tpu.models.dino`: plain functions over a
+params dict whose names follow the JAX pytree, in PyTorch layouts
+(patch kernel OIHW, linears ``(out, in)``; :mod:`.convert` maps between the
+two).  The forward returns the last block's key projection (the reference's
+hook contract) or, with ``key_fold``, the key projection pre-composed with
+the decoder's decoupling.
+
+On a CUDA device the fused LayerNorm + q/k/v (K6) and the packed attention
+(K1) run as hand-written kernels in bf16; ``plain=True`` runs their plain
+PyTorch versions instead, on any device.  A float32 forward on CUDA is full
+float32 only with ``torch.backends.cudnn.allow_tf32 = False`` (the patch
+embed is a cuDNN convolution) and ``torch.backends.cuda.matmul.allow_tf32 =
+False`` (PyTorch's default).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ucod_dpl_tpu_torch.ops.attention import packed_attention, packed_attention_reference
+from ucod_dpl_tpu_torch.ops.fused_layers import dense, layer_norm, layernorm_qkv, layernorm_qkv_reference
+from ucod_dpl_tpu_torch.ops.resize import interpolate_bicubic
+
+
+@dataclass(frozen=True)
+class DinoConfig:
+    variant: str = "dinov2"  # "dinov1" | "dinov2"
+    image_size: int = 518
+    patch_size: int = 14
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    mlp_ratio: int = 4
+    layer_norm_eps: float = 1e-6
+    use_layerscale: bool = True  # dinov2 only
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @staticmethod
+    def dinov2_base() -> "DinoConfig":
+        return DinoConfig(variant="dinov2", image_size=518, patch_size=14,
+                          layer_norm_eps=1e-6, use_layerscale=True)
+
+    @staticmethod
+    def dinov1_vitb8() -> "DinoConfig":
+        return DinoConfig(variant="dinov1", image_size=224, patch_size=8,
+                          layer_norm_eps=1e-12, use_layerscale=False)
+
+    @staticmethod
+    def from_type(type_name: str) -> "DinoConfig":
+        if type_name == "dinov2":
+            return DinoConfig.dinov2_base()
+        if type_name == "dinov1":
+            return DinoConfig.dinov1_vitb8()
+        raise ValueError(f"Unknown feature extractor type: {type_name}")
+
+
+# ---------------------------------------------------------------------------
+# init / weight conversion
+# ---------------------------------------------------------------------------
+
+def init_dino(seed: int, cfg: DinoConfig, device: torch.device | str = "cpu") -> Dict[str, Any]:
+    """Random-init params from ``numpy.random.default_rng(seed)`` with the
+    JAX ``init_dino`` distributions (the numbers differ: other generator)."""
+    rng = np.random.default_rng(seed)
+    d = cfg.hidden_size
+    n_pos = (cfg.image_size // cfg.patch_size) ** 2 + 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+
+    def normal(*shape, std=0.02):
+        return t(rng.standard_normal(shape, dtype=np.float32) * std)
+
+    def linear(d_in, d_out):
+        s = 1.0 / np.sqrt(d_in)
+        return {"w": t(rng.uniform(-s, s, (d_out, d_in))), "b": t(rng.uniform(-s, s, (d_out,)))}
+
+    def norm():
+        return {"scale": t(np.ones(d)), "bias": t(np.zeros(d))}
+
+    params: Dict[str, Any] = {
+        "patch_embed": {"kernel": normal(d, 3, cfg.patch_size, cfg.patch_size), "bias": t(np.zeros(d))},
+        "cls_token": normal(1, 1, d),
+        "pos_embed": normal(1, n_pos, d),
+        "layers": [],
+        "final_norm": norm(),
+    }
+    for _ in range(cfg.num_layers):
+        layer = {
+            "norm1": norm(),
+            "q": linear(d, d), "k": linear(d, d), "v": linear(d, d), "out": linear(d, d),
+            "norm2": norm(),
+            "fc1": linear(d, d * cfg.mlp_ratio), "fc2": linear(d * cfg.mlp_ratio, d),
+        }
+        if cfg.use_layerscale:
+            layer["ls1"] = t(np.ones(d))
+            layer["ls2"] = t(np.ones(d))
+        params["layers"].append(layer)
+    return params
+
+
+def _hf_names(cfg: DinoConfig) -> Dict[str, str]:
+    if cfg.variant == "dinov2":
+        return {"norm1": "norm1", "norm2": "norm2", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+    return {"norm1": "layernorm_before", "norm2": "layernorm_after",
+            "fc1": "intermediate.dense", "fc2": "output.dense"}
+
+
+def convert_hf_state_dict(sd: Dict[str, Any], cfg: DinoConfig) -> Dict[str, Any]:
+    """HuggingFace Dinov2Model / ViTModel state dict (numpy or torch values)
+    -> params.  HF already stores PyTorch layouts, so tensors only move."""
+    names = _hf_names(cfg)
+
+    def t(key):
+        return torch.as_tensor(np.asarray(sd[key], dtype=np.float32)).clone()
+
+    def lin(prefix):
+        return {"w": t(f"{prefix}.weight"), "b": t(f"{prefix}.bias")}
+
+    def ln(prefix):
+        return {"scale": t(f"{prefix}.weight"), "bias": t(f"{prefix}.bias")}
+
+    params: Dict[str, Any] = {
+        "patch_embed": {"kernel": t("embeddings.patch_embeddings.projection.weight"),
+                        "bias": t("embeddings.patch_embeddings.projection.bias")},
+        "cls_token": t("embeddings.cls_token"),
+        "pos_embed": t("embeddings.position_embeddings"),
+        "layers": [],
+        "final_norm": ln("layernorm"),
+    }
+    for i in range(cfg.num_layers):
+        p = f"encoder.layer.{i}"
+        layer = {
+            "norm1": ln(f"{p}.{names['norm1']}"),
+            "q": lin(f"{p}.attention.attention.query"),
+            "k": lin(f"{p}.attention.attention.key"),
+            "v": lin(f"{p}.attention.attention.value"),
+            "out": lin(f"{p}.attention.output.dense"),
+            "norm2": ln(f"{p}.{names['norm2']}"),
+            "fc1": lin(f"{p}.{names['fc1']}"),
+            "fc2": lin(f"{p}.{names['fc2']}"),
+        }
+        if cfg.use_layerscale:
+            layer["ls1"] = t(f"{p}.layer_scale1.lambda1")
+            layer["ls2"] = t(f"{p}.layer_scale2.lambda1")
+        params["layers"].append(layer)
+    return params
+
+
+def load_hf_checkpoint(path: str, cfg: DinoConfig) -> Dict[str, Any]:
+    """Params from a local HuggingFace checkpoint directory or file
+    (``model.safetensors`` or ``pytorch_model.bin``); no network access."""
+    if os.path.isdir(path):
+        for cand in ("model.safetensors", "pytorch_model.bin"):
+            f = os.path.join(path, cand)
+            if os.path.exists(f):
+                path = f
+                break
+        else:
+            raise FileNotFoundError(f"No model weights found under {path}")
+    if path.endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        sd = load_file(path)
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    for pref in ("vit.", "dinov2.", "model."):
+        if any(k.startswith(pref) for k in sd):
+            sd = {k[len(pref):] if k.startswith(pref) else k: v for k, v in sd.items()}
+    return convert_hf_state_dict({k: v.float().numpy() for k, v in sd.items()}, cfg)
+
+
+def cast_params(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    """Params for a forward in ``dtype``, cast once instead of at every call.
+
+    What meets a ``dtype`` operand goes to ``dtype``: the matmul weights, the
+    patch-embed, out-projection and MLP biases, the layerscales and the CLS
+    token.  What the numerics need in float32 stays float32: the LayerNorm
+    parameters (f32 statistics), the q/k/v biases (K6 adds them in f32), the
+    position embedding (interpolated in f32 for other grids) and the last
+    layer, of which the forward runs only LN1 and the key projection (which
+    ``key_fold`` pre-composes in f32)."""
+
+    def cast_layer(layer):
+        out = {}
+        for name, p in layer.items():
+            if name in ("norm1", "norm2"):
+                out[name] = p
+            elif name in ("q", "k", "v"):
+                out[name] = {"w": p["w"].to(dtype), "b": p["b"]}
+            elif isinstance(p, dict):
+                out[name] = {k: t.to(dtype) for k, t in p.items()}
+            else:
+                out[name] = p.to(dtype)
+        return out
+
+    return {
+        "patch_embed": {k: t.to(dtype) for k, t in params["patch_embed"].items()},
+        "cls_token": params["cls_token"].to(dtype),
+        "pos_embed": params["pos_embed"],
+        "layers": [cast_layer(layer) for layer in params["layers"][:-1]] + params["layers"][-1:],
+        "final_norm": params["final_norm"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def interpolate_pos_embed(
+    pos_embed: torch.Tensor, grid_hw: Tuple[int, int], orig_grid: int
+) -> torch.Tensor:
+    """HF-compatible bicubic interpolation of (1, 1+N, D) position embeddings
+    to an (h, w) patch grid; the CLS position passes through."""
+    h, w = grid_hw
+    if h == w and h * w == pos_embed.shape[1] - 1:
+        return pos_embed
+    d = pos_embed.shape[-1]
+    patch_pos = pos_embed[:, 1:].reshape(1, orig_grid, orig_grid, d).permute(0, 3, 1, 2)
+    patch_pos = interpolate_bicubic(patch_pos.float(), (h, w))
+    patch_pos = patch_pos.permute(0, 2, 3, 1).reshape(1, h * w, d)
+    return torch.cat([pos_embed[:, :1], patch_pos.to(pos_embed.dtype)], dim=1)
+
+
+def _embed(params, pixels: torch.Tensor, cfg: DinoConfig, dtype: torch.dtype) -> torch.Tensor:
+    """(B, H, W, 3) pixels -> (B, 1 + gh*gw, D) tokens with CLS and position."""
+    b, img_h, img_w, _ = pixels.shape
+    gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
+    x = F.conv2d(
+        pixels.to(dtype).permute(0, 3, 1, 2),
+        params["patch_embed"]["kernel"].to(dtype),
+        stride=cfg.patch_size,
+    )
+    x = x.flatten(2).transpose(1, 2) + params["patch_embed"]["bias"].to(dtype)
+    cls = params["cls_token"].to(dtype).expand(b, 1, cfg.hidden_size)
+    x = torch.cat([cls, x], dim=1)
+    orig_grid = int(round((params["pos_embed"].shape[1] - 1) ** 0.5))
+    return x + interpolate_pos_embed(params["pos_embed"], (gh, gw), orig_grid).to(dtype)
+
+
+def dino_forward(
+    params: Dict[str, Any],
+    pixels: torch.Tensor,
+    cfg: DinoConfig,
+    *,
+    compute_dtype: torch.dtype = torch.float32,
+    key_fold: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    plain: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Run the ViT and return the reference hook contract.
+
+    The last layer computes only LN1 and its key projection (eager PyTorch
+    cannot drop unused work the way XLA does, so the port never starts it).
+
+    Args:
+      params: dict from :func:`init_dino` / :func:`load_hf_checkpoint`, on the
+        device of ``pixels``.
+      pixels: (B, H, W, 3) normalised image batch, NHWC.
+      key_fold: optional ``(w, b)`` with ``w: (F, hidden)``, ``b: (F,)``: the
+        last layer then computes ``dense(LN1(x), (w, b))`` in place of its key
+        projection (the key projection pre-composed with a downstream linear
+        map, e.g. the DBA decoder's decoupling).
+      plain: run the plain PyTorch versions of K1 and K6 on any device.
+
+    Returns ``key_tokens`` (B, 1+N, hidden) and ``key_features`` (B, h, w,
+    hidden); with ``key_fold`` only ``folded_features`` (B, h, w, F).
+    """
+    b, img_h, img_w, _ = pixels.shape
+    gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
+    dtype = compute_dtype
+    eps = cfg.layer_norm_eps
+    scale = 1.0 / float(np.sqrt(cfg.head_dim))
+    ln_qkv = layernorm_qkv_reference if plain else layernorm_qkv
+    attention = packed_attention_reference if plain else packed_attention
+
+    x = _embed(params, pixels, cfg, dtype)
+    *layers, last = params["layers"]
+    for layer in layers:
+        q, k, v = ln_qkv(x, layer["norm1"], layer["q"], layer["k"], layer["v"], eps)
+        attn = attention(q, k, v, cfg.num_heads, scale)
+        attn = dense(attn, layer["out"], dtype)
+        if cfg.use_layerscale:
+            attn = attn * layer["ls1"].to(dtype)
+        x = x + attn
+        h = dense(layer_norm(x, layer["norm2"], eps), layer["fc1"], dtype)
+        if dtype == torch.bfloat16:
+            # tanh-approx GELU in bf16, exact erf in f32 (the JAX split)
+            h = F.gelu(h, approximate="tanh")
+        else:
+            h = F.gelu(h.float()).to(dtype)
+        h = dense(h, layer["fc2"], dtype)
+        if cfg.use_layerscale:
+            h = h * layer["ls2"].to(dtype)
+        x = x + h
+
+    h = layer_norm(x, last["norm1"], eps)
+    if key_fold is not None:
+        fw, fb = key_fold
+        folded = dense(h, {"w": fw, "b": fb}, dtype)
+        return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
+    k = dense(h, last["k"], dtype)
+    return {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}

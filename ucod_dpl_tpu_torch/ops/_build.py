@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into ONE shared library with a plain C interface, at first use, and loaded
+with :mod:`ctypes` (no PyTorch headers: the build takes seconds, not
+minutes).  The library lands in ``build/ucod_dpl_tpu_torch/<hash>/`` beside
+the package, keyed by a hash of the sources and flags, so an edited kernel
+rebuilds and an unchanged one loads at once.  A file lock serialises
+processes that build at the same time.  Any build or load failure raises: there is no
+fallback to a plain path for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ucod_dpl_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+)
+LIB_NAME = "libucod_kernels.so"
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.is_file():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            f"nvcc not found (looked in {cand} and on PATH): the CUDA kernels of "
+            "ucod_dpl_tpu_torch cannot be built without the CUDA toolkit"
+        )
+    return found
+
+
+def build_dir() -> Path:
+    """The content-addressed directory the library is (or will be) built in."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, float]:
+    """Compile the kernels if needed -> (library path, seconds spent building;
+    0.0 when an earlier build was reused)."""
+    out_dir = build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / LIB_NAME
+    with open(out_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if lib.is_file():
+            return lib, 0.0
+        start = time.perf_counter()
+        tmp = out_dir / f"{LIB_NAME}.tmp.{os.getpid()}"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               *(str(s) for s in sorted(CSRC.glob("*.cu")))]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed (exit {proc.returncode}) building {lib}:\n{proc.stderr[-6000:]}"
+            )
+        os.replace(tmp, lib)
+        return lib, time.perf_counter() - start
+
+
+@functools.lru_cache(maxsize=None)
+def kernels() -> ctypes.CDLL:
+    """The built kernel library, with every entry point's C signature declared."""
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.ucod_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, f32, ptr]
+    lib.ucod_attention_fwd.restype = i32
+    lib.ucod_layernorm_qkv.argtypes = [ptr] * 12 + [i32, i32, f32, ptr]
+    lib.ucod_layernorm_qkv.restype = i32
+    return lib
+
+
+def check_cuda(err: int, what: str) -> None:
+    """Raise when a launch returned a nonzero ``cudaError_t``."""
+    if err != 0:
+        raise RuntimeError(f"{what}: launch failed with cudaError_t {err}")

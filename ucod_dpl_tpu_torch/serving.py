@@ -1,0 +1,180 @@
+"""Batched inference API: load once, predict many.
+
+Counterpart of :class:`ucod_dpl_tpu.serving.Predictor`::
+
+    from ucod_dpl_tpu_torch.serving import Predictor
+    p = Predictor.from_config("configs/uscod/UCOD-DPL_dinov2.py",
+                              checkpoint="weights/UCOD_DPL_dinov2.safetensors",
+                              device="cuda")
+    masks = p.predict(["im1.jpg", "im2.jpg"])   # list of (H, W) float masks
+
+Batches are padded to power-of-two buckets up to ``max_batch``; the JAX
+package's jitted programs (probabilities or masks, and the LookTwice crop
+pass) are eager methods under ``torch.inference_mode()`` around
+:func:`ucod_dpl_tpu_torch.models.dba.fg_logits_live`.  On CUDA the backbone
+runs in bf16 through the K1 and K6 kernels.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+from ucod_dpl_tpu_torch.data.transforms import image_transform
+from ucod_dpl_tpu_torch.models.convert import params_to
+from ucod_dpl_tpu_torch.models.dba import RevDecoderParams, fg_logits_live
+from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear_nhwc, interpolate_bilinear_np
+
+
+class Predictor:
+    """Load-once, predict-many camouflaged-object segmentation on
+    ``feature_extractor.device``."""
+
+    def __init__(
+        self,
+        feature_extractor: FeatureExtractor,
+        decoder_params: RevDecoderParams,
+        image_size=(518, 518),
+        feature_size: int = 68,
+        max_batch: int = 16,
+        look_twice_th: float = 0.15,
+        expand_type: str = "dynamic",
+    ):
+        self.fe = feature_extractor
+        self.device = feature_extractor.device
+        self.decoder_params = params_to(decoder_params, self.device)
+        self.image_size = tuple(image_size)
+        self.feature_size = feature_size
+        self.max_batch = max_batch
+        self.look_twice_th = look_twice_th
+        self.expand_type = expand_type
+
+    @classmethod
+    def from_config(
+        cls, config_path: str, checkpoint: str, *, device, max_batch: int = 16, strict: bool = True
+    ) -> "Predictor":
+        """``strict=True``: missing backbone weights raise instead of serving
+        random-init features."""
+        from ucod_dpl_tpu.config import load_config
+        from ucod_dpl_tpu_torch.models.safetensors_io import load_decoder_checkpoint
+
+        cfg = load_config(config_path)
+        fe = FeatureExtractor(cfg.dataset_cfg.feature_extractor_cfg, device=device, strict=strict)
+        decoder, _ema = load_decoder_checkpoint(checkpoint)
+        return cls(
+            fe,
+            decoder,
+            image_size=tuple(cfg.dataset_cfg.valset_cfg.get("image_size", (518, 518))),
+            feature_size=cfg.model_cfg.feature_size,
+            max_batch=max_batch,
+            look_twice_th=cfg.val_cfg.get("look_twice_th", 0.15),
+            expand_type=cfg.val_cfg.get("expand_type", "dynamic"),
+        )
+
+    def _fg_logits(self, batch: np.ndarray, size: Optional[int]) -> torch.Tensor:
+        pixels = torch.from_numpy(batch).to(self.device)
+        fg, _, _ = fg_logits_live(
+            self.fe.params, self.decoder_params, pixels, self.fe.config,
+            compute_dtype=self.fe.compute_dtype, size=size,
+        )
+        return fg
+
+    @torch.inference_mode()
+    def _first_pass(self, batch: np.ndarray, soft: bool) -> np.ndarray:
+        """Probabilities (``soft``) or uint8 {0, 1} masks at image_size."""
+        up = interpolate_bilinear_nhwc(self._fg_logits(batch, self.feature_size), self.image_size)
+        probs = torch.sigmoid(up[..., 0])
+        return (probs if soft else (probs > 0.5).to(torch.uint8)).cpu().numpy()
+
+    @torch.inference_mode()
+    def _crop_pass(self, batch: np.ndarray) -> np.ndarray:
+        # LookTwice second pass: masks at the crop's native patch grid, as
+        # the eval loop does (loop_UCOD_DPL.py:343-348)
+        fg = self._fg_logits(batch, None)
+        return (torch.sigmoid(fg[..., 0]) > 0.5).float().cpu().numpy()
+
+    def _bucket(self, n: int) -> int:
+        b = 1
+        while b < n and b < self.max_batch:
+            b *= 2
+        return min(b, self.max_batch)
+
+    def _load(self, item):
+        """-> (normalised (H, W, 3) float array, original PIL image or None)."""
+        if isinstance(item, str) or hasattr(item, "__fspath__"):
+            from ucod_dpl_tpu.utils.fileio import ImageIO
+
+            img = ImageIO.read_image(item, "RGB")
+            return image_transform(img, self.image_size), img
+        arr = np.asarray(item)
+        if arr.ndim == 3 and arr.dtype == np.uint8:  # raw RGB image
+            from PIL import Image
+
+            img = Image.fromarray(arr)
+            return image_transform(img, self.image_size), img
+        return arr, None  # already transformed (H, W, 3) float
+
+    def predict(
+        self,
+        inputs: Sequence[Union[str, np.ndarray]],
+        output_size: Optional[tuple] = None,
+        look_twice: bool = False,
+        soft: bool = False,
+    ) -> List[np.ndarray]:
+        """Images (paths, uint8 RGB arrays or pre-normalised arrays) -> (H, W)
+        float32 masks at ``output_size`` (default: the model's image_size).
+
+        ``look_twice=True``: small predicted objects trigger the zoom-in
+        second pass; needs inputs that carry the original image (paths or
+        uint8 arrays).  ``soft=True``: sigmoid probabilities instead of {0, 1}
+        masks (not with look_twice, which works on binary masks)."""
+        if look_twice and soft:
+            raise ValueError("look_twice refines binary masks; soft=True is incompatible")
+        # a bare path or a single (H, W, 3) image is one input, not a sequence
+        if isinstance(inputs, (str, os.PathLike)):
+            inputs = [inputs]
+        elif isinstance(inputs, np.ndarray):
+            if inputs.ndim == 3:
+                inputs = [inputs]
+            elif inputs.ndim != 4:
+                raise ValueError(f"array input must be (H, W, 3) or (N, H, W, 3); got {inputs.shape}")
+        inputs = list(inputs)
+        if look_twice:
+            from ucod_dpl_tpu_torch.engine.eval_loop import find_refine_bboxes, refine_with_crops
+
+        masks: List[np.ndarray] = []
+        i = 0
+        while i < len(inputs):
+            # decode per chunk: loading the whole list first would hold every
+            # original and normalised array in host memory at once
+            take = min(self.max_batch, len(inputs) - i)
+            loaded = [self._load(x) for x in inputs[i : i + take]]
+            originals = [im for _, im in loaded]
+            if look_twice and any(im is None for im in originals):
+                raise ValueError("look_twice needs the original image: pass paths or uint8 RGB arrays")
+            batch = np.zeros((self._bucket(take), *self.image_size, 3), np.float32)
+            for j, (a, _) in enumerate(loaded):
+                if np.shape(a) != (*self.image_size, 3):
+                    raise ValueError(
+                        f"input {i + j}: expected a path, a uint8 RGB image, or a pre-normalised "
+                        f"{(*self.image_size, 3)} float array; got shape {np.shape(a)}"
+                    )
+                batch[j] = a
+            chunk = [m.astype(np.float32) for m in self._first_pass(batch, soft)[:take]]
+            if look_twice:
+                for k, (mask, img) in enumerate(zip(chunk, originals)):
+                    bboxes = find_refine_bboxes(mask, self.image_size, self.look_twice_th, self.expand_type)
+                    if bboxes is not None:
+                        chunk[k] = refine_with_crops(img, bboxes, mask, self.image_size, self._crop_pass)
+            masks.extend(chunk)
+            i += take
+
+        if output_size is not None:
+            masks = [interpolate_bilinear_np(m, output_size) for m in masks]
+            if not soft:
+                masks = [(m > 0.5).astype(np.float32) for m in masks]
+        return masks
