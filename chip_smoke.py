@@ -19,7 +19,21 @@ Phases (each raises on failure; any failure exits non-zero):
      further from the float32 plain path than the bf16 plain path is
      (err <= 1.5 * err_plain + 1e-3);
   7. timing with CUDA events: K1 and K6 against their plain versions at the
-     serving shape, and the port's ``fg_logits_live`` img/s at bs16 518px.
+     serving shape, and the port's ``fg_logits_live`` img/s at bs16 518px;
+  A. (after phase 4) the attention forward with log-sum-exp and the flash
+     backward against their plain versions, bf16, at L = 1370 (bs16), 2917
+     (bs4), 257, 65, 1, with large logits (q x3), every output pre-filled
+     with NaN and NaN in memory past the inputs;
+  B. training: three LoRA joint steps (``make_lora_train_step``) at full
+     width, bs16 518px bf16, remat none, each with a finite loss, moving
+     adapters and 11 forward-LSE and 11 backward launches (no K1/K6), then a
+     discriminator step; at bs4, the third step's decoder + LoRA gradients
+     through the kernels against the plain path (norm-relative <= 0.1, and
+     the LoRA gradients alone too);
+  C. timing: attention forward + backward per call at bs16 L1370 and bs4
+     L2917, the forward-LSE and backward kernels alone, and the LoRA step at
+     bs16 518px, kernels against plain (the plain step only if it fits),
+     and with remat "layer".
 The second-to-last line is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
 """
@@ -48,6 +62,23 @@ import torch
 # tile, row, mask or rescale.
 K1_TOL = 2.0 ** -6
 K6_TOL = 0.02
+# Forward with log-sum-exp (K2's port) and the backward (K3/K4's port)
+# against their plain versions on the same bf16 inputs.  o: K1's bound (the
+# same kernel).  lse: 1e-3 absolute; both sides sum the same f32 terms in
+# another order, a few f32 ulps of ln(L) apart (about 1e-6), while a missed
+# tile or key moves it by far more.  dq/dk/dv: the plain backward runs in f32
+# from the same bf16 inputs and is rounded to bf16 once; the kernel rounds dS
+# and P to bf16 before their matmuls (the JAX kernels' rounding points),
+# about 2^-8 relative per product, a few ulps of the largest gradient in all.
+# Bound 2^-5 * max|plain| + BWD_ATOL elementwise and 2% of the plain
+# gradient's norm + BWD_ATOL * sqrt(numel) over the whole tensor.  BWD_ATOL
+# covers gradients that are zero in exact arithmetic (dq and dk at L = 1,
+# where the softmax is constant): both sides then hold the f32 roundoff of
+# dP - D, below 1e-6 at unit-scale inputs.
+LSE_TOL = 1e-3
+BWD_TOL = 2.0 ** -5
+BWD_NORM_TOL = 2e-2
+BWD_ATOL = 1e-5
 SERVE_DIM = 768
 NUM_HEADS = 12
 
@@ -155,6 +186,69 @@ def phase_k1(gen, dev) -> float:
     return worst
 
 
+def _nan_tailed(gen, dev, b, l, scale=1.0):
+    """A contiguous bf16 (b, l, 768) normal tensor whose memory is followed by
+    64 rows of NaN: a kernel that reads a row past L of the last batch
+    element reads NaN."""
+    buf = torch.full(((b * l + 64) * SERVE_DIM,), float("nan"), dtype=torch.bfloat16, device=dev)
+    x = buf[: b * l * SERVE_DIM].view(b, l, SERVE_DIM)
+    x.copy_(torch.randn(b, l, SERVE_DIM, generator=gen, device=dev).mul_(scale))
+    return x
+
+
+def _check_grad(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The backward's bounds (BWD_TOL, BWD_NORM_TOL, BWD_ATOL above)."""
+    got, ref = got.float(), ref.float()
+    err = _check(name, got, ref, BWD_TOL * ref.abs().max().item() + BWD_ATOL)
+    diff, norm = (got - ref).norm().item(), ref.norm().item()
+    bound = BWD_NORM_TOL * norm + BWD_ATOL * ref.numel() ** 0.5
+    _log(f"    norm of the error {diff:.6g}, {diff / max(norm, 1e-30):.6g} of the plain norm (bound {bound:.6g})")
+    if not diff <= bound:
+        raise AssertionError(f"{name}: error norm {diff} exceeds {bound}")
+    return err
+
+
+def phase_attention_grad(gen, dev) -> dict:
+    """Phase A: the forward with log-sum-exp and the backward against their
+    plain versions, bf16, every output pre-filled with NaN, NaN in memory past
+    the last batch element's row L-1 of every input."""
+    from ucod_dpl_tpu_torch.ops.attention import (
+        packed_attention_bwd,
+        packed_attention_bwd_reference,
+        packed_attention_fwd_lse,
+        packed_attention_fwd_lse_reference,
+    )
+
+    _log("attention forward + LSE and backward vs plain (bf16):")
+    worst = {"fwd_lse": 0.0, "bwd": 0.0}
+    for name, b, l, q_scale in (
+        ("bs16 L1370", 16, 1370, 1.0),
+        ("bs4 L2917", 4, 2917, 1.0),
+        ("bs16 L1370 q*3", 16, 1370, 3.0),
+        ("bs16 L257", 16, 257, 1.0),
+        ("bs16 L65", 16, 65, 1.0),
+        ("bs16 L1", 16, 1, 1.0),
+        ("bs1 L1370", 1, 1370, 1.0),
+    ):
+        q, k, v, do = (_nan_tailed(gen, dev, b, l, s) for s in (q_scale, 1.0, 1.0, 1.0))
+        o = _nan_tailed(gen, dev, b, l)
+        lse = torch.full((b, NUM_HEADS, l), float("nan"), device=dev)
+        packed_attention_fwd_lse(q, k, v, NUM_HEADS, 0.125, out=(o, lse))
+        torch.cuda.synchronize()
+        o_ref, lse_ref = packed_attention_fwd_lse_reference(q, k, v, NUM_HEADS, 0.125)
+        worst["fwd_lse"] = max(worst["fwd_lse"],
+                               _check(f"{name} o", o, o_ref, K1_TOL * o_ref.float().abs().max().item()))
+        _check(f"{name} lse", lse, lse_ref, LSE_TOL)
+        grads = packed_attention_bwd(q, k, v, o, do, lse, NUM_HEADS, 0.125,
+                                     out=tuple(_nan_like(q) for _ in range(3)))
+        torch.cuda.synchronize()
+        refs = packed_attention_bwd_reference(q, k, v, o, do, lse, NUM_HEADS, 0.125)
+        for which, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            worst["bwd"] = max(worst["bwd"], _check_grad(f"{name} {which}", got, ref))
+        del refs, grads
+    return worst
+
+
 def _lnqkv_inputs(gen, dev, b, l):
     """bf16 x and weights, f32 LayerNorm params and biases: the dtypes the
     serving backbone holds (``cast_params``)."""
@@ -203,8 +297,8 @@ def phase_serving(fe, decoder, seed: int) -> dict:
     rng = np.random.default_rng(seed + 2)
     _log(f"serving: dinov2-base {fe.config.hidden_size}-wide x{depth} layers, 518px, "
          f"{fe.compute_dtype}, max_batch 16")
-    packed_attention.launches = 0
-    layernorm_qkv.launches = 0
+    for fn in _kernel_wrappers().values():  # every count, the training kernels' too
+        fn.launches = 0
     for n, soft in ((16, False), (5, False), (1, False), (5, True)):
         before = (packed_attention.launches, layernorm_qkv.launches)
         images = rng.standard_normal((n, 518, 518, 3)).astype(np.float32)
@@ -224,7 +318,142 @@ def phase_serving(fe, decoder, seed: int) -> dict:
             raise AssertionError(f"request of {n}: K1/K6 launched {delta}, expected {depth - 1} each")
         _log(f"  request of {n} (bucket {predictor._bucket(n)}, soft={soft}): {secs:.3f} s "
              f"host clock, foreground share {stack.mean():.4f}, K1/K6 launches {delta}")
-    return {"K1": packed_attention.launches, "K6": layernorm_qkv.launches}
+    launches = {k: fn.launches for k, fn in _kernel_wrappers().items()}
+    if launches["fwd_lse"] or launches["bwd"]:
+        raise AssertionError(f"serving launched training kernels: {launches}")
+    return launches
+
+
+# The UCOD-DPL_dinov2 stage-1 configuration (configs/uscod/UCOD-DPL_dinov2.py
+# over configs/__base__/newbase.py) with LoRA on: rank 2, alpha 4, lr 1e-4,
+# no remat (or ``remat``).
+def _train_cfg(remat: str = "none"):
+    return _Cfg(
+        model_cfg=_Cfg(feature_size=68, ema_weight=0.99,
+                       lora=_Cfg(rank=2, alpha=4.0, lr=1e-4, remat=remat)),
+        train_cfg=_Cfg(max_epoch=25, start_finetune=-5, merge_method="dis", lr0=2e-4, dis_lr0=1e-3,
+                       step_lr_gamma=0.95, step_lr_size=25, dis_step_lr_gamma=0.95, dis_step_lr_size=25),
+    )
+
+
+def _lora_setup(seed: int, dev, batch: int):
+    """A full-width dinov2-base with float32 q/k/v masters (seeded random
+    weights), fresh decoder/EMA/discriminator state and adapters, and seeded
+    518px pixels and 68x68 pseudo-labels of ``batch`` images."""
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.engine.train_step import init_train_state, make_optimizer
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves, tree_map
+    from ucod_dpl_tpu_torch.models.dba import init_rev_decoder
+    from ucod_dpl_tpu_torch.models.discriminator import init_discriminator
+    from ucod_dpl_tpu_torch.models.lora import init_lora
+
+    cfg = _train_cfg()
+    fe_cfg = _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None)
+    fe = FeatureExtractor(fe_cfg, device=dev, seed=seed, strict=False, qkv_masters=True)
+    state = init_train_state(init_rev_decoder(seed + 1, SERVE_DIM), init_rev_decoder(seed + 4, SERVE_DIM),
+                             *init_discriminator(seed + 5, 68, SERVE_DIM, False), cfg.train_cfg, dev)
+    lora = tree_map(lambda t: t.requires_grad_(True), init_lora(seed + 3, fe.params, rank=2))
+    lora_opt = make_optimizer(tree_leaves(lora), cfg.model_cfg.lora.lr, 0.95, 25)
+    rng = np.random.default_rng(seed + 6)
+    pixels = torch.from_numpy(rng.standard_normal((batch, 518, 518, 3)).astype(np.float32)).to(dev)
+    labels = torch.from_numpy((rng.random((batch, 68, 68, 1)) > 0.5).astype(np.float32)).to(dev)
+    return cfg, fe, state, lora, lora_opt, pixels, labels
+
+
+def _kernel_wrappers():
+    """The wrappers whose ``launches`` count the main paths' kernel launches."""
+    from ucod_dpl_tpu_torch.ops.attention import packed_attention, packed_attention_bwd, packed_attention_fwd_lse
+    from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv
+
+    return {"K1": packed_attention, "K6": layernorm_qkv, "fwd_lse": packed_attention_fwd_lse,
+            "bwd": packed_attention_bwd}
+
+
+def phase_lora(seed: int, dev) -> dict:
+    """Phase B: three LoRA joint steps at full width, bs16 518px bf16, remat
+    none, through the forward-LSE and backward kernels, then one
+    discriminator step on the adapted backbone's features."""
+    from ucod_dpl_tpu_torch.engine.train_step import make_discriminator_step, make_lora_train_step
+    from ucod_dpl_tpu_torch.models.lora import lora_forward
+
+    cfg, fe, state, lora, lora_opt, pixels, labels = _lora_setup(seed, dev, 16)
+    step = make_lora_train_step(cfg, fe.config, torch.bfloat16)
+    depth = fe.config.num_layers
+    _log(f"LoRA joint step: dinov2-base {fe.config.hidden_size}-wide x{depth} layers, bs16 518px bf16, "
+         f"rank 2, alpha 4, remat none, feature_size 68, merge dis")
+    counts = _kernel_wrappers()
+    for fn in counts.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        before = {k: fn.launches for k, fn in counts.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = step(state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+        loss = aux["loss"].item()
+        secs = time.perf_counter() - t0
+        delta = {k: fn.launches - before[k] for k, fn in counts.items()}
+        b_norm = torch.sqrt(sum(e["b"].float().square().sum() for layer in lora for e in layer.values())).item()
+        _log(f"  step {i + 1}: loss {loss:.6f}, lora grad norm {aux['lora_grad_norm'].item():.6g}, "
+             f"adapter B-norm {b_norm:.6g}, {secs:.3f} s host clock, launches {delta}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"step {i + 1}: non-finite loss {loss}")
+        if not b_norm > 0:
+            raise AssertionError(f"step {i + 1}: the adapters' B did not move")
+        if delta != {"K1": 0, "K6": 0, "fwd_lse": depth - 1, "bwd": depth - 1}:
+            raise AssertionError(f"step {i + 1}: launches {delta}, expected {depth - 1} forward-LSE and "
+                                 f"backward launches and no K1/K6")
+    launches = {k: fn.launches for k, fn in counts.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _log(f"  peak device memory over the three steps {peak:.3f} GiB")
+
+    with torch.no_grad():
+        feats = lora_forward(fe.params, lora, pixels, fe.config, compute_dtype=torch.bfloat16)["key_features"]
+    dis_loss = make_discriminator_step(cfg)(state, feats.float(), labels)["dis_train_loss"].item()
+    _log(f"  discriminator step on the adapted features: loss {dis_loss:.6f}")
+    if not np.isfinite(dis_loss):
+        raise AssertionError(f"discriminator step: non-finite loss {dis_loss}")
+    return {"launches": launches, "peak_gib": peak, "state": (cfg, fe, state, lora, lora_opt, pixels, labels)}
+
+
+def _grads(loss_fn, state, lora, fe, pixels, labels):
+    """The decoder's and the adapters' gradients of one loss, each group
+    flattened into one f32 vector."""
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves
+
+    groups = (tree_leaves(state.decoder), tree_leaves(lora))
+    loss, _ = loss_fn(state, lora, fe.params, pixels, labels, 2.0, 1.0)
+    grads = iter(torch.autograd.grad(loss, groups[0] + groups[1], allow_unused=True))
+    return [torch.cat([(torch.zeros_like(t) if g is None else g).float().flatten()
+                       for g, t in zip(grads, leaves)]) for leaves in groups]
+
+
+def phase_lora_grads(seed: int, dev) -> float:
+    """At the third LoRA step (B != 0, so the A-grads are live), bs4 518px:
+    the global-vector norm-relative difference of the decoder + LoRA grads,
+    kernel path vs plain path on the same weights.  Bound 0.1, the JAX
+    package's own on-chip bound (scripts/tpu_selfcheck.py check 6: per-leaf
+    bounds fail on the cancellation-prone key-bias grad).  The adapters'
+    gradients alone are held to the same bound: the decoder's gradients do
+    not pass through the attention backward and dominate the global norm."""
+    from ucod_dpl_tpu_torch.engine.train_step import make_lora_train_step
+
+    cfg, fe, state, lora, lora_opt, pixels, labels = _lora_setup(seed + 10, dev, 4)
+    step = make_lora_train_step(cfg, fe.config, torch.bfloat16)
+    for _ in range(2):
+        step(state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+    g_kernel = _grads(step.loss_fn, state, lora, fe, pixels, labels)
+    plain = make_lora_train_step(cfg, fe.config, torch.bfloat16, plain=True)
+    g_plain = _grads(plain.loss_fn, state, lora, fe, pixels, labels)
+    rels = {}
+    for name, gk, gp in (("decoder + LoRA", torch.cat(g_kernel), torch.cat(g_plain)),
+                         ("LoRA alone", g_kernel[1], g_plain[1])):
+        rels[name] = ((gk - gp).norm() / gp.norm()).item()
+        _log(f"LoRA step 3 grads, bs4 518px bf16, kernels vs plain, {name}: norm-relative difference "
+             f"{rels[name]:.6g} (bound 0.1; |g| {gp.norm().item():.6g}, {gp.numel()} values)")
+        if not (np.isfinite(rels[name]) and rels[name] <= 0.1):
+            raise AssertionError(f"LoRA grads ({name}): kernel vs plain {rels[name]} exceeds 0.1")
+    return rels["decoder + LoRA"]
 
 
 def phase_composed(fe, decoder, seed: int) -> None:
@@ -287,6 +516,89 @@ def phase_timing(fe, decoder, gen) -> dict:
             "fg_logits_live_img_per_s": 16e3 / fwd_ms, "fg_logits_live_plain_img_per_s": 16e3 / fwd_plain}
 
 
+def phase_train_timing(lora_run: dict, gen) -> dict:
+    """The differentiated attention and the LoRA step, kernels vs plain, CUDA
+    events, interleaved."""
+    from ucod_dpl_tpu_torch.engine.train_step import make_lora_train_step
+    from ucod_dpl_tpu_torch.ops.attention import (
+        packed_attention_bwd,
+        packed_attention_bwd_reference,
+        packed_attention_diff,
+        packed_attention_fwd_lse,
+        packed_attention_fwd_lse_reference,
+        packed_attention_reference,
+    )
+
+    cfg, fe, state, lora, lora_opt, pixels, labels = lora_run["state"]
+    dev = pixels.device
+    _log("training timing (CUDA events, interleaved plain/kernel/kernel/plain, bf16):")
+    out = {}
+    for b, l in ((16, 1370), (4, 2917)):
+        q, k, v, do = (torch.randn(b, l, SERVE_DIM, generator=gen, device=dev).to(torch.bfloat16)
+                       for _ in range(4))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+
+        def fwd_bwd(attn):
+            return lambda: torch.autograd.grad(attn(*leaves, NUM_HEADS, 0.125), leaves, do)
+
+        ms, plain_ms = _ab_ms(fwd_bwd(packed_attention_reference), fwd_bwd(packed_attention_diff), 10)
+        _log(f"  attention forward + backward bs{b} L{l}: kernels {ms:.4f} ms, plain autograd {plain_ms:.4f} ms")
+        out[f"fwd_bwd_bs{b}_L{l}"] = (ms, plain_ms)
+        if b == 16:
+            ms, plain_ms = _ab_ms(lambda: packed_attention_fwd_lse_reference(q, k, v, NUM_HEADS, 0.125),
+                                  lambda: packed_attention_fwd_lse(q, k, v, NUM_HEADS, 0.125), 20)
+            _log(f"  forward + LSE bs16 L1370: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+            out["fwd_lse"] = (ms, plain_ms)
+            o, lse = packed_attention_fwd_lse(q, k, v, NUM_HEADS, 0.125)
+            ms, plain_ms = _ab_ms(
+                lambda: packed_attention_bwd_reference(q, k, v, o, do, lse, NUM_HEADS, 0.125),
+                lambda: packed_attention_bwd(q, k, v, o, do, lse, NUM_HEADS, 0.125), 20)
+            _log(f"  backward bs16 L1370: kernels {ms:.4f} ms, plain (f32 flash algebra) {plain_ms:.4f} ms")
+            out["bwd"] = (ms, plain_ms)
+        del q, k, v, do, leaves
+
+    def run(step):
+        return lambda: step(state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+
+    kernel_step = run(make_lora_train_step(cfg, fe.config, torch.bfloat16))
+    plain_step = run(make_lora_train_step(cfg, fe.config, torch.bfloat16, plain=True))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        plain_step()
+        torch.cuda.synchronize()
+        fits = True
+    except torch.cuda.OutOfMemoryError as err:
+        fits = False
+        _log(f"  plain LoRA step bs16 does not fit: peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+             f"allocated before: {str(err).splitlines()[0]}")
+    torch.cuda.empty_cache()
+    if fits:
+        plain_peak = torch.cuda.max_memory_allocated() / 2**30
+        ms, plain_ms = _ab_ms(plain_step, kernel_step, 3)
+        _log(f"  LoRA step bs16 518px: kernels {ms:.3f} ms, plain {plain_ms:.3f} ms "
+             f"(plain peak {plain_peak:.3f} GiB, kernels {lora_run['peak_gib']:.3f} GiB)")
+    else:
+        ms, plain_ms = _time_ms(kernel_step, 5, warmup=1), None
+        _log(f"  LoRA step bs16 518px: kernels {ms:.3f} ms")
+    out["lora_step"] = (ms, plain_ms)
+    # remat "layer": each layer's forward, attention included, runs again in
+    # the backward, so each of the 4 steps timed launches 2 x 11 forward-LSE
+    layer_step = run(make_lora_train_step(_train_cfg("layer"), fe.config, torch.bfloat16))
+    torch.cuda.reset_peak_memory_stats()
+    fwd_lse = _kernel_wrappers()["fwd_lse"]
+    before = fwd_lse.launches
+    layer_ms = _time_ms(layer_step, 3, warmup=1)
+    recomputed = fwd_lse.launches - before
+    out["lora_step_remat_layer"] = layer_ms
+    _log(f"  LoRA step bs16 518px, remat layer: kernels {layer_ms:.3f} ms, "
+         f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, {recomputed} forward-LSE launches in 4 steps")
+    if recomputed != 4 * 2 * (fe.config.num_layers - 1):
+        raise AssertionError(f"remat layer: {recomputed} forward-LSE launches in 4 steps, expected "
+                             f"{4 * 2 * (fe.config.num_layers - 1)}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
@@ -298,15 +610,25 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     k1_err = phase_k1(gen, dev)
     k6_err = phase_k6(gen, dev)
+    grad_err = phase_attention_grad(gen, dev)
     fe, decoder = _serving_model(args.seed, dev)
     launches = phase_serving(fe, decoder, args.seed)
     phase_composed(fe, decoder, args.seed)
     times = phase_timing(fe, decoder, gen)
+    del fe
+    lora_run = phase_lora(args.seed, dev)
+    grad_rel = phase_lora_grads(args.seed, dev)
+    train_times = phase_train_timing(lora_run, gen)
+    lora_ms, lora_plain_ms = train_times["lora_step"]
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
+        "lora_step_ms": lora_ms, "lora_step_plain_ms": lora_plain_ms,
+        "lora_step_remat_layer_ms": train_times["lora_step_remat_layer"],
+        "lora_grad_rel_diff": grad_rel, "lora_step_peak_gib": lora_run["peak_gib"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
+    train_launches = lora_run["launches"]
     _log(json.dumps({"kernels": [
         {"name": "K1 packed attention forward", "route": "cuda",
          "source": "ucod_dpl_tpu_torch/csrc/attention_fwd.cu",
@@ -316,6 +638,16 @@ def main(argv=None) -> int:
          "source": "ucod_dpl_tpu_torch/csrc/layernorm_qkv.cu",
          "replaces": "ucod_dpl_tpu/ops/fused_layers.py:33", "launches": launches["K6"],
          "max_abs_err": k6_err, "ms": times["K6"][0], "plain_ms": times["K6"][1]},
+        {"name": "K2 attention forward with log-sum-exp", "route": "cuda",
+         "source": "ucod_dpl_tpu_torch/csrc/attention_fwd.cu",
+         "replaces": "ucod_dpl_tpu/ops/attention.py:309", "launches": train_launches["fwd_lse"],
+         "max_abs_err": grad_err["fwd_lse"], "ms": train_times["fwd_lse"][0],
+         "plain_ms": train_times["fwd_lse"][1]},
+        {"name": "K3/K4 attention backward from the log-sum-exp", "route": "cuda",
+         "source": "ucod_dpl_tpu_torch/csrc/attention_bwd.cu",
+         "replaces": "ucod_dpl_tpu/ops/attention.py:440, ucod_dpl_tpu/ops/attention.py:684,716",
+         "launches": train_launches["bwd"], "max_abs_err": grad_err["bwd"],
+         "ms": train_times["bwd"][0], "plain_ms": train_times["bwd"][1]},
     ]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
-"""Card-only checks of the port's CUDA kernels (K1, K6) at edge shapes.
+"""Card-only checks of the port's CUDA kernels at edge shapes: K1 (also with
+its log-sum-exp output), the attention backward and K6.
 
 Marked ``cuda``: they skip without a CUDA device (the decision is made in a
 fixture, at run time).  On a card::
@@ -6,13 +7,23 @@ fixture, at run time).  On a card::
     python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances as in chip_smoke.py: K1 within 2^-6 * max|plain| of its plain
-version, K6 within 2% of max|plain|.
+version, the log-sum-exp within 1e-3, the backward's dq/dk/dv within
+2^-5 * max|plain| and 2% of the plain gradient's norm (each plus a 1e-5
+floor), K6 within 2% of max|plain|.
 """
 
 import pytest
 import torch
 
-from ucod_dpl_tpu_torch.ops.attention import packed_attention, packed_attention_reference
+from ucod_dpl_tpu_torch.ops.attention import (
+    packed_attention,
+    packed_attention_bwd,
+    packed_attention_bwd_reference,
+    packed_attention_diff,
+    packed_attention_fwd_lse,
+    packed_attention_fwd_lse_reference,
+    packed_attention_reference,
+)
 from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv, layernorm_qkv_reference
 
 pytestmark = pytest.mark.cuda
@@ -33,6 +44,43 @@ def test_attention_kernel_edge_lengths(dev, b, l, nh):
     ref = packed_attention_reference(q, k, v, nh, 0.125).float()
     assert torch.isfinite(out).all()
     assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    "b,l,nh", [(1, 1, 1), (3, 65, 12), (2, 127, 1), (3, 128, 2), (1, 129, 12), (5, 200, 3)]
+)
+def test_attention_backward_edge_shapes(dev, b, l, nh):
+    g = torch.Generator(device=dev).manual_seed(100 + l)
+    q, k, v, do = (torch.randn(b, l, nh * 64, generator=g, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    o, lse = packed_attention_fwd_lse(
+        q, k, v, nh, 0.125,
+        out=(torch.full_like(q, float("nan")), torch.full((b, nh, l), float("nan"), device=dev)))
+    o_ref, lse_ref = packed_attention_fwd_lse_reference(q, k, v, nh, 0.125)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o.float() - o_ref.float()).abs().max().item() <= 2.0 ** -6 * o_ref.float().abs().max().item()
+    assert (lse - lse_ref).abs().max().item() <= 1e-3
+    grads = packed_attention_bwd(q, k, v, o, do, lse, nh, 0.125,
+                                 out=tuple(torch.full_like(q, float("nan")) for _ in range(3)))
+    for got, ref in zip(grads, packed_attention_bwd_reference(q, k, v, o, do, lse, nh, 0.125)):
+        got, ref = got.float(), ref.float()
+        assert torch.isfinite(got).all()
+        # 1e-5 absolute: dq and dk are zero in exact arithmetic at L = 1
+        assert (got - ref).abs().max().item() <= 2.0 ** -5 * ref.abs().max().item() + 1e-5
+        assert (got - ref).norm().item() <= 2e-2 * ref.norm().item() + 1e-5 * ref.numel() ** 0.5
+
+
+def test_attention_diff_counts_both_kernels_and_returns_input_dtype(dev):
+    q, k, v = (torch.randn(2, 70, 256, device=dev, dtype=torch.bfloat16, requires_grad=True)
+               for _ in range(3))
+    before = (packed_attention_fwd_lse.launches, packed_attention_bwd.launches)
+    packed_attention_diff(q, k, v, 4, 0.125).float().square().sum().backward()
+    assert (packed_attention_fwd_lse.launches, packed_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for x in (q, k, v):
+        assert x.grad.dtype == torch.bfloat16 and torch.isfinite(x.grad).all()
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        packed_attention_bwd(q.detach(), k.detach(), v.detach(), q.detach(), q.detach(),
+                             torch.zeros(2, 4, 69, device=dev), 4, 0.125)
 
 
 @pytest.mark.parametrize("b,l,d", [(1, 1, 256), (2, 65, 256), (3, 100, 768), (1, 300, 1024)])

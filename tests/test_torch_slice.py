@@ -184,9 +184,9 @@ def test_port_imports_no_jax():
         "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, resize\n"
         "# serving pre-normalised arrays loads no module of the JAX package\n"
         "assert 'ucod_dpl_tpu' not in sys.modules, sorted(sys.modules)\n"
-        "from ucod_dpl_tpu_torch.models import convert, dba, dino, safetensors_io\n"
+        "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io\n"
         "from ucod_dpl_tpu_torch.data import feature_extractor, transforms\n"
-        "from ucod_dpl_tpu_torch.engine import eval_loop\n"
+        "from ucod_dpl_tpu_torch.engine import eval_loop, train_step\n"
         "assert ucod_dpl_tpu_torch.Predictor is serving.Predictor\n"
         "bad = [m for m in sys.modules if m.startswith('jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"

@@ -1,8 +1,17 @@
-// K1: packed multi-head attention forward, bf16 in, f32 accumulate.
+// K1: packed multi-head attention forward, bf16 in, f32 accumulate; with an
+// f32 log-sum-exp output it is also the port of K2.
 //
 // Replaces the TPU kernel ucod_dpl_tpu/ops/attention.py::_attention_kernel_headpair
 // (launched by _pallas_attention_packed): o = softmax(q k^T * scale) v per
 // head, with q/k/v/o in the packed (B, L, num_heads * 64) projection layout.
+// The entry ucod_attention_fwd_lse replaces _attention_kernel_headpair_stats
+// (launched by _pallas_attention_packed_stats), the forward of the
+// differentiated path: it also writes lse = ln sum_j exp(scale q.k_j) per
+// query row, f32 (B, num_heads, L), which the backward
+// (attention_bwd.cu) recomputes the probabilities from.  The TPU kernel
+// saves the shifted denominator den = sum exp2(s log2 e - 30) instead;
+// lse = ln(den) + 30 ln 2.  Here lse = m ln 2 + ln l from the online
+// softmax's running max m (log2 units) and sum l: one store per row.
 //
 // What bounds it on the H100: at bs16 / 518px (L = 1370, 12 heads of 64) one
 // call is 4 * B * H * L^2 * 64 = 92 GFLOP against 135 MB of q/k/v/o, about
@@ -33,6 +42,7 @@ constexpr int kBlockK = 64;
 constexpr int kWarps = kBlockQ / 16;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kLds = kHeadDim + 8;  // padded row: conflict-free fragment loads
+constexpr float kLn2 = 0.69314718055994531f;
 static_assert(kBlockQ == kBlockK, "load_tile serves both q and k/v tiles");
 
 struct Smem {
@@ -45,19 +55,14 @@ struct Smem {
 // are zero-filled and never read from global memory.
 __device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kLds], const __nv_bfloat16* src,
                                           int row0, int seq_len, int64_t row_stride) {
-  for (int idx = threadIdx.x; idx < kBlockK * (kHeadDim / 8); idx += kThreads) {
-    const int r = idx >> 3;
-    const int c = (idx & 7) * 8;
-    const int row = row0 + r;
-    const bool valid = row < seq_len;
-    ucod::cp_async16(&dst[r][c], src + (int64_t)(valid ? row : 0) * row_stride + c, valid);
-  }
+  ucod::load_rows64<kBlockK, kLds, kThreads>(dst, src, row0, seq_len, row_stride);
 }
 
+template <bool kLse>
 __global__ void __launch_bounds__(kThreads)
     attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                         int seq_len, int num_heads, float scale_log2) {
+                         float* __restrict__ lse, int seq_len, int num_heads, float scale_log2) {
   __shared__ __align__(16) Smem sm;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -205,6 +210,11 @@ __global__ void __launch_bounds__(kThreads)
           ucod::pack_bf16x2(acc[j][2] * inv[1], acc[j][3] * inv[1]);
     }
   }
+  if (kLse && t == 0) {
+    float* lh = lse + (int64_t)blockIdx.y * seq_len;
+    if (r0 < seq_len) lh[r0] = m[0] * kLn2 + logf(l[0]);
+    if (r0 + 8 < seq_len) lh[r0 + 8] = m[1] * kLn2 + logf(l[1]);
+  }
 }
 
 }  // namespace
@@ -214,9 +224,22 @@ __global__ void __launch_bounds__(kThreads)
 extern "C" int ucod_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
                                   int seq_len, int num_heads, float scale_log2, void* stream) {
   const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, batch * num_heads);
-  attention_fwd_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  attention_fwd_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), seq_len, num_heads,
-      scale_log2);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), nullptr, seq_len,
+      num_heads, scale_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As ucod_attention_fwd, and also lse: contiguous f32 (batch, num_heads,
+// seq_len), the natural-log log-sum-exp of each query row's scaled scores.
+extern "C" int ucod_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                      void* lse, int batch, int seq_len, int num_heads,
+                                      float scale_log2, void* stream) {
+  const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, batch * num_heads);
+  attention_fwd_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), seq_len, num_heads, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }

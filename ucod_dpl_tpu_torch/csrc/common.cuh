@@ -81,6 +81,22 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
+// Rows [row0, row0 + kRows) of a (seq_len, row_stride) bf16 matrix, 64
+// columns from `src`, into a padded shared tile, by all kThreads threads with
+// cp.async.  Rows >= seq_len are zero-filled and never read from global
+// memory.
+template <int kRows, int kLd, int kThreads>
+__device__ __forceinline__ void load_rows64(__nv_bfloat16 (*dst)[kLd], const __nv_bfloat16* src,
+                                            int row0, int seq_len, int64_t row_stride) {
+  for (int idx = threadIdx.x; idx < kRows * 8; idx += kThreads) {
+    const int r = idx >> 3;
+    const int c = (idx & 7) * 8;
+    const int row = row0 + r;
+    const bool valid = row < seq_len;
+    cp_async16(&dst[r][c], src + (int64_t)(valid ? row : 0) * row_stride + c, valid);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

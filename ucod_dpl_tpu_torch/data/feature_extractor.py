@@ -56,14 +56,17 @@ class FeatureExtractor:
         compute_dtype: Optional[torch.dtype] = None,
         seed: int = 0,
         strict: Optional[bool] = None,
+        qkv_masters: bool = False,
     ):
         """``device``: where the backbone runs (no default: nothing chooses the
         CPU because CUDA is missing).  ``compute_dtype`` defaults to bf16 on
         CUDA and float32 on the CPU; ``params`` are held cast to it once
-        (:func:`~ucod_dpl_tpu_torch.models.dino.cast_params`).  ``strict`` (or
-        ``fe_cfg.strict_weights``):
-        missing pretrained weights raise instead of falling back to a random
-        initialisation from ``seed``."""
+        (:func:`~ucod_dpl_tpu_torch.models.dino.cast_params`), except the
+        q/k/v weights when ``qkv_masters`` is set: LoRA training keeps those
+        as float32 masters and merges its adapters into them at every step.
+        ``strict`` (or ``fe_cfg.strict_weights``): missing pretrained
+        weights raise instead of falling back to a random initialisation
+        from ``seed``."""
         self.fe_cfg = fe_cfg
         self.strict = fe_cfg.get("strict_weights", False) if strict is None else strict
         self.config = DinoConfig.from_type(fe_cfg.type)
@@ -76,7 +79,7 @@ class FeatureExtractor:
                 raise ValueError(f"no default compute dtype for device {self.device}")
             compute_dtype = _DTYPE_BY_DEVICE[self.device.type]
         self.compute_dtype = compute_dtype
-        self.params = cast_params(params_to(self._load_params(seed), self.device), compute_dtype)
+        self.params = cast_params(params_to(self._load_params(seed), self.device), compute_dtype, qkv_masters)
 
     def _load_params(self, seed: int):
         for cand in _candidate_weight_paths(self.fe_cfg):

@@ -1,11 +1,12 @@
 """Carry weights between the JAX package and the port.
 
-The JAX package keeps its parameters as pytrees in JAX layouts (patch
-kernel HWIO, linears ``(in, out)``, decoder 1x1 convs ``(in, out)``); the
-port keeps the same names in PyTorch layouts (patch kernel OIHW, linears
-``(out, in)``).  These functions map numpy trees of the former to tensor
-trees of the latter and back, transposing explicitly and nothing else, so a
-round trip is exact.  Nothing here imports JAX: JAX arrays arrive and leave
+The JAX package keeps its parameters as pytrees in JAX layouts (patch and
+discriminator kernels HWIO, linears ``(in, out)``, decoder 1x1 convs ``(in,
+out)``, LoRA ``a`` (d_in, r) and ``b`` (r, d_out)); the port keeps the same
+names in PyTorch layouts (kernels OIHW, linears ``(out, in)``, LoRA ``a``
+(r, d_in) and ``b`` (d_out, r)).  These functions map numpy trees of the
+former to tensor trees of the latter and back, transposing explicitly and
+nothing else, so a round trip is exact.  Nothing here imports JAX: JAX arrays arrive and leave
 as numpy arrays.
 """
 
@@ -32,6 +33,14 @@ def tree_map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v) for v in tree)
     raise TypeError(f"unexpected leaf {type(tree)!r} in a params tree")
+
+
+def tree_leaves(tree: Any) -> list:
+    """The tensors of a nested dict/list/tuple of params, in ``tree_map``'s
+    order."""
+    leaves: list = []
+    tree_map(lambda t: leaves.append(t) or t, tree)
+    return leaves
 
 
 def params_to(tree: Any, device) -> Any:
@@ -122,3 +131,53 @@ def decoder_to_jax(p: RevDecoderParams) -> Dict[str, np.ndarray]:
         name: np.ascontiguousarray(_n(v).T) if name in transposed else _n(v)
         for name, v in p._asdict().items()
     }
+
+
+def lora_from_jax(lora) -> list:
+    """JAX ``init_lora`` adapters (numpy values) -> port adapters on the CPU."""
+    return [{t: {"a": _t(np.asarray(e["a"]).T), "b": _t(np.asarray(e["b"]).T)} for t, e in layer.items()}
+            for layer in lora]
+
+
+def lora_to_jax(lora) -> list:
+    """Port adapters -> numpy adapters in the JAX layout."""
+    return [{t: {"a": np.ascontiguousarray(_n(e["a"]).T), "b": np.ascontiguousarray(_n(e["b"]).T)}
+             for t, e in layer.items()}
+            for layer in lora]
+
+
+def _discriminator_map(params, stats, conv, kernel, linear):
+    """Map a discriminator (params, stats) pair, key order kept: ``kernel``
+    on the convolution kernels, ``linear`` on the linear weight, ``conv`` on
+    every other array."""
+    def block(p):
+        return {k: kernel(v) if k == "conv_w" else conv(v) for k, v in p.items()}
+
+    new_p = {}
+    for name, v in params.items():
+        if name == "convs":
+            new_p[name] = [block(x) for x in v]
+        elif name == "linear_w":
+            new_p[name] = linear(v)
+        elif name == "linear_b":
+            new_p[name] = conv(v)
+        else:
+            new_p[name] = block(v)
+    new_s = {name: [{k: conv(x) for k, x in s.items()} for s in v] if name == "convs"
+             else {k: conv(x) for k, x in v.items()} for name, v in stats.items()}
+    return new_p, new_s
+
+
+def discriminator_from_jax(params, stats):
+    """JAX ``init_discriminator`` (params, stats) (numpy values) -> port
+    (params, stats) on the CPU: kernels HWIO -> OIHW, linear (flat, 1) ->
+    (1, flat)."""
+    return _discriminator_map(params, stats, _t, lambda w: _t(np.transpose(np.asarray(w), (3, 2, 0, 1))),
+                              lambda w: _t(np.asarray(w).T))
+
+
+def discriminator_to_jax(params, stats):
+    """Port discriminator (params, stats) -> numpy trees in the JAX layout
+    (inverse of :func:`discriminator_from_jax`)."""
+    return _discriminator_map(params, stats, _n, lambda w: np.ascontiguousarray(np.transpose(_n(w), (2, 3, 1, 0))),
+                              lambda w: np.ascontiguousarray(_n(w).T))

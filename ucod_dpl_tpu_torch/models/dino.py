@@ -10,8 +10,13 @@ the decoder's decoupling.
 
 On a CUDA device the fused LayerNorm + q/k/v (K6) and the packed attention
 (K1) run as hand-written kernels in bf16; ``plain=True`` runs their plain
-PyTorch versions instead, on any device.  A float32 forward on CUDA is full
-float32 only with ``torch.backends.cudnn.allow_tf32 = False`` (the patch
+PyTorch versions instead, on any device.  The differentiated forward
+(``differentiable=True``, what LoRA training runs) takes the routing of the
+JAX package's ``differentiable_mode``: LayerNorm and three dense
+projections in place of K6 (which has no backward), and attention through
+:func:`~ucod_dpl_tpu_torch.ops.attention.packed_attention_diff` (the
+forward with log-sum-exp and the flash backward kernels).  A float32
+forward on CUDA is full float32 only with ``torch.backends.cudnn.allow_tf32 = False`` (the patch
 embed is a cuDNN convolution) and ``torch.backends.cuda.matmul.allow_tf32 =
 False`` (PyTorch's default).
 """
@@ -25,8 +30,13 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
-from ucod_dpl_tpu_torch.ops.attention import packed_attention, packed_attention_reference
+from ucod_dpl_tpu_torch.ops.attention import (
+    packed_attention,
+    packed_attention_diff,
+    packed_attention_reference,
+)
 from ucod_dpl_tpu_torch.ops.fused_layers import dense, layer_norm, layernorm_qkv, layernorm_qkv_reference
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bicubic
 
@@ -182,7 +192,49 @@ def load_hf_checkpoint(path: str, cfg: DinoConfig) -> Dict[str, Any]:
     return convert_hf_state_dict({k: v.float().numpy() for k, v in sd.items()}, cfg)
 
 
-def cast_params(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+def export_hf_state_dict(params: Dict[str, Any], cfg: DinoConfig) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`convert_hf_state_dict`: params -> a HuggingFace-layout
+    state dict (Dinov2Model / ViTModel key names) of contiguous float32 CPU
+    tensors, which round-trips exactly through :func:`load_hf_checkpoint`."""
+    names = _hf_names(cfg)
+
+    def t(x):
+        # safetensors writes the raw buffer: contiguous copies only
+        return x.detach().to("cpu", torch.float32).contiguous()
+
+    sd = {
+        "embeddings.patch_embeddings.projection.weight": t(params["patch_embed"]["kernel"]),
+        "embeddings.patch_embeddings.projection.bias": t(params["patch_embed"]["bias"]),
+        "embeddings.cls_token": t(params["cls_token"]),
+        "embeddings.position_embeddings": t(params["pos_embed"]),
+        "layernorm.weight": t(params["final_norm"]["scale"]),
+        "layernorm.bias": t(params["final_norm"]["bias"]),
+    }
+    hf_linears = {"q": "attention.attention.query", "k": "attention.attention.key",
+                  "v": "attention.attention.value", "out": "attention.output.dense",
+                  "fc1": names["fc1"], "fc2": names["fc2"]}
+    for i, layer in enumerate(params["layers"]):
+        p = f"encoder.layer.{i}"
+        for norm in ("norm1", "norm2"):
+            sd[f"{p}.{names[norm]}.weight"] = t(layer[norm]["scale"])
+            sd[f"{p}.{names[norm]}.bias"] = t(layer[norm]["bias"])
+        for name, hf in hf_linears.items():
+            sd[f"{p}.{hf}.weight"] = t(layer[name]["w"])
+            sd[f"{p}.{hf}.bias"] = t(layer[name]["b"])
+        if cfg.use_layerscale:
+            sd[f"{p}.layer_scale1.lambda1"] = t(layer["ls1"])
+            sd[f"{p}.layer_scale2.lambda1"] = t(layer["ls2"])
+    return sd
+
+
+def save_hf_checkpoint(path: str, params: Dict[str, Any], cfg: DinoConfig) -> None:
+    """Write params as a HuggingFace-layout ``.safetensors`` file."""
+    from ucod_dpl_tpu_torch.models.safetensors_io import save_file_atomic
+
+    save_file_atomic(export_hf_state_dict(params, cfg), path)
+
+
+def cast_params(params: Dict[str, Any], dtype: torch.dtype, qkv_masters: bool = False) -> Dict[str, Any]:
     """Params for a forward in ``dtype``, cast once instead of at every call.
 
     What meets a ``dtype`` operand goes to ``dtype``: the matmul weights, the
@@ -191,7 +243,10 @@ def cast_params(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
     parameters (f32 statistics), the q/k/v biases (K6 adds them in f32), the
     position embedding (interpolated in f32 for other grids) and the last
     layer, of which the forward runs only LN1 and the key projection (which
-    ``key_fold`` pre-composes in f32)."""
+    ``key_fold`` pre-composes in f32).  ``qkv_masters`` keeps the q/k/v
+    weights in float32 too: LoRA training merges its adapters into them in
+    float32 at every step (a bf16 weight would swallow the small delta) and
+    the forward casts the merged weight to ``dtype``."""
 
     def cast_layer(layer):
         out = {}
@@ -199,7 +254,7 @@ def cast_params(params: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
             if name in ("norm1", "norm2"):
                 out[name] = p
             elif name in ("q", "k", "v"):
-                out[name] = {"w": p["w"].to(dtype), "b": p["b"]}
+                out[name] = {"w": p["w"] if qkv_masters else p["w"].to(dtype), "b": p["b"]}
             elif isinstance(p, dict):
                 out[name] = {k: t.to(dtype) for k, t in p.items()}
             else:
@@ -250,6 +305,19 @@ def _embed(params, pixels: torch.Tensor, cfg: DinoConfig, dtype: torch.dtype) ->
     return x + interpolate_pos_embed(params["pos_embed"], (gh, gw), orig_grid).to(dtype)
 
 
+def _check_remat(remat) -> bool:
+    """True/"layer" -> True, False/"none"/"" -> False (the JAX modes)."""
+    if isinstance(remat, str):
+        if remat in ("none", ""):
+            return False
+        if remat == "layer":
+            return True
+        if remat == "dots":
+            raise NotImplementedError("remat='dots' is not ported yet; use 'none' or 'layer'")
+        raise ValueError(f"remat={remat!r}: expected False/'none', True/'layer', or 'dots'")
+    return bool(remat)
+
+
 def dino_forward(
     params: Dict[str, Any],
     pixels: torch.Tensor,
@@ -258,6 +326,8 @@ def dino_forward(
     compute_dtype: torch.dtype = torch.float32,
     key_fold: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     plain: bool = False,
+    differentiable: bool = False,
+    remat=False,
 ) -> Dict[str, torch.Tensor]:
     """Run the ViT and return the reference hook contract.
 
@@ -272,7 +342,14 @@ def dino_forward(
         last layer then computes ``dense(LN1(x), (w, b))`` in place of its key
         projection (the key projection pre-composed with a downstream linear
         map, e.g. the DBA decoder's decoupling).
-      plain: run the plain PyTorch versions of K1 and K6 on any device.
+      plain: run the plain PyTorch versions of the kernels on any device.
+      differentiable: the forward that is differentiated (the JAX
+        ``differentiable_mode``): q/k/v by LayerNorm + three dense
+        projections, attention through ``packed_attention_diff`` (autograd
+        through ``packed_attention_reference`` when ``plain``).
+      remat: ``False``/``"none"`` saves every activation for the backward;
+        ``True``/``"layer"`` saves only each layer's input and recomputes the
+        layer in the backward (``torch.utils.checkpoint``).
 
     Returns ``key_tokens`` (B, 1+N, hidden) and ``key_features`` (B, h, w,
     hidden); with ``key_fold`` only ``folded_features`` (B, h, w, F).
@@ -282,12 +359,17 @@ def dino_forward(
     dtype = compute_dtype
     eps = cfg.layer_norm_eps
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
-    ln_qkv = layernorm_qkv_reference if plain else layernorm_qkv
-    attention = packed_attention_reference if plain else packed_attention
+    if differentiable:
+        attention = packed_attention_reference if plain else packed_attention_diff
 
-    x = _embed(params, pixels, cfg, dtype)
-    *layers, last = params["layers"]
-    for layer in layers:
+        def ln_qkv(x, norm, q, k, v, eps):
+            h = layer_norm(x, norm, eps)
+            return dense(h, q, dtype), dense(h, k, dtype), dense(h, v, dtype)
+    else:
+        ln_qkv = layernorm_qkv_reference if plain else layernorm_qkv
+        attention = packed_attention_reference if plain else packed_attention
+
+    def block(x, layer):
         q, k, v = ln_qkv(x, layer["norm1"], layer["q"], layer["k"], layer["v"], eps)
         attn = attention(q, k, v, cfg.num_heads, scale)
         attn = dense(attn, layer["out"], dtype)
@@ -303,7 +385,18 @@ def dino_forward(
         h = dense(h, layer["fc2"], dtype)
         if cfg.use_layerscale:
             h = h * layer["ls2"].to(dtype)
-        x = x + h
+        return x + h
+
+    if _check_remat(remat):
+        def run_block(x, layer):
+            return torch.utils.checkpoint.checkpoint(block, x, layer, use_reentrant=False)
+    else:
+        run_block = block
+
+    x = _embed(params, pixels, cfg, dtype)
+    *layers, last = params["layers"]
+    for layer in layers:
+        x = run_block(x, layer)
 
     h = layer_norm(x, last["norm1"], eps)
     if key_fold is not None:

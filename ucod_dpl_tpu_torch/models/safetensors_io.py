@@ -63,12 +63,11 @@ def load_decoder_checkpoint(path: str) -> Tuple[RevDecoderParams, RevDecoderPara
     return _tower_from_flat(flat, "decoder"), _tower_from_flat(flat, "decoder_ema")
 
 
-def save_decoder_checkpoint(path: str, decoder: RevDecoderParams, decoder_ema: RevDecoderParams) -> None:
-    """Write both towers in the reference layout, via a temporary file and
-    ``os.replace`` so a crash never leaves a truncated checkpoint."""
+def save_file_atomic(flat: Dict[str, torch.Tensor], path: str) -> None:
+    """Write contiguous CPU tensors as safetensors via a temporary file and
+    ``os.replace``, so a crash never leaves a truncated file."""
     from safetensors.torch import save_file
 
-    flat = {**_tower_to_flat(decoder, "decoder"), **_tower_to_flat(decoder_ema, "decoder_ema")}
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     try:
@@ -77,3 +76,8 @@ def save_decoder_checkpoint(path: str, decoder: RevDecoderParams, decoder_ema: R
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+def save_decoder_checkpoint(path: str, decoder: RevDecoderParams, decoder_ema: RevDecoderParams) -> None:
+    """Write both towers in the reference layout (atomically)."""
+    save_file_atomic({**_tower_to_flat(decoder, "decoder"), **_tower_to_flat(decoder_ema, "decoder_ema")}, path)

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into ONE shared library with a plain C interface, at first use, and loaded
-with :mod:`ctypes` (no PyTorch headers: the build takes seconds, not
-minutes).  The library lands in ``build/ucod_dpl_tpu_torch/<hash>/`` beside
-the package, keyed by a hash of the sources and flags, so an edited kernel
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into ONE
+shared library with a plain C interface, at first use, and loaded with
+:mod:`ctypes` (no PyTorch headers: the build takes seconds, not minutes).
+The library lands in ``build/ucod_dpl_tpu_torch/<hash>/`` beside the
+package, keyed by a hash of the sources and flags, so an edited kernel
 rebuilds and an unchanged one loads at once.  A file lock serialises
-processes that build at the same time.  Any build or load failure raises: there is no
-fallback to a plain path for CUDA tensors.
+processes that build at the same time.  Any build or load failure raises:
+there is no fallback to a plain path for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ucod_dpl_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 )
 LIB_NAME = "libucod_kernels.so"
 
@@ -69,16 +70,25 @@ def build() -> tuple[Path, float]:
         if lib.is_file():
             return lib, 0.0
         start = time.perf_counter()
+        nvcc = _nvcc()
         tmp = out_dir / f"{LIB_NAME}.tmp.{os.getpid()}"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               *(str(s) for s in sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
+        objs = [out_dir / f"{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))]
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / f"{o.stem}.cu"), "-o", str(o)]
+                for o in objs]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
+        if all(rc == 0 for _, _, rc in results):
+            link = [nvcc, "-shared", "-o", str(tmp), *(str(o) for o in objs)]
+            proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            results.append((link, proc.stdout, proc.returncode))
+        (out_dir / "build.log").write_text(
+            "".join(" ".join(c) + "\n" + out for c, out, _ in results))
+        failed = [(c, out, rc) for c, out, rc in results if rc != 0]
+        if failed:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed (exit {proc.returncode}) building {lib}:\n{proc.stderr[-6000:]}"
-            )
+            c, out, rc = failed[0]
+            raise RuntimeError(f"nvcc failed (exit {rc}) building {lib}: {' '.join(c)}\n{out[-6000:]}")
         os.replace(tmp, lib)
         return lib, time.perf_counter() - start
 
@@ -91,6 +101,10 @@ def kernels() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ucod_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, f32, ptr]
     lib.ucod_attention_fwd.restype = i32
+    lib.ucod_attention_fwd_lse.argtypes = [ptr] * 5 + [i32, i32, i32, f32, ptr]
+    lib.ucod_attention_fwd_lse.restype = i32
+    lib.ucod_attention_bwd.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
+    lib.ucod_attention_bwd.restype = i32
     lib.ucod_layernorm_qkv.argtypes = [ptr] * 12 + [i32, i32, f32, ptr]
     lib.ucod_layernorm_qkv.restype = i32
     return lib

@@ -1,11 +1,22 @@
 """Multi-head attention for the DINO ViT on the packed (B, L, D) layout.
 
-Counterpart of :mod:`ucod_dpl_tpu.ops.attention`.  :func:`packed_attention`
-wraps the hand-written Hopper kernel K1 (``csrc/attention_fwd.cu``, the
-port of the TPU kernel ``_attention_kernel_headpair``); its plain PyTorch
-version :func:`packed_attention_reference` mirrors the JAX ``_xla_attention``
-numerics: f32 scores and softmax, probabilities rounded to the input dtype,
-f32-accumulated ``p @ v`` rounded to the input dtype.
+Counterpart of :mod:`ucod_dpl_tpu.ops.attention`.  Three wrappers of
+hand-written Hopper kernels, each with its plain PyTorch version beside it:
+
+* :func:`packed_attention` (K1, ``csrc/attention_fwd.cu``, the port of the
+  TPU kernel ``_attention_kernel_headpair``): the inference forward.  Its
+  plain version :func:`packed_attention_reference` mirrors the JAX
+  ``_xla_attention`` numerics: f32 scores and softmax, probabilities rounded
+  to the input dtype, f32-accumulated ``p @ v`` rounded to the input dtype.
+* :func:`packed_attention_fwd_lse` (the same kernel with an f32 log-sum-exp
+  output, the port of K2 ``_attention_kernel_headpair_stats``): the forward
+  of the differentiated path.
+* :func:`packed_attention_bwd` (``csrc/attention_bwd.cu``, the port of K3
+  ``_attention_bwd_kernel_headpair`` and K4 ``_bwd2d_dq_kernel`` +
+  ``_bwd2d_dkv_kernel``): the flash backward from the saved log-sum-exp.
+
+:func:`packed_attention_diff` ties the last two together as a
+``torch.autograd.Function`` (the JAX ``_packed_attention_diff`` custom VJP).
 
 Dispatch is by device alone: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
@@ -14,7 +25,7 @@ tensor launches the kernel or raises.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,10 +51,13 @@ def packed_attention_reference(
     return o.transpose(1, 2).reshape(b, l, d)
 
 
-def _check_kernel_inputs(q, k, v, o, num_heads):
+def _check_kernel_inputs(q, num_heads, **others):
+    """Raise unless ``q`` and every tensor of ``others`` (by name) is what the
+    attention kernels take: bf16, contiguous, 16-byte aligned, q's shape and
+    device, (B, L, num_heads * 64)."""
     if q.device.type != "cuda":
         raise ValueError(f"packed_attention: unsupported device {q.device}")
-    for name, x in (("q", q), ("k", k), ("v", v), ("out", o)):
+    for name, x in (("q", q), *others.items()):
         if x.dtype != torch.bfloat16:
             raise TypeError(f"packed_attention kernel takes bf16; {name} is {x.dtype}")
         if not x.is_contiguous():
@@ -79,7 +93,7 @@ def packed_attention(
         o = packed_attention_reference(q, k, v, num_heads, scale)
         return o if out is None else out.copy_(o)
     o = torch.empty_like(q) if out is None else out
-    _check_kernel_inputs(q, k, v, o, num_heads)
+    _check_kernel_inputs(q, num_heads, k=k, v=v, out=o)
     b, l, _ = q.shape
     with torch.cuda.device(q.device):
         err = _build.kernels().ucod_attention_fwd(
@@ -92,3 +106,164 @@ def packed_attention(
 
 
 packed_attention.launches = 0
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, L, nh * hd) -> (B, nh, L, hd) in float32."""
+    b, l, d = x.shape
+    return x.reshape(b, l, num_heads, d // num_heads).transpose(1, 2).float()
+
+
+def _merge_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(B, nh, L, hd) -> (B, L, nh * hd) in ``dtype``."""
+    b, nh, l, hd = x.shape
+    return x.transpose(1, 2).reshape(b, l, nh * hd).to(dtype)
+
+
+def packed_attention_fwd_lse_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`packed_attention_fwd_lse`: the output of
+    :func:`packed_attention_reference` and the f32 (B, num_heads, L)
+    log-sum-exp ``ln sum_j exp(scale q.k_j)`` of each query row."""
+    s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * scale
+    return packed_attention_reference(q, k, v, num_heads, scale), torch.logsumexp(s, dim=-1)
+
+
+def packed_attention_bwd_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    num_heads: int,
+    scale: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`packed_attention_bwd`: the f32 flash algebra of
+    the JAX ``_xla_attention_packed_bwd`` with the probabilities recomputed
+    from the saved log-sum-exp, ``P = exp(scale q k^T - lse)``; (dq, dk, dv)
+    in the dtype of q/k/v."""
+    qh, kh, vh, oh, doh = (_heads(x, num_heads) for x in (q, k, v, o, do))
+    p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale - lse.float()[..., None])
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    ds = p * (dp - torch.sum(doh * oh, dim=-1, keepdim=True)) * scale
+    dq = torch.matmul(ds, kh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh)
+    dv = torch.matmul(p.transpose(-1, -2), doh)
+    return _merge_heads(dq, q.dtype), _merge_heads(dk, k.dtype), _merge_heads(dv, v.dtype)
+
+
+def _check_lse(lse: torch.Tensor, q: torch.Tensor, num_heads: int) -> None:
+    b, l, _ = q.shape
+    if lse.dtype != torch.float32 or lse.shape != (b, num_heads, l):
+        raise ValueError(f"attention lse must be f32 ({b}, {num_heads}, {l}); got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+    if lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"attention lse must be contiguous on {q.device}")
+
+
+def packed_attention_fwd_lse(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    scale: float,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(B, L, num_heads * 64) bf16 q/k/v -> (attention output, f32 (B,
+    num_heads, L) log-sum-exp), written into ``out = (o, lse)`` when given.
+
+    CUDA tensors launch K1 with its log-sum-exp store (counted in
+    ``packed_attention_fwd_lse.launches``); CPU tensors take
+    :func:`packed_attention_fwd_lse_reference`."""
+    if q.device.type == "cpu":
+        refs = packed_attention_fwd_lse_reference(q, k, v, num_heads, scale)
+        return refs if out is None else tuple(o.copy_(r) for o, r in zip(out, refs))
+    b, l, _ = q.shape
+    if out is None:
+        o = torch.empty_like(q)
+        lse = torch.empty(b, num_heads, l, device=q.device, dtype=torch.float32)
+    else:
+        o, lse = out
+    _check_kernel_inputs(q, num_heads, k=k, v=v, out=o)
+    _check_lse(lse, q, num_heads)
+    with torch.cuda.device(q.device):
+        err = _build.kernels().ucod_attention_fwd_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, l,
+            num_heads, float(scale) * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check_cuda(err, "attention_fwd_lse")
+    packed_attention_fwd_lse.launches += 1
+    return o, lse
+
+
+packed_attention_fwd_lse.launches = 0
+
+
+def packed_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    do: torch.Tensor,
+    lse: torch.Tensor,
+    num_heads: int,
+    scale: float,
+    out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of packed attention from its inputs, output
+    ``o``, output cotangent ``do`` and saved log-sum-exp, written into ``out``
+    when given; bf16 (B, L, num_heads * 64) like q.
+
+    CUDA tensors launch the D pre-pass, the dK/dV kernel and the dQ kernel of
+    ``csrc/attention_bwd.cu`` (counted once per call in
+    ``packed_attention_bwd.launches``); CPU tensors take
+    :func:`packed_attention_bwd_reference`."""
+    if q.device.type == "cpu":
+        refs = packed_attention_bwd_reference(q, k, v, o, do, lse, num_heads, scale)
+        return refs if out is None else tuple(t.copy_(r) for t, r in zip(out, refs))
+    grads = tuple(torch.empty_like(q) for _ in range(3)) if out is None else tuple(out)
+    _check_kernel_inputs(q, num_heads, k=k, v=v, o=o, do=do, dq=grads[0], dk=grads[1], dv=grads[2])
+    _check_lse(lse, q, num_heads)
+    b, l, _ = q.shape
+    dsum = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        err = _build.kernels().ucod_attention_bwd(
+            *(x.data_ptr() for x in (q, k, v, o, do, lse, dsum, *grads)), b, l, num_heads,
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check_cuda(err, "attention_bwd")
+    packed_attention_bwd.launches += 1
+    return grads
+
+
+packed_attention_bwd.launches = 0
+
+
+class PackedAttention(torch.autograd.Function):
+    """Packed attention whose backward is the flash backward from the saved
+    log-sum-exp (the JAX ``_packed_attention_diff`` custom VJP): forward by
+    :func:`packed_attention_fwd_lse`, backward by :func:`packed_attention_bwd`.
+    Gradients come back in the dtype of q/k/v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, num_heads: int, scale: float):
+        o, lse = packed_attention_fwd_lse(q, k, v, num_heads, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.num_heads, ctx.scale = num_heads, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = packed_attention_bwd(q, k, v, o, do.contiguous(), lse, ctx.num_heads, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def packed_attention_diff(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+) -> torch.Tensor:
+    """Differentiable packed attention through the forward-LSE and backward
+    kernels on CUDA (their plain versions on the CPU)."""
+    return PackedAttention.apply(q, k, v, num_heads, scale)

@@ -63,8 +63,12 @@ def _cubic_weights(in_size: int, out_size: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=256)
 def _device_weights(kind: str, in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
-    w = (_linear_weights if kind == "linear" else _cubic_weights)(in_size, out_size)
-    return torch.from_numpy(w).to(device)
+    # a normal tensor even when first asked for under inference_mode (serving):
+    # the cached matrix is shared with differentiated callers (training), and
+    # autograd refuses to save an inference tensor for backward
+    with torch.inference_mode(False):
+        w = (_linear_weights if kind == "linear" else _cubic_weights)(in_size, out_size)
+        return torch.from_numpy(w).to(device)
 
 
 def _apply_separable(x: torch.Tensor, kind: str, size: Tuple[int, int], h_dim: int) -> torch.Tensor:
@@ -83,6 +87,14 @@ def interpolate_bilinear_nhwc(x: torch.Tensor, size: Tuple[int, int]) -> torch.T
     if x.shape[1] == size[0] and x.shape[2] == size[1]:
         return x
     return _apply_separable(x, "linear", size, 1)
+
+
+def interpolate_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """torch ``F.interpolate(x, size, mode='bilinear', align_corners=False)``
+    for (..., H, W) tensors, e.g. NCHW; differentiable (two matmuls)."""
+    if x.shape[-2] == size[0] and x.shape[-1] == size[1]:
+        return x
+    return _apply_separable(x, "linear", size, x.dim() - 2)
 
 
 def interpolate_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
