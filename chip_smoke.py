@@ -33,7 +33,23 @@ Phases (each raises on failure; any failure exits non-zero):
   C. timing: attention forward + backward per call at bs16 L1370 and bs4
      L2917, the forward-LSE and backward kernels alone, and the LoRA step at
      bs16 518px, kernels against plain (the plain step only if it fits),
-     and with remat "layer".
+     and with remat "layer";
+  D. the int8 kernels K8 (LN + quantize + q/k/v), K9 (LN + quantize + fc1 +
+     GELU + requantize), K10 (quantize + out-projection) and K11 (the whole
+     int8 MLP half) against their plain versions, bf16, at bs16 L1370 and at
+     B*L = 1, 17, 65 and 1370*4 + 3 rows, one case with rows over six decades
+     of scale, an all-zero and a constant row; outputs pre-filled with NaN
+     (codes with -128, which no code takes), NaN in memory past the inputs;
+  E. int8 serving: a full-width dinov2-base ``Predictor(quantize="int8")``
+     at 518px answers requests of 16, 5 and 1 images; per forward K8, K10,
+     K9 and K1 launch 11 times each, K6 and K11 never; then one
+     ``fg_logits_live(..., int8_mlp="whole")`` forward: K11 11 times, no K9;
+  F. composed int8 accuracy at bs4 518px against the float32 plain path:
+     err(int8 kernels) <= 1.5 * err(int8 plain) + 1e-3, and the int8 masks
+     agree with the float32 masks on more than 90% of the pixels;
+  G. timing: K8-K11 against their plain versions at bs16 L1370, and
+     ``fg_logits_live`` at bs16 518px with the int8 kernels, the int8 plain
+     path and the bf16 kernels, interleaved in one process.
 The second-to-last line is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
 """
@@ -79,8 +95,23 @@ LSE_TOL = 1e-3
 BWD_TOL = 2.0 ** -5
 BWD_NORM_TOL = 2e-2
 BWD_ATOL = 1e-5
+# The int8 kernels against their plain versions (phase D).  The plain
+# versions compute what the kernels compute, in the same order (the
+# LayerNorm statistics included), so most results agree bit for bit; what
+# may differ is a library function of a last ulp (tanh) and, through it, a
+# code at a rounding tie.  Codes: |diff| <= 1 and at least 99% equal.
+# Scales: rtol 1e-5 (a few f32 ulps; one flipped code moves none).  bf16
+# outputs, row by row: one code step plus one bf16 ulp of the row's
+# max|plain|, where a code step is what one activation code of the row
+# changing by 1 moves an output by, at most s_x * 127 * max(w_s) (the int8
+# weight itself is at most 127).
+INT8_CASES = (("bs16 L1370", 16 * 1370, False), ("B*L 1", 1, False), ("B*L 17", 17, False),
+              ("B*L 65", 65, True), ("B*L 5483", 1370 * 4 + 3, True))  # (name, rows, edge rows)
+INT8_CODE_EQUAL = 0.99
+INT8_SCALE_RTOL = 1e-5
 SERVE_DIM = 768
 NUM_HEADS = 12
+MLP_DIM = 3072
 
 
 class _Cfg(dict):
@@ -277,12 +308,12 @@ def phase_k6(gen, dev) -> float:
     return worst
 
 
-def _serving_model(seed: int, dev):
+def _serving_model(seed: int, dev, quantize=None):
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.models.dba import init_rev_decoder
 
     fe_cfg = _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None)
-    fe = FeatureExtractor(fe_cfg, device=dev, seed=seed, strict=False)
+    fe = FeatureExtractor(fe_cfg, device=dev, seed=seed, strict=False, quantize=quantize)
     decoder = init_rev_decoder(seed + 1, SERVE_DIM)
     return fe, decoder
 
@@ -599,6 +630,247 @@ def phase_train_timing(lora_run: dict, gen) -> dict:
     return out
 
 
+def _int8_wrappers():
+    """The int8 kernels' wrappers, by kernel id."""
+    from ucod_dpl_tpu_torch.ops import fused_layers as FL
+
+    return {"K8": FL.layernorm_qkv_w8a8, "K9": FL.layernorm_fc1_gelu_w8a8, "K10": FL.dense_quant_w8a8,
+            "K11": FL.layernorm_mlp_w8a8}
+
+
+def _int8_layer(gen, dev):
+    """One layer's LayerNorm params (f32) and int8 q/k/v/out/fc1/fc2,
+    quantized from seeded f32 weights at the serving widths."""
+    from ucod_dpl_tpu_torch.ops.quant import quantize_linear
+
+    def lin(d_in, d_out):
+        return quantize_linear({"w": torch.randn(d_out, d_in, generator=gen, device=dev) / d_in ** 0.5,
+                                "b": 0.1 * torch.randn(d_out, generator=gen, device=dev)})
+
+    d, f = SERVE_DIM, MLP_DIM
+    norm = {"scale": 1 + 0.1 * torch.randn(d, generator=gen, device=dev),
+            "bias": 0.1 * torch.randn(d, generator=gen, device=dev)}
+    q8 = {name: lin(d, d) for name in ("q", "k", "v", "out")}
+    q8["fc1"], q8["fc2"] = lin(d, f), lin(f, d)
+    return norm, q8
+
+
+def _int8_input(gen, dev, rows, edge):
+    """A bf16 (1, rows, 768) input whose memory is followed by 64 rows of
+    NaN.  ``edge``: rows spread over six decades of scale, row 0 all zero,
+    row 1 constant."""
+    x = _nan_tailed(gen, dev, 1, rows)
+    if edge:
+        x.mul_(torch.logspace(-3, 3, rows, device=dev).to(torch.bfloat16)[:, None])
+        x[0, 0] = 0.0
+        x[0, 1] = 0.5
+    return x
+
+
+def int8_out_bound(ref: torch.Tensor, s_x: torch.Tensor, w_s: torch.Tensor) -> torch.Tensor:
+    """Per row: one code step (s_x * 127 * max w_s) plus one bf16 ulp of the
+    row's max|plain|."""
+    rowmax = ref.float().abs().amax(dim=-1, keepdim=True)
+    ulp = torch.where(rowmax > 0, torch.exp2(torch.floor(torch.log2(rowmax)) - 7), torch.zeros_like(rowmax))
+    return s_x * 127 * w_s.max() + ulp
+
+
+def _check_int8_out(name, got, ref, s_x, w_s) -> float:
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    diff = (got.float() - ref.float()).abs()
+    ratio = (diff / int8_out_bound(ref, s_x, w_s)).max().item()
+    err = diff.max().item()
+    _log(f"  {name}: max_abs_err {err:.6g} (max |plain| {ref.float().abs().max().item():.4g}), "
+         f"{ratio:.4g} of the row bound; equal to plain: {(got == ref).float().mean().item():.6f}")
+    if not ratio <= 1:
+        raise AssertionError(f"{name}: error {ratio} times its row bound")
+    return err
+
+
+def _check_codes(name, codes, scales, ref_codes, ref_scales) -> float:
+    """K9's bounds; returns the largest difference of the dequantized values."""
+    if not torch.isfinite(scales).all():
+        raise AssertionError(f"{name}: non-finite scales")
+    diff = (codes.int() - ref_codes.int()).abs()
+    equal = (diff == 0).float().mean().item()
+    rel = ((scales - ref_scales).abs() / ref_scales.abs()).max().item()
+    deq = (codes.float() * scales - ref_codes.float() * ref_scales).abs().max().item()
+    _log(f"  {name}: codes max |diff| {diff.max().item()}, equal {equal:.6f}; scales max rel diff {rel:.3g}; "
+         f"dequantized max_abs_err {deq:.6g}")
+    if not (diff.max().item() <= 1 and equal >= INT8_CODE_EQUAL and rel <= INT8_SCALE_RTOL):
+        raise AssertionError(f"{name}: codes or scales out of bounds")
+    return deq
+
+
+def phase_int8_kernels(gen, dev) -> dict:
+    """Phase D: K8-K11 against their plain versions."""
+    from ucod_dpl_tpu_torch.ops import fused_layers as FL
+    from ucod_dpl_tpu_torch.ops.quant import quantize_act
+
+    norm, q8 = _int8_layer(gen, dev)
+    eps = 1e-6
+    _log("int8 kernels K8-K11 vs plain (bf16 activations, int8 weights):")
+    worst = {k: 0.0 for k in ("K8", "K9", "K10", "K11")}
+    for name, rows, edge in INT8_CASES:
+        x = _int8_input(gen, dev, rows, edge)
+        h_s = quantize_act(FL._layernorm_f32(x, norm, eps))[1]
+        outs = FL.layernorm_qkv_w8a8(x, norm, q8["q"], q8["k"], q8["v"], eps,
+                                     out=tuple(_nan_like(x) for _ in range(3)))
+        torch.cuda.synchronize()
+        refs = FL.layernorm_qkv_w8a8_reference(x, norm, q8["q"], q8["k"], q8["v"], eps)
+        for which, o, r in zip("qkv", outs, refs):
+            worst["K8"] = max(worst["K8"], _check_int8_out(f"K8 {name} {which}", o, r, h_s, q8[which]["w_s"]))
+        got = FL.dense_quant_w8a8(x, q8["out"], torch.bfloat16, out=_nan_like(x))
+        torch.cuda.synchronize()
+        worst["K10"] = max(worst["K10"], _check_int8_out(
+            f"K10 {name}", got, FL.dense_quant_w8a8_reference(x, q8["out"], torch.bfloat16),
+            quantize_act(x)[1], q8["out"]["w_s"]))
+        codes = torch.full((1, rows, MLP_DIM), -128, dtype=torch.int8, device=dev)
+        scales = torch.full((1, rows, 1), float("nan"), device=dev)
+        FL.layernorm_fc1_gelu_w8a8(x, norm, q8["fc1"], eps, out=(codes, scales))
+        torch.cuda.synchronize()
+        ref_codes, ref_scales = FL.layernorm_fc1_gelu_w8a8_reference(x, norm, q8["fc1"], eps)
+        worst["K9"] = max(worst["K9"], _check_codes(f"K9 {name}", codes, scales, ref_codes, ref_scales))
+        got = FL.layernorm_mlp_w8a8(x, norm, q8["fc1"], q8["fc2"], eps, out=_nan_like(x))
+        torch.cuda.synchronize()
+        ref = FL.layernorm_mlp_w8a8_reference(x, norm, q8["fc1"], q8["fc2"], eps)
+        worst["K11"] = max(worst["K11"], _check_int8_out(f"K11 {name}", got, ref, ref_scales, q8["fc2"]["w_s"]))
+        del outs, refs, codes, ref_codes
+    return worst
+
+
+def phase_int8_serving(fe8, decoder, seed: int) -> dict:
+    """Phase E: ``Predictor(quantize="int8")`` requests, then one whole-MLP
+    forward, each with every count set to 0 just before it."""
+    from ucod_dpl_tpu_torch.models.convert import params_to
+    from ucod_dpl_tpu_torch.models.dba import fg_logits_live
+    from ucod_dpl_tpu_torch.serving import Predictor
+
+    n = fe8.config.num_layers - 1
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    predictor = Predictor(fe8, decoder, image_size=(518, 518), feature_size=68, max_batch=16)
+    if predictor.quantize != "int8" or predictor._qparams is not fe8._qparams:
+        raise AssertionError("an int8 extractor did not opt the Predictor in")
+    rng = np.random.default_rng(seed + 7)
+    _log(f"int8 serving: dinov2-base {fe8.config.hidden_size}-wide x{n + 1} layers, 518px, "
+         f"{fe8.compute_dtype} + int8 linears, max_batch 16")
+    for fn in counts.values():
+        fn.launches = 0
+    want = {"K1": n, "K6": 0, "fwd_lse": 0, "bwd": 0, "K8": n, "K9": n, "K10": n, "K11": 0}
+    for size in (16, 5, 1):
+        before = {k: fn.launches for k, fn in counts.items()}
+        images = rng.standard_normal((size, 518, 518, 3)).astype(np.float32)
+        t0 = time.perf_counter()
+        masks = predictor.predict(list(images))
+        secs = time.perf_counter() - t0
+        delta = {k: fn.launches - before[k] for k, fn in counts.items()}
+        stack = np.stack(masks)
+        if stack.shape != (size, 518, 518) or not np.isin(stack, (0.0, 1.0)).all():
+            raise AssertionError(f"int8 request of {size}: wrong masks")
+        if delta != want:
+            raise AssertionError(f"int8 request of {size}: launches {delta}, expected {want}")
+        _log(f"  request of {size}: {secs:.3f} s host clock, foreground share {stack.mean():.4f}, launches {delta}")
+    launches = {k: fn.launches for k, fn in counts.items()}
+
+    for fn in counts.values():
+        fn.launches = 0
+    px = torch.from_numpy(rng.standard_normal((2, 518, 518, 3)).astype(np.float32)).to(fe8.device)
+    with torch.inference_mode():
+        fg, _, _ = fg_logits_live(fe8.params, params_to(decoder, fe8.device), px, fe8.config,
+                                  compute_dtype=torch.bfloat16, size=68, quant=fe8._qparams, int8_mlp="whole")
+    whole = {k: fn.launches for k, fn in counts.items()}
+    _log(f"  int8_mlp='whole' forward bs2: launches {whole}")
+    if not torch.isfinite(fg).all():
+        raise AssertionError("whole-MLP forward: non-finite logits")
+    if whole != {**want, "K9": 0, "K11": n}:
+        raise AssertionError(f"whole-MLP forward: launches {whole}, expected K11 {n} and no K9")
+    launches["K11"] = whole["K11"]
+    return launches
+
+
+def phase_int8_composed(fe8, decoder, seed: int) -> float:
+    """Phase F: bs4 518px against the float32 plain path; returns the int8
+    kernel path's error."""
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.models.convert import params_to
+    from ucod_dpl_tpu_torch.models.dba import fg_logits_live
+
+    dev = fe8.device
+    dec = params_to(decoder, dev)
+    f32_params = FeatureExtractor(fe8.fe_cfg, device=dev, compute_dtype=torch.float32, seed=seed,
+                                  strict=False).params
+    px = torch.from_numpy(np.random.default_rng(seed + 8).standard_normal((4, 518, 518, 3))
+                          .astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        def run(params, dtype, plain, quant):
+            fg, _, _ = fg_logits_live(params, dec, px, fe8.config, compute_dtype=dtype, size=68, plain=plain,
+                                      quant=quant)
+            return fg.float()
+
+        ref = run(f32_params, torch.float32, True, None)
+        got = run(fe8.params, torch.bfloat16, False, fe8._qparams)
+        err = (got - ref).abs().max().item()
+        err_plain = (run(fe8.params, torch.bfloat16, True, fe8._qparams) - ref).abs().max().item()
+    agree = ((got > 0) == (ref > 0)).float().mean().item()
+    bound = 1.5 * err_plain + 1e-3
+    _log(f"composed int8 fg_logits_live bs4 518px vs f32 plain: kernels max_abs_err {err:.6g}, int8 plain "
+         f"{err_plain:.6g}, bound {bound:.6g}; masks agree with f32 on {agree:.6f} (bound 0.9; "
+         f"max |f32| {ref.abs().max().item():.4g})")
+    if not (np.isfinite(err) and err <= bound):
+        raise AssertionError(f"int8 kernel path error {err} exceeds {bound}")
+    if not agree > 0.9:
+        raise AssertionError(f"int8 masks agree with f32 on {agree} of the pixels")
+    return err
+
+
+def phase_int8_timing(fe8, decoder, gen) -> dict:
+    """Phase G: K8-K11 against their plain versions at bs16 L1370, and the
+    bs16 518px forward with int8 kernels, int8 plain and bf16 kernels."""
+    from ucod_dpl_tpu_torch.models.convert import params_to
+    from ucod_dpl_tpu_torch.models.dba import fg_logits_live
+    from ucod_dpl_tpu_torch.ops import fused_layers as FL
+
+    dev = fe8.device
+    norm, q8 = _int8_layer(gen, dev)
+    x = torch.randn(16, 1370, SERVE_DIM, generator=gen, device=dev).to(torch.bfloat16)
+    eps = 1e-6
+    _log("int8 timing (CUDA events, interleaved plain/kernel/kernel/plain, bs16 L1370):")
+    pairs = {
+        "K8": (lambda: FL.layernorm_qkv_w8a8_reference(x, norm, q8["q"], q8["k"], q8["v"], eps),
+               lambda: FL.layernorm_qkv_w8a8(x, norm, q8["q"], q8["k"], q8["v"], eps)),
+        "K9": (lambda: FL.layernorm_fc1_gelu_w8a8_reference(x, norm, q8["fc1"], eps),
+               lambda: FL.layernorm_fc1_gelu_w8a8(x, norm, q8["fc1"], eps)),
+        "K10": (lambda: FL.dense_quant_w8a8_reference(x, q8["out"], torch.bfloat16),
+                lambda: FL.dense_quant_w8a8(x, q8["out"], torch.bfloat16)),
+        "K11": (lambda: FL.layernorm_mlp_w8a8_reference(x, norm, q8["fc1"], q8["fc2"], eps),
+                lambda: FL.layernorm_mlp_w8a8(x, norm, q8["fc1"], q8["fc2"], eps)),
+    }
+    out = {}
+    for name, (plain, kernel) in pairs.items():
+        out[name] = _ab_ms(plain, kernel, 20)
+        _log(f"  {name}: kernel {out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms")
+
+    dec = params_to(decoder, dev)
+    px = torch.randn(16, 518, 518, 3, generator=gen, device=dev)
+    with torch.inference_mode():
+        def fwd(plain, quant, int8_mlp="split"):
+            return lambda: fg_logits_live(fe8.params, dec, px, fe8.config, compute_dtype=torch.bfloat16, size=68,
+                                          plain=plain, quant=quant, int8_mlp=int8_mlp)
+
+        runs = {"int8 plain": fwd(True, fe8._qparams), "int8 kernels": fwd(False, fe8._qparams),
+                "bf16 kernels": fwd(False, None), "int8 kernels, whole MLP": fwd(False, fe8._qparams, "whole")}
+        order = list(runs) + list(runs)[::-1]
+        samples = {k: [] for k in runs}
+        for k in order:
+            samples[k].append(_time_ms(runs[k], 5))
+    for k, v in samples.items():
+        ms = sum(v) / len(v)
+        out[f"fwd {k}"] = ms
+        _log(f"  fg_logits_live bs16 518px, {k}: {ms:.3f} ms = {16e3 / ms:.2f} img/s (runs {v[0]:.3f}, {v[1]:.3f})")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
@@ -617,18 +889,30 @@ def main(argv=None) -> int:
     times = phase_timing(fe, decoder, gen)
     del fe
     lora_run = phase_lora(args.seed, dev)
+    train_launches, peak_gib = lora_run["launches"], lora_run["peak_gib"]
     grad_rel = phase_lora_grads(args.seed, dev)
     train_times = phase_train_timing(lora_run, gen)
     lora_ms, lora_plain_ms = train_times["lora_step"]
+    del lora_run
+    torch.cuda.empty_cache()
+    int8_err = phase_int8_kernels(gen, dev)
+    fe8 = _serving_model(args.seed, dev, quantize="int8")[0]
+    int8_launches = phase_int8_serving(fe8, decoder, args.seed)
+    int8_composed_err = phase_int8_composed(fe8, decoder, args.seed)
+    int8_times = phase_int8_timing(fe8, decoder, gen)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
         "lora_step_ms": lora_ms, "lora_step_plain_ms": lora_plain_ms,
         "lora_step_remat_layer_ms": train_times["lora_step_remat_layer"],
-        "lora_grad_rel_diff": grad_rel, "lora_step_peak_gib": lora_run["peak_gib"],
+        "lora_grad_rel_diff": grad_rel, "lora_step_peak_gib": peak_gib,
+        "int8_fg_logits_live_img_per_s": 16e3 / int8_times["fwd int8 kernels"],
+        "int8_fg_logits_live_plain_img_per_s": 16e3 / int8_times["fwd int8 plain"],
+        "int8_whole_mlp_img_per_s": 16e3 / int8_times["fwd int8 kernels, whole MLP"],
+        "bf16_fg_logits_live_img_per_s_same_process": 16e3 / int8_times["fwd bf16 kernels"],
+        "int8_composed_max_abs_err": int8_composed_err,
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
-    train_launches = lora_run["launches"]
     _log(json.dumps({"kernels": [
         {"name": "K1 packed attention forward", "route": "cuda",
          "source": "ucod_dpl_tpu_torch/csrc/attention_fwd.cu",
@@ -648,6 +932,13 @@ def main(argv=None) -> int:
          "replaces": "ucod_dpl_tpu/ops/attention.py:440, ucod_dpl_tpu/ops/attention.py:684,716",
          "launches": train_launches["bwd"], "max_abs_err": grad_err["bwd"],
          "ms": train_times["bwd"][0], "plain_ms": train_times["bwd"][1]},
+        *({"name": name, "route": "cuda", "source": "ucod_dpl_tpu_torch/csrc/int8_linear.cu",
+           "replaces": f"ucod_dpl_tpu/ops/fused_layers.py:{line}", "launches": int8_launches[k],
+           "max_abs_err": int8_err[k], "ms": int8_times[k][0], "plain_ms": int8_times[k][1]}
+          for k, name, line in (("K8", "K8 int8 LayerNorm + quantize + q/k/v", 160),
+                                ("K9", "K9 int8 LayerNorm + quantize + fc1 + GELU + requantize", 218),
+                                ("K10", "K10 int8 quantize + out-projection", 479),
+                                ("K11", "K11 int8 whole MLP half", 327))),
     ]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

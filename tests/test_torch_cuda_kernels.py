@@ -1,5 +1,6 @@
 """Card-only checks of the port's CUDA kernels at edge shapes: K1 (also with
-its log-sum-exp output), the attention backward and K6.
+its log-sum-exp output), the attention backward, K6 and the int8 kernels
+K8-K11.
 
 Marked ``cuda``: they skip without a CUDA device (the decision is made in a
 fixture, at run time).  On a card::
@@ -9,7 +10,10 @@ fixture, at run time).  On a card::
 Tolerances as in chip_smoke.py: K1 within 2^-6 * max|plain| of its plain
 version, the log-sum-exp within 1e-3, the backward's dq/dk/dv within
 2^-5 * max|plain| and 2% of the plain gradient's norm (each plus a 1e-5
-floor), K6 within 2% of max|plain|.
+floor), K6 within 2% of max|plain|; the int8 kernels as in chip_smoke.py's
+phase D: codes within one step and at least 99% equal, scales within rtol
+1e-5, bf16 outputs, row by row, within one code step (s_x * 127 * max w_s) plus
+one bf16 ulp of the row's max|plain|.
 """
 
 import pytest
@@ -24,7 +28,9 @@ from ucod_dpl_tpu_torch.ops.attention import (
     packed_attention_fwd_lse_reference,
     packed_attention_reference,
 )
+from ucod_dpl_tpu_torch.ops import fused_layers as FL
 from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv, layernorm_qkv_reference
+from ucod_dpl_tpu_torch.ops.quant import quantize_act, quantize_linear
 
 pytestmark = pytest.mark.cuda
 
@@ -119,3 +125,92 @@ def test_kernels_count_launches_and_reject_what_they_do_not_take(dev):
         narrow = {"w": torch.randn(128, 128, device=dev), "b": torch.zeros(128, device=dev)}
         layernorm_qkv(q[..., :128].contiguous(), {k: v[:128] for k, v in norm.items()},
                       narrow, narrow, narrow, 1e-6)
+
+
+def _q8(g, dev, d_in, d_out):
+    return quantize_linear({"w": torch.randn(d_out, d_in, generator=g, device=dev) / d_in ** 0.5,
+                            "b": 0.1 * torch.randn(d_out, generator=g, device=dev)})
+
+
+def _int8_case(dev, rows, d, seed):
+    """bf16 (1, rows, d) followed in memory by NaN rows; rows over six
+    decades of scale, row 0 all zero and row 1 constant (when there are
+    rows enough)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    buf = torch.full(((rows + 64) * d,), float("nan"), dtype=torch.bfloat16, device=dev)
+    x = buf[: rows * d].view(1, rows, d)
+    x.copy_(torch.randn(1, rows, d, generator=g, device=dev) * torch.logspace(-3, 3, rows, device=dev)[:, None])
+    if rows >= 2:
+        x[0, 0], x[0, 1] = 0.0, 0.5
+    norm = {"scale": 1 + 0.1 * torch.randn(d, generator=g, device=dev),
+            "bias": 0.1 * torch.randn(d, generator=g, device=dev)}
+    return g, x, norm
+
+
+def _assert_int8_close(got, ref, s_x, w_s):
+    """Row by row: one code step (s_x * 127 * max w_s) plus one bf16 ulp of
+    the row's max|plain|."""
+    ref = ref.float()
+    rowmax = ref.abs().amax(dim=-1, keepdim=True)
+    ulp = torch.where(rowmax > 0, torch.exp2(torch.floor(torch.log2(rowmax)) - 7), torch.zeros_like(rowmax))
+    assert torch.isfinite(got).all()
+    assert ((got.float() - ref).abs() <= s_x * 127 * w_s.max() + ulp).all()
+
+
+def _assert_codes_close(codes, scales, ref_codes, ref_scales):
+    assert torch.isfinite(scales).all()
+    diff = (codes.int() - ref_codes.int()).abs()
+    assert diff.max().item() <= 1 and (diff == 0).float().mean().item() >= 0.99
+    assert ((scales - ref_scales).abs() <= 1e-5 * ref_scales.abs()).all()
+
+
+@pytest.mark.parametrize("rows,d", [(1, 768), (2, 256), (17, 768), (65, 512), (130, 768), (1373, 768)])
+def test_int8_row_kernels_edge_shapes(dev, rows, d):
+    """K8 and K10: rows not a multiple of the 64-row tile, zero, constant and
+    extreme rows, other hidden sizes."""
+    g, x, norm = _int8_case(dev, rows, d, rows + d)
+    q8 = [_q8(g, dev, d, d) for _ in range(4)]
+    h_s = quantize_act(FL._layernorm_f32(x, norm, 1e-6))[1]
+    outs = FL.layernorm_qkv_w8a8(x, norm, *q8[:3], 1e-6, out=tuple(torch.full_like(x, float("nan")) for _ in range(3)))
+    for o, r, qp in zip(outs, FL.layernorm_qkv_w8a8_reference(x, norm, *q8[:3], 1e-6), q8):
+        _assert_int8_close(o, r, h_s, qp["w_s"])
+    got = FL.dense_quant_w8a8(x, q8[3], torch.bfloat16, out=torch.full_like(x, float("nan")))
+    _assert_int8_close(got, FL.dense_quant_w8a8_reference(x, q8[3], torch.bfloat16), quantize_act(x)[1],
+                       q8[3]["w_s"])
+
+
+@pytest.mark.parametrize("rows,d,f", [(1, 768, 3072), (15, 256, 1024), (17, 768, 3072), (100, 512, 1536),
+                                      (1373, 768, 3072)])
+def test_int8_mlp_kernels_edge_shapes(dev, rows, d, f):
+    """K9 and K11: rows not a multiple of the 16-row tile, zero, constant and
+    extreme rows, other widths."""
+    g, x, norm = _int8_case(dev, rows, d, 7 * rows + f)
+    fc1, fc2 = _q8(g, dev, d, f), _q8(g, dev, f, d)
+    codes = torch.full((1, rows, f), -128, dtype=torch.int8, device=dev)
+    scales = torch.full((1, rows, 1), float("nan"), device=dev)
+    FL.layernorm_fc1_gelu_w8a8(x, norm, fc1, 1e-6, out=(codes, scales))
+    ref_codes, ref_scales = FL.layernorm_fc1_gelu_w8a8_reference(x, norm, fc1, 1e-6)
+    _assert_codes_close(codes, scales, ref_codes, ref_scales)
+    got = FL.layernorm_mlp_w8a8(x, norm, fc1, fc2, 1e-6, out=torch.full_like(x, float("nan")))
+    _assert_int8_close(got, FL.layernorm_mlp_w8a8_reference(x, norm, fc1, fc2, 1e-6), ref_scales, fc2["w_s"])
+
+
+def test_int8_kernels_count_launches_and_reject_what_they_do_not_take(dev):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = torch.randn(2, 70, 256, device=dev, dtype=torch.bfloat16)
+    norm = {"scale": torch.ones(256, device=dev), "bias": torch.zeros(256, device=dev)}
+    lin, fc1, fc2 = _q8(g, dev, 256, 256), _q8(g, dev, 256, 1024), _q8(g, dev, 1024, 256)
+    calls = ((FL.layernorm_qkv_w8a8, (norm, lin, lin, lin, 1e-6)), (FL.dense_quant_w8a8, (lin, torch.bfloat16)),
+             (FL.layernorm_fc1_gelu_w8a8, (norm, fc1, 1e-6)), (FL.layernorm_mlp_w8a8, (norm, fc1, fc2, 1e-6)))
+    for fn, args in calls:
+        before = fn.launches
+        fn(x, *args)
+        assert fn.launches == before + 1
+        with pytest.raises(TypeError):  # f32 activations
+            fn(x.float(), *args)
+        with pytest.raises(ValueError):  # not contiguous
+            fn(x.transpose(0, 1), *args)
+    with pytest.raises(ValueError):  # hidden 128: 8 values a lane, 32 lanes
+        FL.dense_quant_w8a8(x[..., :128].contiguous(), _q8(g, dev, 128, 256), torch.bfloat16)
+    with pytest.raises(ValueError):  # 16 rows of a 4096-wide f32 expansion exceed shared memory
+        FL.layernorm_fc1_gelu_w8a8(x, norm, _q8(g, dev, 256, 4096), 1e-6)

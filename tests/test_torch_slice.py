@@ -181,7 +181,7 @@ def test_port_imports_no_jax():
         "sys.modules['jax'] = None\n"
         "import ucod_dpl_tpu_torch\n"
         "from ucod_dpl_tpu_torch import serving\n"
-        "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, resize\n"
+        "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, quant, resize\n"
         "# serving pre-normalised arrays loads no module of the JAX package\n"
         "assert 'ucod_dpl_tpu' not in sys.modules, sorted(sys.modules)\n"
         "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io\n"

@@ -50,6 +50,18 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += A * B for one m16n8k32 tile, s8 operands, exact s32 accumulators.  In
+// bytes its fragments are those of m16n8k16 bf16 above (a0 = A[g][4t..4t+3],
+// b0 = B[4t..4t+3][g], ...), so the same ldmatrix addressing feeds both.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two adjacent bf16 values (the lower index in the low half).
 __device__ __forceinline__ uint32_t ld_bf16x2(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
@@ -100,6 +112,12 @@ __device__ __forceinline__ void load_rows64(__nv_bfloat16 (*dst)[kLd], const __n
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 

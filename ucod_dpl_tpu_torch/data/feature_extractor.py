@@ -26,6 +26,7 @@ from ucod_dpl_tpu_torch.models.dino import (
     init_dino,
     load_hf_checkpoint,
 )
+from ucod_dpl_tpu_torch.ops.quant import quantize_dino_linears
 
 logger = logging.getLogger(__name__)
 
@@ -57,6 +58,7 @@ class FeatureExtractor:
         seed: int = 0,
         strict: Optional[bool] = None,
         qkv_masters: bool = False,
+        quantize: Optional[str] = None,
     ):
         """``device``: where the backbone runs (no default: nothing chooses the
         CPU because CUDA is missing).  ``compute_dtype`` defaults to bf16 on
@@ -66,7 +68,14 @@ class FeatureExtractor:
         as float32 masters and merges its adapters into them at every step.
         ``strict`` (or ``fe_cfg.strict_weights``): missing pretrained
         weights raise instead of falling back to a random initialisation
-        from ``seed``."""
+        from ``seed``.  ``quantize="int8"``: ``extract`` runs the int8 (W8A8)
+        backbone, whose linears are quantized once, from the float32
+        weights before the cast, into ``_qparams`` (inference only, so not
+        with ``qkv_masters``)."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        if quantize is not None and qkv_masters:
+            raise ValueError("the int8 path is inference-only; qkv_masters (LoRA training) needs quantize=None")
         self.fe_cfg = fe_cfg
         self.strict = fe_cfg.get("strict_weights", False) if strict is None else strict
         self.config = DinoConfig.from_type(fe_cfg.type)
@@ -79,7 +88,22 @@ class FeatureExtractor:
                 raise ValueError(f"no default compute dtype for device {self.device}")
             compute_dtype = _DTYPE_BY_DEVICE[self.device.type]
         self.compute_dtype = compute_dtype
-        self.params = cast_params(params_to(self._load_params(seed), self.device), compute_dtype, qkv_masters)
+        self.seed = seed
+        self.quantize = quantize
+        masters = params_to(self._load_params(seed), self.device)
+        # quantized from the float32 weights: a bf16 copy gives other codes and scales
+        self._qparams = quantize_dino_linears(masters) if quantize == "int8" else None
+        self.params = cast_params(masters, compute_dtype, qkv_masters)
+
+    def int8_params(self):
+        """The backbone's int8 linears: those it holds (``quantize="int8"``),
+        else quantized now from its float32 weights (loaded again from the
+        same source when it holds them cast to another dtype)."""
+        if self._qparams is not None:
+            return self._qparams
+        if self.compute_dtype == torch.float32:
+            return quantize_dino_linears(self.params)
+        return quantize_dino_linears(params_to(self._load_params(self.seed), self.device))
 
     def _load_params(self, seed: int):
         for cand in _candidate_weight_paths(self.fe_cfg):
@@ -119,5 +143,6 @@ class FeatureExtractor:
         features on the host."""
         with torch.inference_mode():
             pixels = torch.from_numpy(np.asarray(images_nhwc, np.float32)).to(self.device)
-            out = dino_forward(self.params, pixels, self.config, compute_dtype=self.compute_dtype)
+            out = dino_forward(self.params, pixels, self.config, compute_dtype=self.compute_dtype,
+                               quant=self._qparams)
             return self._to_host_f32(out["key_features"], "features")

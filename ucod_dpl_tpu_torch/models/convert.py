@@ -108,6 +108,25 @@ def dino_to_jax(params: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def quant_from_jax(qtree: Mapping[str, Any]) -> Dict[str, Any]:
+    """JAX ``quantize_dino_linears`` output (numpy values) -> port int8
+    linears on the CPU: ``w_q`` (in, out) int8 -> (out, in), the scales and
+    biases as they are."""
+    return {"layers": [{name: {"w_q": torch.from_numpy(np.ascontiguousarray(np.asarray(p["w_q"], np.int8).T)),
+                               "w_s": _t(p["w_s"]), "b": _t(p["b"])}
+                        for name, p in layer.items()}
+                       for layer in qtree["layers"]]}
+
+
+def quant_to_jax(q: Mapping[str, Any]) -> Dict[str, Any]:
+    """Port int8 linears -> a numpy tree in the JAX layout (inverse of
+    :func:`quant_from_jax`)."""
+    return {"layers": [{name: {"w_q": np.ascontiguousarray(p["w_q"].cpu().numpy().T),
+                               "w_s": _n(p["w_s"]), "b": _n(p["b"])}
+                        for name, p in layer.items()}
+                       for layer in q["layers"]]}
+
+
 def decoder_from_jax(p: Any) -> RevDecoderParams:
     """A JAX ``RevDecoderParams`` (or a dict with its field names; numpy
     values) -> port decoder params on the CPU."""

@@ -136,17 +136,22 @@ def fg_logits_live(
     compute_dtype: torch.dtype,
     size: Optional[int] = None,
     plain: bool = False,
+    quant=None,
+    int8_mlp: str = "split",
 ):
     """pixels -> decoder logits through the folded live-inference path: the
     ViT with the decoupling folded into its last key projection, then the
     decoder body at ``size`` (``None`` = the native patch grid).  The hot
     composition of serving and the LookTwice crop pass.  ``plain=True`` runs
-    the plain PyTorch versions of the kernels."""
+    the plain PyTorch versions of the kernels.  ``quant`` (int8 linears from
+    ``ops.quant.quantize_dino_linears``) takes the W8A8 backbone, its MLP half
+    as ``int8_mlp`` says (``dino_forward``); the decoder body stays float32."""
     from ucod_dpl_tpu_torch.models.dino import dino_forward
 
     last_k = backbone_params["layers"][-1]["k"]
     fold = key_decoupling_fold(last_k["w"], last_k["b"], params)
     out = dino_forward(
-        backbone_params, pixels, dino_cfg, compute_dtype=compute_dtype, key_fold=fold, plain=plain
+        backbone_params, pixels, dino_cfg, compute_dtype=compute_dtype, key_fold=fold, plain=plain,
+        quant=quant, int8_mlp=int8_mlp,
     )
     return rev_decoder_forward_decoupled(params, out["folded_features"], size)

@@ -10,7 +10,11 @@ the decoder's decoupling.
 
 On a CUDA device the fused LayerNorm + q/k/v (K6) and the packed attention
 (K1) run as hand-written kernels in bf16; ``plain=True`` runs their plain
-PyTorch versions instead, on any device.  The differentiated forward
+PyTorch versions instead, on any device.  With ``quant`` (the opt-in int8
+serving path, :func:`~ucod_dpl_tpu_torch.ops.quant.quantize_dino_linears`)
+the linears of layers 0..n-2 run through the int8 kernels K8 (LN + q/k/v),
+K10 (out-projection) and K9 (LN + fc1 + GELU, then fc2 as a plain int8
+product) or, with ``int8_mlp="whole"``, K11 (the whole MLP half).  The differentiated forward
 (``differentiable=True``, what LoRA training runs) takes the routing of the
 JAX package's ``differentiable_mode``: LayerNorm and three dense
 projections in place of K6 (which has no backward), and attention through
@@ -37,7 +41,9 @@ from ucod_dpl_tpu_torch.ops.attention import (
     packed_attention_diff,
     packed_attention_reference,
 )
+from ucod_dpl_tpu_torch.ops import fused_layers as FL
 from ucod_dpl_tpu_torch.ops.fused_layers import dense, layer_norm, layernorm_qkv, layernorm_qkv_reference
+from ucod_dpl_tpu_torch.ops.quant import dense_w8a8, dense_w8a8_pre, quantize_linear
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bicubic
 
 
@@ -328,6 +334,8 @@ def dino_forward(
     plain: bool = False,
     differentiable: bool = False,
     remat=False,
+    quant: Optional[Dict[str, Any]] = None,
+    int8_mlp: str = "split",
 ) -> Dict[str, torch.Tensor]:
     """Run the ViT and return the reference hook contract.
 
@@ -350,6 +358,13 @@ def dino_forward(
       remat: ``False``/``"none"`` saves every activation for the backward;
         ``True``/``"layer"`` saves only each layer's input and recomputes the
         layer in the backward (``torch.utils.checkpoint``).
+      quant: int8 linears from ``quantize_dino_linears`` (of the float32
+        weights): the W8A8 forward, inference only.  The last layer's key
+        projection or ``key_fold`` (quantized at each call) becomes a plain
+        int8 product; norms, layerscales and embeddings come from ``params``.
+      int8_mlp: with ``quant``, ``"split"`` runs the MLP half as K9 and an
+        int8 fc2 product, ``"whole"`` as K11 (the JAX package's
+        ``UCOD_INT8_WHOLE_MLP=1``).
 
     Returns ``key_tokens`` (B, 1+N, hidden) and ``key_features`` (B, h, w,
     hidden); with ``key_fold`` only ``folded_features`` (B, h, w, F).
@@ -359,6 +374,13 @@ def dino_forward(
     dtype = compute_dtype
     eps = cfg.layer_norm_eps
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
+    if quant is not None:
+        if differentiable:
+            raise ValueError("the int8 path is inference-only; differentiable=True needs quant=None")
+        if int8_mlp not in ("split", "whole"):
+            raise ValueError(f"int8_mlp must be 'split' or 'whole'; got {int8_mlp!r}")
+        if len(quant["layers"]) != len(params["layers"]):
+            raise ValueError(f"quant has {len(quant['layers'])} layers, params {len(params['layers'])}")
     if differentiable:
         attention = packed_attention_reference if plain else packed_attention_diff
 
@@ -368,6 +390,24 @@ def dino_forward(
     else:
         ln_qkv = layernorm_qkv_reference if plain else layernorm_qkv
         attention = packed_attention_reference if plain else packed_attention
+
+    def block_int8(x, layer, q8):
+        ln_qkv8 = FL.layernorm_qkv_w8a8_reference if plain else FL.layernorm_qkv_w8a8
+        q, k, v = ln_qkv8(x, layer["norm1"], q8["q"], q8["k"], q8["v"], eps)
+        attn = attention(q, k, v, cfg.num_heads, scale)
+        attn = (FL.dense_quant_w8a8_reference if plain else FL.dense_quant_w8a8)(attn, q8["out"], dtype)
+        if cfg.use_layerscale:
+            attn = attn * layer["ls1"].to(dtype)
+        x = x + attn
+        if int8_mlp == "whole":
+            mlp = FL.layernorm_mlp_w8a8_reference if plain else FL.layernorm_mlp_w8a8
+            h = mlp(x, layer["norm2"], q8["fc1"], q8["fc2"], eps)
+        else:
+            fc1 = FL.layernorm_fc1_gelu_w8a8_reference if plain else FL.layernorm_fc1_gelu_w8a8
+            h = dense_w8a8_pre(*fc1(x, layer["norm2"], q8["fc1"], eps), q8["fc2"], dtype)
+        if cfg.use_layerscale:
+            h = h * layer["ls2"].to(dtype)
+        return x + h
 
     def block(x, layer):
         q, k, v = ln_qkv(x, layer["norm1"], layer["q"], layer["k"], layer["v"], eps)
@@ -395,13 +435,17 @@ def dino_forward(
 
     x = _embed(params, pixels, cfg, dtype)
     *layers, last = params["layers"]
-    for layer in layers:
-        x = run_block(x, layer)
+    for i, layer in enumerate(layers):
+        x = run_block(x, layer) if quant is None else block_int8(x, layer, quant["layers"][i])
 
+    # the last layer: LN1, then the key projection or the fold (int8: a
+    # plain int8 product, as the JAX package leaves it to XLA; the fold
+    # weight depends on the decoder, so it is quantized here, at each call)
     h = layer_norm(x, last["norm1"], eps)
     if key_fold is not None:
         fw, fb = key_fold
-        folded = dense(h, {"w": fw, "b": fb}, dtype)
+        fold = {"w": fw, "b": fb}
+        folded = dense(h, fold, dtype) if quant is None else dense_w8a8(h, quantize_linear(fold), dtype)
         return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
-    k = dense(h, last["k"], dtype)
+    k = dense(h, last["k"], dtype) if quant is None else dense_w8a8(h, quant["layers"][-1]["k"], dtype)
     return {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}

@@ -12,7 +12,8 @@ Batches are padded to power-of-two buckets up to ``max_batch``; the JAX
 package's jitted programs (probabilities or masks, and the LookTwice crop
 pass) are eager methods under ``torch.inference_mode()`` around
 :func:`ucod_dpl_tpu_torch.models.dba.fg_logits_live`.  On CUDA the backbone
-runs in bf16 through the K1 and K6 kernels.
+runs in bf16 through the K1 and K6 kernels; with ``quantize="int8"``
+through K1 and the int8 kernels K8, K10 and K9.
 """
 
 from __future__ import annotations
@@ -43,7 +44,18 @@ class Predictor:
         max_batch: int = 16,
         look_twice_th: float = 0.15,
         expand_type: str = "dynamic",
+        quantize: Optional[str] = None,
     ):
+        """``quantize="int8"``: the int8 (W8A8) backbone
+        (``ops/quant.py``), with the linears the extractor holds, or
+        quantized once here from its float32 weights.  An extractor built
+        with ``quantize="int8"`` opts the Predictor in."""
+        if quantize not in (None, "int8"):
+            raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+        if quantize is None:
+            quantize = feature_extractor.quantize
+        self.quantize = quantize
+        self._qparams = feature_extractor.int8_params() if quantize == "int8" else None
         self.fe = feature_extractor
         self.device = feature_extractor.device
         self.decoder_params = params_to(decoder_params, self.device)
@@ -55,15 +67,17 @@ class Predictor:
 
     @classmethod
     def from_config(
-        cls, config_path: str, checkpoint: str, *, device, max_batch: int = 16, strict: bool = True
+        cls, config_path: str, checkpoint: str, *, device, max_batch: int = 16, strict: bool = True,
+        quantize: Optional[str] = None,
     ) -> "Predictor":
         """``strict=True``: missing backbone weights raise instead of serving
-        random-init features."""
+        random-init features.  ``quantize="int8"``: the int8 backbone."""
         from ucod_dpl_tpu.config import load_config
         from ucod_dpl_tpu_torch.models.safetensors_io import load_decoder_checkpoint
 
         cfg = load_config(config_path)
-        fe = FeatureExtractor(cfg.dataset_cfg.feature_extractor_cfg, device=device, strict=strict)
+        fe = FeatureExtractor(cfg.dataset_cfg.feature_extractor_cfg, device=device, strict=strict,
+                              quantize=quantize)
         decoder, _ema = load_decoder_checkpoint(checkpoint)
         return cls(
             fe,
@@ -79,7 +93,7 @@ class Predictor:
         pixels = torch.from_numpy(batch).to(self.device)
         fg, _, _ = fg_logits_live(
             self.fe.params, self.decoder_params, pixels, self.fe.config,
-            compute_dtype=self.fe.compute_dtype, size=size,
+            compute_dtype=self.fe.compute_dtype, size=size, quant=self._qparams,
         )
         return fg
 
