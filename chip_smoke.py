@@ -49,7 +49,30 @@ Phases (each raises on failure; any failure exits non-zero):
      agree with the float32 masks on more than 90% of the pixels;
   G. timing: K8-K11 against their plain versions at bs16 L1370, and
      ``fg_logits_live`` at bs16 518px with the int8 kernels, the int8 plain
-     path and the bf16 kernels, interleaved in one process.
+     path and the bf16 kernels, interleaved in one process;
+  H. K5 (per-head attention) against its plain version, bf16, at (BH, L, d) =
+     (48, 1370, 64) (a tensor-parallel shard's), (80, 257, 32), (4, 2917,
+     64), (3, 65, 16) and (1, 1, 128), with large logits, NaN-filled outputs
+     and NaN in memory past the inputs; ``multi_head_attention`` with 3 heads
+     launches K5 and not K1;
+  I. tensor-parallel feature extraction: a full-width dinov2-base
+     ``FeatureExtractor(mesh=build_mesh({"data": 1, "model": 4}, devices=[cuda:0] * 4))``
+     extracts a bs16 518px bf16 batch: finite features, K5 launched 44 times
+     (11 layers x 4 shards), K1 and K6 never, and
+     err(TP kernels vs f32 unsharded plain) <= 1.5 * err(bf16 unsharded plain)
+     + 1e-3; then ``{"data": 2, "model": 2}``: 44 K1 launches, no K5; timing
+     of the TP extract against the unsharded one, interleaved;
+  J. K7 (LayerNorm + fc1 + GELU) against its plain version at bs16 L1370
+     (D 768, F 3072) and at 1, 17, 65 and 1370 * 4 + 3 rows, NaN-filled
+     outputs; then the MLP halves of the 11 layers of the serving backbone
+     through K7 (11 launches), and timing of K7 against its plain version
+     and of one layer's MLP half with K7 against the composed LN + dense +
+     GELU.
+Every kernel is also timed against one PyTorch call of the same function
+where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 and its
+backward for K3/K4), and each kernel's bound (the larger of its bytes over
+3.35 TB/s and its operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8, the
+H100 SXM's published peaks) is computed from the shapes timed.
 The second-to-last line is a JSON object of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  TF32 is off for matmuls and cuDNN.
 """
@@ -109,9 +132,23 @@ INT8_CASES = (("bs16 L1370", 16 * 1370, False), ("B*L 1", 1, False), ("B*L 17", 
               ("B*L 65", 65, True), ("B*L 5483", 1370 * 4 + 3, True))  # (name, rows, edge rows)
 INT8_CODE_EQUAL = 0.99
 INT8_SCALE_RTOL = 1e-5
+# K5 against its plain version: K1's bound (the same arithmetic per head).
+# K7: both sides round h, h1 and the GELU output to bf16 and their LayerNorm
+# sums differ in order (a few f32 ulps, which can move h by one bf16 ulp);
+# the bound is K6's, 2% of max|plain|.
+K5_CASES = (("BH48 L1370 d64 (TP shard)", 48, 1370, 64, 1.0), ("BH48 L1370 d64 q*3", 48, 1370, 64, 3.0),
+            ("BH80 L257 d32", 80, 257, 32, 1.0), ("BH4 L2917 d64", 4, 2917, 64, 1.0),
+            ("BH3 L65 d16", 3, 65, 16, 1.0), ("BH1 L1 d128", 1, 1, 128, 1.0))
+K7_TOL = 0.02
+K7_ROWS = (("bs16 L1370", 16 * 1370), ("rows 1", 1), ("rows 17", 17), ("rows 65", 65),
+           ("rows 5483", 1370 * 4 + 3))
 SERVE_DIM = 768
 NUM_HEADS = 12
 MLP_DIM = 3072
+# H100 SXM published dense peaks (the rates a bound is taken against)
+PEAK_BF16 = 989e12
+PEAK_INT8 = 1979e12
+PEAK_HBM = 3.35e12
 
 
 class _Cfg(dict):
@@ -161,6 +198,35 @@ def _ab_ms(plain, kernel, iters: int):
     k2 = _time_ms(kernel, iters)
     p2 = _time_ms(plain, iters)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def _bound(ops: float, nbytes: float, peak: float):
+    """(bound ms, "operations" or "bytes"): the larger of ``ops`` at ``peak``
+    and ``nbytes`` at the HBM rate."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_HBM * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _attention_bound(bh: int, l: int, d: int, matmuls: int = 2, tensors: int = 4, lse: bool = False):
+    """Attention over ``bh`` heads of (l, d): ``matmuls`` products of
+    2 * l^2 * d each per head, ``tensors`` bf16 (bh, l, d) tensors moved once
+    (plus an f32 log-sum-exp row when ``lse``)."""
+    nbytes = tensors * bh * l * d * 2 + (bh * l * 4 if lse else 0)
+    return _bound(matmuls * 2.0 * bh * l * l * d, nbytes, PEAK_BF16)
+
+
+def _sdpa_ms(q, k, v, scale, iters: int) -> float:
+    """One ``scaled_dot_product_attention`` call on (B, H, L, d) views of the
+    same tensors: the library yardstick, never used by the port."""
+    import torch.nn.functional as F
+
+    return _time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), iters)
+
+
+def _packed_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, L, 12 * 64) -> a (B, 12, L, 64) view of the same memory."""
+    b, l, _ = x.shape
+    return x.view(b, l, NUM_HEADS, SERVE_DIM // NUM_HEADS).transpose(1, 2)
 
 
 def phase_device() -> str:
@@ -217,14 +283,19 @@ def phase_k1(gen, dev) -> float:
     return worst
 
 
-def _nan_tailed(gen, dev, b, l, scale=1.0):
-    """A contiguous bf16 (b, l, 768) normal tensor whose memory is followed by
-    64 rows of NaN: a kernel that reads a row past L of the last batch
-    element reads NaN."""
-    buf = torch.full(((b * l + 64) * SERVE_DIM,), float("nan"), dtype=torch.bfloat16, device=dev)
-    x = buf[: b * l * SERVE_DIM].view(b, l, SERVE_DIM)
-    x.copy_(torch.randn(b, l, SERVE_DIM, generator=gen, device=dev).mul_(scale))
+def _nan_tailed_shape(gen, dev, shape, scale=1.0):
+    """A contiguous bf16 normal tensor of ``shape`` whose memory is followed by
+    64 rows of NaN: a kernel that reads a row past the last one reads NaN."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 64 * shape[-1],), float("nan"), dtype=torch.bfloat16, device=dev)
+    x = buf[:n].view(shape)
+    x.copy_(torch.randn(shape, generator=gen, device=dev).mul_(scale))
     return x
+
+
+def _nan_tailed(gen, dev, b, l, scale=1.0):
+    """A (b, l, 768) :func:`_nan_tailed_shape` tensor."""
+    return _nan_tailed_shape(gen, dev, (b, l, SERVE_DIM), scale)
 
 
 def _check_grad(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -350,8 +421,8 @@ def phase_serving(fe, decoder, seed: int) -> dict:
         _log(f"  request of {n} (bucket {predictor._bucket(n)}, soft={soft}): {secs:.3f} s "
              f"host clock, foreground share {stack.mean():.4f}, K1/K6 launches {delta}")
     launches = {k: fn.launches for k, fn in _kernel_wrappers().items()}
-    if launches["fwd_lse"] or launches["bwd"]:
-        raise AssertionError(f"serving launched training kernels: {launches}")
+    if launches["fwd_lse"] or launches["bwd"] or launches["K5"] or launches["K7"]:
+        raise AssertionError(f"serving launched kernels off its path: {launches}")
     return launches
 
 
@@ -392,12 +463,18 @@ def _lora_setup(seed: int, dev, batch: int):
 
 
 def _kernel_wrappers():
-    """The wrappers whose ``launches`` count the main paths' kernel launches."""
-    from ucod_dpl_tpu_torch.ops.attention import packed_attention, packed_attention_bwd, packed_attention_fwd_lse
-    from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv
+    """The bf16 wrappers whose ``launches`` count the main paths' kernel
+    launches."""
+    from ucod_dpl_tpu_torch.ops.attention import (
+        heads_attention,
+        packed_attention,
+        packed_attention_bwd,
+        packed_attention_fwd_lse,
+    )
+    from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_fc1_gelu, layernorm_qkv
 
-    return {"K1": packed_attention, "K6": layernorm_qkv, "fwd_lse": packed_attention_fwd_lse,
-            "bwd": packed_attention_bwd}
+    return {"K1": packed_attention, "K5": heads_attention, "K6": layernorm_qkv, "K7": layernorm_fc1_gelu,
+            "fwd_lse": packed_attention_fwd_lse, "bwd": packed_attention_bwd}
 
 
 def phase_lora(seed: int, dev) -> dict:
@@ -431,7 +508,7 @@ def phase_lora(seed: int, dev) -> dict:
             raise AssertionError(f"step {i + 1}: non-finite loss {loss}")
         if not b_norm > 0:
             raise AssertionError(f"step {i + 1}: the adapters' B did not move")
-        if delta != {"K1": 0, "K6": 0, "fwd_lse": depth - 1, "bwd": depth - 1}:
+        if delta != {"K1": 0, "K5": 0, "K6": 0, "K7": 0, "fwd_lse": depth - 1, "bwd": depth - 1}:
             raise AssertionError(f"step {i + 1}: launches {delta}, expected {depth - 1} forward-LSE and "
                                  f"backward launches and no K1/K6")
     launches = {k: fn.launches for k, fn in counts.items()}
@@ -527,7 +604,9 @@ def phase_timing(fe, decoder, gen) -> dict:
                for _ in range(3))
     k1_ms, k1_plain = _ab_ms(lambda: packed_attention_reference(q, k, v, NUM_HEADS, 0.125),
                              lambda: packed_attention(q, k, v, NUM_HEADS, 0.125), 20)
-    _log(f"  K1 bs16 L1370 12x64: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms")
+    sdpa_ms = _sdpa_ms(*(_packed_heads(x) for x in (q, k, v)), 0.125, 20)
+    _log(f"  K1 bs16 L1370 12x64: kernel {k1_ms:.4f} ms, plain {k1_plain:.4f} ms, "
+         f"scaled_dot_product_attention {sdpa_ms:.4f} ms")
     x, norm, lins = _lnqkv_inputs(gen, dev, 16, 1370)
     k6_ms, k6_plain = _ab_ms(lambda: layernorm_qkv_reference(x, norm, *lins, 1e-6),
                              lambda: layernorm_qkv(x, norm, *lins, 1e-6), 20)
@@ -543,7 +622,8 @@ def phase_timing(fe, decoder, gen) -> dict:
         fwd_ms, fwd_plain = _ab_ms(fwd(True), fwd(False), 5)
     _log(f"  fg_logits_live bs16 518px bf16: kernels {fwd_ms:.3f} ms = {16e3 / fwd_ms:.2f} img/s; "
          f"plain {fwd_plain:.3f} ms = {16e3 / fwd_plain:.2f} img/s")
-    return {"K1": (k1_ms, k1_plain), "K6": (k6_ms, k6_plain),
+    _trace(fwd(False), "fg_logits_live bs16 518px bf16")
+    return {"K1": (k1_ms, k1_plain), "K6": (k6_ms, k6_plain), "sdpa_fwd": sdpa_ms,
             "fg_logits_live_img_per_s": 16e3 / fwd_ms, "fg_logits_live_plain_img_per_s": 16e3 / fwd_plain}
 
 
@@ -584,8 +664,16 @@ def phase_train_timing(lora_run: dict, gen) -> dict:
             ms, plain_ms = _ab_ms(
                 lambda: packed_attention_bwd_reference(q, k, v, o, do, lse, NUM_HEADS, 0.125),
                 lambda: packed_attention_bwd(q, k, v, o, do, lse, NUM_HEADS, 0.125), 20)
-            _log(f"  backward bs16 L1370: kernels {ms:.4f} ms, plain (f32 flash algebra) {plain_ms:.4f} ms")
+            # the library yardstick: the backward of one scaled_dot_product_attention
+            # call on (B, H, L, d) views of the same q/k/v, from its saved forward
+            heads = [_packed_heads(x).detach().requires_grad_(True) for x in (q, k, v)]
+            o_sdpa = torch.nn.functional.scaled_dot_product_attention(*heads, scale=0.125)
+            sdpa_bwd = _time_ms(lambda: torch.autograd.grad(o_sdpa, heads, _packed_heads(do), retain_graph=True), 20)
+            _log(f"  backward bs16 L1370: kernels {ms:.4f} ms, plain (f32 flash algebra) {plain_ms:.4f} ms, "
+                 f"scaled_dot_product_attention backward {sdpa_bwd:.4f} ms")
             out["bwd"] = (ms, plain_ms)
+            out["sdpa_bwd"] = sdpa_bwd
+            del heads, o_sdpa
         del q, k, v, do, leaves
 
     def run(step):
@@ -757,7 +845,7 @@ def phase_int8_serving(fe8, decoder, seed: int) -> dict:
          f"{fe8.compute_dtype} + int8 linears, max_batch 16")
     for fn in counts.values():
         fn.launches = 0
-    want = {"K1": n, "K6": 0, "fwd_lse": 0, "bwd": 0, "K8": n, "K9": n, "K10": n, "K11": 0}
+    want = {"K1": n, "K5": 0, "K6": 0, "K7": 0, "fwd_lse": 0, "bwd": 0, "K8": n, "K9": n, "K10": n, "K11": 0}
     for size in (16, 5, 1):
         before = {k: fn.launches for k, fn in counts.items()}
         images = rng.standard_normal((size, 518, 518, 3)).astype(np.float32)
@@ -864,11 +952,237 @@ def phase_int8_timing(fe8, decoder, gen) -> dict:
         samples = {k: [] for k in runs}
         for k in order:
             samples[k].append(_time_ms(runs[k], 5))
+        _trace(runs["int8 kernels"], "fg_logits_live bs16 518px int8 kernels")
     for k, v in samples.items():
         ms = sum(v) / len(v)
         out[f"fwd {k}"] = ms
         _log(f"  fg_logits_live bs16 518px, {k}: {ms:.3f} ms = {16e3 / ms:.2f} img/s (runs {v[0]:.3f}, {v[1]:.3f})")
     return out
+
+
+def phase_k5(gen, dev) -> float:
+    """Phase H: K5 against its plain version, then the dispatch of an odd
+    head count."""
+    from ucod_dpl_tpu_torch.ops.attention import (
+        heads_attention,
+        heads_attention_reference,
+        multi_head_attention,
+        packed_attention,
+    )
+
+    _log("K5 per-head attention vs plain (bf16):")
+    worst = 0.0
+    for name, bh, l, d, q_scale in K5_CASES:
+        q, k, v = (_nan_tailed_shape(gen, dev, (bh, l, d), s) for s in (q_scale, 1.0, 1.0))
+        out = heads_attention(q, k, v, d ** -0.5, out=_nan_like(q))
+        torch.cuda.synchronize()
+        ref = heads_attention_reference(q, k, v, d ** -0.5)
+        worst = max(worst, _check(name, out, ref, K1_TOL * ref.float().abs().max().item()))
+    q = torch.randn(2, 257, 3 * 64, generator=gen, device=dev).to(torch.bfloat16)
+    before = (packed_attention.launches, heads_attention.launches)
+    multi_head_attention(q, q, q, 3, 0.125)
+    delta = (packed_attention.launches - before[0], heads_attention.launches - before[1])
+    _log(f"  multi_head_attention with 3 heads of 64: K1/K5 launches {delta}")
+    if delta != (0, 1):
+        raise AssertionError(f"3 heads launched K1/K5 {delta}, expected (0, 1)")
+    return worst
+
+
+def _features_plain(fe, images: np.ndarray, params, dtype) -> torch.Tensor:
+    from ucod_dpl_tpu_torch.models.dino import dino_forward
+
+    with torch.inference_mode():
+        px = torch.from_numpy(images).to(fe.device)
+        return dino_forward(params, px, fe.config, compute_dtype=dtype, plain=True)["key_features"].float()
+
+
+def phase_tp(seed: int, dev, fe_cfg) -> dict:
+    """Phase I: tensor-parallel feature extraction of a bs16 batch at the
+    backbone's own image size (dinov2-base: full width and depth, 518px),
+    one card named four times by the mesh."""
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.models.dino import dino_forward
+    from ucod_dpl_tpu_torch.ops.attention import packed_layout_ok
+    from ucod_dpl_tpu_torch.parallel import build_mesh
+
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    out = {}
+    fes = {}
+    for mesh_cfg in ({"data": 1, "model": 4}, {"data": 2, "model": 2}):
+        fe = FeatureExtractor(fe_cfg, mesh=build_mesh(mesh_cfg, devices=[dev] * 4), seed=seed, strict=False)
+        c = fe.config
+        depth, grid = c.num_layers, c.image_size // c.patch_size
+        images = np.random.default_rng(seed + 9).standard_normal((16, c.image_size, c.image_size, 3)).astype(np.float32)
+        kernel = "K1" if packed_layout_ok(c.num_heads // mesh_cfg["model"], c.head_dim) and c.head_dim == 64 else "K5"
+        _log(f"TP extraction: {c.variant} {c.hidden_size}-wide x{depth} layers, {c.num_heads} heads, "
+             f"{c.image_size}px, bs16, {fe.compute_dtype}, mesh {mesh_cfg} on one card")
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        feats = fe.extract(images)
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+        _log(f"  extract: {secs:.3f} s host clock (first call), features {feats.shape}, launches {launches}")
+        want = {k: 0 for k in counts}
+        want[kernel] = 4 * (depth - 1)
+        if launches != want:
+            raise AssertionError(f"TP extract on {mesh_cfg}: launches {launches}, expected {want}")
+        if feats.shape != (16, grid, grid, c.hidden_size) or not np.isfinite(feats).all():
+            raise AssertionError(f"TP extract on {mesh_cfg}: features {feats.shape}, finite {np.isfinite(feats).all()}")
+        out[f"launches {kernel}"] = launches
+        fes[kernel] = (fe, feats)
+
+    fe4 = fes["K5"][0]
+    f32 = FeatureExtractor(fe_cfg, device=dev, compute_dtype=torch.float32, seed=seed, strict=False)
+    ref = _features_plain(f32, images, f32.params, torch.float32)
+    err_plain = (_features_plain(fe4, images, fe4.params, torch.bfloat16) - ref).abs().max().item()
+    bound = 1.5 * err_plain + 1e-3
+    for kernel, (fe, feats) in fes.items():
+        err = (torch.from_numpy(feats).to(dev) - ref).abs().max().item()
+        _log(f"  TP features ({kernel} mesh) vs f32 unsharded plain: max_abs_err {err:.6g}, bf16 unsharded plain "
+             f"{err_plain:.6g}, bound {bound:.6g} (max |f32| {ref.abs().max().item():.4g})")
+        if not (np.isfinite(err) and err <= bound):
+            raise AssertionError(f"TP ({kernel}) features error {err} exceeds {bound}")
+        out[f"err {kernel}"] = err
+    out["err_plain"] = err_plain
+    del f32, ref
+
+    # timing: the TP extract (model=4, K5) against the unsharded one (K1 + K6)
+    unsharded = FeatureExtractor(fe_cfg, device=dev, seed=seed, strict=False)
+    px = torch.from_numpy(images).to(dev)
+    with torch.inference_mode():
+        runs = {
+            "unsharded extract": lambda: unsharded.extract(images),
+            "TP model=4 extract": lambda: fe4.extract(images),
+            "unsharded forward": lambda: dino_forward(unsharded.params, px, fe4.config,
+                                                      compute_dtype=fe4.compute_dtype),
+            "TP model=4 forward": lambda: dino_forward(fe4._mesh_params[0], px, fe4.config,
+                                                       compute_dtype=fe4.compute_dtype, tp_shard=fe4.tp_shard),
+        }
+        samples = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            samples[k].append(_time_ms(runs[k], 3, warmup=1))
+    _log(f"  timing (CUDA events, interleaved, bs16 {fe4.config.image_size}px {fe4.compute_dtype}; extract "
+         "includes the host copies):")
+    for k, v in samples.items():
+        out[k] = sum(v) / len(v)
+        _log(f"    {k}: {out[k]:.3f} ms (runs {v[0]:.3f}, {v[1]:.3f})")
+    _trace(runs["TP model=4 forward"], "TP model=4 forward")
+    return out
+
+
+def _trace(fn, what: str, n: int = 3, top: int = 14) -> None:
+    """torch.profiler over ``n`` calls of ``fn`` after two warm-ups: kernel
+    time and launches per call, the device's busy share of the host wall,
+    and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    launches = sum(e.count for e in kernels) / n
+    _log(f"  trace of {what} ({n} calls): {total:.3f} ms of kernel time and {launches:.0f} launches per call, "
+         f"host wall {wall:.3f} ms under the profiler, device busy {total / wall:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3 / n
+        _log(f"    {ms:8.3f} ms {ms / total:6.3f} x{e.count / n:5.0f}  {e.key[:110]}")
+
+
+def phase_k7(gen, dev, fe) -> dict:
+    """Phase J: K7 against its plain version, its path (the MLP halves of the
+    backbone's 11 layers through K7), and its timing."""
+    from ucod_dpl_tpu_torch.ops.fused_layers import (
+        dense,
+        layer_norm,
+        layernorm_fc1_gelu,
+        layernorm_fc1_gelu_reference,
+    )
+
+    d, f, eps = SERVE_DIM, MLP_DIM, 1e-6
+    norm = {"scale": 1 + 0.1 * torch.randn(d, generator=gen, device=dev),
+            "bias": 0.1 * torch.randn(d, generator=gen, device=dev)}
+    fc1 = {"w": (torch.randn(f, d, generator=gen, device=dev) / d ** 0.5).to(torch.bfloat16),
+           "b": 0.1 * torch.randn(f, generator=gen, device=dev)}
+    _log("K7 LayerNorm + fc1 + GELU vs plain (bf16, 768 -> 3072):")
+    worst = 0.0
+    for name, rows in K7_ROWS:
+        x = _nan_tailed(gen, dev, 1, rows)
+        out = layernorm_fc1_gelu(x, norm, fc1, eps, out=torch.full((1, rows, f), float("nan"), dtype=torch.bfloat16,
+                                                                     device=dev))
+        torch.cuda.synchronize()
+        ref = layernorm_fc1_gelu_reference(x, norm, fc1, eps)
+        worst = max(worst, _check(name, out, ref, K7_TOL * ref.float().abs().max().item()))
+
+    # its path: the MLP half of each of the serving backbone's 11 layers,
+    # with K7 in place of LN + dense + GELU, on a bs16 hidden state of its
+    # token count (1370 at 518px)
+    layers = fe.params["layers"][:-1]
+    c = fe.config
+    tokens = (c.image_size // c.patch_size) ** 2 + 1
+    x = torch.randn(16, tokens, c.hidden_size, generator=gen, device=dev).to(torch.bfloat16)
+
+    def mlp_half(x, layer, fused):
+        if fused:
+            h = layernorm_fc1_gelu(x, layer["norm2"], layer["fc1"], eps)
+        else:
+            h = torch.nn.functional.gelu(dense(layer_norm(x, layer["norm2"], eps), layer["fc1"], torch.bfloat16),
+                                         approximate="tanh")
+        return x + dense(h, layer["fc2"], torch.bfloat16) * layer["ls2"]
+
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    for fn in counts.values():
+        fn.launches = 0
+    with torch.inference_mode():
+        y = x
+        for layer in layers:
+            y = mlp_half(y, layer, True)
+        torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counts.items()}
+    _log(f"  MLP halves of {len(layers)} layers through K7: launches {launches}, output finite "
+         f"{bool(torch.isfinite(y).all())}")
+    if launches != {**{k: 0 for k in counts}, "K7": len(layers)} or not torch.isfinite(y).all():
+        raise AssertionError(f"K7 path: launches {launches}, expected K7 {len(layers)} and nothing else")
+
+    _log(f"K7 timing (CUDA events, interleaved, bs16 L{tokens}):")
+    xs = torch.randn(16, 1370, d, generator=gen, device=dev).to(torch.bfloat16)
+    k7_ms, k7_plain = _ab_ms(lambda: layernorm_fc1_gelu_reference(xs, norm, fc1, eps),
+                             lambda: layernorm_fc1_gelu(xs, norm, fc1, eps), 20)
+    with torch.inference_mode():
+        layer = layers[0]
+        half_fused, half_composed = _ab_ms(lambda: mlp_half(x, layer, False), lambda: mlp_half(x, layer, True), 20)
+        up_fused, up_composed = _ab_ms(
+            lambda: torch.nn.functional.gelu(dense(layer_norm(x, layer["norm2"], eps), layer["fc1"], torch.bfloat16),
+                                             approximate="tanh"),
+            lambda: layernorm_fc1_gelu(x, layer["norm2"], layer["fc1"], eps), 20)
+    _log(f"  K7: kernel {k7_ms:.4f} ms, plain {k7_plain:.4f} ms; LN + fc1 + GELU as the layer composes it "
+         f"(LN, cuBLAS dense, GELU) {up_composed:.4f} ms vs K7 {up_fused:.4f} ms; one layer's MLP half "
+         f"composed {half_composed:.4f} ms vs with K7 {half_fused:.4f} ms")
+    return {"err": worst, "launches": launches["K7"], "ms": k7_ms, "plain_ms": k7_plain,
+            "composed_up_ms": up_composed, "fused_up_ms": up_fused, "mlp_half_composed_ms": half_composed,
+            "mlp_half_fused_ms": half_fused}
+
+
+def phase_k5_timing(gen, dev) -> dict:
+    """K5 at the TP shard's shape against its plain version and one
+    scaled_dot_product_attention call on (BH, 1, L, d) views."""
+    from ucod_dpl_tpu_torch.ops.attention import heads_attention, heads_attention_reference
+
+    q, k, v = (torch.randn(48, 1370, 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    ms, plain_ms = _ab_ms(lambda: heads_attention_reference(q, k, v, 0.125), lambda: heads_attention(q, k, v, 0.125), 20)
+    sdpa = _sdpa_ms(*(x.unsqueeze(1) for x in (q, k, v)), 0.125, 20)
+    _log(f"K5 timing (CUDA events, interleaved) BH48 L1370 d64: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+         f"scaled_dot_product_attention {sdpa:.4f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa}
 
 
 def main(argv=None) -> int:
@@ -900,6 +1214,10 @@ def main(argv=None) -> int:
     int8_launches = phase_int8_serving(fe8, decoder, args.seed)
     int8_composed_err = phase_int8_composed(fe8, decoder, args.seed)
     int8_times = phase_int8_timing(fe8, decoder, gen)
+    k5_err = phase_k5(gen, dev)
+    k5_times = phase_k5_timing(gen, dev)
+    tp = phase_tp(args.seed, dev, _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None))
+    k7 = phase_k7(gen, dev, fe8)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
@@ -911,34 +1229,59 @@ def main(argv=None) -> int:
         "int8_whole_mlp_img_per_s": 16e3 / int8_times["fwd int8 kernels, whole MLP"],
         "bf16_fg_logits_live_img_per_s_same_process": 16e3 / int8_times["fwd bf16 kernels"],
         "int8_composed_max_abs_err": int8_composed_err,
+        "tp4_extract_ms": tp["TP model=4 extract"], "unsharded_extract_ms": tp["unsharded extract"],
+        "tp4_forward_ms": tp["TP model=4 forward"], "unsharded_forward_ms": tp["unsharded forward"],
+        "tp4_features_max_abs_err": tp["err K5"], "tp2_features_max_abs_err": tp["err K1"],
+        "bf16_plain_features_max_abs_err": tp["err_plain"],
+        "k7_mlp_half_ms": k7["mlp_half_fused_ms"], "composed_mlp_half_ms": k7["mlp_half_composed_ms"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
+    # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
+    # of 64, D 768, F 3072; K5 at the TP shard's 48 heads): bf16 tensors and
+    # int8 weights moved once, the f32 vectors (under 40 KB) left out; K3/K4
+    # counts the five products of 2 L^2 d per head a flash backward from the
+    # log-sum-exp needs (S, dP, dV, dK, dQ), not the seven its two passes run
+    b, l, d, f = 16, 1370, SERVE_DIM, MLP_DIM
+    rows, bh = b * l, b * NUM_HEADS
+    bounds = {
+        "K1": _attention_bound(bh, l, 64), "K2": _attention_bound(bh, l, 64, lse=True),
+        "K3": _attention_bound(bh, l, 64, matmuls=5, tensors=8, lse=True),
+        "K5": _attention_bound(48, l, 64),
+        "K6": _bound(2.0 * rows * d * 3 * d, (4 * rows * d + 3 * d * d) * 2, PEAK_BF16),
+        "K7": _bound(2.0 * rows * d * f, (rows * d + rows * f + f * d) * 2, PEAK_BF16),
+        "K8": _bound(2.0 * rows * d * 3 * d, 4 * rows * d * 2 + 3 * d * d, PEAK_INT8),
+        "K9": _bound(2.0 * rows * d * f, rows * d * 2 + rows * f + rows * 4 + f * d, PEAK_INT8),
+        "K10": _bound(2.0 * rows * d * d, 2 * rows * d * 2 + d * d, PEAK_INT8),
+        "K11": _bound(4.0 * rows * d * f, 2 * rows * d * 2 + 2 * f * d, PEAK_INT8),
+    }
+    bounds["K4"] = bounds["K3"]
+
+    def entry(kid, name, source, replaces, launches, err, ms, plain_ms, library_ms=None):
+        return {"name": f"{kid} {name}", "route": "cuda", "source": f"ucod_dpl_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1], "library_ms": library_ms}
+
+    attn, fused = "ucod_dpl_tpu/ops/attention.py", "ucod_dpl_tpu/ops/fused_layers.py"
     _log(json.dumps({"kernels": [
-        {"name": "K1 packed attention forward", "route": "cuda",
-         "source": "ucod_dpl_tpu_torch/csrc/attention_fwd.cu",
-         "replaces": "ucod_dpl_tpu/ops/attention.py:87", "launches": launches["K1"],
-         "max_abs_err": k1_err, "ms": times["K1"][0], "plain_ms": times["K1"][1]},
-        {"name": "K6 fused LayerNorm + q/k/v", "route": "cuda",
-         "source": "ucod_dpl_tpu_torch/csrc/layernorm_qkv.cu",
-         "replaces": "ucod_dpl_tpu/ops/fused_layers.py:33", "launches": launches["K6"],
-         "max_abs_err": k6_err, "ms": times["K6"][0], "plain_ms": times["K6"][1]},
-        {"name": "K2 attention forward with log-sum-exp", "route": "cuda",
-         "source": "ucod_dpl_tpu_torch/csrc/attention_fwd.cu",
-         "replaces": "ucod_dpl_tpu/ops/attention.py:309", "launches": train_launches["fwd_lse"],
-         "max_abs_err": grad_err["fwd_lse"], "ms": train_times["fwd_lse"][0],
-         "plain_ms": train_times["fwd_lse"][1]},
-        {"name": "K3/K4 attention backward from the log-sum-exp", "route": "cuda",
-         "source": "ucod_dpl_tpu_torch/csrc/attention_bwd.cu",
-         "replaces": "ucod_dpl_tpu/ops/attention.py:440, ucod_dpl_tpu/ops/attention.py:684,716",
-         "launches": train_launches["bwd"], "max_abs_err": grad_err["bwd"],
-         "ms": train_times["bwd"][0], "plain_ms": train_times["bwd"][1]},
-        *({"name": name, "route": "cuda", "source": "ucod_dpl_tpu_torch/csrc/int8_linear.cu",
-           "replaces": f"ucod_dpl_tpu/ops/fused_layers.py:{line}", "launches": int8_launches[k],
-           "max_abs_err": int8_err[k], "ms": int8_times[k][0], "plain_ms": int8_times[k][1]}
-          for k, name, line in (("K8", "K8 int8 LayerNorm + quantize + q/k/v", 160),
-                                ("K9", "K9 int8 LayerNorm + quantize + fc1 + GELU + requantize", 218),
-                                ("K10", "K10 int8 quantize + out-projection", 479),
-                                ("K11", "K11 int8 whole MLP half", 327))),
+        entry("K1", "packed attention forward", "attention_fwd.cu", f"{attn}:87", launches["K1"], k1_err,
+              *times["K1"], times["sdpa_fwd"]),
+        entry("K2", "attention forward with log-sum-exp", "attention_fwd.cu", f"{attn}:309",
+              train_launches["fwd_lse"], grad_err["fwd_lse"], *train_times["fwd_lse"], times["sdpa_fwd"]),
+        entry("K3", "attention backward from the log-sum-exp (one backward with K4)", "attention_bwd.cu",
+              f"{attn}:440", train_launches["bwd"], grad_err["bwd"], *train_times["bwd"], train_times["sdpa_bwd"]),
+        entry("K4", "KV-blocked attention backward (one backward with K3)", "attention_bwd.cu",
+              f"{attn}:684,716", train_launches["bwd"], grad_err["bwd"], *train_times["bwd"], train_times["sdpa_bwd"]),
+        entry("K5", "per-head attention forward", "attention_heads.cu", f"{attn}:30", tp["launches K5"]["K5"],
+              k5_err, k5_times["ms"], k5_times["plain_ms"], k5_times["library_ms"]),
+        entry("K6", "fused LayerNorm + q/k/v", "layernorm_qkv.cu", f"{fused}:33", launches["K6"], k6_err,
+              *times["K6"]),
+        entry("K7", "fused LayerNorm + fc1 + GELU", "layernorm_fc1_gelu.cu", f"{fused}:86", k7["launches"],
+              k7["err"], k7["ms"], k7["plain_ms"]),
+        *(entry(k, name, "int8_linear.cu", f"{fused}:{line}", int8_launches[k], int8_err[k], *int8_times[k])
+          for k, name, line in (("K8", "int8 LayerNorm + quantize + q/k/v", 160),
+                                ("K9", "int8 LayerNorm + quantize + fc1 + GELU + requantize", 218),
+                                ("K10", "int8 quantize + out-projection", 479),
+                                ("K11", "int8 whole MLP half", 327))),
     ]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

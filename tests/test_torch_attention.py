@@ -14,6 +14,7 @@ import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
 from ucod_dpl_tpu.ops import attention as A
+from ucod_dpl_tpu_torch.models import dino as TD
 from ucod_dpl_tpu_torch.ops import attention as TA
 
 
@@ -90,3 +91,71 @@ def test_kernel_wrapper_routes_cpu_to_plain_and_counts_only_launches():
     assert got is out
     torch.testing.assert_close(got, TA.packed_attention_reference(q, q, q, 2, 0.125))
     assert TA.packed_attention.launches == before  # a CPU tensor launches nothing
+
+
+# --- K5 and the JAX dispatch: multi_head_attention --------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("l", [1, 65, 200])
+@pytest.mark.parametrize("nh,hd", [(3, 64), (5, 32), (4, 16), (1, 64), (2, 64)])
+def test_multi_head_attention_matches_jax_dispatch(monkeypatch, nh, hd, l, dtype):
+    """The port's multi_head_attention (K1 for the packed layout, else the
+    per-head K5, each by its plain version here) against the JAX
+    multi_head_attention with its Pallas kernels in interpret mode (K1 for
+    (2, 64), K5 for the rest): f32 within 1e-5, bf16 within 0.05 of the f32
+    JAX output."""
+    q, k, v = _qkv(31 * nh + l, 2, l, nh * hd, q_rows_scaled=min(l, 3))
+    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
+    want = np.asarray(A.multi_head_attention(*(jnp.asarray(x) for x in (q, k, v)), nh, scale=hd ** -0.5))
+    t = [torch.from_numpy(x).to(dtype) for x in (q, k, v)]
+    got = TA.multi_head_attention(*t, nh, hd ** -0.5).float().numpy()
+    tol = 1e-5 if dtype == torch.float32 else 0.05
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got, _jax_xla(q, k, v, nh, hd ** -0.5), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("nh,hd,jax_packed,packed", [(2, 64, True, True), (12, 64, True, True),
+                                                     (3, 64, False, False), (4, 32, False, False),
+                                                     (2, 128, True, False), (1, 16, False, False)])
+def test_multi_head_attention_routes_like_jax(monkeypatch, nh, hd, jax_packed, packed):
+    """``packed_layout_ok`` is the JAX rule; K1 takes an even head count of
+    64 and everything else goes to K5 (on the CPU: their plain versions), and
+    the CPU launches neither kernel."""
+    assert TA.packed_layout_ok(nh, hd) is jax_packed
+    calls = []
+    for name, kernel in (("packed_attention_reference", "K1"), ("heads_attention_reference", "K5")):
+        plain = getattr(TA, name)
+        monkeypatch.setattr(TA, name, lambda *a, _p=plain, _k=kernel: calls.append(_k) or _p(*a))
+    q = torch.randn(1, 9, nh * hd)
+    before = (TA.packed_attention.launches, TA.heads_attention.launches)
+    TA.multi_head_attention(q, q, q, nh, 0.125)
+    assert calls == ["K1" if packed else "K5"]
+    assert (TA.packed_attention.launches, TA.heads_attention.launches) == before
+
+
+@pytest.mark.parametrize("nh,hd,route", [(2, 64, "flash"), (2, 128, "flash"), (3, 64, "plain"), (4, 32, "plain")])
+def test_differentiable_forward_routes_like_jax_differentiable_mode(monkeypatch, nh, hd, route):
+    """The JAX differentiable_mode's routing: an even head count with
+    2 * hd % 128 == 0 through the flash VJP (``packed_attention_diff``, on
+    the CPU its plain versions, for any head dim), the rest through the plain
+    version under autograd (the JAX ``_xla_attention``)."""
+    calls = []
+    monkeypatch.setattr(TD, "packed_attention_diff",
+                        lambda *a, _p=TD.packed_attention_diff: calls.append("flash") or _p(*a))
+    monkeypatch.setattr(TD, "multi_head_attention",
+                        lambda *a, _p=TD.multi_head_attention, **kw: calls.append("plain") or _p(*a, **kw))
+    cfg = TD.DinoConfig(variant="dinov2", image_size=28, patch_size=14, hidden_size=nh * hd, num_layers=2,
+                        num_heads=nh, mlp_ratio=2)
+    out = TD.dino_forward(TD.init_dino(0, cfg), torch.randn(1, 28, 28, 3), cfg, differentiable=True)
+    assert calls == [route]
+    assert torch.isfinite(out["key_features"]).all()
+
+
+def test_heads_attention_wrapper_routes_cpu_to_plain():
+    q = torch.randn(6, 70, 32)
+    before = TA.heads_attention.launches
+    out = torch.full_like(q, float("nan"))
+    got = TA.heads_attention(q, q, q, 0.2, out=out)
+    assert got is out
+    torch.testing.assert_close(got, TA.heads_attention_reference(q, q, q, 0.2))
+    assert TA.heads_attention.launches == before

@@ -1,14 +1,14 @@
 """Card-only checks of the port's CUDA kernels at edge shapes: K1 (also with
-its log-sum-exp output), the attention backward, K6 and the int8 kernels
-K8-K11.
+its log-sum-exp output), the attention backward, K5 (per-head attention), K6,
+K7 (LayerNorm + fc1 + GELU) and the int8 kernels K8-K11.
 
 Marked ``cuda``: they skip without a CUDA device (the decision is made in a
 fixture, at run time).  On a card::
 
     python -m pytest -q -m cuda tests/test_torch_cuda_kernels.py
 
-Tolerances as in chip_smoke.py: K1 within 2^-6 * max|plain| of its plain
-version, the log-sum-exp within 1e-3, the backward's dq/dk/dv within
+Tolerances as in chip_smoke.py: K1 and K5 within 2^-6 * max|plain| of their
+plain versions, K7 within 2% of max|plain|, the log-sum-exp within 1e-3, the backward's dq/dk/dv within
 2^-5 * max|plain| and 2% of the plain gradient's norm (each plus a 1e-5
 floor), K6 within 2% of max|plain|; the int8 kernels as in chip_smoke.py's
 phase D: codes within one step and at least 99% equal, scales within rtol
@@ -20,6 +20,9 @@ import pytest
 import torch
 
 from ucod_dpl_tpu_torch.ops.attention import (
+    heads_attention,
+    heads_attention_reference,
+    multi_head_attention,
     packed_attention,
     packed_attention_bwd,
     packed_attention_bwd_reference,
@@ -214,3 +217,113 @@ def test_int8_kernels_count_launches_and_reject_what_they_do_not_take(dev):
         FL.dense_quant_w8a8(x[..., :128].contiguous(), _q8(g, dev, 128, 256), torch.bfloat16)
     with pytest.raises(ValueError):  # 16 rows of a 4096-wide f32 expansion exceed shared memory
         FL.layernorm_fc1_gelu_w8a8(x, norm, _q8(g, dev, 256, 4096), 1e-6)
+
+
+def _nan_tailed(g, dev, shape, scale=1.0):
+    """A contiguous bf16 normal tensor of ``shape`` whose memory is followed by
+    NaN: a kernel that reads past its last row reads NaN."""
+    n = 1
+    for s_ in shape:
+        n *= s_
+    buf = torch.full((n + 64 * shape[-1],), float("nan"), dtype=torch.bfloat16, device=dev)
+    x = buf[:n].view(shape)
+    x.copy_(torch.randn(shape, generator=g, device=dev) * scale)
+    return x
+
+
+@pytest.mark.parametrize("bh,l,d", [(1, 1, 16), (3, 65, 16), (5, 63, 32), (80, 257, 32), (4, 129, 64),
+                                    (48, 1370, 64), (2, 200, 128), (1, 2917, 128)])
+def test_heads_attention_kernel_edge_shapes(dev, bh, l, d):
+    """K5 at each instantiated head dim, L below, at and past a 64-row tile,
+    large logits (q x 3), NaN past the inputs and in the output buffer."""
+    g = torch.Generator(device=dev).manual_seed(bh * l + d)
+    q, k, v = (_nan_tailed(g, dev, (bh, l, d), s) for s in (3.0, 1.0, 1.0))
+    out = heads_attention(q, k, v, d ** -0.5, out=torch.full_like(q, float("nan")))
+    ref = heads_attention_reference(q, k, v, d ** -0.5).float()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
+
+
+def test_multi_head_attention_routes_odd_heads_to_k5_on_the_card(dev):
+    q = torch.randn(2, 70, 3 * 64, device=dev, dtype=torch.bfloat16)
+    before = (packed_attention.launches, heads_attention.launches)
+    got = multi_head_attention(q, q, q, 3, 0.125)
+    assert (packed_attention.launches, heads_attention.launches) == (before[0], before[1] + 1)
+    ref = packed_attention_reference(q, q, q, 3, 0.125).float()
+    assert (got.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
+    multi_head_attention(q[..., :128].contiguous(), q[..., :128].contiguous(), q[..., :128].contiguous(), 2, 0.125)
+    assert (packed_attention.launches, heads_attention.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_differentiable_forward_routes_like_jax_differentiable_mode(dev):
+    """3 heads of 64, which the JAX differentiable_mode sends to
+    _xla_attention, run the plain version under autograd (no attention kernel
+    launches); 2 heads of 128, which it sends to its flash VJP kernels, raise:
+    the port's flash backward is built for head dim 64."""
+    from ucod_dpl_tpu_torch.models import dino as TD
+
+    px = torch.randn(1, 28, 28, 3, device=dev)
+    for nh, hd in ((3, 64), (2, 128)):
+        cfg = TD.DinoConfig(variant="dinov2", image_size=28, patch_size=14, hidden_size=nh * hd, num_layers=2,
+                            num_heads=nh, mlp_ratio=2)
+        params = TD.cast_params(TD.init_dino(0, cfg, device=dev), torch.bfloat16)
+        if nh == 3:
+            before = (packed_attention_fwd_lse.launches, heads_attention.launches)
+            out = TD.dino_forward(params, px, cfg, compute_dtype=torch.bfloat16, differentiable=True)
+            assert torch.isfinite(out["key_features"]).all()
+            assert (packed_attention_fwd_lse.launches, heads_attention.launches) == before
+        else:
+            with pytest.raises(NotImplementedError, match="head_dim 64"):
+                TD.dino_forward(params, px, cfg, compute_dtype=torch.bfloat16, differentiable=True)
+
+
+def test_heads_attention_counts_launches_and_rejects_what_it_does_not_take(dev):
+    q = torch.randn(6, 70, 64, device=dev, dtype=torch.bfloat16)
+    before = heads_attention.launches
+    heads_attention(q, q, q, 0.125)
+    assert heads_attention.launches == before + 1
+    with pytest.raises(TypeError):  # f32
+        heads_attention(q.float(), q.float(), q.float(), 0.125)
+    with pytest.raises(ValueError):  # head dim 48
+        x = q[..., :48].contiguous()
+        heads_attention(x, x, x, 0.125)
+    with pytest.raises(ValueError):  # not contiguous
+        heads_attention(q.transpose(0, 1), q.transpose(0, 1), q.transpose(0, 1), 0.125)
+    assert heads_attention.launches == before + 1
+
+
+@pytest.mark.parametrize("rows,d,f", [(1, 768, 3072), (17, 768, 3072), (65, 256, 256), (130, 320, 512),
+                                      (1373, 768, 3072)])
+def test_layernorm_fc1_gelu_kernel_ragged_rows(dev, rows, d, f):
+    """K7 at row counts off its 64-row tile, other widths (320: not a multiple
+    of 256), NaN past the input and in the output buffer."""
+    g = torch.Generator(device=dev).manual_seed(rows + d + f)
+    x = _nan_tailed(g, dev, (1, rows, d))
+    norm = {"scale": 1 + 0.1 * torch.randn(d, generator=g, device=dev),
+            "bias": 0.1 * torch.randn(d, generator=g, device=dev)}
+    fc1 = {"w": (torch.randn(f, d, generator=g, device=dev) / d ** 0.5).to(torch.bfloat16),
+           "b": 0.1 * torch.randn(f, generator=g, device=dev)}
+    out = FL.layernorm_fc1_gelu(x, norm, fc1, 1e-6,
+                                out=torch.full((1, rows, f), float("nan"), dtype=torch.bfloat16, device=dev))
+    ref = FL.layernorm_fc1_gelu_reference(x, norm, fc1, 1e-6).float()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 0.02 * ref.abs().max().item()
+
+
+def test_layernorm_fc1_gelu_counts_launches_and_rejects_what_it_does_not_take(dev):
+    x = torch.randn(2, 70, 256, device=dev, dtype=torch.bfloat16)
+    norm = {"scale": torch.ones(256, device=dev), "bias": torch.zeros(256, device=dev)}
+    fc1 = {"w": torch.randn(512, 256, device=dev), "b": torch.zeros(512, device=dev)}
+    before = FL.layernorm_fc1_gelu.launches
+    FL.layernorm_fc1_gelu(x, norm, fc1, 1e-6)
+    assert FL.layernorm_fc1_gelu.launches == before + 1
+    with pytest.raises(TypeError):  # f32 activations
+        FL.layernorm_fc1_gelu(x.float(), norm, fc1, 1e-6)
+    with pytest.raises(ValueError):  # not contiguous
+        FL.layernorm_fc1_gelu(x.transpose(0, 1), norm, fc1, 1e-6)
+    with pytest.raises(ValueError):  # an expansion of 384: not a multiple of 256
+        FL.layernorm_fc1_gelu(x, norm, {"w": fc1["w"][:384], "b": fc1["b"][:384]}, 1e-6)
+    with pytest.raises(ValueError):  # hidden 96: not a multiple of 64
+        FL.layernorm_fc1_gelu(x[..., :96].contiguous(), {k: t[:96] for k, t in norm.items()},
+                              {"w": fc1["w"][:, :96], "b": fc1["b"]}, 1e-6)
+    assert FL.layernorm_fc1_gelu.launches == before + 1

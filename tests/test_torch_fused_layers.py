@@ -81,3 +81,52 @@ def test_bicubic_matches_jax_and_torch(grid, size):
                                rtol=1e-5, atol=1e-5)
     torch_ref = F.interpolate(torch.from_numpy(x), size=size, mode="bicubic", align_corners=False).numpy()
     np.testing.assert_allclose(got, torch_ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("b,l,d,f", [(2, 150, 128, 512), (1, 70, 256, 256), (3, 1, 128, 512)])
+def test_plain_layernorm_fc1_gelu_matches_jax_kernel(monkeypatch, b, l, d, f):
+    """K7's plain version against the JAX ``_pallas_layernorm_fc1_gelu`` in
+    interpret mode (the shapes of tests/test_dino_parity.py's fused-op test
+    first), float32 within 1e-5."""
+    rng = np.random.default_rng(11 + d + l)
+    x = rng.standard_normal((b, l, d)).astype(np.float32)
+    norm = {"scale": rng.standard_normal(d).astype(np.float32),
+            "bias": rng.standard_normal(d).astype(np.float32)}
+    fc1 = {"w": rng.standard_normal((d, f)).astype(np.float32) * 0.05,
+           "b": rng.standard_normal(f).astype(np.float32)}
+    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
+    want = JF._pallas_layernorm_fc1_gelu(
+        jnp.asarray(x), jnp.asarray(norm["scale"]).reshape(1, d), jnp.asarray(norm["bias"]).reshape(1, d),
+        jnp.asarray(fc1["w"]), jnp.asarray(fc1["b"]).reshape(1, f), 1e-6,
+    )
+    got = TF.layernorm_fc1_gelu(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in norm.items()},
+                                {"w": torch.from_numpy(fc1["w"].T.copy()), "b": torch.from_numpy(fc1["b"])}, 1e-6)
+    assert got.shape == (b, l, f)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_layernorm_fc1_gelu_bf16_rounds_where_the_kernel_does():
+    """In bf16 the plain version rounds h, then fc1 + b1, then the GELU
+    output: it equals the f32 composition of those three roundings."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 9, 128, generator=g).to(torch.bfloat16)
+    norm = {"scale": 1 + 0.1 * torch.randn(128, generator=g), "bias": 0.1 * torch.randn(128, generator=g)}
+    fc1 = {"w": torch.randn(256, 128, generator=g) / 128 ** 0.5, "b": 0.1 * torch.randn(256, generator=g)}
+    got = TF.layernorm_fc1_gelu(x, norm, fc1, 1e-6)
+    h = TF._layernorm_f32(x, norm, 1e-6).to(torch.bfloat16).float()
+    h1 = (h @ fc1["w"].T + fc1["b"]).to(torch.bfloat16).float()
+    want = (h1 * 0.5 * (1 + torch.tanh(0.7978845608028654 * (h1 + 0.044715 * h1 ** 3)))).to(torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2 ** -7 * want.float().abs().max().item())
+
+
+def test_layernorm_fc1_gelu_wrapper_routes_cpu_to_plain():
+    x = torch.randn(2, 5, 128)
+    norm = {"scale": torch.ones(128), "bias": torch.zeros(128)}
+    fc1 = {"w": torch.randn(256, 128), "b": torch.randn(256)}
+    before = TF.layernorm_fc1_gelu.launches
+    out = torch.full((2, 5, 256), float("nan"))
+    got = TF.layernorm_fc1_gelu(x, norm, fc1, 1e-6, out=out)
+    assert got is out
+    torch.testing.assert_close(got, TF.layernorm_fc1_gelu_reference(x, norm, fc1, 1e-6))
+    assert TF.layernorm_fc1_gelu.launches == before

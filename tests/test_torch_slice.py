@@ -6,9 +6,14 @@
 side runs its Pallas kernels in interpret mode.  Float32 tolerances are those
 of tests/test_dino_parity.py.  Also: the port's ViT against a tiny HF model
 built from its config (no download), exact weight and checkpoint round
-trips, and a jax-free import of the port.
+trips, an import of the port that loads neither jax nor the JAX package
+(at run time and by an AST scan of its sources), and the port's own copies
+of the config loader, connected components and native resize against the
+originals.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -172,24 +177,46 @@ def test_decoder_checkpoints_cross_load(tiny, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and every module of its slice must not import jax;
-    an import of jax is made to fail outright."""
+    """Importing every module of the port, loading a config, reading an image
+    from a path for a request and running the LookTwice helpers must import
+    nothing of jax (an import of jax is made to fail outright) and nothing of
+    the JAX package ``ucod_dpl_tpu``, not even its jax-free modules."""
     code = (
-        "import sys\n"
+        "import glob, os, sys, tempfile, types\n"
+        "import numpy as np\n"
         "for m in [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]:\n"
         "    del sys.modules[m]\n"
         "sys.modules['jax'] = None\n"
+        "def jax_package():\n"
+        "    return sorted(m for m in sys.modules if m == 'ucod_dpl_tpu' or m.startswith('ucod_dpl_tpu.'))\n"
         "import ucod_dpl_tpu_torch\n"
         "from ucod_dpl_tpu_torch import serving\n"
         "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, quant, resize\n"
-        "# serving pre-normalised arrays loads no module of the JAX package\n"
-        "assert 'ucod_dpl_tpu' not in sys.modules, sorted(sys.modules)\n"
         "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io\n"
         "from ucod_dpl_tpu_torch.data import feature_extractor, transforms\n"
         "from ucod_dpl_tpu_torch.engine import eval_loop, train_step\n"
+        "from ucod_dpl_tpu_torch.parallel import mesh, tp\n"
+        "from ucod_dpl_tpu_torch.config import load_config\n"
+        "from ucod_dpl_tpu_torch.utils import components, fileio, native\n"
+        "assert not jax_package(), jax_package()\n"
+        "cfg = load_config('configs/uscod/UCOD-DPL_dinov2.py')\n"
+        "assert cfg.dataset_cfg.feature_extractor_cfg.type == 'dinov2'\n"
+        "from PIL import Image\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'im.png')\n"
+        "rgb = (np.random.default_rng(0).random((40, 50, 3)) * 255).astype(np.uint8)\n"
+        "Image.fromarray(rgb).save(path)\n"
+        "arr, img = serving.Predictor._load(types.SimpleNamespace(image_size=(28, 28)), path)\n"
+        "assert arr.shape == (28, 28, 3) and img.size == (50, 40)\n"
+        "mask = np.zeros((28, 28), np.float32)\n"
+        "mask[3:6, 4:8] = 1\n"
+        "boxes = eval_loop.find_refine_bboxes(mask, (28, 28), 0.15, 'dynamic')\n"
+        "out = eval_loop.refine_with_crops(img, boxes, mask, (28, 28),\n"
+        "                                  lambda b: np.ones((b.shape[0], 4, 4), np.float32))\n"
+        "assert out.shape == (28, 28)\n"
         "assert ucod_dpl_tpu_torch.Predictor is serving.Predictor\n"
         "bad = [m for m in sys.modules if m.startswith('jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
+        "assert not jax_package(), jax_package()\n"
         "print('NO-JAX-OK')\n"
     )
     env = {k: v for k, v in os.environ.items() if not k.startswith("JAX")}
@@ -198,3 +225,91 @@ def test_port_imports_no_jax():
                          cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "NO-JAX-OK" in out.stdout
+
+
+def _port_files():
+    return sorted(glob.glob(os.path.join(REPO, "ucod_dpl_tpu_torch", "**", "*.py"), recursive=True)) + [
+        os.path.join(REPO, "chip_smoke.py")]
+
+
+def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
+    """An AST scan of every module of the port and of chip_smoke.py: no
+    ``import``/``from`` of jax or of ``ucod_dpl_tpu`` (the package root or
+    any submodule), at module level or inside a function."""
+    def banned(name):
+        return any(name == root or name.startswith(root + ".") for root in ("jax", "ucod_dpl_tpu"))
+
+    found = []
+    for path in _port_files():
+        for node in ast.walk(ast.parse(open(path).read(), path)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names if banned(n)]
+    assert len(_port_files()) > 20
+    assert not found, found
+
+
+CONFIGS = sorted(os.path.relpath(p, REPO) for p in glob.glob(os.path.join(REPO, "configs", "**", "*.py"),
+                                                             recursive=True))
+
+
+@pytest.mark.parametrize("path", CONFIGS)
+def test_port_config_copy_loads_what_the_jax_package_loads(path):
+    from ucod_dpl_tpu.config import load_config as jax_load_config
+    from ucod_dpl_tpu_torch.config import load_config
+
+    ours = load_config(os.path.join(REPO, path))
+    assert ours.to_dict() == jax_load_config(os.path.join(REPO, path)).to_dict()
+    assert ours.to_dict()  # every config file defines something
+
+
+def test_port_config_copy_overrides_and_freezes_like_the_jax_package():
+    from ucod_dpl_tpu.config import load_config as jax_load_config
+    from ucod_dpl_tpu_torch.config import load_config
+
+    path = os.path.join(REPO, "configs", "uscod", "UCOD-DPL_dinov2.py")
+    opts = ["train_cfg.max_epoch", "3", "model_cfg.feature_size", "34"]
+    ours, theirs = load_config(path, opts), jax_load_config(path, opts)
+    assert ours.to_dict() == theirs.to_dict() and ours.train_cfg.max_epoch == 3
+    for cfg in (ours, theirs):
+        with pytest.raises(KeyError):
+            cfg.merge_from_list(["train_cfg.no_such_key", "1"])
+        cfg.freeze()
+        with pytest.raises(AttributeError):
+            cfg.train_cfg.max_epoch = 4
+
+
+def test_port_components_copy_matches_the_jax_package():
+    from ucod_dpl_tpu.utils import components as JC
+    from ucod_dpl_tpu_torch.utils import components as TC
+
+    rng = np.random.default_rng(0)
+    for density in (0.0, 0.05, 0.3, 0.6):
+        mask = (rng.random((64, 80)) < density).astype(np.uint8)
+        n_ours, labels_ours = TC.connected_components(mask)
+        n_theirs, labels_theirs = JC.connected_components(mask)
+        assert n_ours == n_theirs
+        np.testing.assert_array_equal(labels_ours, labels_theirs)
+        for i in range(1, min(n_ours, 5) + 1):
+            comp = (labels_ours == i).astype(np.uint8)
+            assert TC.bounding_rect(comp) == JC.bounding_rect(comp)
+        assert TC.bounding_rect(mask) == JC.bounding_rect(mask)
+
+
+@pytest.mark.parametrize("shape,size", [((37, 53, 3), (518, 518)), ((600, 480), (68, 90)), ((9, 7, 1), (4, 11))])
+def test_port_native_resize_is_bit_equal_to_the_jax_package(shape, size):
+    """Both libraries are built here (g++, libjpeg, libpng); the port builds
+    its own copy under build/ and never writes to native/."""
+    from ucod_dpl_tpu.utils import native as JN
+    from ucod_dpl_tpu_torch.utils import native as TN
+
+    arr = (np.random.default_rng(sum(shape)).random(shape) * 255).astype(np.uint8)
+    ours, theirs = TN.resize_u8_native(arr, size), JN.resize_u8_native(arr, size)
+    assert ours is not None and theirs is not None
+    assert ours.shape == theirs.shape and ours.dtype == np.uint8
+    np.testing.assert_array_equal(ours, theirs)
+    assert TN._IMAGEPIPE_SO.startswith(os.path.join(REPO, "build"))

@@ -1,15 +1,18 @@
 """UCOD-DPL in PyTorch and CUDA for one NVIDIA H100.
 
 The port of :mod:`ucod_dpl_tpu` (JAX on a TPU), which stays beside it as
-the reference.  This package imports ``torch`` and never ``jax``.  It
-mirrors the JAX package's layout (``ops/``, ``models/``, ``data/``,
-``engine/``, ``serving.py``); the kernels the TPU ran in Pallas are
-hand-written CUDA C++ under ``csrc/``, built at first use
-(:mod:`ucod_dpl_tpu_torch.ops._build`).
+the reference.  This package imports ``torch`` and never ``jax``, and
+nothing of ``ucod_dpl_tpu`` (it keeps its own copies of the host code it
+needs, under ``config/`` and ``utils/``).  It mirrors the JAX package's
+layout (``ops/``, ``models/``, ``data/``, ``engine/``, ``parallel/``,
+``serving.py``); the kernels the TPU ran in Pallas are hand-written CUDA C++
+under ``csrc/``, built at first use (:mod:`ucod_dpl_tpu_torch.ops._build`).
 
-Ported so far: the live 518px serving path, ``models/dba.py::fg_logits_live``
-behind :class:`ucod_dpl_tpu_torch.serving.Predictor`, with the packed
-attention (K1) and fused LayerNorm + q/k/v (K6) kernels.
+Ported so far: the live 518px serving path (``models/dba.py::fg_logits_live``
+behind :class:`ucod_dpl_tpu_torch.serving.Predictor`; kernels K1, K6), its
+int8 variant (K8-K11), the LoRA joint train step (K2-K4) and
+tensor-parallel feature extraction (``FeatureExtractor(mesh=)``; K5), with
+K7 (LayerNorm + fc1 + GELU) as an exported op.
 """
 
 __version__ = "0.1.0"

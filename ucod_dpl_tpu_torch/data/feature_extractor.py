@@ -4,7 +4,9 @@ Counterpart of :mod:`ucod_dpl_tpu.data.feature_extractor` (the reference's
 ``data/utils/feature_extractor.py:31-59`` backbone wrapper): local weight
 discovery, strict loading, a compute dtype chosen by device (bf16 on CUDA,
 float32 on the CPU), and host float32 key features that are checked for
-non-finite values.
+non-finite values.  With a device mesh (``parallel.mesh.build_mesh``) the
+batch is split over its ``data`` axis and, when its ``model`` axis is > 1,
+the backbone runs tensor-parallel (``parallel/tp.py``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ from ucod_dpl_tpu_torch.models.dino import (
     load_hf_checkpoint,
 )
 from ucod_dpl_tpu_torch.ops.quant import quantize_dino_linears
+from ucod_dpl_tpu_torch.parallel.mesh import data_sharding
+from ucod_dpl_tpu_torch.parallel.tp import shard_dino_params
 
 logger = logging.getLogger(__name__)
 
@@ -53,16 +57,19 @@ class FeatureExtractor:
         self,
         fe_cfg,
         *,
-        device,
+        device=None,
         compute_dtype: Optional[torch.dtype] = None,
         seed: int = 0,
         strict: Optional[bool] = None,
         qkv_masters: bool = False,
         quantize: Optional[str] = None,
+        mesh=None,
     ):
-        """``device``: where the backbone runs (no default: nothing chooses the
-        CPU because CUDA is missing).  ``compute_dtype`` defaults to bf16 on
-        CUDA and float32 on the CPU; ``params`` are held cast to it once
+        """``device``: where the backbone runs; it defaults to the first
+        device of ``mesh``, and without a mesh it must be given (nothing
+        chooses the CPU because CUDA is missing).  ``compute_dtype``
+        defaults to bf16 on CUDA and float32 on the CPU; ``params`` are held
+        cast to it once
         (:func:`~ucod_dpl_tpu_torch.models.dino.cast_params`), except the
         q/k/v weights when ``qkv_masters`` is set: LoRA training keeps those
         as float32 masters and merges its adapters into them at every step.
@@ -71,7 +78,18 @@ class FeatureExtractor:
         from ``seed``.  ``quantize="int8"``: ``extract`` runs the int8 (W8A8)
         backbone, whose linears are quantized once, from the float32
         weights before the cast, into ``_qparams`` (inference only, so not
-        with ``qkv_masters``)."""
+        with ``qkv_masters``).
+
+        ``mesh``: a device mesh (``tpu_cfg.mesh = {"data": N, "model": M}``
+        in the JAX package).  ``extract`` splits the batch over its ``data``
+        axis (or, when the batch does not divide it, runs it whole on the
+        first ``data`` coordinate); when ``model`` > 1 the backbone runs
+        tensor-parallel, with the params sharded Megatron-style into
+        ``_mesh_params``.  Raises for heads that ``model`` does not divide,
+        for ``quantize`` with tensor parallelism, for a ``seq`` axis > 1
+        (NotImplementedError: sequence parallelism is not ported), and for
+        tensor parallelism when ``torch.distributed`` runs more than one
+        process (NotImplementedError: extraction is per-process work)."""
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         if quantize is not None and qkv_masters:
@@ -82,6 +100,28 @@ class FeatureExtractor:
         arch = fe_cfg.get("arch")  # architecture overrides (tests, small runs)
         if arch:
             self.config = dataclasses.replace(self.config, **dict(arch))
+        self.mesh = mesh
+        self.tp_shard = None
+        if mesh is not None:
+            if mesh.shape.get("seq", 1) > 1:
+                raise NotImplementedError("sequence-parallel feature extraction (a mesh seq axis > 1) is not "
+                                          "ported yet")
+            if mesh.shape.get("model", 1) > 1:
+                if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                        and torch.distributed.get_world_size() > 1:
+                    raise NotImplementedError(
+                        "tensor-parallel feature extraction requires a single-process mesh (TP over the "
+                        "cards of one host); use data parallelism across processes")
+                if self.config.num_heads % mesh.shape["model"]:
+                    raise ValueError(f"{self.config.num_heads} attention heads not divisible by mesh "
+                                     f"model={mesh.shape['model']}")
+                if quantize is not None:
+                    raise ValueError("the int8 path is single-device; tensor parallelism shards the weights")
+                self.tp_shard = (mesh, "model")
+            if device is None:
+                device = mesh.devices.flat[0]
+        if device is None:
+            raise ValueError("FeatureExtractor needs a device or a mesh")
         self.device = torch.device(device)
         if compute_dtype is None:
             if self.device.type not in _DTYPE_BY_DEVICE:
@@ -94,6 +134,13 @@ class FeatureExtractor:
         # quantized from the float32 weights: a bf16 copy gives other codes and scales
         self._qparams = quantize_dino_linears(masters) if quantize == "int8" else None
         self.params = cast_params(masters, compute_dtype, qkv_masters)
+        self._mesh_params = None  # per data coordinate: a params dict, or the list of its model shards
+        if self.tp_shard is not None:
+            self._mesh_params = shard_dino_params(self.params, mesh)
+        elif mesh is not None:
+            data = range(mesh.shape["data"]) if "data" in mesh.shape else [None]
+            self._mesh_params = [params_to(self.params, mesh.device(**({} if d is None else {"data": d})))
+                                 for d in data]
 
     def int8_params(self):
         """The backbone's int8 linears: those it holds (``quantize="int8"``),
@@ -138,11 +185,27 @@ class FeatureExtractor:
             )
         return arr
 
+    def _features(self, params, images: np.ndarray, device) -> torch.Tensor:
+        """Key features of ``images`` on the device, launched and not waited for."""
+        pixels = torch.from_numpy(np.asarray(images, np.float32)).to(device)
+        return dino_forward(params, pixels, self.config, compute_dtype=self.compute_dtype,
+                            quant=self._qparams, tp_shard=self.tp_shard)["key_features"]
+
     def extract(self, images_nhwc: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) normalised images -> (B, h, w, hidden) float32 key
-        features on the host."""
+        features on the host.  With a mesh, every ``data`` coordinate's
+        forward is launched before the first copy to the host, so the
+        coordinates' devices run side by side."""
         with torch.inference_mode():
-            pixels = torch.from_numpy(np.asarray(images_nhwc, np.float32)).to(self.device)
-            out = dino_forward(self.params, pixels, self.config, compute_dtype=self.compute_dtype,
-                               quant=self._qparams)
-            return self._to_host_f32(out["key_features"], "features")
+            if self.mesh is None:
+                return self._to_host_f32(self._features(self.params, images_nhwc, self.device), "features")
+            images = np.asarray(images_nhwc)
+            slices = data_sharding(self.mesh, images.shape[0])
+            if slices[0] == slice(None):  # replicated: every coordinate would compute the same batch
+                slices = slices[:1]
+            feats = []
+            for d, sl in enumerate(slices):
+                params = self._mesh_params[d]
+                device = (params[0] if self.tp_shard else params)["pos_embed"].device
+                feats.append(self._features(params, images[sl], device))
+            return np.concatenate([self._to_host_f32(f, "features") for f in feats])

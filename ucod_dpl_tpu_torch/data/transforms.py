@@ -3,9 +3,9 @@
 Counterpart of :mod:`ucod_dpl_tpu.data.transforms` (the reference's
 torchvision pipelines, ``data/datasets/transforms.py:8-43``): Pillow-BILINEAR
 resize, scale to [0, 1], ImageNet normalisation.  The resize uses the
-repository's native kernel (``ucod_dpl_tpu.utils.native``, bit-exact with
-Pillow) when it is available and Pillow otherwise; Pillow is imported only
-when it is needed.
+repository's native kernel (``ucod_dpl_tpu_torch.utils.native``, bit-exact
+with Pillow) when it is available and Pillow otherwise; Pillow is imported
+only when it is needed.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ def resize_bilinear(img, size_hw: Tuple[int, int]) -> np.ndarray:
         return np.asarray(img.resize((w, h), Image.BILINEAR))
     arr = np.asarray(img)
     if arr.dtype == np.uint8:
-        from ucod_dpl_tpu.utils import native
+        from ucod_dpl_tpu_torch.utils import native
 
         out = native.resize_u8_native(arr, size_hw)
         if out is not None:

@@ -16,7 +16,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ucod_dpl_tpu.utils.components import bounding_rect, connected_components
+from ucod_dpl_tpu_torch.utils.components import bounding_rect, connected_components
 from ucod_dpl_tpu_torch.data.transforms import image_transform
 
 # crop batches are padded to these sizes, as in the JAX package (which

@@ -10,7 +10,12 @@ the decoder's decoupling.
 
 On a CUDA device the fused LayerNorm + q/k/v (K6) and the packed attention
 (K1) run as hand-written kernels in bf16; ``plain=True`` runs their plain
-PyTorch versions instead, on any device.  With ``quant`` (the opt-in int8
+PyTorch versions instead, on any device.  Attention is routed as the JAX
+package routes it (:func:`~ucod_dpl_tpu_torch.ops.attention.
+multi_head_attention`): heads that K1 cannot take (an odd count, a head dim
+other than 64) go through the per-head kernel K5.  ``tp_shard`` runs the
+tensor-parallel forward, heads and MLP expansion split over a mesh axis
+(:func:`_tp_forward`).  With ``quant`` (the opt-in int8
 serving path, :func:`~ucod_dpl_tpu_torch.ops.quant.quantize_dino_linears`)
 the linears of layers 0..n-2 run through the int8 kernels K8 (LN + q/k/v),
 K10 (out-projection) and K9 (LN + fc1 + GELU, then fc2 as a plain int8
@@ -37,9 +42,11 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ucod_dpl_tpu_torch.ops.attention import (
-    packed_attention,
+    HEAD_DIM,
+    multi_head_attention,
     packed_attention_diff,
-    packed_attention_reference,
+    packed_layout_ok,
+    tp_multi_head_attention,
 )
 from ucod_dpl_tpu_torch.ops import fused_layers as FL
 from ucod_dpl_tpu_torch.ops.fused_layers import dense, layer_norm, layernorm_qkv, layernorm_qkv_reference
@@ -336,6 +343,7 @@ def dino_forward(
     remat=False,
     quant: Optional[Dict[str, Any]] = None,
     int8_mlp: str = "split",
+    tp_shard: Optional[Tuple[Any, str]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Run the ViT and return the reference hook contract.
 
@@ -353,8 +361,10 @@ def dino_forward(
       plain: run the plain PyTorch versions of the kernels on any device.
       differentiable: the forward that is differentiated (the JAX
         ``differentiable_mode``): q/k/v by LayerNorm + three dense
-        projections, attention through ``packed_attention_diff`` (autograd
-        through ``packed_attention_reference`` when ``plain``).
+        projections, attention through ``packed_attention_diff`` where
+        ``packed_layout_ok`` (on CUDA only at head dim 64, else
+        NotImplementedError), else (and when ``plain``) autograd through
+        the plain version.
       remat: ``False``/``"none"`` saves every activation for the backward;
         ``True``/``"layer"`` saves only each layer's input and recomputes the
         layer in the backward (``torch.utils.checkpoint``).
@@ -365,10 +375,27 @@ def dino_forward(
       int8_mlp: with ``quant``, ``"split"`` runs the MLP half as K9 and an
         int8 fc2 product, ``"whole"`` as K11 (the JAX package's
         ``UCOD_INT8_WHOLE_MLP=1``).
+      tp_shard: ``(mesh, axis)``: the tensor-parallel forward (the JAX
+        ``tp_shard``), heads and the MLP expansion split over ``axis``;
+        ``params`` is then the list of that axis's shards from
+        :func:`~ucod_dpl_tpu_torch.parallel.tp.shard_dino_params` (one row of
+        it), each on its own device (see :func:`_tp_forward`).  Not with
+        ``quant`` or ``key_fold`` (ValueError) or ``differentiable``
+        (NotImplementedError).
 
     Returns ``key_tokens`` (B, 1+N, hidden) and ``key_features`` (B, h, w,
     hidden); with ``key_fold`` only ``folded_features`` (B, h, w, F).
     """
+    if tp_shard is not None:
+        if quant is not None:
+            raise ValueError("the int8 path is single-device; tp_shard shards the weights (needs quant=None)")
+        if key_fold is not None:
+            raise ValueError("no caller folds the key projection under tensor parallelism; tp_shard needs "
+                             "key_fold=None")
+        if differentiable:
+            raise NotImplementedError("no path differentiates under tensor parallelism; tp_shard needs "
+                                      "differentiable=False")
+        return _tp_forward(params, pixels, cfg, tp_shard, dtype=compute_dtype, plain=plain)
     b, img_h, img_w, _ = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
     dtype = compute_dtype
@@ -382,14 +409,25 @@ def dino_forward(
         if len(quant["layers"]) != len(params["layers"]):
             raise ValueError(f"quant has {len(quant['layers'])} layers, params {len(params['layers'])}")
     if differentiable:
-        attention = packed_attention_reference if plain else packed_attention_diff
+        if plain or not packed_layout_ok(cfg.num_heads, cfg.head_dim):
+            # the heads the JAX differentiable_mode routes to _xla_attention:
+            # the plain version under autograd
+            def attention(q, k, v, nh, scale):
+                return multi_head_attention(q, k, v, nh, scale, plain=True)
+        elif cfg.head_dim != HEAD_DIM and pixels.device.type != "cpu":
+            raise NotImplementedError(f"the flash attention backward is built for head_dim {HEAD_DIM}; "
+                                      f"differentiating {cfg.num_heads} heads of {cfg.head_dim} is not ported")
+        else:
+            attention = packed_attention_diff
 
         def ln_qkv(x, norm, q, k, v, eps):
             h = layer_norm(x, norm, eps)
             return dense(h, q, dtype), dense(h, k, dtype), dense(h, v, dtype)
     else:
         ln_qkv = layernorm_qkv_reference if plain else layernorm_qkv
-        attention = packed_attention_reference if plain else packed_attention
+
+        def attention(q, k, v, nh, scale):
+            return multi_head_attention(q, k, v, nh, scale, plain=plain)
 
     def block_int8(x, layer, q8):
         ln_qkv8 = FL.layernorm_qkv_w8a8_reference if plain else FL.layernorm_qkv_w8a8
@@ -448,4 +486,75 @@ def dino_forward(
         folded = dense(h, fold, dtype) if quant is None else dense_w8a8(h, quantize_linear(fold), dtype)
         return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
     k = dense(h, last["k"], dtype) if quant is None else dense_w8a8(h, quant["layers"][-1]["k"], dtype)
+    return {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
+
+
+def _tp_forward(
+    shards,
+    pixels: torch.Tensor,
+    cfg: DinoConfig,
+    tp_shard: Tuple[Any, str],
+    *,
+    dtype: torch.dtype,
+    plain: bool,
+) -> Dict[str, torch.Tensor]:
+    """The tensor-parallel forward of :func:`dino_forward` (JAX
+    ``dino_forward(tp_shard=...)``): ``shards[m]`` holds shard ``m`` of the
+    ``axis`` split, on its own device.
+
+    Every layer is unfused, as in JAX (LayerNorm, then dense per shard; K6
+    never runs).  The column-parallel q/k/v and fc1 products stay on their
+    shards; attention runs per shard through :func:`tp_multi_head_attention`.
+    The row-parallel out-projection and fc2 products are partial sums: each
+    shard's product is rounded to ``dtype`` (bf16 partials), the partials are
+    added in f32 in shard order on shard 0's device and rounded once, and the
+    bias is added after that reduce.  The residual stream then lives on shard
+    0's device and each shard reads it from there, so it is identical on
+    every shard and the result is deterministic.  Work that is replicated
+    (LayerNorm of the residual stream) runs once per distinct device.  The
+    last layer computes LN1 and the key projection, gathered from the shards."""
+    mesh, axis = tp_shard
+    tp = mesh.shape[axis]
+    if len(shards) != tp:
+        raise ValueError(f"tp_shard over {axis}={tp} needs {tp} parameter shards; got {len(shards)}")
+    devs = [s["pos_embed"].device for s in shards]
+    b, img_h, img_w, _ = pixels.shape
+    gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
+    eps = cfg.layer_norm_eps
+    scale = 1.0 / float(np.sqrt(cfg.head_dim))
+
+    def replicated(fn):
+        """[fn(m) for each shard], computed once per distinct device."""
+        done: Dict[torch.device, torch.Tensor] = {}
+        return [done[d] if d in done else done.setdefault(d, fn(m)) for m, d in enumerate(devs)]
+
+    def reduce(partials, bias):
+        acc = partials[0].float()
+        for p in partials[1:]:
+            acc = acc + p.to(devs[0]).float()
+        return acc.to(dtype) + bias.to(dtype)
+
+    def gelu(h):
+        # tanh-approx GELU in bf16, exact erf in f32 (the JAX split)
+        return F.gelu(h, approximate="tanh") if dtype == torch.bfloat16 else F.gelu(h.float()).to(dtype)
+
+    x = _embed(shards[0], pixels.to(devs[0]), cfg, dtype)
+    *layers, last = zip(*(s["layers"] for s in shards))
+    for ls in layers:
+        hs = replicated(lambda m: layer_norm(x.to(devs[m]), ls[m]["norm1"], eps))
+        qs, ks, vs = ([dense(h, layer[name], dtype) for h, layer in zip(hs, ls)] for name in "qkv")
+        attn = tp_multi_head_attention(qs, ks, vs, cfg.num_heads, scale=scale, mesh=mesh, axis=axis, plain=plain)
+        attn = reduce([F.linear(a, layer["out"]["w"].to(dtype)) for a, layer in zip(attn, ls)], ls[0]["out"]["b"])
+        if cfg.use_layerscale:
+            attn = attn * ls[0]["ls1"].to(dtype)
+        x = x + attn
+        hs = replicated(lambda m: layer_norm(x.to(devs[m]), ls[m]["norm2"], eps))
+        gs = [gelu(dense(h, layer["fc1"], dtype)) for h, layer in zip(hs, ls)]
+        h = reduce([F.linear(g, layer["fc2"]["w"].to(dtype)) for g, layer in zip(gs, ls)], ls[0]["fc2"]["b"])
+        if cfg.use_layerscale:
+            h = h * ls[0]["ls2"].to(dtype)
+        x = x + h
+
+    hs = replicated(lambda m: layer_norm(x.to(devs[m]), last[m]["norm1"], eps))
+    k = torch.cat([dense(h, layer["k"], dtype).to(devs[0]) for h, layer in zip(hs, last)], dim=-1)
     return {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}

@@ -105,8 +105,12 @@ def kernels() -> ctypes.CDLL:
     lib.ucod_attention_fwd_lse.restype = i32
     lib.ucod_attention_bwd.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
     lib.ucod_attention_bwd.restype = i32
+    lib.ucod_attention_heads.argtypes = [ptr] * 4 + [i32, i32, i32, f32, ptr]
+    lib.ucod_attention_heads.restype = i32
     lib.ucod_layernorm_qkv.argtypes = [ptr] * 12 + [i32, i32, f32, ptr]
     lib.ucod_layernorm_qkv.restype = i32
+    lib.ucod_layernorm_fc1_gelu.argtypes = [ptr] * 6 + [i32, i32, i32, f32, ptr]
+    lib.ucod_layernorm_fc1_gelu.restype = i32
     lib.ucod_layernorm_qkv_w8a8.argtypes = [ptr] * 15 + [i32, i32, f32, ptr]
     lib.ucod_layernorm_qkv_w8a8.restype = i32
     lib.ucod_quant_dense_w8a8.argtypes = [ptr] * 5 + [i32, i32, i32, ptr]

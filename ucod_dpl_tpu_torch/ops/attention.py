@@ -1,7 +1,7 @@
 """Multi-head attention for the DINO ViT on the packed (B, L, D) layout.
 
-Counterpart of :mod:`ucod_dpl_tpu.ops.attention`.  Three wrappers of
-hand-written Hopper kernels, each with its plain PyTorch version beside it:
+Counterpart of :mod:`ucod_dpl_tpu.ops.attention`.  Wrappers of hand-written
+Hopper kernels, each with its plain PyTorch version beside it:
 
 * :func:`packed_attention` (K1, ``csrc/attention_fwd.cu``, the port of the
   TPU kernel ``_attention_kernel_headpair``): the inference forward.  Its
@@ -18,6 +18,12 @@ hand-written Hopper kernels, each with its plain PyTorch version beside it:
 :func:`packed_attention_diff` ties the last two together as a
 ``torch.autograd.Function`` (the JAX ``_packed_attention_diff`` custom VJP).
 
+:func:`heads_attention` (K5, ``csrc/attention_heads.cu``, the port of
+``_attention_kernel``) is the forward on the per-head (B*H, L, d) layout,
+which :func:`multi_head_attention` splits to when K1 cannot take the heads,
+as the JAX dispatch does; :func:`tp_multi_head_attention` runs it per
+tensor-parallel shard.
+
 Dispatch is by device alone: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
 """
@@ -25,7 +31,7 @@ tensor launches the kernel or raises.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,6 +39,7 @@ from ucod_dpl_tpu_torch.ops import _build
 
 _LOG2E = math.log2(math.e)
 HEAD_DIM = 64
+HEADS_DIMS = (16, 32, 64, 128)  # the head dims K5 is instantiated for
 
 
 def packed_attention_reference(
@@ -267,3 +274,105 @@ def packed_attention_diff(
     """Differentiable packed attention through the forward-LSE and backward
     kernels on CUDA (their plain versions on the CPU)."""
     return PackedAttention.apply(q, k, v, num_heads, scale)
+
+
+def heads_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """Plain PyTorch ``softmax(q k^T * scale) v`` on the per-head (BH, L, d)
+    layout, with the numerics of the JAX ``_xla_attention``: f32 scores and
+    softmax, probabilities rounded to the input dtype, f32-accumulated
+    ``p @ v`` rounded to the input dtype."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def heads_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """(BH, L, d) bf16 q/k/v, d in :data:`HEADS_DIMS` -> attention output,
+    same layout, written into ``out`` when given.
+
+    CUDA tensors launch K5 (counted in ``heads_attention.launches``); CPU
+    tensors take :func:`heads_attention_reference`."""
+    if q.device.type == "cpu":
+        o = heads_attention_reference(q, k, v, scale)
+        return o if out is None else out.copy_(o)
+    o = torch.empty_like(q) if out is None else out
+    for name, x in (("q", q), ("k", k), ("v", v), ("out", o)):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"heads_attention kernel takes bf16; {name} is {x.dtype}")
+        if x.shape != q.shape or x.device != q.device:
+            raise ValueError(f"heads_attention: {name} {tuple(x.shape)}@{x.device} "
+                             f"differs from q {tuple(q.shape)}@{q.device}")
+        if not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"heads_attention kernel takes contiguous, 16-byte aligned inputs; {name} is not")
+    if q.dim() != 3 or q.shape[-1] not in HEADS_DIMS or q.shape[1] < 1 or not 1 <= q.shape[0] <= 65535:
+        raise ValueError(f"heads_attention kernel needs (BH <= 65535, L >= 1, d in {HEADS_DIMS}); "
+                         f"got {tuple(q.shape)}")
+    bh, l, d = q.shape
+    with torch.cuda.device(q.device):
+        err = _build.kernels().ucod_attention_heads(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, l, d, float(scale) * _LOG2E,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check_cuda(err, "attention_heads")
+    heads_attention.launches += 1
+    return o
+
+
+heads_attention.launches = 0
+
+
+def packed_layout_ok(num_heads: int, head_dim: int) -> bool:
+    """The JAX dispatch's rule for its packed kernels: an even head count
+    with ``2 * hd % 128 == 0``.  K1 and its backward are built for one head
+    dim of that set, :data:`HEAD_DIM`."""
+    return num_heads % 2 == 0 and (2 * head_dim) % 128 == 0
+
+
+def multi_head_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float, *, plain: bool = False
+) -> torch.Tensor:
+    """(B, L, D) q/k/v projections -> (B, L, D) attention output, routed as
+    the JAX ``multi_head_attention`` routes it: the packed layout through K1
+    (:func:`packed_attention`) where :func:`packed_layout_ok` with a head dim
+    of 64, else split to (B * H, L, hd), through K5 (:func:`heads_attention`)
+    and merged back.  An even head count of 128, which the JAX package sends
+    to its packed kernel, runs K5 here: the same function.  ``plain``: the
+    plain versions of the same routes, on any device."""
+    b, l, d = q.shape
+    hd = d // num_heads
+    if packed_layout_ok(num_heads, hd) and hd == HEAD_DIM:
+        return (packed_attention_reference if plain else packed_attention)(q, k, v, num_heads, scale)
+
+    def split(x):
+        return x.reshape(b, l, num_heads, hd).transpose(1, 2).reshape(b * num_heads, l, hd)
+
+    o = (heads_attention_reference if plain else heads_attention)(split(q), split(k), split(v), scale)
+    return o.reshape(b, num_heads, l, hd).transpose(1, 2).reshape(b, l, d)
+
+
+def tp_multi_head_attention(
+    qs: Sequence[torch.Tensor],
+    ks: Sequence[torch.Tensor],
+    vs: Sequence[torch.Tensor],
+    num_heads: int,
+    *,
+    scale: float,
+    mesh,
+    axis: str = "model",
+    plain: bool = False,
+) -> List[torch.Tensor]:
+    """Tensor-parallel attention, the counterpart of the JAX
+    ``tp_multi_head_attention``: the heads are split over ``axis`` of
+    ``mesh``, and a sharded (B, L, D) tensor is the list of its shards, shard
+    ``m`` holding columns ``[m * D / tp, (m + 1) * D / tp)`` on its device.
+    Attention is head-local, so each shard runs :func:`multi_head_attention`
+    on its ``num_heads / tp`` heads with no communication; returns the output
+    shards."""
+    tp = mesh.shape[axis]
+    if num_heads % tp:
+        raise ValueError(f"{num_heads} heads not divisible by {axis}={tp}")
+    if not len(qs) == len(ks) == len(vs) == tp:
+        raise ValueError(f"tp_multi_head_attention needs {tp} shards of q/k/v; got {len(qs)}, {len(ks)}, {len(vs)}")
+    return [multi_head_attention(q, k, v, num_heads // tp, scale, plain=plain) for q, k, v in zip(qs, ks, vs)]

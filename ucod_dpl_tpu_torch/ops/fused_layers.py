@@ -5,8 +5,9 @@ Counterpart of :mod:`ucod_dpl_tpu.ops.fused_layers` (and of the
 :func:`layernorm_qkv` wraps the hand-written Hopper kernel K6
 (``csrc/layernorm_qkv.cu``, the port of the TPU kernel ``_lnqkv_kernel``);
 :func:`layernorm_qkv_reference` is its plain PyTorch version.  The int8
-(W8A8) kernels K8-K11 (``csrc/int8_linear.cu``) have wrappers of the JAX
-package's names below, each with its ``*_reference`` plain version.
+(W8A8) kernels K8-K11 (``csrc/int8_linear.cu``) and K7, LayerNorm + fc1 +
+GELU (``csrc/layernorm_fc1_gelu.cu``), have wrappers of the JAX package's
+names below, each with its ``*_reference`` plain version.
 
 Parameters use PyTorch layouts: a linear is ``{"w": (out, in), "b": (out,)}``
 and a norm ``{"scale": (d,), "bias": (d,)}``, all float32.
@@ -338,3 +339,62 @@ def layernorm_mlp_w8a8(x, norm: Params, q8_fc1, q8_fc2, eps: float, out=None):
 
 
 layernorm_mlp_w8a8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm + fc1 + tanh GELU, bf16 (K7, csrc/layernorm_fc1_gelu.cu): the op
+# the JAX package exports as ``layernorm_fc1_gelu``.  No forward calls it, as
+# no forward of the JAX package does (its ViT composes LN, dense and GELU).
+# ---------------------------------------------------------------------------
+
+def layernorm_fc1_gelu_reference(x: torch.Tensor, norm: Params, fc1: Params, eps: float) -> torch.Tensor:
+    """K7's arithmetic (the TPU kernel's, ``_lnfc1_kernel``) in plain PyTorch:
+    LayerNorm statistics in f32 (:func:`_layernorm_f32`), h rounded to
+    ``x.dtype``; fc1 with f32 accumulation plus the f32 bias, rounded to
+    ``x.dtype``; tanh GELU computed in f32 from that value and rounded to
+    ``x.dtype``."""
+    h = _layernorm_f32(x, norm, eps).to(x.dtype)
+    h1 = (F.linear(h.float(), fc1["w"].float()) + fc1["b"].float()).to(x.dtype)
+    return gelu_tanh(h1.float()).to(x.dtype)
+
+
+def layernorm_fc1_gelu(x: torch.Tensor, norm: Params, fc1: Params, eps: float,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(..., D) hidden state -> ``gelu_tanh(fc1(LN(x)))`` (..., F) in
+    ``x.dtype``, written into ``out`` when given.
+
+    CUDA tensors launch K7 (counted in ``layernorm_fc1_gelu.launches``; it
+    takes bf16 activations with D % 64 == 0, D <= 1024 and F % 256 == 0); CPU
+    tensors take :func:`layernorm_fc1_gelu_reference`."""
+    if x.device.type == "cpu":
+        ref = layernorm_fc1_gelu_reference(x, norm, fc1, eps)
+        return ref if out is None else out.copy_(ref)
+    if x.device.type != "cuda":
+        raise ValueError(f"layernorm_fc1_gelu: unsupported device {x.device}")
+    d = x.shape[-1]
+    f = fc1["w"].shape[0]
+    if d % 64 or d > 1024 or f % 256:
+        raise ValueError(f"layernorm_fc1_gelu kernel needs hidden % 64 == 0, <= 1024 and an expansion "
+                         f"% 256 == 0; got {d} -> {f}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"layernorm_fc1_gelu kernel takes bf16 activations; got {x.dtype}")
+    if x.numel() // d > 2**31 - 1:
+        raise ValueError(f"layernorm_fc1_gelu kernel: too many rows ({x.numel() // d})")
+    w = fc1["w"].to(torch.bfloat16).contiguous()
+    gamma, beta, b1 = _f32(norm["scale"]), _f32(norm["bias"]), _f32(fc1["b"])
+    res = torch.empty((*x.shape[:-1], f), dtype=x.dtype, device=x.device) if out is None else out
+    for t, shape, dtype in ((w, (f, d), torch.bfloat16), (gamma, (d,), torch.float32),
+                            (beta, (d,), torch.float32), (b1, (f,), torch.float32),
+                            (res, (*x.shape[:-1], f), torch.bfloat16)):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"layernorm_fc1_gelu kernel needs {dtype} {tuple(shape)}; got {t.dtype} {tuple(t.shape)}")
+    for t in (x, w, gamma, beta, b1, res):
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"layernorm_fc1_gelu kernel needs contiguous, 16-byte aligned tensors on {x.device}")
+    _launch("layernorm_fc1_gelu", _build.kernels().ucod_layernorm_fc1_gelu, x,
+            *(t.data_ptr() for t in (x, gamma, beta, w, b1, res)), x.numel() // d, d, f, float(eps))
+    layernorm_fc1_gelu.launches += 1
+    return res
+
+
+layernorm_fc1_gelu.launches = 0

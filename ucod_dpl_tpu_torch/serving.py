@@ -72,7 +72,7 @@ class Predictor:
     ) -> "Predictor":
         """``strict=True``: missing backbone weights raise instead of serving
         random-init features.  ``quantize="int8"``: the int8 backbone."""
-        from ucod_dpl_tpu.config import load_config
+        from ucod_dpl_tpu_torch.config import load_config
         from ucod_dpl_tpu_torch.models.safetensors_io import load_decoder_checkpoint
 
         cfg = load_config(config_path)
@@ -120,7 +120,7 @@ class Predictor:
     def _load(self, item):
         """-> (normalised (H, W, 3) float array, original PIL image or None)."""
         if isinstance(item, str) or hasattr(item, "__fspath__"):
-            from ucod_dpl_tpu.utils.fileio import ImageIO
+            from ucod_dpl_tpu_torch.utils.fileio import ImageIO
 
             img = ImageIO.read_image(item, "RGB")
             return image_transform(img, self.image_size), img
