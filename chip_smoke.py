@@ -33,7 +33,7 @@ Phases (each raises on failure; any failure exits non-zero):
   C. timing: attention forward + backward per call at bs16 L1370 and bs4
      L2917, the forward-LSE and backward kernels alone, and the LoRA step at
      bs16 518px, kernels against plain (the plain step only if it fits),
-     and with remat "layer";
+     and with remat "layer"; a torch.profiler trace of the LoRA step;
   D. the int8 kernels K8 (LN + quantize + q/k/v), K9 (LN + quantize + fc1 +
      GELU + requantize), K10 (quantize + out-projection) and K11 (the whole
      int8 MLP half) against their plain versions, bf16, at bs16 L1370 and at
@@ -80,6 +80,7 @@ The second-to-last line is a JSON object of the kernels; the last line is
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import subprocess
 import sys
@@ -265,7 +266,7 @@ def phase_k1(gen, dev) -> float:
         ("bs4 L2917", 4, 2917, 1.0, False),
         ("bs16 L1370 q*3", 16, 1370, 3.0, False),
         ("bs1 L1370 NaN rows past L", 1, 1370, 1.0, True),
-        # the last 64-row tile is mostly padding: a missing key mask or a
+        # the last 128-key tile is mostly padding: a missing key mask or a
         # wrong tail tile moves the output by a large share
         ("bs16 L65", 16, 65, 1.0, False),
         ("bs16 L1", 16, 1, 1.0, False),
@@ -715,6 +716,7 @@ def phase_train_timing(lora_run: dict, gen) -> dict:
     if recomputed != 4 * 2 * (fe.config.num_layers - 1):
         raise AssertionError(f"remat layer: {recomputed} forward-LSE launches in 4 steps, expected "
                              f"{4 * 2 * (fe.config.num_layers - 1)}")
+    _trace(kernel_step, "LoRA step bs16 518px bf16, remat none", inference=False)
     return out
 
 
@@ -1071,14 +1073,15 @@ def phase_tp(seed: int, dev, fe_cfg) -> dict:
     return out
 
 
-def _trace(fn, what: str, n: int = 3, top: int = 14) -> None:
+def _trace(fn, what: str, n: int = 3, top: int = 14, inference: bool = True) -> None:
     """torch.profiler over ``n`` calls of ``fn`` after two warm-ups: kernel
     time and launches per call, the device's busy share of the host wall,
-    and the kernels that take the most device time."""
+    and the kernels that take the most device time.  ``inference``: under
+    ``torch.inference_mode`` (not for a training step)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with torch.inference_mode() if inference else contextlib.nullcontext():
         for _ in range(2):
             fn()
         torch.cuda.synchronize()
@@ -1240,7 +1243,7 @@ def main(argv=None) -> int:
     # of 64, D 768, F 3072; K5 at the TP shard's 48 heads): bf16 tensors and
     # int8 weights moved once, the f32 vectors (under 40 KB) left out; K3/K4
     # counts the five products of 2 L^2 d per head a flash backward from the
-    # log-sum-exp needs (S, dP, dV, dK, dQ), not the seven its two passes run
+    # log-sum-exp needs (S, dP, dV, dK, dQ), which the one-pass kernel runs
     b, l, d, f = 16, 1370, SERVE_DIM, MLP_DIM
     rows, bh = b * l, b * NUM_HEADS
     bounds = {

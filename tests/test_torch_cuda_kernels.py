@@ -45,7 +45,10 @@ def dev():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("b,l,nh", [(1, 1, 2), (2, 63, 2), (2, 65, 4), (3, 129, 6), (1, 5477, 12)])
+# L on both sides of the 64- and 128-row tile edges; 2, 6 (a model=2 shard
+# of dinov2-base) and 16 heads
+@pytest.mark.parametrize("b,l,nh", [(1, 1, 2), (2, 63, 2), (2, 65, 4), (3, 129, 6), (1, 5477, 12), (2, 128, 2),
+                                    (2, 192, 16), (1, 193, 6), (2, 255, 2), (2, 256, 6), (1, 257, 16)])
 def test_attention_kernel_edge_lengths(dev, b, l, nh):
     g = torch.Generator(device=dev).manual_seed(l)
     q, k, v = (torch.randn(b, l, nh * 64, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
@@ -56,7 +59,8 @@ def test_attention_kernel_edge_lengths(dev, b, l, nh):
 
 
 @pytest.mark.parametrize(
-    "b,l,nh", [(1, 1, 1), (3, 65, 12), (2, 127, 1), (3, 128, 2), (1, 129, 12), (5, 200, 3)]
+    "b,l,nh", [(1, 1, 1), (3, 65, 12), (2, 127, 1), (3, 128, 2), (1, 129, 12), (5, 200, 3), (2, 192, 2),
+               (1, 193, 6), (2, 255, 16), (1, 256, 6), (2, 257, 2), (1, 129, 16)]
 )
 def test_attention_backward_edge_shapes(dev, b, l, nh):
     g = torch.Generator(device=dev).manual_seed(100 + l)
@@ -71,12 +75,51 @@ def test_attention_backward_edge_shapes(dev, b, l, nh):
     assert (lse - lse_ref).abs().max().item() <= 1e-3
     grads = packed_attention_bwd(q, k, v, o, do, lse, nh, 0.125,
                                  out=tuple(torch.full_like(q, float("nan")) for _ in range(3)))
-    for got, ref in zip(grads, packed_attention_bwd_reference(q, k, v, o, do, lse, nh, 0.125)):
+    _assert_grads_close(grads, packed_attention_bwd_reference(q, k, v, o, do, lse, nh, 0.125))
+
+
+def _assert_grads_close(grads, refs):
+    for got, ref in zip(grads, refs):
         got, ref = got.float(), ref.float()
         assert torch.isfinite(got).all()
         # 1e-5 absolute: dq and dk are zero in exact arithmetic at L = 1
         assert (got - ref).abs().max().item() <= 2.0 ** -5 * ref.abs().max().item() + 1e-5
         assert (got - ref).norm().item() <= 2e-2 * ref.norm().item() + 1e-5 * ref.numel() ** 0.5
+
+
+def test_attention_kernels_take_16_byte_aligned_bases(dev):
+    """Tensor maps need 16-byte aligned bases, not 128: every input and
+    output 16 bytes past a 128-byte boundary."""
+    b, l, nh = 2, 193, 6
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def shifted(fill=None):
+        buf = torch.empty(b * l * nh * 64 + 64, device=dev, dtype=torch.bfloat16)
+        x = buf[8:8 + b * l * nh * 64].view(b, l, nh * 64)
+        assert x.data_ptr() % 16 == 0 and x.data_ptr() % 128 != 0
+        return x.copy_(torch.randn(b, l, nh * 64, generator=g, device=dev)) if fill is None else x.fill_(fill)
+
+    q, k, v, do = (shifted() for _ in range(4))
+    o = packed_attention(q, k, v, nh, 0.125, out=shifted(float("nan")))
+    ref = packed_attention_reference(q, k, v, nh, 0.125).float()
+    assert (o.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
+    o, lse = packed_attention_fwd_lse(q, k, v, nh, 0.125, out=(shifted(float("nan")), torch.empty(b, nh, l, device=dev)))
+    grads = packed_attention_bwd(q, k, v, o, do, lse, nh, 0.125, out=tuple(shifted(float("nan")) for _ in range(3)))
+    _assert_grads_close(grads, packed_attention_bwd_reference(q, k, v, o, do, lse, nh, 0.125))
+
+
+def test_attention_backward_repeats(dev):
+    """dQ is summed by reduce-adds in an order that varies between runs:
+    two runs on the same inputs agree within the backward's bound; dK and
+    dV are summed in a fixed order and agree bit for bit."""
+    b, l, nh = 4, 1370, 12
+    g = torch.Generator(device=dev).manual_seed(6)
+    q, k, v, do = (torch.randn(b, l, nh * 64, generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+    o, lse = packed_attention_fwd_lse(q, k, v, nh, 0.125)
+    first = packed_attention_bwd(q, k, v, o, do, lse, nh, 0.125)
+    second = packed_attention_bwd(q, k, v, o, do, lse, nh, 0.125)
+    _assert_grads_close(second[:1], first[:1])
+    assert torch.equal(first[1], second[1]) and torch.equal(first[2], second[2])
 
 
 def test_attention_diff_counts_both_kernels_and_returns_input_dtype(dev):

@@ -9,6 +9,7 @@ same inputs.
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 import jax
@@ -166,3 +167,19 @@ def test_strict_weight_loading(tmp_path):
     fe = FeatureExtractor(cfg, device="cpu", seed=3)
     feats = fe.extract(np.zeros((1, 56, 56, 3), np.float32))
     assert feats.shape == (1, 4, 4, DIM) and feats.dtype == np.float32
+
+
+def test_entry_points_default_to_the_card(tmp_path, monkeypatch):
+    """Without ``device`` the extractor and ``Predictor.from_config`` run on
+    CUDA; on a machine without a card that raises at construction, naming
+    CUDA, instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FeatureExtractor(_fe_cfg())
+    config = tmp_path / "cfg.py"
+    config.write_text(
+        "cfg = dict(dataset_cfg=dict(feature_extractor_cfg=dict(type='dinov2', backbone='facebook/dinov2-base',\n"
+        "    backbone_weights='none', arch=dict(hidden_size=64, num_layers=2, num_heads=4, patch_size=14,\n"
+        "    image_size=56)), valset_cfg=dict(image_size=(56, 56))), model_cfg=dict(feature_size=8), val_cfg=dict())\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Predictor.from_config(str(config), str(tmp_path / "unused.safetensors"), strict=False)

@@ -7,369 +7,443 @@
 //   * _bwd2d_dq_kernel + _bwd2d_dkv_kernel (prelude _bwd2d_prelude, launched
 //     by _pallas_attention_packed_bwd_longl), the KV-blocked backward from
 //     saved denominators the VJP takes at 756px (L = 2917).
-// On the TPU the choice between the two is a VMEM law; here one
-// FlashAttention-2 style scheme covers every length.  With s = scale q k^T,
-// P = exp(s - lse) (lse from the forward, attention_fwd.cu), D = rowsum(dO o O):
+// On the TPU the choice between the two is a VMEM law; here one scheme
+// covers every length.  With s = scale q k^T, P = exp(s - lse) (lse from the
+// forward, attention_fwd.cu), D = rowsum(dO o O):
 //   dS = P o (dO V^T - D) * scale, rounded to bf16 before its matmuls;
 //   dQ = dS K,  dK = dS^T Q,  dV = P^T dO with P rounded to bf16,
-// every product accumulated in f32 and rounded to bf16 once at the store
+// every product accumulated in f32 and each gradient rounded to bf16 once
 // (the rounding points of the JAX kernels).
 //
-// What bounds it on the H100: at bs16 / 518px (L = 1370, 12 heads of 64) one
-// call is 7 * 2 * B * H * L^2 * 64 = 323 GFLOP (S and dP are computed by
-// both kernels) against about 270 MB of q/k/v/o/dO/dq/dk/dv, so the tensor
-// cores bound it, not HBM.  Design, kept simple (no wgmma, TMA or atomics):
-//   * a pre-pass computes D in f32, one warp per (row, head);
-//   * the dK/dV kernel gives each CTA of 4 warps one 64-row K/V tile (each
-//     warp 16 keys, K and V fragments held in registers) and loops over every
-//     q tile, double-buffering Q/dO tiles with cp.async.  It works on the
-//     transposed scores S^T = K Q^T, whose accumulators are exactly the A
-//     fragments of P^T and dS^T for dV += P^T dO and dK += dS^T Q;
-//   * the dQ kernel gives each CTA one 64-row q tile and loops over every
-//     K/V tile, as the forward does;
-//   * no CTA depends on another, so no cross-block carry (the TPU kernels
-//     accumulate dK/dV over sequential grid steps) and no atomic exists, and
-//     the result is deterministic;
-//   * it never reads a row >= L: such rows are zero-filled in shared memory,
-//     key columns >= L get P = 0 in the dQ kernel, and query rows >= L get
-//     lse = +inf (P = 0) and D = 0, so they add nothing to dK/dV; dK/dV rows
-//     >= L and dQ rows >= L are not written.
+// What bounds it on the H100: at bs16 / 518px (L = 1370, 12 heads of 64) the
+// five products of 2 * B * H * L^2 * 64 (S, dP, dV, dK, dQ) are 231 GFLOP,
+// 0.233 ms at the 989 TFLOP/s bf16 peak, against about 270 MB of
+// q/k/v/o/dO/dq/dk/dv (0.08 ms at 3.35 TB/s): the tensor cores bound it,
+// plus one ex2 per score (360 M, 0.09 ms of MUFU) and dQ's f32 traffic.
+// The design:
+//   * a pre-pass writes, per (batch * head, row) padded to a multiple of 64
+//     rows, the pair {lse * log2 e, D} in f32: +inf and 0 for rows >= L, so
+//     a query row past L gets P = 0 with no predicate; it also zeroes the
+//     f32 dQ scratch dq_acc;
+//   * the main kernel gives each CTA one 128-key K/V tile of one head: one
+//     producer warp (setmaxnreg down to 24) loads K and V once by TMA, then
+//     streams every 64-row q tile's Q, dO (3-D tensor maps, 128-byte
+//     swizzle, rows >= L zero-filled) and its 512 bytes of {lse, D} through
+//     a three-stage mbarrier ring; two consumer warpgroups (setmaxnreg up to
+//     240) own 64 keys each.  Per q tile a warpgroup runs five wgmma
+//     products, each score computed once (a two-pass backward, dK/dV then dQ,
+//     runs seven): S^T = K Q^T and dP^T = V dO^T from shared memory; P^T in
+//     registers; dV += P^T dO and dK += dS^T Q with P^T and dS^T as bf16 A
+//     fragments straight from the accumulators; dS^T stored to shared
+//     memory (128-byte swizzled) and dQ_partial = dS K over the warpgroup's
+//     64 keys.  The next q tile's S and dP are issued before this tile's dQ
+//     is passed on, so the tensor cores have work meanwhile;
+//   * the two warpgroups' dQ partials are summed through shared memory (each
+//     adds the other's half of the 64 columns, handed over by mbarrier) and
+//     each half-tile is added to dq_acc by one TMA bulk reduce-add
+//     (cp.reduce.async.bulk .add.f32, 8 KB), which runs asynchronously;
+//     dq_acc holds per (batch * head, q tile) the tile's sums contiguously
+//     (dq_half_offset).  The order of the additions from the CTAs of one
+//     head varies from run to run, so dq may differ in its last bits
+//     between runs; dK and dV are summed in registers in a fixed order and
+//     do not;
+//   * key rows >= L get P = 0 before any product uses P; the dK/dV stores
+//     and the dq cast skip rows >= L;
+//   * a last pass rounds dq_acc to bf16 into dq.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kHeadDim = 64;
-constexpr int kBlock = 64;  // rows of a q tile and of a K/V tile
-constexpr int kWarps = kBlock / 16;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLds = kHeadDim + 8;  // padded row: conflict-free fragment loads
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kDotWarps = 8;
-
 using bf16 = __nv_bfloat16;
 
-__device__ __forceinline__ void load_tile(bf16 (*dst)[kLds], const bf16* src, int row0, int seq_len,
-                                          int64_t row_stride) {
-  ucod::load_rows64<kBlock, kLds, kThreads>(dst, src, row0, seq_len, row_stride);
-}
+constexpr int kHeadDim = 64;
+constexpr int kConsumers = 2;             // warpgroups of 64 keys
+constexpr int kBlockK = 64 * kConsumers;  // keys per CTA
+constexpr int kBlockQ = 64;               // query rows per step
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr uint32_t kKvBytes = kBlockK * kHeadDim * 2;
+constexpr uint32_t kQBytes = kBlockQ * kHeadDim * 2;
+constexpr uint32_t kStatBytes = kBlockQ * sizeof(float2);
+constexpr int kWgBar = 1;  // named barrier 1 + c: warpgroup c's own
+constexpr float kLog2e = 1.4426950408889634f;
 
-// A fragments (16 rows x 64 columns, four k-steps) of rows [wr, wr + 16) of a
-// shared tile, held in registers for a whole loop.
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[kHeadDim / 16][4], const bf16 (*src)[kLds],
-                                             int wr, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    a[kk][0] = ucod::ld_bf16x2(&src[wr + g][16 * kk + 2 * t]);
-    a[kk][1] = ucod::ld_bf16x2(&src[wr + g + 8][16 * kk + 2 * t]);
-    a[kk][2] = ucod::ld_bf16x2(&src[wr + g][16 * kk + 8 + 2 * t]);
-    a[kk][3] = ucod::ld_bf16x2(&src[wr + g + 8][16 * kk + 8 + 2 * t]);
-  }
-}
+struct Smem {  // every tile 1024-byte aligned (128-byte swizzle atoms)
+  bf16 k[kBlockK * kHeadDim];
+  bf16 v[kBlockK * kHeadDim];
+  bf16 q[kStages][kBlockQ * kHeadDim];
+  bf16 d_o[kStages][kBlockQ * kHeadDim];
+  bf16 ds[kConsumers][64 * kBlockQ];  // dS^T, [key][query], per warpgroup
+  float2 xchg[2][kConsumers][8][128];  // dQ half-partials, by step parity
+  float dq_out[kConsumers][2][64 * 32];  // summed dQ halves on their way to dq_acc
+  float2 stats[kStages][kBlockQ];      // {lse * log2 e, D}
+  uint64_t kv_full;
+  uint64_t full[kStages], empty[kStages];
+  uint64_t xchg_full[kConsumers];  // warpgroup c's half-partial is written
+};
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
-// c[j] = A * B^T for a warp's 16 rows x 64 columns, where A comes in
-// registers and B is a row-major [column][dim] shared tile.
-__device__ __forceinline__ void mma_abt(float (&c)[kBlock / 8][4], const uint32_t (&a)[kHeadDim / 16][4],
-                                        const bf16 (*b)[kLds], int g, int t) {
+// stats[bh, i] = {lse * log2 e, D = sum_d dO o O} for i < L, {+inf, 0} for
+// L <= i < padded_len, and dq_acc's row i of head bh set to zero.  Eight
+// lanes take one (padded row, head) unit u: row u / num_heads of batch
+// element b, head u % num_heads, 16 bytes of the packed o/dO row and 16 of
+// the dq_acc row each.
+__global__ void __launch_bounds__(256)
+    attention_bwd_stats_kernel(const bf16* __restrict__ o, const bf16* __restrict__ d_o,
+                               const float* __restrict__ lse, float2* __restrict__ stats,
+                               float* __restrict__ dq_acc, int64_t n_units, int seq_len, int padded_len,
+                               int num_heads) {
+  const int64_t u = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 8;
+  if (u >= n_units) return;
+  const int part = threadIdx.x % 8;
+  const int h = (int)(u % num_heads);
+  const int64_t bi = u / num_heads;
+  const int b = (int)(bi / padded_len);
+  const int i = (int)(bi % padded_len);
+  const int64_t bh = (int64_t)b * num_heads + h;
+  // row i % 64 of both halves of tile i / 64 (see dq_half_offset); part p
+  // zeroes columns [4p, 4p + 4) of the row in half 0 and in half 1
+  float* dq_row = dq_acc + (bh * (padded_len / 64) + i / 64) * 64 * kHeadDim + (i % 64) * 32 + 4 * part;
+  reinterpret_cast<float4*>(dq_row)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  reinterpret_cast<float4*>(dq_row + 64 * 32)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  float dot = 0.f;
+  if (i < seq_len) {
+    const int64_t off = (((int64_t)b * seq_len + i) * num_heads + h) * kHeadDim + 8 * part;
+    const uint4 a = *reinterpret_cast<const uint4*>(o + off);
+    const uint4 c = *reinterpret_cast<const uint4*>(d_o + off);
+    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-  for (int j = 0; j < kBlock / 8; ++j) {
-    c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-      const bf16* br = &b[8 * j + g][16 * kk + 2 * t];
-      ucod::mma_16816(c[j], a[kk], ucod::ld_bf16x2(br), ucod::ld_bf16x2(br + 8));
+    for (int k = 0; k < 4; ++k) {
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[k]));
+      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cv[k]));
+      dot = fmaf(x.x, y.x, fmaf(x.y, y.y, dot));
     }
   }
+  dot += __shfl_xor_sync(0xffffffffu, dot, 4);
+  dot += __shfl_xor_sync(0xffffffffu, dot, 2);
+  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+  if (part == 0) {
+    stats[bh * padded_len + i] = i < seq_len ? make_float2(lse[bh * seq_len + i] * kLog2e, dot)
+                                             : make_float2(INFINITY, 0.f);
+  }
 }
 
-// acc += C * B for a warp's 16 rows, where C (16 x 64, f32 accumulators of
-// mma_abt's layout) is rounded to bf16 as the A operand and B is a row-major
-// [k][dim] shared tile delivered through ldmatrix.trans.
-__device__ __forceinline__ void mma_cb(float (&acc)[kHeadDim / 8][4], const float (&c)[kBlock / 8][4],
-                                       const bf16 (*b)[kLds], int lane) {
-  const int mat = lane >> 3;
+// Offset (in floats) of (row, col) in a 64-row x 32-column f32 half-tile of
+// dQ sums: rows of 128 bytes whose 16-byte chunk k is stored at k ^ (row %
+// 8), so a warp's fragment stores meet no bank twice.
+__device__ __forceinline__ int dq_half_offset(int row, int col) {
+  return row * 32 + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
+}
+
+// dq = bf16(dq_acc).  dq_acc holds, per (batch * head, 64-row q tile), the
+// tile's 64 x 64 f32 sums as two halves of columns [0, 32) and [32, 64),
+// each laid out as dq_half_offset says; one float4 (four columns) a thread.
+__global__ void attention_bwd_dq_cast_kernel(const float4* __restrict__ src, bf16* __restrict__ dq, int64_t n4,
+                                             int seq_len, int n_q, int num_heads) {
+  const int64_t row_stride = (int64_t)num_heads * kHeadDim;
+  for (int64_t f = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; f < n4; f += (int64_t)gridDim.x * blockDim.x) {
+    const int64_t tile = f / 1024;
+    const int half = (int)(f / 512 % 2);
+    const int row_in = (int)(f % 512 / 8);
+    const int row = (int)(tile % n_q) * 64 + row_in;
+    if (row >= seq_len) continue;
+    const int col = 32 * half + 4 * ((int)(f % 8) ^ (row_in & 7));
+    const int64_t bh = tile / n_q;
+    const float4 x = src[f];
+    *reinterpret_cast<uint2*>(dq + ((bh / num_heads) * seq_len + row) * row_stride + (bh % num_heads) * kHeadDim +
+                              col) = make_uint2(ucod::pack_bf16x2(x.x, x.y), ucod::pack_bf16x2(x.z, x.w));
+  }
+}
+
+// Sum this warpgroup's dQ partial with the other's over the columns this
+// warpgroup owns, [32C, 32C + 32), into the half-tile `out` (see
+// dq_half_offset).  The hand-over is an mbarrier per
+// writer, so a warpgroup waits only for the other's partial of this step
+// and the two may run up to a step apart; the buffers alternate by step
+// parity, and a writer two steps on has waited for the reader's next
+// partial, written after its read.
+template <int C>
+__device__ __forceinline__ void dq_exchange_add(float (&dq)[32], float2 (*xchg)[8][128], uint64_t* xchg_full,
+                                                uint32_t parity, int tid, float* out) {
+  constexpr int kOther = C ^ 1;
 #pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) {
-    const uint32_t a[4] = {
-        ucod::pack_bf16x2(c[2 * kk][0], c[2 * kk][1]),
-        ucod::pack_bf16x2(c[2 * kk][2], c[2 * kk][3]),
-        ucod::pack_bf16x2(c[2 * kk + 1][0], c[2 * kk + 1][1]),
-        ucod::pack_bf16x2(c[2 * kk + 1][2], c[2 * kk + 1][3]),
+  for (int t = 0; t < 8; ++t) xchg[C][t][tid] = make_float2(dq[16 * kOther + 2 * t], dq[16 * kOther + 2 * t + 1]);
+  ucod::mbar_arrive(&xchg_full[C]);
+  ucod::mbar_wait(&xchg_full[kOther], parity);
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const float2 p = xchg[kOther][t][tid];
+    dq[16 * C + 2 * t] += p.x;
+    dq[16 * C + 2 * t + 1] += p.y;
+  }
+  const int row = 16 * (tid / 32) + tid % 32 / 4;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int jb = 4 * C + j;
+    const int col = 8 * j + 2 * (tid % 4);
+    *reinterpret_cast<float2*>(out + dq_half_offset(row, col)) = make_float2(dq[4 * jb], dq[4 * jb + 1]);
+    *reinterpret_cast<float2*>(out + dq_half_offset(row + 8, col)) = make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);
+  }
+}
+
+// Accumulator pairs of a 64 x 64 product, as bf16 A fragments of the next
+// product's four k-steps (see hopper.cuh).
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) a[kk][r] = ucod::pack_bf16x2(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                         const float2* __restrict__ stats, float* __restrict__ dq_acc, bf16* __restrict__ dk,
+                         bf16* __restrict__ dv, int seq_len, int padded_len, int num_heads, float scale,
+                         float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int b = bh / num_heads;
+  const int h = bh % num_heads;
+  const int k0 = blockIdx.x * kBlockK;
+  const int n_q = padded_len / kBlockQ;
+
+  if (threadIdx.x == 0) {
+    ucod::mbar_init(&sm.kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      ucod::mbar_init(&sm.full[s], 1);
+      ucod::mbar_init(&sm.empty[s], 4 * kConsumers);  // lane 0 of every consumer warp
+    }
+#pragma unroll
+    for (int c = 0; c < kConsumers; ++c) ucod::mbar_init(&sm.xchg_full[c], 128);
+    ucod::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    ucod::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      ucod::mbar_expect_tx(&sm.kv_full, 2 * kKvBytes);
+      ucod::tma_load_3d(sm.k, &tm_k, &sm.kv_full, h * kHeadDim, k0, b);
+      ucod::tma_load_3d(sm.v, &tm_v, &sm.kv_full, h * kHeadDim, k0, b);
+      const float2* stats_h = stats + (int64_t)bh * padded_len;
+      for (int i = 0; i < n_q; ++i) {
+        const int st = i % kStages;
+        ucod::mbar_wait(&sm.empty[st], ((i / kStages) & 1) ^ 1);
+        ucod::mbar_expect_tx(&sm.full[st], 2 * kQBytes + kStatBytes);
+        ucod::tma_load_3d(sm.q[st], &tm_q, &sm.full[st], h * kHeadDim, i * kBlockQ, b);
+        ucod::tma_load_3d(sm.d_o[st], &tm_do, &sm.full[st], h * kHeadDim, i * kBlockQ, b);
+        ucod::bulk_load(sm.stats[st], stats_h + i * kBlockQ, kStatBytes, &sm.full[st]);
+      }
+    }
+  } else {
+    ucod::reg_alloc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    const bf16* k_c = sm.k + c * 64 * kHeadDim;
+    const bf16* v_c = sm.v + c * 64 * kHeadDim;
+    bf16* ds = sm.ds[c];
+    const int key0 = k0 + 64 * c + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const bool keys_past_l = k0 + 64 * c + 64 > seq_len;
+    const int64_t row_stride = (int64_t)num_heads * kHeadDim;
+    float* dq_tiles = dq_acc + (int64_t)bh * n_q * 64 * kHeadDim;  // this head's tiles
+
+    float dk_acc[32], dv_acc[32], dq[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    float s[32], dp[32];
+    ucod::mbar_wait(&sm.kv_full, 0);
+
+    // Step i in three parts, software-pipelined: the S and dP products of
+    // step i are issued before the dQ partial of step i - 1 is summed and
+    // added to dq_acc, so the tensor cores have work while this warpgroup
+    // runs the exchange and the atomics.  Every other product completes
+    // within its step.
+    auto issue_s_dp = [&](int i) {  // two commit groups: S^T = K Q^T, dP^T = V dO^T
+      const int st = i % kStages;
+      ucod::mbar_wait(&sm.full[st], (i / kStages) & 1);
+      ucod::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        ucod::wgmma_m64n64k16_ss<0, 0>(s, ucod::desc_kmajor(k_c, kk), ucod::desc_kmajor(sm.q[st], kk), kk);
+      }
+      ucod::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        ucod::wgmma_m64n64k16_ss<0, 0>(dp, ucod::desc_kmajor(v_c, kk), ucod::desc_kmajor(sm.d_o[st], kk), kk);
+      }
+      ucod::wgmma_commit();
     };
+    // with S and dP the only groups in flight: P, dV, dS, dK and the dQ
+    // partial, all completed on return
+    auto issue_rest = [&](int i) {
+      const int st = i % kStages;
+      ucod::wgmma_wait<1>();
+      ucod::fence_regs(s);
+      // P^T = exp2(S^T * scale log2 e - lse log2 e): query columns >= L have
+      // lse = +inf (P = 0); key rows >= L are zeroed
+      const float2* stat = sm.stats[st];
 #pragma unroll
-    for (int j = 0; j < kHeadDim / 8; j += 2) {
-      uint32_t bb[4];
-      ucod::ldmatrix_x4_trans(bb, &b[16 * kk + (mat & 1) * 8 + (lane & 7)][8 * (j + (mat >> 1))]);
-      ucod::mma_16816(acc[j], a, bb[0], bb[1]);
-      ucod::mma_16816(acc[j + 1], a, bb[2], bb[3]);
+      for (int e = 0; e < 32; ++e) {
+        s[e] = ucod::exp2_ftz(fmaf(s[e], scale_log2, -stat[8 * (e >> 2) + 2 * tq + (e & 1)].x));
+      }
+      if (keys_past_l) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          if (key0 + 8 * ((e >> 1) & 1) >= seq_len) s[e] = 0.f;
+        }
+      }
+      uint32_t pa[4][4];
+      to_a_frags(pa, s);
+      ucod::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockQ / 16; ++kk) {  // dV += P^T dO
+        ucod::wgmma_m64n64k16_rs<1>(dv_acc, pa[kk], ucod::desc_mnmajor(sm.d_o[st], kk), 1);
+      }
+      ucod::wgmma_commit();
+      ucod::wgmma_wait<1>();
+      ucod::fence_regs(dp);
+
+      // dS^T = P^T o (dP^T - D) * scale
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dp[e] = s[e] * (dp[e] - stat[8 * (e >> 2) + 2 * tq + (e & 1)].y) * scale;
+      uint32_t da[4][4];
+      to_a_frags(da, dp);
+      ucod::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockQ / 16; ++kk) {  // dK += dS^T Q
+        ucod::wgmma_m64n64k16_rs<1>(dk_acc, da[kk], ucod::desc_mnmajor(sm.q[st], kk), 1);
+      }
+      ucod::wgmma_commit();
+
+      // dS^T into shared memory, [key][query] with the 128-byte swizzle, for
+      // dQ = dS K with dS read MN-major (the previous step's dQ has completed)
+#pragma unroll
+      for (int jb = 0; jb < kBlockQ / 8; ++jb) {
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int key = 16 * warp + g + 8 * rh;
+          *reinterpret_cast<uint32_t*>(ds + key * kBlockQ + ((jb ^ (key & 7)) * 8) + 2 * tq) =
+              da[jb >> 1][(jb & 1) * 2 + rh];
+        }
+      }
+      ucod::fence_proxy_async();
+      // the bulk addition of step i - 2 has read dq_out[c][i & 1], which
+      // finish(i) refills: known to the warpgroup past this barrier
+      if (tid == 0) ucod::bulk_wait_read<1>();
+      ucod::named_sync(kWgBar + c, 128);
+      ucod::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 64 / 16; ++kk) {  // dQ partial = dS K over this warpgroup's keys
+        ucod::wgmma_m64n64k16_ss<1, 1>(dq, ucod::desc_mnmajor(ds, kk), ucod::desc_mnmajor(k_c, kk), kk);
+      }
+      ucod::wgmma_commit();
+      ucod::wgmma_wait<0>();
+      ucod::fence_regs(dq);
+      ucod::fence_regs(dk_acc);
+      ucod::fence_regs(dv_acc);
+    };
+    // step i's products done: free its stage, add its dQ partial
+    auto finish = [&](int i) {
+      if (lane == 0) ucod::mbar_arrive(&sm.empty[i % kStages]);
+      float* out = sm.dq_out[c][i & 1];
+      if (c == 0) {
+        dq_exchange_add<0>(dq, sm.xchg[i & 1], sm.xchg_full, i & 1, tid, out);
+      } else {
+        dq_exchange_add<1>(dq, sm.xchg[i & 1], sm.xchg_full, i & 1, tid, out);
+      }
+      ucod::fence_proxy_async();
+      ucod::named_sync(kWgBar + c, 128);
+      if (tid == 0) {
+        ucod::bulk_reduce_add_f32(dq_tiles + (int64_t)i * 64 * kHeadDim + c * 32 * 64, out, 32 * 64 * 4);
+        ucod::bulk_commit();
+      }
+    };
+
+    issue_s_dp(0);
+    issue_rest(0);
+    for (int i = 1; i < n_q; ++i) {
+      issue_s_dp(i);
+      finish(i - 1);
+      issue_rest(i);
     }
-  }
-}
+    finish(n_q - 1);
+    if (tid == 0) ucod::bulk_wait<0>();
 
-// Rows r0 and r0 + 8 of a warp's f32 accumulators, rounded to bf16, into the
-// packed layout; rows >= seq_len are not written.
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[kHeadDim / 8][4], int r0,
-                                           int seq_len, int64_t row_stride, int t) {
+    bf16* dk_h = dk + (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
+    bf16* dv_h = dv + (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
 #pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) {
-    const int c = 8 * j + 2 * t;
-    if (r0 < seq_len) {
-      *reinterpret_cast<uint32_t*>(dst + (int64_t)r0 * row_stride + c) =
-          ucod::pack_bf16x2(acc[j][0], acc[j][1]);
-    }
-    if (r0 + 8 < seq_len) {
-      *reinterpret_cast<uint32_t*>(dst + (int64_t)(r0 + 8) * row_stride + c) =
-          ucod::pack_bf16x2(acc[j][2], acc[j][3]);
-    }
-  }
-}
-
-// D[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d] in f32; warp w handles
-// packed row w / num_heads, head w % num_heads.
-__global__ void __launch_bounds__(32 * kDotWarps)
-    attention_bwd_dot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ d_o,
-                             float* __restrict__ dsum, int64_t n_rows, int seq_len, int num_heads) {
-  const int64_t w = (int64_t)blockIdx.x * kDotWarps + (threadIdx.x >> 5);
-  if (w >= n_rows) return;
-  const int lane = threadIdx.x & 31;
-  const int64_t off = w * kHeadDim + 2 * lane;  // (b * L + i) * H * 64 + h * 64
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + off));
-  const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(d_o + off));
-  const float s = ucod::warp_sum(a.x * c.x + a.y * c.y);
-  if (lane == 0) {
-    const int h = (int)(w % num_heads);
-    const int64_t bi = w / num_heads;
-    const int64_t b = bi / seq_len;
-    dsum[(b * num_heads + h) * seq_len + bi % seq_len] = s;
-  }
-}
-
-struct SmemDkv {
-  bf16 q[2][kBlock][kLds];    // stage 1 holds the K tile before the loop
-  bf16 d_o[2][kBlock][kLds];  // stage 1 holds the V tile before the loop
-  float lse2[2][kBlock];      // lse * log2 e; +inf for rows >= seq_len
-  float dsum[2][kBlock];      // D; 0 for rows >= seq_len
-};
-
-__device__ __forceinline__ void load_row_stats(float* lse2, float* dsum, const float* lse_h,
-                                               const float* dsum_h, int row0, int seq_len) {
-  if (threadIdx.x < kBlock) {
-    const int row = row0 + threadIdx.x;
-    const bool valid = row < seq_len;
-    lse2[threadIdx.x] = valid ? lse_h[row] * kLog2e : INFINITY;
-    dsum[threadIdx.x] = valid ? dsum_h[row] : 0.f;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                             const bf16* __restrict__ v, const bf16* __restrict__ d_o,
-                             const float* __restrict__ lse, const float* __restrict__ dsum,
-                             bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_len, int num_heads,
-                             float scale, float scale_log2) {
-  __shared__ __align__(16) SmemDkv sm;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int b = blockIdx.y / num_heads;
-  const int h = blockIdx.y % num_heads;
-  const int k0 = blockIdx.x * kBlock;
-  const int64_t row_stride = (int64_t)num_heads * kHeadDim;
-  const int64_t head_base = (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
-  const bf16* qh = q + head_base;
-  const bf16* doh = d_o + head_base;
-  const float* lse_h = lse + (int64_t)blockIdx.y * seq_len;
-  const float* dsum_h = dsum + (int64_t)blockIdx.y * seq_len;
-
-  load_tile(sm.q[1], k + head_base, k0, seq_len, row_stride);
-  load_tile(sm.d_o[1], v + head_base, k0, seq_len, row_stride);
-  load_tile(sm.q[0], qh, 0, seq_len, row_stride);
-  load_tile(sm.d_o[0], doh, 0, seq_len, row_stride);
-  ucod::cp_async_commit();
-  load_row_stats(sm.lse2[0], sm.dsum[0], lse_h, dsum_h, 0, seq_len);
-  ucod::cp_async_wait<0>();
-  __syncthreads();
-
-  const int wr = warp * 16;  // this warp's first key within the K/V tile
-  uint32_t ka[kHeadDim / 16][4], va[kHeadDim / 16][4];
-  load_a_frags(ka, sm.q[1], wr, g, t);
-  load_a_frags(va, sm.d_o[1], wr, g, t);
-  __syncthreads();  // stage 1 is refilled below
-
-  float dk_acc[kHeadDim / 8][4], dv_acc[kHeadDim / 8][4];
+    for (int jb = 0; jb < kHeadDim / 8; ++jb) {
+      const int col = 8 * jb + 2 * tq;
 #pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[j][e] = dv_acc[j][e] = 0.f;
-  }
-
-  const int n_tiles = (seq_len + kBlock - 1) / kBlock;
-  for (int qt = 0; qt < n_tiles; ++qt) {
-    const int st = qt & 1;
-    if (qt + 1 < n_tiles) {
-      load_tile(sm.q[st ^ 1], qh, (qt + 1) * kBlock, seq_len, row_stride);
-      load_tile(sm.d_o[st ^ 1], doh, (qt + 1) * kBlock, seq_len, row_stride);
-      ucod::cp_async_commit();
-      load_row_stats(sm.lse2[st ^ 1], sm.dsum[st ^ 1], lse_h, dsum_h, (qt + 1) * kBlock, seq_len);
-    }
-
-    // P^T = exp2(S^T * scale log2 e - lse log2 e): 16 keys x 64 queries
-    float s[kBlock / 8][4];
-    mma_abt(s, ka, sm.q[st], g, t);
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] * scale_log2 - sm.lse2[st][8 * j + 2 * t + (e & 1)]);
+      for (int rh = 0; rh < 2; ++rh) {
+        const int key = key0 + 8 * rh;
+        if (key < seq_len) {
+          *reinterpret_cast<uint32_t*>(dk_h + (int64_t)key * row_stride + col) =
+              ucod::pack_bf16x2(dk_acc[4 * jb + 2 * rh], dk_acc[4 * jb + 2 * rh + 1]);
+          *reinterpret_cast<uint32_t*>(dv_h + (int64_t)key * row_stride + col) =
+              ucod::pack_bf16x2(dv_acc[4 * jb + 2 * rh], dv_acc[4 * jb + 2 * rh + 1]);
+        }
       }
     }
-    // dP^T = V dO^T, then dS^T = P^T o (dP^T - D) * scale
-    float ds[kBlock / 8][4];
-    mma_abt(ds, va, sm.d_o[st], g, t);
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        ds[j][e] = s[j][e] * (ds[j][e] - sm.dsum[st][8 * j + 2 * t + (e & 1)]) * scale;
-      }
-    }
-    mma_cb(dv_acc, s, sm.d_o[st], lane);  // dV += P^T dO
-    mma_cb(dk_acc, ds, sm.q[st], lane);   // dK += dS^T Q
-
-    if (qt + 1 < n_tiles) ucod::cp_async_wait<0>();
-    __syncthreads();  // stage st is refilled by the next iteration's copies
   }
-
-  const int r0 = k0 + wr + g;
-  store_rows(dk + head_base, dk_acc, r0, seq_len, row_stride, t);
-  store_rows(dv + head_base, dv_acc, r0, seq_len, row_stride, t);
-}
-
-struct SmemDq {
-  bf16 k[2][kBlock][kLds];  // stage 1 holds the Q tile before the loop
-  bf16 v[2][kBlock][kLds];  // stage 1 holds the dO tile before the loop
-};
-
-__global__ void __launch_bounds__(kThreads)
-    attention_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, const bf16* __restrict__ d_o,
-                            const float* __restrict__ lse, const float* __restrict__ dsum,
-                            bf16* __restrict__ dq, int seq_len, int num_heads, float scale,
-                            float scale_log2) {
-  __shared__ __align__(16) SmemDq sm;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int b = blockIdx.y / num_heads;
-  const int h = blockIdx.y % num_heads;
-  const int q0 = blockIdx.x * kBlock;
-  const int64_t row_stride = (int64_t)num_heads * kHeadDim;
-  const int64_t head_base = (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
-  const bf16* kh = k + head_base;
-  const bf16* vh = v + head_base;
-
-  load_tile(sm.k[1], q + head_base, q0, seq_len, row_stride);
-  load_tile(sm.v[1], d_o + head_base, q0, seq_len, row_stride);
-  load_tile(sm.k[0], kh, 0, seq_len, row_stride);
-  load_tile(sm.v[0], vh, 0, seq_len, row_stride);
-  ucod::cp_async_commit();
-
-  // this thread's rows r0 and r0 + 8: lse * log2 e (+inf past L) and D (0)
-  const int wr = warp * 16;
-  const int r0 = q0 + wr + g;
-  const float* lse_h = lse + (int64_t)blockIdx.y * seq_len;
-  const float* dsum_h = dsum + (int64_t)blockIdx.y * seq_len;
-  float lse2[2], drow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + 8 * i;
-    lse2[i] = row < seq_len ? lse_h[row] * kLog2e : INFINITY;
-    drow[i] = row < seq_len ? dsum_h[row] : 0.f;
-  }
-  ucod::cp_async_wait<0>();
-  __syncthreads();
-
-  uint32_t qa[kHeadDim / 16][4], da[kHeadDim / 16][4];
-  load_a_frags(qa, sm.k[1], wr, g, t);
-  load_a_frags(da, sm.v[1], wr, g, t);
-  __syncthreads();  // stage 1 is refilled below
-
-  float dq_acc[kHeadDim / 8][4];
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) dq_acc[j][0] = dq_acc[j][1] = dq_acc[j][2] = dq_acc[j][3] = 0.f;
-
-  const int n_tiles = (seq_len + kBlock - 1) / kBlock;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_tiles) {
-      load_tile(sm.k[st ^ 1], kh, (kt + 1) * kBlock, seq_len, row_stride);
-      load_tile(sm.v[st ^ 1], vh, (kt + 1) * kBlock, seq_len, row_stride);
-      ucod::cp_async_commit();
-    }
-
-    // P = exp2(S * scale log2 e - lse log2 e), 0 for key columns >= seq_len
-    const int k0 = kt * kBlock;
-    float s[kBlock / 8][4];
-    mma_abt(s, qa, sm.k[st], g, t);
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        s[j][e] = col < seq_len ? exp2f(s[j][e] * scale_log2 - lse2[e >> 1]) : 0.f;
-      }
-    }
-    // dP = dO V^T, then dS = P o (dP - D) * scale
-    float ds[kBlock / 8][4];
-    mma_abt(ds, da, sm.v[st], g, t);
-#pragma unroll
-    for (int j = 0; j < kBlock / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ds[j][e] = s[j][e] * (ds[j][e] - drow[e >> 1]) * scale;
-    }
-    mma_cb(dq_acc, ds, sm.k[st], lane);  // dQ += dS K
-
-    if (kt + 1 < n_tiles) ucod::cp_async_wait<0>();
-    __syncthreads();  // stage st is refilled by the next iteration's copies
-  }
-
-  store_rows(dq + head_base, dq_acc, r0, seq_len, row_stride, t);
 }
 
 }  // namespace
 
 // q, k, v, o, d_o, dq, dk, dv: contiguous bf16 (batch, seq_len, num_heads *
 // 64), 16-byte aligned; lse: contiguous f32 (batch, num_heads, seq_len) from
-// ucod_attention_fwd_lse; dsum: f32 scratch of the same shape.  Launches the
-// D pre-pass, the dK/dV kernel and the dQ kernel on `stream`; returns the
-// first failed launch's cudaError_t, or 0.
+// ucod_attention_fwd_lse; stats and dq_acc: f32 scratch of batch * num_heads
+// * padded * 2 and * 64 values, padded = seq_len rounded up to a multiple of
+// 64, 16-byte aligned, filled by the pre-pass.  Launches the pre-pass, the
+// main kernel and the dq cast on `stream`; returns the first failed launch's
+// cudaError_t (cudaErrorInvalidValue when a tensor map cannot be made), or 0.
 extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                  const void* d_o, const void* lse, void* dsum, void* dq, void* dk,
-                                  void* dv, int batch, int seq_len, int num_heads, float scale,
+                                  const void* d_o, const void* lse, void* stats, void* dq_acc, void* dq,
+                                  void* dk, void* dv, int batch, int seq_len, int num_heads, float scale,
                                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t n_rows = (int64_t)batch * seq_len * num_heads;
-  attention_bwd_dot_kernel<<<(unsigned)((n_rows + kDotWarps - 1) / kDotWarps), 32 * kDotWarps, 0, s>>>(
-      static_cast<const bf16*>(o), static_cast<const bf16*>(d_o), static_cast<float*>(dsum), n_rows,
-      seq_len, num_heads);
+  const int padded = (seq_len + kBlockQ - 1) / kBlockQ * kBlockQ;
+  const int64_t n_units = (int64_t)batch * padded * num_heads;
+  attention_bwd_stats_kernel<<<(unsigned)((n_units * 8 + 255) / 256), 256, 0, s>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
+      static_cast<float2*>(stats), static_cast<float*>(dq_acc), n_units, seq_len, padded, num_heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq_len + kBlock - 1) / kBlock, batch * num_heads);
-  const float scale_log2 = scale * kLog2e;
-  attention_bwd_dkv_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(d_o), static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_len, num_heads, scale, scale_log2);
+
+  CUtensorMap tm_q, tm_k, tm_v, tm_do;
+  const int cols = num_heads * kHeadDim;
+  if (!ucod::packed_tensor_map(&tm_q, q, batch, seq_len, cols, kBlockQ) ||
+      !ucod::packed_tensor_map(&tm_do, d_o, batch, seq_len, cols, kBlockQ) ||
+      !ucod::packed_tensor_map(&tm_k, k, batch, seq_len, cols, kBlockK) ||
+      !ucod::packed_tensor_map(&tm_v, v, batch, seq_len, cols, kBlockK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((seq_len + kBlockK - 1) / kBlockK, batch * num_heads);
+  attention_bwd_kernel<<<grid, kThreads, kSmemBytes, s>>>(
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float2*>(stats), static_cast<float*>(dq_acc),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_len, padded, num_heads, scale,
+      scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  attention_bwd_dq_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(d_o), static_cast<const float*>(lse), static_cast<const float*>(dsum),
-      static_cast<bf16*>(dq), seq_len, num_heads, scale, scale_log2);
+
+  const int64_t n4 = (int64_t)batch * num_heads * padded * kHeadDim / 4;
+  const unsigned blocks = (unsigned)((n4 + 255) / 256 < 8192 ? (n4 + 255) / 256 : 8192);
+  attention_bwd_dq_cast_kernel<<<blocks, 256, 0, s>>>(static_cast<const float4*>(dq_acc), static_cast<bf16*>(dq),
+                                                      n4, seq_len, padded / kBlockQ, num_heads);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,221 +14,336 @@
 // softmax's running max m (log2 units) and sum l: one store per row.
 //
 // What bounds it on the H100: at bs16 / 518px (L = 1370, 12 heads of 64) one
-// call is 4 * B * H * L^2 * 64 = 92 GFLOP against 135 MB of q/k/v/o, about
-// 680 FLOP per byte, so the tensor cores bound it, not HBM; the L x L score
-// matrix never leaves the SM.  Design, FlashAttention-2 style and kept simple:
-//   * one CTA of 4 warps per (64-row q tile, batch * head); each warp owns 16
-//     query rows and loops over 64-row K/V tiles with mma.sync m16n8k16;
-//   * heads are read straight from the packed layout by stride (row stride
-//     num_heads * 64), so no split/merge transposes exist;
-//   * K/V tiles are double-buffered in shared memory with cp.async;
-//   * online softmax in the exp2 domain with a running row max (scale * log2 e
-//     arrives folded into `scale_log2`), so no fixed-shift guard band exists;
-//   * it never reads a row >= L: the copies of such rows are zero-filled and
-//     key columns >= L get a -inf score, so L need not be a multiple of 64
-//     (1370 = 21 * 64 + 26).
-// Not yet used: wgmma, TMA, warp specialisation (later work).
+// call is 4 * B * H * L^2 * 64 = 92 GFLOP, 0.093 ms at the 989 TFLOP/s bf16
+// peak, against 135 MB of q/k/v/o (0.040 ms at 3.35 TB/s): the tensor cores
+// bound it, not HBM.  At head dim 64 the exponentials weigh as much: one
+// ex2 per score, B * H * L^2 = 360 M of them, and the SM's MUFU unit does 16
+// a clock, about 0.09 ms over 132 SMs.  A kernel that runs the products and
+// the softmax one after the other pays the sum of the two.  The design, in
+// the outline of FlashAttention-3, built from Hopper's own parts
+// (hopper.cuh):
+//   * warp-specialised CTAs, one per SM, persistent: each takes the work
+//     tiles (128-row q tile, batch * head) blockIdx.x, + gridDim.x, ...; one
+//     producer warp issues TMA loads (registers dropped to 24 with
+//     setmaxnreg), two consumer warpgroups own 64 query rows each (registers
+//     raised to 240); at L = 1370 the last q tile holds 1408 - 1370 = 38
+//     rows past L, which are computed and not stored;
+//   * 3-D tensor maps over q, k and v as (H * 64 columns, L rows, B) with a
+//     box of 64 columns (128 bytes, 128-byte swizzle) x 128 rows; the head
+//     is the column coordinate.  Rows >= L lie outside the map: TMA fills
+//     them with zeros and never reads past the tensor;
+//   * K and V tiles of 128 keys through a three-stage ring with full/empty
+//     mbarriers that runs on from one work tile to the next, and Q through
+//     a buffer freed as soon as the tile's last S product is done, so the
+//     next tile's loads overlap this tile's last products and epilogue;
+//   * S = Q K^T by wgmma m64n128k16 with both operands in shared memory;
+//     O += P V by wgmma m64n64k16 with P as bf16 A fragments straight from
+//     the S accumulators and V read MN-major (transpose bit);
+//   * the softmax kept off the critical path: the two consumer warpgroups
+//     take turns issuing their wgmmas (named barriers, "ping-pong"), and in
+//     each warpgroup the S product of tile j is issued together with the PV
+//     product of tile j - 1 before tile j's softmax runs, so the
+//     exponentials of one warpgroup run under the wgmmas of both;
+//     per score one FFMA folds the scale into the exponent (exp2(s *
+//     scale_log2 - m)), and the key mask (col >= L -> -inf) is applied on
+//     the last K/V tile only; rows with no finite score yet keep the
+//     running-max guard (m = -inf -> shift 0);
+//   * the epilogue rounds O / l to bf16 once and stores rows < L.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kHeadDim = 64;
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kWarps = kBlockQ / 16;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kLds = kHeadDim + 8;  // padded row: conflict-free fragment loads
+constexpr int kConsumers = 2;             // warpgroups of 64 query rows
+constexpr int kBlockQ = 64 * kConsumers;  // query rows per CTA
+constexpr int kBlockK = 128;              // keys per K/V tile
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr uint32_t kKvBytes = kBlockK * kHeadDim * 2;
+constexpr uint32_t kQBytes = kBlockQ * kHeadDim * 2;
+constexpr int kSchedBar = 1;  // named barriers 1, 2: the consumers' turns
 constexpr float kLn2 = 0.69314718055994531f;
-static_assert(kBlockQ == kBlockK, "load_tile serves both q and k/v tiles");
 
-struct Smem {
-  __nv_bfloat16 q[kBlockQ][kLds];
-  __nv_bfloat16 k[2][kBlockK][kLds];
-  __nv_bfloat16 v[2][kBlockK][kLds];
+struct Smem {  // every tile 1024-byte aligned (128-byte swizzle atoms)
+  bf16 q[kBlockQ * kHeadDim];
+  bf16 k[kStages][kBlockK * kHeadDim];
+  bf16 v[kStages][kBlockK * kHeadDim];
+  uint64_t q_full, q_empty;
+  uint64_t k_full[kStages], k_empty[kStages], v_full[kStages], v_empty[kStages];
 };
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
-// Rows [row0, row0 + 64) of one head into shared memory; rows >= seq_len
-// are zero-filled and never read from global memory.
-__device__ __forceinline__ void load_tile(__nv_bfloat16 (*dst)[kLds], const __nv_bfloat16* src,
-                                          int row0, int seq_len, int64_t row_stride) {
-  ucod::load_rows64<kBlockK, kLds, kThreads>(dst, src, row0, seq_len, row_stride);
+// S = Q K^T for a warpgroup's 64 rows x 128 keys (one commit group).
+__device__ __forceinline__ void issue_s(float (&s)[kBlockK / 2], const bf16* q_tile, const bf16* k_tile) {
+  ucod::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+    ucod::wgmma_m64n128k16_ss<0, 0>(s, ucod::desc_kmajor(q_tile, kk), ucod::desc_kmajor(k_tile, kk), kk);
+  }
+  ucod::wgmma_commit();
+}
+
+// O += P V, P from registers, V read MN-major (one commit group).
+__device__ __forceinline__ void issue_pv(float (&acc)[kHeadDim / 2], const uint32_t (&pa)[kBlockK / 16][4],
+                                         const bf16* v_tile) {
+  ucod::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    ucod::wgmma_m64n64k16_rs<1>(acc, pa[kk], ucod::desc_mnmajor(v_tile, kk), 1);
+  }
+  ucod::wgmma_commit();
+}
+
+// One K/V tile of the online softmax for this thread's rows g and g + 8:
+// masks keys >= L (only a tile that reaches past L has any), updates the
+// running max m (log2 units) and sum l, sets alpha to the rescale O owes,
+// and turns S into P = exp2(s * scale_log2 - m) in place.
+__device__ __forceinline__ void online_softmax(float (&s)[kBlockK / 2], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], int k0, int seq_len, int tq, float scale_log2) {
+  if (k0 + kBlockK > seq_len) {
+#pragma unroll
+    for (int i = 0; i < kBlockK / 2; ++i) {
+      if (k0 + 8 * (i >> 2) + 2 * tq + (i & 1) >= seq_len) s[i] = -INFINITY;
+    }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int i = 0; i < kBlockK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+  float mu[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+    mu[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no finite score yet
+    alpha[r] = ucod::exp2_ftz(m[r] - mu[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < kBlockK / 2; ++i) {
+    s[i] = ucod::exp2_ftz(fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]));
+    l[(i >> 1) & 1] += s[i];
+  }
+}
+
+// The S accumulators of key blocks 2k and 2k + 1 as the bf16 A fragment of
+// k-step k of O += P V (see hopper.cuh).
+__device__ __forceinline__ void to_a_frags(uint32_t (&pa)[kBlockK / 16][4], const float (&s)[kBlockK / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) pa[kk][r] = ucod::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+  }
 }
 
 template <bool kLse>
-__global__ void __launch_bounds__(kThreads)
-    attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                         float* __restrict__ lse, int seq_len, int num_heads, float scale_log2) {
-  __shared__ __align__(16) Smem sm;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int b = blockIdx.y / num_heads;
-  const int h = blockIdx.y % num_heads;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int64_t row_stride = (int64_t)num_heads * kHeadDim;
-  const int64_t head_base = (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
-  const __nv_bfloat16* qh = q + head_base;
-  const __nv_bfloat16* kh = k + head_base;
-  const __nv_bfloat16* vh = v + head_base;
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                         const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse,
+                         int seq_len, int num_heads, int n_work, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128;
+  const int n_qt = (seq_len + kBlockQ - 1) / kBlockQ;
+  const int n_kv = (seq_len + kBlockK - 1) / kBlockK;
 
-  load_tile(sm.q, qh, q0, seq_len, row_stride);
-  load_tile(sm.k[0], kh, 0, seq_len, row_stride);
-  load_tile(sm.v[0], vh, 0, seq_len, row_stride);
-  ucod::cp_async_commit();
-
-  const int wr = warp * 16;  // this warp's first row within the q tile
-  uint32_t qa[kHeadDim / 16][4];
-  float acc[kHeadDim / 8][4];
+  if (threadIdx.x == 0) {
+    ucod::mbar_init(&sm.q_full, 1);
+    ucod::mbar_init(&sm.q_empty, 4 * kConsumers);  // lane 0 of every consumer warp
 #pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // running max (log2 units) and partial denominators for rows g and g + 8
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-
-  const int n_tiles = (seq_len + kBlockK - 1) / kBlockK;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_tiles) {
-      load_tile(sm.k[st ^ 1], kh, (kt + 1) * kBlockK, seq_len, row_stride);
-      load_tile(sm.v[st ^ 1], vh, (kt + 1) * kBlockK, seq_len, row_stride);
-      ucod::cp_async_commit();
-      ucod::cp_async_wait<1>();
-    } else {
-      ucod::cp_async_wait<0>();
+    for (int s = 0; s < kStages; ++s) {
+      ucod::mbar_init(&sm.k_full[s], 1);
+      ucod::mbar_init(&sm.v_full[s], 1);
+      ucod::mbar_init(&sm.k_empty[s], 4 * kConsumers);
+      ucod::mbar_init(&sm.v_empty[s], 4 * kConsumers);
     }
-    __syncthreads();
-
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        qa[kk][0] = ucod::ld_bf16x2(&sm.q[wr + g][16 * kk + 2 * t]);
-        qa[kk][1] = ucod::ld_bf16x2(&sm.q[wr + g + 8][16 * kk + 2 * t]);
-        qa[kk][2] = ucod::ld_bf16x2(&sm.q[wr + g][16 * kk + 8 + 2 * t]);
-        qa[kk][3] = ucod::ld_bf16x2(&sm.q[wr + g + 8][16 * kk + 8 + 2 * t]);
-      }
-    }
-
-    // S = Q K^T for this warp's 16 rows x 64 keys (B[k][n] = K[n][k]).
-    float s[kBlockK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-        const __nv_bfloat16* kr = &sm.k[st][8 * j + g][16 * kk + 2 * t];
-        ucod::mma_16816(s[j], qa[kk], ucod::ld_bf16x2(kr), ucod::ld_bf16x2(kr + 8));
-      }
-    }
-
-    // scale into log2 units, mask key columns >= seq_len, online softmax
-    const int k0 = kt * kBlockK;
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + 8 * j + 2 * t + (e & 1);
-        s[j][e] = col < seq_len ? s[j][e] * scale_log2 : -INFINITY;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-      }
-    }
-    float alpha[2], mu[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      mu[i] = m_new == -INFINITY ? 0.f : m_new;  // a row with no finite score yet
-      alpha[i] = exp2f(m[i] - mu[i]);
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - mu[e >> 1]);
-        l[e >> 1] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kHeadDim / 8; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-
-    // O += P V.  The S accumulators of key tiles 2kk and 2kk+1 are exactly
-    // the A fragment of P for k-step kk; V's B fragments come transposed
-    // from its row-major [key][dim] tile through ldmatrix.trans.
-    const int mat = lane >> 3;
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t pa[4] = {
-          ucod::pack_bf16x2(s[2 * kk][0], s[2 * kk][1]),
-          ucod::pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-          ucod::pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          ucod::pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int j = 0; j < kHeadDim / 8; j += 2) {
-        uint32_t vb[4];
-        ucod::ldmatrix_x4_trans(
-            vb, &sm.v[st][16 * kk + (mat & 1) * 8 + (lane & 7)][8 * (j + (mat >> 1))]);
-        ucod::mma_16816(acc[j], pa, vb[0], vb[1]);
-        ucod::mma_16816(acc[j + 1], pa, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled by the next iteration's copies
+    ucod::fence_barrier_init();
   }
+  __syncthreads();
 
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    inv[i] = 1.f / l[i];
-  }
-  const int r0 = q0 + wr + g;
-  __nv_bfloat16* oh = o + head_base;
-#pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j) {
-    const int c = 8 * j + 2 * t;
-    if (r0 < seq_len) {
-      *reinterpret_cast<uint32_t*>(oh + (int64_t)r0 * row_stride + c) =
-          ucod::pack_bf16x2(acc[j][0] * inv[0], acc[j][1] * inv[0]);
+  // Persistent: this CTA takes work tiles blockIdx.x, + gridDim.x, ...; tile
+  // t is q tile t % n_qt of batch * head t / n_qt.  The ring of K/V stages
+  // runs on across tiles (`it` counts the K/V tiles so far), so the next
+  // tile's Q and first K/V tiles load while this one finishes.
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    ucod::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      int n = 0;
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++n) {
+        const int bh = t / n_qt;
+        const int b = bh / num_heads;
+        const int h = bh % num_heads;
+        ucod::mbar_wait(&sm.q_empty, (n & 1) ^ 1);
+        ucod::mbar_expect_tx(&sm.q_full, kQBytes);
+        ucod::tma_load_3d(sm.q, &tm_q, &sm.q_full, h * kHeadDim, t % n_qt * kBlockQ, b);
+        for (int j = 0; j < n_kv; ++j, ++it) {
+          const int st = it % kStages;
+          const uint32_t ph = (it / kStages) & 1;
+          ucod::mbar_wait(&sm.k_empty[st], ph ^ 1);
+          ucod::mbar_expect_tx(&sm.k_full[st], kKvBytes);
+          ucod::tma_load_3d(sm.k[st], &tm_k, &sm.k_full[st], h * kHeadDim, j * kBlockK, b);
+          ucod::mbar_wait(&sm.v_empty[st], ph ^ 1);
+          ucod::mbar_expect_tx(&sm.v_full[st], kKvBytes);
+          ucod::tma_load_3d(sm.v[st], &tm_v, &sm.v_full[st], h * kHeadDim, j * kBlockK, b);
+        }
+      }
     }
-    if (r0 + 8 < seq_len) {
-      *reinterpret_cast<uint32_t*>(oh + (int64_t)(r0 + 8) * row_stride + c) =
-          ucod::pack_bf16x2(acc[j][2] * inv[1], acc[j][3] * inv[1]);
+  } else {
+    ucod::reg_alloc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    const bf16* q_tile = sm.q + c * 64 * kHeadDim;
+    const int64_t row_stride = (int64_t)num_heads * kHeadDim;
+
+    float s[kBlockK / 2];   // S (then P in f32): 64 rows x 128 keys
+    float acc[kHeadDim / 2];  // O: 64 rows x 64
+    uint32_t pa[kBlockK / 16][4];  // P in bf16, the A fragments of O += P V
+
+    // Warpgroup 0 issues first; every K/V tile is one turn of each
+    // warpgroup, and warpgroup 1's last turn is not taken up.
+    if (c == 1) ucod::named_arrive(kSchedBar, 256);
+    int it = 0;
+    int n = 0;
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++n) {
+      const bool last_work = t + (int)gridDim.x >= n_work;
+      const int bh = t / n_qt;
+#pragma unroll
+      for (int i = 0; i < kHeadDim / 2; ++i) acc[i] = 0.f;
+      // running max (log2 units), partial row sums and the pending rescale
+      // of O, for rows g and g + 8 of this warp
+      float m[2] = {-INFINITY, -INFINITY};
+      float l[2] = {0.f, 0.f};
+      float alpha[2] = {1.f, 1.f};
+      ucod::mbar_wait(&sm.q_full, n & 1);
+
+      // K/V tile 0: S alone
+      {
+        const int st = it % kStages;
+        ucod::mbar_wait(&sm.k_full[st], (it / kStages) & 1);
+        ucod::named_sync(kSchedBar + c, 256);
+        issue_s(s, q_tile, sm.k[st]);
+        if (!(c == 1 && last_work && n_kv == 1)) ucod::named_arrive(kSchedBar + (c ^ 1), 256);
+        ucod::wgmma_wait<0>();
+        ucod::fence_regs(s);
+        if (lane == 0) {
+          ucod::mbar_arrive(&sm.k_empty[st]);
+          if (n_kv == 1) ucod::mbar_arrive(&sm.q_empty);  // Q's last product is done
+        }
+        online_softmax(s, m, l, alpha, 0, seq_len, tq, scale_log2);
+        to_a_frags(pa, s);
+      }
+
+      for (int j = 1; j < n_kv; ++j) {
+        const int st = (it + j) % kStages;
+        const int pst = (it + j - 1) % kStages;  // stage of K/V tile j - 1
+        ucod::mbar_wait(&sm.k_full[st], ((it + j) / kStages) & 1);
+        ucod::named_sync(kSchedBar + c, 256);
+        issue_s(s, q_tile, sm.k[st]);
+        // O = alpha O + P_{j-1} V_{j-1}, issued behind S_j
+#pragma unroll
+        for (int i = 0; i < kHeadDim / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        ucod::mbar_wait(&sm.v_full[pst], ((it + j - 1) / kStages) & 1);
+        issue_pv(acc, pa, sm.v[pst]);
+        if (!(c == 1 && last_work && j == n_kv - 1)) ucod::named_arrive(kSchedBar + (c ^ 1), 256);
+        ucod::wgmma_wait<1>();
+        ucod::fence_regs(s);
+        if (lane == 0) {
+          ucod::mbar_arrive(&sm.k_empty[st]);
+          if (j == n_kv - 1) ucod::mbar_arrive(&sm.q_empty);
+        }
+        online_softmax(s, m, l, alpha, j * kBlockK, seq_len, tq, scale_log2);  // under the PV product
+        ucod::wgmma_wait<0>();
+        ucod::fence_regs(acc);
+        if (lane == 0) ucod::mbar_arrive(&sm.v_empty[pst]);
+        to_a_frags(pa, s);
+      }
+
+      // the last K/V tile's O += P V
+      const int lst = (it + n_kv - 1) % kStages;
+#pragma unroll
+      for (int i = 0; i < kHeadDim / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      ucod::mbar_wait(&sm.v_full[lst], ((it + n_kv - 1) / kStages) & 1);
+      issue_pv(acc, pa, sm.v[lst]);
+      ucod::wgmma_wait<0>();
+      ucod::fence_regs(acc);
+      if (lane == 0) ucod::mbar_arrive(&sm.v_empty[lst]);
+      it += n_kv;
+
+      float inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = 1.f / l[r];
+      }
+      const int r0 = t % n_qt * kBlockQ + 64 * c + 16 * warp + g;
+      bf16* oh = o + (int64_t)(bh / num_heads) * seq_len * row_stride + (int64_t)(bh % num_heads) * kHeadDim;
+#pragma unroll
+      for (int jb = 0; jb < kHeadDim / 8; ++jb) {
+        const int col = 8 * jb + 2 * tq;
+        if (r0 < seq_len) {
+          *reinterpret_cast<uint32_t*>(oh + (int64_t)r0 * row_stride + col) =
+              ucod::pack_bf16x2(acc[4 * jb] * inv[0], acc[4 * jb + 1] * inv[0]);
+        }
+        if (r0 + 8 < seq_len) {
+          *reinterpret_cast<uint32_t*>(oh + (int64_t)(r0 + 8) * row_stride + col) =
+              ucod::pack_bf16x2(acc[4 * jb + 2] * inv[1], acc[4 * jb + 3] * inv[1]);
+        }
+      }
+      if (kLse && tq == 0) {
+        float* lh = lse + (int64_t)bh * seq_len;
+        if (r0 < seq_len) lh[r0] = m[0] * kLn2 + logf(l[0]);
+        if (r0 + 8 < seq_len) lh[r0 + 8] = m[1] * kLn2 + logf(l[1]);
+      }
     }
   }
-  if (kLse && t == 0) {
-    float* lh = lse + (int64_t)blockIdx.y * seq_len;
-    if (r0 < seq_len) lh[r0] = m[0] * kLn2 + logf(l[0]);
-    if (r0 + 8 < seq_len) lh[r0 + 8] = m[1] * kLn2 + logf(l[1]);
+}
+
+template <bool kLse>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int seq_len, int num_heads,
+           float scale_log2, void* stream) {
+  CUtensorMap tm_q, tm_k, tm_v;
+  const int cols = num_heads * kHeadDim;
+  if (!ucod::packed_tensor_map(&tm_q, q, batch, seq_len, cols, kBlockQ) ||
+      !ucod::packed_tensor_map(&tm_k, k, batch, seq_len, cols, kBlockK) ||
+      !ucod::packed_tensor_map(&tm_v, v, batch, seq_len, cols, kBlockK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmemBytes);
+  int device = 0, n_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_work = (seq_len + kBlockQ - 1) / kBlockQ * batch * num_heads;
+  attention_fwd_kernel<kLse><<<n_work < n_sm ? n_work : n_sm, kThreads, kSmemBytes,
+                               static_cast<cudaStream_t>(stream)>>>(tm_q, tm_k, tm_v, static_cast<bf16*>(o), lse,
+                                                                    seq_len, num_heads, n_work, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous bf16 (batch, seq_len, num_heads * 64), 16-byte
-// aligned.  Launches on `stream`; returns the launch's cudaError_t.
+// aligned.  Launches min(work tiles, SMs) CTAs on `stream`; returns the
+// launch's cudaError_t (cudaErrorInvalidValue when a tensor map cannot be
+// made).
 extern "C" int ucod_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
                                   int seq_len, int num_heads, float scale_log2, void* stream) {
-  const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, batch * num_heads);
-  attention_fwd_kernel<false><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), nullptr, seq_len,
-      num_heads, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
 }
 
 // As ucod_attention_fwd, and also lse: contiguous f32 (batch, num_heads,
@@ -236,10 +351,5 @@ extern "C" int ucod_attention_fwd(const void* q, const void* k, const void* v, v
 extern "C" int ucod_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int batch, int seq_len, int num_heads,
                                       float scale_log2, void* stream) {
-  const dim3 grid((seq_len + kBlockQ - 1) / kBlockQ, batch * num_heads);
-  attention_fwd_kernel<true><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), seq_len, num_heads, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch<true>(q, k, v, o, static_cast<float*>(lse), batch, seq_len, num_heads, scale_log2, stream);
 }

@@ -1,10 +1,11 @@
 // Small device helpers shared by the port's hand-written Hopper kernels.
 //
-// The kernels use the warp-level tensor-core instruction mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) with fragments loaded from shared
-// memory, and cp.async for global->shared copies.  Fragment layouts
-// (PTX ISA, "Matrix fragments for mma.m16n8k16"), with g = lane / 4 and
-// t = lane % 4:
+// The kernels other than the packed attention forward and backward (whose
+// TMA / wgmma helpers are in hopper.cuh) use the warp-level tensor-core
+// instruction mma.sync m16n8k16 (bf16 in, f32 accumulate) with fragments
+// loaded from shared memory, and cp.async for global->shared copies.
+// Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16"), with
+// g = lane / 4 and t = lane % 4:
 //   A (16x16, row major), four 32-bit registers of two bf16 each:
 //     a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
 //   B (16x8, column major), two registers:
@@ -91,22 +92,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p))
                : "memory");
-}
-
-// Rows [row0, row0 + kRows) of a (seq_len, row_stride) bf16 matrix, 64
-// columns from `src`, into a padded shared tile, by all kThreads threads with
-// cp.async.  Rows >= seq_len are zero-filled and never read from global
-// memory.
-template <int kRows, int kLd, int kThreads>
-__device__ __forceinline__ void load_rows64(__nv_bfloat16 (*dst)[kLd], const __nv_bfloat16* src,
-                                            int row0, int seq_len, int64_t row_stride) {
-  for (int idx = threadIdx.x; idx < kRows * 8; idx += kThreads) {
-    const int r = idx >> 3;
-    const int c = (idx & 7) * 8;
-    const int row = row0 + r;
-    const bool valid = row < seq_len;
-    cp_async16(&dst[r][c], src + (int64_t)(valid ? row : 0) * row_stride + c, valid);
-  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -66,8 +66,10 @@ class FeatureExtractor:
         mesh=None,
     ):
         """``device``: where the backbone runs; it defaults to the first
-        device of ``mesh``, and without a mesh it must be given (nothing
-        chooses the CPU because CUDA is missing).  ``compute_dtype``
+        device of ``mesh``, and without a mesh to the card,
+        ``torch.device("cuda")``.  A CUDA device on a machine without one
+        raises here; nothing falls back to the CPU, which a caller asks for
+        with ``device="cpu"``.  ``compute_dtype``
         defaults to bf16 on CUDA and float32 on the CPU; ``params`` are held
         cast to it once
         (:func:`~ucod_dpl_tpu_torch.models.dino.cast_params`), except the
@@ -120,9 +122,10 @@ class FeatureExtractor:
                 self.tp_shard = (mesh, "model")
             if device is None:
                 device = mesh.devices.flat[0]
-        if device is None:
-            raise ValueError("FeatureExtractor needs a device or a mesh")
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"FeatureExtractor: device {self.device} requested (the default without a mesh), "
+                               "but CUDA is not available; pass device='cpu' to run on the CPU")
         if compute_dtype is None:
             if self.device.type not in _DTYPE_BY_DEVICE:
                 raise ValueError(f"no default compute dtype for device {self.device}")

@@ -103,7 +103,7 @@ def kernels() -> ctypes.CDLL:
     lib.ucod_attention_fwd.restype = i32
     lib.ucod_attention_fwd_lse.argtypes = [ptr] * 5 + [i32, i32, i32, f32, ptr]
     lib.ucod_attention_fwd_lse.restype = i32
-    lib.ucod_attention_bwd.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
+    lib.ucod_attention_bwd.argtypes = [ptr] * 11 + [i32, i32, i32, f32, ptr]
     lib.ucod_attention_bwd.restype = i32
     lib.ucod_attention_heads.argtypes = [ptr] * 4 + [i32, i32, i32, f32, ptr]
     lib.ucod_attention_heads.restype = i32

@@ -208,6 +208,15 @@ def packed_attention_fwd_lse(
 packed_attention_fwd_lse.launches = 0
 
 
+def bwd_scratch(b: int, l: int, num_heads: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's f32 scratch, per (batch * head, row) with the
+    rows padded to a multiple of 64: {lse * log2 e, D} and dQ's sums (64 a
+    row), both filled by the kernel's pre-pass."""
+    padded = -(-l // 64) * 64
+    return (torch.empty(b * num_heads * padded * 2, device=device, dtype=torch.float32),
+            torch.empty(b * num_heads * padded * 64, device=device, dtype=torch.float32))
+
+
 def packed_attention_bwd(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -223,9 +232,10 @@ def packed_attention_bwd(
     ``o``, output cotangent ``do`` and saved log-sum-exp, written into ``out``
     when given; bf16 (B, L, num_heads * 64) like q.
 
-    CUDA tensors launch the D pre-pass, the dK/dV kernel and the dQ kernel of
-    ``csrc/attention_bwd.cu`` (counted once per call in
-    ``packed_attention_bwd.launches``); CPU tensors take
+    CUDA tensors launch the statistics pre-pass, the one-pass backward and
+    the dq cast of ``csrc/attention_bwd.cu`` (counted once per call in
+    ``packed_attention_bwd.launches``); dq is summed in f32 by reduce-adds in
+    an order that varies, so its last bits may differ from run to run.  CPU tensors take
     :func:`packed_attention_bwd_reference`."""
     if q.device.type == "cpu":
         refs = packed_attention_bwd_reference(q, k, v, o, do, lse, num_heads, scale)
@@ -234,10 +244,10 @@ def packed_attention_bwd(
     _check_kernel_inputs(q, num_heads, k=k, v=v, o=o, do=do, dq=grads[0], dk=grads[1], dv=grads[2])
     _check_lse(lse, q, num_heads)
     b, l, _ = q.shape
-    dsum = torch.empty_like(lse)
+    stats, dq_acc = bwd_scratch(b, l, num_heads, q.device)
     with torch.cuda.device(q.device):
         err = _build.kernels().ucod_attention_bwd(
-            *(x.data_ptr() for x in (q, k, v, o, do, lse, dsum, *grads)), b, l, num_heads,
+            *(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)), b, l, num_heads,
             float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check_cuda(err, "attention_bwd")

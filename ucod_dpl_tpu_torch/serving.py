@@ -4,9 +4,11 @@ Counterpart of :class:`ucod_dpl_tpu.serving.Predictor`::
 
     from ucod_dpl_tpu_torch.serving import Predictor
     p = Predictor.from_config("configs/uscod/UCOD-DPL_dinov2.py",
-                              checkpoint="weights/UCOD_DPL_dinov2.safetensors",
-                              device="cuda")
+                              checkpoint="weights/UCOD_DPL_dinov2.safetensors")
     masks = p.predict(["im1.jpg", "im2.jpg"])   # list of (H, W) float masks
+
+It runs on the card, ``device="cuda"``, unless the caller passes
+``device="cpu"``; without a card the default raises at construction.
 
 Batches are padded to power-of-two buckets up to ``max_batch``; the JAX
 package's jitted programs (probabilities or masks, and the LookTwice crop
@@ -67,11 +69,13 @@ class Predictor:
 
     @classmethod
     def from_config(
-        cls, config_path: str, checkpoint: str, *, device, max_batch: int = 16, strict: bool = True,
+        cls, config_path: str, checkpoint: str, *, device="cuda", max_batch: int = 16, strict: bool = True,
         quantize: Optional[str] = None,
     ) -> "Predictor":
-        """``strict=True``: missing backbone weights raise instead of serving
-        random-init features.  ``quantize="int8"``: the int8 backbone."""
+        """``device``: the card by default; ``"cpu"`` runs the plain
+        versions of the kernels.  ``strict=True``: missing backbone weights
+        raise instead of serving random-init features.
+        ``quantize="int8"``: the int8 backbone."""
         from ucod_dpl_tpu_torch.config import load_config
         from ucod_dpl_tpu_torch.models.safetensors_io import load_decoder_checkpoint
 

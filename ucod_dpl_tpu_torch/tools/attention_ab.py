@@ -1,0 +1,381 @@
+"""Same-process timing of the port's attention kernels on the card.
+
+Run from the repository root on a machine with one NVIDIA GPU::
+
+    python3 -m ucod_dpl_tpu_torch.tools.attention_ab [--parent DIR] [--variants] [--sass]
+
+Always: the card's name and power limit (nvidia-smi), then the forward (K1),
+the forward with log-sum-exp (K2) and the backward (K3/K4) at bs16 L1370 and
+bs4 L2917 (12 heads of 64, bf16), each beside one
+``scaled_dot_product_attention`` call on the same tensors (its backward for
+the backward), and a torch.profiler breakdown of the backward's kernels.
+
+* ``--parent DIR``: DIR is a checkout of a parent tree whose attention
+  kernels have the C interface of the FlashAttention-2 kernels they replaced
+  (``ucod_attention_fwd``, ``ucod_attention_fwd_lse``, and
+  ``ucod_attention_bwd`` with a D scratch and no dQ scratch).  They are built
+  from DIR by DIR's own ``ops/_build.py`` and timed against this tree's,
+  interleaved parent, this, this, parent; the outputs of the two are compared.
+* ``--variants``: variants of this tree's kernels, each an edit of its source
+  (``VARIANTS``), built into ``build/ucod_dpl_tpu_torch/variants/`` and timed
+  interleaved against the kernel it varies.  Variants marked "diagnostic"
+  compute a wrong result on purpose: they show what one part costs.
+* ``--sass``: instruction counts in the SASS of the built attention objects
+  (``cuobjdump -sass``): HGMMA (wgmma), UTMALDG (TMA loads), UBLKRED (bulk
+  reduce-add), HMMA (mma.sync), MUFU.EX2.
+
+Exits 1 without a CUDA device.  Times are CUDA-event means over 20 calls
+after 3 warm-ups, each the mean of its two interleaved runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import importlib.util
+import json
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from ucod_dpl_tpu_torch.ops import _build
+from ucod_dpl_tpu_torch.ops import attention as A
+
+HEADS, SCALE = 12, 0.125
+SHAPES = ((16, 1370), (4, 2917))
+
+
+def _log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _ab_ms(a, b):
+    """Interleaved a, b, b, a -> (a ms, b ms), each the mean of its two runs."""
+    a1, b1, b2, a2 = _time_ms(a), _time_ms(b), _time_ms(b), _time_ms(a)
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _inputs(b: int, l: int, seed: int = 0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b, l, HEADS * 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    o, lse = A.packed_attention_fwd_lse(q, k, v, HEADS, SCALE)
+    return q, k, v, do, o, lse
+
+
+def _heads(x):
+    b, l, d = x.shape
+    return x.view(b, l, HEADS, d // HEADS).transpose(1, 2)
+
+
+def library(results: dict) -> None:
+    """This tree's kernels beside scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    for b, l in SHAPES:
+        q, k, v, do, o, lse = _inputs(b, l)
+        hq, hk, hv = (_heads(x).detach().requires_grad_(True) for x in (q, k, v))
+        o_sdpa = F.scaled_dot_product_attention(hq, hk, hv, scale=SCALE)
+        row = {
+            "K1": _time_ms(lambda: A.packed_attention(q, k, v, HEADS, SCALE)),
+            "K2": _time_ms(lambda: A.packed_attention_fwd_lse(q, k, v, HEADS, SCALE)),
+            "bwd": _time_ms(lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)),
+            "sdpa_fwd": _time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=SCALE)),
+            "sdpa_bwd": _time_ms(lambda: torch.autograd.grad(o_sdpa, (hq, hk, hv), _heads(do), retain_graph=True)),
+        }
+        results[f"bs{b} L{l}"] = row
+        _log(f"bs{b} L{l}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
+
+
+def trace_backward() -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, v, do, o, lse = _inputs(16, 1370)
+    for _ in range(2):
+        A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)
+        torch.cuda.synchronize()
+    _log("backward bs16 L1370, device time per call by kernel (torch.profiler, 5 calls):")
+    for e in sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: -e.self_device_time_total):
+        _log(f"  {e.self_device_time_total / 5e3:.4f} ms  {e.key[:100]}")
+
+
+# ---- the parent's kernels ---------------------------------------------------
+
+def _parent_lib(parent: Path):
+    spec = importlib.util.spec_from_file_location("parent_build", parent / "ucod_dpl_tpu_torch" / "ops" / "_build.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.kernels()
+
+
+def parent_ab(parent: Path, results: dict) -> None:
+    lib = _parent_lib(parent)
+
+    def fwd(q, k, v):
+        o = torch.empty_like(q)
+        b, l, _ = q.shape
+        _build.check_cuda(lib.ucod_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, HEADS,
+                                                 SCALE * A._LOG2E, _stream()), "parent fwd")
+        return o
+
+    def fwd_lse(q, k, v):
+        o = torch.empty_like(q)
+        b, l, _ = q.shape
+        lse = torch.empty(b, HEADS, l, device=q.device)
+        _build.check_cuda(lib.ucod_attention_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                                     lse.data_ptr(), b, l, HEADS, SCALE * A._LOG2E, _stream()),
+                          "parent fwd_lse")
+        return o, lse
+
+    def bwd(q, k, v, o, do, lse):
+        grads = [torch.empty_like(q) for _ in range(3)]
+        dsum = torch.empty_like(lse)
+        b, l, _ = q.shape
+        _build.check_cuda(lib.ucod_attention_bwd(*(x.data_ptr() for x in (q, k, v, o, do, lse, dsum, *grads)), b, l,
+                                                 HEADS, SCALE, _stream()), "parent bwd")
+        return grads
+
+    _log(f"parent {parent} against this tree (interleaved parent, this, this, parent):")
+    for b, l in SHAPES:
+        q, k, v, do, o, lse = _inputs(b, l)
+        diffs = {
+            "K1": (fwd(q, k, v).float() - A.packed_attention(q, k, v, HEADS, SCALE).float()).abs().max().item(),
+            "lse": (fwd_lse(q, k, v)[1] - lse).abs().max().item(),
+            "bwd": max((p.float() - t.float()).abs().max().item() for p, t in
+                       zip(bwd(q, k, v, o, do, lse), A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE))),
+        }
+        row = {}
+        for name, old, new in (
+            ("K1", lambda: fwd(q, k, v), lambda: A.packed_attention(q, k, v, HEADS, SCALE)),
+            ("K2", lambda: fwd_lse(q, k, v), lambda: A.packed_attention_fwd_lse(q, k, v, HEADS, SCALE)),
+            ("bwd", lambda: bwd(q, k, v, o, do, lse), lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)),
+        ):
+            row[name] = _ab_ms(old, new)
+            _log(f"  bs{b} L{l} {name}: parent {row[name][0]:.4f} ms, this {row[name][1]:.4f} ms "
+                 f"({row[name][0] / row[name][1]:.3f}x)")
+        _log(f"  bs{b} L{l} largest difference parent vs this: {diffs}")
+        results[f"parent bs{b} L{l}"] = {**row, "max_abs_diff": diffs}
+
+
+# ---- variants of this tree's kernels -----------------------------------------
+
+def _sub(old: str, new: str):
+    def edit(src: str) -> str:
+        if old not in src:
+            raise RuntimeError(f"variant edit does not apply: {old[:60]!r}")
+        return src.replace(old, new)
+    return edit
+
+
+def _drop_lines(pattern: str):
+    def edit(src: str) -> str:
+        out = "\n".join(line for line in src.splitlines() if not re.search(pattern, line)) + "\n"
+        if out == src:
+            raise RuntimeError(f"variant edit does not apply: {pattern}")
+        return out
+    return edit
+
+
+def _chain(*edits):
+    def edit(src: str) -> str:
+        for e in edits:
+            src = e(src)
+        return src
+    return edit
+
+
+_NO_EXCHANGE_WRITE = """      {
+        const int row = 16 * warp + g;
+#pragma unroll
+        for (int jb = 0; jb < 8; ++jb) {
+          float* half = out + (jb / 4) * 64 * 32;
+          const int col = 8 * (jb % 4) + 2 * tq;
+          *reinterpret_cast<float2*>(half + dq_half_offset(row, col)) = make_float2(dq[4 * jb], dq[4 * jb + 1]);
+          *reinterpret_cast<float2*>(half + dq_half_offset(row + 8, col)) = make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);
+        }
+      }"""
+_EXCHANGE = """      if (c == 0) {
+        dq_exchange_add<0>(dq, sm.xchg[i & 1], sm.xchg_full, i & 1, tid, out);
+      } else {
+        dq_exchange_add<1>(dq, sm.xchg[i & 1], sm.xchg_full, i & 1, tid, out);
+      }"""
+_BULK = "ucod::bulk_reduce_add_f32(dq_tiles + (int64_t)i * 64 * kHeadDim + c * 32 * 64, out, 32 * 64 * 4);"
+
+# name -> (source file, what it changes, edit)
+VARIANTS = {
+    "fwd_grid": ("attention_fwd.cu", "one CTA per work tile (not persistent)",
+                 _sub("n_work < n_sm ? n_work : n_sm", "n_work")),
+    "fwd_stages2": ("attention_fwd.cu", "a two-stage K/V ring",
+                    _sub("constexpr int kStages = 3;", "constexpr int kStages = 2;")),
+    "fwd_no_pingpong": ("attention_fwd.cu", "no turn-taking of the two consumer warpgroups",
+                        _drop_lines(r"named_(sync|arrive)\(kSchedBar")),
+    "fwd_no_exp": ("attention_fwd.cu", "diagnostic: P = s * scale - m, no ex2",
+                   _sub("s[i] = ucod::exp2_ftz(fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]));",
+                        "s[i] = fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]);")),
+    "bwd_stages2": ("attention_bwd.cu", "a two-stage Q/dO ring",
+                    _sub("constexpr int kStages = 3;", "constexpr int kStages = 2;")),
+    "bwd_atomics": ("attention_bwd.cu", "dQ halves added by per-thread float2 atomics, not a bulk reduce-add",
+                    _chain(_sub("      float* out = sm.dq_out[c][i & 1];",
+                                "      float* out = dq_tiles + (int64_t)i * 64 * kHeadDim + c * 32 * 64;"),
+                           _sub("    *reinterpret_cast<float2*>(out + dq_half_offset(row, col)) = make_float2(",
+                                "    atomicAdd(reinterpret_cast<float2*>(out + dq_half_offset(row, col)), make_float2("),
+                           _sub("    *reinterpret_cast<float2*>(out + dq_half_offset(row + 8, col)) = make_float2(",
+                                "    atomicAdd(reinterpret_cast<float2*>(out + dq_half_offset(row + 8, col)), make_float2("),
+                           _sub("make_float2(dq[4 * jb], dq[4 * jb + 1]);\n    atomicAdd",
+                                "make_float2(dq[4 * jb], dq[4 * jb + 1]));\n    atomicAdd"),
+                           _sub("make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);\n  }\n}",
+                                "make_float2(dq[4 * jb + 2], dq[4 * jb + 3]));\n  }\n}"),
+                           _sub(_BULK, "(void)0;"))),
+    "bwd_no_exchange": ("attention_bwd.cu", "each warpgroup adds its whole 64 x 64 dQ partial (16 KB), no exchange",
+                        _chain(_sub("float dq_out[kConsumers][2][64 * 32];", "float dq_out[kConsumers][2][64 * 64];"),
+                               _sub(_EXCHANGE, _NO_EXCHANGE_WRITE),
+                               _sub(_BULK, "ucod::bulk_reduce_add_f32(dq_tiles + (int64_t)i * 64 * kHeadDim, out, "
+                                           "64 * 64 * 4);"))),
+    "bwd_no_dq_add": ("attention_bwd.cu", "diagnostic: no dQ reduce-add", _sub(_BULK, "(void)0;")),
+    "bwd_no_exp": ("attention_bwd.cu", "diagnostic: P = s * scale - lse, no ex2",
+                   _sub("s[e] = ucod::exp2_ftz(fmaf(s[e], scale_log2, -stat[8 * (e >> 2) + 2 * tq + (e & 1)].x));",
+                        "s[e] = fmaf(s[e], scale_log2, -stat[8 * (e >> 2) + 2 * tq + (e & 1)].x);")),
+    "bwd_no_dq_product": ("attention_bwd.cu", "diagnostic: no dQ = dS K product",
+                          _sub("ucod::wgmma_m64n64k16_ss<1, 1>(dq, ucod::desc_mnmajor(ds, kk), ucod::desc_mnmajor(k_c, kk), kk);",
+                               "dq[kk] = 0.f;")),
+    "bwd_no_dkdv": ("attention_bwd.cu", "diagnostic: no dV and dK products",
+                    _chain(_sub("ucod::wgmma_m64n64k16_rs<1>(dv_acc, pa[kk], ucod::desc_mnmajor(sm.d_o[st], kk), 1);",
+                                "dv_acc[kk] += __uint_as_float(pa[kk][0]);"),
+                           _sub("ucod::wgmma_m64n64k16_rs<1>(dk_acc, da[kk], ucod::desc_mnmajor(sm.q[st], kk), 1);",
+                                "dk_acc[kk] += __uint_as_float(da[kk][0]);"))),
+}
+_ENTRIES = ("ucod_attention_fwd_lse", "ucod_attention_fwd", "ucod_attention_bwd")
+
+
+def build_variants(names):
+    """Write, compile and link the variants -> the loaded library."""
+    out = _build.BUILD_ROOT / "variants"
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    objs, procs = [], []
+    for name in names:
+        src_name, _, edit = VARIANTS[name]
+        src = edit((_build.CSRC / src_name).read_text())
+        for entry in _ENTRIES:
+            src = src.replace(f'extern "C" int {entry}(', f'extern "C" int {entry}_{name}(')
+        cu = out / f"{name}.cu"
+        cu.write_text(src)
+        obj = out / f"{name}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-c", str(cu), "-o", str(obj)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for name, p in zip(names, procs):
+        text = p.communicate()[0]
+        (out / f"{name}.log").write_text(text)
+        if p.returncode:
+            raise RuntimeError(f"variant {name} failed to build:\n{text[-4000:]}")
+    lib = out / "libvariants.so"
+    subprocess.run([nvcc, "-shared", "-o", str(lib), *map(str, objs)], check=True)
+    return ctypes.CDLL(str(lib))
+
+
+def variants(results: dict) -> None:
+    names = list(VARIANTS)
+    lib = build_variants(names)
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    _log("variants of this tree's kernels (interleaved this, variant, variant, this):")
+    for b, l in SHAPES:
+        q, k, v, do, o, lse = _inputs(b, l)
+        ref_o = A.packed_attention(q, k, v, HEADS, SCALE)
+        ref_g = A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)
+        for name in names:
+            src_name, what, _ = VARIANTS[name]
+            if src_name == "attention_fwd.cu":
+                fn = getattr(lib, f"ucod_attention_fwd_{name}")
+                fn.argtypes = [ptr] * 4 + [i32, i32, i32, f32, ptr]
+
+                def run(fn=fn):
+                    out = torch.empty_like(q)
+                    _build.check_cuda(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, HEADS,
+                                         SCALE * A._LOG2E, _stream()), name)
+                    return (out,)
+
+                this, refs = (lambda: A.packed_attention(q, k, v, HEADS, SCALE)), (ref_o,)
+            else:
+                fn = getattr(lib, f"ucod_attention_bwd_{name}")
+                fn.argtypes = [ptr] * 11 + [i32, i32, i32, f32, ptr]
+
+                def run(fn=fn):
+                    grads = [torch.empty_like(q) for _ in range(3)]
+                    stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device)
+                    _build.check_cuda(fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)), b, l,
+                                         HEADS, SCALE, _stream()), name)
+                    return grads
+
+                this, refs = (lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)), ref_g
+            diff = max((x.float() - r.float()).abs().max().item() for x, r in zip(run(), refs))
+            base_ms, ms = _ab_ms(this, run)
+            _log(f"  bs{b} L{l} {name} ({what}): {ms:.4f} ms against {base_ms:.4f} ms; "
+                 f"largest difference {diff:.4g}")
+            results[f"variant {name} bs{b} L{l}"] = {"ms": ms, "this_ms": base_ms, "max_abs_diff": diff}
+
+
+def sass_counts(results: dict) -> None:
+    path, _ = _build.build()
+    cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    for src in ("attention_fwd", "attention_bwd"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(path.parent / f"{src}.o")], capture_output=True,
+                              text=True, check=True).stdout
+        counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
+                  for op in ("HGMMA", "UTMALDG", "UBLKRED", "UBLKCP", "HMMA", "MUFU.EX2")}
+        results[f"sass {src}.o"] = counts
+        _log(f"SASS of {src}.o: {counts}")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--parent", type=Path, help="checkout of the parent tree to time against")
+    parser.add_argument("--variants", action="store_true", help="time the source variants in VARIANTS")
+    parser.add_argument("--sass", action="store_true", help="count instructions in the attention objects' SASS")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("attention_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    _log(smi)
+    results = {"card": smi}
+    if args.sass:
+        sass_counts(results)
+    library(results)
+    trace_backward()
+    if args.parent is not None:
+        parent_ab(args.parent, results)
+    if args.variants:
+        variants(results)
+    _log(json.dumps(results))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
