@@ -11,7 +11,9 @@ Phases (each raises on failure; any failure exits non-zero):
   3. K1 (packed attention) against its plain PyTorch version, bf16, at the
      serving shape and at L = 257 / 2917, with large logits, with NaN rows
      past L in memory, and at L = 65 / 1 (a last tile of padding);
-  4. K6 (fused LayerNorm + q/k/v) against its plain version;
+  4. K6 (fused LayerNorm + q/k/v) against its plain version at bs16 L1370,
+     bs3 L257 and 1, 127, 128 and 129 rows, NaN past the input and in the
+     outputs;
   5. serving: a full-width dinov2-base Predictor at 518px (seeded random
      weights) answers requests of 16, 5 and 1 images (buckets 16, 8, 1) and
      one soft request; K1 and K6 each launch 11 times per forward;
@@ -19,7 +21,9 @@ Phases (each raises on failure; any failure exits non-zero):
      further from the float32 plain path than the bf16 plain path is
      (err <= 1.5 * err_plain + 1e-3);
   7. timing with CUDA events: K1 and K6 against their plain versions at the
-     serving shape, and the port's ``fg_logits_live`` img/s at bs16 518px;
+     serving shape (K6 also beside one cuBLAS product of the normalised h
+     with the concatenated q/k/v weight, the GEMM alone), and the port's
+     ``fg_logits_live`` img/s at bs16 518px;
   A. (after phase 4) the attention forward with log-sum-exp and the flash
      backward against their plain versions, bf16, at L = 1370 (bs16), 2917
      (bs4), 257, 65, 1, with large logits (q x3), every output pre-filled
@@ -50,18 +54,20 @@ Phases (each raises on failure; any failure exits non-zero):
   G. timing: K8-K11 against their plain versions at bs16 L1370, and
      ``fg_logits_live`` at bs16 518px with the int8 kernels, the int8 plain
      path and the bf16 kernels, interleaved in one process;
-  H. K5 (per-head attention) against its plain version, bf16, at (BH, L, d) =
-     (48, 1370, 64) (a tensor-parallel shard's), (80, 257, 32), (4, 2917,
-     64), (3, 65, 16) and (1, 1, 128), with large logits, NaN-filled outputs
-     and NaN in memory past the inputs; ``multi_head_attention`` with 3 heads
-     launches K5 and not K1;
+  H. K5 (per-head attention: the forward kernel on the per-head layout)
+     against its plain version, bf16, at (BH, L, d) = (48, 1370, 64) (a
+     tensor-parallel shard's heads), (80, 257, 32), (4, 2917, 64), (3, 65,
+     16) and (1, 1, 128), with large logits, NaN-filled outputs and NaN in
+     memory past the inputs; odd head counts at d 16, 32 and 128 on the
+     packed layout; ``multi_head_attention`` with 3 heads launches the packed
+     forward once and K5's wrapper never;
   I. tensor-parallel feature extraction: a full-width dinov2-base
      ``FeatureExtractor(mesh=build_mesh({"data": 1, "model": 4}, devices=[cuda:0] * 4))``
-     extracts a bs16 518px bf16 batch: finite features, K5 launched 44 times
-     (11 layers x 4 shards), K1 and K6 never, and
-     err(TP kernels vs f32 unsharded plain) <= 1.5 * err(bf16 unsharded plain)
-     + 1e-3; then ``{"data": 2, "model": 2}``: 44 K1 launches, no K5; timing
-     of the TP extract against the unsharded one, interleaved;
+     extracts a bs16 518px bf16 batch: finite features, the packed forward
+     launched 44 times (11 layers x 4 shards of 3 heads) and nothing else,
+     and err(TP kernels vs f32 unsharded plain) <= 1.5 * err(bf16 unsharded
+     plain) + 1e-3; then ``{"data": 2, "model": 2}``: 44 launches (6 heads a
+     shard); timing of the TP extract against the unsharded one, interleaved;
   J. K7 (LayerNorm + fc1 + GELU) against its plain version at bs16 L1370
      (D 768, F 3072) and at 1, 17, 65 and 1370 * 4 + 3 rows, NaN-filled
      outputs; then the MLP halves of the 11 layers of the serving backbone
@@ -69,8 +75,9 @@ Phases (each raises on failure; any failure exits non-zero):
      and of one layer's MLP half with K7 against the composed LN + dense +
      GELU.
 Every kernel is also timed against one PyTorch call of the same function
-where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 and its
-backward for K3/K4), and each kernel's bound (the larger of its bytes over
+where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
+per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
+and its backward for K3/K4), and each kernel's bound (the larger of its bytes over
 3.35 TB/s and its operations over 989 TFLOP/s bf16 or 1,979 TOP/s int8, the
 H100 SXM's published peaks) is computed from the shapes timed.
 The second-to-last line is a JSON object of the kernels; the last line is
@@ -133,7 +140,7 @@ INT8_CASES = (("bs16 L1370", 16 * 1370, False), ("B*L 1", 1, False), ("B*L 17", 
               ("B*L 65", 65, True), ("B*L 5483", 1370 * 4 + 3, True))  # (name, rows, edge rows)
 INT8_CODE_EQUAL = 0.99
 INT8_SCALE_RTOL = 1e-5
-# K5 against its plain version: K1's bound (the same arithmetic per head).
+# K5 against its plain version: K1's bound (the same kernel).
 # K7: both sides round h, h1 and the GELU output to bf16 and their LayerNorm
 # sums differ in order (a few f32 ulps, which can move h by one bf16 ulp);
 # the bound is K6's, 2% of max|plain|.
@@ -141,6 +148,12 @@ K5_CASES = (("BH48 L1370 d64 (TP shard)", 48, 1370, 64, 1.0), ("BH48 L1370 d64 q
             ("BH80 L257 d32", 80, 257, 32, 1.0), ("BH4 L2917 d64", 4, 2917, 64, 1.0),
             ("BH3 L65 d16", 3, 65, 16, 1.0), ("BH1 L1 d128", 1, 1, 128, 1.0))
 K7_TOL = 0.02
+# K6 row counts: the serving shape, the 224px pseudo-label shape and both
+# sides of the 128-row tile
+K6_SHAPES = ((16, 1370), (3, 257), (1, 1), (1, 127), (1, 128), (1, 129))
+# odd head counts on the packed layout at the head dims other than 64
+ODD_HEADS_CASES = (("B2 L257 3x16", 2, 257, 3, 16), ("B2 L257 5x32", 2, 257, 5, 32),
+                   ("B2 L1370 3x128", 2, 1370, 3, 128), ("B1 L65 1x128", 1, 65, 1, 128))
 K7_ROWS = (("bs16 L1370", 16 * 1370), ("rows 1", 1), ("rows 17", 17), ("rows 65", 65),
            ("rows 5483", 1370 * 4 + 3))
 SERVE_DIM = 768
@@ -369,8 +382,9 @@ def phase_k6(gen, dev) -> float:
 
     _log("K6 LayerNorm + q/k/v vs plain (bf16):")
     worst = 0.0
-    for b, l in ((16, 1370), (3, 257)):
+    for b, l in K6_SHAPES:
         x, norm, lins = _lnqkv_inputs(gen, dev, b, l)
+        x = _nan_tailed(gen, dev, b, l).copy_(x)
         outs = layernorm_qkv(x, norm, *lins, 1e-6, out=tuple(_nan_like(x) for _ in range(3)))
         torch.cuda.synchronize()
         refs = layernorm_qkv_reference(x, norm, *lins, 1e-6)
@@ -597,7 +611,7 @@ def phase_timing(fe, decoder, gen) -> dict:
     from ucod_dpl_tpu_torch.models.convert import params_to
     from ucod_dpl_tpu_torch.models.dba import fg_logits_live
     from ucod_dpl_tpu_torch.ops.attention import packed_attention, packed_attention_reference
-    from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv, layernorm_qkv_reference
+    from ucod_dpl_tpu_torch.ops.fused_layers import layer_norm, layernorm_qkv, layernorm_qkv_reference
 
     dev = fe.device
     _log("timing (CUDA events, interleaved plain/kernel/kernel/plain, bf16):")
@@ -611,7 +625,13 @@ def phase_timing(fe, decoder, gen) -> dict:
     x, norm, lins = _lnqkv_inputs(gen, dev, 16, 1370)
     k6_ms, k6_plain = _ab_ms(lambda: layernorm_qkv_reference(x, norm, *lins, 1e-6),
                              lambda: layernorm_qkv(x, norm, *lins, 1e-6), 20)
-    _log(f"  K6 bs16 L1370 768->3x768: kernel {k6_ms:.4f} ms, plain {k6_plain:.4f} ms")
+    # the GEMM alone: one cuBLAS product of the normalised h with the
+    # concatenated (2304, 768) weight (a yardstick; K6 computes more)
+    h = layer_norm(x, norm, 1e-6)
+    w_cat = torch.cat([lin["w"] for lin in lins])
+    gemm_ms = _time_ms(lambda: torch.nn.functional.linear(h, w_cat), 20)
+    _log(f"  K6 bs16 L1370 768->3x768: kernel {k6_ms:.4f} ms, plain {k6_plain:.4f} ms, "
+         f"cuBLAS GEMM alone (h @ W_qkv^T) {gemm_ms:.4f} ms")
 
     dec = params_to(decoder, dev)
     px = torch.randn(16, 518, 518, 3, generator=gen, device=dev)
@@ -624,7 +644,7 @@ def phase_timing(fe, decoder, gen) -> dict:
     _log(f"  fg_logits_live bs16 518px bf16: kernels {fwd_ms:.3f} ms = {16e3 / fwd_ms:.2f} img/s; "
          f"plain {fwd_plain:.3f} ms = {16e3 / fwd_plain:.2f} img/s")
     _trace(fwd(False), "fg_logits_live bs16 518px bf16")
-    return {"K1": (k1_ms, k1_plain), "K6": (k6_ms, k6_plain), "sdpa_fwd": sdpa_ms,
+    return {"K1": (k1_ms, k1_plain), "K6": (k6_ms, k6_plain), "K6_gemm_alone": gemm_ms, "sdpa_fwd": sdpa_ms,
             "fg_logits_live_img_per_s": 16e3 / fwd_ms, "fg_logits_live_plain_img_per_s": 16e3 / fwd_plain}
 
 
@@ -963,16 +983,18 @@ def phase_int8_timing(fe8, decoder, gen) -> dict:
 
 
 def phase_k5(gen, dev) -> float:
-    """Phase H: K5 against its plain version, then the dispatch of an odd
-    head count."""
+    """Phase H: K5 (the forward kernel on the per-head layout) against its
+    plain version, odd head counts at the other head dims on the packed
+    layout, then the dispatch of an odd head count."""
     from ucod_dpl_tpu_torch.ops.attention import (
         heads_attention,
         heads_attention_reference,
         multi_head_attention,
         packed_attention,
+        packed_attention_reference,
     )
 
-    _log("K5 per-head attention vs plain (bf16):")
+    _log("K5 per-head attention (the forward kernel, one head per batch element) vs plain (bf16):")
     worst = 0.0
     for name, bh, l, d, q_scale in K5_CASES:
         q, k, v = (_nan_tailed_shape(gen, dev, (bh, l, d), s) for s in (q_scale, 1.0, 1.0))
@@ -980,13 +1002,20 @@ def phase_k5(gen, dev) -> float:
         torch.cuda.synchronize()
         ref = heads_attention_reference(q, k, v, d ** -0.5)
         worst = max(worst, _check(name, out, ref, K1_TOL * ref.float().abs().max().item()))
+    _log("odd head counts on the packed layout vs plain (bf16, q x3):")
+    for name, b, l, nh, d in ODD_HEADS_CASES:
+        q, k, v = (_nan_tailed_shape(gen, dev, (b, l, nh * d), s) for s in (3.0, 1.0, 1.0))
+        out = packed_attention(q, k, v, nh, d ** -0.5, out=_nan_like(q))
+        torch.cuda.synchronize()
+        ref = packed_attention_reference(q, k, v, nh, d ** -0.5)
+        worst = max(worst, _check(name, out, ref, K1_TOL * ref.float().abs().max().item()))
     q = torch.randn(2, 257, 3 * 64, generator=gen, device=dev).to(torch.bfloat16)
     before = (packed_attention.launches, heads_attention.launches)
     multi_head_attention(q, q, q, 3, 0.125)
     delta = (packed_attention.launches - before[0], heads_attention.launches - before[1])
-    _log(f"  multi_head_attention with 3 heads of 64: K1/K5 launches {delta}")
-    if delta != (0, 1):
-        raise AssertionError(f"3 heads launched K1/K5 {delta}, expected (0, 1)")
+    _log(f"  multi_head_attention with 3 heads of 64: packed_attention/heads_attention launches {delta}")
+    if delta != (1, 0):
+        raise AssertionError(f"3 heads launched packed_attention/heads_attention {delta}, expected (1, 0)")
     return worst
 
 
@@ -1004,18 +1033,16 @@ def phase_tp(seed: int, dev, fe_cfg) -> dict:
     one card named four times by the mesh."""
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.models.dino import dino_forward
-    from ucod_dpl_tpu_torch.ops.attention import packed_layout_ok
     from ucod_dpl_tpu_torch.parallel import build_mesh
 
     counts = {**_kernel_wrappers(), **_int8_wrappers()}
     out = {}
     fes = {}
-    for mesh_cfg in ({"data": 1, "model": 4}, {"data": 2, "model": 2}):
+    for mesh_name, mesh_cfg in (("model=4", {"data": 1, "model": 4}), ("data=2 x model=2", {"data": 2, "model": 2})):
         fe = FeatureExtractor(fe_cfg, mesh=build_mesh(mesh_cfg, devices=[dev] * 4), seed=seed, strict=False)
         c = fe.config
         depth, grid = c.num_layers, c.image_size // c.patch_size
         images = np.random.default_rng(seed + 9).standard_normal((16, c.image_size, c.image_size, 3)).astype(np.float32)
-        kernel = "K1" if packed_layout_ok(c.num_heads // mesh_cfg["model"], c.head_dim) and c.head_dim == 64 else "K5"
         _log(f"TP extraction: {c.variant} {c.hidden_size}-wide x{depth} layers, {c.num_heads} heads, "
              f"{c.image_size}px, bs16, {fe.compute_dtype}, mesh {mesh_cfg} on one card")
         for fn in counts.values():
@@ -1025,31 +1052,31 @@ def phase_tp(seed: int, dev, fe_cfg) -> dict:
         secs = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counts.items()}
         _log(f"  extract: {secs:.3f} s host clock (first call), features {feats.shape}, launches {launches}")
-        want = {k: 0 for k in counts}
-        want[kernel] = 4 * (depth - 1)
+        # every head count goes to the packed forward: K1's wrapper, 4 shards a layer
+        want = {**{k: 0 for k in counts}, "K1": 4 * (depth - 1)}
         if launches != want:
             raise AssertionError(f"TP extract on {mesh_cfg}: launches {launches}, expected {want}")
         if feats.shape != (16, grid, grid, c.hidden_size) or not np.isfinite(feats).all():
             raise AssertionError(f"TP extract on {mesh_cfg}: features {feats.shape}, finite {np.isfinite(feats).all()}")
-        out[f"launches {kernel}"] = launches
-        fes[kernel] = (fe, feats)
+        out[f"launches {mesh_name}"] = launches
+        fes[mesh_name] = (fe, feats)
 
-    fe4 = fes["K5"][0]
+    fe4 = fes["model=4"][0]
     f32 = FeatureExtractor(fe_cfg, device=dev, compute_dtype=torch.float32, seed=seed, strict=False)
     ref = _features_plain(f32, images, f32.params, torch.float32)
     err_plain = (_features_plain(fe4, images, fe4.params, torch.bfloat16) - ref).abs().max().item()
     bound = 1.5 * err_plain + 1e-3
-    for kernel, (fe, feats) in fes.items():
+    for mesh_name, (fe, feats) in fes.items():
         err = (torch.from_numpy(feats).to(dev) - ref).abs().max().item()
-        _log(f"  TP features ({kernel} mesh) vs f32 unsharded plain: max_abs_err {err:.6g}, bf16 unsharded plain "
+        _log(f"  TP features ({mesh_name}) vs f32 unsharded plain: max_abs_err {err:.6g}, bf16 unsharded plain "
              f"{err_plain:.6g}, bound {bound:.6g} (max |f32| {ref.abs().max().item():.4g})")
         if not (np.isfinite(err) and err <= bound):
-            raise AssertionError(f"TP ({kernel}) features error {err} exceeds {bound}")
-        out[f"err {kernel}"] = err
+            raise AssertionError(f"TP ({mesh_name}) features error {err} exceeds {bound}")
+        out[f"err {mesh_name}"] = err
     out["err_plain"] = err_plain
     del f32, ref
 
-    # timing: the TP extract (model=4, K5) against the unsharded one (K1 + K6)
+    # timing: the TP extract (model=4, 3 heads a shard) against the unsharded one (K1 + K6)
     unsharded = FeatureExtractor(fe_cfg, device=dev, seed=seed, strict=False)
     px = torch.from_numpy(images).to(dev)
     with torch.inference_mode():
@@ -1176,16 +1203,32 @@ def phase_k7(gen, dev, fe) -> dict:
 
 
 def phase_k5_timing(gen, dev) -> dict:
-    """K5 at the TP shard's shape against its plain version and one
-    scaled_dot_product_attention call on (BH, 1, L, d) views."""
-    from ucod_dpl_tpu_torch.ops.attention import heads_attention, heads_attention_reference
+    """The forward at K5's two shapes against its plain version and one
+    scaled_dot_product_attention call on views of the same tensors: the
+    per-head (48, 1370, 64) and the tensor-parallel shard's packed (16, 1370,
+    3 * 64), which the TP path runs (the same work: 48 heads of L 1370)."""
+    from ucod_dpl_tpu_torch.ops.attention import (
+        heads_attention,
+        heads_attention_reference,
+        packed_attention,
+        packed_attention_reference,
+    )
 
+    out = {}
     q, k, v = (torch.randn(48, 1370, 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
     ms, plain_ms = _ab_ms(lambda: heads_attention_reference(q, k, v, 0.125), lambda: heads_attention(q, k, v, 0.125), 20)
     sdpa = _sdpa_ms(*(x.unsqueeze(1) for x in (q, k, v)), 0.125, 20)
-    _log(f"K5 timing (CUDA events, interleaved) BH48 L1370 d64: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+    _log(f"K5 timing (CUDA events, interleaved) BH48 L1370 d64 per-head: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
          f"scaled_dot_product_attention {sdpa:.4f} ms")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa}
+    out["per-head"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa}
+    q, k, v = (torch.randn(16, 1370, 3 * 64, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+    ms, plain_ms = _ab_ms(lambda: packed_attention_reference(q, k, v, 3, 0.125),
+                          lambda: packed_attention(q, k, v, 3, 0.125), 20)
+    sdpa = _sdpa_ms(*(x.view(16, 1370, 3, 64).transpose(1, 2) for x in (q, k, v)), 0.125, 20)
+    _log(f"K5 timing (CUDA events, interleaved) TP shard (16, 1370, 3x64) packed: kernel {ms:.4f} ms, "
+         f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {sdpa:.4f} ms")
+    out["tp-shard"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa}
+    return out
 
 
 def main(argv=None) -> int:
@@ -1234,13 +1277,15 @@ def main(argv=None) -> int:
         "int8_composed_max_abs_err": int8_composed_err,
         "tp4_extract_ms": tp["TP model=4 extract"], "unsharded_extract_ms": tp["unsharded extract"],
         "tp4_forward_ms": tp["TP model=4 forward"], "unsharded_forward_ms": tp["unsharded forward"],
-        "tp4_features_max_abs_err": tp["err K5"], "tp2_features_max_abs_err": tp["err K1"],
+        "tp4_features_max_abs_err": tp["err model=4"], "tp2_features_max_abs_err": tp["err data=2 x model=2"],
+        "k6_gemm_alone_ms": times["K6_gemm_alone"],
+        "k5_per_head_ms": k5_times["per-head"]["ms"], "k5_per_head_sdpa_ms": k5_times["per-head"]["library_ms"],
         "bf16_plain_features_max_abs_err": tp["err_plain"],
         "k7_mlp_half_ms": k7["mlp_half_fused_ms"], "composed_mlp_half_ms": k7["mlp_half_composed_ms"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
-    # of 64, D 768, F 3072; K5 at the TP shard's 48 heads): bf16 tensors and
+    # of 64, D 768, F 3072; K5 at the TP shards' 48 heads): bf16 tensors and
     # int8 weights moved once, the f32 vectors (under 40 KB) left out; K3/K4
     # counts the five products of 2 L^2 d per head a flash backward from the
     # log-sum-exp needs (S, dP, dV, dK, dQ), which the one-pass kernel runs
@@ -1274,8 +1319,11 @@ def main(argv=None) -> int:
               f"{attn}:440", train_launches["bwd"], grad_err["bwd"], *train_times["bwd"], train_times["sdpa_bwd"]),
         entry("K4", "KV-blocked attention backward (one backward with K3)", "attention_bwd.cu",
               f"{attn}:684,716", train_launches["bwd"], grad_err["bwd"], *train_times["bwd"], train_times["sdpa_bwd"]),
-        entry("K5", "per-head attention forward", "attention_heads.cu", f"{attn}:30", tp["launches K5"]["K5"],
-              k5_err, k5_times["ms"], k5_times["plain_ms"], k5_times["library_ms"]),
+        # K5's path is the TP model=4 extract, where the packed forward runs
+        # 3 heads a shard: its launches are that run's, its time the shard's shape's
+        entry("K5", "per-head attention forward (the forward kernel at 3 heads a shard)", "attention_fwd.cu",
+              f"{attn}:30", tp["launches model=4"]["K1"], k5_err, *(k5_times["tp-shard"][key] for key in
+                                                                     ("ms", "plain_ms", "library_ms"))),
         entry("K6", "fused LayerNorm + q/k/v", "layernorm_qkv.cu", f"{fused}:33", launches["K6"], k6_err,
               *times["K6"]),
         entry("K7", "fused LayerNorm + fc1 + GELU", "layernorm_fc1_gelu.cu", f"{fused}:86", k7["launches"],

@@ -97,30 +97,38 @@ def test_kernel_wrapper_routes_cpu_to_plain_and_counts_only_launches():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("l", [1, 65, 200])
-@pytest.mark.parametrize("nh,hd", [(3, 64), (5, 32), (4, 16), (1, 64), (2, 64)])
+@pytest.mark.parametrize("nh,hd", [(3, 64), (5, 32), (4, 16), (1, 64), (2, 64), (2, 128), (3, 128), (3, 16),
+                                   (3, 32)])
 def test_multi_head_attention_matches_jax_dispatch(monkeypatch, nh, hd, l, dtype):
-    """The port's multi_head_attention (K1 for the packed layout, else the
-    per-head K5, each by its plain version here) against the JAX
-    multi_head_attention with its Pallas kernels in interpret mode (K1 for
-    (2, 64), K5 for the rest): f32 within 1e-5, bf16 within 0.05 of the f32
-    JAX output."""
-    q, k, v = _qkv(31 * nh + l, 2, l, nh * hd, q_rows_scaled=min(l, 3))
+    """The port's multi_head_attention (on the CPU the plain versions of the
+    JAX dispatch's routes: K1's for an even count of 64, else the per-head
+    K5's) and the plain version of the card's route, the forward on the
+    packed layout at any head count (``packed_attention_reference``), against
+    the JAX multi_head_attention with its Pallas kernels in interpret mode
+    (the packed kernel for (2, 64) and (2, 128), the per-head K5 for the
+    rest): f32 within 1e-5, bf16 within 0.05 of the f32 JAX output."""
+    q, k, v = _qkv(31 * nh + l + hd, 2, l, nh * hd, q_rows_scaled=min(l, 3))
     monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
     want = np.asarray(A.multi_head_attention(*(jnp.asarray(x) for x in (q, k, v)), nh, scale=hd ** -0.5))
     t = [torch.from_numpy(x).to(dtype) for x in (q, k, v)]
-    got = TA.multi_head_attention(*t, nh, hd ** -0.5).float().numpy()
     tol = 1e-5 if dtype == torch.float32 else 0.05
-    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
-    np.testing.assert_allclose(got, _jax_xla(q, k, v, nh, hd ** -0.5), rtol=tol, atol=tol)
+    for got in (TA.multi_head_attention(*t, nh, hd ** -0.5), TA.packed_attention_reference(*t, nh, hd ** -0.5)):
+        got = got.float().numpy()
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+        np.testing.assert_allclose(got, _jax_xla(q, k, v, nh, hd ** -0.5), rtol=tol, atol=tol)
 
 
 @pytest.mark.parametrize("nh,hd,jax_packed,packed", [(2, 64, True, True), (12, 64, True, True),
-                                                     (3, 64, False, False), (4, 32, False, False),
-                                                     (2, 128, True, False), (1, 16, False, False)])
+                                                     (3, 64, False, True), (4, 32, False, True),
+                                                     (2, 128, True, True), (1, 16, False, True),
+                                                     (5, 128, False, True)])
 def test_multi_head_attention_routes_like_jax(monkeypatch, nh, hd, jax_packed, packed):
-    """``packed_layout_ok`` is the JAX rule; K1 takes an even head count of
-    64 and everything else goes to K5 (on the CPU: their plain versions), and
-    the CPU launches neither kernel."""
+    """``packed_layout_ok`` is the JAX rule, and the CPU's plain routes follow
+    it: K1's plain version for an even head count of 64, the per-head K5's
+    for the rest; the CPU launches no kernel.  ``packed``: the card's route
+    takes the heads to ``packed_attention`` as they are, no split (seen here
+    through a tensor on the meta device, which takes the card's route and
+    which no kernel takes)."""
     assert TA.packed_layout_ok(nh, hd) is jax_packed
     calls = []
     for name, kernel in (("packed_attention_reference", "K1"), ("heads_attention_reference", "K5")):
@@ -129,8 +137,14 @@ def test_multi_head_attention_routes_like_jax(monkeypatch, nh, hd, jax_packed, p
     q = torch.randn(1, 9, nh * hd)
     before = (TA.packed_attention.launches, TA.heads_attention.launches)
     TA.multi_head_attention(q, q, q, nh, 0.125)
-    assert calls == ["K1" if packed else "K5"]
+    assert calls == ["K1" if jax_packed and hd == 64 else "K5"]
     assert (TA.packed_attention.launches, TA.heads_attention.launches) == before
+
+    card = []
+    monkeypatch.setattr(TA, "packed_attention", lambda q, k, v, nh, scale: card.append((q.shape, nh)) or q)
+    m = torch.empty(2, 9, nh * hd, device="meta")
+    assert (TA.multi_head_attention(m, m, m, nh, 0.125) is m) is packed
+    assert card == ([((2, 9, nh * hd), nh)] if packed else []) and len(calls) == 1
 
 
 @pytest.mark.parametrize("nh,hd,route", [(2, 64, "flash"), (2, 128, "flash"), (3, 64, "plain"), (4, 32, "plain")])

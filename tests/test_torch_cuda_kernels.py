@@ -1,6 +1,7 @@
-"""Card-only checks of the port's CUDA kernels at edge shapes: K1 (also with
-its log-sum-exp output), the attention backward, K5 (per-head attention), K6,
-K7 (LayerNorm + fc1 + GELU) and the int8 kernels K8-K11.
+"""Card-only checks of the port's CUDA kernels at edge shapes: the attention
+forward (K1 at every head dim and head count, also with its log-sum-exp
+output, and on the per-head layout, K5), the attention backward, K6, K7
+(LayerNorm + fc1 + GELU) and the int8 kernels K8-K11.
 
 Marked ``cuda``: they skip without a CUDA device (the decision is made in a
 fixture, at run time).  On a card::
@@ -135,10 +136,13 @@ def test_attention_diff_counts_both_kernels_and_returns_input_dtype(dev):
                              torch.zeros(2, 4, 69, device=dev), 4, 0.125)
 
 
-@pytest.mark.parametrize("b,l,d", [(1, 1, 256), (2, 65, 256), (3, 100, 768), (1, 300, 1024)])
-def test_layernorm_qkv_kernel_edge_shapes(dev, b, l, d):
-    g = torch.Generator(device=dev).manual_seed(d + l)
-    x = torch.randn(b, l, d, generator=g, device=dev).to(torch.bfloat16)
+@pytest.mark.parametrize("d", [256, 512, 768, 1024])
+@pytest.mark.parametrize("rows", [1, 127, 128, 129, 16 * 1370])
+def test_layernorm_qkv_kernel_edge_shapes(dev, rows, d):
+    """K6 at row counts on both sides of its 128-row tile and at bs16 L1370,
+    every hidden size it takes; NaN past the input and in the outputs."""
+    g = torch.Generator(device=dev).manual_seed(d + rows)
+    x = _nan_tailed(g, dev, (1, rows, d))
     norm = {"scale": 1 + 0.1 * torch.randn(d, generator=g, device=dev),
             "bias": 0.1 * torch.randn(d, generator=g, device=dev)}
     lins = [{"w": torch.randn(d, d, generator=g, device=dev) / d ** 0.5,
@@ -157,7 +161,9 @@ def test_kernels_count_launches_and_reject_what_they_do_not_take(dev):
     with pytest.raises(TypeError):
         packed_attention(q.float(), q.float(), q.float(), 4, 0.125)
     with pytest.raises(ValueError):
-        packed_attention(q, q, q, 8, 0.125)  # head_dim 32
+        packed_attention(q, q, q, 32, 0.125)  # head_dim 8
+    with pytest.raises(ValueError):
+        packed_attention(q, q, q, 3, 0.125)  # 256 columns over 3 heads
     with pytest.raises(ValueError):
         packed_attention(q[..., :128], q[..., :128], q[..., :128], 2, 0.125)  # not contiguous
     norm = {"scale": torch.ones(256, device=dev), "bias": torch.zeros(256, device=dev)}
@@ -287,15 +293,33 @@ def test_heads_attention_kernel_edge_shapes(dev, bh, l, d):
     assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
 
 
-def test_multi_head_attention_routes_odd_heads_to_k5_on_the_card(dev):
+def test_multi_head_attention_routes_odd_heads_to_the_packed_forward_on_the_card(dev):
+    """3 heads of 64 (odd: the JAX dispatch splits them to its per-head K5)
+    and 2 heads of 64 both launch the packed forward once, no split."""
     q = torch.randn(2, 70, 3 * 64, device=dev, dtype=torch.bfloat16)
     before = (packed_attention.launches, heads_attention.launches)
     got = multi_head_attention(q, q, q, 3, 0.125)
-    assert (packed_attention.launches, heads_attention.launches) == (before[0], before[1] + 1)
+    assert (packed_attention.launches, heads_attention.launches) == (before[0] + 1, before[1])
     ref = packed_attention_reference(q, q, q, 3, 0.125).float()
     assert (got.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
     multi_head_attention(q[..., :128].contiguous(), q[..., :128].contiguous(), q[..., :128].contiguous(), 2, 0.125)
-    assert (packed_attention.launches, heads_attention.launches) == (before[0] + 1, before[1] + 1)
+    assert (packed_attention.launches, heads_attention.launches) == (before[0] + 2, before[1])
+
+
+@pytest.mark.parametrize("l", [1, 63, 65, 129, 1370])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("nh", [1, 3, 5, 12])
+def test_attention_forward_every_head_dim_and_count(dev, nh, d, l):
+    """The forward on the packed (B, L, nh * d) layout at every head dim it is
+    built for and odd and even head counts, L on both sides of the 64- and
+    128-row tiles; large logits (q x 3), NaN past the inputs and in the
+    output buffer."""
+    g = torch.Generator(device=dev).manual_seed(1000 * nh + 10 * d + l)
+    q, k, v = (_nan_tailed(g, dev, (2, l, nh * d), s) for s in (3.0, 1.0, 1.0))
+    out = packed_attention(q, k, v, nh, d ** -0.5, out=torch.full_like(q, float("nan")))
+    ref = packed_attention_reference(q, k, v, nh, d ** -0.5).float()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
 
 
 def test_differentiable_forward_routes_like_jax_differentiable_mode(dev):

@@ -20,7 +20,7 @@ from ucod_dpl_tpu_torch.ops import fused_layers as TF
 from ucod_dpl_tpu_torch.ops import resize as TR
 
 
-@pytest.mark.parametrize("b,l,d", [(2, 150, 128), (1, 70, 256)])
+@pytest.mark.parametrize("b,l,d", [(2, 150, 128), (1, 70, 256), (1, 257, 768)])
 def test_plain_layernorm_qkv_matches_jax_kernel(monkeypatch, b, l, d):
     rng = np.random.default_rng(7 + d)
     x = rng.standard_normal((b, l, d)).astype(np.float32)

@@ -11,7 +11,8 @@ under ``csrc/``, built at first use (:mod:`ucod_dpl_tpu_torch.ops._build`).
 Ported so far: the live 518px serving path (``models/dba.py::fg_logits_live``
 behind :class:`ucod_dpl_tpu_torch.serving.Predictor`; kernels K1, K6), its
 int8 variant (K8-K11), the LoRA joint train step (K2-K4) and
-tensor-parallel feature extraction (``FeatureExtractor(mesh=)``; K5), with
+tensor-parallel feature extraction (``FeatureExtractor(mesh=)``; the
+forward at 3 heads a shard, K5's port), with
 K7 (LayerNorm + fc1 + GELU) as an exported op.
 """
 

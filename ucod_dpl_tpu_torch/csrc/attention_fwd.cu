@@ -1,9 +1,15 @@
 // K1: packed multi-head attention forward, bf16 in, f32 accumulate; with an
-// f32 log-sum-exp output it is also the port of K2.
+// f32 log-sum-exp output it is also the port of K2, and at every head dim it
+// is the port of K5.
 //
 // Replaces the TPU kernel ucod_dpl_tpu/ops/attention.py::_attention_kernel_headpair
 // (launched by _pallas_attention_packed): o = softmax(q k^T * scale) v per
-// head, with q/k/v/o in the packed (B, L, num_heads * 64) projection layout.
+// head, with q/k/v/o in the packed (B, L, num_heads * D) projection layout.
+// The same kernel, instantiated for head dims D in {16, 32, 64, 128} and any
+// head count, replaces _attention_kernel (K5, launched by _pallas_attention):
+// the per-head (B * H, L, D) layout is the packed one with one head, and the
+// odd head counts the JAX dispatch splits to that layout (a TPU lane rule:
+// heads paired into 128 lanes) read their heads in place here.
 // The entry ucod_attention_fwd_lse replaces _attention_kernel_headpair_stats
 // (launched by _pallas_attention_packed_stats), the forward of the
 // differentiated path: it also writes lse = ln sum_j exp(scale q.k_j) per
@@ -28,17 +34,22 @@
 //     setmaxnreg), two consumer warpgroups own 64 query rows each (registers
 //     raised to 240); at L = 1370 the last q tile holds 1408 - 1370 = 38
 //     rows past L, which are computed and not stored;
-//   * 3-D tensor maps over q, k and v as (H * 64 columns, L rows, B) with a
-//     box of 64 columns (128 bytes, 128-byte swizzle) x 128 rows; the head
-//     is the column coordinate.  Rows >= L lie outside the map: TMA fills
-//     them with zeros and never reads past the tensor;
+//   * 3-D tensor maps over q, k and v as (H * D columns, L rows, B) with a
+//     box of min(D, 64) columns x 128 rows; the head is the column
+//     coordinate.  A row of a box is 2 * min(D, 64) bytes and takes the
+//     swizzle of that width (128, 64 or 32 bytes; hopper.cuh); at D = 128 a
+//     tile is two 64-column boxes side by side, so S's k-steps cross from one
+//     to the other and V's two column atoms lie LBO apart along N.  Rows >= L
+//     lie outside the map: TMA fills them with zeros and never reads past the
+//     tensor;
 //   * K and V tiles of 128 keys through a three-stage ring with full/empty
 //     mbarriers that runs on from one work tile to the next, and Q through
 //     a buffer freed as soon as the tile's last S product is done, so the
-//     next tile's loads overlap this tile's last products and epilogue;
-//   * S = Q K^T by wgmma m64n128k16 with both operands in shared memory;
-//     O += P V by wgmma m64n64k16 with P as bf16 A fragments straight from
-//     the S accumulators and V read MN-major (transpose bit);
+//     next tile's loads overlap this tile's last products and epilogue; at
+//     D = 128 the three stages and Q take 224 KB of the 227 KB a CTA may use;
+//   * S = Q K^T by wgmma m64n128k16 (D / 16 k-steps) with both operands in
+//     shared memory; O += P V by wgmma m64nDk16 with P as bf16 A fragments
+//     straight from the S accumulators and V read MN-major (transpose bit);
 //   * the softmax kept off the critical path: the two consumer warpgroups
 //     take turns issuing their wgmmas (named barriers, "ping-pong"), and in
 //     each warpgroup the S product of tile j is issued together with the PV
@@ -59,43 +70,67 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDim = 64;
 constexpr int kConsumers = 2;             // warpgroups of 64 query rows
 constexpr int kBlockQ = 64 * kConsumers;  // query rows per CTA
 constexpr int kBlockK = 128;              // keys per K/V tile
 constexpr int kStages = 3;
 constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr uint32_t kKvBytes = kBlockK * kHeadDim * 2;
-constexpr uint32_t kQBytes = kBlockQ * kHeadDim * 2;
 constexpr int kSchedBar = 1;  // named barriers 1, 2: the consumers' turns
 constexpr float kLn2 = 0.69314718055994531f;
 
-struct Smem {  // every tile 1024-byte aligned (128-byte swizzle atoms)
-  bf16 q[kBlockQ * kHeadDim];
-  bf16 k[kStages][kBlockK * kHeadDim];
-  bf16 v[kStages][kBlockK * kHeadDim];
+// The shared-memory layout at head dim D: a tile of R rows is kAtoms column
+// atoms of R rows x kAtomCols, each swizzled over its kSwizzle-byte rows.
+template <int D>
+struct Head {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
+  static constexpr int kAtomCols = D < 64 ? D : 64;
+  static constexpr int kAtoms = D / kAtomCols;
+  static constexpr int kSwizzle = 2 * kAtomCols;
+  static constexpr int kStepsPerAtom = kAtomCols / 16;  // 16-column k-steps
+  static constexpr uint32_t kQBytes = kBlockQ * D * 2;
+  static constexpr uint32_t kKvBytes = kBlockK * D * 2;
+  // V read MN-major: its column atoms along N lie a whole atom apart
+  static constexpr uint32_t kVLbo = kAtoms > 1 ? kBlockK * kSwizzle : 1024;
+};
+
+template <int D>
+struct Smem {  // every tile 1024-byte aligned (whole swizzle atoms)
+  bf16 q[kBlockQ * D];
+  bf16 k[kStages][kBlockK * D];
+  bf16 v[kStages][kBlockK * D];
   uint64_t q_full, q_empty;
   uint64_t k_full[kStages], k_empty[kStages], v_full[kStages], v_empty[kStages];
 };
-constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
+template <int D>
+constexpr size_t kSmemBytes = sizeof(Smem<D>) + 1024;  // + alignment slack
+static_assert(kSmemBytes<128> <= 232448, "the head-dim-128 stages exceed a CTA's shared memory");
 
-// S = Q K^T for a warpgroup's 64 rows x 128 keys (one commit group).
+// S = Q K^T for a warpgroup's 64 rows x 128 keys (one commit group); q_tile
+// is the warpgroup's rows in Q's first column atom.
+template <int D>
 __device__ __forceinline__ void issue_s(float (&s)[kBlockK / 2], const bf16* q_tile, const bf16* k_tile) {
+  using H = Head<D>;
   ucod::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) {
-    ucod::wgmma_m64n128k16_ss<0, 0>(s, ucod::desc_kmajor(q_tile, kk), ucod::desc_kmajor(k_tile, kk), kk);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int atom = kk / H::kStepsPerAtom;
+    const int step = kk % H::kStepsPerAtom;
+    ucod::wgmma_m64n128k16_ss<0, 0>(
+        s, ucod::desc_kmajor<H::kSwizzle>(q_tile + atom * kBlockQ * H::kAtomCols, step),
+        ucod::desc_kmajor<H::kSwizzle>(k_tile + atom * kBlockK * H::kAtomCols, step), kk);
   }
   ucod::wgmma_commit();
 }
 
 // O += P V, P from registers, V read MN-major (one commit group).
-__device__ __forceinline__ void issue_pv(float (&acc)[kHeadDim / 2], const uint32_t (&pa)[kBlockK / 16][4],
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[kBlockK / 16][4],
                                          const bf16* v_tile) {
+  using H = Head<D>;
   ucod::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kBlockK / 16; ++kk) {
-    ucod::wgmma_m64n64k16_rs<1>(acc, pa[kk], ucod::desc_mnmajor(v_tile, kk), 1);
+    ucod::wgmma_rs<D, 1>(acc, pa[kk], ucod::desc_mnmajor<H::kSwizzle>(v_tile, kk, H::kVLbo), 1);
   }
   ucod::wgmma_commit();
 }
@@ -143,13 +178,14 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&pa)[kBlockK / 16][4], cons
   }
 }
 
-template <bool kLse>
+template <int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse,
                          int seq_len, int num_heads, int n_work, float scale_log2) {
+  using H = Head<D>;
   extern __shared__ uint8_t smem_raw[];
-  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
+  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
   const int wg = threadIdx.x / 128;
   const int n_qt = (seq_len + kBlockQ - 1) / kBlockQ;
   const int n_kv = (seq_len + kBlockK - 1) / kBlockK;
@@ -183,17 +219,29 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int b = bh / num_heads;
         const int h = bh % num_heads;
         ucod::mbar_wait(&sm.q_empty, (n & 1) ^ 1);
-        ucod::mbar_expect_tx(&sm.q_full, kQBytes);
-        ucod::tma_load_3d(sm.q, &tm_q, &sm.q_full, h * kHeadDim, t % n_qt * kBlockQ, b);
+        ucod::mbar_expect_tx(&sm.q_full, H::kQBytes);
+#pragma unroll
+        for (int a = 0; a < H::kAtoms; ++a) {
+          ucod::tma_load_3d(sm.q + a * kBlockQ * H::kAtomCols, &tm_q, &sm.q_full, h * D + a * H::kAtomCols,
+                            t % n_qt * kBlockQ, b);
+        }
         for (int j = 0; j < n_kv; ++j, ++it) {
           const int st = it % kStages;
           const uint32_t ph = (it / kStages) & 1;
           ucod::mbar_wait(&sm.k_empty[st], ph ^ 1);
-          ucod::mbar_expect_tx(&sm.k_full[st], kKvBytes);
-          ucod::tma_load_3d(sm.k[st], &tm_k, &sm.k_full[st], h * kHeadDim, j * kBlockK, b);
+          ucod::mbar_expect_tx(&sm.k_full[st], H::kKvBytes);
+#pragma unroll
+          for (int a = 0; a < H::kAtoms; ++a) {
+            ucod::tma_load_3d(sm.k[st] + a * kBlockK * H::kAtomCols, &tm_k, &sm.k_full[st],
+                              h * D + a * H::kAtomCols, j * kBlockK, b);
+          }
           ucod::mbar_wait(&sm.v_empty[st], ph ^ 1);
-          ucod::mbar_expect_tx(&sm.v_full[st], kKvBytes);
-          ucod::tma_load_3d(sm.v[st], &tm_v, &sm.v_full[st], h * kHeadDim, j * kBlockK, b);
+          ucod::mbar_expect_tx(&sm.v_full[st], H::kKvBytes);
+#pragma unroll
+          for (int a = 0; a < H::kAtoms; ++a) {
+            ucod::tma_load_3d(sm.v[st] + a * kBlockK * H::kAtomCols, &tm_v, &sm.v_full[st],
+                              h * D + a * H::kAtomCols, j * kBlockK, b);
+          }
         }
       }
     }
@@ -205,11 +253,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int lane = tid % 32;
     const int g = lane / 4;
     const int tq = lane % 4;
-    const bf16* q_tile = sm.q + c * 64 * kHeadDim;
-    const int64_t row_stride = (int64_t)num_heads * kHeadDim;
+    const bf16* q_tile = sm.q + c * 64 * H::kAtomCols;
+    const int64_t row_stride = (int64_t)num_heads * D;
 
     float s[kBlockK / 2];   // S (then P in f32): 64 rows x 128 keys
-    float acc[kHeadDim / 2];  // O: 64 rows x 64
+    float acc[D / 2];       // O: 64 rows x D
     uint32_t pa[kBlockK / 16][4];  // P in bf16, the A fragments of O += P V
 
     // Warpgroup 0 issues first; every K/V tile is one turn of each
@@ -221,7 +269,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool last_work = t + (int)gridDim.x >= n_work;
       const int bh = t / n_qt;
 #pragma unroll
-      for (int i = 0; i < kHeadDim / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
       // running max (log2 units), partial row sums and the pending rescale
       // of O, for rows g and g + 8 of this warp
       float m[2] = {-INFINITY, -INFINITY};
@@ -234,7 +282,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int st = it % kStages;
         ucod::mbar_wait(&sm.k_full[st], (it / kStages) & 1);
         ucod::named_sync(kSchedBar + c, 256);
-        issue_s(s, q_tile, sm.k[st]);
+        issue_s<D>(s, q_tile, sm.k[st]);
         if (!(c == 1 && last_work && n_kv == 1)) ucod::named_arrive(kSchedBar + (c ^ 1), 256);
         ucod::wgmma_wait<0>();
         ucod::fence_regs(s);
@@ -251,12 +299,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int pst = (it + j - 1) % kStages;  // stage of K/V tile j - 1
         ucod::mbar_wait(&sm.k_full[st], ((it + j) / kStages) & 1);
         ucod::named_sync(kSchedBar + c, 256);
-        issue_s(s, q_tile, sm.k[st]);
+        issue_s<D>(s, q_tile, sm.k[st]);
         // O = alpha O + P_{j-1} V_{j-1}, issued behind S_j
 #pragma unroll
-        for (int i = 0; i < kHeadDim / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+        for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
         ucod::mbar_wait(&sm.v_full[pst], ((it + j - 1) / kStages) & 1);
-        issue_pv(acc, pa, sm.v[pst]);
+        issue_pv<D>(acc, pa, sm.v[pst]);
         if (!(c == 1 && last_work && j == n_kv - 1)) ucod::named_arrive(kSchedBar + (c ^ 1), 256);
         ucod::wgmma_wait<1>();
         ucod::fence_regs(s);
@@ -274,9 +322,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       // the last K/V tile's O += P V
       const int lst = (it + n_kv - 1) % kStages;
 #pragma unroll
-      for (int i = 0; i < kHeadDim / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
       ucod::mbar_wait(&sm.v_full[lst], ((it + n_kv - 1) / kStages) & 1);
-      issue_pv(acc, pa, sm.v[lst]);
+      issue_pv<D>(acc, pa, sm.v[lst]);
       ucod::wgmma_wait<0>();
       ucod::fence_regs(acc);
       if (lane == 0) ucod::mbar_arrive(&sm.v_empty[lst]);
@@ -290,9 +338,9 @@ __global__ void __launch_bounds__(kThreads, 1)
         inv[r] = 1.f / l[r];
       }
       const int r0 = t % n_qt * kBlockQ + 64 * c + 16 * warp + g;
-      bf16* oh = o + (int64_t)(bh / num_heads) * seq_len * row_stride + (int64_t)(bh % num_heads) * kHeadDim;
+      bf16* oh = o + (int64_t)(bh / num_heads) * seq_len * row_stride + (int64_t)(bh % num_heads) * D;
 #pragma unroll
-      for (int jb = 0; jb < kHeadDim / 8; ++jb) {
+      for (int jb = 0; jb < D / 8; ++jb) {
         const int col = 8 * jb + 2 * tq;
         if (r0 < seq_len) {
           *reinterpret_cast<uint32_t*>(oh + (int64_t)r0 * row_stride + col) =
@@ -312,44 +360,59 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <bool kLse>
+template <int D, bool kLse>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int seq_len, int num_heads,
            float scale_log2, void* stream) {
+  using H = Head<D>;
   CUtensorMap tm_q, tm_k, tm_v;
-  const int cols = num_heads * kHeadDim;
-  if (!ucod::packed_tensor_map(&tm_q, q, batch, seq_len, cols, kBlockQ) ||
-      !ucod::packed_tensor_map(&tm_k, k, batch, seq_len, cols, kBlockK) ||
-      !ucod::packed_tensor_map(&tm_v, v, batch, seq_len, cols, kBlockK)) {
+  const int cols = num_heads * D;
+  if (!ucod::packed_tensor_map(&tm_q, q, batch, seq_len, cols, kBlockQ, H::kAtomCols) ||
+      !ucod::packed_tensor_map(&tm_k, k, batch, seq_len, cols, kBlockK, H::kAtomCols) ||
+      !ucod::packed_tensor_map(&tm_v, v, batch, seq_len, cols, kBlockK, H::kAtomCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
+  constexpr int smem = (int)kSmemBytes<D>;
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
   int device = 0, n_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_work = (seq_len + kBlockQ - 1) / kBlockQ * batch * num_heads;
-  attention_fwd_kernel<kLse><<<n_work < n_sm ? n_work : n_sm, kThreads, kSmemBytes,
-                               static_cast<cudaStream_t>(stream)>>>(tm_q, tm_k, tm_v, static_cast<bf16*>(o), lse,
-                                                                    seq_len, num_heads, n_work, scale_log2);
+  attention_fwd_kernel<D, kLse><<<n_work < n_sm ? n_work : n_sm, kThreads, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(tm_q, tm_k, tm_v, static_cast<bf16*>(o), lse,
+                                                                       seq_len, num_heads, n_work, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, o: contiguous bf16 (batch, seq_len, num_heads * 64), 16-byte
-// aligned.  Launches min(work tiles, SMs) CTAs on `stream`; returns the
-// launch's cudaError_t (cudaErrorInvalidValue when a tensor map cannot be
+// q, k, v, o: contiguous bf16 (batch, seq_len, num_heads * head_dim),
+// 16-byte aligned, head_dim in {16, 32, 64, 128}.  Launches min(work tiles,
+// SMs) CTAs on `stream`; returns the launch's cudaError_t
+// (cudaErrorInvalidValue for another head dim or when a tensor map cannot be
 // made).
 extern "C" int ucod_attention_fwd(const void* q, const void* k, const void* v, void* o, int batch,
-                                  int seq_len, int num_heads, float scale_log2, void* stream) {
-  return launch<false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+                                  int seq_len, int num_heads, int head_dim, float scale_log2, void* stream) {
+  switch (head_dim) {
+    case 16:
+      return launch<16, false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+    case 32:
+      return launch<32, false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+    case 64:
+      return launch<64, false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+    case 128:
+      return launch<128, false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// As ucod_attention_fwd, and also lse: contiguous f32 (batch, num_heads,
-// seq_len), the natural-log log-sum-exp of each query row's scaled scores.
+// As ucod_attention_fwd at head dim 64, and also lse: contiguous f32 (batch,
+// num_heads, seq_len), the natural-log log-sum-exp of each query row's scaled
+// scores.
 extern "C" int ucod_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int batch, int seq_len, int num_heads,
                                       float scale_log2, void* stream) {
-  return launch<true>(q, k, v, o, static_cast<float*>(lse), batch, seq_len, num_heads, scale_log2, stream);
+  return launch<64, true>(q, k, v, o, static_cast<float*>(lse), batch, seq_len, num_heads, scale_log2, stream);
 }

@@ -1,20 +1,23 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels: mbarrier
-// pipelines, TMA loads through tensor maps, wgmma shared-memory descriptors
-// and the wgmma instructions themselves, named barriers and register
-// reallocation.  PTX ISA references: "Tensor Memory Accelerator",
+// Hopper (sm_90a) building blocks shared by the attention kernels and K6:
+// mbarrier pipelines, TMA loads through tensor maps, wgmma shared-memory
+// descriptors and the wgmma instructions themselves, named barriers and
+// register reallocation.  PTX ISA references: "Tensor Memory Accelerator",
 // "Asynchronous Warpgroup Level Matrix Multiply-Accumulate" (wgmma), "mbarrier".
 //
-// Shared-memory tiles are what a TMA load with CU_TENSOR_MAP_SWIZZLE_128B
-// writes: rows of 64 bf16 (128 bytes), 16-byte chunk c of row r stored at
-// chunk c ^ (r % 8), in 1024-byte atoms of 8 rows; each tile starts on a
-// 1024-byte boundary.  The same layout serves wgmma two ways (its
-// descriptor's swizzle mode 1 = 128 bytes):
-//   * K-major (the 64 columns are the product's reduction dim): 8-row groups
-//     1024 bytes apart (SBO); the k-th 16-column step starts 32 * k bytes in;
+// Shared-memory tiles are what a TMA load with a swizzle of W bytes (W = 128,
+// 64 or 32: CU_TENSOR_MAP_SWIZZLE_128B / 64B / 32B) writes: rows of W / 2
+// bf16 (W bytes), 16-byte chunk c of row r stored at chunk c ^ (r % 8) (for
+// W = 64: c ^ (r % 8 / 2), W = 32: c ^ (r % 8 / 4)), in atoms of 8 rows (8W
+// bytes); each tile starts on a 1024-byte boundary.  A wider operand is
+// several such tiles side by side ("column atoms"), e.g. 128 head columns as
+// two 64-column tiles.  The same layout serves wgmma two ways (its
+// descriptor's swizzle mode: 1 = 128 bytes, 2 = 64, 3 = 32):
+//   * K-major (the columns are the product's reduction dim): 8-row groups
+//     8W bytes apart (SBO); the k-th 16-column step starts 32 * k bytes in;
 //   * MN-major (the rows are the reduction dim, the "transpose" bit set):
-//     16 rows per k-step, so the k-th step starts 2048 * k bytes in, 8-row
-//     groups 1024 bytes apart.  LBO would step between 64-column atoms along
-//     M/N, which a 64-wide operand never takes; it is set to 1024 as well.
+//     16 rows per k-step, so the k-th step starts 16W * k bytes in, 8-row
+//     groups 8W bytes apart (SBO); LBO steps between column atoms along M/N
+//     (an operand one atom wide never takes it; it is then set to 1024).
 // wgmma accumulator layout (m64nN, f32), thread t of the warpgroup, warp
 // w = t / 32, g = (t % 32) / 4, q = t % 4: d[4j + e] holds row 16w + g + 8 *
 // (e / 2), column 8j + 2q + (e % 2).  A register A fragment of a k-step
@@ -57,20 +60,27 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A 3-D map over a contiguous bf16 (batch, rows, cols) tensor whose box is
-// 64 columns x box_rows rows of one batch element, 128-byte swizzle.  A box
-// reaching past `rows` (or `cols`) is filled with zeros: nothing outside the
-// tensor is read.  Coordinates are (column, row, batch).  Returns false when
-// the map cannot be made.
-inline bool packed_tensor_map(CUtensorMap* map, const void* base, int batch, int rows, int cols, int box_rows) {
+// box_cols columns (64, 32 or 16: a swizzle of 2 * box_cols bytes) x
+// box_rows rows of one batch element.  A box reaching past `rows` (or
+// `cols`) is filled with zeros: nothing outside the tensor is read.
+// Coordinates are (column, row, batch).  Returns false when the map cannot
+// be made.
+inline bool packed_tensor_map(CUtensorMap* map, const void* base, int batch, int rows, int cols, int box_rows,
+                              int box_cols = 64) {
   const EncodeTiledFn encode = encode_tiled_fn();
   if (encode == nullptr) return false;
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows, (cuuint64_t)batch};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * 2, (cuuint64_t)cols * 2 * rows};  // bytes, dims 1 and 2
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ---- device: mbarriers, TMA, fences --------------------------------------
@@ -116,6 +126,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "[%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// One box of shared memory (laid out as a load of the same map writes it)
+// into the tensor of a 3-D tensor map, as one asynchronous bulk operation of
+// this thread's current bulk group; elements outside the tensor are not
+// written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
 }
 
 // `bytes` (a multiple of 16, 16-byte aligned ends) from global into shared
@@ -165,6 +186,15 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Programmatic dependent launch: lets the grid launched after this one on
+// the stream with cudaLaunchAttributeProgrammaticStreamSerialization start
+// once every CTA of this grid has issued this (or exited).
+__device__ __forceinline__ void launch_dependents() { asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory"); }
+
+// Waits until the grid this one was launched after has completed and its
+// memory writes are visible (at once without such a dependency).
+__device__ __forceinline__ void wait_prerequisite() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+
 template <int kRegs>
 __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
@@ -185,21 +215,28 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 
 // ---- device: wgmma -------------------------------------------------------
 
-// Descriptor of a 128-byte-swizzled operand tile at `p` (1024-byte aligned
-// atoms; see the header note for LBO/SBO).
-__device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+// Descriptor of a kSwizzle-byte-swizzled operand tile at `p` (atoms aligned
+// to 8 * kSwizzle bytes; see the header note for LBO/SBO).
+template <int kSwizzle = 128>
+__device__ __forceinline__ uint64_t desc_sw(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes) {
+  static_assert(kSwizzle == 128 || kSwizzle == 64 || kSwizzle == 32, "swizzle of 128, 64 or 32 bytes");
+  constexpr uint64_t kMode = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16 |
-         (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32 | (uint64_t)1 << 62;
+         (uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32 | kMode << 62;
 }
 
-// K-major operand: k-step k starts 32 * k bytes into the tile.
+// K-major operand: k-step k starts 32 * k bytes into the tile (k < kSwizzle
+// / 32: within one column atom).
+template <int kSwizzle = 128>
 __device__ __forceinline__ uint64_t desc_kmajor(const void* tile, int k) {
-  return desc_sw128(static_cast<const char*>(tile) + 32 * k, 16, 1024);
+  return desc_sw<kSwizzle>(static_cast<const char*>(tile) + 32 * k, 16, 8 * kSwizzle);
 }
 
-// MN-major operand (transpose bit set): k-step k starts 16 rows further.
-__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int k) {
-  return desc_sw128(static_cast<const char*>(tile) + 2048 * k, 1024, 1024);
+// MN-major operand (transpose bit set): k-step k starts 16 rows further;
+// `lbo`: the bytes between column atoms along M/N.
+template <int kSwizzle = 128>
+__device__ __forceinline__ uint64_t desc_mnmajor(const void* tile, int k, uint32_t lbo = 1024) {
+  return desc_sw<kSwizzle>(static_cast<const char*>(tile) + 16 * kSwizzle * k, lbo, 8 * kSwizzle);
 }
 
 // Orders register writes (accumulators, A fragments) before the wgmmas
@@ -271,6 +308,98 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n16k16_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(kTransB));
+}
+
+// O (+)= A * B with A from registers, N = kN (16, 32, 64, 128 or 256)
+// columns: the instruction of that width.
+template <int kN, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2], const uint32_t (&a)[4], uint64_t desc_b, int scale_d) {
+  if constexpr (kN == 16) {
+    wgmma_m64n16k16_rs<kTransB>(d, a, desc_b, scale_d);
+  } else if constexpr (kN == 32) {
+    wgmma_m64n32k16_rs<kTransB>(d, a, desc_b, scale_d);
+  } else if constexpr (kN == 64) {
+    wgmma_m64n64k16_rs<kTransB>(d, a, desc_b, scale_d);
+  } else if constexpr (kN == 128) {
+    wgmma_m64n128k16_rs<kTransB>(d, a, desc_b, scale_d);
+  } else {
+    static_assert(kN == 256, "wgmma_rs: N must be 16, 32, 64, 128 or 256");
+    wgmma_m64n256k16_rs<kTransB>(d, a, desc_b, scale_d);
+  }
 }
 
 }  // namespace ucod

@@ -27,7 +27,7 @@
 // Weights stay in the (out, in) layout of ops/quant.py: each output row is
 // K-contiguous, the "col" B operand of mma.sync.  In bytes an s8 16x32 A tile
 // and an 8x32 B tile have the fragments of bf16 16x16 / 8x16 tiles, so the
-// ldmatrix addressing of K6 feeds them (common.cuh).
+// bf16 ldmatrix addressing of common.cuh feeds them.
 //
 // What bounds them on the H100, at bs16 / 518px (21,920 rows, D = 768,
 // F = 3072):
@@ -35,7 +35,7 @@
 //     recomputed by every column tile of a row tile (9 for K8, 3 for K10)
 //     and the weights are re-read from L2 by every row tile (0.6 and 0.2 GB
 //     per call); mma.sync runs at most at half of the int8 wgmma rate.
-//     Design: K6's.  A CTA of 8 warps owns a 64-row x 256-column output tile;
+//     Design: a CTA of 8 warps owns a 64-row x 256-column output tile;
 //     it normalises and quantizes its 64 rows straight from global memory
 //     into shared memory as int8 (64 x 784 bytes), streams 128-byte K slices
 //     of its 256 weight rows with cp.async (double-buffered) and runs

@@ -1,255 +1,323 @@
 // K6: fused LayerNorm + q/k/v projections, bf16 in and out.
 //
 // Replaces the TPU kernel ucod_dpl_tpu/ops/fused_layers.py::_lnqkv_kernel
-// (launched by _pallas_layernorm_qkv): h = LN(x) with f32 statistics
-// (eps from the caller), rounded to bf16 as the TPU kernel does, then
-// q/k/v = h W^T + b with f32 accumulation and f32 bias, stored as bf16 into
-// three separate outputs.
+// (launched by _pallas_layernorm_qkv): h = LN(x) with f32 statistics (the
+// mean, then the mean of (x - mean)^2; eps from the caller), rounded to bf16
+// once as the TPU kernel does, then q/k/v = h W^T + b with f32 accumulation
+// and f32 bias, each rounded to bf16 once into its own output.
 //
 // What bounds it on the H100: at bs16 / 518px the (B * L) = 21,920 rows give
-// 2 * 21920 * 768 * 2304 = 78 GFLOP against 34 MB of x, 3.5 MB of weights and
-// 101 MB of outputs, about 560 FLOP per byte, so the tensor cores bound it.
-// The normalised h never goes to HBM; the weights are re-read from L2 by
-// every row tile (1.2 GB per call), which with one CTA per SM is what limits
-// this design.  Design, kept simple:
-//   * one CTA of 8 warps per (64-row tile, 256-column tile of the 3 * D
-//     concatenated output columns), the column tiles of a row tile adjacent
-//     in the grid so its x rows stay hot in L2; a column tile lies in one of
-//     the three projections, so D must be a multiple of 256;
-//   * the CTA copies its x rows into dynamic shared memory with cp.async
-//     (64 x 776 bf16 = 97 KB at D = 768; with the weight stages 170 KB, above
-//     the 48 KB default: cudaFuncSetAttribute), computes the LN statistics
-//     there (two-pass, f32) and normalises in place to bf16;
-//   * weights stay in nn.Linear's (out, in) layout; 64-wide K slices of the
-//     tile's weight rows are double-buffered with cp.async, and both operands
-//     reach mma.sync m16n8k16 through ldmatrix.x4;
-//   * rows at or past `rows` are never read; their staged h is zero and no
-//     store happens.
-// Not yet used: wgmma, TMA, a persistent schedule (later work).
+// 2 * 21920 * 768 * 2304 = 78 GFLOP (0.078 ms at the 989 TFLOP/s bf16 peak)
+// against 34 MB of x, 3.5 MB of weights and 101 MB of outputs (0.041 ms at
+// 3.35 TB/s): the tensor cores bound it.  The normalised h never goes to
+// HBM.  The design, the main loop of a Hopper GEMM (hopper.cuh) with the
+// LayerNorm in its A operand:
+//   * a statistics pre-pass (one warp a row) writes f32 (mean, rstd) per row
+//     into scratch the wrapper allocates (8 bytes a row): a 128-row x 768
+//     slab (192 KB) cannot sit beside the weight ring, and every column tile
+//     of a row tile would otherwise repeat the row's statistics; the main
+//     kernel is a programmatic dependent launch, so its CTAs start, set up
+//     and load their first stages while the pre-pass ends, and only the
+//     consumers wait for the statistics;
+//   * the main kernel is persistent and warp-specialised: CTAs take work
+//     tiles (128 rows x 256 of the 3 * D concatenated output columns)
+//     blockIdx.x, + gridDim.x, ..., the column tiles of one row tile
+//     adjacent, so the CTAs that run together share x rows in L2 (the 3.5 MB
+//     of weights stay there too); a 256-column tile lies in one projection,
+//     so D must be a multiple of 256;
+//   * one producer warp issues TMA loads (2-D maps, 128-byte swizzle) of an x
+//     tile (128 rows x 64 columns) and a W tile (256 rows x 64 columns, in
+//     nn.Linear's (out, in) layout, K-major as wgmma's B wants it) into a
+//     three-stage mbarrier ring that runs on across work tiles; rows past
+//     the last are zero-filled by TMA, never read;
+//   * two consumer warpgroups own 64 rows each: per 16-column k-step a warp
+//     reads its x fragment with ldmatrix (through the swizzle), normalises it
+//     in f32 with its rows' (mean, rstd) and the columns' gamma/beta (kept in
+//     shared memory), packs it to bf16 A fragments in registers and issues
+//     wgmma m64n256k16 with A from registers; the A fragments of two k-tiles
+//     alternate, so one k-tile's normalisation runs under the other's
+//     products, and a stage is freed once its products are done;
+//   * the epilogue adds the f32 bias to the m64n256 f32 accumulators (128 a
+//     thread), rounds once to bf16 into a 128-byte-swizzled staging tile in
+//     shared memory (32 KB a warpgroup, conflict-free) and stores it with
+//     TMA, which drops rows past the last and drains while the warpgroup
+//     runs the next tile; the producer has loaded that tile's first stages
+//     meanwhile.  Stored from registers (4 bytes a thread, 8 rows an
+//     instruction) the outputs cost a third of the kernel's time on an H100.
 
 #include <cuda_runtime.h>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBlockK = 64;
-constexpr int kLdw = kBlockK + 8;  // padded weight-tile row (bf16 elements)
+using bf16 = __nv_bfloat16;
 
-// BM x BN output tile per CTA, WM x WN warps, each owning a
-// (BM / WM) x (BN / WN) block.
-template <int BM, int BN, int WM, int WN>
-struct Tile {
-  static constexpr int kWarps = WM * WN;
-  static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kTm = BM / WM;
-  static constexpr int kTn = BN / WN;
-  static constexpr int kMi = kTm / 16;  // m16 fragments per warp
-  static constexpr int kNi = kTn / 8;   // n8 fragments per warp
-  static_assert(kTm % 16 == 0 && kTn % 16 == 0, "warp tile must be a multiple of 16");
-  static int smem_bytes(int d) { return (BM * (d + 8) + 2 * BN * kLdw) * 2; }
+constexpr int kConsumers = 2;             // warpgroups of 64 rows
+constexpr int kBlockM = 64 * kConsumers;  // rows per work tile
+constexpr int kBlockN = 256;              // output columns per work tile
+constexpr int kBlockK = 64;               // columns of x per stage: one 128-byte swizzle row
+constexpr int kStages = 3;
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kMaxD = 1024;
+constexpr uint32_t kStageBytes = (kBlockM + kBlockN) * kBlockK * 2;
+constexpr int kStatsWarps = 8;  // rows per block of the statistics pre-pass
+
+constexpr int kOutBar = 1;  // named barriers 1, 2: each consumer warpgroup's epilogue
+
+struct Smem {  // every tile 1024-byte aligned (128-byte swizzle atoms)
+  bf16 x[kStages][kBlockM * kBlockK];
+  bf16 w[kStages][kBlockN * kBlockK];
+  bf16 out[kConsumers][kBlockN / 64][64 * 64];  // 64 x 64 boxes of the output tile
+  float2 gb[kMaxD];  // (gamma, beta) of each column
+  uint64_t full[kStages], empty[kStages];
 };
+constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
-// Weight rows [n0, n0 + BN), columns [k0, k0 + 64) into a [BN][kLdw] tile.
-template <int BN, int kThreads>
-__device__ __forceinline__ void load_w_tile(__nv_bfloat16* dst, const __nv_bfloat16* w, int n0,
-                                            int k0, int d) {
-  for (int idx = threadIdx.x; idx < BN * (kBlockK / 8); idx += kThreads) {
-    const int r = idx >> 3;
-    const int c = (idx & 7) * 8;
-    ucod::cp_async16(dst + r * kLdw + c, w + (int64_t)(n0 + r) * d + k0 + c, true);
-  }
-}
-
-template <int BM, int BN, int WM, int WN>
-__global__ void __launch_bounds__(Tile<BM, BN, WM, WN>::kThreads)
-    layernorm_qkv_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
-                         const float* __restrict__ beta, const __nv_bfloat16* __restrict__ wq,
-                         const __nv_bfloat16* __restrict__ wk, const __nv_bfloat16* __restrict__ wv,
-                         const float* __restrict__ bq, const float* __restrict__ bk,
-                         const float* __restrict__ bv, __nv_bfloat16* __restrict__ oq,
-                         __nv_bfloat16* __restrict__ ok, __nv_bfloat16* __restrict__ ov, int rows,
-                         int d, float eps) {
-  using T = Tile<BM, BN, WM, WN>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int ldh = d + 8;  // padded h row: conflict-free ldmatrix rows
-  __nv_bfloat16* hs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* ws = hs + BM * ldh;  // [2][BN][kLdw]
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int col0 = blockIdx.x * BN;
-  const int row0 = blockIdx.y * BM;
-  const int which = col0 / d;
-  const int n0 = col0 - which * d;
-  const __nv_bfloat16* w = which == 0 ? wq : (which == 1 ? wk : wv);
-  const float* bias = which == 0 ? bq : (which == 1 ? bk : bv);
-  __nv_bfloat16* out = which == 0 ? oq : (which == 1 ? ok : ov);
-
-  // x rows -> shared memory; rows past the last are zero-filled, never read
-  const int chunks = d / 8;
-  for (int idx = threadIdx.x; idx < BM * chunks; idx += T::kThreads) {
-    const int r = idx / chunks;
-    const int c = (idx - r * chunks) * 8;
-    const bool valid = row0 + r < rows;
-    ucod::cp_async16(hs + r * ldh + c, x + (int64_t)(valid ? row0 + r : 0) * d + c, valid);
-  }
-  ucod::cp_async_commit();
-  load_w_tile<BN, T::kThreads>(ws, w, n0, 0, d);
-  ucod::cp_async_commit();
-  ucod::cp_async_wait<1>();  // the x rows have landed; the weights may still fly
-  __syncthreads();
-
-  // LayerNorm in place: warp w normalises rows w, w + kWarps, ...
-  const float inv_d = 1.f / static_cast<float>(d);
-  for (int r = warp; r < BM; r += T::kWarps) {
-    if (row0 + r >= rows) continue;  // stays zero
-    __nv_bfloat16* hrow = hs + r * ldh;
-    float sum = 0.f;
-    for (int c = lane * 8; c < d; c += 256) {
-      const uint4 u = *reinterpret_cast<const uint4*>(hrow + c);
+// Per row: f32 mean and rstd = rsqrt(mean (x - mean)^2 + eps), two passes
+// over the row held in registers: lane l sums its 8-value chunks 256 j + 8 l
+// in turn, and the lanes combine by an xor butterfly.
+__global__ void __launch_bounds__(32 * kStatsWarps)
+    ln_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats, int rows, int d, float eps) {
+  ucod::launch_dependents();
+  const int row = blockIdx.x * kStatsWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const bf16* xr = x + (int64_t)row * d;
+  float v[kMaxD / 32];
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxD / 256; ++j) {
+    if (256 * j < d) {
+      const uint4 u = *reinterpret_cast<const uint4*>(xr + 256 * j + 8 * lane);
       const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float2 f = __bfloat1622float2(p[i]);
+        v[8 * j + 2 * i] = f.x;
+        v[8 * j + 2 * i + 1] = f.y;
         sum += f.x + f.y;
       }
     }
-    const float mean = ucod::warp_sum(sum) * inv_d;
-    float sq = 0.f;
-    for (int c = lane * 8; c < d; c += 256) {
-      const uint4 u = *reinterpret_cast<const uint4*>(hrow + c);
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
+  }
+  const float inv_d = 1.f / static_cast<float>(d);
+  const float mean = ucod::warp_sum(sum) * inv_d;
+  float sq = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxD / 256; ++j) {
+    if (256 * j < d) {
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(p[i]);
-        sq += (f.x - mean) * (f.x - mean) + (f.y - mean) * (f.y - mean);
+        const float a = v[8 * j + 2 * i] - mean;
+        const float b = v[8 * j + 2 * i + 1] - mean;
+        sq += a * a + b * b;
       }
-    }
-    const float rstd = rsqrtf(ucod::warp_sum(sq) * inv_d + eps);
-    for (int c = lane * 8; c < d; c += 256) {
-      const uint4 u = *reinterpret_cast<const uint4*>(hrow + c);
-      const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&u);
-      const float4 g0 = *reinterpret_cast<const float4*>(gamma + c);
-      const float4 g1 = *reinterpret_cast<const float4*>(gamma + c + 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(beta + c);
-      const float4 b1 = *reinterpret_cast<const float4*>(beta + c + 4);
-      const float gv[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
-      const float bv8[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-      uint4 res;
-      uint32_t* pr = reinterpret_cast<uint32_t*>(&res);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(p[i]);
-        pr[i] = ucod::pack_bf16x2((f.x - mean) * rstd * gv[2 * i] + bv8[2 * i],
-                                  (f.y - mean) * rstd * gv[2 * i + 1] + bv8[2 * i + 1]);
-      }
-      *reinterpret_cast<uint4*>(hrow + c) = res;
     }
   }
+  const float rstd = rsqrtf(ucod::warp_sum(sq) * inv_d + eps);
+  if (lane == 0) stats[row] = make_float2(mean, rstd);
+}
 
-  // (BM x d) h times the (d x BN) slice of W^T
-  const int wm = warp % WM;
-  const int wn = warp / WM;
-  float acc[T::kMi][T::kNi][4];
+// Two adjacent x values (bf16x2) of one row, normalised with the row's
+// (mean, rstd) and the columns' (gamma, beta) pairs gb = (g0, b0, g1, b1),
+// as the bf16x2 A-fragment register.
+__device__ __forceinline__ uint32_t normalise2(uint32_t raw, float2 st, float4 gb) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+  return ucod::pack_bf16x2((f.x - st.x) * st.y * gb.x + gb.y, (f.y - st.x) * st.y * gb.z + gb.w);
+}
+
+// One k-tile (64 columns of x) of a consumer warpgroup: waits for its stage,
+// builds the four k-steps' A fragments of the normalised h into `a`, issues
+// their products into `acc` (overwriting it at the tile's first k-step), and
+// frees the previous k-tile's stage once its products are done.  `xs`: this
+// lane's ldmatrix row (row * 128 bytes) in the stage's x tile, `xor_row` its
+// swizzle (row % 8), `half` its 16-byte chunk within a k-step.
+__device__ __forceinline__ void k_tile(float (&acc)[kBlockN / 2], uint32_t (&a)[4][4], Smem& sm, int it, int kt,
+                                       uint32_t xs, int xor_row, int half, int tq, int lane, float2 st0,
+                                       float2 st1) {
+  const int st = it % kStages;
+  ucod::mbar_wait(&sm.full[st], (it / kStages) & 1);
+  const uint8_t* x_tile = reinterpret_cast<const uint8_t*>(sm.x[st]) + xs;
 #pragma unroll
-  for (int mi = 0; mi < T::kMi; ++mi)
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    uint32_t raw[4];  // rows g, g + 8 x columns 2 tq, 2 tq + 1; then the same at + 8
+    ucod::ldmatrix_x4(raw, x_tile + (((2 * kk + half) ^ xor_row) << 4));
+    const int col = kt * kBlockK + 16 * kk + 2 * tq;
+    const float4 gb0 = *reinterpret_cast<const float4*>(&sm.gb[col]);
+    const float4 gb8 = *reinterpret_cast<const float4*>(&sm.gb[col + 8]);
+    a[kk][0] = normalise2(raw[0], st0, gb0);
+    a[kk][1] = normalise2(raw[1], st1, gb0);
+    a[kk][2] = normalise2(raw[2], st0, gb8);
+    a[kk][3] = normalise2(raw[3], st1, gb8);
+  }
+  ucod::wgmma_fence();
 #pragma unroll
-    for (int nj = 0; nj < T::kNi; ++nj)
-      acc[mi][nj][0] = acc[mi][nj][1] = acc[mi][nj][2] = acc[mi][nj][3] = 0.f;
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    ucod::wgmma_rs<kBlockN, 0>(acc, a[kk], ucod::desc_kmajor(sm.w[st], kk), kt > 0 || kk > 0);
+  }
+  ucod::wgmma_commit();
+  ucod::wgmma_wait<1>();  // the previous k-tile's products are done
+  if (kt > 0 && lane == 0) ucod::mbar_arrive(&sm.empty[(it + kStages - 1) % kStages]);
+}
 
-  // per-lane ldmatrix row offsets: A rows (lane & 15), k half (lane >> 4);
-  // B rows (lane & 7) + 8 * (lane >> 4), k half ((lane >> 3) & 1)
-  const __nv_bfloat16* a_base = hs + (wm * T::kTm + (lane & 15)) * ldh + (lane >> 4) * 8;
-  const int b_off = (wn * T::kTn + (lane & 7) + ((lane >> 4) << 3)) * kLdw + ((lane >> 3) & 1) * 8;
+__global__ void __launch_bounds__(kThreads, 1)
+    layernorm_qkv_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_wq,
+                         const __grid_constant__ CUtensorMap tm_wk, const __grid_constant__ CUtensorMap tm_wv,
+                         const float* __restrict__ gamma, const float* __restrict__ beta,
+                         const float2* __restrict__ stats, const float* __restrict__ bq,
+                         const float* __restrict__ bk, const float* __restrict__ bv,
+                         const __grid_constant__ CUtensorMap tm_oq, const __grid_constant__ CUtensorMap tm_ok,
+                         const __grid_constant__ CUtensorMap tm_ov, int rows, int d, int n_work) {
+  extern __shared__ uint8_t smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128;
+  const int n_k = d / kBlockK;
+  const int n_ct = 3 * d / kBlockN;
 
-  const int k_tiles = d / kBlockK;
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    if (kt + 1 < k_tiles) {
-      load_w_tile<BN, T::kThreads>(ws + ((kt + 1) & 1) * BN * kLdw, w, n0, (kt + 1) * kBlockK, d);
-      ucod::cp_async_commit();
-      ucod::cp_async_wait<1>();
-    } else {
-      ucod::cp_async_wait<0>();
+  for (int i = threadIdx.x; i < d; i += kThreads) sm.gb[i] = make_float2(gamma[i], beta[i]);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      ucod::mbar_init(&sm.full[s], 1);
+      ucod::mbar_init(&sm.empty[s], 4 * kConsumers);  // lane 0 of every consumer warp
     }
-    __syncthreads();  // also orders the LayerNorm's writes before the first reads
-    const __nv_bfloat16* wt = ws + (kt & 1) * BN * kLdw + b_off;
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t a[T::kMi][4];
-#pragma unroll
-      for (int mi = 0; mi < T::kMi; ++mi)
-        ucod::ldmatrix_x4(a[mi], a_base + mi * 16 * ldh + kt * kBlockK + kk * 16);
-#pragma unroll
-      for (int nj = 0; nj < T::kNi; nj += 2) {
-        uint32_t b[4];
-        ucod::ldmatrix_x4(b, wt + nj * 8 * kLdw + kk * 16);
-#pragma unroll
-        for (int mi = 0; mi < T::kMi; ++mi) {
-          ucod::mma_16816(acc[mi][nj], a[mi], b[0], b[1]);
-          ucod::mma_16816(acc[mi][nj + 1], a[mi], b[2], b[3]);
+    ucod::fence_barrier_init();
+  }
+  __syncthreads();
+
+  // Work tile t: row tile t / n_ct, column tile t % n_ct; `it` counts the
+  // k-tiles so far, across work tiles.
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    ucod::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+        const int m0 = t / n_ct * kBlockM;
+        const int col = t % n_ct * kBlockN;
+        const int which = col / d;
+        const CUtensorMap* tm_w = which == 0 ? &tm_wq : which == 1 ? &tm_wk : &tm_wv;
+        for (int kt = 0; kt < n_k; ++kt, ++it) {
+          const int st = it % kStages;
+          ucod::mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
+          ucod::mbar_expect_tx(&sm.full[st], kStageBytes);
+          ucod::tma_load_3d(sm.x[st], &tm_x, &sm.full[st], kt * kBlockK, m0, 0);
+          ucod::tma_load_3d(sm.w[st], tm_w, &sm.full[st], kt * kBlockK, col - which * d, 0);
         }
       }
     }
-    __syncthreads();  // this stage is refilled by the next iteration's copies
-  }
+  } else {
+    ucod::reg_alloc<240>();
+    ucod::wait_prerequisite();  // the statistics pre-pass has completed
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    // ldmatrix.x4: lanes 0-15 give rows 0-15 of the warp's 16 at the k-step's
+    // first 8 columns, lanes 16-31 the same rows at its last 8
+    const int lrow = 64 * c + 16 * warp + (lane & 15);
+    const uint32_t xs = lrow * kBlockK * 2;
+    const int xor_row = lrow & 7;
+    const int half = lane >> 4;
 
-#pragma unroll
-  for (int mi = 0; mi < T::kMi; ++mi) {
-    const int r0 = row0 + wm * T::kTm + mi * 16 + g;
-#pragma unroll
-    for (int nj = 0; nj < T::kNi; ++nj) {
-      const int c = n0 + wn * T::kTn + nj * 8 + 2 * t;
-      const float bias0 = bias[c];
-      const float bias1 = bias[c + 1];
-      if (r0 < rows) {
-        *reinterpret_cast<uint32_t*>(out + (int64_t)r0 * d + c) =
-            ucod::pack_bf16x2(acc[mi][nj][0] + bias0, acc[mi][nj][1] + bias1);
+    float acc[kBlockN / 2];  // 64 rows x 256 columns, f32
+    uint32_t a[2][4][4];     // the A fragments of two k-tiles, in turn
+    int it = 0;
+    for (int t = blockIdx.x; t < n_work; t += gridDim.x) {
+      const int m0 = t / n_ct * kBlockM + 64 * c;  // this warpgroup's first row
+      const int r0 = m0 + 16 * warp + g;           // this thread's rows r0, r0 + 8
+      const int col = t % n_ct * kBlockN;
+      const int which = col / d;
+      const int n0 = col - which * d;
+      // rows past the last: TMA gave zeros, any finite statistics do
+      const float2 st0 = r0 < rows ? stats[r0] : make_float2(0.f, 0.f);
+      const float2 st1 = r0 + 8 < rows ? stats[r0 + 8] : make_float2(0.f, 0.f);
+      for (int kt = 0; kt < n_k; kt += 2) {  // n_k = d / 64 is even
+        k_tile(acc, a[0], sm, it, kt, xs, xor_row, half, tq, lane, st0, st1);
+        k_tile(acc, a[1], sm, it + 1, kt + 1, xs, xor_row, half, tq, lane, st0, st1);
+        it += 2;
       }
-      if (r0 + 8 < rows) {
-        *reinterpret_cast<uint32_t*>(out + (int64_t)(r0 + 8) * d + c) =
-            ucod::pack_bf16x2(acc[mi][nj][2] + bias0, acc[mi][nj][3] + bias1);
+      ucod::wgmma_wait<0>();
+      ucod::fence_regs(acc);
+      if (lane == 0) ucod::mbar_arrive(&sm.empty[(it + kStages - 1) % kStages]);
+
+      // epilogue: the staging tile is free once the previous tile's stores
+      // have read it
+      if (tid == 0) ucod::bulk_wait_read<0>();
+      ucod::named_sync(kOutBar + c, 128);
+      const float* bias = which == 0 ? bq : which == 1 ? bk : bv;
+      uint8_t* stage = reinterpret_cast<uint8_t*>(sm.out[c]);
+      const int srow = 16 * warp + g;  // rows srow, srow + 8 of the staging tile; both swizzle by g
+#pragma unroll
+      for (int j = 0; j < kBlockN / 8; ++j) {
+        const float2 b2 = *reinterpret_cast<const float2*>(bias + n0 + 8 * j + 2 * tq);
+        uint8_t* box = stage + (j / 8) * 64 * 64 * 2 + (((j % 8) ^ g) << 4) + 4 * tq;
+        *reinterpret_cast<uint32_t*>(box + srow * 128) = ucod::pack_bf16x2(acc[4 * j] + b2.x, acc[4 * j + 1] + b2.y);
+        *reinterpret_cast<uint32_t*>(box + (srow + 8) * 128) =
+            ucod::pack_bf16x2(acc[4 * j + 2] + b2.x, acc[4 * j + 3] + b2.y);
+      }
+      ucod::fence_proxy_async();
+      ucod::named_sync(kOutBar + c, 128);
+      if (tid == 0) {
+        const CUtensorMap* tm_o = which == 0 ? &tm_oq : which == 1 ? &tm_ok : &tm_ov;
+#pragma unroll
+        for (int a = 0; a < kBlockN / 64; ++a) ucod::tma_store_3d(tm_o, sm.out[c][a], n0 + 64 * a, m0, 0);
+        ucod::bulk_commit();
       }
     }
+    if (tid == 0) ucod::bulk_wait<0>();  // the last stores have completed
   }
-}
-
-template <int BM, int BN, int WM, int WN>
-int launch_layernorm_qkv(const void* x, const void* gamma, const void* beta, const void* wq,
-                         const void* wk, const void* wv, const void* bq, const void* bk,
-                         const void* bv, void* oq, void* ok, void* ov, int rows, int d, float eps,
-                         void* stream) {
-  using T = Tile<BM, BN, WM, WN>;
-  const auto kernel = layernorm_qkv_kernel<BM, BN, WM, WN>;
-  const int smem = T::smem_bytes(d);
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(3 * d / BN, (rows + BM - 1) / BM);
-  kernel<<<grid, T::kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(wq),
-      static_cast<const __nv_bfloat16*>(wk), static_cast<const __nv_bfloat16*>(wv),
-      static_cast<const float*>(bq), static_cast<const float*>(bk), static_cast<const float*>(bv),
-      static_cast<__nv_bfloat16*>(oq), static_cast<__nv_bfloat16*>(ok),
-      static_cast<__nv_bfloat16*>(ov), rows, d, eps);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: contiguous bf16 (rows, d); gamma/beta: f32 (d,); wq/wk/wv: contiguous
-// bf16 (d, d) in (out, in) layout; bq/bk/bv: f32 (d,); oq/ok/ov: bf16
-// (rows, d).  Requires d % 256 == 0, d <= 1024, 16-byte aligned pointers.
-// Launches on `stream`; returns the launch's cudaError_t.
-extern "C" int ucod_layernorm_qkv(const void* x, const void* gamma, const void* beta,
-                                  const void* wq, const void* wk, const void* wv, const void* bq,
-                                  const void* bk, const void* bv, void* oq, void* ok, void* ov,
-                                  int rows, int d, float eps, void* stream) {
-  // 64 x 256 tiles (8 warps of 32 x 64) measured fastest at ViT-B shapes
-  if (d % 256 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_layernorm_qkv<64, 256, 2, 4>(x, gamma, beta, wq, wk, wv, bq, bk, bv, oq, ok, ov,
-                                             rows, d, eps, stream);
+// x: contiguous bf16 (rows, d), rows >= 1; gamma/beta: f32 (d,); wq/wk/wv:
+// contiguous bf16 (d, d) in (out, in) layout; bq/bk/bv: f32 (d,); oq/ok/ov:
+// bf16 (rows, d); stats: f32 scratch of 2 * rows values (written, then read).
+// Requires d % 256 == 0, d <= 1024, 16-byte aligned pointers.  Launches the
+// statistics pre-pass and the main kernel on `stream`; returns the first
+// nonzero cudaError_t (cudaErrorInvalidValue for another d or when a tensor
+// map cannot be made).
+extern "C" int ucod_layernorm_qkv(const void* x, const void* gamma, const void* beta, const void* wq,
+                                  const void* wk, const void* wv, const void* bq, const void* bk, const void* bv,
+                                  void* oq, void* ok, void* ov, void* stats, int rows, int d, float eps,
+                                  void* stream) {
+  if (d % 256 != 0 || d > kMaxD || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap tm_x, tm_wq, tm_wk, tm_wv, tm_oq, tm_ok, tm_ov;
+  if (!ucod::packed_tensor_map(&tm_x, x, 1, rows, d, kBlockM) ||
+      !ucod::packed_tensor_map(&tm_wq, wq, 1, d, d, kBlockN) ||
+      !ucod::packed_tensor_map(&tm_wk, wk, 1, d, d, kBlockN) ||
+      !ucod::packed_tensor_map(&tm_wv, wv, 1, d, d, kBlockN) ||
+      !ucod::packed_tensor_map(&tm_oq, oq, 1, rows, d, 64) || !ucod::packed_tensor_map(&tm_ok, ok, 1, rows, d, 64) ||
+      !ucod::packed_tensor_map(&tm_ov, ov, 1, rows, d, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ln_stats_kernel<<<(rows + kStatsWarps - 1) / kStatsWarps, 32 * kStatsWarps, 0, s>>>(
+      static_cast<const bf16*>(x), static_cast<float2*>(stats), rows, d, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(layernorm_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
+  }
+  int device = 0, n_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_work = (rows + kBlockM - 1) / kBlockM * (3 * d / kBlockN);
+  cudaLaunchAttribute pdl;
+  pdl.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_work < n_sm ? n_work : n_sm);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kSmemBytes;
+  cfg.stream = s;
+  cfg.attrs = &pdl;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, layernorm_qkv_kernel, tm_x, tm_wq, tm_wk, tm_wv, static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const float2*>(stats), static_cast<const float*>(bq),
+      static_cast<const float*>(bk), static_cast<const float*>(bv), tm_oq, tm_ok, tm_ov, rows, d, n_work));
 }

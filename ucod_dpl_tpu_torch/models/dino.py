@@ -10,10 +10,11 @@ the decoder's decoupling.
 
 On a CUDA device the fused LayerNorm + q/k/v (K6) and the packed attention
 (K1) run as hand-written kernels in bf16; ``plain=True`` runs their plain
-PyTorch versions instead, on any device.  Attention is routed as the JAX
-package routes it (:func:`~ucod_dpl_tpu_torch.ops.attention.
-multi_head_attention`): heads that K1 cannot take (an odd count, a head dim
-other than 64) go through the per-head kernel K5.  ``tp_shard`` runs the
+PyTorch versions instead, on any device.  Attention
+(:func:`~ucod_dpl_tpu_torch.ops.attention.multi_head_attention`) runs every
+head count of a head dim in 16-128 through the packed forward on the card,
+where the JAX package splits odd counts to its per-head kernel K5 (the same
+function).  ``tp_shard`` runs the
 tensor-parallel forward, heads and MLP expansion split over a mesh axis
 (:func:`_tp_forward`).  With ``quant`` (the opt-in int8
 serving path, :func:`~ucod_dpl_tpu_torch.ops.quant.quantize_dino_linears`)

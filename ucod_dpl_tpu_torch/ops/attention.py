@@ -4,10 +4,11 @@ Counterpart of :mod:`ucod_dpl_tpu.ops.attention`.  Wrappers of hand-written
 Hopper kernels, each with its plain PyTorch version beside it:
 
 * :func:`packed_attention` (K1, ``csrc/attention_fwd.cu``, the port of the
-  TPU kernel ``_attention_kernel_headpair``): the inference forward.  Its
-  plain version :func:`packed_attention_reference` mirrors the JAX
-  ``_xla_attention`` numerics: f32 scores and softmax, probabilities rounded
-  to the input dtype, f32-accumulated ``p @ v`` rounded to the input dtype.
+  TPU kernel ``_attention_kernel_headpair``): the inference forward, for any
+  head count of a head dim in :data:`HEADS_DIMS`.  Its plain version
+  :func:`packed_attention_reference` mirrors the JAX ``_xla_attention``
+  numerics: f32 scores and softmax, probabilities rounded to the input
+  dtype, f32-accumulated ``p @ v`` rounded to the input dtype.
 * :func:`packed_attention_fwd_lse` (the same kernel with an f32 log-sum-exp
   output, the port of K2 ``_attention_kernel_headpair_stats``): the forward
   of the differentiated path.
@@ -18,11 +19,12 @@ Hopper kernels, each with its plain PyTorch version beside it:
 :func:`packed_attention_diff` ties the last two together as a
 ``torch.autograd.Function`` (the JAX ``_packed_attention_diff`` custom VJP).
 
-:func:`heads_attention` (K5, ``csrc/attention_heads.cu``, the port of
-``_attention_kernel``) is the forward on the per-head (B*H, L, d) layout,
-which :func:`multi_head_attention` splits to when K1 cannot take the heads,
-as the JAX dispatch does; :func:`tp_multi_head_attention` runs it per
-tensor-parallel shard.
+:func:`heads_attention` (K5, the port of ``_attention_kernel``) is the same
+forward kernel on the per-head (B*H, L, d) layout, which the JAX dispatch
+splits odd head counts to (its packed kernel pairs heads into the TPU's 128
+lanes).  On the card :func:`multi_head_attention` needs no split: the
+forward reads any head count in place.  :func:`tp_multi_head_attention`
+runs it per tensor-parallel shard.
 
 Dispatch is by device alone: a CPU tensor takes the plain version; a CUDA
 tensor launches the kernel or raises.
@@ -38,8 +40,8 @@ import torch
 from ucod_dpl_tpu_torch.ops import _build
 
 _LOG2E = math.log2(math.e)
-HEAD_DIM = 64
-HEADS_DIMS = (16, 32, 64, 128)  # the head dims K5 is instantiated for
+HEAD_DIM = 64  # the head dim of the forward with log-sum-exp and of the backward
+HEADS_DIMS = (16, 32, 64, 128)  # the head dims of the forward (K1, K5)
 
 
 def packed_attention_reference(
@@ -58,29 +60,38 @@ def packed_attention_reference(
     return o.transpose(1, 2).reshape(b, l, d)
 
 
-def _check_kernel_inputs(q, num_heads, **others):
+def _check_kernel_inputs(q, num_heads, head_dims=(HEAD_DIM,), what="packed_attention", **others):
     """Raise unless ``q`` and every tensor of ``others`` (by name) is what the
     attention kernels take: bf16, contiguous, 16-byte aligned, q's shape and
-    device, (B, L, num_heads * 64)."""
+    device, (B, L, num_heads * d) with d in ``head_dims``."""
     if q.device.type != "cuda":
-        raise ValueError(f"packed_attention: unsupported device {q.device}")
+        raise ValueError(f"{what}: unsupported device {q.device}")
     for name, x in (("q", q), *others.items()):
         if x.dtype != torch.bfloat16:
-            raise TypeError(f"packed_attention kernel takes bf16; {name} is {x.dtype}")
+            raise TypeError(f"{what} kernel takes bf16; {name} is {x.dtype}")
         if not x.is_contiguous():
-            raise ValueError(f"packed_attention kernel takes contiguous inputs; {name} is not")
+            raise ValueError(f"{what} kernel takes contiguous inputs; {name} is not")
         if x.shape != q.shape or x.device != q.device:
-            raise ValueError(f"packed_attention: {name} {tuple(x.shape)}@{x.device} "
+            raise ValueError(f"{what}: {name} {tuple(x.shape)}@{x.device} "
                              f"differs from q {tuple(q.shape)}@{q.device}")
         if x.data_ptr() % 16:
-            raise ValueError(f"packed_attention kernel needs 16-byte aligned {name}")
-    if q.dim() != 3 or q.shape[-1] != num_heads * HEAD_DIM:
-        raise ValueError(
-            f"packed_attention kernel needs (B, L, num_heads * {HEAD_DIM}); got "
-            f"{tuple(q.shape)} with {num_heads} heads"
-        )
+            raise ValueError(f"{what} kernel needs 16-byte aligned {name}")
+    if q.dim() != 3 or num_heads < 1 or q.shape[-1] % num_heads or q.shape[-1] // num_heads not in head_dims:
+        raise ValueError(f"{what} kernel needs (B, L, num_heads * d) with d in {head_dims}; got "
+                         f"{tuple(q.shape)} with {num_heads} heads")
     if q.shape[1] < 1 or q.shape[0] * num_heads > 65535:
-        raise ValueError(f"packed_attention kernel: unsupported shape {tuple(q.shape)}")
+        raise ValueError(f"{what} kernel: unsupported shape {tuple(q.shape)}")
+
+
+def _launch_forward(q, k, v, o, num_heads: int, scale: float) -> None:
+    """The forward kernel on checked (B, L, num_heads * d) tensors."""
+    b, l, dm = q.shape
+    with torch.cuda.device(q.device):
+        err = _build.kernels().ucod_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, num_heads, dm // num_heads,
+            float(scale) * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check_cuda(err, "attention_fwd")
 
 
 def packed_attention(
@@ -91,23 +102,18 @@ def packed_attention(
     scale: float,
     out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """(B, L, num_heads * 64) bf16 q/k/v -> attention output, same layout,
-    written into ``out`` when given.
+    """(B, L, num_heads * d) bf16 q/k/v, d in :data:`HEADS_DIMS`, any head
+    count -> attention output, same layout, written into ``out`` when given.
 
-    CUDA tensors launch K1 (counted in ``packed_attention.launches``); CPU
-    tensors take :func:`packed_attention_reference`."""
+    CUDA tensors launch the forward kernel (counted in
+    ``packed_attention.launches``); CPU tensors take
+    :func:`packed_attention_reference`."""
     if q.device.type == "cpu":
         o = packed_attention_reference(q, k, v, num_heads, scale)
         return o if out is None else out.copy_(o)
     o = torch.empty_like(q) if out is None else out
-    _check_kernel_inputs(q, num_heads, k=k, v=v, out=o)
-    b, l, _ = q.shape
-    with torch.cuda.device(q.device):
-        err = _build.kernels().ucod_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, num_heads,
-            float(scale) * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check_cuda(err, "attention_fwd")
+    _check_kernel_inputs(q, num_heads, HEADS_DIMS, k=k, v=v, out=o)
+    _launch_forward(q, k, v, o, num_heads, scale)
     packed_attention.launches += 1
     return o
 
@@ -302,30 +308,16 @@ def heads_attention(
     """(BH, L, d) bf16 q/k/v, d in :data:`HEADS_DIMS` -> attention output,
     same layout, written into ``out`` when given.
 
-    CUDA tensors launch K5 (counted in ``heads_attention.launches``); CPU
-    tensors take :func:`heads_attention_reference`."""
+    CUDA tensors launch the forward kernel of :func:`packed_attention`, the
+    per-head layout read as a packed one of BH batch elements and one head
+    (counted in ``heads_attention.launches``); CPU tensors take
+    :func:`heads_attention_reference`."""
     if q.device.type == "cpu":
         o = heads_attention_reference(q, k, v, scale)
         return o if out is None else out.copy_(o)
     o = torch.empty_like(q) if out is None else out
-    for name, x in (("q", q), ("k", k), ("v", v), ("out", o)):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"heads_attention kernel takes bf16; {name} is {x.dtype}")
-        if x.shape != q.shape or x.device != q.device:
-            raise ValueError(f"heads_attention: {name} {tuple(x.shape)}@{x.device} "
-                             f"differs from q {tuple(q.shape)}@{q.device}")
-        if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"heads_attention kernel takes contiguous, 16-byte aligned inputs; {name} is not")
-    if q.dim() != 3 or q.shape[-1] not in HEADS_DIMS or q.shape[1] < 1 or not 1 <= q.shape[0] <= 65535:
-        raise ValueError(f"heads_attention kernel needs (BH <= 65535, L >= 1, d in {HEADS_DIMS}); "
-                         f"got {tuple(q.shape)}")
-    bh, l, d = q.shape
-    with torch.cuda.device(q.device):
-        err = _build.kernels().ucod_attention_heads(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, l, d, float(scale) * _LOG2E,
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check_cuda(err, "attention_heads")
+    _check_kernel_inputs(q, 1, HEADS_DIMS, "heads_attention", k=k, v=v, out=o)
+    _launch_forward(q, k, v, o, 1, scale)
     heads_attention.launches += 1
     return o
 
@@ -335,7 +327,7 @@ heads_attention.launches = 0
 
 def packed_layout_ok(num_heads: int, head_dim: int) -> bool:
     """The JAX dispatch's rule for its packed kernels: an even head count
-    with ``2 * hd % 128 == 0``.  K1 and its backward are built for one head
+    with ``2 * hd % 128 == 0``.  The port's backward is built for one head
     dim of that set, :data:`HEAD_DIM`."""
     return num_heads % 2 == 0 and (2 * head_dim) % 128 == 0
 
@@ -343,22 +335,28 @@ def packed_layout_ok(num_heads: int, head_dim: int) -> bool:
 def multi_head_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float, *, plain: bool = False
 ) -> torch.Tensor:
-    """(B, L, D) q/k/v projections -> (B, L, D) attention output, routed as
-    the JAX ``multi_head_attention`` routes it: the packed layout through K1
-    (:func:`packed_attention`) where :func:`packed_layout_ok` with a head dim
-    of 64, else split to (B * H, L, hd), through K5 (:func:`heads_attention`)
-    and merged back.  An even head count of 128, which the JAX package sends
-    to its packed kernel, runs K5 here: the same function.  ``plain``: the
-    plain versions of the same routes, on any device."""
+    """(B, L, D) q/k/v projections -> (B, L, D) attention output.
+
+    On the card every head count of a head dim in :data:`HEADS_DIMS` runs
+    the forward kernel on the packed layout (:func:`packed_attention`, which
+    raises for other head dims), with no split or merge.  The JAX
+    ``multi_head_attention`` sends the heads :func:`packed_layout_ok`
+    refuses (odd counts, among them) to its per-head kernel (K5) instead:
+    the function is the same, only the layout differs.  CPU tensors and
+    ``plain`` take the plain versions of the JAX dispatch's routes:
+    :func:`packed_attention_reference` for an even head count of 64, else a
+    split to (B * H, L, hd), :func:`heads_attention_reference` and a merge."""
     b, l, d = q.shape
     hd = d // num_heads
+    if not plain and q.device.type != "cpu":
+        return packed_attention(q, k, v, num_heads, scale)
     if packed_layout_ok(num_heads, hd) and hd == HEAD_DIM:
-        return (packed_attention_reference if plain else packed_attention)(q, k, v, num_heads, scale)
+        return packed_attention_reference(q, k, v, num_heads, scale)
 
     def split(x):
         return x.reshape(b, l, num_heads, hd).transpose(1, 2).reshape(b * num_heads, l, hd)
 
-    o = (heads_attention_reference if plain else heads_attention)(split(q), split(k), split(v), scale)
+    o = heads_attention_reference(split(q), split(k), split(v), scale)
     return o.reshape(b, num_heads, l, hd).transpose(1, 2).reshape(b, l, d)
 
 

@@ -49,10 +49,10 @@ def _check_kernel_inputs(x: torch.Tensor, weights, vecs, outs) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"layernorm_qkv: unsupported device {x.device}")
     d = x.shape[-1]
-    if d % 256 or d > 1024:  # 256-wide column tiles; rows + weight stages fit shared memory
+    if d % 256 or d > 1024:  # 256-wide column tiles; gamma/beta of every column in shared memory
         raise ValueError(f"layernorm_qkv kernel needs hidden % 256 == 0 and <= 1024; got {d}")
-    if x.numel() // d > 2**31 - 1:
-        raise ValueError(f"layernorm_qkv kernel: too many rows ({x.numel() // d})")
+    if not 1 <= x.numel() // d <= 2**31 - 1:
+        raise ValueError(f"layernorm_qkv kernel: unsupported row count {x.numel() // d}")
     for w in weights:
         if w.shape != (d, d):
             raise ValueError(f"layernorm_qkv kernel needs ({d}, {d}) weights; got {tuple(w.shape)}")
@@ -82,10 +82,12 @@ def layernorm_qkv(
     """(..., D) hidden state -> (q, k, v) projections of its LayerNorm,
     written into the three tensors of ``out`` when given.
 
-    CUDA tensors launch K6 (counted in ``layernorm_qkv.launches``); CPU
-    tensors take :func:`layernorm_qkv_reference`.  Weights held in bf16 and
-    norm/bias vectors in float32 (``models.dino.cast_params``) are passed
-    without a cast."""
+    CUDA tensors launch K6, its statistics pre-pass and its main kernel
+    (counted once in ``layernorm_qkv.launches``), with f32 (mean, rstd)
+    scratch of 8 bytes a row; CPU tensors take
+    :func:`layernorm_qkv_reference`.  Weights held in bf16 and norm/bias
+    vectors in float32 (``models.dino.cast_params``) are passed without a
+    cast."""
     if x.device.type == "cpu":
         refs = layernorm_qkv_reference(x, norm, q, k, v, eps)
         return refs if out is None else tuple(o.copy_(r) for o, r in zip(out, refs))
@@ -94,10 +96,12 @@ def layernorm_qkv(
     outs = [torch.empty_like(x) for _ in range(3)] if out is None else list(out)
     _check_kernel_inputs(x, ws, vecs, outs)
     d = x.shape[-1]
+    rows = x.numel() // d
+    stats = torch.empty(rows, 2, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         err = _build.kernels().ucod_layernorm_qkv(
-            *(t.data_ptr() for t in [x, vecs[0], vecs[1], *ws, *vecs[2:], *outs]),
-            x.numel() // d, d, float(eps), torch.cuda.current_stream(x.device).cuda_stream,
+            *(t.data_ptr() for t in [x, vecs[0], vecs[1], *ws, *vecs[2:], *outs, stats]),
+            rows, d, float(eps), torch.cuda.current_stream(x.device).cuda_stream,
         )
     _build.check_cuda(err, "layernorm_qkv")
     layernorm_qkv.launches += 1

@@ -8,21 +8,25 @@ Always: the card's name and power limit (nvidia-smi), then the forward (K1),
 the forward with log-sum-exp (K2) and the backward (K3/K4) at bs16 L1370 and
 bs4 L2917 (12 heads of 64, bf16), each beside one
 ``scaled_dot_product_attention`` call on the same tensors (its backward for
-the backward), and a torch.profiler breakdown of the backward's kernels.
+the backward), the forward at K5's shapes (per-head (48, 1370, 64) and the
+tensor-parallel shard's packed (16, 1370, 3 * 64)) beside SDPA, and a
+torch.profiler breakdown of the backward's kernels.
 
-* ``--parent DIR``: DIR is a checkout of a parent tree whose attention
-  kernels have the C interface of the FlashAttention-2 kernels they replaced
-  (``ucod_attention_fwd``, ``ucod_attention_fwd_lse``, and
-  ``ucod_attention_bwd`` with a D scratch and no dQ scratch).  They are built
-  from DIR by DIR's own ``ops/_build.py`` and timed against this tree's,
-  interleaved parent, this, this, parent; the outputs of the two are compared.
+* ``--parent DIR``: DIR is a checkout of a parent tree whose forward takes
+  no head-dim argument (built for 64) and whose per-head forward is a kernel
+  of its own (``ucod_attention_heads``), with this tree's
+  ``ucod_attention_fwd_lse`` and ``ucod_attention_bwd``.  Its kernels are
+  built from DIR by DIR's own ``ops/_build.py`` and timed against this
+  tree's, interleaved parent, this, this, parent; the outputs of the two are
+  compared (whether they are equal bit for bit, and the largest difference).
 * ``--variants``: variants of this tree's kernels, each an edit of its source
   (``VARIANTS``), built into ``build/ucod_dpl_tpu_torch/variants/`` and timed
   interleaved against the kernel it varies.  Variants marked "diagnostic"
   compute a wrong result on purpose: they show what one part costs.
 * ``--sass``: instruction counts in the SASS of the built attention objects
-  (``cuobjdump -sass``): HGMMA (wgmma), UTMALDG (TMA loads), UBLKRED (bulk
-  reduce-add), HMMA (mma.sync), MUFU.EX2.
+  (``cuobjdump -sass``), per object and per kernel instantiation: HGMMA
+  (wgmma), UTMALDG (TMA loads), UBLKRED (bulk reduce-add), HMMA (mma.sync),
+  MUFU.EX2.
 
 Exits 1 without a CUDA device.  Times are CUDA-event means over 20 calls
 after 3 warm-ups, each the mean of its two interleaved runs.
@@ -91,6 +95,16 @@ def library(results: dict) -> None:
     """This tree's kernels beside scaled_dot_product_attention."""
     import torch.nn.functional as F
 
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(48, 1370, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    row = {"K5 per-head": _time_ms(lambda: A.heads_attention(q, k, v, SCALE)),
+           "sdpa": _time_ms(lambda: F.scaled_dot_product_attention(*(x.unsqueeze(1) for x in (q, k, v)), scale=SCALE))}
+    q, k, v = (x.view(16, 1370, 3 * 64) for x in (q, k, v))
+    row["K5 TP shard packed"] = _time_ms(lambda: A.packed_attention(q, k, v, 3, SCALE))
+    row["sdpa TP shard"] = _time_ms(lambda: F.scaled_dot_product_attention(
+        *(x.view(16, 1370, 3, 64).transpose(1, 2) for x in (q, k, v)), scale=SCALE))
+    results["K5 48 heads L1370 d64"] = row
+    _log("K5 48 heads L1370 d64: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
     for b, l in SHAPES:
         q, k, v, do, o, lse = _inputs(b, l)
         hq, hk, hv = (_heads(x).detach().requires_grad_(True) for x in (q, k, v))
@@ -143,6 +157,13 @@ def parent_ab(parent: Path, results: dict) -> None:
                                                  SCALE * A._LOG2E, _stream()), "parent fwd")
         return o
 
+    def heads(q, k, v):
+        o = torch.empty_like(q)
+        bh, l, d = q.shape
+        _build.check_cuda(lib.ucod_attention_heads(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, l, d,
+                                                   SCALE * A._LOG2E, _stream()), "parent heads")
+        return o
+
     def fwd_lse(q, k, v):
         o = torch.empty_like(q)
         b, l, _ = q.shape
@@ -154,18 +175,31 @@ def parent_ab(parent: Path, results: dict) -> None:
 
     def bwd(q, k, v, o, do, lse):
         grads = [torch.empty_like(q) for _ in range(3)]
-        dsum = torch.empty_like(lse)
         b, l, _ = q.shape
-        _build.check_cuda(lib.ucod_attention_bwd(*(x.data_ptr() for x in (q, k, v, o, do, lse, dsum, *grads)), b, l,
-                                                 HEADS, SCALE, _stream()), "parent bwd")
+        stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device)
+        _build.check_cuda(lib.ucod_attention_bwd(*(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)),
+                                                 b, l, HEADS, SCALE, _stream()), "parent bwd")
         return grads
 
     _log(f"parent {parent} against this tree (interleaved parent, this, this, parent):")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    q, k, v = (torch.randn(48, 1370, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
+    old, new = heads(q, k, v), A.heads_attention(q, k, v, SCALE)
+    row = {"K5": _ab_ms(lambda: heads(q, k, v), lambda: A.heads_attention(q, k, v, SCALE)),
+           "max_abs_diff": (old.float() - new.float()).abs().max().item()}
+    _log(f"  K5 48 heads L1370 d64: parent {row['K5'][0]:.4f} ms, this {row['K5'][1]:.4f} ms "
+         f"({row['K5'][0] / row['K5'][1]:.3f}x); largest difference {row['max_abs_diff']:.4g}")
+    results["parent K5 48 heads L1370 d64"] = row
     for b, l in SHAPES:
         q, k, v, do, o, lse = _inputs(b, l)
+        o_old, (o2_old, lse_old) = fwd(q, k, v), fwd_lse(q, k, v)
+        o_new, (o2_new, lse_new) = A.packed_attention(q, k, v, HEADS, SCALE), A.packed_attention_fwd_lse(q, k, v, HEADS,
+                                                                                                         SCALE)
         diffs = {
-            "K1": (fwd(q, k, v).float() - A.packed_attention(q, k, v, HEADS, SCALE).float()).abs().max().item(),
-            "lse": (fwd_lse(q, k, v)[1] - lse).abs().max().item(),
+            "K1": (o_old.float() - o_new.float()).abs().max().item(),
+            "K1 equal": torch.equal(o_old, o_new),
+            "K2 equal": torch.equal(o2_old, o2_new) and torch.equal(lse_old, lse_new),
+            "lse": (lse_old - lse).abs().max().item(),
             "bwd": max((p.float() - t.float()).abs().max().item() for p, t in
                        zip(bwd(q, k, v, o, do, lse), A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE))),
         }
@@ -272,16 +306,18 @@ VARIANTS = {
 _ENTRIES = ("ucod_attention_fwd_lse", "ucod_attention_fwd", "ucod_attention_bwd")
 
 
-def build_variants(names):
-    """Write, compile and link the variants -> the loaded library."""
-    out = _build.BUILD_ROOT / "variants"
+def build_variants(names, variants=VARIANTS, entries=_ENTRIES, subdir="variants"):
+    """Write, compile and link the variants (name -> (source file, what it
+    changes, edit) in ``variants``; each C entry of ``entries`` renamed with
+    the suffix _<name>) -> the loaded library."""
+    out = _build.BUILD_ROOT / subdir
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     objs, procs = [], []
     for name in names:
-        src_name, _, edit = VARIANTS[name]
+        src_name, _, edit = variants[name]
         src = edit((_build.CSRC / src_name).read_text())
-        for entry in _ENTRIES:
+        for entry in entries:
             src = src.replace(f'extern "C" int {entry}(', f'extern "C" int {entry}_{name}(')
         cu = out / f"{name}.cu"
         cu.write_text(src)
@@ -312,11 +348,11 @@ def variants(results: dict) -> None:
             src_name, what, _ = VARIANTS[name]
             if src_name == "attention_fwd.cu":
                 fn = getattr(lib, f"ucod_attention_fwd_{name}")
-                fn.argtypes = [ptr] * 4 + [i32, i32, i32, f32, ptr]
+                fn.argtypes = [ptr] * 4 + [i32, i32, i32, i32, f32, ptr]
 
                 def run(fn=fn):
                     out = torch.empty_like(q)
-                    _build.check_cuda(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, HEADS,
+                    _build.check_cuda(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, HEADS, 64,
                                          SCALE * A._LOG2E, _stream()), name)
                     return (out,)
 
@@ -340,16 +376,30 @@ def variants(results: dict) -> None:
             results[f"variant {name} bs{b} L{l}"] = {"ms": ms, "this_ms": base_ms, "max_abs_diff": diff}
 
 
-def sass_counts(results: dict) -> None:
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKRED", "UBLKCP", "HMMA", "MUFU.EX2")
+
+
+def sass_counts(results: dict, sources=("attention_fwd", "attention_bwd")) -> None:
+    """Counts of SASS_OPS in each built object of ``sources``, in all and per
+    kernel function (``cuobjdump -sass`` sections; a template instantiation
+    named by its mangled arguments, e.g. ILi64ELb0E = <64, false>)."""
     path, _ = _build.build()
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
-    for src in ("attention_fwd", "attention_bwd"):
+
+    def count(text):
+        return {op: len(re.findall(rf"\b{re.escape(op)}\b", text)) for op in SASS_OPS}
+
+    for src in sources:
         sass = subprocess.run([str(cuobjdump), "-sass", str(path.parent / f"{src}.o")], capture_output=True,
                               text=True, check=True).stdout
-        counts = {op: len(re.findall(rf"\b{re.escape(op)}\b", sass))
-                  for op in ("HGMMA", "UTMALDG", "UBLKRED", "UBLKCP", "HMMA", "MUFU.EX2")}
-        results[f"sass {src}.o"] = counts
-        _log(f"SASS of {src}.o: {counts}")
+        results[f"sass {src}.o"] = count(sass)
+        _log(f"SASS of {src}.o: {results[f'sass {src}.o']}")
+        for section in sass.split("Function : ")[1:]:
+            name = section.split(None, 1)[0]
+            kernel = re.search(r"([a-z_]+_kernel)(I(?:L[a-z]+\d+E)+E)?", name)
+            label = f"{src}.o {kernel.group(1) + (kernel.group(2) or '') if kernel else name[:80]}"
+            results[f"sass {label}"] = count(section)
+            _log(f"  {label}: {results[f'sass {label}']}")
 
 
 def main(argv=None) -> int:
