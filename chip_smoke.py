@@ -41,7 +41,8 @@ Phases (each raises on failure; any failure exits non-zero):
   D. the int8 kernels K8 (LN + quantize + q/k/v), K9 (LN + quantize + fc1 +
      GELU + requantize), K10 (quantize + out-projection) and K11 (the whole
      int8 MLP half) against their plain versions, bf16, at bs16 L1370 and at
-     B*L = 1, 17, 65 and 1370*4 + 3 rows, one case with rows over six decades
+     B*L = 1, 17, 63, 64, 65, 127, 128, 129 and 1370*4 + 3 rows (both sides
+     of the 64- and 128-row tiles), cases with rows over six decades
      of scale, an all-zero and a constant row; outputs pre-filled with NaN
      (codes with -128, which no code takes), NaN in memory past the inputs;
   E. int8 serving: a full-width dinov2-base ``Predictor(quantize="int8")``
@@ -51,7 +52,13 @@ Phases (each raises on failure; any failure exits non-zero):
   F. composed int8 accuracy at bs4 518px against the float32 plain path:
      err(int8 kernels) <= 1.5 * err(int8 plain) + 1e-3, and the int8 masks
      agree with the float32 masks on more than 90% of the pixels;
-  G. timing: K8-K11 against their plain versions at bs16 L1370, and
+  G. timing: K8-K11 against their plain versions at bs16 L1370 (CUDA
+     events around back-to-back calls, as every kernel is timed, and
+     beside them the card's own time, ``device_ms``: events around calls
+     queued behind a sleep kernel); K8 against
+     K6 on the same x (K6 on the same layer's bf16 weights); the int8 GEMM
+     alone (``torch._int_mm`` at K8's and K9's shapes, a yardstick); a
+     torch.profiler split of K8, K9 and K10 into pre-pass and main kernel;
      ``fg_logits_live`` at bs16 518px with the int8 kernels, the int8 plain
      path and the bf16 kernels, interleaved in one process;
   H. K5 (per-head attention: the forward kernel on the per-head layout)
@@ -136,8 +143,12 @@ BWD_ATOL = 1e-5
 # max|plain|, where a code step is what one activation code of the row
 # changing by 1 moves an output by, at most s_x * 127 * max(w_s) (the int8
 # weight itself is at most 127).
+# (name, rows, edge rows): the serving shape, and rows on both sides of the
+# 64-row tiles (K9's cluster tile, the K8/K10 consumer's) and the 128-row
+# K8/K10 work tile
 INT8_CASES = (("bs16 L1370", 16 * 1370, False), ("B*L 1", 1, False), ("B*L 17", 17, False),
-              ("B*L 65", 65, True), ("B*L 5483", 1370 * 4 + 3, True))  # (name, rows, edge rows)
+              ("B*L 63", 63, False), ("B*L 64", 64, True), ("B*L 65", 65, True), ("B*L 127", 127, False),
+              ("B*L 128", 128, True), ("B*L 129", 129, True), ("B*L 5483", 1370 * 4 + 3, True))
 INT8_CODE_EQUAL = 0.99
 INT8_SCALE_RTOL = 1e-5
 # K5 against its plain version: K1's bound (the same kernel).
@@ -748,21 +759,23 @@ def _int8_wrappers():
             "K11": FL.layernorm_mlp_w8a8}
 
 
-def _int8_layer(gen, dev):
+def _int8_layer(gen, dev, with_f32=False):
     """One layer's LayerNorm params (f32) and int8 q/k/v/out/fc1/fc2,
-    quantized from seeded f32 weights at the serving widths."""
+    quantized from seeded f32 weights at the serving widths; ``with_f32``:
+    also those f32 linears."""
     from ucod_dpl_tpu_torch.ops.quant import quantize_linear
 
     def lin(d_in, d_out):
-        return quantize_linear({"w": torch.randn(d_out, d_in, generator=gen, device=dev) / d_in ** 0.5,
-                                "b": 0.1 * torch.randn(d_out, generator=gen, device=dev)})
+        return {"w": torch.randn(d_out, d_in, generator=gen, device=dev) / d_in ** 0.5,
+                "b": 0.1 * torch.randn(d_out, generator=gen, device=dev)}
 
     d, f = SERVE_DIM, MLP_DIM
     norm = {"scale": 1 + 0.1 * torch.randn(d, generator=gen, device=dev),
             "bias": 0.1 * torch.randn(d, generator=gen, device=dev)}
-    q8 = {name: lin(d, d) for name in ("q", "k", "v", "out")}
-    q8["fc1"], q8["fc2"] = lin(d, f), lin(f, d)
-    return norm, q8
+    f32 = {name: lin(d, d) for name in ("q", "k", "v", "out")}
+    f32["fc1"], f32["fc2"] = lin(d, f), lin(f, d)
+    q8 = {name: quantize_linear(p) for name, p in f32.items()}
+    return (norm, q8, f32) if with_f32 else (norm, q8)
 
 
 def _int8_input(gen, dev, rows, edge):
@@ -935,14 +948,18 @@ def phase_int8_composed(fe8, decoder, seed: int) -> float:
 
 
 def phase_int8_timing(fe8, decoder, gen) -> dict:
-    """Phase G: K8-K11 against their plain versions at bs16 L1370, and the
-    bs16 518px forward with int8 kernels, int8 plain and bf16 kernels."""
+    """Phase G: K8-K11 against their plain versions at bs16 L1370, K8
+    against K6 and the int8 GEMM alone, the kernels' pre-pass/main split,
+    and the bs16 518px forward with int8 kernels, int8 plain and bf16
+    kernels."""
     from ucod_dpl_tpu_torch.models.convert import params_to
     from ucod_dpl_tpu_torch.models.dba import fg_logits_live
     from ucod_dpl_tpu_torch.ops import fused_layers as FL
+    from ucod_dpl_tpu_torch.ops.quant import int8_matmul, quantize_act
+    from ucod_dpl_tpu_torch.tools.attention_ab import _device_ms
 
     dev = fe8.device
-    norm, q8 = _int8_layer(gen, dev)
+    norm, q8, f32 = _int8_layer(gen, dev, with_f32=True)
     x = torch.randn(16, 1370, SERVE_DIM, generator=gen, device=dev).to(torch.bfloat16)
     eps = 1e-6
     _log("int8 timing (CUDA events, interleaved plain/kernel/kernel/plain, bs16 L1370):")
@@ -956,10 +973,38 @@ def phase_int8_timing(fe8, decoder, gen) -> dict:
         "K11": (lambda: FL.layernorm_mlp_w8a8_reference(x, norm, q8["fc1"], q8["fc2"], eps),
                 lambda: FL.layernorm_mlp_w8a8(x, norm, q8["fc1"], q8["fc2"], eps)),
     }
+    # two times of each: by events around back-to-back calls (how every
+    # kernel is timed, the host's time per call when that is the longer),
+    # and the card's own time (_device_ms: the calls queued behind a sleep
+    # kernel), since a K8 or K10 call takes about as long on the host
     out = {}
     for name, (plain, kernel) in pairs.items():
         out[name] = _ab_ms(plain, kernel, 20)
-        _log(f"  {name}: kernel {out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms")
+        out[f"{name}_device"] = (_device_ms(kernel), _device_ms(plain))
+        _log(f"  {name}: kernel {out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms; device: kernel "
+             f"{out[f'{name}_device'][0]:.4f} ms, plain {out[f'{name}_device'][1]:.4f} ms")
+    # K8 against K6 on the same x, K6 on the same layer's weights in bf16
+    lins = [{"w": f32[n]["w"].to(torch.bfloat16), "b": f32[n]["b"]} for n in "qkv"]
+
+    def k6():
+        return FL.layernorm_qkv(x, norm, *lins, eps)
+
+    out["K8_vs_K6"] = _ab_ms(k6, pairs["K8"][1], 20)
+    out["K8_vs_K6_device"] = (_device_ms(pairs["K8"][1]), _device_ms(k6))
+    # the int8 GEMM alone (cuBLASLt through torch._int_mm, a yardstick: each
+    # kernel computes more) at K8's (21920 x 768 . 768 x 2304) and K9's
+    # (. 768 x 3072) shapes, on the codes of LN(x)
+    codes = quantize_act(FL._layernorm_f32(x, norm, eps))[0]
+    w_qkv = torch.cat([q8[n]["w_q"] for n in "qkv"])
+    for key, w in (("int_mm_qkv", w_qkv), ("int_mm_fc1", q8["fc1"]["w_q"])):
+        out[key] = _time_ms(lambda: int8_matmul(codes, w), 20)
+        out[f"{key}_device"] = _device_ms(lambda: int8_matmul(codes, w))
+    _log(f"  K8 {out['K8_vs_K6'][0]:.4f} ms against K6 (bf16 weights, same x) {out['K8_vs_K6'][1]:.4f} ms (device "
+         f"{out['K8_vs_K6_device'][0]:.4f} against {out['K8_vs_K6_device'][1]:.4f}); torch._int_mm alone: K8's "
+         f"shape {out['int_mm_qkv']:.4f} ms (device {out['int_mm_qkv_device']:.4f}), K9's shape "
+         f"{out['int_mm_fc1']:.4f} ms (device {out['int_mm_fc1_device']:.4f})")
+    for name in ("K8", "K9", "K10"):
+        _trace(pairs[name][1], f"{name} bs16 L1370 (pre-pass and main kernel)", n=5, top=4)
 
     dec = params_to(decoder, dev)
     px = torch.randn(16, 518, 518, 3, generator=gen, device=dev)
@@ -1279,6 +1324,12 @@ def main(argv=None) -> int:
         "tp4_forward_ms": tp["TP model=4 forward"], "unsharded_forward_ms": tp["unsharded forward"],
         "tp4_features_max_abs_err": tp["err model=4"], "tp2_features_max_abs_err": tp["err data=2 x model=2"],
         "k6_gemm_alone_ms": times["K6_gemm_alone"],
+        "k8_same_x_ms": int8_times["K8_vs_K6"][0], "k6_same_x_ms": int8_times["K8_vs_K6"][1],
+        "k8_same_x_device_ms": int8_times["K8_vs_K6_device"][0],
+        "k6_same_x_device_ms": int8_times["K8_vs_K6_device"][1],
+        "int_mm_k8_shape_ms": int8_times["int_mm_qkv"], "int_mm_k9_shape_ms": int8_times["int_mm_fc1"],
+        "int_mm_k8_shape_device_ms": int8_times["int_mm_qkv_device"],
+        "int_mm_k9_shape_device_ms": int8_times["int_mm_fc1_device"],
         "k5_per_head_ms": k5_times["per-head"]["ms"], "k5_per_head_sdpa_ms": k5_times["per-head"]["library_ms"],
         "bf16_plain_features_max_abs_err": tp["err_plain"],
         "k7_mlp_half_ms": k7["mlp_half_fused_ms"], "composed_mlp_half_ms": k7["mlp_half_composed_ms"],
@@ -1304,10 +1355,10 @@ def main(argv=None) -> int:
     }
     bounds["K4"] = bounds["K3"]
 
-    def entry(kid, name, source, replaces, launches, err, ms, plain_ms, library_ms=None):
+    def entry(kid, name, source, replaces, launches, err, ms, plain_ms, library_ms=None, **device):
         return {"name": f"{kid} {name}", "route": "cuda", "source": f"ucod_dpl_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1], "library_ms": library_ms}
+                "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1], "library_ms": library_ms, **device}
 
     attn, fused = "ucod_dpl_tpu/ops/attention.py", "ucod_dpl_tpu/ops/fused_layers.py"
     _log(json.dumps({"kernels": [
@@ -1328,7 +1379,10 @@ def main(argv=None) -> int:
               *times["K6"]),
         entry("K7", "fused LayerNorm + fc1 + GELU", "layernorm_fc1_gelu.cu", f"{fused}:86", k7["launches"],
               k7["err"], k7["ms"], k7["plain_ms"]),
-        *(entry(k, name, "int8_linear.cu", f"{fused}:{line}", int8_launches[k], int8_err[k], *int8_times[k])
+        # ms, plain_ms by events as every kernel's; device_ms, plain_device_ms
+        # the card's own time (phase G)
+        *(entry(k, name, "int8_linear.cu", f"{fused}:{line}", int8_launches[k], int8_err[k], *int8_times[k],
+                **dict(zip(("device_ms", "plain_device_ms"), int8_times[f"{k}_device"])))
           for k, name, line in (("K8", "int8 LayerNorm + quantize + q/k/v", 160),
                                 ("K9", "int8 LayerNorm + quantize + fc1 + GELU + requantize", 218),
                                 ("K10", "int8 quantize + out-projection", 479),

@@ -216,10 +216,11 @@ def _assert_codes_close(codes, scales, ref_codes, ref_scales):
     assert ((scales - ref_scales).abs() <= 1e-5 * ref_scales.abs()).all()
 
 
-@pytest.mark.parametrize("rows,d", [(1, 768), (2, 256), (17, 768), (65, 512), (130, 768), (1373, 768)])
+@pytest.mark.parametrize("rows,d", [(1, 768), (2, 256), (17, 768), (63, 768), (64, 512), (65, 512), (127, 256),
+                                    (128, 768), (129, 1024), (130, 768), (1373, 768)])
 def test_int8_row_kernels_edge_shapes(dev, rows, d):
-    """K8 and K10: rows not a multiple of the 64-row tile, zero, constant and
-    extreme rows, other hidden sizes."""
+    """K8 and K10: rows on both sides of the 64-row consumer and 128-row work
+    tiles, zero, constant and extreme rows, every hidden size they take."""
     g, x, norm = _int8_case(dev, rows, d, rows + d)
     q8 = [_q8(g, dev, d, d) for _ in range(4)]
     h_s = quantize_act(FL._layernorm_f32(x, norm, 1e-6))[1]
@@ -231,11 +232,13 @@ def test_int8_row_kernels_edge_shapes(dev, rows, d):
                        q8[3]["w_s"])
 
 
-@pytest.mark.parametrize("rows,d,f", [(1, 768, 3072), (15, 256, 1024), (17, 768, 3072), (100, 512, 1536),
-                                      (1373, 768, 3072)])
+@pytest.mark.parametrize("rows,d,f", [(1, 768, 3072), (15, 256, 1024), (17, 768, 3072), (63, 768, 3072),
+                                      (64, 256, 1024), (65, 512, 1536), (100, 512, 1536), (127, 768, 1536),
+                                      (128, 1024, 2048), (129, 768, 1024), (1373, 768, 3072)])
 def test_int8_mlp_kernels_edge_shapes(dev, rows, d, f):
-    """K9 and K11: rows not a multiple of the 16-row tile, zero, constant and
-    extreme rows, other widths."""
+    """K9 and K11: rows on both sides of K9's 64-row cluster tile (and off
+    K11's 16-row tile), zero, constant and extreme rows, every expansion K9
+    is built for (1024, 1536, 2048, 3072)."""
     g, x, norm = _int8_case(dev, rows, d, 7 * rows + f)
     fc1, fc2 = _q8(g, dev, d, f), _q8(g, dev, f, d)
     codes = torch.full((1, rows, f), -128, dtype=torch.int8, device=dev)
@@ -264,8 +267,59 @@ def test_int8_kernels_count_launches_and_reject_what_they_do_not_take(dev):
             fn(x.transpose(0, 1), *args)
     with pytest.raises(ValueError):  # hidden 128: 8 values a lane, 32 lanes
         FL.dense_quant_w8a8(x[..., :128].contiguous(), _q8(g, dev, 128, 256), torch.bfloat16)
-    with pytest.raises(ValueError):  # 16 rows of a 4096-wide f32 expansion exceed shared memory
-        FL.layernorm_fc1_gelu_w8a8(x, norm, _q8(g, dev, 256, 4096), 1e-6)
+    with pytest.raises(ValueError):  # 384 output columns: not whole 256-column tiles
+        FL.dense_quant_w8a8(x, _q8(g, dev, 256, 384), torch.bfloat16)
+    before = FL.layernorm_fc1_gelu_w8a8.launches
+    for f in (4096, 1280, 512):  # K9's 16 column parts of 256, 80, 32: no wgmma width it is built for
+        with pytest.raises(ValueError):
+            FL.layernorm_fc1_gelu_w8a8(x, norm, _q8(g, dev, 256, f), 1e-6)
+    assert FL.layernorm_fc1_gelu_w8a8.launches == before
+    with pytest.raises(ValueError):  # K11: 16 rows of a 4096-wide f32 expansion exceed shared memory
+        FL.layernorm_mlp_w8a8(x, norm, _q8(g, dev, 256, 4096), _q8(g, dev, 4096, 256), 1e-6)
+
+
+def test_int8_kernels_write_no_row_past_the_last(dev):
+    """K8, K9 and K10 at 65 rows (one row into the second 64-row tile) and 1
+    row: the input is followed by NaN rows, the outputs are views of larger
+    buffers whose rows past the last are pre-filled (NaN, codes -128, which no
+    code takes) and stay so; the pre-pass's scratch is sized to the rows."""
+    d, f = 768, 3072
+    for rows in (65, 1):
+        g, x, norm = _int8_case(dev, rows, d, 31 + rows)
+        q8 = [_q8(g, dev, d, d) for _ in range(4)]
+        fc1 = _q8(g, dev, d, f)
+        bufs = [torch.full((rows + 64, d), float("nan"), dtype=torch.bfloat16, device=dev) for _ in range(4)]
+        outs = FL.layernorm_qkv_w8a8(x, norm, *q8[:3], 1e-6, out=tuple(b[:rows].view(1, rows, d) for b in bufs[:3]))
+        h_s = quantize_act(FL._layernorm_f32(x, norm, 1e-6))[1]
+        for o, r, qp in zip(outs, FL.layernorm_qkv_w8a8_reference(x, norm, *q8[:3], 1e-6), q8):
+            _assert_int8_close(o, r, h_s, qp["w_s"])
+        got = FL.dense_quant_w8a8(x, q8[3], torch.bfloat16, out=bufs[3][:rows].view(1, rows, d))
+        _assert_int8_close(got, FL.dense_quant_w8a8_reference(x, q8[3], torch.bfloat16), quantize_act(x)[1],
+                           q8[3]["w_s"])
+        codes_buf = torch.full((rows + 64, f), -128, dtype=torch.int8, device=dev)
+        scales_buf = torch.full((rows + 64,), float("nan"), device=dev)
+        codes, scales = FL.layernorm_fc1_gelu_w8a8(
+            x, norm, fc1, 1e-6, out=(codes_buf[:rows].view(1, rows, f), scales_buf[:rows].view(1, rows, 1)))
+        _assert_codes_close(codes, scales, *FL.layernorm_fc1_gelu_w8a8_reference(x, norm, fc1, 1e-6))
+        torch.cuda.synchronize()
+        for b in bufs:
+            assert torch.isnan(b[rows:].float()).all()
+        assert (codes_buf[rows:] == -128).all() and torch.isnan(scales_buf[rows:]).all()
+
+
+def test_int8_kernels_repeat_bit_for_bit(dev):
+    """K8 and K9 twice on the same inputs: equal outputs (exact s32 sums, no
+    atomics, the row maxima gathered in a fixed order)."""
+    rows, d, f = 4 * 1370 + 3, 768, 3072
+    g, x, norm = _int8_case(dev, rows, d, 77)
+    q8 = [_q8(g, dev, d, d) for _ in range(3)]
+    fc1 = _q8(g, dev, d, f)
+    first = FL.layernorm_qkv_w8a8(x, norm, *q8, 1e-6)
+    second = FL.layernorm_qkv_w8a8(x, norm, *q8, 1e-6)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    first = FL.layernorm_fc1_gelu_w8a8(x, norm, fc1, 1e-6)
+    second = FL.layernorm_fc1_gelu_w8a8(x, norm, fc1, 1e-6)
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
 
 
 def _nan_tailed(g, dev, shape, scale=1.0):

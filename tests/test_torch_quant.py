@@ -156,9 +156,11 @@ def test_layernorm_qkv_w8a8_plain_matches_jax_kernel(monkeypatch, d):
         assert (diff <= 1e-5).mean() > 0.99
 
 
-def test_layernorm_fc1_gelu_w8a8_plain_matches_jax_kernel(monkeypatch):
-    rng = np.random.default_rng(5)
-    d, df = 128, 256
+@pytest.mark.parametrize("d,df", [(128, 256), (768, 3072)])
+def test_layernorm_fc1_gelu_w8a8_plain_matches_jax_kernel(monkeypatch, d, df):
+    """K9's plain version against the JAX kernel in interpret mode, also at
+    the serving widths (768 -> 3072); 2 x 37 rows, not a multiple of 64."""
+    rng = np.random.default_rng(5 + d)
     x = rng.standard_normal((2, 37, d)).astype(np.float32)
     norm = _norm_np(rng, d)
     jq, tq = _q8_pair(_linear_np(rng, d, df))
@@ -171,6 +173,20 @@ def test_layernorm_fc1_gelu_w8a8_plain_matches_jax_kernel(monkeypatch):
     diff = np.abs(got_q.numpy().astype(np.int32) - np.asarray(want_q, np.int32))
     assert diff.max() <= 1, diff.max()
     assert (diff == 0).mean() > 0.99
+
+
+@pytest.mark.parametrize("f,width", [(1024, 64), (1536, 96), (2048, 128), (3072, 192)])
+def test_k9_width_splits_the_expansion_over_the_cluster(f, width):
+    """K9's wrapper gives each of its 16 consumer warpgroups (8 CTAs x 2) F / 16
+    columns, a wgmma width its main kernel is built for."""
+    assert TF.k9_width(f) == width == f // TF.K9_COLUMN_PARTS
+    assert width in TF.K9_WIDTHS
+
+
+@pytest.mark.parametrize("f", [256, 512, 1280, 3000, 4096, 6144])
+def test_k9_width_rejects_what_the_kernel_is_not_built_for(f):
+    with pytest.raises(ValueError, match="expansion"):
+        TF.k9_width(f)
 
 
 def test_dense_quant_w8a8_plain_matches_jax_kernel(monkeypatch):

@@ -109,11 +109,11 @@ def kernels() -> ctypes.CDLL:
     lib.ucod_layernorm_qkv.restype = i32
     lib.ucod_layernorm_fc1_gelu.argtypes = [ptr] * 6 + [i32, i32, i32, f32, ptr]
     lib.ucod_layernorm_fc1_gelu.restype = i32
-    lib.ucod_layernorm_qkv_w8a8.argtypes = [ptr] * 15 + [i32, i32, f32, ptr]
+    lib.ucod_layernorm_qkv_w8a8.argtypes = [ptr] * 17 + [i32, i32, f32, ptr]
     lib.ucod_layernorm_qkv_w8a8.restype = i32
-    lib.ucod_quant_dense_w8a8.argtypes = [ptr] * 5 + [i32, i32, i32, ptr]
+    lib.ucod_quant_dense_w8a8.argtypes = [ptr] * 7 + [i32, i32, i32, ptr]
     lib.ucod_quant_dense_w8a8.restype = i32
-    lib.ucod_layernorm_fc1_gelu_w8a8.argtypes = [ptr] * 8 + [i32, i32, i32, f32, ptr]
+    lib.ucod_layernorm_fc1_gelu_w8a8.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
     lib.ucod_layernorm_fc1_gelu_w8a8.restype = i32
     lib.ucod_layernorm_mlp_w8a8.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
     lib.ucod_layernorm_mlp_w8a8.restype = i32

@@ -208,6 +208,15 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def _quant_scratch(x: torch.Tensor):
+    """The quantize pre-pass's scratch of K8, K9 and K10: int8 codes (rows,
+    D) and f32 scales (rows,) of the (normalised) rows of ``x``."""
+    d = x.shape[-1]
+    rows = x.numel() // d
+    return (torch.empty((rows, d), dtype=torch.int8, device=x.device),
+            torch.empty((rows,), dtype=torch.float32, device=x.device))
+
+
 def _launch(what: str, fn, x: torch.Tensor, *args) -> None:
     with torch.cuda.device(x.device):
         err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
@@ -218,8 +227,10 @@ def layernorm_qkv_w8a8(x, norm: Params, q8_q, q8_k, q8_v, eps: float, out=None):
     """(..., D) hidden state -> int8 (q, k, v) projections of its LayerNorm,
     in ``x.dtype``, written into the three tensors of ``out`` when given.
 
-    CUDA tensors launch K8 (counted in ``layernorm_qkv_w8a8.launches``); CPU
-    tensors take :func:`layernorm_qkv_w8a8_reference`."""
+    CUDA tensors launch K8, its quantize pre-pass and main kernel (counted
+    once in ``layernorm_qkv_w8a8.launches``), with the pre-pass's scratch
+    (:func:`_quant_scratch`); CPU tensors take
+    :func:`layernorm_qkv_w8a8_reference`."""
     if x.device.type == "cpu":
         refs = layernorm_qkv_w8a8_reference(x, norm, q8_q, q8_k, q8_v, eps)
         return refs if out is None else tuple(o.copy_(r) for o, r in zip(out, refs))
@@ -232,8 +243,9 @@ def layernorm_qkv_w8a8(x, norm: Params, q8_q, q8_k, q8_v, eps: float, out=None):
     outs = [torch.empty_like(x) for _ in range(3)] if out is None else list(out)
     _check_int8_inputs("layernorm_qkv_w8a8", x, [(t, (d,)) for t in ln + scales + biases],
                        [(w, (d, d)) for w in ws], [(o, x.shape, x.dtype) for o in outs])
+    scratch = _quant_scratch(x)
     _launch("layernorm_qkv_w8a8", _build.kernels().ucod_layernorm_qkv_w8a8, x,
-            *(t.data_ptr() for t in [x, *ln, *ws, *scales, *biases, *outs]), x.numel() // d, d, float(eps))
+            *(t.data_ptr() for t in [x, *ln, *ws, *scales, *biases, *outs, *scratch]), x.numel() // d, d, float(eps))
     layernorm_qkv_w8a8.launches += 1
     return tuple(outs)
 
@@ -245,8 +257,9 @@ def dense_quant_w8a8(x, qp, out_dtype: torch.dtype, out=None):
     """Per-token int8 quantization of ``x`` (..., K) and one int8 linear ->
     (..., N) in ``out_dtype``: the attention out-projection of the int8 path.
 
-    CUDA tensors launch K10 (counted in ``dense_quant_w8a8.launches``; it
-    takes ``out_dtype == x.dtype == bf16``); CPU tensors take
+    CUDA tensors launch K10, its quantize pre-pass and main kernel (counted
+    once in ``dense_quant_w8a8.launches``; it takes ``out_dtype == x.dtype ==
+    bf16``); CPU tensors take
     :func:`dense_quant_w8a8_reference`."""
     if x.device.type == "cpu":
         ref = dense_quant_w8a8_reference(x, qp, out_dtype)
@@ -262,8 +275,9 @@ def dense_quant_w8a8(x, qp, out_dtype: torch.dtype, out=None):
     res = torch.empty(out_shape, dtype=x.dtype, device=x.device) if out is None else out
     _check_int8_inputs("dense_quant_w8a8", x, [(scale, (n,)), (bias, (n,))], [(w, (n, k))],
                        [(res, out_shape, x.dtype)])
+    scratch = _quant_scratch(x)
     _launch("dense_quant_w8a8", _build.kernels().ucod_quant_dense_w8a8, x,
-            *(t.data_ptr() for t in (x, w, scale, bias, res)), x.numel() // k, k, n)
+            *(t.data_ptr() for t in (x, w, scale, bias, res, *scratch)), x.numel() // k, k, n)
     dense_quant_w8a8.launches += 1
     return res
 
@@ -271,8 +285,25 @@ def dense_quant_w8a8(x, qp, out_dtype: torch.dtype, out=None):
 dense_quant_w8a8.launches = 0
 
 
-def _mlp_smem_bytes(d: int, f: int) -> int:
-    """Shared memory of K9/K11 (``mlp_smem`` in csrc/int8_linear.cu): two
+# K9 splits an expansion of F columns over the 16 consumer warpgroups of a
+# cluster of 8 CTAs (csrc/int8_linear.cu, kColumnParts); each runs wgmma at a
+# width its main kernel is built for.
+K9_COLUMN_PARTS = 16
+K9_WIDTHS = (64, 96, 128, 192)
+
+
+def k9_width(f: int) -> int:
+    """The columns each of K9's consumer warpgroups owns for an expansion of
+    ``f``: ``f / 16``; raises for an ``f`` whose share is not a width the
+    kernel is built for (F = 1024, 1536, 2048 and 3072 are)."""
+    if f % K9_COLUMN_PARTS or f // K9_COLUMN_PARTS not in K9_WIDTHS:
+        raise ValueError(f"layernorm_fc1_gelu_w8a8 kernel needs an expansion of {K9_COLUMN_PARTS} x one of "
+                         f"{K9_WIDTHS}; got {f}")
+    return f // K9_COLUMN_PARTS
+
+
+def _k11_smem_bytes(d: int, f: int) -> int:
+    """Shared memory of K11 (``mlp_smem`` in csrc/int8_linear.cu): two
     128 x 80-byte weight stages, 16 rows of f32 GELU outputs, 16 rows of
     int8 codes, two 16-float vectors."""
     return 2 * 128 * 80 + 16 * (f + 4) * 4 + 16 * (d + 16) + 2 * 16 * 4
@@ -281,8 +312,6 @@ def _mlp_smem_bytes(d: int, f: int) -> int:
 def _mlp_inputs(x, norm, q8_fc1, q8_fc2=None):
     d = x.shape[-1]
     f = q8_fc1["w_q"].shape[0]
-    if f % 128 or _mlp_smem_bytes(d, f) > 232448:
-        raise ValueError(f"int8 MLP kernels need hidden % 128 == 0 and 16 rows of it in shared memory; got {f}")
     vecs = [(_f32(norm["scale"]), (d,)), (_f32(norm["bias"]), (d,)),
             (_f32(q8_fc1["w_s"]), (f,)), (_f32(q8_fc1["b"]), (f,))]
     mats = [(q8_fc1["w_q"].contiguous(), (f, d))]
@@ -297,12 +326,15 @@ def layernorm_fc1_gelu_w8a8(x, norm: Params, q8_fc1, eps: float, out=None):
     their per-token scales (..., 1) f32, ready for ``quant.dense_w8a8_pre``
     (fc2); written into ``out = (codes, scales)`` when given.
 
-    CUDA tensors launch K9 (counted in ``layernorm_fc1_gelu_w8a8.launches``);
-    CPU tensors take :func:`layernorm_fc1_gelu_w8a8_reference`."""
+    CUDA tensors launch K9, its quantize pre-pass and main kernel (counted
+    once in ``layernorm_fc1_gelu_w8a8.launches``; the expansion as
+    :func:`k9_width` takes it); CPU tensors take
+    :func:`layernorm_fc1_gelu_w8a8_reference`."""
     if x.device.type == "cpu":
         refs = layernorm_fc1_gelu_w8a8_reference(x, norm, q8_fc1, eps)
         return refs if out is None else tuple(o.copy_(r) for o, r in zip(out, refs))
     d, f, vecs, mats = _mlp_inputs(x, norm, q8_fc1)
+    k9_width(f)
     lead = x.shape[:-1]
     if out is None:
         out = (torch.empty((*lead, f), dtype=torch.int8, device=x.device),
@@ -311,8 +343,9 @@ def layernorm_fc1_gelu_w8a8(x, norm: Params, q8_fc1, eps: float, out=None):
                        [(out[0], (*lead, f), torch.int8), (out[1], (*lead, 1), torch.float32)])
     gamma, beta, w1s, b1 = (v for v, _ in vecs)
     w1 = mats[0][0]
+    scratch = _quant_scratch(x)
     _launch("layernorm_fc1_gelu_w8a8", _build.kernels().ucod_layernorm_fc1_gelu_w8a8, x,
-            *(t.data_ptr() for t in (x, gamma, beta, w1, w1s, b1, *out)), x.numel() // d, d, f, float(eps))
+            *(t.data_ptr() for t in (x, gamma, beta, w1, w1s, b1, *out, *scratch)), x.numel() // d, d, f, float(eps))
     layernorm_fc1_gelu_w8a8.launches += 1
     return tuple(out)
 
@@ -331,6 +364,9 @@ def layernorm_mlp_w8a8(x, norm: Params, q8_fc1, q8_fc2, eps: float, out=None):
         ref = layernorm_mlp_w8a8_reference(x, norm, q8_fc1, q8_fc2, eps)
         return ref if out is None else out.copy_(ref)
     d, f, vecs, mats = _mlp_inputs(x, norm, q8_fc1, q8_fc2)
+    if f % 128 or _k11_smem_bytes(d, f) > 232448:
+        raise ValueError(f"layernorm_mlp_w8a8 kernel needs an expansion % 128 == 0 whose 16 f32 rows fit in "
+                         f"shared memory; got {f}")
     res = torch.empty_like(x) if out is None else out
     _check_int8_inputs("layernorm_mlp_w8a8", x, vecs, mats, [(res, x.shape, x.dtype)])
     gamma, beta, w1s, b1, w2s, b2 = (v for v, _ in vecs)

@@ -41,6 +41,7 @@ import json
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -61,6 +62,31 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """The card's time per call of ``fn``: CUDA events around ``iters``
+    calls queued behind a sleep kernel long enough for the host to enqueue
+    them all, so the card runs them back to back and the host's own time per
+    call (checks, allocations, tensor maps) is not in the reading, as it is
+    in :func:`_time_ms` when a call takes longer on the host than on the
+    card."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2.0 * iters * host_s + 1e-3, 0.5) * 2e9))  # cycles at up to 2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -379,15 +405,15 @@ def variants(results: dict) -> None:
 SASS_OPS = ("HGMMA", "UTMALDG", "UBLKRED", "UBLKCP", "HMMA", "MUFU.EX2")
 
 
-def sass_counts(results: dict, sources=("attention_fwd", "attention_bwd")) -> None:
-    """Counts of SASS_OPS in each built object of ``sources``, in all and per
+def sass_counts(results: dict, sources=("attention_fwd", "attention_bwd"), ops=SASS_OPS) -> None:
+    """Counts of ``ops`` in each built object of ``sources``, in all and per
     kernel function (``cuobjdump -sass`` sections; a template instantiation
     named by its mangled arguments, e.g. ILi64ELb0E = <64, false>)."""
     path, _ = _build.build()
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
 
     def count(text):
-        return {op: len(re.findall(rf"\b{re.escape(op)}\b", text)) for op in SASS_OPS}
+        return {op: len(re.findall(rf"\b{re.escape(op)}\b", text)) for op in ops}
 
     for src in sources:
         sass = subprocess.run([str(cuobjdump), "-sass", str(path.parent / f"{src}.o")], capture_output=True,
