@@ -45,6 +45,8 @@ Phases (each raises on failure; any failure exits non-zero):
      of the 64- and 128-row tiles), cases with rows over six decades
      of scale, an all-zero and a constant row; outputs pre-filled with NaN
      (codes with -128, which no code takes), NaN in memory past the inputs;
+     K11 also equal bit for bit to the split kernel path (K9's kernel, then
+     ``dense_w8a8_pre``) on the same x;
   E. int8 serving: a full-width dinov2-base ``Predictor(quantize="int8")``
      at 518px answers requests of 16, 5 and 1 images; per forward K8, K10,
      K9 and K1 launch 11 times each, K6 and K11 never; then one
@@ -55,12 +57,14 @@ Phases (each raises on failure; any failure exits non-zero):
   G. timing: K8-K11 against their plain versions at bs16 L1370 (CUDA
      events around back-to-back calls, as every kernel is timed, and
      beside them the card's own time, ``device_ms``: events around calls
-     queued behind a sleep kernel); K8 against
+     queued behind a sleep kernel); K11 against the split MLP half (K9,
+     then ``dense_w8a8_pre``) on the same x; K8 against
      K6 on the same x (K6 on the same layer's bf16 weights); the int8 GEMM
      alone (``torch._int_mm`` at K8's and K9's shapes, a yardstick); a
-     torch.profiler split of K8, K9 and K10 into pre-pass and main kernel;
-     ``fg_logits_live`` at bs16 518px with the int8 kernels, the int8 plain
-     path and the bf16 kernels, interleaved in one process;
+     torch.profiler split of K8-K11 into pre-pass and main kernel;
+     ``fg_logits_live`` at bs16 518px with the int8 kernels (split and
+     whole MLP), the int8 plain path and the bf16 kernels, interleaved in
+     one process, with a trace of each int8 kernel forward;
   H. K5 (per-head attention: the forward kernel on the per-head layout)
      against its plain version, bf16, at (BH, L, d) = (48, 1370, 64) (a
      tensor-parallel shard's heads), (80, 257, 32), (4, 2917, 64), (3, 65,
@@ -78,9 +82,10 @@ Phases (each raises on failure; any failure exits non-zero):
   J. K7 (LayerNorm + fc1 + GELU) against its plain version at bs16 L1370
      (D 768, F 3072) and at 1, 17, 65 and 1370 * 4 + 3 rows, NaN-filled
      outputs; then the MLP halves of the 11 layers of the serving backbone
-     through K7 (11 launches), and timing of K7 against its plain version
-     and of one layer's MLP half with K7 against the composed LN + dense +
-     GELU.
+     through K7 (11 launches), and timing (by events and by the card's
+     own time) of K7 against its plain version and against LN + dense +
+     GELU as the layer composes them, and of one layer's MLP half with K7
+     against the composed one.
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -829,7 +834,7 @@ def _check_codes(name, codes, scales, ref_codes, ref_scales) -> float:
 def phase_int8_kernels(gen, dev) -> dict:
     """Phase D: K8-K11 against their plain versions."""
     from ucod_dpl_tpu_torch.ops import fused_layers as FL
-    from ucod_dpl_tpu_torch.ops.quant import quantize_act
+    from ucod_dpl_tpu_torch.ops.quant import dense_w8a8_pre, quantize_act
 
     norm, q8 = _int8_layer(gen, dev)
     eps = 1e-6
@@ -859,6 +864,10 @@ def phase_int8_kernels(gen, dev) -> dict:
         torch.cuda.synchronize()
         ref = FL.layernorm_mlp_w8a8_reference(x, norm, q8["fc1"], q8["fc2"], eps)
         worst["K11"] = max(worst["K11"], _check_int8_out(f"K11 {name}", got, ref, ref_scales, q8["fc2"]["w_s"]))
+        split = dense_w8a8_pre(codes, scales, q8["fc2"], torch.bfloat16)
+        _log(f"  K11 {name} vs the split kernel path (K9, dense_w8a8_pre): equal {(got == split).float().mean().item():.6f}")
+        if not torch.equal(got, split):
+            raise AssertionError(f"K11 {name}: not bit-equal to the split kernel path")
         del outs, refs, codes, ref_codes
     return worst
 
@@ -955,7 +964,7 @@ def phase_int8_timing(fe8, decoder, gen) -> dict:
     from ucod_dpl_tpu_torch.models.convert import params_to
     from ucod_dpl_tpu_torch.models.dba import fg_logits_live
     from ucod_dpl_tpu_torch.ops import fused_layers as FL
-    from ucod_dpl_tpu_torch.ops.quant import int8_matmul, quantize_act
+    from ucod_dpl_tpu_torch.ops.quant import dense_w8a8_pre, int8_matmul, quantize_act
     from ucod_dpl_tpu_torch.tools.attention_ab import _device_ms
 
     dev = fe8.device
@@ -983,6 +992,16 @@ def phase_int8_timing(fe8, decoder, gen) -> dict:
         out[f"{name}_device"] = (_device_ms(kernel), _device_ms(plain))
         _log(f"  {name}: kernel {out[name][0]:.4f} ms, plain {out[name][1]:.4f} ms; device: kernel "
              f"{out[f'{name}_device'][0]:.4f} ms, plain {out[f'{name}_device'][1]:.4f} ms")
+    # K11 against the MLP half of the split path on the same x: K9's kernel,
+    # then fc2 as torch._int_mm with its f32 rescale (what int8_mlp="split" runs)
+    def split_half():
+        return dense_w8a8_pre(*FL.layernorm_fc1_gelu_w8a8(x, norm, q8["fc1"], eps), q8["fc2"], torch.bfloat16)
+
+    out["K11_vs_split"] = _ab_ms(split_half, pairs["K11"][1], 20)
+    out["K11_vs_split_device"] = (_device_ms(pairs["K11"][1]), _device_ms(split_half))
+    _log(f"  K11 {out['K11_vs_split'][0]:.4f} ms against the split MLP half (K9 + dense_w8a8_pre) "
+         f"{out['K11_vs_split'][1]:.4f} ms (device {out['K11_vs_split_device'][0]:.4f} against "
+         f"{out['K11_vs_split_device'][1]:.4f})")
     # K8 against K6 on the same x, K6 on the same layer's weights in bf16
     lins = [{"w": f32[n]["w"].to(torch.bfloat16), "b": f32[n]["b"]} for n in "qkv"]
 
@@ -1003,8 +1022,9 @@ def phase_int8_timing(fe8, decoder, gen) -> dict:
          f"{out['K8_vs_K6_device'][0]:.4f} against {out['K8_vs_K6_device'][1]:.4f}); torch._int_mm alone: K8's "
          f"shape {out['int_mm_qkv']:.4f} ms (device {out['int_mm_qkv_device']:.4f}), K9's shape "
          f"{out['int_mm_fc1']:.4f} ms (device {out['int_mm_fc1_device']:.4f})")
-    for name in ("K8", "K9", "K10"):
+    for name in ("K8", "K9", "K10", "K11"):
         _trace(pairs[name][1], f"{name} bs16 L1370 (pre-pass and main kernel)", n=5, top=4)
+    _trace(split_half, "the split MLP half bs16 L1370 (K9, torch._int_mm, rescale)", n=5, top=8)
 
     dec = params_to(decoder, dev)
     px = torch.randn(16, 518, 518, 3, generator=gen, device=dev)
@@ -1020,6 +1040,7 @@ def phase_int8_timing(fe8, decoder, gen) -> dict:
         for k in order:
             samples[k].append(_time_ms(runs[k], 5))
         _trace(runs["int8 kernels"], "fg_logits_live bs16 518px int8 kernels")
+        _trace(runs["int8 kernels, whole MLP"], "fg_logits_live bs16 518px int8 kernels, whole MLP (K11)")
     for k, v in samples.items():
         ms = sum(v) / len(v)
         out[f"fwd {k}"] = ms
@@ -1182,6 +1203,7 @@ def phase_k7(gen, dev, fe) -> dict:
         layernorm_fc1_gelu,
         layernorm_fc1_gelu_reference,
     )
+    from ucod_dpl_tpu_torch.tools.attention_ab import _device_ms
 
     d, f, eps = SERVE_DIM, MLP_DIM, 1e-6
     norm = {"scale": 1 + 0.1 * torch.randn(d, generator=gen, device=dev),
@@ -1239,12 +1261,24 @@ def phase_k7(gen, dev, fe) -> dict:
             lambda: torch.nn.functional.gelu(dense(layer_norm(x, layer["norm2"], eps), layer["fc1"], torch.bfloat16),
                                              approximate="tanh"),
             lambda: layernorm_fc1_gelu(x, layer["norm2"], layer["fc1"], eps), 20)
+        dev_ms = {
+            "K7": _device_ms(lambda: layernorm_fc1_gelu(xs, norm, fc1, eps)),
+            "plain": _device_ms(lambda: layernorm_fc1_gelu_reference(xs, norm, fc1, eps)),
+            "composed_up": _device_ms(lambda: torch.nn.functional.gelu(
+                dense(layer_norm(x, layer["norm2"], eps), layer["fc1"], torch.bfloat16), approximate="tanh")),
+            "fused_up": _device_ms(lambda: layernorm_fc1_gelu(x, layer["norm2"], layer["fc1"], eps)),
+            "half_composed": _device_ms(lambda: mlp_half(x, layer, False)),
+            "half_fused": _device_ms(lambda: mlp_half(x, layer, True)),
+        }
     _log(f"  K7: kernel {k7_ms:.4f} ms, plain {k7_plain:.4f} ms; LN + fc1 + GELU as the layer composes it "
          f"(LN, cuBLAS dense, GELU) {up_composed:.4f} ms vs K7 {up_fused:.4f} ms; one layer's MLP half "
          f"composed {half_composed:.4f} ms vs with K7 {half_fused:.4f} ms")
+    _log(f"  device: K7 {dev_ms['K7']:.4f} ms, plain {dev_ms['plain']:.4f} ms; LN + fc1 + GELU composed "
+         f"{dev_ms['composed_up']:.4f} ms vs K7 {dev_ms['fused_up']:.4f} ms; MLP half composed "
+         f"{dev_ms['half_composed']:.4f} ms vs with K7 {dev_ms['half_fused']:.4f} ms")
     return {"err": worst, "launches": launches["K7"], "ms": k7_ms, "plain_ms": k7_plain,
             "composed_up_ms": up_composed, "fused_up_ms": up_fused, "mlp_half_composed_ms": half_composed,
-            "mlp_half_fused_ms": half_fused}
+            "mlp_half_fused_ms": half_fused, "device_ms": dev_ms}
 
 
 def phase_k5_timing(gen, dev) -> dict:
@@ -1333,6 +1367,10 @@ def main(argv=None) -> int:
         "k5_per_head_ms": k5_times["per-head"]["ms"], "k5_per_head_sdpa_ms": k5_times["per-head"]["library_ms"],
         "bf16_plain_features_max_abs_err": tp["err_plain"],
         "k7_mlp_half_ms": k7["mlp_half_fused_ms"], "composed_mlp_half_ms": k7["mlp_half_composed_ms"],
+        "k7_device_ms": k7["device_ms"]["K7"], "k7_composed_up_device_ms": k7["device_ms"]["composed_up"],
+        "k11_ms": int8_times["K11"][0], "k11_split_half_ms": int8_times["K11_vs_split"][1],
+        "k11_device_ms": int8_times["K11_vs_split_device"][0],
+        "k11_split_half_device_ms": int8_times["K11_vs_split_device"][1],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -1377,8 +1415,9 @@ def main(argv=None) -> int:
                                                                      ("ms", "plain_ms", "library_ms"))),
         entry("K6", "fused LayerNorm + q/k/v", "layernorm_qkv.cu", f"{fused}:33", launches["K6"], k6_err,
               *times["K6"]),
-        entry("K7", "fused LayerNorm + fc1 + GELU", "layernorm_fc1_gelu.cu", f"{fused}:86", k7["launches"],
-              k7["err"], k7["ms"], k7["plain_ms"]),
+        entry("K7", "fused LayerNorm + fc1 + GELU (K6's main kernel)", "layernorm_qkv.cu", f"{fused}:86",
+              k7["launches"], k7["err"], k7["ms"], k7["plain_ms"], device_ms=k7["device_ms"]["K7"],
+              plain_device_ms=k7["device_ms"]["plain"]),
         # ms, plain_ms by events as every kernel's; device_ms, plain_device_ms
         # the card's own time (phase G)
         *(entry(k, name, "int8_linear.cu", f"{fused}:{line}", int8_launches[k], int8_err[k], *int8_times[k],

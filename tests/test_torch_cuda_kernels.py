@@ -14,7 +14,8 @@ plain versions, K7 within 2% of max|plain|, the log-sum-exp within 1e-3, the bac
 floor), K6 within 2% of max|plain|; the int8 kernels as in chip_smoke.py's
 phase D: codes within one step and at least 99% equal, scales within rtol
 1e-5, bf16 outputs, row by row, within one code step (s_x * 127 * max w_s) plus
-one bf16 ulp of the row's max|plain|.
+one bf16 ulp of the row's max|plain|; K11 equal bit for bit to the split
+kernel path (K9's kernel, then ``dense_w8a8_pre``).
 """
 
 import pytest
@@ -34,7 +35,7 @@ from ucod_dpl_tpu_torch.ops.attention import (
 )
 from ucod_dpl_tpu_torch.ops import fused_layers as FL
 from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv, layernorm_qkv_reference
-from ucod_dpl_tpu_torch.ops.quant import quantize_act, quantize_linear
+from ucod_dpl_tpu_torch.ops.quant import dense_w8a8_pre, quantize_act, quantize_linear
 
 pytestmark = pytest.mark.cuda
 
@@ -236,9 +237,10 @@ def test_int8_row_kernels_edge_shapes(dev, rows, d):
                                       (64, 256, 1024), (65, 512, 1536), (100, 512, 1536), (127, 768, 1536),
                                       (128, 1024, 2048), (129, 768, 1024), (1373, 768, 3072)])
 def test_int8_mlp_kernels_edge_shapes(dev, rows, d, f):
-    """K9 and K11: rows on both sides of K9's 64-row cluster tile (and off
-    K11's 16-row tile), zero, constant and extreme rows, every expansion K9
-    is built for (1024, 1536, 2048, 3072)."""
+    """K9 and K11: rows on both sides of their 64-row cluster tile, zero,
+    constant and extreme rows, every expansion they are built for (1024,
+    1536, 2048, 3072) and every hidden size; K11 gives the bits of the split
+    kernel path (the same codes, exact s32 sums, the same rescale)."""
     g, x, norm = _int8_case(dev, rows, d, 7 * rows + f)
     fc1, fc2 = _q8(g, dev, d, f), _q8(g, dev, f, d)
     codes = torch.full((1, rows, f), -128, dtype=torch.int8, device=dev)
@@ -248,6 +250,7 @@ def test_int8_mlp_kernels_edge_shapes(dev, rows, d, f):
     _assert_codes_close(codes, scales, ref_codes, ref_scales)
     got = FL.layernorm_mlp_w8a8(x, norm, fc1, fc2, 1e-6, out=torch.full_like(x, float("nan")))
     _assert_int8_close(got, FL.layernorm_mlp_w8a8_reference(x, norm, fc1, fc2, 1e-6), ref_scales, fc2["w_s"])
+    assert torch.equal(got, dense_w8a8_pre(codes, scales, fc2, torch.bfloat16))
 
 
 def test_int8_kernels_count_launches_and_reject_what_they_do_not_take(dev):
@@ -274,21 +277,22 @@ def test_int8_kernels_count_launches_and_reject_what_they_do_not_take(dev):
         with pytest.raises(ValueError):
             FL.layernorm_fc1_gelu_w8a8(x, norm, _q8(g, dev, 256, f), 1e-6)
     assert FL.layernorm_fc1_gelu_w8a8.launches == before
-    with pytest.raises(ValueError):  # K11: 16 rows of a 4096-wide f32 expansion exceed shared memory
+    with pytest.raises(ValueError):  # K11 takes K9's expansions: 16 column parts of 256, no width it is built for
         FL.layernorm_mlp_w8a8(x, norm, _q8(g, dev, 256, 4096), _q8(g, dev, 4096, 256), 1e-6)
 
 
 def test_int8_kernels_write_no_row_past_the_last(dev):
-    """K8, K9 and K10 at 65 rows (one row into the second 64-row tile) and 1
-    row: the input is followed by NaN rows, the outputs are views of larger
-    buffers whose rows past the last are pre-filled (NaN, codes -128, which no
-    code takes) and stay so; the pre-pass's scratch is sized to the rows."""
+    """K8, K9, K10 and K11 at 65 rows (one row into the second 64-row tile)
+    and 1 row: the input is followed by NaN rows, the outputs are views of
+    larger buffers whose rows past the last are pre-filled (NaN, codes -128,
+    which no code takes) and stay so; the pre-pass's scratch is sized to the
+    rows."""
     d, f = 768, 3072
     for rows in (65, 1):
         g, x, norm = _int8_case(dev, rows, d, 31 + rows)
         q8 = [_q8(g, dev, d, d) for _ in range(4)]
-        fc1 = _q8(g, dev, d, f)
-        bufs = [torch.full((rows + 64, d), float("nan"), dtype=torch.bfloat16, device=dev) for _ in range(4)]
+        fc1, fc2 = _q8(g, dev, d, f), _q8(g, dev, f, d)
+        bufs = [torch.full((rows + 64, d), float("nan"), dtype=torch.bfloat16, device=dev) for _ in range(5)]
         outs = FL.layernorm_qkv_w8a8(x, norm, *q8[:3], 1e-6, out=tuple(b[:rows].view(1, rows, d) for b in bufs[:3]))
         h_s = quantize_act(FL._layernorm_f32(x, norm, 1e-6))[1]
         for o, r, qp in zip(outs, FL.layernorm_qkv_w8a8_reference(x, norm, *q8[:3], 1e-6), q8):
@@ -301,6 +305,8 @@ def test_int8_kernels_write_no_row_past_the_last(dev):
         codes, scales = FL.layernorm_fc1_gelu_w8a8(
             x, norm, fc1, 1e-6, out=(codes_buf[:rows].view(1, rows, f), scales_buf[:rows].view(1, rows, 1)))
         _assert_codes_close(codes, scales, *FL.layernorm_fc1_gelu_w8a8_reference(x, norm, fc1, 1e-6))
+        got = FL.layernorm_mlp_w8a8(x, norm, fc1, fc2, 1e-6, out=bufs[4][:rows].view(1, rows, d))
+        assert torch.equal(got, dense_w8a8_pre(codes, scales, fc2, torch.bfloat16))
         torch.cuda.synchronize()
         for b in bufs:
             assert torch.isnan(b[rows:].float()).all()
@@ -308,18 +314,24 @@ def test_int8_kernels_write_no_row_past_the_last(dev):
 
 
 def test_int8_kernels_repeat_bit_for_bit(dev):
-    """K8 and K9 twice on the same inputs: equal outputs (exact s32 sums, no
-    atomics, the row maxima gathered in a fixed order)."""
+    """K8, K9, K11 and K7 twice on the same inputs: equal outputs (exact s32
+    sums, whose order cannot show, no float atomics, the row maxima gathered
+    in a fixed order)."""
     rows, d, f = 4 * 1370 + 3, 768, 3072
     g, x, norm = _int8_case(dev, rows, d, 77)
     q8 = [_q8(g, dev, d, d) for _ in range(3)]
-    fc1 = _q8(g, dev, d, f)
+    fc1, fc2 = _q8(g, dev, d, f), _q8(g, dev, f, d)
     first = FL.layernorm_qkv_w8a8(x, norm, *q8, 1e-6)
     second = FL.layernorm_qkv_w8a8(x, norm, *q8, 1e-6)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
     first = FL.layernorm_fc1_gelu_w8a8(x, norm, fc1, 1e-6)
     second = FL.layernorm_fc1_gelu_w8a8(x, norm, fc1, 1e-6)
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert torch.equal(FL.layernorm_mlp_w8a8(x, norm, fc1, fc2, 1e-6), FL.layernorm_mlp_w8a8(x, norm, fc1, fc2, 1e-6))
+    bf16_fc1 = {"w": (torch.randn(f, d, generator=g, device=dev) / d ** 0.5).to(torch.bfloat16),
+                "b": 0.1 * torch.randn(f, generator=g, device=dev)}
+    xs = torch.randn(1, rows, d, generator=g, device=dev).to(torch.bfloat16)
+    assert torch.equal(FL.layernorm_fc1_gelu(xs, norm, bf16_fc1, 1e-6), FL.layernorm_fc1_gelu(xs, norm, bf16_fc1, 1e-6))
 
 
 def _nan_tailed(g, dev, shape, scale=1.0):
@@ -414,10 +426,12 @@ def test_heads_attention_counts_launches_and_rejects_what_it_does_not_take(dev):
 
 
 @pytest.mark.parametrize("rows,d,f", [(1, 768, 3072), (17, 768, 3072), (65, 256, 256), (130, 320, 512),
-                                      (1373, 768, 3072)])
+                                      (1373, 768, 3072), (127, 320, 512), (128, 320, 768), (129, 320, 256),
+                                      (127, 256, 1024), (128, 256, 512), (129, 768, 3072)])
 def test_layernorm_fc1_gelu_kernel_ragged_rows(dev, rows, d, f):
-    """K7 at row counts off its 64-row tile, other widths (320: not a multiple
-    of 256), NaN past the input and in the output buffer."""
+    """K7 at row counts on both sides of its 128-row work tile, other widths
+    (320: not a multiple of 256, an odd count of 64-column k-tiles), NaN past
+    the input and in the output buffer."""
     g = torch.Generator(device=dev).manual_seed(rows + d + f)
     x = _nan_tailed(g, dev, (1, rows, d))
     norm = {"scale": 1 + 0.1 * torch.randn(d, generator=g, device=dev),
@@ -448,3 +462,24 @@ def test_layernorm_fc1_gelu_counts_launches_and_rejects_what_it_does_not_take(de
         FL.layernorm_fc1_gelu(x[..., :96].contiguous(), {k: t[:96] for k, t in norm.items()},
                               {"w": fc1["w"][:, :96], "b": fc1["b"]}, 1e-6)
     assert FL.layernorm_fc1_gelu.launches == before + 1
+
+
+def test_layernorm_fc1_gelu_writes_no_row_past_the_last(dev):
+    """K7 at 129 rows (one row into the second 128-row work tile) and 1 row,
+    D 320 and 768: its output is a view of a larger buffer whose rows past
+    the last are NaN and stay so; the statistics scratch is sized to the
+    rows."""
+    for rows, d, f in ((129, 320, 512), (1, 768, 3072)):
+        g = torch.Generator(device=dev).manual_seed(3 * rows + d)
+        x = _nan_tailed(g, dev, (1, rows, d))
+        norm = {"scale": 1 + 0.1 * torch.randn(d, generator=g, device=dev),
+                "bias": 0.1 * torch.randn(d, generator=g, device=dev)}
+        fc1 = {"w": (torch.randn(f, d, generator=g, device=dev) / d ** 0.5).to(torch.bfloat16),
+               "b": 0.1 * torch.randn(f, generator=g, device=dev)}
+        buf = torch.full((rows + 128, f), float("nan"), dtype=torch.bfloat16, device=dev)
+        out = FL.layernorm_fc1_gelu(x, norm, fc1, 1e-6, out=buf[:rows].view(1, rows, f))
+        ref = FL.layernorm_fc1_gelu_reference(x, norm, fc1, 1e-6).float()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out.float() - ref).abs().max().item() <= 0.02 * ref.abs().max().item()
+        assert torch.isnan(buf[rows:].float()).all()

@@ -83,11 +83,11 @@ def test_bicubic_matches_jax_and_torch(grid, size):
     np.testing.assert_allclose(got, torch_ref, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("b,l,d,f", [(2, 150, 128, 512), (1, 70, 256, 256), (3, 1, 128, 512)])
+@pytest.mark.parametrize("b,l,d,f", [(2, 150, 128, 512), (1, 70, 256, 256), (3, 1, 128, 512), (2, 37, 768, 3072)])
 def test_plain_layernorm_fc1_gelu_matches_jax_kernel(monkeypatch, b, l, d, f):
     """K7's plain version against the JAX ``_pallas_layernorm_fc1_gelu`` in
     interpret mode (the shapes of tests/test_dino_parity.py's fused-op test
-    first), float32 within 1e-5."""
+    first, then the serving widths 768 -> 3072), float32 within 1e-5."""
     rng = np.random.default_rng(11 + d + l)
     x = rng.standard_normal((b, l, d)).astype(np.float32)
     norm = {"scale": rng.standard_normal(d).astype(np.float32),

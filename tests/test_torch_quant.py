@@ -221,6 +221,30 @@ def test_layernorm_mlp_w8a8_plain_matches_jax_kernel(monkeypatch):
     np.testing.assert_array_equal(got, split.numpy())
 
 
+def test_layernorm_mlp_w8a8_plain_matches_jax_kernel_at_serving_widths(monkeypatch):
+    """K11's plain version against the JAX kernel in interpret mode at the
+    serving widths (768 -> 3072 -> 768), 2 x 37 rows (not a multiple of
+    K11's 64-row tile), within the JAX test's bounds: one code step of the
+    requantized expansion, and 99% of the outputs within 1e-4."""
+    rng = np.random.default_rng(17)
+    d, df = 768, 3072
+    x = rng.standard_normal((2, 37, d)).astype(np.float32)
+    norm = _norm_np(rng, d)
+    jq1, tq1 = _q8_pair(_linear_np(rng, d, df))
+    jq2, tq2 = _q8_pair(_linear_np(rng, df, d))
+    monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
+    want = np.asarray(JF.layernorm_mlp_w8a8(jnp.asarray(x), _j(norm), _j(jq1), _j(jq2), eps=1e-6))
+    before = TF.layernorm_mlp_w8a8.launches
+    got = TF.layernorm_mlp_w8a8(torch.from_numpy(x), _t(norm), tq1, tq2, 1e-6).numpy()
+    assert TF.layernorm_mlp_w8a8.launches == before  # CPU tensors take the plain version
+    g_s = TF.layernorm_fc1_gelu_w8a8_reference(torch.from_numpy(x), _t(norm), tq1, 1e-6)[1]
+    quantum = g_s.max().item() * float(np.max(jq2["w_s"])) * df
+    diff = np.abs(got - want)
+    assert got.shape == want.shape and np.isfinite(got).all()
+    assert diff.max() <= quantum + 1e-5, (diff.max(), quantum)
+    assert (diff <= 1e-4).mean() > 0.99
+
+
 # ---------------------------------------------------------------------------
 # the slice
 # ---------------------------------------------------------------------------

@@ -27,10 +27,12 @@
 // that s8 wgmma (which takes no transpose) wants.
 //
 // What bounds them on the H100, at bs16 / 518px (21,920 rows, D = 768,
-// F = 3072): K8 78 GOP, K10 26 GOP, K9 103 GOP, 0.04-0.05 ms at the 1,979
-// TOP/s int8 peak; K8 and K10 also store 101 and 34 MB of bf16 (0.03 and
-// 0.01 ms at 3.35 TB/s), K9 67 MB of codes and evaluates 67 M accurate
-// tanhf in its epilogue.  The design of K8, K9 and K10:
+// F = 3072): K8 78 GOP, K10 26 GOP, K9 103 GOP, K11 207 GOP, 0.04-0.10 ms
+// at the 1,979 TOP/s int8 peak; K8 and K10 also store 101 and 34 MB of bf16
+// (0.03 and 0.01 ms at 3.35 TB/s), K9 67 MB of codes; K9 and K11 evaluate 67
+// M accurate tanhf in their epilogue, and both stream their weights from L2
+// once per 64-row tile (W1 0.81 GB a call, K11's W2 as much again).  The
+// design of K8-K11:
 //   * a quantize pre-pass (one warp a row, quantize_row below) writes the
 //     int8 codes (rows, d) and f32 scales (rows,) of LN(x) (K8, K9) or x
 //     (K10) into scratch the wrapper allocates: the LayerNorm and the
@@ -49,7 +51,7 @@
 //     operands in shared memory; the epilogue rescales, adds the bias,
 //     rounds to bf16 into a swizzled staging tile and stores it by TMA,
 //     which drops rows past the last and drains under the next tile;
-//   * K9 (fc1_gelu_quant_kernel): the requantization scale spans all F
+//   * K9 (mlp_kernel<kN, 0>): the requantization scale spans all F
 //     outputs of a row, so the F columns of a 64-row tile are split over a
 //     cluster of 8 CTAs (F / 8 columns each, F / 16 per consumer
 //     warpgroup: wgmma m64n{64,96,128,192}k32 for F = 1024, 1536, 2048,
@@ -78,8 +80,46 @@
 //     one's epilogue runs under the other's products) were slower (0.53
 //     against 0.41 ms at bs16 518px): 7 such clusters fit, and the exchange
 //     over 16 CTAs cost more than the overlap gained.
-//   * K11 keeps its first design (16 whole rows per CTA, mma.sync, the f32
-//     GELU rows in shared memory, fc2 from the codes kept on chip).
+//   * K11 (mlp_kernel<kN, kN2>, kN2 = D / 8) is K9 up to the codes: the
+//     same pre-pass, cluster, ring, GELU epilogue and exchange.  Then the
+//     codes stay in shared memory and fc2 (the codes times W2^T, D output
+//     columns) runs in the same kernel, W2 streamed by the same producer
+//     after W1's stages of the tile, in 128-byte K boxes of kN2 rows.  The
+//     cluster shares the codes by an all-gather: each CTA owns kN2 output
+//     columns; consumer c takes the codes of CTAs 4c .. 4c + 3 (half of F),
+//     its register A fragments loaded from their shared memory through
+//     distributed shared memory (16 bytes a row and two k-steps, laid out by
+//     gather_offset so a warp's loads fall on every bank four times), a
+//     k-tile ahead of wgmma m64n{kN2}k32 with A in registers; consumer 1's
+//     partial sums reach consumer 0 through shared memory, which adds them,
+//     rescales (acc * (s_1 * w2_s) + b2), rounds to bf16 and stores.  An
+//     mbarrier per CTA says every CTA's codes are written (one arrival a
+//     CTA), another that every consumer of the cluster has read them (the
+//     next tile's codes wait for it).  The other route, split-K (each CTA
+//     multiplies its own codes by W2's slab and adds the s32 partial sums
+//     into the owning CTA's shared memory with red.async), took 1.74 ms
+//     against the all-gather's 0.96 in one process and was dropped.
+//     The s32 sums are exact and the rescale is dense_w8a8_pre's, so K11's
+//     output equals K9's codes through dense_w8a8_pre bit for bit.  On an
+//     H100 (700 W) at bs16 518px K11 takes 0.98 ms of card time, K9 0.35;
+//     K11 loses to the split MLP half (K9, then fc2 as torch._int_mm, 0.78
+//     ms).  What bounds it: the peers' codes through distributed shared
+//     memory (0.46 GB a call; the same fragments read
+//     from the CTA's own codes save 0.18 ms), the fragment loads' latency
+//     ahead of each k-tile (0.10), and W2 re-streamed from L2 for every
+//     64-row tile (0.81 GB, as W1).  W2's stages hold two boxes a consumer
+//     where the slot allows (0.98 against 1.00-1.01 ms with one).  The codes'
+//     offsets, the W2 scale addresses and the fragment addresses are
+//     computed inside the tile loop (fresh()); hoisted out of it they
+//     spilled the GELU values to local memory (1.36 against 1.10 ms); 584
+//     bytes of spill stores remain at F 3072 (none at F <= 2048).  Shared
+//     memory at D 768, F 3072 (kN 192): K9's ring (3 stages of 64 x 128
+//     codes and 2 x 192 x 128 W1; a W2 stage, 2 x 96 x 128, fits in one) 168
+//     KB, the tile's codes 24 KB, the fc2 sums 32 KB (64 x 128 s32, for D up
+//     to 1024), maxima and barriers: 231,760 bytes with the alignment slack,
+//     of 232,448.  Nothing gave way: K9's output staging (24 KB) became the
+//     codes, and the all-gather's codes need no padding (row r's 32-byte
+//     blocks permuted by r % 4 instead).
 // Rows at or past `rows` are never read (TMA zero-fills them) and never
 // stored.
 
@@ -213,26 +253,6 @@ __device__ __forceinline__ void quantize_row(const bf16* __restrict__ xr, const 
     }
   }
   if (lane == 0) *scale = s;
-}
-
-// Rows [row0, row0 + nrows) of x (rows, k) bf16 -> int8 codes [nrows][ldc]
-// and scales [nrows] in shared memory (K11's front), warp w taking rows w,
-// w + 8, ...  Rows >= rows are not read: codes 0, scale 0.
-template <bool kLN>
-__device__ __forceinline__ void quantize_rows(const bf16* __restrict__ x, const float* __restrict__ gamma,
-                                              const float* __restrict__ beta, int row0, int nrows, int rows, int k,
-                                              float eps, int8_t* codes, int ldc, float* scales) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  for (int r = warp; r < nrows; r += kWarps) {
-    int8_t* crow = codes + r * ldc;
-    if (row0 + r >= rows) {
-      for (int c = lane * 8; c < k; c += 256) *reinterpret_cast<uint2*>(crow + c) = make_uint2(0, 0);
-      if (lane == 0) scales[r] = 0.f;
-      continue;
-    }
-    quantize_row<kLN>(x + (int64_t)(row0 + r) * k, gamma, beta, k, eps, crow, scales + r);
-  }
 }
 
 // The pre-pass of K8, K9 (kLN) and K10: one warp a row -> codes (rows, k),
@@ -482,18 +502,37 @@ int quant_gemm(const void* x, const void* gamma, const void* beta, const void* c
 }
 
 // ---------------------------------------------------------------------------
-// K9 main kernel: a 64-row tile's F columns over a cluster of CTAs
+// K9 and K11 main kernel: a 64-row tile's F columns over a cluster of CTAs
 // ---------------------------------------------------------------------------
 
 constexpr int kCluster = 8;  // CTAs sharing one row tile's row maxima
 constexpr int kTileM = 64;   // rows per tile
 constexpr int kColumnParts = kCluster * kConsumers;  // F = kColumnParts * N, N the wgmma width of a consumer
 
+// What follows the exchange of row maxima: K9 (kN2 = 0) stores the codes;
+// K11 (kN2 = D / 8) keeps them in shared memory and runs fc2 across the
+// cluster (the header note).
+constexpr int kMaxN2 = 128;  // K11's output columns per CTA, D / 8 (D <= 1024)
+constexpr int kFc2Bar = 4;   // K11: both consumer warpgroups, around fc2's shared buffers
+
+// K11: one tile row of codes (2 kN bytes), padded to whole 128-byte atoms.
 template <int kN>
+__host__ __device__ constexpr int code_row() {
+  return (2 * kN + kBlockK - 1) / kBlockK * kBlockK;
+}
+
+template <int kN, bool kK11>
 struct MlpSmem {  // every operand tile 1024-byte aligned
+  // a stage's weight boxes: W1's kN rows a consumer, or K11's W2 boxes of D
+  // / 8 <= kMaxN2 rows (one or two a consumer: kW2Boxes)
+  static constexpr int kStageB = kConsumers * (!kK11 || kN >= kMaxN2 ? kN : kMaxN2) * kBlockK;
   int8_t a[kStages][kTileM * kBlockK];
-  int8_t b[kStages][kConsumers][kN * kBlockK];
-  int8_t out[kConsumers][64 * kN];  // each consumer's 64 x kN codes, row-major (unswizzled TMA box)
+  int8_t b[kStages][kStageB];
+  // K9: each consumer's 64 x kN codes, row-major (unswizzled TMA box).  K11:
+  // the tile's 64 x 2kN codes, fc2's A operand, in gather_offset's order
+  int8_t codes[!kK11 ? kConsumers * 64 * kN : 64 * code_row<kN>()];
+  // K11: consumer 1's partial fc2 sums, 64 x D / 8 s32, thread by thread
+  int acc2[!kK11 ? 4 : 64 * kMaxN2];
   // by tile parity: each consumer's partial row maxima (read by the whole
   // cluster), and an mbarrier with one arrival from each CTA of the cluster,
   // its partial maxima written
@@ -501,19 +540,63 @@ struct MlpSmem {  // every operand tile 1024-byte aligned
   float rowmax[kTileM];
   uint64_t full[kStages], empty[kStages];
   uint64_t maxima[2];
+  // K11: fc2_full = every CTA's codes are in its shared memory (kCluster
+  // arrivals), fc2_free = every consumer of the cluster has read this CTA's
+  // codes (kCluster * kConsumers arrivals)
+  uint64_t fc2_full, fc2_free;
 };
 
+// K11: where code `col` (of 2kN) of tile row `row` lies in
+// `codes`.  Two 32-byte k-steps hold their bytes in the order the threads' A
+// fragments take them: quad q's 16 bytes at 16q are its bytes 4q .. 4q + 3
+// and 16 + 4q .. 16 + 4q + 3 of the first k-step, then the same of the
+// second (one 16-byte load a row and two k-steps), and odd rows' 64-byte
+// blocks sit at block ^ 1 within their 128 bytes, so the 8 rows x 4 quads of
+// a warp's load hit every bank 4 times, the least 512 bytes can.
 template <int kN>
+__device__ __forceinline__ int gather_offset(int row, int col) {
+  const int w = col & 63;
+  const int pos = 16 * ((w & 15) >> 2) + 8 * (w >> 5) + 4 * ((w >> 4) & 1) + (w & 3);
+  return row * code_row<kN>() + (((col & ~63) + pos) ^ ((row & 1) << 6));
+}
+
+// x as a value the compiler cannot move out of a loop: addresses derived
+// from it are computed where they are used, not held in registers across
+// the tile loop (K11's fc1 epilogue spilled its GELU values to local memory
+// for the code offsets, W2 scales and fragment addresses hoisted out).
+__device__ __forceinline__ int fresh(int x) {
+  asm volatile("mov.b32 %0, %0;" : "+r"(x));
+  return x;
+}
+
+struct MlpArgs {
+  const float* sx;   // the pre-pass's row scales
+  const float* w1s;  // fc1's output-channel scales and bias
+  const float* b1;
+  float* scales;     // K9: the codes' row scales
+  const float* w2s;  // K11: fc2's output-channel scales and bias, the output
+  const float* b2;
+  bf16* out;
+  int rows, d, n_tiles;
+};
+
+// K9 (kN2 = 0): tm_o maps the codes (rows, F); K11: tm_o maps W2 (D, F),
+// whose boxes are kN2 = D / 8 rows x 128 bytes.
+template <int kN, int kN2>
 __global__ void __launch_bounds__(kMainThreads, 1)
-    fc1_gelu_quant_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
-                          const __grid_constant__ CUtensorMap tm_o, const float* __restrict__ sx,
-                          const float* __restrict__ w1s, const float* __restrict__ b1,
-                          float* __restrict__ out_scales, int rows, int k, int n_tiles) {
+    mlp_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w,
+               const __grid_constant__ CUtensorMap tm_o, const MlpArgs args) {
   extern __shared__ uint8_t smem_raw[];
-  MlpSmem<kN>& sm = aligned_smem<MlpSmem<kN>>(smem_raw);
+  constexpr bool kK11 = kN2 > 0;
+  MlpSmem<kN, kK11>& sm = aligned_smem<MlpSmem<kN, kK11>>(smem_raw);
   constexpr uint32_t kStageBytes = (kTileM + kConsumers * kN) * kBlockK;
+  // K11: 128-byte K boxes of W2 a consumer and stage (two where a stage's
+  // weight slot holds them), stages a tile (half of F, 8 kN, a consumer)
+  constexpr int kW2Boxes = kK11 && MlpSmem<kN, kK11>::kStageB >= 2 * kConsumers * kN2 * kBlockK ? 2 : 1;
+  constexpr uint32_t kStage2Bytes = kConsumers * kW2Boxes * kN2 * kBlockK;
+  constexpr int kStages2 = kK11 ? 8 * kN / kBlockK / kW2Boxes : 0;
   const int wg = threadIdx.x / 128;
-  const int n_k = k / kBlockK;
+  const int n_k = args.d / kBlockK;
   const uint32_t rank = ucod::cluster_ctarank();
   const int cluster = blockIdx.x / kCluster;  // the cluster takes row tiles cluster, + n_clusters, ...
   const int n_clusters = gridDim.x / kCluster;
@@ -527,24 +610,44 @@ __global__ void __launch_bounds__(kMainThreads, 1)
     }
     ucod::mbar_init(&sm.maxima[0], kCluster);
     ucod::mbar_init(&sm.maxima[1], kCluster);
+    if constexpr (kK11) {
+      ucod::mbar_init(&sm.fc2_full, kCluster);
+      ucod::mbar_init(&sm.fc2_free, kCluster * kConsumers);
+    }
     ucod::fence_barrier_init();
   }
-  ucod::cluster_sync();  // every CTA's barriers exist before a peer arrives on them
+  ucod::cluster_sync();  // every CTA's barriers exist before a peer uses them
 
   if (wg == 0) {
     // producer: one thread keeps the ring full, across the cluster's tiles
     ucod::reg_dealloc<24>();
     if (threadIdx.x == 0) {
       int it = 0;
-      for (int t = cluster; t < n_tiles; t += n_clusters) {
+      for (int t = cluster; t < args.n_tiles; t += n_clusters) {
         for (int kt = 0; kt < n_k; ++kt, ++it) {
           const int st = it % kStages;
           ucod::mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
           ucod::mbar_expect_tx(&sm.full[st], kStageBytes);
 #pragma unroll
           for (int i = 0; i < kConsumers; ++i)
-            ucod::tma_load_3d(sm.b[st][i], &tm_w, &sm.full[st], kt * kBlockK, col0 + i * kN, 0);
+            ucod::tma_load_3d(sm.b[st] + i * kN * kBlockK, &tm_w, &sm.full[st], kt * kBlockK, col0 + i * kN, 0);
           ucod::tma_load_3d(sm.a[st], &tm_a, &sm.full[st], kt * kBlockK, t * kTileM, 0);
+        }
+        // K11: W2's boxes for fc2, this CTA's kN2 output columns over
+        // consumer i's half of F
+        for (int s = 0; s < kStages2; ++s, ++it) {
+          const int st = it % kStages;
+          ucod::mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
+          ucod::mbar_expect_tx(&sm.full[st], kStage2Bytes);
+#pragma unroll
+          for (int i = 0; i < kConsumers; ++i) {
+#pragma unroll
+            for (int h = 0; h < kW2Boxes; ++h) {
+              const int k0 = i * 8 * kN + (s * kW2Boxes + h) * kBlockK;
+              ucod::tma_load_3d(sm.b[st] + (i * kW2Boxes + h) * kN2 * kBlockK, &tm_o, &sm.full[st], k0, rank * kN2,
+                                0);
+            }
+          }
         }
       }
     }
@@ -559,18 +662,19 @@ __global__ void __launch_bounds__(kMainThreads, 1)
   const int lane = tid % 32;
   const int g = lane / 4;
   const int tq = lane % 4;
+  const int rows = args.rows;
 
-  int acc[kN / 2];
   int it = 0;
-  for (int t = cluster, j = 0; t < n_tiles; t += n_clusters, ++j) {
+  for (int t = cluster, j = 0; t < args.n_tiles; t += n_clusters, ++j) {
     const int m0 = t * kTileM;
+    int acc[kN / 2];  // a tile's: nothing of it lives on into fc2 or the next tile
     for (int kt = 0; kt < n_k; ++kt, ++it) {
       const int st = it % kStages;
       ucod::mbar_wait(&sm.full[st], (it / kStages) & 1);
       ucod::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBlockK / 32; ++kk) {
-        ucod::wgmma_s8<kN>(acc, ucod::desc_kmajor(sm.a[st], kk), ucod::desc_kmajor(sm.b[st][c], kk),
+        ucod::wgmma_s8<kN>(acc, ucod::desc_kmajor(sm.a[st], kk), ucod::desc_kmajor(sm.b[st] + c * kN * kBlockK, kk),
                            kt > 0 || kk > 0);
       }
       ucod::wgmma_commit();
@@ -579,21 +683,21 @@ __global__ void __launch_bounds__(kMainThreads, 1)
     }
     ucod::wgmma_wait<0>();
     ucod::fence_regs(acc);
-    if (lane == 0) ucod::mbar_arrive(&sm.empty[(it + kStages - 1) % kStages]);  // the next tile loads
+    if (lane == 0) ucod::mbar_arrive(&sm.empty[(it + kStages - 1) % kStages]);  // the next stages load
 
     // epilogue in registers: h1 = acc * (s_x * w1_s) + b1, g = gelu(h1), and
     // this thread's rows' max |g| (rows lr and lr + 8 of the tile's 64)
     const int lr = 16 * warp + g;
     const int r0 = m0 + lr;
-    const float s0 = r0 < rows ? sx[r0] : 0.f;
-    const float s1 = r0 + 8 < rows ? sx[r0 + 8] : 0.f;
-    const int cbase = col0 + c * kN + 2 * tq;
+    const float s0 = r0 < rows ? args.sx[r0] : 0.f;
+    const float s1 = r0 + 8 < rows ? args.sx[r0 + 8] : 0.f;
+    const int cbase = (kK11 ? fresh(col0) : col0) + c * kN + 2 * tq;
     float v[kN / 2];
     float m_0 = 0.f, m_1 = 0.f;
 #pragma unroll
     for (int jj = 0; jj < kN / 8; ++jj) {
-      const float2 w2 = *reinterpret_cast<const float2*>(w1s + cbase + 8 * jj);
-      const float2 b2 = *reinterpret_cast<const float2*>(b1 + cbase + 8 * jj);
+      const float2 w2 = *reinterpret_cast<const float2*>(args.w1s + cbase + 8 * jj);
+      const float2 b2 = *reinterpret_cast<const float2*>(args.b1 + cbase + 8 * jj);
       v[4 * jj] = gelu_tanh(rescale(acc[4 * jj], s0, w2.x, b2.x));
       v[4 * jj + 1] = gelu_tanh(rescale(acc[4 * jj + 1], s0, w2.y, b2.y));
       v[4 * jj + 2] = gelu_tanh(rescale(acc[4 * jj + 2], s1, w2.x, b2.x));
@@ -631,49 +735,164 @@ __global__ void __launch_bounds__(kMainThreads, 1)
     const float sc0 = row_scale(sm.rowmax[lr]);
     const float sc1 = row_scale(sm.rowmax[lr + 8]);
 
-    // the staging tile is free once the previous tile's store has read it
-    if (tid == 0) ucod::bulk_wait_read<0>();
-    ucod::named_sync(kOutBar + c, 128);
-    int8_t* stage = sm.out[c];
+    if constexpr (!kK11) {
+      // the staging tile is free once the previous tile's store has read it
+      if (tid == 0) ucod::bulk_wait_read<0>();
+      ucod::named_sync(kOutBar + c, 128);
+      int8_t* stage = sm.codes + c * 64 * kN;
 #pragma unroll
-    for (int jj = 0; jj < kN / 8; ++jj) {
-      const int col = 8 * jj + 2 * tq;
-      *reinterpret_cast<uint16_t*>(stage + lr * kN + col) =
-          static_cast<uint16_t>(quantize_code(v[4 * jj], sc0) | (quantize_code(v[4 * jj + 1], sc0) << 8));
-      *reinterpret_cast<uint16_t*>(stage + (lr + 8) * kN + col) =
-          static_cast<uint16_t>(quantize_code(v[4 * jj + 2], sc1) | (quantize_code(v[4 * jj + 3], sc1) << 8));
-    }
-    ucod::fence_proxy_async();
-    ucod::named_sync(kOutBar + c, 128);
-    if (tid == 0) {
-      ucod::tma_store_3d(&tm_o, stage, col0 + c * kN, m0, 0);
-      ucod::bulk_commit();
-    }
-    if (rank == 0 && c == 0 && tq == 0) {
-      if (r0 < rows) out_scales[r0] = sc0;
-      if (r0 + 8 < rows) out_scales[r0 + 8] = sc1;
+      for (int jj = 0; jj < kN / 8; ++jj) {
+        const int col = 8 * jj + 2 * tq;
+        *reinterpret_cast<uint16_t*>(stage + lr * kN + col) =
+            static_cast<uint16_t>(quantize_code(v[4 * jj], sc0) | (quantize_code(v[4 * jj + 1], sc0) << 8));
+        *reinterpret_cast<uint16_t*>(stage + (lr + 8) * kN + col) =
+            static_cast<uint16_t>(quantize_code(v[4 * jj + 2], sc1) | (quantize_code(v[4 * jj + 3], sc1) << 8));
+      }
+      ucod::fence_proxy_async();
+      ucod::named_sync(kOutBar + c, 128);
+      if (tid == 0) {
+        ucod::tma_store_3d(&tm_o, stage, col0 + c * kN, m0, 0);
+        ucod::bulk_commit();
+      }
+      if (rank == 0 && c == 0 && tq == 0) {
+        if (r0 < rows) args.scales[r0] = sc0;
+        if (r0 + 8 < rows) args.scales[r0 + 8] = sc1;
+      }
+    } else {
+      // K11: the codes into fc2's A operand, once every consumer of the
+      // cluster has read the last tile's
+      ucod::mbar_wait_cluster(&sm.fc2_free, (j & 1) ^ 1);
+      const int lrf = fresh(lr);
+#pragma unroll
+      for (int jj = 0; jj < kN / 8; ++jj) {
+        const int col = c * kN + 8 * jj + 2 * tq;
+        const uint16_t lo =
+            static_cast<uint16_t>(quantize_code(v[4 * jj], sc0) | (quantize_code(v[4 * jj + 1], sc0) << 8));
+        const uint16_t hi =
+            static_cast<uint16_t>(quantize_code(v[4 * jj + 2], sc1) | (quantize_code(v[4 * jj + 3], sc1) << 8));
+        *reinterpret_cast<uint16_t*>(sm.codes + gather_offset<kN>(lrf, col)) = lo;
+        *reinterpret_cast<uint16_t*>(sm.codes + gather_offset<kN>(lrf + 8, col)) = hi;
+      }
+      ucod::named_sync(kFc2Bar, 128 * kConsumers);
+
+      // this CTA's kN2 output columns over all F: consumer c takes the codes
+      // of CTAs 4c .. 4c + 3, A fragments loaded from their shared memory
+      // into registers (16 bytes a row and two k-steps), a k-tile ahead
+      int acc2[kN2 / 2];
+      if (ct < kCluster) ucod::mbar_arrive_cluster(&sm.fc2_full, ct);
+      ucod::mbar_wait_cluster(&sm.fc2_full, j & 1);
+      constexpr int kTiles2 = 8 * kN / kBlockK;  // 128-byte k-tiles of this consumer's half of F
+      constexpr int kStepsPerCta = 2 * kN / 32;
+      const int lrf2 = fresh(lr);
+      const uint32_t row_off = lrf2 * code_row<kN>();
+      const uint32_t xr = (lrf2 & 1) << 6;
+      // k-tile kt's fragments (4 k-steps): two 16-byte loads a row
+      const auto load = [&](uint32_t (&fa)[4][4], int kt) {
+#pragma unroll
+        for (int kp = 0; kp < 2; ++kp) {
+          const int step = 4 * kt + 2 * kp;  // k-step of this consumer's half of F
+          const int q = 4 * c + step / kStepsPerCta;
+          const uint32_t col = (step % kStepsPerCta) * 32;
+          const uint32_t remote = ucod::map_shared_cluster(sm.codes + row_off + ((col + 16 * tq) ^ xr), q);
+          const uint4 lo = ucod::ld_shared_cluster_v4(remote);                        // row lr
+          const uint4 hi = ucod::ld_shared_cluster_v4(remote + 8 * code_row<kN>());  // row lr + 8
+          fa[2 * kp][0] = lo.x;
+          fa[2 * kp][1] = hi.x;
+          fa[2 * kp][2] = lo.y;
+          fa[2 * kp][3] = hi.y;
+          fa[2 * kp + 1][0] = lo.z;
+          fa[2 * kp + 1][1] = hi.z;
+          fa[2 * kp + 1][2] = lo.w;
+          fa[2 * kp + 1][3] = hi.w;
+        }
+      };
+      // k-tile kt, box kt % kW2Boxes of its stage: (the stage's W2 arrived)
+      // its products from fa; then (the previous k-tile done, and at a
+      // stage's first box with it the previous stage) the next k-tile's
+      // fragments into nxt
+      const auto ktile = [&](uint32_t (&fa)[4][4], uint32_t (&nxt)[4][4], int kt) {
+        const int h = kt % kW2Boxes;
+        const int st = it % kStages;
+        if (h == 0) ucod::mbar_wait(&sm.full[st], (it / kStages) & 1);
+        ucod::wgmma_fence();
+        const int8_t* box = sm.b[st] + (c * kW2Boxes + h) * kN2 * kBlockK;
+#pragma unroll
+        for (int kk = 0; kk < kBlockK / 32; ++kk) {
+          ucod::wgmma_s8_rs<kN2>(acc2, fa[kk], ucod::desc_kmajor(box, kk), kt > 0 || kk > 0);
+        }
+        ucod::wgmma_commit();
+        ucod::wgmma_wait<1>();
+        if (h == 0 && kt > 0 && lane == 0) ucod::mbar_arrive(&sm.empty[(it + kStages - 1) % kStages]);
+        if (kt + 1 < kTiles2) load(nxt, kt + 1);
+        if (h == kW2Boxes - 1) ++it;
+      };
+      uint32_t fa[2][4][4];
+      load(fa[0], 0);
+#pragma unroll 1
+      for (int kt = 0; kt < kTiles2; kt += 2) {  // kTiles2 = kN / 16 is even
+        ktile(fa[0], fa[1], kt);
+        ktile(fa[1], fa[0], kt + 1);
+      }
+      ucod::wgmma_wait<0>();
+      ucod::fence_regs(acc2);
+      if (lane == 0) ucod::mbar_arrive(&sm.empty[(it + kStages - 1) % kStages]);
+      ucod::named_sync(kOutBar + c, 128);  // every warp of this consumer has loaded its codes
+      if (tid < kCluster) ucod::mbar_arrive_cluster(&sm.fc2_free, tid);
+
+      // consumer 1's partial sums through shared memory to consumer 0,
+      // which adds them to its own, rescales, rounds and stores (acc2 is
+      // rewritten only after the next tile's exchange, which consumer 0
+      // reaches after this)
+      if (c == 1) {
+#pragma unroll
+        for (int i = 0; i < kN2 / 2; ++i) sm.acc2[i * 128 + tid] = acc2[i];
+      }
+      ucod::named_sync(kFc2Bar, 128 * kConsumers);
+      if (c == 0) {
+        const int n0 = fresh(rank * kN2);
+#pragma unroll
+        for (int jj = 0; jj < kN2 / 8; ++jj) {
+          const int col = n0 + 8 * jj + 2 * tq;
+          const float2 w2 = *reinterpret_cast<const float2*>(args.w2s + col);
+          const float2 b2 = *reinterpret_cast<const float2*>(args.b2 + col);
+          const int* p = sm.acc2 + 4 * jj * 128 + tid;
+          if (r0 < rows) {
+            *reinterpret_cast<uint32_t*>(args.out + (int64_t)r0 * args.d + col) =
+                ucod::pack_bf16x2(rescale(acc2[4 * jj] + p[0], sc0, w2.x, b2.x),
+                                  rescale(acc2[4 * jj + 1] + p[128], sc0, w2.y, b2.y));
+          }
+          if (r0 + 8 < rows) {
+            *reinterpret_cast<uint32_t*>(args.out + (int64_t)(r0 + 8) * args.d + col) =
+                ucod::pack_bf16x2(rescale(acc2[4 * jj + 2] + p[256], sc1, w2.x, b2.x),
+                                  rescale(acc2[4 * jj + 3] + p[384], sc1, w2.y, b2.y));
+          }
+        }
+      }
     }
   }
-  ucod::cluster_sync();  // no CTA exits while a peer may still read its partial maxima
-  if (tid == 0) ucod::bulk_wait<0>();
+  ucod::cluster_sync();  // no CTA exits while a peer may still read its shared memory
+  if constexpr (!kK11) {
+    if (tid == 0) ucod::bulk_wait<0>();
+  }
 }
 
-// K9's main kernel at width kN: its shared memory (+ alignment slack), and
-// how many of its clusters the current card holds at once (set up once per
+// The main kernel <kN, kN2>: its shared memory (+ alignment slack), and how
+// many of its clusters the current card holds at once (set up once per
 // device; a count, or a cudaError_t negated).
-template <int kN>
+template <int kN, int kN2>
 constexpr size_t mlp_smem_bytes() {
-  return sizeof(MlpSmem<kN>) + 1024;
+  return sizeof(MlpSmem<kN, (kN2 > 0)>) + 1024;
 }
 
-template <int kN>
-int k9_clusters() {
+template <int kN, int kN2>
+int mlp_clusters() {
+  static_assert(mlp_smem_bytes<kN, kN2>() <= kMaxSmem, "K9/K11 shared memory exceeds what a block may take");
   static std::atomic<int> cache[kMaxDevices];
-  return once_per_device(cache, fc1_gelu_quant_kernel<kN>, mlp_smem_bytes<kN>(), [](int) {
+  return once_per_device(cache, mlp_kernel<kN, kN2>, mlp_smem_bytes<kN, kN2>(), [](int) {
     cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = main_config(kCluster * 64, kCluster, mlp_smem_bytes<kN>(), nullptr, &attr);
+    const cudaLaunchConfig_t cfg = main_config(kCluster * 64, kCluster, mlp_smem_bytes<kN, kN2>(), nullptr, &attr);
     int clusters = 0;
-    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, fc1_gelu_quant_kernel<kN>, &cfg);
+    const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, mlp_kernel<kN, kN2>, &cfg);
     return e == cudaSuccess ? clusters : -static_cast<int>(e);
   });
 }
@@ -697,225 +916,48 @@ int with_k9_width(int f, Fn fn) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// K11 (the first design): 16 whole rows per CTA, mma.sync
-// ---------------------------------------------------------------------------
-
-// Weight rows [n0, n0 + BN), bytes [k0, k0 + BK) of an (N, k) int8 matrix
-// into a [BN][LDW] shared tile.
-template <int BN, int BK, int LDW>
-__device__ __forceinline__ void load_w_tile(int8_t* dst, const int8_t* w, int n0, int k0, int k) {
-  constexpr int kPerRow = BK / 16;
-  for (int idx = threadIdx.x; idx < BN * kPerRow; idx += kThreads) {
-    const int r = idx / kPerRow;
-    const int c = (idx - r * kPerRow) * 16;
-    ucod::cp_async16(dst + r * LDW + c, w + (int64_t)(n0 + r) * k + k0 + c, true);
+// fn(std::integral_constant<int, kN2>()) at K11's fc2 width kN2 = d / 8 (32,
+// 64, 96, 128: d = 256, 512, 768, 1024); cudaErrorInvalidValue for any other d.
+template <typename Fn>
+int with_fc2_width(int d, Fn fn) {
+  switch (d % kCluster == 0 ? d / kCluster : 0) {
+    case 32:
+      return fn(std::integral_constant<int, 32>());
+    case 64:
+      return fn(std::integral_constant<int, 64>());
+    case 96:
+      return fn(std::integral_constant<int, 96>());
+    case 128:
+      return fn(std::integral_constant<int, 128>());
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-}
-
-constexpr int kRows = 16;
-constexpr int kChunk = 128;  // output columns per pass; warp w owns 16 of them
-constexpr int kBK2 = 64;
-constexpr int kLdw2 = kBK2 + 16;  // 80-byte rows: conflict-free ldmatrix
-
-int mlp_smem(int d, int f) {
-  return 2 * kChunk * kLdw2 + kRows * (f + 4) * 4 + kRows * (d + 16) + 2 * kRows * 4;
-}
-
-// acc = A (16 x kdim int8, shared, row stride lda bytes) times the transpose
-// of the (n_total, kdim) int8 matrix w, 128 columns at a time: after each
-// chunk epi(chunk, acc) is called with this warp's 16 x 16 block (rows g and
-// g + 8, columns chunk * 128 + 16 warp + 8 nj + 2 t, + 1).  W is streamed in
-// 64-byte K slices, double-buffered across chunk boundaries.
-template <typename Epi>
-__device__ __forceinline__ void gemm_rows16(const int8_t* a, int lda, const int8_t* __restrict__ w,
-                                            int n_total, int kdim, int8_t* wstage, Epi epi) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int k_tiles = kdim / kBK2;
-  const int stages = (n_total / kChunk) * k_tiles;
-  const int8_t* a_base = a + (lane & 15) * lda + (lane >> 4) * 16;
-  const int b_off = (warp * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLdw2 + ((lane >> 3) & 1) * 16;
-  int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-
-  load_w_tile<kChunk, kBK2, kLdw2>(wstage, w, 0, 0, kdim);
-  ucod::cp_async_commit();
-  for (int s = 0; s < stages; ++s) {
-    const int chunk = s / k_tiles;
-    const int kt = s - chunk * k_tiles;
-    if (s + 1 < stages) {
-      const int nc = (s + 1) / k_tiles;
-      load_w_tile<kChunk, kBK2, kLdw2>(wstage + ((s + 1) & 1) * kChunk * kLdw2, w, nc * kChunk,
-                                       (s + 1 - nc * k_tiles) * kBK2, kdim);
-      ucod::cp_async_commit();
-      ucod::cp_async_wait<1>();
-    } else {
-      ucod::cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int8_t* wt = wstage + (s & 1) * kChunk * kLdw2 + b_off;
-#pragma unroll
-    for (int kk = 0; kk < kBK2 / 32; ++kk) {
-      uint32_t af[4], b[4];
-      ucod::ldmatrix_x4(af, a_base + kt * kBK2 + kk * 32);
-      ucod::ldmatrix_x4(b, wt + kk * 32);
-      ucod::mma_s8_16832(acc[0], af, b[0], b[1]);
-      ucod::mma_s8_16832(acc[1], af, b[2], b[3]);
-    }
-    __syncthreads();
-    if (kt == k_tiles - 1) {
-      epi(chunk, acc);
-#pragma unroll
-      for (int nj = 0; nj < 2; ++nj) acc[nj][0] = acc[nj][1] = acc[nj][2] = acc[nj][3] = 0;
-    }
-  }
-}
-
-// K11's front: LN + quantization of 16 rows, fc1, GELU
-// into gs (f32, [16][f + 4]) and each row's max |g| into rowmax (as int bits,
-// all values >= 0).  Ends with a barrier.
-__device__ __forceinline__ void ln_fc1_gelu_rows(const __nv_bfloat16* __restrict__ x,
-                                                 const float* __restrict__ gamma,
-                                                 const float* __restrict__ beta,
-                                                 const int8_t* __restrict__ w1,
-                                                 const float* __restrict__ w1s,
-                                                 const float* __restrict__ b1, int row0, int rows,
-                                                 int d, int f, float eps, unsigned char* smem,
-                                                 float*& gs, float*& rowmax) {
-  int8_t* wstage = reinterpret_cast<int8_t*>(smem);
-  gs = reinterpret_cast<float*>(smem + 2 * kChunk * kLdw2);
-  const int ldg = f + 4;
-  int8_t* codes = reinterpret_cast<int8_t*>(gs + kRows * ldg);
-  const int ldc = d + 16;
-  float* sx = reinterpret_cast<float*>(codes + kRows * ldc);
-  rowmax = sx + kRows;
-  if (threadIdx.x < kRows) rowmax[threadIdx.x] = 0.f;
-  quantize_rows<true>(x, gamma, beta, row0, kRows, rows, d, eps, codes, ldc, sx);
-  // (gemm_rows16's first barrier orders the codes, sx and rowmax above)
-
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int warp = threadIdx.x >> 5;
-  float m0 = 0.f, m1 = 0.f;
-  float* gsl = gs;
-  gemm_rows16(codes, ldc, w1, f, d, wstage, [&](int chunk, const int (&acc)[2][4]) {
-    const float s0 = sx[g], s1 = sx[g + 8];
-#pragma unroll
-    for (int nj = 0; nj < 2; ++nj) {
-      const int c = chunk * kChunk + warp * 16 + nj * 8 + 2 * t;
-      const float wa = w1s[c], wb = w1s[c + 1], ba = b1[c], bb = b1[c + 1];
-      const float2 lo = make_float2(
-          gelu_tanh(__fadd_rn(__fmul_rn(static_cast<float>(acc[nj][0]), __fmul_rn(s0, wa)), ba)),
-          gelu_tanh(__fadd_rn(__fmul_rn(static_cast<float>(acc[nj][1]), __fmul_rn(s0, wb)), bb)));
-      const float2 hi = make_float2(
-          gelu_tanh(__fadd_rn(__fmul_rn(static_cast<float>(acc[nj][2]), __fmul_rn(s1, wa)), ba)),
-          gelu_tanh(__fadd_rn(__fmul_rn(static_cast<float>(acc[nj][3]), __fmul_rn(s1, wb)), bb)));
-      *reinterpret_cast<float2*>(gsl + g * ldg + c) = lo;
-      *reinterpret_cast<float2*>(gsl + (g + 8) * ldg + c) = hi;
-      m0 = fmaxf(m0, fmaxf(fabsf(lo.x), fabsf(lo.y)));
-      m1 = fmaxf(m1, fmaxf(fabsf(hi.x), fabsf(hi.y)));
-    }
-  });
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
-    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
-  }
-  if (t == 0) {
-    atomicMax(reinterpret_cast<int*>(rowmax + g), __float_as_int(m0));
-    atomicMax(reinterpret_cast<int*>(rowmax + g + 8), __float_as_int(m1));
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-    ln_mlp_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
-                  const float* __restrict__ beta, const int8_t* __restrict__ w1,
-                  const float* __restrict__ w1s, const float* __restrict__ b1,
-                  const int8_t* __restrict__ w2, const float* __restrict__ w2s,
-                  const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, int rows, int d,
-                  int f, float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int row0 = blockIdx.x * kRows;
-  float* gs;
-  float* rowmax;
-  ln_fc1_gelu_rows(x, gamma, beta, w1, w1s, b1, row0, rows, d, f, eps, smem, gs, rowmax);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int ldg = f + 4;
-  // g -> codes in place: row r's codes take the first f bytes of its own f32
-  // row.  A warp walks its row in 128-value steps; step j writes the bytes of
-  // values 32 j .. 32 j + 31, all read at step j or before (hence the
-  // __syncwarp between the reads and the writes of a step).
-  for (int r = warp; r < kRows; r += kWarps) {
-    const float s = row_scale(rowmax[r]);
-    float* grow = gs + r * ldg;
-    int8_t* crow = reinterpret_cast<int8_t*>(grow);
-    for (int c = lane * 4; c < f; c += 128) {
-      const float4 v = *reinterpret_cast<const float4*>(grow + c);
-      __syncwarp();
-      *reinterpret_cast<uint32_t*>(crow + c) = quantize4(v.x, v.y, v.z, v.w, s);
-      __syncwarp();
-    }
-  }
-  // (gemm_rows16's first barrier orders the codes before fc2 reads them; the
-  // weight stages were last read before ln_fc1_gelu_rows' final barrier)
-
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const float s0 = row_scale(rowmax[g]);
-  const float s1 = row_scale(rowmax[g + 8]);
-  const int r0 = row0 + g;
-  gemm_rows16(reinterpret_cast<const int8_t*>(gs), ldg * 4, w2, d, f, reinterpret_cast<int8_t*>(smem),
-              [&](int chunk, const int (&acc)[2][4]) {
-#pragma unroll
-                for (int nj = 0; nj < 2; ++nj) {
-                  const int c = chunk * kChunk + warp * 16 + nj * 8 + 2 * t;
-                  const float wa = w2s[c], wb = w2s[c + 1], ba = b2[c], bb = b2[c + 1];
-                  if (r0 < rows) {
-                    *reinterpret_cast<uint32_t*>(out + (int64_t)r0 * d + c) = ucod::pack_bf16x2(
-                        __fadd_rn(__fmul_rn(static_cast<float>(acc[nj][0]), __fmul_rn(s0, wa)), ba),
-                        __fadd_rn(__fmul_rn(static_cast<float>(acc[nj][1]), __fmul_rn(s0, wb)), bb));
-                  }
-                  if (r0 + 8 < rows) {
-                    *reinterpret_cast<uint32_t*>(out + (int64_t)(r0 + 8) * d + c) = ucod::pack_bf16x2(
-                        __fadd_rn(__fmul_rn(static_cast<float>(acc[nj][2]), __fmul_rn(s1, wa)), ba),
-                        __fadd_rn(__fmul_rn(static_cast<float>(acc[nj][3]), __fmul_rn(s1, wb)), bb));
-                  }
-                }
-              });
-}
-
-int check_mlp(int rows, int d, int f) {
-  if (rows <= 0 || d % 256 != 0 || d > 1024 || f % kChunk != 0 || mlp_smem(d, f) > kMaxSmem)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return 0;
 }
 
 // The pre-pass (LN + quantization into x_codes, x_scales), then the main
-// kernel at width kN.  Checks every shape before the first launch.
-template <int kN>
-int fc1_gelu_quant(const void* x, const void* gamma, const void* beta, const void* w1, const void* w1s,
-                   const void* b1, void* codes, void* scales, void* x_codes, void* x_scales, int rows, int d, int f,
-                   float eps, cudaStream_t s) {
+// kernel <kN, kN2>; `second`: K9's codes (rows, f), or K11's W2 (d, f).
+// Checks every shape before the first launch.
+template <int kN, int kN2>
+int mlp(const void* x, const void* gamma, const void* beta, const void* w1, const void* second, MlpArgs args,
+        int f, void* x_codes, void* x_scales, float eps, cudaStream_t s) {
   CUtensorMap tm_a, tm_w, tm_o;
+  const int rows = args.rows, d = args.d;
   if (!ucod::int8_tensor_map(&tm_a, x_codes, rows, d, kTileM) || !ucod::int8_tensor_map(&tm_w, w1, f, d, kN) ||
-      !ucod::int8_tensor_map(&tm_o, codes, rows, f, 64, kN, false)) {
+      !(kN2 == 0 ? ucod::int8_tensor_map(&tm_o, second, rows, f, 64, kN, false)
+                              : ucod::int8_tensor_map(&tm_o, second, d, f, kN2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int max_clusters = k9_clusters<kN>();
+  const int max_clusters = mlp_clusters<kN, kN2>();
   if (max_clusters <= 0) return count_error(max_clusters);
   const cudaError_t err = launch_prepass<true>(x, gamma, beta, x_codes, x_scales, rows, d, eps, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_tiles = (rows + kTileM - 1) / kTileM;
-  const int n_clusters = n_tiles < max_clusters ? n_tiles : max_clusters;
+  args.sx = static_cast<const float*>(x_scales);
+  args.n_tiles = (rows + kTileM - 1) / kTileM;
+  const int n_clusters = args.n_tiles < max_clusters ? args.n_tiles : max_clusters;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = main_config(n_clusters * kCluster, kCluster, mlp_smem_bytes<kN>(), s, &attr);
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, fc1_gelu_quant_kernel<kN>, tm_a, tm_w, tm_o,
-                                             static_cast<const float*>(x_scales), static_cast<const float*>(w1s),
-                                             static_cast<const float*>(b1), static_cast<float*>(scales), rows, d,
-                                             n_tiles));
+  const cudaLaunchConfig_t cfg =
+      main_config(n_clusters * kCluster, kCluster, mlp_smem_bytes<kN, kN2>(), s, &attr);
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, mlp_kernel<kN, kN2>, tm_a, tm_w, tm_o, args));
 }
 
 }  // namespace
@@ -962,42 +1004,49 @@ extern "C" int ucod_layernorm_fc1_gelu_w8a8(const void* x, const void* gamma, co
                                             void* x_codes, void* x_scales, int rows, int d, int f, float eps,
                                             void* stream) {
   if (rows < 1 || d % 256 != 0 || d > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const MlpArgs args = {nullptr, static_cast<const float*>(w1s), static_cast<const float*>(b1),
+                        static_cast<float*>(scales), nullptr, nullptr, nullptr, rows, d, 0};
   return with_k9_width(f, [&](auto width) {
-    return fc1_gelu_quant<decltype(width)::value>(x, gamma, beta, w1, w1s, b1, codes, scales, x_codes, x_scales,
-                                                  rows, d, f, eps, static_cast<cudaStream_t>(stream));
+    return mlp<decltype(width)::value, 0>(x, gamma, beta, w1, codes, args, f, x_codes, x_scales, eps,
+                                          static_cast<cudaStream_t>(stream));
   });
 }
 
-// For the measurement tool: the K8/K10 main kernel's shared memory, K9's
-// for an expansion f, and how many K9 clusters of kCluster CTAs the card
-// holds at once (cudaOccupancyMaxActiveClusters, as K9's launch asks it).
-extern "C" int ucod_int8_kernel_info(int f, int* gemm_smem, int* mlp_smem, int* mlp_clusters) {
+// x, gamma, beta, w1, w1s, b1 as ucod_layernorm_fc1_gelu_w8a8, then w2: int8
+// (d, f); w2s, b2: f32 (d,); out: bf16 (rows, d); x_codes, x_scales: the
+// pre-pass's scratch.  The shapes K9 takes.
+extern "C" int ucod_layernorm_mlp_w8a8(const void* x, const void* gamma, const void* beta, const void* w1,
+                                       const void* w1s, const void* b1, const void* w2, const void* w2s,
+                                       const void* b2, void* out, void* x_codes, void* x_scales, int rows, int d,
+                                       int f, float eps, void* stream) {
+  if (rows < 1 || d % 256 != 0 || d > 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const MlpArgs args = {nullptr, static_cast<const float*>(w1s), static_cast<const float*>(b1), nullptr,
+                        static_cast<const float*>(w2s), static_cast<const float*>(b2), static_cast<bf16*>(out),
+                        rows, d, 0};
+  return with_k9_width(f, [&](auto width) {
+    return with_fc2_width(d, [&](auto width2) {
+      return mlp<decltype(width)::value, decltype(width2)::value>(
+          x, gamma, beta, w1, w2, args, f, x_codes, x_scales, eps, static_cast<cudaStream_t>(stream));
+    });
+  });
+}
+
+// For the measurement tool: the K8/K10 main kernel's shared memory, K9's and
+// K11's main kernels' for d and f, and how many clusters of kCluster CTAs of
+// each the card holds at once (cudaOccupancyMaxActiveClusters, as their
+// launches ask it).
+extern "C" int ucod_int8_kernel_info(int d, int f, int* gemm_smem, int* k9_smem, int* k9_clusters, int* k11_smem,
+                                     int* k11_clusters) {
   *gemm_smem = static_cast<int>(kGemmSmemBytes);
   return with_k9_width(f, [&](auto width) {
     constexpr int kN = decltype(width)::value;
-    *mlp_smem = static_cast<int>(mlp_smem_bytes<kN>());
-    *mlp_clusters = k9_clusters<kN>();
-    return *mlp_clusters > 0 ? 0 : count_error(*mlp_clusters);
+    return with_fc2_width(d, [&](auto width2) {
+      constexpr int kN2 = decltype(width2)::value;
+      *k9_smem = static_cast<int>(mlp_smem_bytes<kN, 0>());
+      *k9_clusters = mlp_clusters<kN, 0>();
+      *k11_smem = static_cast<int>(mlp_smem_bytes<kN, kN2>());
+      *k11_clusters = mlp_clusters<kN, kN2>();
+      return *k9_clusters <= 0 ? count_error(*k9_clusters) : *k11_clusters <= 0 ? count_error(*k11_clusters) : 0;
+    });
   });
-}
-
-// x, gamma, beta, w1, w1s, b1 as ucod_layernorm_fc1_gelu_w8a8 (no scratch),
-// then w2: int8 (d, f); w2s, b2: f32 (d,); out: bf16 (rows, d).  d % 256 ==
-// 0, d <= 1024, f % 128 == 0, 16 rows of f32 GELU outputs within shared
-// memory (f <= 3072 at d = 768).
-extern "C" int ucod_layernorm_mlp_w8a8(const void* x, const void* gamma, const void* beta,
-                                       const void* w1, const void* w1s, const void* b1,
-                                       const void* w2, const void* w2s, const void* b2, void* out,
-                                       int rows, int d, int f, float eps, void* stream) {
-  if (const int bad = check_mlp(rows, d, f)) return bad;
-  const int smem = mlp_smem(d, f);
-  const cudaError_t err =
-      cudaFuncSetAttribute(ln_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  ln_mlp_kernel<<<(rows + kRows - 1) / kRows, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const int8_t*>(w1), static_cast<const float*>(w1s),
-      static_cast<const float*>(b1), static_cast<const int8_t*>(w2), static_cast<const float*>(w2s),
-      static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out), rows, d, f, eps);
-  return static_cast<int>(cudaGetLastError());
 }

@@ -107,7 +107,7 @@ def kernels() -> ctypes.CDLL:
     lib.ucod_attention_bwd.restype = i32
     lib.ucod_layernorm_qkv.argtypes = [ptr] * 13 + [i32, i32, f32, ptr]
     lib.ucod_layernorm_qkv.restype = i32
-    lib.ucod_layernorm_fc1_gelu.argtypes = [ptr] * 6 + [i32, i32, i32, f32, ptr]
+    lib.ucod_layernorm_fc1_gelu.argtypes = [ptr] * 7 + [i32, i32, i32, f32, ptr]
     lib.ucod_layernorm_fc1_gelu.restype = i32
     lib.ucod_layernorm_qkv_w8a8.argtypes = [ptr] * 17 + [i32, i32, f32, ptr]
     lib.ucod_layernorm_qkv_w8a8.restype = i32
@@ -115,7 +115,7 @@ def kernels() -> ctypes.CDLL:
     lib.ucod_quant_dense_w8a8.restype = i32
     lib.ucod_layernorm_fc1_gelu_w8a8.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
     lib.ucod_layernorm_fc1_gelu_w8a8.restype = i32
-    lib.ucod_layernorm_mlp_w8a8.argtypes = [ptr] * 10 + [i32, i32, i32, f32, ptr]
+    lib.ucod_layernorm_mlp_w8a8.argtypes = [ptr] * 12 + [i32, i32, i32, f32, ptr]
     lib.ucod_layernorm_mlp_w8a8.restype = i32
     return lib
 

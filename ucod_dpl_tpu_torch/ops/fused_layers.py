@@ -4,10 +4,11 @@ Counterpart of :mod:`ucod_dpl_tpu.ops.fused_layers` (and of the
 ``_layernorm``/``_dense`` helpers of ``ucod_dpl_tpu.models.dino``).
 :func:`layernorm_qkv` wraps the hand-written Hopper kernel K6
 (``csrc/layernorm_qkv.cu``, the port of the TPU kernel ``_lnqkv_kernel``);
-:func:`layernorm_qkv_reference` is its plain PyTorch version.  The int8
-(W8A8) kernels K8-K11 (``csrc/int8_linear.cu``) and K7, LayerNorm + fc1 +
-GELU (``csrc/layernorm_fc1_gelu.cu``), have wrappers of the JAX package's
-names below, each with its ``*_reference`` plain version.
+:func:`layernorm_qkv_reference` is its plain PyTorch version.  K7,
+LayerNorm + fc1 + GELU, is another instantiation of K6's main kernel (same
+source), and the int8 (W8A8) kernels K8-K11 are in ``csrc/int8_linear.cu``;
+each has a wrapper of the JAX package's name below and a ``*_reference``
+plain version.
 
 Parameters use PyTorch layouts: a linear is ``{"w": (out, in), "b": (out,)}``
 and a norm ``{"scale": (d,), "bias": (d,)}``, all float32.
@@ -209,8 +210,8 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def _quant_scratch(x: torch.Tensor):
-    """The quantize pre-pass's scratch of K8, K9 and K10: int8 codes (rows,
-    D) and f32 scales (rows,) of the (normalised) rows of ``x``."""
+    """The quantize pre-pass's scratch of K8-K11: int8 codes (rows, D) and
+    f32 scales (rows,) of the (normalised) rows of ``x``."""
     d = x.shape[-1]
     rows = x.numel() // d
     return (torch.empty((rows, d), dtype=torch.int8, device=x.device),
@@ -285,28 +286,21 @@ def dense_quant_w8a8(x, qp, out_dtype: torch.dtype, out=None):
 dense_quant_w8a8.launches = 0
 
 
-# K9 splits an expansion of F columns over the 16 consumer warpgroups of a
-# cluster of 8 CTAs (csrc/int8_linear.cu, kColumnParts); each runs wgmma at a
-# width its main kernel is built for.
+# K9 and K11 split an expansion of F columns over the 16 consumer warpgroups
+# of a cluster of 8 CTAs (csrc/int8_linear.cu, kColumnParts); each runs wgmma
+# at a width their main kernel is built for.
 K9_COLUMN_PARTS = 16
 K9_WIDTHS = (64, 96, 128, 192)
 
 
 def k9_width(f: int) -> int:
-    """The columns each of K9's consumer warpgroups owns for an expansion of
-    ``f``: ``f / 16``; raises for an ``f`` whose share is not a width the
-    kernel is built for (F = 1024, 1536, 2048 and 3072 are)."""
+    """The columns each of K9's (and K11's) consumer warpgroups owns for an
+    expansion of ``f``: ``f / 16``; raises for an ``f`` whose share is not a
+    width the kernel is built for (F = 1024, 1536, 2048 and 3072 are)."""
     if f % K9_COLUMN_PARTS or f // K9_COLUMN_PARTS not in K9_WIDTHS:
         raise ValueError(f"layernorm_fc1_gelu_w8a8 kernel needs an expansion of {K9_COLUMN_PARTS} x one of "
                          f"{K9_WIDTHS}; got {f}")
     return f // K9_COLUMN_PARTS
-
-
-def _k11_smem_bytes(d: int, f: int) -> int:
-    """Shared memory of K11 (``mlp_smem`` in csrc/int8_linear.cu): two
-    128 x 80-byte weight stages, 16 rows of f32 GELU outputs, 16 rows of
-    int8 codes, two 16-float vectors."""
-    return 2 * 128 * 80 + 16 * (f + 4) * 4 + 16 * (d + 16) + 2 * 16 * 4
 
 
 def _mlp_inputs(x, norm, q8_fc1, q8_fc2=None):
@@ -358,22 +352,24 @@ def layernorm_mlp_w8a8(x, norm: Params, q8_fc1, q8_fc2, eps: float, out=None):
     fc1_w8a8(quant(LN(x))))))`` in ``x.dtype``, the hidden expansion kept on
     chip; written into ``out`` when given.
 
-    CUDA tensors launch K11 (counted in ``layernorm_mlp_w8a8.launches``); CPU
-    tensors take :func:`layernorm_mlp_w8a8_reference`."""
+    CUDA tensors launch K11, its quantize pre-pass and main kernel (counted
+    once in ``layernorm_mlp_w8a8.launches``; the shapes K9 takes, the
+    expansion as :func:`k9_width` takes it), with the pre-pass's scratch
+    (:func:`_quant_scratch`); CPU tensors take
+    :func:`layernorm_mlp_w8a8_reference`."""
     if x.device.type == "cpu":
         ref = layernorm_mlp_w8a8_reference(x, norm, q8_fc1, q8_fc2, eps)
         return ref if out is None else out.copy_(ref)
     d, f, vecs, mats = _mlp_inputs(x, norm, q8_fc1, q8_fc2)
-    if f % 128 or _k11_smem_bytes(d, f) > 232448:
-        raise ValueError(f"layernorm_mlp_w8a8 kernel needs an expansion % 128 == 0 whose 16 f32 rows fit in "
-                         f"shared memory; got {f}")
+    k9_width(f)
     res = torch.empty_like(x) if out is None else out
     _check_int8_inputs("layernorm_mlp_w8a8", x, vecs, mats, [(res, x.shape, x.dtype)])
     gamma, beta, w1s, b1, w2s, b2 = (v for v, _ in vecs)
     w1, w2 = (m for m, _ in mats)
+    scratch = _quant_scratch(x)
     _launch("layernorm_mlp_w8a8", _build.kernels().ucod_layernorm_mlp_w8a8, x,
-            *(t.data_ptr() for t in (x, gamma, beta, w1, w1s, b1, w2, w2s, b2, res)), x.numel() // d, d, f,
-            float(eps))
+            *(t.data_ptr() for t in (x, gamma, beta, w1, w1s, b1, w2, w2s, b2, res, *scratch)), x.numel() // d, d,
+            f, float(eps))
     layernorm_mlp_w8a8.launches += 1
     return res
 
@@ -382,9 +378,10 @@ layernorm_mlp_w8a8.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# LayerNorm + fc1 + tanh GELU, bf16 (K7, csrc/layernorm_fc1_gelu.cu): the op
-# the JAX package exports as ``layernorm_fc1_gelu``.  No forward calls it, as
-# no forward of the JAX package does (its ViT composes LN, dense and GELU).
+# LayerNorm + fc1 + tanh GELU, bf16 (K7: K6's main kernel with one weight and
+# a GELU epilogue, csrc/layernorm_qkv.cu): the op the JAX package exports as
+# ``layernorm_fc1_gelu``.  No forward calls it, as no forward of the JAX
+# package does (its ViT composes LN, dense and GELU).
 # ---------------------------------------------------------------------------
 
 def layernorm_fc1_gelu_reference(x: torch.Tensor, norm: Params, fc1: Params, eps: float) -> torch.Tensor:
@@ -403,9 +400,10 @@ def layernorm_fc1_gelu(x: torch.Tensor, norm: Params, fc1: Params, eps: float,
     """(..., D) hidden state -> ``gelu_tanh(fc1(LN(x)))`` (..., F) in
     ``x.dtype``, written into ``out`` when given.
 
-    CUDA tensors launch K7 (counted in ``layernorm_fc1_gelu.launches``; it
-    takes bf16 activations with D % 64 == 0, D <= 1024 and F % 256 == 0); CPU
-    tensors take :func:`layernorm_fc1_gelu_reference`."""
+    CUDA tensors launch K7, K6's statistics pre-pass and main kernel (counted
+    once in ``layernorm_fc1_gelu.launches``; it takes bf16 activations with D
+    % 64 == 0, D <= 1024 and F % 256 == 0), with f32 (mean, rstd) scratch of 8
+    bytes a row; CPU tensors take :func:`layernorm_fc1_gelu_reference`."""
     if x.device.type == "cpu":
         ref = layernorm_fc1_gelu_reference(x, norm, fc1, eps)
         return ref if out is None else out.copy_(ref)
@@ -431,8 +429,9 @@ def layernorm_fc1_gelu(x: torch.Tensor, norm: Params, fc1: Params, eps: float,
     for t in (x, w, gamma, beta, b1, res):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"layernorm_fc1_gelu kernel needs contiguous, 16-byte aligned tensors on {x.device}")
+    stats = torch.empty(x.numel() // d, 2, device=x.device, dtype=torch.float32)
     _launch("layernorm_fc1_gelu", _build.kernels().ucod_layernorm_fc1_gelu, x,
-            *(t.data_ptr() for t in (x, gamma, beta, w, b1, res)), x.numel() // d, d, f, float(eps))
+            *(t.data_ptr() for t in (x, gamma, beta, w, b1, res, stats)), x.numel() // d, d, f, float(eps))
     layernorm_fc1_gelu.launches += 1
     return res
 

@@ -1,25 +1,26 @@
-"""Same-process timing of the int8 kernels K8, K9 and K10 on the card.
+"""Same-process timing of the int8 kernels K8-K11 on the card.
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
     python3 -m ucod_dpl_tpu_torch.tools.int8_ab [--parent DIR] [--variants [NAME ...]] [--sass]
 
 Always: the card's name and power limit (nvidia-smi), the main kernels'
-shared memory and how many K9 clusters the card holds at once
+shared memory and how many K9 and K11 clusters the card holds at once
 (``ucod_int8_kernel_info``, ``cudaOccupancyMaxActiveClusters``), then at
 bs16 L1370 (518px) and bs4 L2917 (756px), D 768, F 3072, bf16 activations
-and int8 weights: K8, K9 and K10 against their plain versions, interleaved;
-K8 against K6 (the bf16 LayerNorm + q/k/v kernel) on the same x, K6 on the
-same layer's bf16 weights; the int8 GEMM alone (``torch._int_mm`` of the
+and int8 weights: K8-K11 against their plain versions, interleaved; K11
+against the split MLP half (K9's kernel, then ``dense_w8a8_pre``: fc2 as
+``torch._int_mm`` and its f32 rescale), with their outputs compared bit for
+bit; K8 against K6 (the bf16 LayerNorm + q/k/v kernel) on the same x, K6 on
+the same layer's bf16 weights; the int8 GEMM alone (``torch._int_mm`` of the
 codes with the concatenated (2304, 768) q/k/v weight and with the (3072,
 768) fc1 weight: a yardstick, each kernel computes more); each kernel's
 rate; and a torch.profiler split of each kernel's two launches (quantize
 pre-pass, main kernel) at bs16 L1370.
 
-* ``--parent DIR``: K8, K9 and K10 of a parent checkout whose int8 entry
-  points take no pre-pass scratch (a tree from before the pre-pass,
-  unpacked with ``git archive``),
-  built from DIR by DIR's own ``ops/_build.py``, timed against this tree's,
+* ``--parent DIR``: K8-K11 of a parent checkout whose K8-K10 entries take
+  the pre-pass scratch and whose K11 entry takes none (K11's first design),
+  unpacked with ``git archive``, built from DIR by DIR's own ``ops/_build.py``, timed against this tree's,
   interleaved this, parent, parent, this; the outputs of the two are
   compared (the share equal, the largest difference).  Also at bs8 and bs1
   L1370, the batches of a request of 5 and of 1 image (``Predictor``'s
@@ -31,8 +32,9 @@ pre-pass, main kernel) at bs16 L1370.
   result on purpose: they show what one part costs.
 * ``--sass``: instruction counts in the SASS of the built
   ``int8_linear.o``, in all and per kernel: IGMMA (int8 wgmma), UTMALDG and
-  UTMASTG (TMA loads and stores), IMMA (mma.sync, left only in K11), and
-  each kernel's registers and spills from ``build.log`` (ptxas -v).
+  UTMASTG (TMA loads and stores), IMMA (mma.sync: none left), and each
+  kernel's registers and spills from ``build.log`` (ptxas -v), with any
+  C7514 line (a wgmma ptxas serialized).
 
 Exits 1 without a CUDA device.  Two times of each call: "by events", CUDA
 events around 20 back-to-back calls after 3 warm-ups, each the mean of its
@@ -59,7 +61,7 @@ import torch
 
 from ucod_dpl_tpu_torch.ops import _build
 from ucod_dpl_tpu_torch.ops import fused_layers as FL
-from ucod_dpl_tpu_torch.ops.quant import int8_matmul, quantize_act, quantize_linear
+from ucod_dpl_tpu_torch.ops.quant import dense_w8a8_pre, int8_matmul, quantize_act, quantize_linear
 from ucod_dpl_tpu_torch.tools.attention_ab import (
     _ab_ms,
     _chain,
@@ -92,7 +94,7 @@ def _layer(seed: int = 0):
     norm = {"scale": 1 + 0.1 * torch.randn(D, generator=g, device="cuda"),
             "bias": 0.1 * torch.randn(D, generator=g, device="cuda")}
     f32 = {name: lin(D, D) for name in ("q", "k", "v", "out")}
-    f32["fc1"] = lin(D, F)
+    f32["fc1"], f32["fc2"] = lin(D, F), lin(F, D)
     q8 = {name: quantize_linear(p) for name, p in f32.items()}
     bf16 = [{"w": f32[n]["w"].to(torch.bfloat16), "b": f32[n]["b"]} for n in "qkv"]
     return norm, q8, bf16
@@ -113,7 +115,15 @@ def _calls(x, norm, q8):
                lambda: FL.layernorm_fc1_gelu_w8a8_reference(x, norm, q8["fc1"], EPS)),
         "K10": (lambda: FL.dense_quant_w8a8(x, q8["out"], torch.bfloat16),
                 lambda: FL.dense_quant_w8a8_reference(x, q8["out"], torch.bfloat16)),
+        "K11": (lambda: FL.layernorm_mlp_w8a8(x, norm, q8["fc1"], q8["fc2"], EPS),
+                lambda: FL.layernorm_mlp_w8a8_reference(x, norm, q8["fc1"], q8["fc2"], EPS)),
     }
+
+
+def _split_half(x, norm, q8):
+    """The MLP half of the split path: K9's kernel, then fc2 as
+    ``torch._int_mm`` with its f32 rescale (``int8_mlp="split"``)."""
+    return dense_w8a8_pre(*FL.layernorm_fc1_gelu_w8a8(x, norm, q8["fc1"], EPS), q8["fc2"], torch.bfloat16)
 
 
 def _host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -132,7 +142,7 @@ def _host_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def _ops(kid: str, rows: int) -> float:
-    return 2.0 * rows * D * {"K8": 3 * D, "K9": F, "K10": D}[kid]
+    return 2.0 * rows * D * {"K8": 3 * D, "K9": F, "K10": D, "K11": 2 * F}[kid]
 
 
 def _compare(a, b) -> dict:
@@ -146,13 +156,14 @@ def _compare(a, b) -> dict:
 
 def info(results: dict) -> None:
     fn = _build.kernels().ucod_int8_kernel_info
-    fn.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
-    gemm, mlp, clusters = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    _build.check_cuda(fn(F, ctypes.byref(gemm), ctypes.byref(mlp), ctypes.byref(clusters)), "int8 kernel info")
-    results["info"] = {"K8/K10 main smem": gemm.value, "K9 main smem": mlp.value,
-                       "K9 clusters at once": clusters.value}
-    _log(f"shared memory: K8/K10 main kernel {gemm.value} bytes, K9 main kernel (F {F}) {mlp.value} bytes; "
-         f"K9 clusters the card holds at once: {clusters.value}")
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 5
+    vals = [ctypes.c_int() for _ in range(5)]
+    _build.check_cuda(fn(D, F, *(ctypes.byref(v) for v in vals)), "int8 kernel info")
+    gemm, k9, k9_clusters, k11, k11_clusters = (v.value for v in vals)
+    results["info"] = {"K8/K10 main smem": gemm, "K9 main smem": k9, "K9 clusters at once": k9_clusters,
+                       "K11 main smem": k11, "K11 clusters at once": k11_clusters}
+    _log(f"shared memory: K8/K10 main kernel {gemm} bytes, K9 main kernel (F {F}) {k9} bytes, K11 main kernel "
+         f"(D {D}, F {F}) {k11} bytes; clusters the card holds at once: K9 {k9_clusters}, K11 {k11_clusters}")
 
 
 def kernels_vs_plain(results: dict) -> None:
@@ -177,9 +188,14 @@ def kernels_vs_plain(results: dict) -> None:
                            "K6_device_ms": _device_ms(k6)}
         row["int_mm qkv"] = _device_ms(lambda: int8_matmul(codes, w_qkv))
         row["int_mm fc1"] = _device_ms(lambda: int8_matmul(codes, q8["fc1"]["w_q"]))
+        k11 = _calls(x, norm, q8)["K11"][0]
+        split_ms, k11_ms = _ab_ms(lambda x=x: _split_half(x, norm, q8), k11)
+        row["K11 vs split"] = {"K11_ms": k11_ms, "split_ms": split_ms, "K11_device_ms": row["K11"]["device_ms"],
+                               "split_device_ms": _device_ms(lambda x=x: _split_half(x, norm, q8)),
+                               **_compare(k11(), _split_half(x, norm, q8))}
         results[f"bs{b} L{l}"] = row
         _log(f"bs{b} L{l} D{D} F{F}:")
-        for kid in ("K8", "K9", "K10"):
+        for kid in ("K8", "K9", "K10", "K11"):
             r = row[kid]
             _log(f"  {kid}: kernel {r['device_ms']:.4f} ms device ({r['tops']:.1f} TOP/s, "
                  f"{r['tops'] * 1e12 / PEAK_INT8:.3f} of the int8 peak), {r['ms']:.4f} ms by events through the "
@@ -191,6 +207,10 @@ def kernels_vs_plain(results: dict) -> None:
              f"{rows}x768 . 768x2304 {row['int_mm qkv']:.4f} ms "
              f"({_ops('K8', rows) / row['int_mm qkv'] / 1e9:.1f} TOP/s), 768x3072 {row['int_mm fc1']:.4f} ms "
              f"({_ops('K9', rows) / row['int_mm fc1'] / 1e9:.1f} TOP/s)")
+        k = row["K11 vs split"]
+        _log(f"  K11 {k['K11_device_ms']:.4f} ms device ({k['K11_ms']:.4f} by events) against the split MLP half "
+             f"(K9 + dense_w8a8_pre) {k['split_device_ms']:.4f} ms device ({k['split_ms']:.4f} by events); "
+             f"outputs equal {k['equal']:.6f}, largest difference {k['max_abs_diff']:.4g}")
 
 
 def trace(results: dict) -> None:
@@ -217,7 +237,7 @@ def trace(results: dict) -> None:
 def _entry_call(kid: str, fn, x, norm, q8, scratch: bool = True):
     """A call of the C entry ``fn`` of kernel ``kid`` on this layer, returning
     its outputs; ``scratch``: the entry takes the pre-pass's scratch (this
-    tree's interface; a parent from before the pre-pass takes none)."""
+    tree's interface; the parent's K11 takes none)."""
     rows = x.numel() // D
 
     def ptrs(*ts):
@@ -237,6 +257,11 @@ def _entry_call(kid: str, fn, x, norm, q8, scratch: bool = True):
             fc1 = q8["fc1"]
             err = fn(*ptrs(x, norm["scale"], norm["bias"], fc1["w_q"], fc1["w_s"], fc1["b"], *res), *extra, rows, D,
                      F, EPS, _stream())
+        elif kid == "K11":
+            res = torch.empty_like(x)
+            fc1, fc2 = q8["fc1"], q8["fc2"]
+            err = fn(*ptrs(x, norm["scale"], norm["bias"], fc1["w_q"], fc1["w_s"], fc1["b"], fc2["w_q"], fc2["w_s"],
+                           fc2["b"], res), *extra, rows, D, F, EPS, _stream())
         else:
             res = torch.empty_like(x)
             p = q8["out"]
@@ -247,7 +272,8 @@ def _entry_call(kid: str, fn, x, norm, q8, scratch: bool = True):
     return run
 
 
-_ENTRY = {"K8": "ucod_layernorm_qkv_w8a8", "K9": "ucod_layernorm_fc1_gelu_w8a8", "K10": "ucod_quant_dense_w8a8"}
+_ENTRY = {"K8": "ucod_layernorm_qkv_w8a8", "K9": "ucod_layernorm_fc1_gelu_w8a8", "K10": "ucod_quant_dense_w8a8",
+          "K11": "ucod_layernorm_mlp_w8a8"}
 
 
 def _ab(base, other) -> dict:
@@ -265,9 +291,9 @@ def parent_ab(parent: Path, results: dict) -> None:
     _log(f"parent {parent} against this tree (interleaved this, parent, parent, this; both through their C entries):")
     for b, l in SHAPES + ((8, 1370), (1, 1370)):
         x = _x(b, l)
-        for kid in ("K8", "K9", "K10"):
+        for kid in ("K8", "K9", "K10", "K11"):
             r = _ab(_entry_call(kid, getattr(kernels, _ENTRY[kid]), x, norm, q8),
-                    _entry_call(kid, getattr(lib, _ENTRY[kid]), x, norm, q8, scratch=False))
+                    _entry_call(kid, getattr(lib, _ENTRY[kid]), x, norm, q8, scratch=kid != "K11"))
             results[f"parent {kid} bs{b} L{l}"] = r
             _log(f"  bs{b} L{l} {kid}: by events parent {r['ms']:.4f} ms, this {r['this_ms']:.4f} "
                  f"({r['ms'] / r['this_ms']:.3f}x); device parent {r['device_ms']:.4f} ms, this "
@@ -277,9 +303,17 @@ def parent_ab(parent: Path, results: dict) -> None:
 
 # name -> (source file, what it changes, edit); the kernels each one is timed on in VARIANT_KERNELS
 VARIANTS = {
-    "k9_grid": ("int8_linear.cu", "K9: one row tile per cluster (not persistent)",
-                _sub("const int n_clusters = n_tiles < max_clusters ? n_tiles : max_clusters;",
-                     "const int n_clusters = n_tiles;")),
+    "k11_local_codes": ("int8_linear.cu", "diagnostic: K11's fc2 A fragments from the CTA's own codes (no "
+                        "distributed shared memory traffic)",
+                        _sub("ucod::map_shared_cluster(sm.codes + row_off + ((col + 16 * tq) ^ xr), q);",
+                             "ucod::map_shared_cluster(sm.codes + row_off + ((col + 16 * tq) ^ xr), rank + 0 * q);")),
+    "k11_w2_one_box": ("int8_linear.cu", "K11's all-gather streams W2 in stages of one 128-byte K box a consumer, "
+                       "not two", _sub("kN2 * kBlockK ? 2 : 1;", "kN2 * kBlockK ? 1 : 1;")),
+    "k11_no_fc2_loads": ("int8_linear.cu", "diagnostic: K11's fc2 A fragments loaded once a tile, not per stage",
+                         _sub("        if (kt + 1 < kTiles2) load(nxt, kt + 1);\n", "")),
+    "k9_grid": ("int8_linear.cu", "K9 and K11: one row tile per cluster (not persistent)",
+                _sub("const int n_clusters = args.n_tiles < max_clusters ? args.n_tiles : max_clusters;",
+                     "const int n_clusters = args.n_tiles;")),
     "stages2": ("int8_linear.cu", "two-stage rings",
                 _sub("constexpr int kStages = 3;", "constexpr int kStages = 2;")),
     "k8_grid": ("int8_linear.cu", "K8/K10: one CTA per work tile (not persistent)",
@@ -287,9 +321,10 @@ VARIANTS = {
     "k8_no_store": ("int8_linear.cu", "diagnostic: K8/K10 outputs staged but not stored",
                     _sub("for (int a = 0; a < kBlockN / 64; ++a) ucod::tma_store_3d(tm_o, sm.out[c][a], n0 + 64 * a, m0, 0);",
                          "(void)tm_o;")),
-    "k9_no_gelu": ("int8_linear.cu", "diagnostic: K9 without the tanh GELU (g = h1)",
+    "k9_no_gelu": ("int8_linear.cu", "diagnostic: K9 and K11 without the tanh GELU (g = h1)",
                    _sub("= gelu_tanh(rescale(", "= (rescale(")),
-    "k9_no_exchange": ("int8_linear.cu", "diagnostic: K9's row maxima from its own CTA only, no cluster exchange",
+    "k9_no_exchange": ("int8_linear.cu", "diagnostic: K9's and K11's row maxima from their own CTA only, no "
+                       "cluster exchange",
                        _chain(_sub("    if (ct < kCluster) ucod::mbar_arrive_cluster(&sm.maxima[j & 1], ct);\n", ""),
                               _sub("      ucod::mbar_wait_cluster(&sm.maxima[j & 1], (j >> 1) & 1);\n", ""),
                               _sub("ucod::ld_shared_cluster_f32(&part[0][ct], q)", "part[0][ct]"),
@@ -297,8 +332,10 @@ VARIANTS = {
     "k9_no_store": ("int8_linear.cu", "diagnostic: K9's codes staged but not stored",
                     _sub("      ucod::tma_store_3d(&tm_o, stage, col0 + c * kN, m0, 0);\n", "")),
 }
-VARIANT_KERNELS = {"k9_grid": ("K9",), "stages2": ("K8", "K9"), "k8_grid": ("K8", "K10"), "k8_no_store": ("K8",),
-                   "k9_no_gelu": ("K9",), "k9_no_exchange": ("K9",), "k9_no_store": ("K9",)}
+VARIANT_KERNELS = {"k11_local_codes": ("K11",), "k11_no_fc2_loads": ("K11",),
+                   "k11_w2_one_box": ("K11",), "k9_grid": ("K9", "K11"), "stages2": ("K8", "K9", "K11"),
+                   "k8_grid": ("K8", "K10"), "k8_no_store": ("K8",), "k9_no_gelu": ("K9", "K11"),
+                   "k9_no_exchange": ("K9", "K11"), "k9_no_store": ("K9",)}
 
 
 def variants(results: dict, names=None) -> None:
@@ -325,11 +362,17 @@ def variants(results: dict, names=None) -> None:
 
 
 def registers(results: dict) -> None:
-    """Registers and spills of the int8 kernels, from ptxas -v in build.log."""
+    """Registers and spills of the int8 kernels, from ptxas -v in build.log,
+    and any C7514 line (ptxas serialized a wgmma)."""
     text = (_build.build_dir() / "build.log").read_text()
+    serialized = [line for line in text.splitlines() if "C7514" in line]
+    results["ptxas C7514 lines"] = len(serialized)
+    _log(f"ptxas C7514 (wgmma serialized) lines in build.log: {len(serialized)}")
+    for line in serialized[:8]:
+        _log(f"  {line}")
     for m in re.finditer(r"Compiling entry function '(\w+)'.*?\n(.*?)\n(.*?Used (\d+) registers.*?)\n", text, re.S):
         name, spills, regs = m.group(1), m.group(2).strip(), m.group(4)
-        kernel = re.search(r"((?:quant_gemm|fc1_gelu_quant|quantize_rows|ln_mlp)_kernel)(I(?:L[a-z]+\d+E)+E)?", name)
+        kernel = re.search(r"((?:quant_gemm|mlp|quantize_rows)_kernel)(I(?:L[a-z]+\d+E)+E)?", name)
         if kernel:
             label = kernel.group(1) + (kernel.group(2) or "")
             results[f"ptxas {label}"] = {"registers": int(regs), "spills": spills}
