@@ -85,7 +85,23 @@ Phases (each raises on failure; any failure exits non-zero):
      through K7 (11 launches), and timing (by events and by the card's
      own time) of K7 against its plain version and against LN + dense +
      GELU as the layer composes them, and of one layer's MLP half with K7
-     against the composed one.
+     against the composed one;
+  K. the eval entry: ``ucod_dpl_tpu_torch.cli.eval_main`` on
+     configs/uscod/UCOD-DPL_dinov2.py (seeded random dinov2-base, 518px,
+     bf16; a seeded decoder checkpoint) over a synthetic RefCOD layout of 32
+     JPEG images at 480x640, 600x800 and 720x1280 with one ground-truth blob
+     each, ``look_twice_th`` 0.95 (the crop path): the first run builds the
+     feature cache (4 batches of 8) and K1 and K6 launch 11 times per
+     backbone forward (cache batches and crop batches), nothing else; 32
+     finite (37, 37, 768) float32 cache entries, 32 masks at their
+     ground-truth sizes, nine metrics finite in [0, 1]; a second run reads
+     the cache (crop batches only) to the same metrics; the cached features
+     of 4 images no further from the f32 plain path than the bf16 plain
+     path is (err <= 1.5 * err_plain + 1e-3); host-clock cache-build and
+     eval img/s, the eval's time by stage, the crop count, a profiler split
+     of one cache-build batch and the device's busy share of an eval from
+     the cache.  The kernels line's K1/K6 launches are this phase's first
+     run's (the serving phase's beside them).
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -100,7 +116,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import json
+import os
 import subprocess
 import sys
 import time
@@ -1310,12 +1328,201 @@ def phase_k5_timing(gen, dev) -> dict:
     return out
 
 
+# Phase K: the synthetic RefCOD layout of the eval entry (COD-like image
+# sizes, one ground-truth blob each), written in JPEG/PNG through Pillow.
+EVAL_IMAGES = 32
+EVAL_SIZES = ((480, 640), (600, 800), (720, 1280))
+EVAL_CACHE_BATCH = 8  # CODDataset's default cache_build_batch
+EVAL_KEYS = ("ACC", "mIOU", "E_MAX", "E_MEAN", "F_MAX", "F_MEAN", "SMeasure", "MAE", "WFM")
+
+
+def _host_stack() -> str:
+    """The host packages the eval path reads files with, and whether the
+    native image pipe (``native/imagepipe.cpp``, its resize) builds here."""
+    import importlib
+
+    parts = []
+    for mod in ("PIL", "safetensors", "yaml", "scipy"):
+        try:
+            parts.append(f"{mod} {importlib.import_module(mod).__version__}")
+        except ImportError:
+            parts.append(f"{mod} missing")
+    from ucod_dpl_tpu_torch.utils import native
+
+    built = native.get_imagepipe_lib() is not None
+    parts.append("native image pipe " + ("built" if built else "not built (Pillow resizes)"))
+    return ", ".join(parts)
+
+
+def _write_eval_dataset(root: str, seed: int) -> list:
+    """``root/SYN/{im,gt}``: smooth seeded colour fields with one tinted
+    elliptic blob, and the blob as the ground truth."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed + 20)
+    im_dir, gt_dir = os.path.join(root, "SYN", "im"), os.path.join(root, "SYN", "gt")
+    os.makedirs(im_dir)
+    os.makedirs(gt_dir)
+    sizes = []
+    for i in range(EVAL_IMAGES):
+        h, w = EVAL_SIZES[i % len(EVAL_SIZES)]
+        coarse = (rng.random((h // 40, w // 40, 3)) * 255).astype(np.uint8)
+        img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC)).astype(np.float32)
+        yy, xx = np.mgrid[:h, :w]
+        cy, cx = rng.uniform(0.3, 0.7) * h, rng.uniform(0.3, 0.7) * w
+        ry, rx = rng.uniform(0.08, 0.25) * h, rng.uniform(0.08, 0.25) * w
+        blob = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
+        img[blob] = img[blob] * 0.8 + rng.uniform(0, 255, 3) * 0.2
+        Image.fromarray(img.astype(np.uint8)).save(os.path.join(im_dir, f"{i:03d}.jpg"), quality=90)
+        Image.fromarray(blob.astype(np.uint8) * 255).save(os.path.join(gt_dir, f"{i:03d}.png"))
+        sizes.append((h, w))
+    return sizes
+
+
+def phase_eval(seed: int, dev, smi: str) -> dict:
+    """Phase K: ``cli.eval_main`` on configs/uscod/UCOD-DPL_dinov2.py over a
+    32-image synthetic dataset on the card, twice (the first run builds the
+    feature cache, the second reads it), with its launch counts, outputs,
+    cached-feature accuracy, host-clock rates and a profiler split."""
+    import shutil
+
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.data.transforms import load_image_batch_transform
+    from ucod_dpl_tpu_torch.models.dba import init_rev_decoder, rev_decoder_forward_resized
+    from ucod_dpl_tpu_torch.models.safetensors_io import save_decoder_checkpoint
+    from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
+
+    _log(f"eval entry: host stack: {_host_stack()}")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_eval")
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    sizes = _write_eval_dataset(os.path.join(root, "RefCOD"), seed)
+    _log(f"  dataset: {EVAL_IMAGES} images at {sorted(set(sizes))}, written in {time.perf_counter() - t0:.2f} s")
+    paths = sorted(glob.glob(os.path.join(root, "RefCOD", "SYN", "im", "*.jpg")))
+
+    # the seeded decoder, its fg bias moved to the 60th percentile of its
+    # logits on the first cache batch (the eval's own seeded backbone), so
+    # that its masks mix foreground and background and the crop path runs
+    fe_cfg = _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None)
+    fe = FeatureExtractor(fe_cfg, device=dev, seed=0, strict=False)
+    decoder = init_rev_decoder(seed + 1, SERVE_DIM)
+    batch = load_image_batch_transform(paths[:EVAL_CACHE_BATCH], (518, 518))
+    with torch.inference_mode():
+        fg, _, _ = rev_decoder_forward_resized(decoder, torch.from_numpy(fe.extract(batch)), 68)
+    decoder = decoder._replace(conv_out_fg_b=decoder.conv_out_fg_b - torch.quantile(fg.flatten(), 0.6))
+    ckpt = os.path.join(root, "decoder.safetensors")
+    save_decoder_checkpoint(ckpt, decoder, init_rev_decoder(seed + 2, SERVE_DIM))
+
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    argv = ["-c", "configs/uscod/UCOD-DPL_dinov2.py", "--load_from", ckpt, "--datasets", "SYN",
+            "--work_dir", os.path.join(root, "work_dir"), "--opts",
+            "dataset_cfg.dataset_dir", os.path.join(root, "RefCOD"),
+            "dataset_cfg.cache_dir", os.path.join(root, "cache"),
+            "log_cfg.log_path", os.path.join(root, "logs"), "val_cfg.look_twice_th", "0.95"]
+    depth = fe.config.num_layers
+    out = {}
+    for run in ("first", "second"):
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        runner = cli.eval_main(argv)["SYN"]
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+        ev, ds = runner.evaluator, runner.val_dataset
+        cache = ds.caches.get("features")
+        # the first run builds the cache (batches of 8) and the second reads it
+        forwards = ev.crop_batches + (-(-EVAL_IMAGES // EVAL_CACHE_BATCH) if run == "first" else 0)
+        want = {**{k: 0 for k in counts}, "K1": (depth - 1) * forwards, "K6": (depth - 1) * forwards}
+        _log(f"  {run} run: {secs:.3f} s host clock in all, cache build "
+             + (f"{ds.build_seconds:.3f} s ({EVAL_IMAGES / ds.build_seconds:.2f} img/s)" if ds.build_seconds
+                else "none (read)")
+             + f", eval sweep {ev.seconds:.3f} s ({EVAL_IMAGES / ev.seconds:.2f} img/s), {ev.crops} LookTwice "
+             f"crops in {ev.crop_batches} backbone calls, launches {launches} [{smi}]")
+        _log("    eval sweep by stage, host clock: " + ", ".join(f"{k} {v:.3f} s" for k, v in ev.split.items()))
+        if launches != want:
+            raise AssertionError(f"eval {run} run: launches {launches}, expected {want}")
+        if (ds.build_seconds is None) != (run == "second"):
+            raise AssertionError(f"eval {run} run: cache build {ds.build_seconds}")
+        if cache.mode != "r" or len(cache) != EVAL_IMAGES:
+            raise AssertionError(f"eval {run} run: feature cache mode {cache.mode}, {len(cache)} entries")
+        if ev.crops == 0:
+            raise AssertionError(f"eval {run} run: no LookTwice crop (look_twice_th 0.95 should force them)")
+        result = ev.result
+        if set(result) != set(EVAL_KEYS) or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in result.values()):
+            raise AssertionError(f"eval {run} run: result {result}")
+        _log(f"    result {result}")
+        out[run] = dict(secs=secs, launches=launches, build_s=ds.build_seconds, eval_s=ev.seconds,
+                        crops=ev.crops, crop_batches=ev.crop_batches, result=result, split=dict(ev.split))
+    if out["second"]["result"] != out["first"]["result"]:
+        raise AssertionError(f"eval from the cache: {out['second']['result']} != {out['first']['result']}")
+
+    # what the first run wrote: 32 finite cache entries of the JAX package's
+    # shape, 32 masks at their ground-truth sizes
+    grid = 518 // fe.config.patch_size
+    feats = [cache.read(i) for i in range(EVAL_IMAGES)]
+    if any(f.shape != (grid, grid, SERVE_DIM) or f.dtype != np.float32 or not np.isfinite(f).all() for f in feats):
+        raise AssertionError("feature cache: an entry of the wrong shape or dtype, or not finite")
+    from PIL import Image
+
+    preds = os.path.join(root, "logs", "preds", "SYN")
+    masks = sorted(os.listdir(preds))
+    got_sizes = [Image.open(os.path.join(preds, m)).size[::-1] for m in masks]
+    if masks != [f"{i:03d}.png" for i in range(EVAL_IMAGES)] or got_sizes != sizes:
+        raise AssertionError(f"masks: {masks[:3]}... at {got_sizes[:3]}...")
+    _log(f"  cache: {EVAL_IMAGES} finite float32 entries of {feats[0].shape}; {len(masks)} masks at their "
+         "ground-truth sizes")
+
+    # accuracy: the cached features (the kernels, bf16) of 4 images against
+    # the f32 plain path, beside the bf16 plain path
+    images = load_image_batch_transform(paths[:4], (518, 518))
+    f32 = FeatureExtractor(fe_cfg, device=dev, compute_dtype=torch.float32, seed=0, strict=False)
+    ref = _features_plain(f32, images, f32.params, torch.float32)
+    del f32
+    err_plain = (_features_plain(fe, images, fe.params, torch.bfloat16) - ref).abs().max().item()
+    err = (torch.from_numpy(np.stack(feats[:4])).to(dev) - ref).abs().max().item()
+    bound = 1.5 * err_plain + 1e-3
+    _log(f"  cached features bs4 vs f32 plain: max_abs_err {err:.6g}, bf16 plain {err_plain:.6g}, bound "
+         f"{bound:.6g} (max |f32| {ref.abs().max().item():.4g})")
+    if not (np.isfinite(err) and err <= bound):
+        raise AssertionError(f"cached features error {err} exceeds {bound}")
+    out["err"], out["err_plain"] = err, err_plain
+
+    # where a cache-build batch's time goes: the host decode (by host clock)
+    # and the extract on the card (profiler)
+    t0 = time.perf_counter()
+    batch = load_image_batch_transform(paths[:EVAL_CACHE_BATCH], (518, 518))
+    decode_s = time.perf_counter() - t0
+    _log(f"  cache-build batch of {EVAL_CACHE_BATCH}: host decode + resize + normalise {decode_s * 1e3:.1f} ms "
+         f"host clock [{smi}]")
+    out["decode_ms"] = decode_s * 1e3
+    _trace(lambda: fe.extract(batch), f"one cache-build batch (FeatureExtractor.extract, {EVAL_CACHE_BATCH} x "
+           f"518px, host copies included) [{smi}]")
+    # and the eval sweep from the cache: the device's share of its wall
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        cli.eval_main(argv)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    _log(f"  trace of the eval entry from the cache: {busy:.3f} ms of kernel time in {wall:.3f} ms of host wall "
+         f"under the profiler, device busy {busy / wall:.4f} [{smi}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        _log(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  {e.key[:100]}")
+    out["busy"] = busy / wall
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
     args = parser.parse_args(argv)
 
-    phase_device()
+    smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1343,6 +1550,9 @@ def main(argv=None) -> int:
     k5_times = phase_k5_timing(gen, dev)
     tp = phase_tp(args.seed, dev, _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None))
     k7 = phase_k7(gen, dev, fe8)
+    del fe8
+    torch.cuda.empty_cache()
+    evalk = phase_eval(args.seed, dev, smi)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
@@ -1371,6 +1581,11 @@ def main(argv=None) -> int:
         "k11_ms": int8_times["K11"][0], "k11_split_half_ms": int8_times["K11_vs_split"][1],
         "k11_device_ms": int8_times["K11_vs_split_device"][0],
         "k11_split_half_device_ms": int8_times["K11_vs_split_device"][1],
+        "eval_cache_build_img_per_s": EVAL_IMAGES / evalk["first"]["build_s"],
+        "eval_img_per_s": EVAL_IMAGES / evalk["first"]["eval_s"],
+        "eval_from_cache_img_per_s": EVAL_IMAGES / evalk["second"]["eval_s"],
+        "eval_look_twice_crops": evalk["first"]["crops"], "eval_device_busy": evalk["busy"],
+        "eval_cached_features_max_abs_err": evalk["err"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -1400,8 +1615,11 @@ def main(argv=None) -> int:
 
     attn, fused = "ucod_dpl_tpu/ops/attention.py", "ucod_dpl_tpu/ops/fused_layers.py"
     _log(json.dumps({"kernels": [
-        entry("K1", "packed attention forward", "attention_fwd.cu", f"{attn}:87", launches["K1"], k1_err,
-              *times["K1"], times["sdpa_fwd"]),
+        # K1 and K6: launches on the eval entry's first run (cache build and
+        # crop pass), beside those of the serving phase
+        entry("K1", "packed attention forward", "attention_fwd.cu", f"{attn}:87",
+              evalk["first"]["launches"]["K1"], k1_err, *times["K1"], times["sdpa_fwd"],
+              serving_launches=launches["K1"]),
         entry("K2", "attention forward with log-sum-exp", "attention_fwd.cu", f"{attn}:309",
               train_launches["fwd_lse"], grad_err["fwd_lse"], *train_times["fwd_lse"], times["sdpa_fwd"]),
         entry("K3", "attention backward from the log-sum-exp (one backward with K4)", "attention_bwd.cu",
@@ -1413,8 +1631,8 @@ def main(argv=None) -> int:
         entry("K5", "per-head attention forward (the forward kernel at 3 heads a shard)", "attention_fwd.cu",
               f"{attn}:30", tp["launches model=4"]["K1"], k5_err, *(k5_times["tp-shard"][key] for key in
                                                                      ("ms", "plain_ms", "library_ms"))),
-        entry("K6", "fused LayerNorm + q/k/v", "layernorm_qkv.cu", f"{fused}:33", launches["K6"], k6_err,
-              *times["K6"]),
+        entry("K6", "fused LayerNorm + q/k/v", "layernorm_qkv.cu", f"{fused}:33",
+              evalk["first"]["launches"]["K6"], k6_err, *times["K6"], serving_launches=launches["K6"]),
         entry("K7", "fused LayerNorm + fc1 + GELU (K6's main kernel)", "layernorm_qkv.cu", f"{fused}:86",
               k7["launches"], k7["err"], k7["ms"], k7["plain_ms"], device_ms=k7["device_ms"]["K7"],
               plain_device_ms=k7["device_ms"]["plain"]),

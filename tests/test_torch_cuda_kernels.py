@@ -1,7 +1,8 @@
 """Card-only checks of the port's CUDA kernels at edge shapes: the attention
 forward (K1 at every head dim and head count, also with its log-sum-exp
 output, and on the per-head layout, K5), the attention backward, K6, K7
-(LayerNorm + fc1 + GELU) and the int8 kernels K8-K11.
+(LayerNorm + fc1 + GELU) and the int8 kernels K8-K11; and the eval entry
+(``cli.eval_main``) at a small width, by its K1/K6 launches.
 
 Marked ``cuda``: they skip without a CUDA device (the decision is made in a
 fixture, at run time).  On a card::
@@ -17,6 +18,8 @@ phase D: codes within one step and at least 99% equal, scales within rtol
 one bf16 ulp of the row's max|plain|; K11 equal bit for bit to the split
 kernel path (K9's kernel, then ``dense_w8a8_pre``).
 """
+
+import os
 
 import pytest
 import torch
@@ -483,3 +486,49 @@ def test_layernorm_fc1_gelu_writes_no_row_past_the_last(dev):
         assert torch.isfinite(out).all()
         assert (out.float() - ref).abs().max().item() <= 0.02 * ref.abs().max().item()
         assert torch.isnan(buf[rows:].float()).all()
+
+
+def test_eval_entry_launches_k1_and_k6_per_forward(dev, tmp_path):
+    """``cli.eval_main`` on the card over 3 images at a small width (256 wide,
+    4 heads of 64, 3 layers, 56px): the cache build and every LookTwice crop
+    batch each launch K1 and K6 twice (every layer but the last), nothing
+    else launches, and a second run reads the cache (crop passes only) to
+    the same metrics."""
+    import numpy as np
+    from PIL import Image
+
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.ops.attention import heads_attention, packed_attention_bwd, packed_attention_fwd_lse
+    from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_fc1_gelu
+
+    rng = np.random.default_rng(0)
+    for sub in ("im", "gt"):
+        (tmp_path / "RefCOD" / "SYN" / sub).mkdir(parents=True)
+    for i, (h, w) in enumerate(((48, 64), (60, 80), (72, 128))):
+        Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(tmp_path / "RefCOD" / "SYN" / "im" / f"{i}.jpg")
+        mask = np.zeros((h, w), np.uint8)
+        mask[h // 4 : h // 2, w // 4 : w // 2] = 255
+        Image.fromarray(mask).save(tmp_path / "RefCOD" / "SYN" / "gt" / f"{i}.png")
+    arch = {"hidden_size": 256, "num_layers": 3, "num_heads": 4, "patch_size": 14, "image_size": 56}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (tmp_path / "tiny.py").write_text(
+        f"cfg = dict(_BASE_=[{os.path.join(repo, 'configs', 'uscod', 'UCOD-DPL_dinov2.py')!r}], "
+        f"model_cfg=dict(dim=256, feature_size=8), dataset_cfg=dict(feature_extractor_cfg=dict(arch={arch!r})))\n")
+    argv = ["-c", str(tmp_path / "tiny.py"), "--work_dir", str(tmp_path / "wd"), "--datasets", "SYN", "--opts",
+            "dataset_cfg.dataset_dir", str(tmp_path / "RefCOD"), "dataset_cfg.cache_dir", str(tmp_path / "cache"),
+            "dataset_cfg.valset_cfg.image_size", "(56, 56)", "val_cfg.look_twice_th", "0.95"]
+    wrappers = (packed_attention, layernorm_qkv, heads_attention, packed_attention_fwd_lse, packed_attention_bwd,
+                layernorm_fc1_gelu, FL.layernorm_qkv_w8a8, FL.layernorm_fc1_gelu_w8a8, FL.dense_quant_w8a8,
+                FL.layernorm_mlp_w8a8)
+    results = []
+    for cache_batches in (1, 0):  # the first run builds the cache in one batch of 3, the second reads it
+        for fn in wrappers:
+            fn.launches = 0
+        runner = cli.eval_main(argv)["SYN"]
+        forwards = cache_batches + runner.evaluator.crop_batches
+        assert packed_attention.launches == layernorm_qkv.launches == 2 * forwards
+        assert not any(fn.launches for fn in wrappers[2:])
+        result = runner.evaluator.result
+        assert all(np.isfinite(v) and 0 <= v <= 1 for v in result.values())
+        results.append(result)
+    assert results[0] == results[1]

@@ -178,26 +178,33 @@ def test_decoder_checkpoints_cross_load(tiny, tmp_path):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, loading a config, reading an image
-    from a path for a request and running the LookTwice helpers must import
-    nothing of jax (an import of jax is made to fail outright) and nothing of
-    the JAX package ``ucod_dpl_tpu``, not even its jax-free modules."""
+    from a path for a request, running the LookTwice helpers and running the
+    eval entry end to end on the CPU (``cli.eval_main``: runner, dataset cache
+    build, evaluator, metrics) must import nothing of jax and nothing of the
+    JAX package ``ucod_dpl_tpu``, not even its jax-free modules: an import of
+    either is made to fail outright."""
     code = (
         "import glob, os, sys, tempfile, types\n"
         "import numpy as np\n"
         "for m in [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]:\n"
         "    del sys.modules[m]\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ucod_dpl_tpu'] = None\n"
         "def jax_package():\n"
-        "    return sorted(m for m in sys.modules if m == 'ucod_dpl_tpu' or m.startswith('ucod_dpl_tpu.'))\n"
+        "    return sorted(m for m in sys.modules if (m == 'ucod_dpl_tpu' or m.startswith('ucod_dpl_tpu.'))\n"
+        "                  and sys.modules[m] is not None)\n"
         "import ucod_dpl_tpu_torch\n"
         "from ucod_dpl_tpu_torch import serving\n"
         "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, quant, resize\n"
         "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io\n"
         "from ucod_dpl_tpu_torch.data import feature_extractor, transforms\n"
-        "from ucod_dpl_tpu_torch.engine import eval_loop, train_step\n"
-        "from ucod_dpl_tpu_torch.parallel import mesh, tp\n"
+        "from ucod_dpl_tpu_torch.data import dataset\n"
+        "from ucod_dpl_tpu_torch.engine import eval_loop, preempt, runner, train_step\n"
+        "from ucod_dpl_tpu_torch.parallel import distributed, mesh, tp\n"
         "from ucod_dpl_tpu_torch.config import load_config\n"
-        "from ucod_dpl_tpu_torch.utils import components, fileio, native\n"
+        "from ucod_dpl_tpu_torch.utils import components, fileio, logger, metrics, native, profiling, progress\n"
+        "from ucod_dpl_tpu_torch.utils import registry, seed\n"
+        "from ucod_dpl_tpu_torch import cli\n"
         "assert not jax_package(), jax_package()\n"
         "cfg = load_config('configs/uscod/UCOD-DPL_dinov2.py')\n"
         "assert cfg.dataset_cfg.feature_extractor_cfg.type == 'dinov2'\n"
@@ -214,6 +221,26 @@ def test_port_imports_no_jax():
         "                                  lambda b: np.ones((b.shape[0], 4, 4), np.float32))\n"
         "assert out.shape == (28, 28)\n"
         "assert ucod_dpl_tpu_torch.Predictor is serving.Predictor\n"
+        "root = tempfile.mkdtemp()\n"
+        "for sub in ('im', 'gt'):\n"
+        "    os.makedirs(os.path.join(root, 'RefCOD', 'SYN', sub))\n"
+        "for i in range(2):\n"
+        "    Image.fromarray(rgb).save(os.path.join(root, 'RefCOD', 'SYN', 'im', f'{i}.jpg'))\n"
+        "    Image.fromarray((rgb[..., 0] > 128).astype(np.uint8) * 255).save(\n"
+        "        os.path.join(root, 'RefCOD', 'SYN', 'gt', f'{i}.png'))\n"
+        "arch = {'hidden_size': 32, 'num_layers': 1, 'num_heads': 2, 'patch_size': 14, 'image_size': 28}\n"
+        "with open(os.path.join(root, 'tiny.py'), 'w') as f:\n"
+        "    f.write('_BASE_ = [' + repr(os.path.abspath('configs/uscod/UCOD-DPL_dinov2.py')) + ']\\n'\n"
+        "            'cfg = dict(_BASE_=_BASE_, model_cfg=dict(dim=32, feature_size=4), '\n"
+        "            'dataset_cfg=dict(feature_extractor_cfg=dict(arch=' + repr(arch) + ')))\\n')\n"
+        "runners = cli.eval_main(['-c', os.path.join(root, 'tiny.py'), '--device', 'cpu', '--work_dir', root,\n"
+        "    '--datasets', 'SYN', '--opts', 'dataset_cfg.dataset_dir', os.path.join(root, 'RefCOD'),\n"
+        "    'dataset_cfg.cache_dir', os.path.join(root, 'cache'), 'dataset_cfg.valset_cfg.image_size', '(28, 28)',\n"
+        "    'tpu_cfg.compute_dtype', 'float32', 'val_cfg.look_twice_th', '0.95'])\n"
+        "stats = metrics.CODStatistics()\n"
+        "stats.step(mask[None], mask[None])\n"
+        "assert stats.get_result()['MAE'] == 0.0\n"
+        "assert runners['SYN'].evaluator.seconds > 0 and runners['SYN'].val_dataset.caches.get('features').mode == 'r'\n"
         "bad = [m for m in sys.modules if m.startswith('jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "assert not jax_package(), jax_package()\n"

@@ -13,7 +13,10 @@ behind :class:`ucod_dpl_tpu_torch.serving.Predictor`; kernels K1, K6), its
 int8 variant (K8-K11), the LoRA joint train step (K2-K4) and
 tensor-parallel feature extraction (``FeatureExtractor(mesh=)``; the
 forward at 3 heads a shard, K5's port), with
-K7 (LayerNorm + fc1 + GELU) as an exported op.
+K7 (LayerNorm + fc1 + GELU) as an exported op, and the stage-1 eval entry
+(``python3 -m ucod_dpl_tpu_torch.cli eval``: ``engine.runner.Runner``, the
+``data.dataset.CODDataset`` feature-cache build and
+``engine.eval_loop.LookTwiceEvaluator``; K1, K6).
 """
 
 __version__ = "0.1.0"
