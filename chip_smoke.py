@@ -101,7 +101,33 @@ Phases (each raises on failure; any failure exits non-zero):
      eval img/s, the eval's time by stage, the crop count, a profiler split
      of one cache-build batch and the device's busy share of an eval from
      the cache.  The kernels line's K1/K6 launches are this phase's first
-     run's (the serving phase's beside them).
+     run's (the serving phase's beside them);
+  L. the train entry: ``ucod_dpl_tpu_torch.cli.train_main`` on
+     configs/uscod/UCOD-DPL_dinov2.py at full width (seeded random
+     dinov2-base, 518px, bf16, batch 16; the Runner's seeded decoder towers
+     loaded with ``--load_from``, their fg biases at the 60th percentile of
+     their logits) over 48 synthetic train images in two directories
+     (TR-CAMO+TR-COD10K), 8 val images (TE-CAMO) and a pseudo-label cache of
+     the images' blobs in the JAX generator's layout.  Run A, cached
+     features: 4 epochs of 3 steps, discriminator passes at epochs 0 and 2,
+     the finetune switch at epoch 3, saves (``save_mode`` all) and
+     validations at epochs 2 and 4; finite losses, moved decoder, EMA and
+     discriminator, the epoch files, a best result, LookTwice crops, and K1
+     and K6 11 times per backbone forward of the cache builds and crop calls
+     and nothing else; rates, a profiler trace of one epoch.  Run B: the
+     same, SIGTERM after its 7th decoder step, exit 128 + 15 with
+     ``state_preempt`` at epoch 2, batch 1 of the train phase, then
+     ``--resume`` to the end: bitwise equal to run A (cuDNN deterministic in
+     runs A and B), else within 4 x the spread of two uninterrupted runs.
+     Run C, LoRA (the shipped config's rank 2, alpha 4, lr 1e-4, remat
+     none), 2 epochs: 11 forward-LSE and 11 backward launches per LoRA step,
+     11 forward-LSE per discriminator batch (its adapted forward), K1/K6
+     only in the crop calls; the adapters move; the adapter, merged-backbone
+     and state-pair files; the merged backbone loads in a
+     ``FeatureExtractor`` and its features differ from the base backbone's;
+     LoRA step ms by CUDA events and host clock, a trace of one epoch.  The
+     kernels line gives each kernel's launches in runs A and C
+     (``train_launches``, ``lora_train_launches``).
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -119,6 +145,7 @@ import contextlib
 import glob
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1355,16 +1382,23 @@ def _host_stack() -> str:
 
 
 def _write_eval_dataset(root: str, seed: int) -> list:
-    """``root/SYN/{im,gt}``: smooth seeded colour fields with one tinted
-    elliptic blob, and the blob as the ground truth."""
+    """``root/SYN/{im,gt}``: phase K's 32 images."""
+    return _write_cod_images(root, "SYN", EVAL_IMAGES, seed + 20)
+
+
+def _write_cod_images(root: str, name: str, n: int, seed: int, labels: bool = True) -> list:
+    """``root/name/im`` (and ``gt`` with ``labels``): ``n`` smooth seeded
+    colour fields at the COD sizes, each with one tinted elliptic blob, and
+    the blob as the ground truth."""
     from PIL import Image
 
-    rng = np.random.default_rng(seed + 20)
-    im_dir, gt_dir = os.path.join(root, "SYN", "im"), os.path.join(root, "SYN", "gt")
+    rng = np.random.default_rng(seed)
+    im_dir, gt_dir = os.path.join(root, name, "im"), os.path.join(root, name, "gt")
     os.makedirs(im_dir)
-    os.makedirs(gt_dir)
+    if labels:
+        os.makedirs(gt_dir)
     sizes = []
-    for i in range(EVAL_IMAGES):
+    for i in range(n):
         h, w = EVAL_SIZES[i % len(EVAL_SIZES)]
         coarse = (rng.random((h // 40, w // 40, 3)) * 255).astype(np.uint8)
         img = np.asarray(Image.fromarray(coarse).resize((w, h), Image.BICUBIC)).astype(np.float32)
@@ -1374,7 +1408,8 @@ def _write_eval_dataset(root: str, seed: int) -> list:
         blob = ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 <= 1.0
         img[blob] = img[blob] * 0.8 + rng.uniform(0, 255, 3) * 0.2
         Image.fromarray(img.astype(np.uint8)).save(os.path.join(im_dir, f"{i:03d}.jpg"), quality=90)
-        Image.fromarray(blob.astype(np.uint8) * 255).save(os.path.join(gt_dir, f"{i:03d}.png"))
+        if labels:
+            Image.fromarray(blob.astype(np.uint8) * 255).save(os.path.join(gt_dir, f"{i:03d}.png"))
         sizes.append((h, w))
     return sizes
 
@@ -1517,6 +1552,421 @@ def phase_eval(seed: int, dev, smi: str) -> dict:
     return out
 
 
+# Phase L: the train entry on configs/uscod/UCOD-DPL_dinov2.py as shipped
+# (its train set TR-CAMO+TR-COD10K, val set TE-CAMO, batch 16), on synthetic
+# images at the COD sizes of phase K and a seeded pseudo-label cache.
+TRAIN_SETS = (("TR-CAMO", 24), ("TR-COD10K", 24))
+TRAIN_IMAGES = sum(n for _, n in TRAIN_SETS)
+TRAIN_VAL_IMAGES = 8
+TRAIN_BATCH = 16
+PL_GRID = 16  # the JAX generator's pseudo-labels: 224px / patch 14
+
+
+def _write_pseudo_labels(cache_dir: str, dataset_dir: str, name: str) -> None:
+    """A pseudo-label cache in the JAX generator's layout and identity
+    sidecar (``ucod_dpl_tpu/cli.py:264-292``): for each image of the
+    ``+``-joined dataset ``name``, in the dataset's sorted path order, its
+    blob mask (``gt``) at the generator's 16 x 16 grid as a (16, 16, 1)
+    float32 binary mask; ``{"n", "fingerprint", "th_bkg"}`` beside them."""
+    import hashlib
+    from pathlib import Path
+
+    from PIL import Image
+
+    from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
+
+    paths = sorted(p for ds in name.split("+") for p in Path(dataset_dir, ds, "im").glob("*.jpg"))
+    cache = ArrayCache(os.path.join(cache_dir, "pseudo_label_cache", name))
+    for i, p in enumerate(paths):
+        gt = Image.open(p.parent.parent / "gt" / f"{p.stem}.png").resize((PL_GRID, PL_GRID), Image.BILINEAR)
+        cache.write(i, (np.asarray(gt, np.float32) > 127)[:, :, None].astype(np.float32))
+    stems = "\n".join(p.stem for p in paths)
+    cache.flush(meta={"n": len(paths), "fingerprint": hashlib.sha1(stems.encode()).hexdigest(), "th_bkg": 0.6})
+
+
+class _TrainProbe:
+    """Instruments one ``cli.train_main`` call of phase L: keeps every step's
+    loss (on the card until the run ends), times each epoch's train and
+    discriminator phases (host clock, synchronised), each validation (with
+    its LookTwice crop calls) and each save, times each LoRA step by CUDA
+    events and by host clock, profiles the train phase of ``profile_epoch``,
+    and, with ``preempt_after``, sends this process SIGTERM after that
+    decoder step.  The originals are restored on exit."""
+
+    def __init__(self, preempt_after=None, profile_epoch=None):
+        self.preempt_after, self.profile_epoch = preempt_after, profile_epoch
+        self.losses = {"train": [], "dis": [], "lora": []}
+        self.epochs, self.val, self.saves, self.lora_times = [], [], [], []
+        self.prof, self.profiling = None, False
+        self._patched = []
+
+    def _patch(self, obj, name, make):
+        orig = getattr(obj, name)
+        self._patched.append((obj, name, orig))
+        setattr(obj, name, make(orig))
+
+    def _steps(self) -> int:
+        return sum(len(v) for v in self.losses.values())
+
+    def __enter__(self):
+        from ucod_dpl_tpu_torch.engine import preempt, runner, train_loop
+
+        probe = self
+
+        def recording(kind, key):
+            def make(orig_make):
+                def make_step(*a, **k):
+                    inner = orig_make(*a, **k)
+
+                    def step(*sa):
+                        if kind == "lora":
+                            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                            torch.cuda.synchronize()
+                            t0 = time.perf_counter()
+                            e0.record()
+                        aux = inner(*sa)
+                        if kind == "lora":
+                            e1.record()
+                            torch.cuda.synchronize()
+                            probe.lora_times.append((e0, e1, time.perf_counter() - t0, probe.profiling))
+                        probe.losses[kind].append(aux[key].detach())
+                        if kind == "train" and len(probe.losses["train"]) == probe.preempt_after:
+                            os.kill(os.getpid(), signal.SIGTERM)
+                            if preempt.requested() != signal.SIGTERM:
+                                raise AssertionError("SIGTERM did not reach the train loop's handler")
+                        return aux
+
+                    return step
+
+                return make_step
+
+            return make
+
+        self._patch(train_loop, "make_train_step", recording("train", "loss"))
+        self._patch(train_loop, "make_discriminator_step", recording("dis", "dis_train_loss"))
+        self._patch(train_loop, "make_lora_train_step", recording("lora", "loss"))
+
+        def timed_phase(kind):
+            def make(orig):
+                def run(loop, epoch, *a):
+                    from torch.profiler import ProfilerActivity, profile
+
+                    prof = kind == "train" and epoch == probe.profile_epoch
+                    ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if prof \
+                        else contextlib.nullcontext()
+                    n0 = probe._steps()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    probe.profiling = prof
+                    with ctx as p:
+                        orig(loop, epoch, *a)
+                        torch.cuda.synchronize()
+                    probe.profiling = False
+                    probe.epochs.append((kind, epoch, probe._steps() - n0, time.perf_counter() - t0))
+                    if prof:
+                        probe.prof = (p, probe.epochs[-1][3] * 1e3)
+
+                return run
+
+            return make
+
+        self._patch(train_loop.TrainLoop, "_run_epoch", timed_phase("train"))
+        self._patch(train_loop.TrainLoop, "_train_discriminator", timed_phase("dis"))
+
+        def timed(what):
+            def make(orig):
+                def call(obj, *a):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = orig(obj, *a)
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    if what == "val":
+                        probe.val.append((secs, obj.evaluator.crop_batches))
+                    else:
+                        probe.saves.append((what, secs))
+                    return out
+
+                return call
+
+            return make
+
+        self._patch(runner.Runner, "launch_val_look_twice", timed("val"))
+        self._patch(runner.Runner, "save_checkpoint", timed("decoder safetensors"))
+        self._patch(train_loop.TrainLoop, "_save_full_state", timed("full state npz"))
+        self._patch(train_loop.TrainLoop, "_save_lora", timed("adapters + merged backbone"))
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, orig in reversed(self._patched):
+            setattr(obj, name, orig)
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+        return False
+
+    def finite_losses(self, kind) -> np.ndarray:
+        vals = torch.stack(self.losses[kind]).float().cpu().numpy() if self.losses[kind] else np.zeros(0)
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"{kind} steps: non-finite losses {vals}")
+        return vals
+
+    def crop_batches(self) -> int:
+        return sum(c for _, c in self.val)
+
+    def log_trace(self, what: str, smi: str) -> float:
+        """Print the profiled epoch's device time (kernels and copies; the
+        optimizer's annotation spans on the device timeline, which enclose
+        kernels counted already, left out), its busy share of the host wall
+        under the profiler and the top device operations; return the device
+        ms."""
+        from torch.autograd import DeviceType
+
+        prof, wall = self.prof
+        spans = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+        ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key not in spans]
+        device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+        _log(f"    trace of {what}: {device_ms:.3f} ms of device time in {wall:.3f} ms of host wall under the "
+             f"profiler, device busy {device_ms / wall:.4f} [{smi}]")
+        for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]:
+            _log(f"      {e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  {e.key[:100]}")
+        return device_ms
+
+
+def _train_params(runner) -> list:
+    """The decoder, EMA teacher, discriminator and its statistics, flat, on the host."""
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves
+
+    return [t.detach().float().cpu() for tree in (runner.decoder_params, runner.decoder_ema_params,
+                                                  runner.discriminator_params, runner.discriminator_stats)
+            for t in tree_leaves(tree)]
+
+
+def _rel_diff(a: list, b: list) -> float:
+    """Norm-relative difference of two flat parameter lists, the worst group."""
+    return max(((x - y).norm() / y.norm().clamp_min(1e-30)).item() for x, y in zip(a, b))
+
+
+def _check_launches(what: str, launches: dict, want: dict) -> None:
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+
+
+def phase_train(seed: int, dev, smi: str) -> dict:
+    """Phase L: ``cli.train_main`` on configs/uscod/UCOD-DPL_dinov2.py at full
+    width on the card: run A (cached features, 4 epochs), run B (the same,
+    preempted by SIGTERM after its 7th decoder step and resumed), run C
+    (LoRA, 2 epochs); launches, outputs, files and rates."""
+    import shutil
+
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.data.transforms import load_image_batch_transform
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves
+    from ucod_dpl_tpu_torch.models.dba import init_rev_decoder, rev_decoder_forward_resized
+    from ucod_dpl_tpu_torch.models.discriminator import init_discriminator
+    from ucod_dpl_tpu_torch.models.safetensors_io import save_decoder_checkpoint
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_train")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "RefCOD")
+    t0 = time.perf_counter()
+    for i, (name, n) in enumerate(TRAIN_SETS):
+        _write_cod_images(data, name, n, seed + 30 + i)
+    _write_cod_images(data, "TE-CAMO", TRAIN_VAL_IMAGES, seed + 40)
+    train_set = "+".join(name for name, _ in TRAIN_SETS)
+    _write_pseudo_labels(os.path.join(root, "cache"), data, train_set)
+    _log(f"train entry: {TRAIN_IMAGES} train images ({train_set}), {TRAIN_VAL_IMAGES} val images (TE-CAMO) at "
+         f"{EVAL_SIZES}, a {PL_GRID}x{PL_GRID} pseudo-label cache of their blobs, written in "
+         f"{time.perf_counter() - t0:.2f} s")
+
+    # the Runner's seeded towers (student from the config's seed 42, EMA
+    # teacher from 43), each with its fg bias moved to the 60th percentile
+    # of its logits on the val images (the run's own seeded backbone): the
+    # teacher's masks are the student's targets through the APM merge, so
+    # with both mixed the validations' masks mix foreground and background
+    # and the crop path runs
+    fe = FeatureExtractor(_Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None), device=dev,
+                          seed=0, strict=False)
+    val_paths = sorted(glob.glob(os.path.join(data, "TE-CAMO", "im", "*.jpg")))
+    towers = []
+    with torch.inference_mode():
+        feats = torch.from_numpy(fe.extract(load_image_batch_transform(val_paths, (518, 518))))
+        for tower_seed in (42, 43):
+            tower = init_rev_decoder(tower_seed, SERVE_DIM)
+            fg, _, _ = rev_decoder_forward_resized(tower, feats, 68)
+            towers.append(tower._replace(conv_out_fg_b=tower.conv_out_fg_b - torch.quantile(fg.flatten(), 0.6)))
+    del fe
+    ckpt = os.path.join(root, "decoder.safetensors")
+    save_decoder_checkpoint(ckpt, *towers)
+
+    def argv(run, *flags, **opts):
+        """The shipped config; paths, the schedule and ``opts`` overridden."""
+        over = {"dataset_cfg.dataset_dir": data, "dataset_cfg.cache_dir": os.path.join(root, "cache"),
+                "log_cfg.log_path": os.path.join(root, f"logs_{run}"), "train_cfg.max_epoch": "4",
+                "train_cfg.start_finetune": "-1", "train_cfg.dis_intertrain": "2",
+                "train_cfg.save_cfg.save_mode": "all", "train_cfg.save_cfg.save_interval": "2",
+                "train_cfg.save_cfg.start_save": "0", "val_cfg.val_interval": "2", "val_cfg.start_val": "2",
+                "val_cfg.look_twice_th": "0.95", **{k.replace("__", "."): v for k, v in opts.items()}}
+        return ["-c", "configs/uscod/UCOD-DPL_dinov2.py", "--work_dir", os.path.join(root, "work_dir"),
+                "--load_from", ckpt, *flags, "--opts", *(x for kv in over.items() for x in kv)]
+
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    # runs A and B with cuDNN's deterministic algorithms (the discriminator's
+    # convolutions), so that the resume can be held to run A bit for bit
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        # run A: cached features, 4 epochs of 3 steps, discriminator passes
+        # at epochs 0 and 2, the finetune switch at epoch 3, saves and
+        # validations at epochs 2 and 4
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with _TrainProbe(profile_epoch=1) as pa:
+            run_a = cli.train_main(argv("a"))
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+        depth = run_a.feature_extractor.config.num_layers
+        forwards = -(-TRAIN_IMAGES // EVAL_CACHE_BATCH) + -(-TRAIN_VAL_IMAGES // EVAL_CACHE_BATCH) + pa.crop_batches()
+        want = {**{k: 0 for k in counts}, "K1": (depth - 1) * forwards, "K6": (depth - 1) * forwards}
+        losses, dis_losses = pa.finite_losses("train"), pa.finite_losses("dis")
+        loop = run_a.train_loop
+        _log(f"  run A (cached features, bs{TRAIN_BATCH}, 4 epochs): {secs:.3f} s host clock in all; train-set "
+             f"cache build {run_a.train_dataset.build_seconds:.3f} s "
+             f"({TRAIN_IMAGES / run_a.train_dataset.build_seconds:.2f} img/s), val-set "
+             f"{run_a.val_dataset.build_seconds:.3f} s; launches {launches} [{smi}]")
+        _log(f"    decoder losses {np.round(losses, 5).tolist()}, discriminator losses "
+             f"{np.round(dis_losses, 5).tolist()}, best {loop.best_result}")
+        for kind, epoch, steps, dt in pa.epochs:
+            _log(f"    epoch {epoch} {kind}: {steps} steps in {dt:.4f} s, {steps / dt:.3f} steps/s host clock")
+        _log("    validations (s, LookTwice crop calls): " + ", ".join(f"{s:.3f} ({c})" for s, c in pa.val)
+             + "; saves: " + ", ".join(f"{w} {s:.4f} s" for w, s in pa.saves) + f" [{smi}]")
+        _check_launches("run A", launches, want)
+        if (len(losses), len(dis_losses)) != (12, 6):
+            raise AssertionError(f"run A: {len(losses)} decoder and {len(dis_losses)} discriminator steps")
+        init = [*towers, init_discriminator(44, 68, SERVE_DIM, False)[0]]
+        final = [run_a.decoder_params, run_a.decoder_ema_params, run_a.discriminator_params]
+        for name, a, b in zip(("decoder", "EMA", "discriminator"), init, final):
+            if not any(not torch.equal(x, y.cpu()) for x, y in zip(tree_leaves(a), tree_leaves(b))):
+                raise AssertionError(f"run A: the {name} did not move")
+        files = set(os.listdir(run_a.ckp_dir))
+        need = {f"{p}{e}{x}" for e in (2, 4) for p, x in (("epoch", ".safetensors"), ("state_epoch", ".npz"))}
+        if not need <= files:
+            raise AssertionError(f"run A: files {sorted(files)}, missing {sorted(need - files)}")
+        if loop.best_result is None or not np.isfinite(loop.best_mae):
+            raise AssertionError(f"run A: best result {loop.best_result}")
+        if pa.crop_batches() == 0:
+            raise AssertionError("run A: the validations made no LookTwice crop (the crop path did not run)")
+        by = {(k, e): (s, dt) for k, e, s, dt in pa.epochs}
+        out["cache_build_img_per_s"] = TRAIN_IMAGES / run_a.train_dataset.build_seconds
+        out["decoder_steps_per_s"] = by[("train", 3)][0] / by[("train", 3)][1]
+        out["dis_steps_per_s"] = by[("dis", 2)][0] / by[("dis", 2)][1]
+        out["val_s"] = [s for s, _ in pa.val]
+        out["save_s"] = pa.saves
+        out["launches_a"] = launches
+        device_ms = pa.log_trace("epoch 1 (3 decoder steps, cached features)", smi)
+        out["busy"] = device_ms / (pa.prof[1])
+
+        # run B: preempted by SIGTERM after the 7th decoder step (epoch 2,
+        # batch 1), then resumed from state_preempt to the end
+        with _TrainProbe(preempt_after=7):
+            try:
+                cli.train_main(argv("b"))
+                raise AssertionError("run B: the train entry did not exit on SIGTERM")
+            except SystemExit as e:
+                code = e.code
+        path = os.path.join(root, "logs_b", "ckp", "state_preempt")
+        with np.load(path + ".npz") as f:
+            meta = json.loads(bytes(f["__meta_json__"]).decode())
+        _log(f"  run B: exit {code} after the 7th decoder step, state_preempt metadata {meta}")
+        if code != 128 + signal.SIGTERM or (meta.get("phase"), meta.get("batch_done"), meta.get("epoch")) != \
+                ("train", 1, 2):
+            raise AssertionError(f"run B: exit {code}, metadata {meta}")
+        run_b = cli.train_main(argv("b", "--resume", path))
+        pa_final, pb_final = _train_params(run_a), _train_params(run_b)
+        worst = max((x - y).abs().max().item() for x, y in zip(pb_final, pa_final))
+        if worst == 0.0:
+            _log("  run B resumed to the end: bitwise equal to run A (decoder, EMA, discriminator and its "
+                 "statistics; cudnn deterministic)")
+            out["resume"] = ("bitwise", 0.0, 0.0)
+        else:
+            # not deterministic on the card: a third, uninterrupted run gives
+            # the run-to-run spread, and the resume must stay within 4 x it
+            run_a2 = cli.train_main(argv("a2"))
+            spread = _rel_diff(_train_params(run_a2), pa_final)
+            rel = _rel_diff(pb_final, pa_final)
+            _log(f"  run B resumed to the end: not bitwise (max abs diff {worst:.6g}); norm-relative {rel:.6g} "
+                 f"against run A, two uninterrupted runs {spread:.6g}, bound 4 x that")
+            if not rel <= 4 * spread:
+                raise AssertionError(f"run B: norm-relative difference {rel} exceeds 4 x the spread {spread}")
+            out["resume"] = ("within 4 x the run-to-run spread", worst, rel)
+
+        # run C: LoRA (rank 2, alpha 4, lr 1e-4, remat none: the shipped
+        # config's lora block), 2 epochs: a discriminator pass on the adapted
+        # features at epoch 0, the finetune switch at epoch 1, the saves and
+        # the validation at epoch 2; cuDNN as a user runs it
+        torch.backends.cudnn.deterministic = cudnn_det
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with _TrainProbe(profile_epoch=1) as pc:
+            run_c = cli.train_main(argv("c", model_cfg__lora__enable="True", train_cfg__max_epoch="2"))
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+        lora_losses, dis_losses = pc.finite_losses("lora"), pc.finite_losses("dis")
+        n_lora, n_dis = len(lora_losses), len(dis_losses)
+        want = {**{k: 0 for k in counts}, "K1": (depth - 1) * pc.crop_batches(), "K6": (depth - 1) * pc.crop_batches(),
+                "fwd_lse": (depth - 1) * (n_lora + n_dis), "bwd": (depth - 1) * n_lora}
+        # the steps after the first (which pays for its first launches) and
+        # outside the profiled epoch: each starts on an idle card, as in the
+        # loop, where the pageable copy of the next batch's pixels waits for
+        # the step before it
+        timed = [t for t in pc.lora_times[1:] if not t[3]]
+        ev_ms = [e0.elapsed_time(e1) for e0, e1, _, _ in timed]
+        host_ms = [h * 1e3 for _, _, h, _ in timed]
+        lora = run_c.train_loop.lora_params
+        b_norm = torch.sqrt(sum(e["b"].float().square().sum() for layer in lora for e in layer.values())).item()
+        _log(f"  run C (LoRA, bs{TRAIN_BATCH} 518px, 2 epochs): {secs:.3f} s host clock in all, {n_lora} LoRA steps, "
+             f"{n_dis} discriminator steps on the adapted features, launches {launches} [{smi}]")
+        _log(f"    LoRA losses {np.round(lora_losses, 5).tolist()}, adapter B-norm {b_norm:.6g}; LoRA step "
+             f"({len(timed)} unprofiled steps after the first) median {np.median(ev_ms):.3f} ms by CUDA events, "
+             f"{np.median(host_ms):.3f} ms "
+             f"host clock; validations (s, crop calls) {pc.val}; saves "
+             + ", ".join(f"{w} {s:.4f} s" for w, s in pc.saves) + f" [{smi}]")
+        _check_launches("run C", launches, want)
+        if (n_lora, n_dis) != (6, 3) or not b_norm > 0:
+            raise AssertionError(f"run C: {n_lora} LoRA and {n_dis} discriminator steps, adapter B-norm {b_norm}")
+        files = set(os.listdir(run_c.ckp_dir))
+        need = {"lora_epoch2.safetensors", "backbone_merged_epoch2.safetensors", "state_epoch2.npz",
+                "state_epoch2_lora.npz", "epoch2.safetensors"}
+        if not need <= files:
+            raise AssertionError(f"run C: files {sorted(files)}, missing {sorted(need - files)}")
+        merged = FeatureExtractor(_Cfg(dict(run_c.cfg.dataset_cfg.feature_extractor_cfg), backbone_weights=os.path.join(
+            run_c.ckp_dir, "backbone_merged_epoch2.safetensors")), device=dev, strict=True)
+        images = load_image_batch_transform(val_paths[:2], (518, 518))
+        f_merged, f_base = merged.extract(images), run_c.feature_extractor.extract(images)
+        moved = float(np.abs(f_merged - f_base).max())
+        _log(f"    the merged backbone in a FeatureExtractor: features of 2 val images differ from the base "
+             f"backbone's by up to {moved:.6g} (max |base| {np.abs(f_base).max():.4g})")
+        if not (np.isfinite(f_merged).all() and moved > 0):
+            raise AssertionError(f"run C: merged-backbone features moved {moved}")
+        # the profiler's own host cost inflates a LoRA epoch's wall several
+        # times, so the busy share is the trace's device time per step over
+        # the unprofiled steps' host clock
+        device_ms = pc.log_trace("epoch 1 of run C (3 LoRA steps, the finetune epoch)", smi) / 3
+        out["lora_busy"] = device_ms / np.median(host_ms)
+        _log(f"    LoRA step: {device_ms:.3f} ms of device time (trace) per {np.median(host_ms):.3f} ms unprofiled "
+             f"step, device busy {out['lora_busy']:.4f}; every step (events ms, host ms, profiled): "
+             + ", ".join(f"({e0.elapsed_time(e1):.2f}, {h * 1e3:.2f}, {p})" for e0, e1, h, p in pc.lora_times)
+             + f" [{smi}]")
+        out.update(launches_c=launches, lora_ms=float(np.median(ev_ms)), lora_host_ms=float(np.median(host_ms)),
+                   lora_val_s=[s for s, _ in pc.val], lora_save_s=pc.saves)
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
@@ -1553,6 +2003,8 @@ def main(argv=None) -> int:
     del fe8
     torch.cuda.empty_cache()
     evalk = phase_eval(args.seed, dev, smi)
+    torch.cuda.empty_cache()
+    train = phase_train(args.seed, dev, smi)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
@@ -1586,6 +2038,12 @@ def main(argv=None) -> int:
         "eval_from_cache_img_per_s": EVAL_IMAGES / evalk["second"]["eval_s"],
         "eval_look_twice_crops": evalk["first"]["crops"], "eval_device_busy": evalk["busy"],
         "eval_cached_features_max_abs_err": evalk["err"],
+        "train_cache_build_img_per_s": train["cache_build_img_per_s"],
+        "train_decoder_steps_per_s": train["decoder_steps_per_s"], "train_dis_steps_per_s": train["dis_steps_per_s"],
+        "train_epoch_device_busy": train["busy"], "train_val_s": train["val_s"],
+        "train_resume": train["resume"][0], "train_resume_max_abs_diff": train["resume"][1],
+        "lora_entry_step_ms": train["lora_ms"], "lora_entry_step_host_ms": train["lora_host_ms"],
+        "lora_entry_epoch_device_busy": train["lora_busy"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -1608,10 +2066,17 @@ def main(argv=None) -> int:
     }
     bounds["K4"] = bounds["K3"]
 
+    # each kernel's launches on the train entry's runs (phase L): run A
+    # (cached features) and run C (LoRA)
+    train_key = {"K2": "fwd_lse", "K3": "bwd", "K4": "bwd"}
+
     def entry(kid, name, source, replaces, launches, err, ms, plain_ms, library_ms=None, **device):
+        key = train_key.get(kid, kid)
         return {"name": f"{kid} {name}", "route": "cuda", "source": f"ucod_dpl_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1], "library_ms": library_ms, **device}
+                "bound_ms": bounds[kid][0], "bound_by": bounds[kid][1], "library_ms": library_ms,
+                "train_launches": train["launches_a"].get(key, 0), "lora_train_launches": train["launches_c"].get(key, 0),
+                **device}
 
     attn, fused = "ucod_dpl_tpu/ops/attention.py", "ucod_dpl_tpu/ops/fused_layers.py"
     _log(json.dumps({"kernels": [

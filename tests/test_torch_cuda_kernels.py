@@ -1,8 +1,10 @@
 """Card-only checks of the port's CUDA kernels at edge shapes: the attention
 forward (K1 at every head dim and head count, also with its log-sum-exp
 output, and on the per-head layout, K5), the attention backward, K6, K7
-(LayerNorm + fc1 + GELU) and the int8 kernels K8-K11; and the eval entry
-(``cli.eval_main``) at a small width, by its K1/K6 launches.
+(LayerNorm + fc1 + GELU) and the int8 kernels K8-K11; the eval entry
+(``cli.eval_main``) at a small width, by its K1/K6 launches; and the train
+entry (``cli.train_main``, LoRA off and on) at a small width, by its
+launches, losses and a preemption resumed.
 
 Marked ``cuda``: they skip without a CUDA device (the decision is made in a
 fixture, at run time).  On a card::
@@ -532,3 +534,127 @@ def test_eval_entry_launches_k1_and_k6_per_forward(dev, tmp_path):
         assert all(np.isfinite(v) and 0 <= v <= 1 for v in result.values())
         results.append(result)
     assert results[0] == results[1]
+
+
+def _train_world(root, rng):
+    """Two train directories of 2 JPEGs, a val directory of 2 with masks, and
+    a seeded pseudo-label cache in the JAX generator's layout."""
+    import hashlib
+
+    import numpy as np
+    from PIL import Image
+
+    from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
+
+    for name, labels in (("TR-A", False), ("TR-B", False), ("TE-A", True)):
+        (root / "RefCOD" / name / "im").mkdir(parents=True)
+        if labels:
+            (root / "RefCOD" / name / "gt").mkdir(parents=True)
+        for i, (h, w) in enumerate(((48, 64), (72, 128))):
+            Image.fromarray((rng.random((h, w, 3)) * 255).astype(np.uint8)).save(
+                root / "RefCOD" / name / "im" / f"{i}.jpg")
+            if labels:
+                mask = np.zeros((h, w), np.uint8)
+                mask[h // 4 : h // 2, w // 4 : w // 2] = 255
+                Image.fromarray(mask).save(root / "RefCOD" / name / "gt" / f"{i}.png")
+    paths = sorted(p for ds in ("TR-A", "TR-B") for p in (root / "RefCOD" / ds / "im").iterdir())
+    cache = ArrayCache(root / "cache" / "pseudo_label_cache" / "TR-A+TR-B")
+    for i in range(len(paths)):
+        cache.write(i, np.where(rng.random((16, 16, 1)) > 0.5, 1.0, 0.0).astype(np.float32))
+    stems = "\n".join(p.stem for p in paths)
+    cache.flush(meta={"n": len(paths), "fingerprint": hashlib.sha1(stems.encode()).hexdigest(), "th_bkg": 0.6})
+
+
+@pytest.mark.parametrize("lora", [False, True])
+def test_train_entry_launches_and_resumes_on_the_card(dev, tmp_path, monkeypatch, lora):
+    """``cli.train_main`` on the card at a small width (256 wide, 4 heads of
+    64, 3 layers, 56px, batch 2, 2 epochs): K1 and K6 launch twice per
+    backbone forward of the cache builds and the crop pass and nowhere else;
+    with LoRA each LoRA step launches the forward-LSE and the backward twice
+    and each discriminator batch's adapted forward the forward-LSE twice;
+    the losses are finite; a run preempted by SIGTERM after its 3rd step and
+    resumed from ``state_preempt`` ends as an uninterrupted run does, within
+    4 x the spread of two uninterrupted runs (bitwise where they agree bit
+    for bit: cudnn deterministic)."""
+    import signal
+
+    import numpy as np
+
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.engine import train_loop
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves
+    from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_fc1_gelu
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _train_world(tmp_path, np.random.default_rng(0))
+    arch = {"hidden_size": 256, "num_layers": 3, "num_heads": 4, "patch_size": 14, "image_size": 56}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (tmp_path / "tiny.py").write_text(
+        f"cfg = dict(_BASE_=[{os.path.join(repo, 'configs', 'uscod', 'UCOD-DPL_dinov2.py')!r}], "
+        f"model_cfg=dict(dim=256, feature_size=8), dataset_cfg=dict(feature_extractor_cfg=dict(arch={arch!r})))\n")
+
+    def argv(run, *flags):
+        return ["-c", str(tmp_path / "tiny.py"), "--work_dir", str(tmp_path / "wd"), *flags, "--opts",
+                "dataset_cfg.dataset_dir", str(tmp_path / "RefCOD"), "dataset_cfg.cache_dir", str(tmp_path / "cache"),
+                "log_cfg.log_path", str(tmp_path / f"logs_{run}"), "dataset_cfg.trainset_cfg.DATASET", "TR-A+TR-B",
+                "dataset_cfg.valset_cfg.DATASET", "TE-A", "dataset_cfg.trainset_cfg.image_size", "(56, 56)",
+                "dataset_cfg.valset_cfg.image_size", "(56, 56)", "dataset_cfg.trainloader_cfg.batch_size", "2",
+                "model_cfg.lora.enable", str(lora), "train_cfg.max_epoch", "2", "train_cfg.start_finetune", "-1",
+                "train_cfg.save_cfg.save_mode", "all", "train_cfg.save_cfg.save_interval", "2",
+                "train_cfg.save_cfg.start_save", "0", "val_cfg.val_interval", "2", "val_cfg.start_val", "2",
+                "val_cfg.look_twice_th", "0.95"]
+
+    steps = {"n": 0, "losses": [], "preempt_at": None}
+    name = "make_lora_train_step" if lora else "make_train_step"
+    orig_make = getattr(train_loop, name)
+
+    def make(*a, **k):
+        inner = orig_make(*a, **k)
+
+        def step(*sa):
+            aux = inner(*sa)
+            steps["n"] += 1
+            steps["losses"].append(float(aux["loss"]))
+            if steps["n"] == steps["preempt_at"]:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return aux
+
+        return step
+
+    monkeypatch.setattr(train_loop, name, make)
+    wrappers = (packed_attention, layernorm_qkv, heads_attention, packed_attention_fwd_lse, packed_attention_bwd,
+                layernorm_fc1_gelu, FL.layernorm_qkv_w8a8, FL.layernorm_fc1_gelu_w8a8, FL.dense_quant_w8a8,
+                FL.layernorm_mlp_w8a8)
+    for fn in wrappers:
+        fn.launches = 0
+    try:
+        runner = cli.train_main(argv("a"))
+        crops = runner.evaluator.crop_batches  # the one validation, at epoch 2
+        forwards = 2 + crops  # the train-set and val-set cache builds (one batch each), the crop calls
+        assert packed_attention.launches == layernorm_qkv.launches == 2 * forwards
+        assert packed_attention_fwd_lse.launches == (2 * (4 + 2) if lora else 0)  # 4 LoRA steps, 2 dis batches
+        assert packed_attention_bwd.launches == (2 * 4 if lora else 0)
+        assert not any(fn.launches for fn in (heads_attention, *wrappers[5:]))
+        assert steps["n"] == 4 and np.isfinite(steps["losses"]).all()
+
+        def params(r):
+            trees = [r.decoder_params, r.decoder_ema_params, r.discriminator_params]
+            if lora:
+                trees.append(r.train_loop.lora_params)
+            return torch.cat([t.detach().float().flatten() for tree in trees for t in tree_leaves(tree)])
+
+        ref, again = params(runner), params(cli.train_main(argv("a2")))
+        steps["preempt_at"], steps["n"] = 3, 0
+        with pytest.raises(SystemExit) as e:
+            cli.train_main(argv("b"))
+        assert e.value.code == 128 + signal.SIGTERM
+        path = str(tmp_path / "logs_b" / "ckp" / "state_preempt")
+        steps["preempt_at"] = None
+        resumed = cli.train_main(argv("b", "--resume", path))
+        assert resumed.train_loop.start_epoch == 1 and steps["n"] == 4  # epoch 1's first step was applied before
+        spread = ((again - ref).norm() / ref.norm()).item()
+        rel = ((params(resumed) - ref).norm() / ref.norm()).item()
+        assert rel <= 4 * spread, (rel, spread)
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        signal.signal(signal.SIGINT, signal.default_int_handler)

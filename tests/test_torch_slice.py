@@ -180,7 +180,8 @@ def test_port_imports_no_jax():
     """Importing every module of the port, loading a config, reading an image
     from a path for a request, running the LookTwice helpers and running the
     eval entry end to end on the CPU (``cli.eval_main``: runner, dataset cache
-    build, evaluator, metrics) must import nothing of jax and nothing of the
+    build, evaluator, metrics) and the train entry (``cli.train_main``: train
+    loop, steps, checkpoints, validation) must import nothing of jax and nothing of the
     JAX package ``ucod_dpl_tpu``, not even its jax-free modules: an import of
     either is made to fail outright."""
     code = (
@@ -199,7 +200,7 @@ def test_port_imports_no_jax():
         "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io\n"
         "from ucod_dpl_tpu_torch.data import feature_extractor, transforms\n"
         "from ucod_dpl_tpu_torch.data import dataset\n"
-        "from ucod_dpl_tpu_torch.engine import eval_loop, preempt, runner, train_step\n"
+        "from ucod_dpl_tpu_torch.engine import checkpoint, eval_loop, preempt, runner, train_loop, train_step\n"
         "from ucod_dpl_tpu_torch.parallel import distributed, mesh, tp\n"
         "from ucod_dpl_tpu_torch.config import load_config\n"
         "from ucod_dpl_tpu_torch.utils import components, fileio, logger, metrics, native, profiling, progress\n"
@@ -241,6 +242,20 @@ def test_port_imports_no_jax():
         "stats.step(mask[None], mask[None])\n"
         "assert stats.get_result()['MAE'] == 0.0\n"
         "assert runners['SYN'].evaluator.seconds > 0 and runners['SYN'].val_dataset.caches.get('features').mode == 'r'\n"
+        "pl = fileio.ArrayCache(os.path.join(root, 'cache', 'pseudo_label_cache', 'SYN'))\n"
+        "for i in range(2):\n"
+        "    pl.write(i, np.full((2, 2, 1), 0.9, np.float32))\n"
+        "pl.flush()\n"
+        "trained = cli.train_main(['-c', os.path.join(root, 'tiny.py'), '--device', 'cpu', '--work_dir', root,\n"
+        "    '--opts', 'dataset_cfg.dataset_dir', os.path.join(root, 'RefCOD'),\n"
+        "    'dataset_cfg.cache_dir', os.path.join(root, 'cache'), 'dataset_cfg.trainset_cfg.DATASET', 'SYN',\n"
+        "    'dataset_cfg.valset_cfg.DATASET', 'SYN', 'dataset_cfg.trainset_cfg.image_size', '(28, 28)',\n"
+        "    'dataset_cfg.valset_cfg.image_size', '(28, 28)', 'dataset_cfg.trainloader_cfg.batch_size', '2',\n"
+        "    'tpu_cfg.compute_dtype', 'float32', 'train_cfg.max_epoch', '2', 'train_cfg.start_finetune', '-1',\n"
+        "    'train_cfg.save_cfg.save_mode', 'all', 'train_cfg.save_cfg.save_interval', '2',\n"
+        "    'train_cfg.save_cfg.start_save', '0', 'val_cfg.val_interval', '2', 'val_cfg.start_val', '2'])\n"
+        "assert trained.train_loop.state.opt.count == 1 and trained.train_loop.best_result is not None\n"
+        "assert os.path.exists(os.path.join(trained.ckp_dir, 'state_epoch2.npz'))\n"
         "bad = [m for m in sys.modules if m.startswith('jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "assert not jax_package(), jax_package()\n"

@@ -2,15 +2,18 @@
 
 Counterpart of :mod:`ucod_dpl_tpu.cli` (the reference's ``scripts/*.py``)::
 
+    python3 -m ucod_dpl_tpu_torch.cli train -c configs/uscod/UCOD-DPL_dinov2.py \\
+        [--resume STATE] [--load_from CKPT] [--profile] [--device cuda|cpu] [--opts key value ...]
     python3 -m ucod_dpl_tpu_torch.cli eval -c configs/uscod/UCOD-DPL_dinov2.py \\
         [--load_from CKPT] [--datasets A,B] [--device cuda|cpu] [--opts key value ...]
 
 The flags are the JAX package's, plus ``--device`` (default ``cuda``: the
-card; ``cpu`` runs the plain versions of the kernels).  Stage-1 evaluation
-(``eval``) is ported; ``train`` (ROADMAP Queue 1 item 12), ``lt_train`` and
-``lt_eval`` (item 15) and ``generate_pseudo_label`` (item 14) raise
-``NotImplementedError``.  The engine is imported inside the entry bodies, so
-``--help`` and argument errors cost nothing.
+card; ``cpu`` runs the plain versions of the kernels).  Stage-1 training
+(``train``; ``--resume`` takes a ``state_epochN`` or ``state_preempt`` of
+either package) and evaluation (``eval``) are ported; ``lt_train`` and
+``lt_eval`` (ROADMAP Queue 1 item 15) and ``generate_pseudo_label`` (item
+14) raise ``NotImplementedError``.  The engine is imported inside the entry
+bodies, so ``--help`` and argument errors cost nothing.
 """
 
 from __future__ import annotations
@@ -84,7 +87,20 @@ def init_cfg(args, mode: str):
 
 
 def train_main(argv=None):
-    raise NotImplementedError("stage-1 training is ROADMAP Queue 1 item 12")
+    """Stage-1 UCOD-DPL training (the reference's ``scripts/train.py``).
+    Returns the Runner (``runner.train_loop`` holds the loop's state)."""
+    args = parse_args("UCOD-DPL stage-1 training", argv)
+    cfg = init_cfg(args, mode="train")
+
+    from ucod_dpl_tpu_torch.engine.runner import Runner
+    from ucod_dpl_tpu_torch.utils.profiling import maybe_profile
+    from ucod_dpl_tpu_torch.utils.seed import set_random_seed
+
+    set_random_seed(42)
+    runner = Runner(cfg, mode="train", load_from=args.load_from, device=args.device)
+    with maybe_profile(args.profile, os.path.join(cfg.work_dir, "profile")):
+        runner.launch_train()
+    return runner
 
 
 def eval_main(argv=None) -> Dict[str, object]:

@@ -147,13 +147,18 @@ class FeatureExtractor:
 
     def int8_params(self):
         """The backbone's int8 linears: those it holds (``quantize="int8"``),
-        else quantized now from its float32 weights (loaded again from the
-        same source when it holds them cast to another dtype)."""
+        else quantized now from its float32 weights."""
         if self._qparams is not None:
             return self._qparams
+        return quantize_dino_linears(self.float32_params())
+
+    def float32_params(self):
+        """The backbone's float32 weights on its device: those it holds when
+        it computes in float32, else loaded again from the same source (the
+        held ones are cast)."""
         if self.compute_dtype == torch.float32:
-            return quantize_dino_linears(self.params)
-        return quantize_dino_linears(params_to(self._load_params(self.seed), self.device))
+            return self.params
+        return params_to(self._load_params(self.seed), self.device)
 
     def _load_params(self, seed: int):
         for cand in _candidate_weight_paths(self.fe_cfg):

@@ -8,11 +8,13 @@ grace period.  Processes that never call :func:`install` (the eval entry)
 keep the default signal behaviour and the polls do nothing.  The
 cluster-agreed flag of the JAX package (an all-gather MAX over processes)
 is this process's own flag until multi-process runs land (ROADMAP Queue 1
-item 13), so :class:`GlobalPoll` is a per-batch :func:`check`.
+item 13): :func:`requested_global` answers for one process and
+:class:`GlobalPoll` is a per-batch :func:`check`.
 """
 
 from __future__ import annotations
 
+import os
 import signal
 from typing import Optional
 
@@ -73,3 +75,14 @@ class GlobalPoll:
 def clear() -> None:
     global _signum
     _signum = None
+
+
+def requested_global() -> Optional[int]:
+    """The preemption signal every process agrees on (the JAX package's
+    all-gather MAX of the processes' flags): this process's own flag in a
+    run of one.  A launch with ``WORLD_SIZE > 1`` raises: multi-process runs
+    are ROADMAP Queue 1 item 13."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError("the cluster-agreed preemption flag (an all-gather over torch.distributed) is "
+                                  "ROADMAP Queue 1 item 13; run one process")
+    return requested()

@@ -4,9 +4,9 @@ Counterpart of :mod:`ucod_dpl_tpu.engine.runner` (the reference's
 ``StandardRunner``, ``engine/runner/runner.py``): directories and logger, the
 device mesh from ``tpu_cfg.mesh``, the feature extractor in
 ``tpu_cfg.compute_dtype`` on ``device``, decoder and discriminator params
-(seeded, or a checkpoint), the val dataloader, the config dump, checkpoints,
-and the stage-1 LookTwice evaluation.  Stage-1 training through the Runner
-is ROADMAP Queue 1 item 12; the CORAL stage-2 runner is item 15.
+(seeded, or a checkpoint), the train and val dataloaders, the config dump,
+checkpoints, stage-1 training (:mod:`.train_loop`) and the stage-1 LookTwice
+evaluation.  The CORAL stage-2 runner is ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -61,14 +61,18 @@ class Runner:
         self.mesh = build_mesh(
             cfg.get("tpu_cfg", {}).get("mesh"), devices=None if device.type == "cuda" else [device]
         )
+        # LoRA training merges its adapters into float32 q/k/v masters
+        lora = mode == "train" and cfg.model_cfg.get("lora", {}).get("enable", False)
         self.feature_extractor = feature_extractor or FeatureExtractor(
-            cfg.dataset_cfg.feature_extractor_cfg, compute_dtype=resolve_compute_dtype(cfg), mesh=self.mesh
+            cfg.dataset_cfg.feature_extractor_cfg, compute_dtype=resolve_compute_dtype(cfg), mesh=self.mesh,
+            qkv_masters=lora,
         )
         self.device = self.feature_extractor.device
         self._build_model(load_from)
         self._build_dataloaders()
         self._dump_config()
         self.evaluator = None
+        self.train_loop = None
 
     # -- setup -------------------------------------------------------------------
     def _setup_dirs(self) -> None:
@@ -117,9 +121,26 @@ class Runner:
         )
 
     def _build_dataloaders(self) -> None:
-        """The val dataloader (the train one comes with the train loop,
-        ROADMAP Queue 1 item 12)."""
+        """In train mode the train dataloader (shuffled per (seed, epoch),
+        whole batches only), and the val dataloader."""
         dc = self.cfg.dataset_cfg
+        self.train_dataset = self.train_dataloader = None
+        if self.mode == "train":
+            if self.cfg.model_cfg.get("lora", {}).get("enable", False):
+                # LoRA trains through the backbone: batches carry the normalised pixels
+                dc.trainset_cfg.require_pixels = True
+            self.train_dataset = self._make_dataset(dc.trainset_cfg, "train", keep_size=False)
+            tl = dc.trainloader_cfg
+            self.train_dataloader = DataLoader(
+                self.train_dataset, batch_size=tl.get("batch_size", 16), shuffle=tl.get("shuffle", True),
+                seed=self.cfg.get("seed", 42), drop_last=True, pad_shards=True,
+            )
+            if len(self.train_dataloader) == 0:
+                raise ValueError(
+                    f"Train dataloader is empty: {len(self.train_dataset)} sample(s) with "
+                    f"batch_size={tl.get('batch_size', 16)} and drop_last: training would silently run zero "
+                    "steps. Lower dataset_cfg.trainloader_cfg.batch_size or add data."
+                )
         valset_cfg = dc.valset_cfg
         keep_size = valset_cfg.get("keep_size", self.mode != "train")
         # the reference builds its val loaders with mode "test", so the caches
@@ -180,7 +201,16 @@ class Runner:
             raise
 
     def launch_train(self) -> None:
-        raise NotImplementedError("stage-1 training through the Runner is ROADMAP Queue 1 item 12")
+        """Stage-1 training; the loop stays in ``self.train_loop`` (its
+        state, adapters and best result)."""
+        from ucod_dpl_tpu_torch.engine.train_loop import TrainLoop
+
+        try:
+            self.train_loop = TrainLoop(self.cfg, self)
+            self.train_loop.run()
+        except Exception as e:
+            self.logger.error(f"Training failed: {e!r}")
+            raise
 
 
 class LocalRefineRunner(Runner):

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable
+from typing import Any, Dict, Iterable, List, Sequence, Tuple
 
 import torch
 
@@ -63,6 +63,45 @@ class Optimizer:
                 p.grad = torch.zeros_like(p)
         self.adamw.step()
         self.schedule.step()
+
+    @property
+    def count(self) -> int:
+        """Steps taken: AdamW's per-parameter ``step``, one value for all
+        (every parameter is stepped every time), 0 before the first step."""
+        steps = {int(self.adamw.state[p]["step"]) for p in self.params if p in self.adamw.state}
+        if len(steps) > 1:
+            raise RuntimeError(f"AdamW parameters at different step counts {sorted(steps)}")
+        return steps.pop() if steps else 0
+
+    def moments(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """AdamW's first and second moments, one per parameter in order
+        (zeros before the first step)."""
+        st = self.adamw.state
+        return ([st[p]["exp_avg"] if p in st else torch.zeros_like(p) for p in self.params],
+                [st[p]["exp_avg_sq"] if p in st else torch.zeros_like(p) for p in self.params])
+
+    def load(self, count: int, exp_avg: Sequence[torch.Tensor], exp_avg_sq: Sequence[torch.Tensor],
+             schedule_count: int) -> None:
+        """Resume at ``count`` AdamW steps with the given moments and at
+        ``schedule_count`` StepLR steps.  The learning rate is replayed the
+        way StepLR reaches it (one multiplication by gamma every step_size
+        steps), so a resumed run takes the uninterrupted run's rates bit for
+        bit."""
+        self.adamw.state.clear()
+        if count:
+            for p, m, v in zip(self.params, exp_avg, exp_avg_sq, strict=True):
+                self.adamw.state[p] = {"step": torch.tensor(float(count)),
+                                       "exp_avg": m.to(p.device, torch.float32).clone(),
+                                       "exp_avg_sq": v.to(p.device, torch.float32).clone()}
+        sched = self.schedule
+        lrs = list(sched.base_lrs)
+        for i in range(1, schedule_count + 1):
+            if i % sched.step_size == 0:
+                lrs = [lr * sched.gamma for lr in lrs]
+        for group, lr in zip(self.adamw.param_groups, lrs):
+            group["lr"] = lr
+        sched.last_epoch = schedule_count
+        sched._last_lr = lrs
 
 
 def make_optimizer(params: Iterable[torch.Tensor], lr0: float, gamma: float, step_size: int) -> Optimizer:
@@ -100,17 +139,43 @@ def init_train_state(
     def fixed(tree):
         return tree_map(lambda t: t.detach().to(device, torch.float32).clone(), tree)
 
-    tc = train_cfg
     decoder, dis_params = trainable(decoder), trainable(dis_params)
     return TrainState(
         decoder=decoder,
         decoder_ema=fixed(decoder_ema),
-        opt=make_optimizer(tree_leaves(decoder), tc.lr0, tc.get("step_lr_gamma", 0.95), tc.get("step_lr_size", 25)),
+        opt=_decoder_optimizer(decoder, train_cfg),
         dis_params=dis_params,
         dis_stats=fixed(dis_stats),
-        dis_opt=make_optimizer(tree_leaves(dis_params), tc.get("dis_lr0", 1e-3),
-                               tc.get("dis_step_lr_gamma", 0.95), tc.get("dis_step_lr_size", 25)),
+        dis_opt=_dis_optimizer(dis_params, train_cfg),
     )
+
+
+def _decoder_optimizer(decoder: RevDecoderParams, tc) -> Optimizer:
+    return make_optimizer(tree_leaves(decoder), tc.lr0, tc.get("step_lr_gamma", 0.95), tc.get("step_lr_size", 25))
+
+
+def _dis_optimizer(dis_params: Dict[str, Any], tc) -> Optimizer:
+    return make_optimizer(tree_leaves(dis_params), tc.get("dis_lr0", 1e-3), tc.get("dis_step_lr_gamma", 0.95),
+                          tc.get("dis_step_lr_size", 25))
+
+
+def make_lora_optimizer(lora, cfg) -> Optimizer:
+    """The adapters' AdamW: ``model_cfg.lora.lr`` on the decoder's StepLR
+    schedule (``train_cfg.step_lr_gamma``/``step_lr_size``), as the JAX
+    train loop builds it."""
+    tc = cfg.train_cfg
+    return make_optimizer(tree_leaves(lora), cfg.model_cfg.lora.get("lr", 1e-4), tc.get("step_lr_gamma", 0.95),
+                          tc.get("step_lr_size", 25))
+
+
+def restart_optimizers(state: TrainState, train_cfg) -> None:
+    """The finetune switch (the JAX train loop's ``_enter_finetune``): new
+    AdamW and StepLR objects over the same parameter tensors, so moments
+    start from zero and the rate from ``lr0`` again, and the EMA ramp
+    restarts (``ema_step`` 0)."""
+    state.opt = _decoder_optimizer(state.decoder, train_cfg)
+    state.dis_opt = _dis_optimizer(state.dis_params, train_cfg)
+    state.ema_step = 0
 
 
 def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -49,7 +49,9 @@ def params_to(tree: Any, device) -> Any:
 
 
 def _t(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
+    """A C-contiguous float32 copy (a transposed view would otherwise keep
+    its strides, and a product of a strided weight may round otherwise)."""
+    return torch.from_numpy(np.array(x, dtype=np.float32, order="C", copy=True))
 
 
 def _n(x: torch.Tensor) -> np.ndarray:
@@ -200,3 +202,114 @@ def discriminator_to_jax(params, stats):
     (inverse of :func:`discriminator_from_jax`)."""
     return _discriminator_map(params, stats, _n, lambda w: np.ascontiguousarray(np.transpose(_n(w), (2, 3, 1, 0))),
                               lambda w: np.ascontiguousarray(_n(w).T))
+
+
+# ---------------------------------------------------------------------------
+# training state <-> the JAX package's TrainState tree (its state files)
+# ---------------------------------------------------------------------------
+
+
+def _get(tree, key):
+    """``tree[key]`` of a dict, ``tree.key`` of a NamedTuple (the JAX
+    package's TrainState and optax states)."""
+    return tree[key] if isinstance(tree, Mapping) else getattr(tree, key)
+
+
+def _leaves_like(ref: Any, tree: Any) -> list:
+    """The leaves of ``tree`` in the order of ``ref``'s leaves, matched by
+    key, field or index (not by position in a dict)."""
+    if isinstance(ref, torch.Tensor):
+        return [tree]
+    if isinstance(ref, RevDecoderParams):
+        return [x for f, r in zip(ref._fields, ref) for x in _leaves_like(r, _get(tree, f))]
+    if isinstance(ref, Mapping):
+        return [x for k, r in ref.items() for x in _leaves_like(r, tree[k])]
+    if len(ref) != len(tree):
+        raise ValueError(f"tree of {len(tree)} entries where {len(ref)} are expected")
+    return [x for r, t in zip(ref, tree) for x in _leaves_like(r, t)]
+
+
+def _dis_to_jax(tree):
+    return discriminator_to_jax(tree, {})[0]
+
+
+def _dis_from_jax(tree):
+    return discriminator_from_jax(tree, {})[0]
+
+
+def _adamw_to_jax(opt, params, to_jax) -> list:
+    """An ``engine.train_step.Optimizer`` over the leaves of ``params`` ->
+    the state of optax's ``adamw`` chain: ``[ScaleByAdamState(count, mu,
+    nu), EmptyState(), ScaleByScheduleState(count)]`` as ``[{"count", "mu",
+    "nu"}, {}, {"count"}]``, numpy in the JAX layout.  AdamW's per-parameter
+    ``step`` is the adam count (one int32 for every leaf, as optax keeps
+    it) and StepLR's ``last_epoch`` the schedule's."""
+    if any(a is not b for a, b in zip(opt.params, tree_leaves(params), strict=True)):
+        raise ValueError("the optimizer does not hold the leaves of this params tree")
+    mu, nu = opt.moments()
+
+    def like_params(tensors):
+        it = iter(tensors)
+        return to_jax(tree_map(lambda _: next(it), params))
+
+    return [{"count": np.int32(opt.count), "mu": like_params(mu), "nu": like_params(nu)}, {},
+            {"count": np.int32(opt.schedule.last_epoch)}]
+
+
+def _adamw_from_jax(opt, params, state, from_jax) -> None:
+    """Load the optax ``adamw`` chain state ``state`` (what
+    :func:`_adamw_to_jax` gives, or the JAX package's own) into ``opt``."""
+    adam, schedule = state[0], state[2]
+    count = int(_get(adam, "count"))
+    mu = _leaves_like(params, from_jax(_get(adam, "mu")))
+    nu = _leaves_like(params, from_jax(_get(adam, "nu")))
+    opt.load(count, mu, nu, int(_get(schedule, "count")))
+
+
+def train_state_to_jax(state) -> Dict[str, Any]:
+    """A port ``TrainState`` -> the JAX package's ``TrainState`` as a numpy
+    tree (``decoder``, ``decoder_ema``, ``opt_state``, ``dis_params``,
+    ``dis_stats``, ``dis_opt_state``, ``ema_step``): the keys, dtypes and
+    shapes of its state files."""
+    dis_p, dis_s = discriminator_to_jax(state.dis_params, state.dis_stats)
+    return {
+        "decoder": decoder_to_jax(state.decoder),
+        "decoder_ema": decoder_to_jax(state.decoder_ema),
+        "opt_state": _adamw_to_jax(state.opt, state.decoder, decoder_to_jax),
+        "dis_params": dis_p,
+        "dis_stats": dis_s,
+        "dis_opt_state": _adamw_to_jax(state.dis_opt, state.dis_params, _dis_to_jax),
+        "ema_step": np.int32(state.ema_step),
+    }
+
+
+def train_state_from_jax(tree: Any, train_cfg, device):
+    """The JAX package's ``TrainState`` (a numpy tree, or the NamedTuple
+    with numpy leaves) -> a port ``TrainState`` on ``device`` with the
+    optimizers of ``train_cfg`` at the tree's step counts and moments."""
+    from ucod_dpl_tpu_torch.engine.train_step import init_train_state
+
+    dis_p, dis_s = discriminator_from_jax(_get(tree, "dis_params"), _get(tree, "dis_stats"))
+    state = init_train_state(decoder_from_jax(_get(tree, "decoder")), decoder_from_jax(_get(tree, "decoder_ema")),
+                             dis_p, dis_s, train_cfg, device)
+    _adamw_from_jax(state.opt, state.decoder, _get(tree, "opt_state"), decoder_from_jax)
+    _adamw_from_jax(state.dis_opt, state.dis_params, _get(tree, "dis_opt_state"), _dis_from_jax)
+    state.ema_step = int(_get(tree, "ema_step"))
+    return state
+
+
+def lora_state_to_jax(lora, opt) -> Dict[str, Any]:
+    """Adapters and their optimizer -> the JAX train loop's LoRA pair
+    ``{"lora": adapters, "opt": adamw state}`` (its ``state_*_lora`` files)."""
+    return {"lora": lora_to_jax(lora), "opt": _adamw_to_jax(opt, lora, lora_to_jax)}
+
+
+def lora_state_from_jax(tree: Any, cfg, device):
+    """The JAX train loop's LoRA pair -> (adapters requiring grad on
+    ``device``, their optimizer at the pair's step counts and moments)."""
+    from ucod_dpl_tpu_torch.engine.train_step import make_lora_optimizer
+
+    lora = tree_map(lambda t: t.to(device).requires_grad_(True), lora_from_jax(_get(tree, "lora")))
+    opt = make_lora_optimizer(lora, cfg)
+    _adamw_from_jax(opt, lora, _get(tree, "opt"), lora_from_jax)
+    return lora, opt
