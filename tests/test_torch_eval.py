@@ -412,5 +412,6 @@ def test_cli_eval_on_the_shipped_config_runs_on_the_cpu(tmp_path, capsys):
     assert TCLI.main(["serve"]) == 2
     with pytest.raises(FileNotFoundError, match="Config file not found"):  # train is ported: it reads its config
         TCLI.main(["train", "-c", "x"])
-    with pytest.raises(NotImplementedError, match="item 14"):
-        TCLI.main(["generate_pseudo_label"])
+    with pytest.raises(ValueError, match="does not exist"):  # ported: it parses its flags, refuses a missing dir
+        TCLI.main(["generate_pseudo_label", "--image_path", str(tmp_path / "missing" / "{}"), "--device", "cpu",
+                   "--backbone_weights", str(tmp_path / "none")])

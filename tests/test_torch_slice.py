@@ -180,10 +180,12 @@ def test_port_imports_no_jax():
     """Importing every module of the port, loading a config, reading an image
     from a path for a request, running the LookTwice helpers and running the
     eval entry end to end on the CPU (``cli.eval_main``: runner, dataset cache
-    build, evaluator, metrics) and the train entry (``cli.train_main``: train
-    loop, steps, checkpoints, validation) must import nothing of jax and nothing of the
-    JAX package ``ucod_dpl_tpu``, not even its jax-free modules: an import of
-    either is made to fail outright."""
+    build, evaluator, metrics), the train entry (``cli.train_main``: train
+    loop, steps, checkpoints, validation), the pseudo-label generator and the
+    CORAL eval entry (``cli.lt_eval_main``: LRDataset's caches, the refiner)
+    must import nothing of jax and nothing of the JAX package
+    ``ucod_dpl_tpu``, not even its jax-free modules: an import of either is
+    made to fail outright."""
     code = (
         "import glob, os, sys, tempfile, types\n"
         "import numpy as np\n"
@@ -196,15 +198,16 @@ def test_port_imports_no_jax():
         "                  and sys.modules[m] is not None)\n"
         "import ucod_dpl_tpu_torch\n"
         "from ucod_dpl_tpu_torch import serving\n"
-        "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, quant, resize\n"
-        "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io\n"
+        "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, pseudo_label, quant, resize\n"
+        "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io, udlr\n"
         "from ucod_dpl_tpu_torch.data import feature_extractor, transforms\n"
         "from ucod_dpl_tpu_torch.data import dataset\n"
-        "from ucod_dpl_tpu_torch.engine import checkpoint, eval_loop, preempt, runner, train_loop, train_step\n"
+        "from ucod_dpl_tpu_torch.engine import checkpoint, coral_loop, eval_loop, preempt, runner, train_loop\n"
+        "from ucod_dpl_tpu_torch.engine import train_step\n"
         "from ucod_dpl_tpu_torch.parallel import distributed, mesh, tp\n"
         "from ucod_dpl_tpu_torch.config import load_config\n"
-        "from ucod_dpl_tpu_torch.utils import components, fileio, logger, metrics, native, profiling, progress\n"
-        "from ucod_dpl_tpu_torch.utils import registry, seed\n"
+        "from ucod_dpl_tpu_torch.utils import bilateral_solver, components, fileio, logger, metrics, native\n"
+        "from ucod_dpl_tpu_torch.utils import profiling, progress, registry, seed, visualize\n"
         "from ucod_dpl_tpu_torch import cli\n"
         "assert not jax_package(), jax_package()\n"
         "cfg = load_config('configs/uscod/UCOD-DPL_dinov2.py')\n"
@@ -256,6 +259,19 @@ def test_port_imports_no_jax():
         "    'train_cfg.save_cfg.start_save', '0', 'val_cfg.val_interval', '2', 'val_cfg.start_val', '2'])\n"
         "assert trained.train_loop.state.opt.count == 1 and trained.train_loop.best_result is not None\n"
         "assert os.path.exists(os.path.join(trained.ckp_dir, 'state_epoch2.npz'))\n"
+        "out = cli.generate_pseudo_label_main(['--dataset', 'SYN', '--image_path', os.path.join(root, 'RefCOD', '{}', 'im'),\n"
+        "    '--cache_path', os.path.join(root, 'pl'), '--backbone_weights', root, '--image_size', '28',\n"
+        "    '--device', 'cpu'])\n"
+        "assert fileio.ArrayCache(out).read(1).shape == (2, 2, 1)\n"
+        "with open(os.path.join(root, 'coral.py'), 'w') as f:\n"
+        "    f.write('cfg = dict(_BASE_=[' + repr(os.path.abspath('configs/uscod/CORAL_dinov2.py')) + '], '\n"
+        "            'model_cfg=dict(dim=32, feature_size=4, window_length=4), '\n"
+        "            'dataset_cfg=dict(feature_extractor_cfg=dict(arch=' + repr(arch) + ')))\\n')\n"
+        "refined = cli.lt_eval_main(['-c', os.path.join(root, 'coral.py'), '--device', 'cpu', '--work_dir', root,\n"
+        "    '--datasets', 'SYN', '--opts', 'dataset_cfg.dataset_dir', os.path.join(root, 'RefCOD'),\n"
+        "    'dataset_cfg.cache_dir', os.path.join(root, 'cache'), 'dataset_cfg.valset_cfg.image_size', '(28, 28)',\n"
+        "    'tpu_cfg.compute_dtype', 'float32'])\n"
+        "assert set(refined['SYN'].evaluator.result) == set(stats.get_result())\n"
         "bad = [m for m in sys.modules if m.startswith('jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "assert not jax_package(), jax_package()\n"

@@ -24,13 +24,15 @@
 //   * a pre-pass writes, per (batch * head, row) padded to a multiple of 64
 //     rows, the pair {lse * log2 e, D} in f32: +inf and 0 for rows >= L, so
 //     a query row past L gets P = 0 with no predicate; it also zeroes the
-//     f32 dQ scratch dq_acc;
+//     f32 dQ scratch dq_acc and the int32 semaphores behind it;
 //   * the main kernel gives each CTA one 128-key K/V tile of one head: one
 //     producer warp (setmaxnreg down to 24) loads K and V once by TMA, then
 //     streams every 64-row q tile's Q, dO (3-D tensor maps, 128-byte
 //     swizzle, rows >= L zero-filled) and its 512 bytes of {lse, D} through
 //     a three-stage mbarrier ring; two consumer warpgroups (setmaxnreg up to
-//     240) own 64 keys each.  Per q tile a warpgroup runs five wgmma
+//     240) own 64 keys each.  The CTA of key tile j of n_k starts at q tile
+//     floor(j * n_q / n_k) of n_q and walks them cyclically, so at any one
+//     step the CTAs of a head work on distinct q tiles.  Per q tile a warpgroup runs five wgmma
 //     products, each score computed once (a two-pass backward, dK/dV then dQ,
 //     runs seven): S^T = K Q^T and dP^T = V dO^T from shared memory; P^T in
 //     registers; dV += P^T dO and dK += dS^T Q with P^T and dS^T as bf16 A
@@ -39,14 +41,26 @@
 //     64 keys.  The next q tile's S and dP are issued before this tile's dQ
 //     is passed on, so the tensor cores have work meanwhile;
 //   * the two warpgroups' dQ partials are summed through shared memory (each
-//     adds the other's half of the 64 columns, handed over by mbarrier) and
-//     each half-tile is added to dq_acc by one TMA bulk reduce-add
-//     (cp.reduce.async.bulk .add.f32, 8 KB), which runs asynchronously;
-//     dq_acc holds per (batch * head, q tile) the tile's sums contiguously
-//     (dq_half_offset).  The order of the additions from the CTAs of one
-//     head varies from run to run, so dq may differ in its last bits
-//     between runs; dK and dV are summed in registers in a fixed order and
-//     do not;
+//     adds the other's half of the 64 columns, handed over by mbarrier) into
+//     a double-buffered half-tile, and one writer thread per warpgroup (in
+//     the producer warpgroup) adds it to dq_acc by one TMA bulk reduce-add
+//     (cp.reduce.async.bulk .add.f32, 8 KB); dq_acc holds per (batch *
+//     head, q tile) the tile's sums contiguously (dq_half_offset);
+//   * the additions into one half-tile happen in a fixed order, so dq is the
+//     same bit for bit from run to run (the TPU kernels write dQ per q block
+//     with no atomics): the CTAs of a head add q tile i in the order of the
+//     step at which their cyclic walks reach it, and a semaphore per
+//     (batch * head, q tile, half) counts the additions made.  The writer
+//     spins on it (acquire, gpu scope) until it reads its CTA's rank, adds,
+//     waits until the addition has completed (not only read its source),
+//     fences the async proxy and releases the count plus one.  Since the
+//     walks are staggered, the CTA ahead of it in a tile's order reached
+//     the tile at least a step earlier, so the wait is short; a wait is
+//     always on a CTA at an earlier step of its walk, so no cycle forms,
+//     and a head's CTAs are adjacent in launch order (blockIdx.x the key
+//     tile), so the CTAs waited on are resident, finished or next to be
+//     launched once the heads before them have finished.  dK and dV are
+//     summed in registers in the order of the walk;
 //   * key rows >= L get P = 0 before any product uses P; the dK/dV stores
 //     and the dq cast skip rows >= L;
 //   * a last pass rounds dq_acc to bf16 into dq.
@@ -84,19 +98,22 @@ struct Smem {  // every tile 1024-byte aligned (128-byte swizzle atoms)
   uint64_t kv_full;
   uint64_t full[kStages], empty[kStages];
   uint64_t xchg_full[kConsumers];  // warpgroup c's half-partial is written
+  uint64_t dq_full[kConsumers][2];  // dq_out[c][s] holds a step's sums
+  uint64_t dq_free[kConsumers][2];  // their addition to dq_acc has completed
 };
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
 // stats[bh, i] = {lse * log2 e, D = sum_d dO o O} for i < L, {+inf, 0} for
-// L <= i < padded_len, and dq_acc's row i of head bh set to zero.  Eight
+// L <= i < padded_len, dq_acc's row i of head bh set to zero, and with the
+// first row of a q tile the tile's two semaphores (one per half).  Eight
 // lanes take one (padded row, head) unit u: row u / num_heads of batch
 // element b, head u % num_heads, 16 bytes of the packed o/dO row and 16 of
 // the dq_acc row each.
 __global__ void __launch_bounds__(256)
     attention_bwd_stats_kernel(const bf16* __restrict__ o, const bf16* __restrict__ d_o,
                                const float* __restrict__ lse, float2* __restrict__ stats,
-                               float* __restrict__ dq_acc, int64_t n_units, int seq_len, int padded_len,
-                               int num_heads) {
+                               float* __restrict__ dq_acc, int* __restrict__ sem, int64_t n_units, int seq_len,
+                               int padded_len, int num_heads) {
   const int64_t u = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) / 8;
   if (u >= n_units) return;
   const int part = threadIdx.x % 8;
@@ -110,6 +127,7 @@ __global__ void __launch_bounds__(256)
   float* dq_row = dq_acc + (bh * (padded_len / 64) + i / 64) * 64 * kHeadDim + (i % 64) * 32 + 4 * part;
   reinterpret_cast<float4*>(dq_row)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
   reinterpret_cast<float4*>(dq_row + 64 * 32)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (i % 64 == 0 && part < 2) sem[(bh * (padded_len / 64) + i / 64) * 2 + part] = 0;
   float dot = 0.f;
   if (i < seq_len) {
     const int64_t off = (((int64_t)b * seq_len + i) * num_heads + h) * kHeadDim + 8 * part;
@@ -203,9 +221,9 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&d)
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
-                         const float2* __restrict__ stats, float* __restrict__ dq_acc, bf16* __restrict__ dk,
-                         bf16* __restrict__ dv, int seq_len, int padded_len, int num_heads, float scale,
-                         float scale_log2) {
+                         const float2* __restrict__ stats, float* __restrict__ dq_acc, int* __restrict__ sem,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_len, int padded_len,
+                         int num_heads, float scale, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
   const int wg = threadIdx.x / 128;
@@ -214,6 +232,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int h = bh % num_heads;
   const int k0 = blockIdx.x * kBlockK;
   const int n_q = padded_len / kBlockQ;
+  const int q_first = blockIdx.x * n_q / gridDim.x;  // this CTA's first q tile; step i takes (q_first + i) % n_q
 
   if (threadIdx.x == 0) {
     ucod::mbar_init(&sm.kv_full, 1);
@@ -223,7 +242,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       ucod::mbar_init(&sm.empty[s], 4 * kConsumers);  // lane 0 of every consumer warp
     }
 #pragma unroll
-    for (int c = 0; c < kConsumers; ++c) ucod::mbar_init(&sm.xchg_full[c], 128);
+    for (int c = 0; c < kConsumers; ++c) {
+      ucod::mbar_init(&sm.xchg_full[c], 128);
+      ucod::mbar_init(&sm.dq_full[c][0], 128);
+      ucod::mbar_init(&sm.dq_full[c][1], 128);
+      ucod::mbar_init(&sm.dq_free[c][0], 1);
+      ucod::mbar_init(&sm.dq_free[c][1], 1);
+    }
     ucod::fence_barrier_init();
   }
   __syncthreads();
@@ -237,11 +262,37 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float2* stats_h = stats + (int64_t)bh * padded_len;
       for (int i = 0; i < n_q; ++i) {
         const int st = i % kStages;
+        const int tile = (q_first + i) % n_q;
         ucod::mbar_wait(&sm.empty[st], ((i / kStages) & 1) ^ 1);
         ucod::mbar_expect_tx(&sm.full[st], 2 * kQBytes + kStatBytes);
-        ucod::tma_load_3d(sm.q[st], &tm_q, &sm.full[st], h * kHeadDim, i * kBlockQ, b);
-        ucod::tma_load_3d(sm.d_o[st], &tm_do, &sm.full[st], h * kHeadDim, i * kBlockQ, b);
-        ucod::bulk_load(sm.stats[st], stats_h + i * kBlockQ, kStatBytes, &sm.full[st]);
+        ucod::tma_load_3d(sm.q[st], &tm_q, &sm.full[st], h * kHeadDim, tile * kBlockQ, b);
+        ucod::tma_load_3d(sm.d_o[st], &tm_do, &sm.full[st], h * kHeadDim, tile * kBlockQ, b);
+        ucod::bulk_load(sm.stats[st], stats_h + tile * kBlockQ, kStatBytes, &sm.full[st]);
+      }
+    } else if (threadIdx.x == 32 || threadIdx.x == 64) {
+      // dQ writer of warpgroup c (lane 0 of warps 1 and 2): the ordered
+      // addition of each step's half-tile.  This CTA's rank in q tile t's
+      // order: m = ceil((t + 1) * n_k / n_q) CTAs start at or before t and
+      // reach it first, the later-starting ones after them, each group in
+      // descending key tile (the one that started nearest t first).
+      const int c = threadIdx.x / 32 - 1;
+      const int n_k = gridDim.x;
+      float* dq_head = dq_acc + (int64_t)bh * n_q * 64 * kHeadDim;
+      int* sem_h = sem + (int64_t)bh * n_q * 2 + c;
+      for (int i = 0; i < n_q; ++i) {
+        const int tile = (q_first + i) % n_q;
+        const int m = ((tile + 1) * n_k + n_q - 1) / n_q;
+        const int rank = (int)blockIdx.x < m ? m - 1 - (int)blockIdx.x : m + n_k - 1 - (int)blockIdx.x;
+        const int64_t dst = (int64_t)tile * 64 * kHeadDim + c * 32 * 64;
+        ucod::mbar_wait(&sm.dq_full[c][i & 1], (i >> 1) & 1);
+        while (ucod::ld_acquire_gpu(sem_h + 2 * tile) != rank) {}
+        ucod::fence_proxy_async_global();
+        ucod::bulk_reduce_add_f32(dq_head + dst, sm.dq_out[c][i & 1], 32 * 64 * 4);
+        ucod::bulk_commit();
+        ucod::bulk_wait<0>();
+        ucod::fence_proxy_async_global();
+        ucod::st_release_gpu(sem_h + 2 * tile, rank + 1);
+        ucod::mbar_arrive(&sm.dq_free[c][i & 1]);
       }
     }
   } else {
@@ -258,7 +309,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int key0 = k0 + 64 * c + 16 * warp + g;  // this thread's keys: key0, key0 + 8
     const bool keys_past_l = k0 + 64 * c + 64 > seq_len;
     const int64_t row_stride = (int64_t)num_heads * kHeadDim;
-    float* dq_tiles = dq_acc + (int64_t)bh * n_q * 64 * kHeadDim;  // this head's tiles
 
     float dk_acc[32], dv_acc[32], dq[32];
 #pragma unroll
@@ -268,9 +318,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // Step i in three parts, software-pipelined: the S and dP products of
     // step i are issued before the dQ partial of step i - 1 is summed and
-    // added to dq_acc, so the tensor cores have work while this warpgroup
-    // runs the exchange and the atomics.  Every other product completes
-    // within its step.
+    // handed to the writer, so the tensor cores have work while this
+    // warpgroup runs the exchange.  Every other product completes within its
+    // step.
     auto issue_s_dp = [&](int i) {  // two commit groups: S^T = K Q^T, dP^T = V dO^T
       const int st = i % kStages;
       ucod::mbar_wait(&sm.full[st], (i / kStages) & 1);
@@ -340,9 +390,6 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       ucod::fence_proxy_async();
-      // the bulk addition of step i - 2 has read dq_out[c][i & 1], which
-      // finish(i) refills: known to the warpgroup past this barrier
-      if (tid == 0) ucod::bulk_wait_read<1>();
       ucod::named_sync(kWgBar + c, 128);
       ucod::wgmma_fence();
 #pragma unroll
@@ -355,21 +402,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       ucod::fence_regs(dk_acc);
       ucod::fence_regs(dv_acc);
     };
-    // step i's products done: free its stage, add its dQ partial
+    // step i's products done: free its stage, sum its dQ partial into
+    // dq_out[c][i & 1] once the writer has added that buffer's step i - 2,
+    // and hand it over
     auto finish = [&](int i) {
       if (lane == 0) ucod::mbar_arrive(&sm.empty[i % kStages]);
       float* out = sm.dq_out[c][i & 1];
+      ucod::mbar_wait(&sm.dq_free[c][i & 1], ((i >> 1) & 1) ^ 1);
       if (c == 0) {
         dq_exchange_add<0>(dq, sm.xchg[i & 1], sm.xchg_full, i & 1, tid, out);
       } else {
         dq_exchange_add<1>(dq, sm.xchg[i & 1], sm.xchg_full, i & 1, tid, out);
       }
       ucod::fence_proxy_async();
-      ucod::named_sync(kWgBar + c, 128);
-      if (tid == 0) {
-        ucod::bulk_reduce_add_f32(dq_tiles + (int64_t)i * 64 * kHeadDim + c * 32 * 64, out, 32 * 64 * 4);
-        ucod::bulk_commit();
-      }
+      ucod::mbar_arrive(&sm.dq_full[c][i & 1]);
     };
 
     issue_s_dp(0);
@@ -380,7 +426,6 @@ __global__ void __launch_bounds__(kThreads, 1)
       issue_rest(i);
     }
     finish(n_q - 1);
-    if (tid == 0) ucod::bulk_wait<0>();
 
     bf16* dk_h = dk + (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
     bf16* dv_h = dv + (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
@@ -407,7 +452,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // 64), 16-byte aligned; lse: contiguous f32 (batch, num_heads, seq_len) from
 // ucod_attention_fwd_lse; stats and dq_acc: f32 scratch of batch * num_heads
 // * padded * 2 and * 64 values, padded = seq_len rounded up to a multiple of
-// 64, 16-byte aligned, filled by the pre-pass.  Launches the pre-pass, the
+// 64, 16-byte aligned, filled by the pre-pass; dq_acc followed by batch *
+// num_heads * padded / 64 * 2 int32 semaphores (the same allocation).  Launches the pre-pass, the
 // main kernel and the dq cast on `stream`; returns the first failed launch's
 // cudaError_t (cudaErrorInvalidValue when a tensor map cannot be made), or 0.
 extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, const void* o,
@@ -417,9 +463,10 @@ extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, c
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int padded = (seq_len + kBlockQ - 1) / kBlockQ * kBlockQ;
   const int64_t n_units = (int64_t)batch * padded * num_heads;
+  int* sem = reinterpret_cast<int*>(static_cast<float*>(dq_acc) + n_units * kHeadDim);
   attention_bwd_stats_kernel<<<(unsigned)((n_units * 8 + 255) / 256), 256, 0, s>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
-      static_cast<float2*>(stats), static_cast<float*>(dq_acc), n_units, seq_len, padded, num_heads);
+      static_cast<float2*>(stats), static_cast<float*>(dq_acc), sem, n_units, seq_len, padded, num_heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -435,9 +482,8 @@ extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, c
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq_len + kBlockK - 1) / kBlockK, batch * num_heads);
   attention_bwd_kernel<<<grid, kThreads, kSmemBytes, s>>>(
-      tm_q, tm_k, tm_v, tm_do, static_cast<const float2*>(stats), static_cast<float*>(dq_acc),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_len, padded, num_heads, scale,
-      scale * kLog2e);
+      tm_q, tm_k, tm_v, tm_do, static_cast<const float2*>(stats), static_cast<float*>(dq_acc), sem,
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_len, padded, num_heads, scale, scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 

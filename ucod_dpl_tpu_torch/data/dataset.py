@@ -6,13 +6,16 @@ on-disk cache layout (``cache_manager.py:63-76``)::
 
   {cache_dir}/features_cache/{extractor}/{mode}/{DATASET}
   {cache_dir}/pseudo_label_cache/{DATASET}
+  {cache_dir}/patch_cache/{extractor}/{mode}/{DATASET}
+  {cache_dir}/m_patch_cache/{extractor}/{mode}/{DATASET}
 
 so caches built by the JAX package, by the reference and by the port are
 interchangeable.  The one-time feature-cache build runs the DINO backbone
 in batches on the extractor's device (the card: K1 and K6, eleven launches
 each per forward) while a thread decodes the next batch; arrays are NHWC.
 Legacy torch-pickle caches of the reference are read too (CHW -> HWC).
-The CORAL stage-2 dataset (``LRDataset``) waits for ROADMAP Queue 1 item 15.
+The CORAL stage-2 dataset (``LRDataset``) adds the 3 x 3 grid-patch cache
+and the 756px m-patch cache (``lr_dataset.py``).
 """
 
 from __future__ import annotations
@@ -30,9 +33,11 @@ import numpy as np
 
 from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
 from ucod_dpl_tpu_torch.data.transforms import (
+    image_transform,
     load_image_batch_transform,
     load_image_transform,
     load_label_transform,
+    resize_bilinear,
 )
 from ucod_dpl_tpu_torch.parallel.distributed import process_count
 from ucod_dpl_tpu_torch.utils.fileio import ArrayCache, ImageIO
@@ -48,6 +53,38 @@ def _to_hwc(arr: np.ndarray) -> np.ndarray:
     if arr.ndim == 3 and arr.shape[0] in (1, _FEATURE_DIM) and arr.shape[0] != arr.shape[-1]:
         return np.transpose(arr, (1, 2, 0))
     return arr
+
+
+# -- the CORAL stage-2 pixel-side geometry, shared by LRDataset and the
+#    serving RefinePredictor ---------------------------------------------------
+
+M_PATCH_SLICE = 36
+M_PATCH_STRIDE = 18
+
+
+def grid_patch_arrays(img, image_size: Tuple[int, int], window_size: int) -> np.ndarray:
+    """(ws * ws, h, w, 3) normalised grid-patch pixels: one resize of the
+    image to the ws x ws grid of ``image_size`` tiles, one normalisation,
+    then the tiles in row-major order (elementwise what the reference's
+    crop-then-transform loop gives, ``lr_dataset.py:136-152``)."""
+    gh, gw = image_size
+    ws = window_size
+    big = image_transform(resize_bilinear(img, (ws * gh, ws * gw)), None)
+    return np.stack([big[i * gh : (i + 1) * gh, j * gw : (j + 1) * gw] for i in range(ws) for j in range(ws)])
+
+
+def slice_m_windows(key: np.ndarray) -> np.ndarray:
+    """(54, 54, C) high-res key map -> (4, 36, 36, C) float32 overlapping
+    m-patch slices, stride 18 (``lr_dataset.py:154-168``)."""
+    s, st = M_PATCH_SLICE, M_PATCH_STRIDE
+    return np.stack([key[i * st : i * st + s, j * st : j * st + s, :] for i in range(2) for j in range(2)]
+                    ).astype(np.float32)
+
+
+def fe_image_size(extractor_type: str) -> Tuple[int, int]:
+    """The high-res transform's size: 756 (dinov2) or 432 (dinov1), the
+    reference's ``feature_extractor_transform`` (``base_dataset.py:107-110``)."""
+    return (756, 756) if extractor_type == "dinov2" else (432, 432)
 
 
 class CacheSet:
@@ -375,3 +412,116 @@ class DataLoader:
             t.join(timeout=10.0)
         if err:
             raise err[0]
+
+
+@DATASETS.register()
+class LRDataset(CODDataset):
+    """CORAL stage-2 dataset: the stage-1 items plus each image's 3 x 3
+    grid-patch features (``h_inputs``) and, with ``require_m_patches``, its
+    four 756px m-patch feature slices (``m_inputs``), both cached in the
+    JAX package's layout (the reference's ``lr_dataset.py``)."""
+
+    def __init__(self, *args, window_size: int = 3, require_m_patches: bool = True, **kwargs):
+        self.window_size = window_size
+        self.require_m_patches = require_m_patches
+        self.patch_build_seconds: Optional[float] = None  # host clock of a patch-cache build, when this made one
+        super().__init__(*args, **kwargs)
+        kinds = ("patch", "m_patch") if require_m_patches else ("patch",)
+        for kind in kinds:
+            self._validate_cache(kind)
+        if any(self.caches.get(kind).mode == "w" for kind in kinds):
+            self._build_coordinated(kinds, self._build_patch_cache)
+
+    def _fe_image_size(self) -> Tuple[int, int]:
+        return fe_image_size(self.feature_extractor_cfg.type)
+
+    def _grid_patches(self, img) -> np.ndarray:
+        """(ws * ws, h, w, C) key features of the image's grid patches, one
+        extractor call."""
+        return np.asarray(self.feature_extractor.extract(grid_patch_arrays(img, self.image_size, self.window_size)),
+                          np.float32)
+
+    def _m_patches(self, img) -> np.ndarray:
+        arr = image_transform(img, self._fe_image_size())
+        return slice_m_windows(np.asarray(self.feature_extractor.extract(arr[None]))[0])
+
+    def _build_patch_cache(self) -> None:
+        """The one-time sweep: the grid patches of a chunk of images go
+        through the extractor in one call (ws^2 crops an image; the chunk is
+        ``cache_build_batch // ws^2`` images, so the call stays the size of a
+        feature-cache batch) and the chunk's 756px images in another, while
+        threads decode the next chunk."""
+        t0 = time.perf_counter()
+        patch_cache = self.caches.get("patch")
+        m_cache = self.caches.get("m_patch") if self.require_m_patches else None
+        build_patch = patch_cache.mode == "w"
+        build_m = m_cache is not None and m_cache.mode == "w"
+        n = len(self.image_paths)
+        per = self.window_size ** 2
+        self.logger.log(f"Building patch caches for {self.set_cfg.DATASET} ({n} images)")
+        chunk = max(1, self.cache_build_batch // per)
+        chunks = [self.image_paths[s : s + chunk] for s in range(0, n, chunk)]
+
+        def load_one(path):
+            img = ImageIO.read_image(path, "RGB")
+            return (grid_patch_arrays(img, self.image_size, self.window_size) if build_patch else None,
+                    image_transform(img, self._fe_image_size()) if build_m else None)
+
+        def load_chunk(paths):
+            with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+                return list(pool.map(load_one, paths))
+
+        progress = ProgressReporter(self.logger, n, f"patch cache {self.set_cfg.DATASET}")
+        idx = 0
+        with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+            pending = pool.submit(load_chunk, chunks[0]) if chunks else None
+            for ci, paths in enumerate(chunks):
+                loaded = pending.result()
+                if ci + 1 < len(chunks):
+                    pending = pool.submit(load_chunk, chunks[ci + 1])
+                if build_patch:
+                    feats = self.feature_extractor.extract(np.concatenate([g for g, _ in loaded]))
+                    for i in range(len(paths)):
+                        patch_cache.write(idx + i, feats[i * per : (i + 1) * per])
+                if build_m:
+                    keys = self.feature_extractor.extract(np.stack([m for _, m in loaded]))
+                    for i in range(len(paths)):
+                        m_cache.write(idx + i, slice_m_windows(keys[i]))
+                idx += len(paths)
+                progress.update(len(paths))
+        progress.finish()
+        if build_patch:
+            patch_cache.flush(meta=self._cache_identity())
+        if build_m:
+            m_cache.flush(meta=self._cache_identity())
+        self.patch_build_seconds = time.perf_counter() - t0
+
+    def get_features(self, img_path: str, crop_center: bool = False):
+        """Live multi-resolution extraction of one image: ``(patches,
+        m_patches)``; with ``crop_center`` the image's centre half takes its
+        place (the CORAL low-confidence fallback, ``lr_dataset.py:82-134``)
+        and the result is ``(l (1, h, w, C), patches (1, ws^2, ...), m_patches
+        (1, 4, ...) or None)``."""
+        img = ImageIO.read_image(img_path, "RGB")
+        if crop_center:
+            w, h = img.size
+            left, top = w // 4, h // 4
+            img = img.crop((left, top, left + w // 2, top + h // 2))
+        patches = self._grid_patches(img)
+        m_patches = self._m_patches(img) if self.require_m_patches else None
+        if crop_center:
+            key = np.asarray(self.feature_extractor.extract(image_transform(img, self.image_size)[None]))[0]
+            return key[None], patches[None], m_patches[None] if m_patches is not None else None
+        return patches, m_patches
+
+    def __getitem__(self, index: int) -> Dict[str, Any]:
+        items = super().__getitem__(index)
+        patch_cache = self.caches.get("patch")
+        h_inputs = np.stack([_to_hwc(a) for a in patch_cache.read(index)]) if patch_cache.mode == "r" else None
+        m_inputs = None
+        if self.require_m_patches:
+            m_cache = self.caches.get("m_patch")
+            if m_cache.mode == "r":
+                m_inputs = np.stack([_to_hwc(a) for a in m_cache.read(index)])
+        items.update({"m_inputs": m_inputs, "h_inputs": h_inputs, "index": index})
+        return items

@@ -217,3 +217,19 @@ class FeatureExtractor:
                 device = (params[0] if self.tp_shard else params)["pos_embed"].device
                 feats.append(self._features(params, images[sl], device))
             return np.concatenate([self._to_host_f32(f, "features") for f in feats])
+
+    def extract_with_attention(self, images_nhwc: np.ndarray):
+        """(B, H, W, 3) normalised images -> host float32 ``(key_tokens (B,
+        1+N, C), key_features (B, h, w, C), cls_attention (B, heads, 1+N))``,
+        the pseudo-label generator's inputs, on the extractor's device.
+        Always the full-precision forward: an int8 extractor passes no int8
+        linears (the CLS attention is a parity surface).  Tokens and
+        attention are checked for non-finite values (NaN probabilities would
+        threshold into silently degenerate masks).  Under tensor parallelism
+        ``dino_forward`` raises NotImplementedError."""
+        with torch.inference_mode():
+            pixels = torch.from_numpy(np.asarray(images_nhwc, np.float32)).to(self.device)
+            out = dino_forward(self.params, pixels, self.config, compute_dtype=self.compute_dtype,
+                               tp_shard=self.tp_shard, want_cls_attention=True)
+            return (self._to_host_f32(out["key_tokens"], "key tokens"), out["key_features"].float().cpu().numpy(),
+                    self._to_host_f32(out["cls_attention"], "CLS attention"))

@@ -6,7 +6,8 @@ device mesh from ``tpu_cfg.mesh``, the feature extractor in
 ``tpu_cfg.compute_dtype`` on ``device``, decoder and discriminator params
 (seeded, or a checkpoint), the train and val dataloaders, the config dump,
 checkpoints, stage-1 training (:mod:`.train_loop`) and the stage-1 LookTwice
-evaluation.  The CORAL stage-2 runner is ROADMAP Queue 1 item 15.
+evaluation; and the CORAL stage-2 runner (``LocalRefineRunner``: its
+evaluation; its training is ROADMAP Queue 1 item 15's training half).
 """
 
 from __future__ import annotations
@@ -101,12 +102,19 @@ class Runner:
             use_features=mc.get("dis_use_features", False),
         )
 
+    def _dataset_cls(self, set_cfg):
+        return DATASETS.get(set_cfg.get("type", "USCODDataset"))
+
+    def _dataset_extra_kwargs(self, set_cfg, ds_mode: str) -> dict:
+        """Constructor arguments of a subclass's dataset class."""
+        return {}
+
     def _make_dataset(self, set_cfg, ds_mode: str, keep_size: bool):
         dc = self.cfg.dataset_cfg
-        extra = {}
+        extra = self._dataset_extra_kwargs(set_cfg, ds_mode)
         if "cache_build_batch" in set_cfg:
             extra["cache_build_batch"] = int(set_cfg["cache_build_batch"])
-        return DATASETS.get(set_cfg.get("type", "USCODDataset"))(
+        return self._dataset_cls(set_cfg)(
             set_cfg,
             dc.feature_extractor_cfg,
             dataset_dir=dc.dataset_dir,
@@ -214,7 +222,54 @@ class Runner:
 
 
 class LocalRefineRunner(Runner):
-    """CORAL stage-2 runner (frozen stage-1 decoder + UDLR refiner)."""
+    """CORAL stage-2 runner: the frozen stage-1 decoder and the UDLR refiner
+    over :class:`~ucod_dpl_tpu_torch.data.dataset.LRDataset`."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("the CORAL stage-2 runner is ROADMAP Queue 1 item 15")
+    def __init__(
+        self,
+        cfg,
+        mode: str = "val",
+        load_from: Optional[str] = None,
+        refiner_path: Optional[str] = None,
+        feature_extractor: Optional[FeatureExtractor] = None,
+        device="cuda",
+    ):
+        """``refiner_path``: a reference-format refiner checkpoint; without
+        one the refiner is a seeded init (``seed + 2``)."""
+        self._refiner_path = refiner_path
+        super().__init__(cfg, mode=mode, load_from=load_from, feature_extractor=feature_extractor, device=device)
+
+    def _build_model(self, load_from: Optional[str]) -> None:
+        from ucod_dpl_tpu_torch.models.udlr import init_sparse_refiner, load_refiner_checkpoint
+
+        super()._build_model(load_from)
+        if self._refiner_path:
+            self.logger.log(f"Loading refiner checkpoint from {self._refiner_path}")
+            self.refiner_params = load_refiner_checkpoint(self._refiner_path)
+        else:
+            self.refiner_params = init_sparse_refiner(self.cfg.get("seed", 42) + 2, dim=self.cfg.model_cfg.dim)
+
+    def _dataset_cls(self, set_cfg):
+        from ucod_dpl_tpu_torch.data.dataset import CODDataset, LRDataset
+
+        ds_cls = DATASETS.get(set_cfg.get("type", "LRDataset"))
+        return LRDataset if ds_cls is CODDataset else ds_cls  # stage 2 needs the patch caches
+
+    def _dataset_extra_kwargs(self, set_cfg, ds_mode: str) -> dict:
+        return {"window_size": self.cfg.model_cfg.get("window_size", 3),
+                "require_m_patches": set_cfg.get("require_m_patches", ds_mode == "train")}
+
+    def launch_val(self) -> Dict[str, float]:
+        """One UDLR evaluation of the val set; the evaluator stays in
+        ``self.evaluator``."""
+        from ucod_dpl_tpu_torch.engine.coral_loop import LocalRefineEvaluator
+
+        self.evaluator = LocalRefineEvaluator(self.cfg, self)
+        return self.evaluator.run()
+
+    def launch_train(self) -> None:
+        raise NotImplementedError("CORAL stage-2 training (LocalRefineTrainLoop) is ROADMAP Queue 1 item 15's "
+                                  "training half")
+
+    def save_refiner(self, epoch: int) -> str:
+        raise NotImplementedError("saving the refiner during training is ROADMAP Queue 1 item 15's training half")

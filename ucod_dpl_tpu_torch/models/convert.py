@@ -167,6 +167,47 @@ def lora_to_jax(lora) -> list:
             for layer in lora]
 
 
+# the refiner's leaves held (in, out) in JAX and (out, in) in the port; the
+# depthwise kernel is HWIO (7, 7, 1, E) in JAX and (E, 1, 7, 7) in the port
+_REFINER_T = {("csf", "attn", "out", "w"), ("csf", "attn", "fc1", "w"), ("csf", "attn", "fc2", "w"),
+              ("csf", "mask_dec", "w"), ("ge", "fuser0", "w"), ("ge", "fuser2", "w")}
+_REFINER_DW = ("csf", "dw_conv", "w")
+
+
+def _refiner_map(tree: Mapping[str, Any], leaf: Callable[[tuple, Any], Any], path: tuple = ()) -> Dict[str, Any]:
+    return {k: _refiner_map(v, leaf, path + (k,)) if isinstance(v, Mapping) else leaf(path + (k,), v)
+            for k, v in tree.items() if path + (k,) != ("num_heads",)}
+
+
+def refiner_from_jax(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    """JAX ``init_sparse_refiner`` / ``load_refiner_checkpoint`` params
+    (numpy values) -> port refiner params on the CPU (``num_heads`` is an
+    argument of the port's forward, not a leaf)."""
+    def leaf(path, v):
+        a = np.asarray(v, np.float32)
+        if path in _REFINER_T:
+            a = a.T
+        elif path == _REFINER_DW:
+            a = np.transpose(a, (3, 2, 0, 1))
+        return _t(a)
+
+    return _refiner_map(tree, leaf)
+
+
+def refiner_to_jax(params: Mapping[str, Any], num_heads: int = 8) -> Dict[str, Any]:
+    """Port refiner params -> numpy params in the JAX layout, with the JAX
+    tree's ``num_heads`` leaf."""
+    def leaf(path, v):
+        a = v.detach().to("cpu", torch.float32).numpy()
+        if path in _REFINER_T:
+            a = a.T
+        elif path == _REFINER_DW:
+            a = np.transpose(a, (2, 3, 1, 0))
+        return a.copy(order="C")  # (np.ascontiguousarray would make the 0-d GE.alpha (1,))
+
+    return {**_refiner_map(params, leaf), "num_heads": np.int32(num_heads)}
+
+
 def _discriminator_map(params, stats, conv, kernel, linear):
     """Map a discriminator (params, stats) pair, key order kept: ``kernel``
     on the convolution kernels, ``linear`` on the linear weight, ``conv`` on

@@ -345,11 +345,13 @@ def dino_forward(
     quant: Optional[Dict[str, Any]] = None,
     int8_mlp: str = "split",
     tp_shard: Optional[Tuple[Any, str]] = None,
+    want_cls_attention: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Run the ViT and return the reference hook contract.
 
     The last layer computes only LN1 and its key projection (eager PyTorch
-    cannot drop unused work the way XLA does, so the port never starts it).
+    cannot drop unused work the way XLA does, so the port never starts it),
+    and with ``want_cls_attention`` the query of the CLS row.
 
     Args:
       params: dict from :func:`init_dino` / :func:`load_hf_checkpoint`, on the
@@ -383,10 +385,28 @@ def dino_forward(
         it), each on its own device (see :func:`_tp_forward`).  Not with
         ``quant`` or ``key_fold`` (ValueError) or ``differentiable``
         (NotImplementedError).
+      want_cls_attention: also return the last layer's attention
+        probabilities of the CLS row over the 1+N keys (the pseudo-label
+        generator's input): its query ``LN1(x)[:, :1] @ Wq + b``, the logits
+        against every key in ``compute_dtype``, scaled and softmaxed in f32,
+        as the JAX package computes them.  Plain ``torch`` products, as the
+        JAX package leaves them to XLA; layers before the last run as
+        always.  Not with ``key_fold`` or ``quant`` (ValueError), nor with
+        ``tp_shard`` (NotImplementedError, ROADMAP Queue 1 item 19).
 
     Returns ``key_tokens`` (B, 1+N, hidden) and ``key_features`` (B, h, w,
-    hidden); with ``key_fold`` only ``folded_features`` (B, h, w, F).
+    hidden), with ``want_cls_attention`` also ``cls_attention`` (B, heads,
+    1+N) float32; with ``key_fold`` only ``folded_features`` (B, h, w, F).
     """
+    if want_cls_attention:
+        if key_fold is not None:
+            raise ValueError("key_fold skips the last layer's q projection; CLS attention needs key_fold=None")
+        if quant is not None:
+            raise ValueError("pseudo-label generation is a parity contract; CLS attention runs on the "
+                             "full-precision forward (quant=None)")
+        if tp_shard is not None:
+            raise NotImplementedError("CLS attention under tensor parallelism is ROADMAP Queue 1 item 19; run "
+                                      "pseudo-label generation on the unsharded forward")
     if tp_shard is not None:
         if quant is not None:
             raise ValueError("the int8 path is single-device; tp_shard shards the weights (needs quant=None)")
@@ -487,7 +507,14 @@ def dino_forward(
         folded = dense(h, fold, dtype) if quant is None else dense_w8a8(h, quantize_linear(fold), dtype)
         return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
     k = dense(h, last["k"], dtype) if quant is None else dense_w8a8(h, quant["layers"][-1]["k"], dtype)
-    return {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
+    out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
+    if want_cls_attention:
+        # the CLS row only: (B, 1, nh, d) against (B, 1+N, nh, d)
+        qh = dense(h[:, :1], last["q"], dtype).reshape(b, 1, cfg.num_heads, cfg.head_dim)
+        kh = k.reshape(b, -1, cfg.num_heads, cfg.head_dim)
+        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float() * scale
+        out["cls_attention"] = torch.softmax(logits, dim=-1)[:, :, 0, :]
+    return out
 
 
 def _tp_forward(

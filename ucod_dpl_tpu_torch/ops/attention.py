@@ -217,10 +217,13 @@ packed_attention_fwd_lse.launches = 0
 def bwd_scratch(b: int, l: int, num_heads: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel's f32 scratch, per (batch * head, row) with the
     rows padded to a multiple of 64: {lse * log2 e, D} and dQ's sums (64 a
-    row), both filled by the kernel's pre-pass."""
+    row), the latter followed by two int32 semaphores per (batch * head,
+    64-row q tile) that order the additions into dQ; all filled by the
+    kernel's pre-pass."""
     padded = -(-l // 64) * 64
     return (torch.empty(b * num_heads * padded * 2, device=device, dtype=torch.float32),
-            torch.empty(b * num_heads * padded * 64, device=device, dtype=torch.float32))
+            torch.empty(b * num_heads * padded * 64 + b * num_heads * padded // 64 * 2, device=device,
+                        dtype=torch.float32))
 
 
 def packed_attention_bwd(
@@ -241,8 +244,8 @@ def packed_attention_bwd(
     CUDA tensors launch the statistics pre-pass, the one-pass backward and
     the dq cast of ``csrc/attention_bwd.cu`` (counted once per call in
     ``packed_attention_bwd.launches``); dq is summed in f32 by reduce-adds in
-    an order that varies, so its last bits may differ from run to run.  CPU tensors take
-    :func:`packed_attention_bwd_reference`."""
+    a fixed order, so equal inputs give equal gradients bit for bit.  CPU
+    tensors take :func:`packed_attention_bwd_reference`."""
     if q.device.type == "cpu":
         refs = packed_attention_bwd_reference(q, k, v, o, do, lse, num_heads, scale)
         return refs if out is None else tuple(t.copy_(r) for t, r in zip(out, refs))

@@ -4,7 +4,9 @@ Counterpart of :mod:`ucod_dpl_tpu.ops.resize`: the same per-axis (out, in)
 weight matrices (built once on the host per size pair, numpy, copied from
 the JAX module so the two packages agree), applied as two float32 matmuls.
 Bilinear is ``align_corners=False`` without antialiasing; bicubic uses
-a = -0.75 with clamped taps, as torch does.
+a = -0.75 with clamped taps, as torch does.  The pools of the CORAL refiner
+(``adaptive_avg_pool2d`` by the same separable scheme, ``avg_pool2d``) are
+here too.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=256)
@@ -62,13 +65,27 @@ def _cubic_weights(in_size: int, out_size: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=256)
+def _adaptive_avg_weights(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) averaging matrix of torch ``adaptive_avg_pool1d``: bin i
+    covers [floor(i * in / out), ceil((i + 1) * in / out))."""
+    w = np.zeros((out_size, in_size), dtype=np.float32)
+    for i in range(out_size):
+        lo = (i * in_size) // out_size
+        hi = -((-(i + 1) * in_size) // out_size)
+        w[i, lo:hi] = 1.0 / (hi - lo)
+    return w
+
+
+_WEIGHTS = {"linear": _linear_weights, "cubic": _cubic_weights, "adaptive": _adaptive_avg_weights}
+
+
+@functools.lru_cache(maxsize=256)
 def _device_weights(kind: str, in_size: int, out_size: int, device: torch.device) -> torch.Tensor:
     # a normal tensor even when first asked for under inference_mode (serving):
     # the cached matrix is shared with differentiated callers (training), and
     # autograd refuses to save an inference tensor for backward
     with torch.inference_mode(False):
-        w = (_linear_weights if kind == "linear" else _cubic_weights)(in_size, out_size)
-        return torch.from_numpy(w).to(device)
+        return torch.from_numpy(_WEIGHTS[kind](in_size, out_size)).to(device)
 
 
 def _apply_separable(x: torch.Tensor, kind: str, size: Tuple[int, int], h_dim: int) -> torch.Tensor:
@@ -103,6 +120,21 @@ def interpolate_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     if x.shape[-2] == size[0] and x.shape[-1] == size[1]:
         return x
     return _apply_separable(x, "cubic", size, x.dim() - 2)
+
+
+def adaptive_avg_pool2d(x: torch.Tensor, output_size: Tuple[int, int]) -> torch.Tensor:
+    """torch ``F.adaptive_avg_pool2d`` for (..., H, W) tensors, as the JAX
+    package computes it: two f32 products with the per-axis bin matrices."""
+    return _apply_separable(x, "adaptive", output_size, x.dim() - 2)
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """torch ``F.avg_pool2d(count_include_pad=True)`` on (..., H, W) tensors,
+    summed in f32; the result keeps ``x.dtype``."""
+    lead = x.shape[:-2]
+    y = F.avg_pool2d(x.float().reshape(-1, 1, *x.shape[-2:]), kernel, stride=stride, padding=padding,
+                     count_include_pad=True)
+    return y.reshape(*lead, *y.shape[-2:]).to(x.dtype)
 
 
 @functools.lru_cache(maxsize=256)

@@ -16,6 +16,10 @@ pass) are eager methods under ``torch.inference_mode()`` around
 :func:`ucod_dpl_tpu_torch.models.dba.fg_logits_live`.  On CUDA the backbone
 runs in bf16 through the K1 and K6 kernels; with ``quantize="int8"``
 through K1 and the int8 kernels K8, K10 and K9.
+
+:class:`RefinePredictor` is the CORAL stage-2 counterpart (the JAX
+package's ``RefinePredictor``): the coarse stage-1 prediction refined by
+the UDLR refiner, with the l, grid and m features extracted live.
 """
 
 from __future__ import annotations
@@ -195,4 +199,164 @@ class Predictor:
             masks = [interpolate_bilinear_np(m, output_size) for m in masks]
             if not soft:
                 masks = [(m > 0.5).astype(np.float32) for m in masks]
+        return masks
+
+
+class RefinePredictor:
+    """Load-once CORAL stage-2 serving on ``feature_extractor.device``: the
+    coarse stage-1 prediction and the UDLR local refinement (the
+    composition of the reference's ``LocalRefineValidationLoop``,
+    ``loop_CORAL.py:41-341``, without dataset, caches or metrics).
+
+    Inputs carry original pixels (paths or uint8 RGB arrays): each call
+    extracts the l features at ``image_size``, the 3 x 3 grid patches and,
+    with ``use_m_patches``, the 756px m-patches (L 2917 tokens), each
+    resolution in one extractor call per chunk of ``max_batch`` images.  A
+    chunk is padded to ``max_batch`` by repeating its last image, as the
+    JAX package does: the refiner's batch-global maxima see the padding."""
+
+    def __init__(
+        self,
+        feature_extractor: FeatureExtractor,
+        decoder_params: RevDecoderParams,
+        refiner_params,
+        image_size=(518, 518),
+        window_size: int = 3,
+        window_length: int = 56,
+        threshold: float = 0.0015,
+        use_m_patches: bool = True,
+        max_batch: int = 4,
+        crop_center_ratio: float = 0.001,
+    ):
+        from ucod_dpl_tpu_torch.engine.coral_loop import _make_refine
+
+        self.fe = feature_extractor
+        self.device = feature_extractor.device
+        self.decoder_params = params_to(decoder_params, self.device)
+        self.refiner_params = params_to(refiner_params, self.device)
+        self.image_size = tuple(image_size)
+        self.window_size = window_size
+        self.window_length = window_length
+        self.use_m_patches = use_m_patches
+        self.max_batch = max_batch
+        self.crop_center_ratio = crop_center_ratio
+        self._refine = _make_refine(window_size, float(threshold))
+
+    @classmethod
+    def from_config(
+        cls,
+        config_path: str,
+        checkpoint: str,
+        refiner_path: str,
+        *,
+        device="cuda",
+        max_batch: int = 4,
+        strict: bool = True,
+        quantize: Optional[str] = None,
+    ) -> "RefinePredictor":
+        """``device``: the card by default; ``"cpu"`` runs the plain
+        versions of the kernels.  ``quantize="int8"``: the int8 backbone for
+        all three resolutions (on the card K8, K1, K10 and K9 per layer)."""
+        from ucod_dpl_tpu_torch.config import load_config
+        from ucod_dpl_tpu_torch.models.safetensors_io import load_decoder_checkpoint
+        from ucod_dpl_tpu_torch.models.udlr import load_refiner_checkpoint
+
+        cfg = load_config(config_path)
+        fe = FeatureExtractor(cfg.dataset_cfg.feature_extractor_cfg, device=device, strict=strict,
+                              quantize=quantize)
+        decoder, _ema = load_decoder_checkpoint(checkpoint)
+        mc = cfg.model_cfg
+        return cls(
+            fe,
+            decoder,
+            load_refiner_checkpoint(refiner_path),
+            image_size=tuple(cfg.dataset_cfg.valset_cfg.get("image_size", (518, 518))),
+            window_size=mc.get("window_size", 3),
+            window_length=mc.window_length,
+            threshold=mc.get("threshold", 0.0015),
+            use_m_patches=cfg.dataset_cfg.valset_cfg.get("require_m_patches", True),
+            max_batch=max_batch,
+        )
+
+    @staticmethod
+    def _load_image(item):
+        if isinstance(item, str) or hasattr(item, "__fspath__"):
+            from ucod_dpl_tpu_torch.utils.fileio import ImageIO
+
+            return ImageIO.read_image(item, "RGB")
+        arr = np.asarray(item)
+        if arr.ndim == 3 and arr.dtype == np.uint8:
+            from PIL import Image
+
+            return Image.fromarray(arr).convert("RGB")
+        raise ValueError("RefinePredictor needs original pixels (paths or uint8 RGB arrays) to extract "
+                         f"multi-resolution features; got {type(item)!r}"
+                         + (f" with shape {arr.shape}/{arr.dtype}" if isinstance(arr, np.ndarray) else ""))
+
+    def _extract(self, imgs):
+        """PIL images -> host (l, h, m) features, each resolution in one
+        extractor call."""
+        from ucod_dpl_tpu_torch.data.dataset import fe_image_size, grid_patch_arrays, slice_m_windows
+
+        l = self.fe.extract(np.stack([image_transform(im, self.image_size) for im in imgs]))
+        grids = np.concatenate([grid_patch_arrays(im, self.image_size, self.window_size) for im in imgs])
+        gf = self.fe.extract(grids)
+        h = gf.reshape(len(imgs), self.window_size ** 2, *gf.shape[1:])
+        m = None
+        if self.use_m_patches:
+            keys = self.fe.extract(np.stack([image_transform(im, fe_image_size(self.fe.fe_cfg.type)) for im in imgs]))
+            m = np.stack([slice_m_windows(k) for k in keys])
+        return l, h, m
+
+    @torch.inference_mode()
+    def _refine_batch(self, l, h, m):
+        from ucod_dpl_tpu_torch.engine.coral_loop import prepare_refine_inputs
+
+        l_feat, h_feat, preds = prepare_refine_inputs(self.decoder_params, l, h, m, self.window_length)
+        out = self._refine(self.refiner_params, l_feat, h_feat, preds)
+        return out.cpu().numpy(), preds.cpu().numpy()
+
+    def _refine_cropped(self, img) -> np.ndarray:
+        """The centre-crop fallback for a near-empty coarse prediction
+        (``loop_CORAL.py:148-151, 276-311``): the centre half extracted and
+        refined alone, then centre-padded with the reference's -10."""
+        from ucod_dpl_tpu_torch.engine.coral_loop import center_pad
+
+        w, ht = img.size
+        cropped = img.crop((w // 4, ht // 4, w // 4 + w // 2, ht // 4 + ht // 2))
+        out, _ = self._refine_batch(*self._extract([cropped]))
+        return center_pad(out)[0]
+
+    def predict(
+        self,
+        inputs: Sequence[Union[str, np.ndarray]],
+        output_size: Optional[tuple] = None,
+        soft: bool = False,
+    ) -> List[np.ndarray]:
+        """Images -> (H, W) float32 refined masks ({0, 1}; ``soft=True`` for
+        probabilities) at ``output_size`` (default: the model's image
+        size)."""
+        from ucod_dpl_tpu_torch.engine.coral_loop import refined_probs
+
+        if isinstance(inputs, (str, os.PathLike)):
+            inputs = [inputs]
+        elif isinstance(inputs, np.ndarray) and inputs.ndim == 3:
+            inputs = [inputs]
+        inputs = list(inputs)
+        size = tuple(output_size) if output_size is not None else self.image_size
+        masks: List[np.ndarray] = []
+        i = 0
+        while i < len(inputs):
+            take = min(self.max_batch, len(inputs) - i)
+            imgs = [self._load_image(x) for x in inputs[i : i + take]]
+            outputs, preds = self._refine_batch(*self._extract(imgs + [imgs[-1]] * (self.max_batch - take)))
+            outputs, preds = outputs[:take], preds[:take]
+            ratios = (preds > 0).sum(axis=(1, 2, 3)) / (preds.shape[1] * preds.shape[2])
+            outs = list(outputs)
+            for k in np.nonzero(ratios < self.crop_center_ratio)[0]:
+                outs[k] = self._refine_cropped(imgs[k])
+            for out in outs:
+                up = refined_probs(out, size)
+                masks.append(up.astype(np.float32) if soft else (up > 0.5).astype(np.float32))
+            i += take
         return masks

@@ -2,7 +2,7 @@
 
 Run from the repository root on a machine with one NVIDIA GPU::
 
-    python3 -m ucod_dpl_tpu_torch.tools.attention_ab [--parent DIR] [--variants] [--sass]
+    python3 -m ucod_dpl_tpu_torch.tools.attention_ab [--parent DIR] [--variants [NAME ...]] [--sass]
 
 Always: the card's name and power limit (nvidia-smi), then the forward (K1),
 the forward with log-sum-exp (K2) and the backward (K3/K4) at bs16 L1370 and
@@ -19,7 +19,8 @@ torch.profiler breakdown of the backward's kernels.
   built from DIR by DIR's own ``ops/_build.py`` and timed against this
   tree's, interleaved parent, this, this, parent; the outputs of the two are
   compared (whether they are equal bit for bit, and the largest difference).
-* ``--variants``: variants of this tree's kernels, each an edit of its source
+* ``--variants [NAME ...]``: variants of this tree's kernels (all, or those
+  named), each an edit of its source
   (``VARIANTS``), built into ``build/ucod_dpl_tpu_torch/variants/`` and timed
   interleaved against the kernel it varies.  Variants marked "diagnostic"
   compute a wrong result on purpose: they show what one part costs.
@@ -284,7 +285,7 @@ _EXCHANGE = """      if (c == 0) {
       } else {
         dq_exchange_add<1>(dq, sm.xchg[i & 1], sm.xchg_full, i & 1, tid, out);
       }"""
-_BULK = "ucod::bulk_reduce_add_f32(dq_tiles + (int64_t)i * 64 * kHeadDim + c * 32 * 64, out, 32 * 64 * 4);"
+_BULK = "ucod::bulk_reduce_add_f32(dq_head + dst, sm.dq_out[c][i & 1], 32 * 64 * 4);"
 
 # name -> (source file, what it changes, edit)
 VARIANTS = {
@@ -299,9 +300,11 @@ VARIANTS = {
                         "s[i] = fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]);")),
     "bwd_stages2": ("attention_bwd.cu", "a two-stage Q/dO ring",
                     _sub("constexpr int kStages = 3;", "constexpr int kStages = 2;")),
-    "bwd_atomics": ("attention_bwd.cu", "dQ halves added by per-thread float2 atomics, not a bulk reduce-add",
+    "bwd_atomics": ("attention_bwd.cu", "dQ halves added by per-thread float2 atomics, not an ordered bulk "
+                                        "reduce-add (dq not deterministic)",
                     _chain(_sub("      float* out = sm.dq_out[c][i & 1];",
-                                "      float* out = dq_tiles + (int64_t)i * 64 * kHeadDim + c * 32 * 64;"),
+                                "      float* out = dq_acc + ((int64_t)bh * n_q + (q_first + i) % n_q) * 64 * kHeadDim"
+                                " + c * 32 * 64;"),
                            _sub("    *reinterpret_cast<float2*>(out + dq_half_offset(row, col)) = make_float2(",
                                 "    atomicAdd(reinterpret_cast<float2*>(out + dq_half_offset(row, col)), make_float2("),
                            _sub("    *reinterpret_cast<float2*>(out + dq_half_offset(row + 8, col)) = make_float2(",
@@ -311,11 +314,15 @@ VARIANTS = {
                            _sub("make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);\n  }\n}",
                                 "make_float2(dq[4 * jb + 2], dq[4 * jb + 3]));\n  }\n}"),
                            _sub(_BULK, "(void)0;"))),
-    "bwd_no_exchange": ("attention_bwd.cu", "each warpgroup adds its whole 64 x 64 dQ partial (16 KB), no exchange",
+    "bwd_no_exchange": ("attention_bwd.cu", "each warpgroup adds its whole 64 x 64 dQ partial (16 KB), no "
+                                            "exchange (the two warpgroups' adds unordered: dq not deterministic)",
                         _chain(_sub("float dq_out[kConsumers][2][64 * 32];", "float dq_out[kConsumers][2][64 * 64];"),
                                _sub(_EXCHANGE, _NO_EXCHANGE_WRITE),
-                               _sub(_BULK, "ucod::bulk_reduce_add_f32(dq_tiles + (int64_t)i * 64 * kHeadDim, out, "
+                               _sub(_BULK, "ucod::bulk_reduce_add_f32(dq_head + dst - c * 32 * 64, sm.dq_out[c][i & 1], "
                                            "64 * 64 * 4);"))),
+    "bwd_unordered": ("attention_bwd.cu", "dQ halves added in arrival order, no semaphore wait or release (dq not "
+                                          "deterministic): what the ordering costs",
+                      _drop_lines(r"ld_acquire_gpu|st_release_gpu")),
     "bwd_no_dq_add": ("attention_bwd.cu", "diagnostic: no dQ reduce-add", _sub(_BULK, "(void)0;")),
     "bwd_no_exp": ("attention_bwd.cu", "diagnostic: P = s * scale - lse, no ex2",
                    _sub("s[e] = ucod::exp2_ftz(fmaf(s[e], scale_log2, -stat[8 * (e >> 2) + 2 * tq + (e & 1)].x));",
@@ -361,8 +368,8 @@ def build_variants(names, variants=VARIANTS, entries=_ENTRIES, subdir="variants"
     return ctypes.CDLL(str(lib))
 
 
-def variants(results: dict) -> None:
-    names = list(VARIANTS)
+def variants(results: dict, names=None) -> None:
+    names = list(names or VARIANTS)
     lib = build_variants(names)
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     _log("variants of this tree's kernels (interleaved this, variant, variant, this):")
@@ -431,7 +438,8 @@ def sass_counts(results: dict, sources=("attention_fwd", "attention_bwd"), ops=S
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--parent", type=Path, help="checkout of the parent tree to time against")
-    parser.add_argument("--variants", action="store_true", help="time the source variants in VARIANTS")
+    parser.add_argument("--variants", nargs="*", choices=sorted(VARIANTS), default=None,
+                        help="time the source variants in VARIANTS (all, or those named)")
     parser.add_argument("--sass", action="store_true", help="count instructions in the attention objects' SASS")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -447,8 +455,8 @@ def main(argv=None) -> int:
     trace_backward()
     if args.parent is not None:
         parent_ab(args.parent, results)
-    if args.variants:
-        variants(results)
+    if args.variants is not None:
+        variants(results, args.variants)
     _log(json.dumps(results))
     return 0
 
