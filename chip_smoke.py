@@ -79,6 +79,15 @@ Phases (each raises on failure; any failure exits non-zero):
      and err(TP kernels vs f32 unsharded plain) <= 1.5 * err(bf16 unsharded
      plain) + 1e-3; then ``{"data": 2, "model": 2}``: 44 launches (6 heads a
      shard); timing of the TP extract against the unsharded one, interleaved;
+     then CLS attention under TP: ``extract_with_attention`` (the
+     pseudo-label generator's call) at 224px bs16 under ``{"data": 1,
+     "model": 4}``: the packed forward 44 times, K6 never; the CLS attention
+     and key tokens no further from the f32 unsharded plain path than 1.5 x
+     the bf16 unsharded plain path's error + 1e-3; each path's background
+     reference patch (an argmin of weighted CLS attention) within twice the
+     bf16 noise bound of the f32 minimum, and, on the images where TP and the
+     unsharded kernel path pick the same patch (at least 3 in 4), the
+     generator's masks differing on at most 0.002 of the pixels;
   J. K7 (LayerNorm + fc1 + GELU) against its plain version at bs16 L1370
      (D 768, F 3072) and at 1, 17, 65 and 1370 * 4 + 3 rows, NaN-filled
      outputs; then the MLP halves of the 11 layers of the serving backbone
@@ -157,7 +166,29 @@ Phases (each raises on failure; any failure exits non-zero):
      times per forward, no K6): launches and img/s by host clock.  The
      kernels line gives each kernel's launches in phases M and N
      (``pseudo_label_launches``, ``coral_eval_launches``,
-     ``refine_serving_launches``, ``refine_int8_launches``).
+     ``refine_serving_launches``, ``refine_int8_launches``);
+  O. CORAL stage-2 training: ``ucod_dpl_tpu_torch.cli.lt_train_main`` on
+     configs/uscod/CORAL_dinov2.py as shipped (batch 2, window size 3,
+     length 56, m-patches for the train set, lr0 1e-4, gamma 0.95 every 2
+     epochs, EMA from epoch 1 at 0.70, validation every 4 epochs from 4)
+     apart from paths and 8 epochs cut to 4, with phase L's decoder
+     (``--load_from``) and the Runner's seeded refiner, over 16 of phase M's
+     train images (with ground truth) and their pseudo-labels and 8 val
+     images.  Run A: K1 and K6 launch 11 times per backbone forward of the
+     train caches (features, grid patches, 756px m-patches, L 2917) and the
+     val caches and of the validation's centre-crop fallbacks, nothing
+     else; 32 finite losses, a moving refiner, ``epoch1..4.safetensors`` and
+     ``epoch1..4_ema.safetensors`` (the EMA a copy at epoch 1, its own
+     after), the epoch-4 validation's metrics finite in [0, 1], and
+     ``lt_eval`` on ``epoch4.safetensors``; cache-build img/s, steps/s by
+     host clock, step ms by CUDA events, a step's peak device memory, the
+     device's busy share of one epoch and its top operations.  Run B: run A
+     with SIGTERM after its 10th step: exit 128 + 15, one
+     ``epoch1_preempt.safetensors``, its ``epoch1.safetensors`` equal to run
+     A's bit for bit (cuDNN deterministic), and a restart with
+     ``--refiner_path`` on the preempt file to the end.  The kernels line
+     gives each kernel's launches in run A and in phase I's CLS call
+     (``coral_train_launches``, ``tp_cls_launches``).
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -1241,6 +1272,95 @@ def phase_tp(seed: int, dev, fe_cfg) -> dict:
     return out
 
 
+def phase_tp_cls(seed: int, dev, fe_cfg, smi: str) -> dict:
+    """Phase I, CLS attention: ``extract_with_attention`` (the pseudo-label
+    generator's call) at 224px, bs16, under ``{"data": 1, "model": 4}`` on
+    one card named four times: K1 44 launches (11 layers x 4 shards), K6
+    none; CLS attention and key tokens against the f32 unsharded plain
+    path beside the bf16 unsharded plain path; the generator's masks against
+    those of the unsharded kernel path (see below for its reference patch)."""
+    import shutil
+
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.data.transforms import load_image_batch_transform
+    from ucod_dpl_tpu_torch.models.dino import dino_forward
+    from ucod_dpl_tpu_torch.ops.pseudo_label import reference_scores
+    from ucod_dpl_tpu_torch.parallel import build_mesh
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_tp_cls")
+    shutil.rmtree(root, ignore_errors=True)
+    _write_cod_images(root, "TP", PL_BATCH, seed + 70, labels=False)
+    images = load_image_batch_transform(sorted(glob.glob(os.path.join(root, "TP", "im", "*.jpg"))), (PL_SIZE, PL_SIZE))
+    fe = FeatureExtractor(fe_cfg, mesh=build_mesh({"data": 1, "model": 4}, devices=[dev] * 4), seed=seed, strict=False)
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    toks, _, attn = fe.extract_with_attention(images)
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    depth = fe.config.num_layers
+    _log(f"TP CLS attention: extract_with_attention at {PL_SIZE}px, bs{PL_BATCH}, {fe.compute_dtype}, mesh "
+         f"{{'data': 1, 'model': 4}} on one card: {secs:.3f} s host clock (first call), cls_attention {attn.shape}, "
+         f"launches {launches} [{smi}]")
+    _check_launches("TP extract_with_attention", launches, {**{k: 0 for k in counts}, "K1": 4 * (depth - 1)})
+
+    f32 = FeatureExtractor(fe_cfg, device=dev, compute_dtype=torch.float32, seed=seed, strict=False)
+    unsharded = FeatureExtractor(fe_cfg, device=dev, seed=seed, strict=False)
+    px = torch.from_numpy(images).to(dev)
+    with torch.inference_mode():
+        def plain(params, dtype):
+            out = dino_forward(params, px, fe.config, compute_dtype=dtype, plain=True, want_cls_attention=True)
+            return out["cls_attention"].float(), out["key_tokens"].float()
+
+        ref, bf16_plain = plain(f32.params, torch.float32), plain(fe.params, torch.bfloat16)
+        tp = (torch.from_numpy(attn).to(dev), torch.from_numpy(toks).to(dev))
+        u_toks, _, u_attn = unsharded.extract_with_attention(images)
+        kern = (torch.from_numpy(u_attn).to(dev), torch.from_numpy(u_toks).to(dev))
+    del f32
+    out = {"launches": launches}
+    for i, what in enumerate(("cls_attention", "key_tokens")):
+        err = (tp[i] - ref[i]).abs().max().item()
+        err_plain = (bf16_plain[i] - ref[i]).abs().max().item()
+        bound = 1.5 * err_plain + 1e-3
+        _log(f"  TP {what} vs f32 unsharded plain: max_abs_err {err:.6g}, bf16 unsharded plain {err_plain:.6g}, bound "
+             f"{bound:.6g}; unsharded kernels {(kern[i] - ref[i]).abs().max().item():.6g}")
+        if not (np.isfinite(err) and err <= bound):
+            raise AssertionError(f"TP CLS attention: {what} error {err} exceeds {bound}")
+        out[f"err_{what}"] = err
+    # The generator's masks hang on one argmin: the background reference is
+    # the patch of least weighted CLS attention (ops/pseudo_label.py::
+    # reference_scores), and where the two least weighted patches lie within
+    # bf16 noise of each other a path may pick either, and that image's mask
+    # changes wholesale.  So: each path's pick
+    # must lie, by the f32 path's sums, within twice the bound on a bf16
+    # path's error of those sums (1.5 x the bf16 plain path's largest + 1e-4)
+    # of the minimum; and on the images where TP and the unsharded kernels
+    # pick the same patch (at least 3 in 4), their masks differ on at most
+    # 0.002 of the pixels.
+    sums = {name: reference_scores(v[0].float(), (PL_GRID, PL_GRID))[0]
+            for name, v in (("f32", ref), ("bf16 plain", bf16_plain), ("TP", tp), ("kernels", kern))}
+    tol = 2 * (1.5 * (sums["bf16 plain"] - sums["f32"]).abs().max().item() + 1e-4)
+    floor = sums["f32"].min(dim=1).values
+    excess = {name: (sums["f32"].gather(1, s.argmin(dim=1, keepdim=True))[:, 0] - floor).max().item()
+              for name, s in sums.items()}
+    same = (sums["TP"].argmin(dim=1) == sums["kernels"].argmin(dim=1)).cpu().numpy()
+    m_tp, m_kern = _pl_masks(*tp), _pl_masks(*kern)
+    differ_all = float((m_tp != m_kern).mean())
+    differ = float((m_tp[same] != m_kern[same]).mean()) if same.any() else 1.0
+    _log(f"  reference patches: the f32 sums' excess of each path's pick over their minimum {excess} (bound "
+         f"{tol:.6g}); TP and the unsharded kernels pick the same patch on {int(same.sum())} of {len(same)} images")
+    _log(f"  the generator's masks, TP vs unsharded kernels: {differ:.6f} of the pixels differ on those images (bound "
+         f"0.002), {differ_all:.6f} on all; vs f32: TP {float((m_tp != _pl_masks(*ref)).mean()):.6f}, unsharded "
+         f"kernels {float((m_kern != _pl_masks(*ref)).mean()):.6f}, bf16 plain "
+         f"{float((_pl_masks(*bf16_plain) != _pl_masks(*ref)).mean()):.6f}")
+    if max(excess.values()) > tol or same.mean() < 0.75 or not differ <= 0.002:
+        raise AssertionError(f"TP CLS attention: reference picks {excess} (bound {tol}), {same.mean()} of the images "
+                             f"agree, their masks differ on {differ} of the pixels")
+    out.update(mask_differ=differ, mask_differ_all=differ_all, same_reference=float(same.mean()))
+    return out
+
+
 def _trace(fn, what: str, n: int = 3, top: int = 14, inference: bool = True) -> None:
     """torch.profiler over ``n`` calls of ``fn`` after two warm-ups: kernel
     time and launches per call, the device's busy share of the host wall,
@@ -2304,6 +2424,254 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
     return out
 
 
+# Phase O: CORAL stage 2's training on configs/uscod/CORAL_dinov2.py as
+# shipped (train set TR-CAMO+TR-COD10K with m-patches at batch 2, window
+# size 3, length 56, lr0 1e-4, gamma 0.95 every 2 epochs, EMA from epoch 1 at
+# 0.70, a validation every 4 epochs from epoch 4) but for its paths and 8
+# epochs cut to 4: 8 of each of phase M's train sets (the same seeded
+# images, here with the ground truth the shipped train set requires) with
+# their entries of phase M's pseudo-label cache, and 8 val images.
+CORAL_TRAIN_PER_SET = 8
+CORAL_TRAIN_IMAGES = CORAL_TRAIN_PER_SET * len(TRAIN_SETS)
+CORAL_TRAIN_VAL_IMAGES = 8
+CORAL_TRAIN_EPOCHS = 4
+CORAL_TRAIN_BATCH = 2  # the shipped trainloader_cfg.batch_size
+
+
+class _CoralTrainProbe:
+    """Instruments ``cli.lt_train_main``'s loop: every step by CUDA events
+    and host clock with its loss and peak device memory, each epoch by host
+    clock (synchronised), a torch.profiler trace of ``profile_epoch``, and,
+    with ``preempt_after``, SIGTERM to this process after that step.  The
+    originals are restored on exit."""
+
+    def __init__(self, preempt_after=None, profile_epoch=None):
+        self.preempt_after, self.profile_epoch = preempt_after, profile_epoch
+        self.steps, self.epochs, self.prof = [], [], None
+        self.profiling = False
+
+    def __enter__(self):
+        from ucod_dpl_tpu_torch.engine import coral_loop, preempt
+
+        loop_cls, probe = coral_loop.LocalRefineTrainLoop, self
+        self._orig = (loop_cls.train_step, loop_cls._run_epoch)
+        step_fn, epoch_fn = self._orig
+
+        def train_step(loop, *a):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            e0.record()
+            loss = step_fn(loop, *a)
+            e1.record()
+            torch.cuda.synchronize()
+            probe.steps.append(dict(loss=loss, events=(e0, e1), host_s=time.perf_counter() - t0,
+                                    peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                                    held_gib=base / 2 ** 30, profiled=probe.profiling))
+            if len(probe.steps) == probe.preempt_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+                if preempt.requested() != signal.SIGTERM:
+                    raise AssertionError("SIGTERM did not reach the stage-2 loop's handler")
+            return loss
+
+        def run_epoch(loop, epoch):
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = epoch == probe.profile_epoch
+            ctx = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) if prof \
+                else contextlib.nullcontext()
+            n0 = len(probe.steps)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            probe.profiling = prof
+            with ctx as p:
+                mean = epoch_fn(loop, epoch)
+                torch.cuda.synchronize()
+            probe.profiling = False
+            probe.epochs.append((epoch, len(probe.steps) - n0, time.perf_counter() - t0))
+            if prof:
+                probe.prof = (p, probe.epochs[-1][2] * 1e3)
+            return mean
+
+        loop_cls.train_step, loop_cls._run_epoch = train_step, run_epoch
+        return self
+
+    def __exit__(self, *exc):
+        from ucod_dpl_tpu_torch.engine import coral_loop
+
+        coral_loop.LocalRefineTrainLoop.train_step, coral_loop.LocalRefineTrainLoop._run_epoch = self._orig
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        signal.signal(signal.SIGINT, signal.default_int_handler)
+        return False
+
+
+def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
+    """Phase O: ``cli.lt_train_main`` on the card.  Run A (4 epochs): the
+    launches of the cache builds (train: features, 3 x 3 grid patches,
+    756px m-patches; val: features, grid patches) and the validation's
+    centre-crop fallbacks, finite losses, a moving refiner, the epoch and
+    EMA files, the epoch-4 validation's metrics, ``cli.lt_eval_main`` on the
+    trained file; rates, step ms, peak memory, a trace of one epoch.  Run B:
+    SIGTERM after its 10th step, one ``epoch1_preempt`` file, its epoch-1
+    file bitwise run A's, and a restart from the preempt file to the end."""
+    import filecmp
+    import hashlib
+    import shutil
+
+    from safetensors.torch import load_file
+
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves
+    from ucod_dpl_tpu_torch.models.udlr import init_sparse_refiner
+    from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_coral_train")
+    shutil.rmtree(root, ignore_errors=True)
+    data = os.path.join(root, "RefCOD")
+    # the first 8 images of each of phase M's sets (their seeds draw the same
+    # images whether or not the ground truth is written), and their entries
+    # of phase M's pseudo-label cache (sorted paths over the two sets)
+    src = ArrayCache(os.path.join(world["root"], "cache", "pseudo_label_cache", world["train_set"]))
+    m_paths = sorted(p for name, _ in TRAIN_SETS for p in glob.glob(os.path.join(world["data"], name, "im", "*.jpg")))
+    paths = []
+    for i, (name, _) in enumerate(TRAIN_SETS):
+        _write_cod_images(data, name, CORAL_TRAIN_PER_SET, seed + 30 + i)
+        paths += sorted(glob.glob(os.path.join(data, name, "im", "*.jpg")))
+    paths = sorted(paths)
+    cache = ArrayCache(os.path.join(root, "cache", "pseudo_label_cache", world["train_set"]))
+    for i, p in enumerate(paths):
+        twin = os.path.join(world["data"], *p.split(os.sep)[-3:])
+        if not filecmp.cmp(p, twin, shallow=False):
+            raise AssertionError(f"stage-2 train image {p} differs from phase M's {twin}")
+        cache.write(i, src.read(m_paths.index(twin)))
+    stems = "\n".join(os.path.splitext(os.path.basename(p))[0] for p in paths)
+    cache.flush(meta={"n": len(paths), "fingerprint": hashlib.sha1(stems.encode()).hexdigest(), "th_bkg": 0.6})
+    _write_cod_images(data, "TE-CAMO", CORAL_TRAIN_VAL_IMAGES, seed + 60)
+    ckpt = os.path.join(world["root"], "decoder.safetensors")  # phase L's seeded towers
+    _log(f"CORAL stage-2 training: {CORAL_TRAIN_IMAGES} of phase M's train images ({world['train_set']}) with their "
+         f"pseudo-labels, {CORAL_TRAIN_VAL_IMAGES} val images (TE-CAMO), phase L's decoder, a seeded refiner")
+
+    def argv(run, *flags):
+        return ["-c", CORAL_CFG, "--load_from", ckpt, "--device", str(dev), "--work_dir",
+                os.path.join(root, "work_dir"), *flags, "--opts", "dataset_cfg.dataset_dir", data,
+                "dataset_cfg.cache_dir", os.path.join(root, "cache"), "log_cfg.log_path",
+                os.path.join(root, f"logs_{run}"), "train_cfg.max_epoch", str(CORAL_TRAIN_EPOCHS)]
+
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    cudnn_det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # run B's epoch-1 file is held to run A's bit for bit
+    out = {}
+    try:
+        for fn in counts.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with _CoralTrainProbe(profile_epoch=1) as pa:
+            run_a = cli.lt_train_main(argv("a"))
+        secs = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counts.items()}
+        ev, tr_ds, val_ds = run_a.evaluator, run_a.train_dataset, run_a.val_dataset
+        per_chunk = max(1, EVAL_CACHE_BATCH // 9)  # LRDataset's images per grid-patch call
+        # train: feature batches, grid-patch and m-patch calls; val: feature
+        # batches and grid-patch calls (no m-patches); 2 a centre-crop fallback
+        forwards = (-(-CORAL_TRAIN_IMAGES // EVAL_CACHE_BATCH) + 2 * -(-CORAL_TRAIN_IMAGES // per_chunk)
+                    + -(-CORAL_TRAIN_VAL_IMAGES // EVAL_CACHE_BATCH) + -(-CORAL_TRAIN_VAL_IMAGES // per_chunk)
+                    + 2 * ev.crops)
+        want = {**{k: 0 for k in counts}, "K1": 11 * forwards, "K6": 11 * forwards}
+        losses = torch.stack([st["loss"] for st in pa.steps]).float().cpu().numpy()
+        build_s = tr_ds.build_seconds + tr_ds.patch_build_seconds
+        _log(f"  run A ({CORAL_TRAIN_EPOCHS} epochs at batch {CORAL_TRAIN_BATCH}, m-patches): {secs:.3f} s host "
+             f"clock in all; train caches {build_s:.3f} s ({CORAL_TRAIN_IMAGES / build_s:.2f} img/s: features "
+             f"{tr_ds.build_seconds:.3f} s, grid and m-patches {tr_ds.patch_build_seconds:.3f} s), val caches "
+             f"{val_ds.build_seconds + val_ds.patch_build_seconds:.3f} s; {ev.crops} centre-crop fallbacks in the "
+             f"validation; launches {launches} [{smi}]")
+        _log(f"    losses {np.round(losses, 5).tolist()}; epoch means "
+             f"{np.round(run_a.train_loop.epoch_losses, 5).tolist()}")
+        _check_launches("lt_train run A", launches, want)
+        steps_per_epoch = CORAL_TRAIN_IMAGES // CORAL_TRAIN_BATCH
+        if len(losses) != CORAL_TRAIN_EPOCHS * steps_per_epoch or not np.isfinite(losses).all():
+            raise AssertionError(f"lt_train run A: {len(losses)} steps, losses {losses}")
+        init = tree_leaves(init_sparse_refiner(42 + 2, SERVE_DIM))  # the Runner's seeded refiner (seed + 2)
+        if not any(not torch.equal(a, b.cpu()) for a, b in zip(init, tree_leaves(run_a.refiner_params))):
+            raise AssertionError("lt_train run A: the refiner did not move")
+        ckp = os.path.join(root, "logs_a", "refiner_ckp")
+        files = {f: load_file(os.path.join(ckp, f)) for f in sorted(os.listdir(ckp))}
+        need = {f"epoch{e}{x}.safetensors" for e in range(1, CORAL_TRAIN_EPOCHS + 1) for x in ("", "_ema")}
+        if set(files) != need:
+            raise AssertionError(f"lt_train run A: files {sorted(files)}, expected {sorted(need)}")
+        for e in range(1, CORAL_TRAIN_EPOCHS + 1):
+            raw, ema = files[f"epoch{e}.safetensors"], files[f"epoch{e}_ema.safetensors"]
+            same = all(torch.equal(raw[k], ema[k]) for k in raw)
+            if same != (e == 1):  # a copy through epoch 0 (start_ema 1), its own from epoch 1 on
+                raise AssertionError(f"lt_train run A: epoch {e}'s EMA file equal to the refiner's: {same}")
+        result = ev.result
+        if set(result) != set(EVAL_KEYS) or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in result.values()):
+            raise AssertionError(f"lt_train run A: the epoch-4 validation's result {result}")
+        timed = [st for st in pa.steps[1:] if not st["profiled"]]
+        ev_ms = [st["events"][0].elapsed_time(st["events"][1]) for st in timed]
+        host_ms = [st["host_s"] * 1e3 for st in timed]
+        peak = max(st["peak_gib"] for st in pa.steps)
+        _log(f"    step ({len(timed)} unprofiled steps after the first): median {np.median(ev_ms):.3f} ms by CUDA "
+             f"events (min {min(ev_ms):.3f}, max {max(ev_ms):.3f}), {np.median(host_ms):.3f} ms host clock; peak "
+             f"device memory of a step {peak:.3f} GiB ({pa.steps[1]['held_gib']:.3f} GiB held before it) [{smi}]")
+        for epoch, n, dt in pa.epochs:
+            _log(f"    epoch {epoch}: {n} steps in {dt:.4f} s, {n / dt:.3f} steps/s host clock"
+                 + (" (under the profiler)" if epoch == pa.profile_epoch else ""))
+        _log(f"    validation at epoch {CORAL_TRAIN_EPOCHS}: {result}")
+        from torch.autograd import DeviceType
+
+        prof, wall = pa.prof
+        spans = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+        ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key not in spans]
+        device_ms = sum(e.self_device_time_total for e in ops) / 1e3
+        _log(f"    trace of epoch {pa.profile_epoch} ({steps_per_epoch} steps): {device_ms:.3f} ms of device time in "
+             f"{wall:.3f} ms of host wall under the profiler, device busy {device_ms / wall:.4f} [{smi}]")
+        for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:10]:
+            _log(f"      {e.self_device_time_total / 1e3:8.3f} ms {e.self_device_time_total / 1e3 / device_ms:6.3f} "
+                 f"x{e.count:5d}  {e.key[:100]}")
+        unprof = [(n, dt) for epoch, n, dt in pa.epochs if epoch != pa.profile_epoch]
+        out.update(launches=launches, build_img_per_s=CORAL_TRAIN_IMAGES / build_s,
+                   steps_per_s=sum(n for n, _ in unprof) / sum(dt for _, dt in unprof), step_ms=float(np.median(ev_ms)),
+                   step_host_ms=float(np.median(host_ms)), peak_gib=peak, busy=device_ms / wall, result=result)
+
+        # the trained refiner through the eval entry (the val caches read)
+        runner = cli.lt_eval_main([
+            "-c", CORAL_CFG, "--load_from", ckpt, "--refiner_path",
+            os.path.join(ckp, f"epoch{CORAL_TRAIN_EPOCHS}.safetensors"), "--datasets", "TE-CAMO", "--device", str(dev),
+            "--work_dir", os.path.join(root, "work_dir"), "--opts", "dataset_cfg.dataset_dir", data,
+            "dataset_cfg.cache_dir", os.path.join(root, "cache"), "log_cfg.log_path",
+            os.path.join(root, "logs_eval")])["TE-CAMO"]
+        _log(f"  lt_eval on epoch{CORAL_TRAIN_EPOCHS}.safetensors: {runner.evaluator.result}")
+        if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in runner.evaluator.result.values()):
+            raise AssertionError(f"lt_eval of the trained refiner: {runner.evaluator.result}")
+
+        # run B: SIGTERM after the 10th step (epoch 1, its 2nd batch)
+        with _CoralTrainProbe(preempt_after=10):
+            try:
+                cli.lt_train_main(argv("b"))
+                raise AssertionError("lt_train run B: the entry did not exit on SIGTERM")
+            except SystemExit as e:
+                code = e.code
+        ckp_b = os.path.join(root, "logs_b", "refiner_ckp")
+        preempted = sorted(f for f in os.listdir(ckp_b) if f.endswith("_preempt.safetensors"))
+        epoch1 = load_file(os.path.join(ckp_b, "epoch1.safetensors"))
+        worst = max((epoch1[k] - files["epoch1.safetensors"][k]).abs().max().item() for k in epoch1)
+        _log(f"  run B: exit {code} after the 10th step, files {sorted(os.listdir(ckp_b))}; epoch1.safetensors "
+             f"differs from run A's by up to {worst:.6g} (bitwise must hold)")
+        if code != 128 + signal.SIGTERM or preempted != ["epoch1_preempt.safetensors"] or worst != 0.0:
+            raise AssertionError(f"lt_train run B: exit {code}, preempt files {preempted}, epoch-1 difference {worst}")
+        restart = cli.lt_train_main(argv("b", "--refiner_path", os.path.join(ckp_b, preempted[0])))
+        if len(restart.train_loop.epoch_losses) != CORAL_TRAIN_EPOCHS or \
+                not np.isfinite(restart.train_loop.epoch_losses).all():
+            raise AssertionError(f"lt_train restart: epoch losses {restart.train_loop.epoch_losses}")
+        _log(f"  run B restarted from {preempted[0]}: epoch losses "
+             f"{np.round(restart.train_loop.epoch_losses, 5).tolist()}, validation {restart.evaluator.result}")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn_det
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
@@ -2336,6 +2704,8 @@ def main(argv=None) -> int:
     k5_err = phase_k5(gen, dev)
     k5_times = phase_k5_timing(gen, dev)
     tp = phase_tp(args.seed, dev, _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None))
+    tp_cls = phase_tp_cls(args.seed, dev, _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None),
+                          smi)
     k7 = phase_k7(gen, dev, fe8)
     del fe8
     torch.cuda.empty_cache()
@@ -2346,6 +2716,8 @@ def main(argv=None) -> int:
     train = phase_train(args.seed, dev, smi, pl)
     torch.cuda.empty_cache()
     coral = phase_coral(args.seed, dev, smi, pl)
+    torch.cuda.empty_cache()
+    coral_train = phase_coral_train(args.seed, dev, smi, pl)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
@@ -2395,6 +2767,12 @@ def main(argv=None) -> int:
         "refine_predictor_int8_img_per_s": coral["serve_int8_img_s"],
         "lora_entry_step_ms": train["lora_ms"], "lora_entry_step_host_ms": train["lora_host_ms"],
         "lora_entry_epoch_device_busy": train["lora_busy"],
+        "tp_cls_attention_max_abs_err": tp_cls["err_cls_attention"],
+        "tp_cls_key_tokens_max_abs_err": tp_cls["err_key_tokens"], "tp_cls_mask_differ": tp_cls["mask_differ"],
+        "coral_train_cache_build_img_per_s": coral_train["build_img_per_s"],
+        "coral_train_steps_per_s": coral_train["steps_per_s"], "coral_train_step_ms": coral_train["step_ms"],
+        "coral_train_step_host_ms": coral_train["step_host_ms"], "coral_train_step_peak_gib": coral_train["peak_gib"],
+        "coral_train_epoch_device_busy": coral_train["busy"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -2420,7 +2798,9 @@ def main(argv=None) -> int:
     # each kernel's launches on the train entry's runs (phase L): run A
     # (cached features) and run C (LoRA); on the pseudo-label generator
     # (phase M), the CORAL eval's first run and the RefinePredictor calls
-    # (phase N)
+    # (phase N), CORAL stage 2's training run A (phase O) and the TP CLS
+    # attention call (phase I; K5's port is K1 on the shard layout, so K5
+    # takes K1's count there, as its launches do)
     train_key = {"K2": "fwd_lse", "K3": "bwd", "K4": "bwd"}
 
     def entry(kid, name, source, replaces, launches, err, ms, plain_ms, library_ms=None, **device):
@@ -2432,7 +2812,9 @@ def main(argv=None) -> int:
                 "pseudo_label_launches": pl["launches"].get(key, 0),
                 "coral_eval_launches": coral["first"]["launches"].get(key, 0),
                 "refine_serving_launches": coral["serve_launches"].get(key, 0),
-                "refine_int8_launches": coral["serve_int8_launches"].get(key, 0), **device}
+                "refine_int8_launches": coral["serve_int8_launches"].get(key, 0),
+                "coral_train_launches": coral_train["launches"].get(key, 0),
+                "tp_cls_launches": tp_cls["launches"].get("K1" if kid == "K5" else key, 0), **device}
 
     attn, fused = "ucod_dpl_tpu/ops/attention.py", "ucod_dpl_tpu/ops/fused_layers.py"
     _log(json.dumps({"kernels": [

@@ -1,14 +1,16 @@
-"""The port's CORAL stage-2 evaluation and serving on the CPU against the JAX
-package.
+"""The port's CORAL stage 2 (evaluation, serving and training) on the CPU
+against the JAX package.
 
 The pools, the UDLR refiner's pieces and ``sparse_refiner_forward`` (JAX
 parameters carried across by ``models.convert.refiner_from_jax``), the
-refiner checkpoint in the reference layout, ``LRDataset``'s geometry and
-caches, ``cli.lt_eval_main`` and ``RefinePredictor``, each on the same numpy
-inputs and weights as its JAX counterpart.  Small width: DINO 64 hidden, 3
-layers, 4 heads of 16 at 56px (the JAX package sends them to its XLA
-attention); the refiner at dim 64 with 4 heads, window size 3, window
-length 8.  float32 throughout.
+refiner checkpoint in the reference layout, the training losses and their
+gradients, ``LRDataset``'s geometry and caches, ``cli.lt_eval_main``,
+``RefinePredictor``, ``LocalRefineTrainLoop`` and ``cli.lt_train_main``,
+each on the same numpy inputs and weights as its JAX counterpart.  Small
+width: DINO 64 hidden, 3 layers, 4 heads of 16 at 56px (the JAX package
+sends them to its XLA attention); the refiner at dim 64 with 4 heads (8 in
+the loops, as both packages' trainers run it), window size 3, window length
+8.  float32 throughout.
 
 Tolerances: the pools 1e-6 (two f32 products of bin matrices, or one f32
 window sum, in other orders); the refiner's functions 1e-5 (f32 products
@@ -16,7 +18,12 @@ over 64-256 terms and a softmax); cached features 1e-5 (the forward
 tolerance of tests/test_dino_parity.py:179); metrics 1e-5 and masks equal
 (the JAX package prints them to 4 decimals; a float32 logit within
 rounding of the 0.5 threshold would show here, and does not at these
-seeds); the geometry and the checkpoint files exactly.
+seeds); the geometry and the checkpoint files exactly.  Training: the
+losses' values 1e-5 and the refiner's gradients rtol 2e-4 / atol 2e-5
+(tests/test_attention_vjp.py's f32 gradient tolerance); after a few AdamW
+steps the losses rtol 5e-5 / atol 2e-5 and the refiner and its EMA rtol
+1e-4 / atol 5e-6 (tests/test_torch_train_loop.py's), at the shipped lr0
+1e-4.
 """
 
 import dataclasses
@@ -172,15 +179,66 @@ def test_sparse_refiner_forward_matches_jax(refiner, threshold):
     assert threshold != 0.2 or 0 < selected < 1
 
 
-def test_refiner_losses_and_training_entries_wait_for_item_15(tmp_path):
-    for name in ("binary_iou_batch", "refiner_distillation_loss", "refiner_ensemble_loss", "refiner_train_loss"):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            getattr(TU, name)()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        TCLI.main(["lt_train", "-c", "x"])
-    for method, args in (("launch_train", ()), ("save_refiner", (1,))):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            getattr(TRunner, method)(object.__new__(TRunner), *args)
+def _loss_inputs(seed):
+    """Features, a coarse prediction (logits over a few decades) and binary
+    window targets (18 windows of 8 x 8) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    l_f = rng.standard_normal((2, 8, 8, DIM)).astype(np.float32)
+    h_f = rng.standard_normal((2, 9, 8, 8, DIM)).astype(np.float32)
+    preds = (rng.standard_normal((2, 8, 8, 1)) * np.linspace(0.1, 6, 8)[None, :, None, None]).astype(np.float32)
+    h_targets = (rng.random((18, 8, 8, 1)) < 0.4).astype(np.float32)
+    return l_f, h_f, preds, h_targets
+
+
+def test_binary_iou_batch_matches_jax():
+    """Probabilities, logits (the batch-global max over 1 sends the whole
+    batch through the sigmoid) and binary predictions against binary
+    targets; an empty union gives 0."""
+    rng = np.random.default_rng(10)
+    t = (rng.random((5, 6, 7, 1)) < 0.5).astype(np.float32)
+    for p in (rng.random((5, 6, 7, 1)).astype(np.float32), rng.standard_normal((5, 6, 7, 1)).astype(np.float32) * 3,
+              (rng.random((5, 6, 7, 1)) < 0.3).astype(np.float32)):
+        got = TU.binary_iou_batch(torch.from_numpy(p), torch.from_numpy(t))
+        want = JU.binary_iou_batch(jnp.asarray(p), jnp.asarray(t))
+        assert tuple(got.shape) == (5,) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    zeros = torch.zeros(2, 3, 3, 1)
+    assert TU.binary_iou_batch(zeros, zeros).tolist() == [0.0, 0.0]
+
+
+@pytest.mark.parametrize("threshold", [0.0015, 0.2, 10.0])
+def test_refiner_losses_and_gradients_match_jax(refiner, threshold):
+    """The three losses' values (1e-5) and the refiner's gradients of each
+    (rtol 2e-4 / atol 2e-5) on the same inputs, with every window selected,
+    some, and none (the distillation's ``max(num_sel, 1)``; with none
+    selected it gives no gradient at all).  ``GE.alpha``, which the forward
+    never reads, gets none in the port (zero in JAX)."""
+    jp, tp = refiner
+    l_f, h_f, preds, h_t = _loss_inputs(11)
+    jtrain = {k: v for k, v in jp.items() if k != "num_heads"}
+    for name in ("refiner_distillation_loss", "refiner_ensemble_loss", "refiner_train_loss"):
+        def jloss(params):
+            out = JU.sparse_refiner_forward(params, jnp.asarray(l_f), jnp.asarray(h_f), jnp.asarray(preds), 3,
+                                            threshold, num_heads=HEADS)
+            return getattr(JU, name)(out, jnp.asarray(preds), jnp.asarray(h_t), 3)
+
+        want, jgrads = jax.value_and_grad(jloss)(jtrain)
+        params = C.tree_map(lambda t: t.clone().requires_grad_(True), tp)
+        out = TU.sparse_refiner_forward(params, *(torch.from_numpy(x) for x in (l_f, h_f, preds)), 3, threshold,
+                                        num_heads=HEADS)
+        got = getattr(TU, name)(out, torch.from_numpy(preds), torch.from_numpy(h_t), 3)
+        got.backward()
+        np.testing.assert_allclose(got.item(), float(want), rtol=1e-5, atol=1e-5, err_msg=name)
+        assert params["ge"]["alpha"].grad is None
+        grads = C.refiner_to_jax(C.tree_map(lambda t: torch.zeros_like(t) if t.grad is None else t.grad, params))
+        flat_j = _by_path(jgrads)
+        for path, g in _by_path({k: v for k, v in grads.items() if k != "num_heads"}).items():
+            np.testing.assert_allclose(g, flat_j[path].reshape(g.shape), rtol=2e-4, atol=2e-5,
+                                       err_msg=f"{name} {path}")
+        # the distillation reaches the CSF through the selected windows only:
+        # none selected, no gradient at all
+        moved = any(np.abs(g).max() > 0 for g in _by_path(jgrads).values())
+        assert moved != (name == "refiner_distillation_loss" and threshold == 10.0)
 
 
 def test_concate_m_patch_preds_matches_jax():
@@ -440,3 +498,245 @@ def test_refine_predictor_matches_jax(world, use_m_patches):
             np.testing.assert_allclose(g, w, **TOL)
     with pytest.raises(ValueError, match="original pixels"):
         tp.predict([np.zeros((56, 56, 3), np.float32)])
+
+
+# -- stage-2 training --------------------------------------------------------------
+
+# losses, and the refiner and its EMA after training: a few AdamW steps turn
+# float32 noise in near-zero gradients into parameter differences (the
+# stage-1 precedent, tests/test_torch_train_loop.py)
+LOSS_TOL = dict(rtol=5e-5, atol=2e-5)
+PARAM_TOL = dict(rtol=1e-4, atol=5e-6)
+
+
+def _assert_refiners_close(got, want, what):
+    """Two refiners (port layout, or JAX layout with ``num_heads``) at PARAM_TOL."""
+    def flat(p):
+        return _by_path(C.refiner_to_jax(p) if isinstance(p["ge"]["alpha"], torch.Tensor) else p)
+
+    g, w = flat(got), flat(want)
+    assert g.keys() - {("num_heads",)} == w.keys() - {("num_heads",)}
+    for path in g:
+        if path != ("num_heads",):
+            np.testing.assert_allclose(g[path], w[path].reshape(g[path].shape), err_msg=f"{what} {path}", **PARAM_TOL)
+
+
+class _Log:
+    def __init__(self):
+        self.lines = []
+
+    def log(self, msg):
+        self.lines.append(msg)
+
+
+class _Loader:
+    """One batch an epoch, the epoch's own (``set_epoch`` picks it)."""
+
+    def __init__(self, batches):
+        self.batches, self.epoch = batches, None
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+    def __iter__(self):
+        return iter([self.batches[self.epoch]])
+
+
+def _refine_batches(world, m_patches):
+    """Three batches of 2 of the world's images: cached-style l, grid-patch
+    and (with ``m_patches``) m-patch features from the world's backbone."""
+    from ucod_dpl_tpu_torch.data.transforms import image_transform
+
+    fe = world["fe"]
+    paths = sorted((world["root"] / "RefCOD" / "TINY" / "im").iterdir())[:4]
+    imgs = [Image.open(p).convert("RGB") for p in paths]
+    l_f = fe.extract(load_image_batch_transform(paths, (56, 56)))
+    h_f = np.stack([fe.extract(TDS.grid_patch_arrays(img, (56, 56), 3)) for img in imgs])
+    m_f = np.stack([TDS.slice_m_windows(fe.extract(image_transform(img, (756, 756))[None])[0]) for img in imgs])
+    return [{"features": l_f[[i, j]], "h_inputs": h_f[[i, j]], "m_inputs": m_f[[i, j]] if m_patches else [None] * 2}
+            for i, j in ((0, 1), (2, 3), (1, 2))]
+
+
+@pytest.mark.parametrize("m_patches", [False, True])
+def test_train_loop_steps_match_jax(world, tmp_path, monkeypatch, m_patches):
+    """Three epochs of one step each through both packages' loops (fake
+    runners, the same batches, decoder and starting refiner): the rate
+    steps every epoch (step_lr_size 1, gamma 0.5), the EMA is a copy at
+    epoch 0 and moves from epoch 1 (start_ema 1).  The window targets agree
+    pixel for pixel first; then the losses, the refiner and its EMA, and the
+    files each epoch writes.  With WORLD_SIZE 2 the port's loop refuses."""
+    from ucod_dpl_tpu.engine import coral_loop as JCL
+    from ucod_dpl_tpu.models.dba import rev_decoder_forward as j_decoder
+    from ucod_dpl_tpu.models.safetensors_io import load_decoder_checkpoint as j_load_decoder
+    from ucod_dpl_tpu.parallel import build_mesh as j_build_mesh
+    from ucod_dpl_tpu_torch.engine import coral_loop as TCL
+    from ucod_dpl_tpu_torch.models.safetensors_io import load_decoder_checkpoint as t_load_decoder
+
+    batches = _refine_batches(world, m_patches)
+    cfg = {"start_ema": 1, "train_cfg": {"max_epoch": 3, "lr0": 1e-4, "step_lr_gamma": 0.5, "step_lr_size": 1},
+           "model_cfg": {"window_size": 3, "window_length": 8, "threshold": 0.0015, "ema_weight": 0.7},
+           "val_cfg": {"val_interval": 100, "val_start": 100}}
+    jp = JU.load_refiner_checkpoint(world["refiner"])
+    runners = {}
+    for name, runner_cls, dec in (("jax", JRunner, j_load_decoder(world["ckpts"]["mixed"])[0]),
+                                  ("port", TRunner, t_load_decoder(world["ckpts"]["mixed"])[0])):
+        ns = runners[name] = type("R", (), {})()
+        ns.decoder_params, ns.logger, ns.log_path = dec, _Log(), str(tmp_path / name)
+        ns.train_dataloader, ns.device, ns.mesh = _Loader(batches), torch.device("cpu"), j_build_mesh()
+        ns.refiner_params = jp if name == "jax" else C.refiner_from_jax(jp)
+        ns.save_refiner = runner_cls.save_refiner.__get__(ns)
+
+    tloop = TCL.LocalRefineTrainLoop(TCfg(cfg), runners["port"])
+    jloop = JCL.LocalRefineTrainLoop(JCfg(cfg), runners["jax"])
+    for batch in batches:  # the targets are thresholded logits: hold them equal before the losses
+        l_t, h_t, p_t = tloop.prepare(batch)
+        l_j, h_j, p_j = jloop._prepare(batch)
+        np.testing.assert_allclose(p_t.numpy(), np.asarray(p_j), **TOL)
+        flat = h_j.reshape(18, 8, 8, DIM)
+        want = np.asarray(jax.nn.sigmoid(j_decoder(runners["jax"].decoder_params, flat, with_loss=False)[0]) > 0.5)
+        got = torch.sigmoid(TCL.decoder_fg(tloop.decoder, h_t.reshape(18, 8, 8, DIM))) > 0.5
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert 0 < want.mean() < 1
+
+    j_losses = []
+    j_step = jloop._train_step
+
+    def recording(*a):
+        out = j_step(*a)
+        j_losses.append(float(out[2]))
+        return out
+
+    jloop._train_step = recording
+    jloop.run()
+    tloop.run()
+    np.testing.assert_allclose(tloop.epoch_losses, j_losses, **LOSS_TOL)
+    assert [line.split(":")[0] for line in runners["port"].logger.lines if "[stage2]" in line] == \
+        [f"[stage2] epoch {e}" for e in range(3)]
+    assert tloop.lr == pytest.approx(1e-4 * 0.25) and tloop.optimizer.adamw.param_groups[0]["lr"] == \
+        float(np.float32(2.5e-5))
+    _assert_refiners_close(runners["port"].refiner_params, runners["jax"].refiner_params, "refiner")
+    _assert_refiners_close(tloop.ema_params, jloop.ema_params, "EMA")
+    moved = C.refiner_to_jax(runners["port"].refiner_params)
+    assert not np.array_equal(moved["csf"]["mask_dec"]["w"], np.asarray(jp["csf"]["mask_dec"]["w"]))
+    for e in (1, 2, 3):
+        for suffix in ("", "_ema"):
+            f = f"epoch{e}{suffix}.safetensors"
+            _assert_refiners_close(TU.load_refiner_checkpoint(str(tmp_path / "port" / "refiner_ckp" / f)),
+                                   JU.load_refiner_checkpoint(str(tmp_path / "jax" / "refiner_ckp" / f)), f)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    with pytest.raises(NotImplementedError, match="single-process"):
+        TCL.LocalRefineTrainLoop(TCfg(cfg), runners["port"]).run()
+
+
+def _lt_train_cfg(root, tag, weights, m_patches, max_epoch=2):
+    cfg = _cfg_dict(root, tag, weights, val_batch=2)
+    cfg.update(mode="train", start_ema=1)
+    cfg["model_cfg"]["ema_weight"] = 0.7
+    cfg["train_cfg"] = {"max_epoch": max_epoch, "lr0": 1e-4, "step_lr_gamma": 0.5, "step_lr_size": 1}
+    cfg["val_cfg"].update(val_interval=2, val_start=2)
+    cfg["dataset_cfg"]["trainset_cfg"]["require_m_patches"] = m_patches
+    return cfg
+
+
+@pytest.mark.parametrize("m_patches", [False, True])
+def test_cli_lt_train_matches_jax(world, tmp_path, monkeypatch, m_patches):
+    """``cli.lt_train_main`` on both packages from the same config file,
+    decoder and starting refiner over the world's 5 images (2 steps an
+    epoch, 2 epochs, one validation at epoch 2): the per-epoch losses, the
+    epoch and EMA files, the validation's metrics; each package's trained
+    refiner file loads in the other."""
+    from ucod_dpl_tpu.engine import coral_loop as JCL
+
+    root = world["root"]
+    j_losses, j_results = [], []
+    j_init = JCL.LocalRefineTrainLoop.__init__
+
+    def init(self, cfg, runner):
+        j_init(self, cfg, runner)
+        step = self._train_step
+
+        def recording(*a):
+            out = step(*a)
+            j_losses.append(float(out[2]))
+            return out
+
+        self._train_step = recording
+
+    monkeypatch.setattr(JCL.LocalRefineTrainLoop, "__init__", init)
+    j_val = JRunner.launch_val
+    monkeypatch.setattr(JRunner, "launch_val", lambda self: j_results.append(j_val(self)) or j_results[-1])
+    runs, ckp = {}, {}
+    for name, main, extra in (("jax", JCLI.lt_train_main, []), ("port", TCLI.lt_train_main, ["--device", "cpu"])):
+        cfg = _lt_train_cfg(tmp_path, name, world["weights"], m_patches)
+        cfg["dataset_cfg"]["dataset_dir"] = str(root / "RefCOD")
+        (tmp_path / f"lt_{name}.py").write_text(f"cfg = {cfg!r}\n")
+        runs[name] = main(["-c", str(tmp_path / f"lt_{name}.py"), "--work_dir", str(tmp_path / f"wd_{name}"),
+                           "--load_from", world["ckpts"]["mixed"], "--refiner_path", world["refiner"], *extra,
+                           "--opts", "log_cfg.log_path", str(tmp_path / f"cli_{name}")])
+        ckp[name] = tmp_path / f"cli_{name}" / "refiner_ckp"
+    runner = runs["port"]
+    assert isinstance(runner, TRunner) and runner.train_dataset.require_m_patches == m_patches
+    np.testing.assert_allclose(runner.train_loop.epoch_losses, [np.mean(j_losses[:2]), np.mean(j_losses[2:])],
+                               **LOSS_TOL)
+    assert len(j_losses) == 4
+    files = sorted(os.listdir(ckp["port"]))
+    assert files == sorted(os.listdir(ckp["jax"])) == [f"epoch{e}{s}.safetensors" for e in (1, 2) for s in ("", "_ema")]
+    for f in files:
+        _assert_refiners_close(TU.load_refiner_checkpoint(str(ckp["port"] / f)),
+                               JU.load_refiner_checkpoint(str(ckp["jax"] / f)), f)
+    # the EMA is a copy through epoch 0 and moves from epoch 1 (start_ema 1)
+    flat = {f: _by_path(TU.load_refiner_checkpoint(str(ckp["port"] / f))) for f in files}
+    assert all(np.array_equal(v, flat["epoch1_ema.safetensors"][k]) for k, v in flat["epoch1.safetensors"].items())
+    assert not all(np.array_equal(v, flat["epoch2_ema.safetensors"][k]) for k, v in flat["epoch2.safetensors"].items())
+    assert len(j_results) == 1 and set(runner.evaluator.result) == set(KEYS)
+    for k in KEYS:
+        assert abs(runner.evaluator.result[k] - j_results[0][k]) <= 1e-5, (k, runner.evaluator.result[k], j_results)
+    # each package reads the other's trained file as its own
+    for a, b in (("port", "jax"), ("jax", "port")):
+        _assert_refiners_close(TU.load_refiner_checkpoint(str(ckp[a] / "epoch2.safetensors")),
+                               C.refiner_from_jax(JU.load_refiner_checkpoint(str(ckp[b] / "epoch2.safetensors"))),
+                               f"{a} read as {b}")
+
+
+def test_cli_lt_train_preempts_and_restarts(world, tmp_path, monkeypatch):
+    """tests/test_coral_e2e.py's preemption case on the port: the deferred
+    flag is honoured at the next step boundary (here the one after the
+    first epoch's save), the trainer saves ``epoch0_preempt`` and exits 128
+    + SIGTERM; the file holds ``runner.refiner_params``, and a restart from
+    it (``--refiner_path``) completes."""
+    from ucod_dpl_tpu_torch.engine import preempt
+
+    calls = {"n": 0, "armed": True}
+
+    def flag_after_three():  # two train steps poll first (5 images, batch 2), then the epoch's end
+        calls["n"] += 1
+        return 15 if calls["armed"] and calls["n"] >= 3 else None
+
+    monkeypatch.setattr(preempt, "requested_global", flag_after_three)
+    cfg = _lt_train_cfg(tmp_path, "p", world["weights"], False, max_epoch=10_000)
+    cfg["dataset_cfg"]["dataset_dir"] = str(world["root"] / "RefCOD")
+    (tmp_path / "lt.py").write_text(f"cfg = {cfg!r}\n")
+
+    def argv(*flags):
+        return ["-c", str(tmp_path / "lt.py"), "--work_dir", str(tmp_path / "wd"), "--load_from",
+                world["ckpts"]["mixed"], "--device", "cpu", *flags, "--opts", "log_cfg.log_path", str(tmp_path / "p")]
+
+    with pytest.raises(SystemExit) as ei:
+        TCLI.lt_train_main(argv())
+    assert ei.value.code == 128 + 15
+    ckpts = sorted((tmp_path / "p" / "refiner_ckp").glob("*_preempt.safetensors"))
+    assert [p.name for p in ckpts] == ["epoch0_preempt.safetensors"]
+    log = (tmp_path / "p" / "run.log").read_text()
+    assert f"--refiner_path {ckpts[0]}" in log
+    saved = TU.load_refiner_checkpoint(str(ckpts[0]))
+    flat = _by_path(saved)
+    epoch1 = _by_path(TU.load_refiner_checkpoint(str(tmp_path / "p" / "refiner_ckp" / "epoch1.safetensors")))
+    assert all(np.array_equal(v, epoch1[k]) for k, v in flat.items())  # no step between the save and the flag
+
+    calls["armed"] = False
+    cfg["train_cfg"]["max_epoch"] = 1
+    (tmp_path / "lt.py").write_text(f"cfg = {cfg!r}\n")
+    runner = TCLI.lt_train_main(argv("--refiner_path", str(ckpts[0])))
+    assert all(np.array_equal(v, flat[k]) for k, v in _by_path(TU.load_refiner_checkpoint(str(ckpts[0]))).items())
+    assert len(runner.train_loop.epoch_losses) == 1 and np.isfinite(runner.train_loop.epoch_losses).all()
+    assert all(np.isfinite(v).all() for v in _by_path(runner.refiner_params).values())

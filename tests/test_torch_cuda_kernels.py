@@ -3,9 +3,11 @@ forward (K1 at every head dim and head count, also with its log-sum-exp
 output, and on the per-head layout, K5), the attention backward (also equal
 bit for bit from call to call), K6, K7
 (LayerNorm + fc1 + GELU) and the int8 kernels K8-K11; the eval entry
-(``cli.eval_main``) at a small width, by its K1/K6 launches; and the train
+(``cli.eval_main``) at a small width, by its K1/K6 launches; the train
 entry (``cli.train_main``, LoRA off and on) at a small width, by its
-launches, losses and a preemption resumed bit for bit.
+launches, losses and a preemption resumed bit for bit; and CORAL stage-2
+training (``cli.lt_train_main``) at a small width, by its launches and two
+runs equal bit for bit.
 
 Marked ``cuda``: they skip without a CUDA device (the decision is made in a
 fixture, at run time).  On a card::
@@ -560,9 +562,10 @@ def test_eval_entry_launches_k1_and_k6_per_forward(dev, tmp_path):
     assert results[0] == results[1]
 
 
-def _train_world(root, rng):
-    """Two train directories of 2 JPEGs, a val directory of 2 with masks, and
-    a seeded pseudo-label cache in the JAX generator's layout."""
+def _train_world(root, rng, train_labels=False):
+    """Two train directories of 2 JPEGs (with masks when ``train_labels``), a
+    val directory of 2 with masks, and a seeded pseudo-label cache in the JAX
+    generator's layout."""
     import hashlib
 
     import numpy as np
@@ -570,7 +573,7 @@ def _train_world(root, rng):
 
     from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
 
-    for name, labels in (("TR-A", False), ("TR-B", False), ("TE-A", True)):
+    for name, labels in (("TR-A", train_labels), ("TR-B", train_labels), ("TE-A", True)):
         (root / "RefCOD" / name / "im").mkdir(parents=True)
         if labels:
             (root / "RefCOD" / name / "gt").mkdir(parents=True)
@@ -682,3 +685,62 @@ def test_train_entry_launches_and_resumes_on_the_card(dev, tmp_path, monkeypatch
     finally:
         signal.signal(signal.SIGTERM, signal.SIG_DFL)
         signal.signal(signal.SIGINT, signal.default_int_handler)
+
+
+def test_lt_train_entry_launches_and_repeats_on_the_card(dev, tmp_path, monkeypatch):
+    """``cli.lt_train_main`` on configs/uscod/CORAL_dinov2.py at a small
+    width (256 wide, 4 heads of 64, 12 layers, 56px; window length 8, batch
+    2, 2 epochs, a validation at epoch 2) with m-patches for the train set (a
+    756px forward, L 2917, an image): K1 and K6 launch 11 times per backbone
+    forward of the caches (train: features, grid patches, m-patches; val:
+    features, grid patches) and of the validation's centre-crop fallbacks,
+    nothing else launches; the losses are finite and the refiner moves; a
+    second run from the same caches (cuDNN deterministic) writes every
+    refiner and EMA file equal bit for bit."""
+    import numpy as np
+    from safetensors.torch import load_file
+
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_fc1_gelu
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    _train_world(tmp_path, np.random.default_rng(1), train_labels=True)
+    arch = {"hidden_size": 256, "num_layers": 12, "num_heads": 4, "patch_size": 14, "image_size": 56}
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    (tmp_path / "tiny.py").write_text(
+        f"cfg = dict(_BASE_=[{os.path.join(repo, 'configs', 'uscod', 'CORAL_dinov2.py')!r}], "
+        f"model_cfg=dict(dim=256, feature_size=8, window_length=8), "
+        f"dataset_cfg=dict(feature_extractor_cfg=dict(arch={arch!r})))\n")
+
+    def argv(run):
+        return ["-c", str(tmp_path / "tiny.py"), "--work_dir", str(tmp_path / "wd"), "--opts",
+                "dataset_cfg.dataset_dir", str(tmp_path / "RefCOD"), "dataset_cfg.cache_dir", str(tmp_path / "cache"),
+                "log_cfg.log_path", str(tmp_path / f"logs_{run}"), "dataset_cfg.trainset_cfg.DATASET", "TR-A+TR-B",
+                "dataset_cfg.valset_cfg.DATASET", "TE-A", "dataset_cfg.trainset_cfg.image_size", "(56, 56)",
+                "dataset_cfg.valset_cfg.image_size", "(56, 56)", "train_cfg.max_epoch", "2",
+                "val_cfg.val_interval", "2", "val_cfg.val_start", "2"]
+
+    wrappers = (packed_attention, layernorm_qkv, heads_attention, packed_attention_fwd_lse, packed_attention_bwd,
+                layernorm_fc1_gelu, FL.layernorm_qkv_w8a8, FL.layernorm_fc1_gelu_w8a8, FL.dense_quant_w8a8,
+                FL.layernorm_mlp_w8a8)
+    files = {}
+    for run, builds in (("a", True), ("b", False)):
+        for fn in wrappers:
+            fn.launches = 0
+        runner = cli.lt_train_main(argv(run))
+        # train: 1 feature batch, 4 grid-patch and 4 m-patch calls (one image
+        # each); val: 1 feature batch and 2 grid-patch calls; 2 a fallback
+        forwards = (1 + 4 + 4 + 1 + 2 if builds else 0) + 2 * runner.evaluator.crops
+        assert packed_attention.launches == layernorm_qkv.launches == 11 * forwards
+        assert not any(fn.launches for fn in wrappers[2:])
+        losses = runner.train_loop.epoch_losses
+        assert len(losses) == 2 and np.isfinite(losses).all()
+        assert all(np.isfinite(v) and 0 <= v <= 1 for v in runner.evaluator.result.values())
+        ckp = tmp_path / f"logs_{run}" / "refiner_ckp"
+        files[run] = {f.name: load_file(str(f)) for f in sorted(ckp.iterdir())}
+    assert sorted(files["a"]) == [f"epoch{e}{s}.safetensors" for e in (1, 2) for s in ("", "_ema")]
+    for name, tensors in files["a"].items():
+        for key, t in tensors.items():
+            assert torch.equal(t, files["b"][name][key]), f"{name} {key} differs between two runs"
+    first, last = files["a"]["epoch1.safetensors"], files["a"]["epoch2.safetensors"]
+    assert any(not torch.equal(first[k], last[k]) for k in first)

@@ -90,8 +90,6 @@ def test_dino_cls_attention_refuses_fold_quant_and_tp(tiny):
         TD.dino_forward(tp, px, tcfg, key_fold=fold, want_cls_attention=True)
     with pytest.raises(ValueError, match="full-precision"):
         TD.dino_forward(tp, px, tcfg, quant=quantize_dino_linears(tp), want_cls_attention=True)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TD.dino_forward([tp], px, tcfg, tp_shard=(None, "model"), want_cls_attention=True)
 
 
 def test_extract_with_attention_matches_jax_and_ignores_int8(tmp_path):

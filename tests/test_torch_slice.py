@@ -181,9 +181,10 @@ def test_port_imports_no_jax():
     from a path for a request, running the LookTwice helpers and running the
     eval entry end to end on the CPU (``cli.eval_main``: runner, dataset cache
     build, evaluator, metrics), the train entry (``cli.train_main``: train
-    loop, steps, checkpoints, validation), the pseudo-label generator and the
+    loop, steps, checkpoints, validation), the pseudo-label generator, the
     CORAL eval entry (``cli.lt_eval_main``: LRDataset's caches, the refiner)
-    must import nothing of jax and nothing of the JAX package
+    and the CORAL train entry (``cli.lt_train_main``: m-patch caches, the
+    refiner's losses and training loop) must import nothing of jax and nothing of the JAX package
     ``ucod_dpl_tpu``, not even its jax-free modules: an import of either is
     made to fail outright."""
     code = (
@@ -272,6 +273,13 @@ def test_port_imports_no_jax():
         "    'dataset_cfg.cache_dir', os.path.join(root, 'cache'), 'dataset_cfg.valset_cfg.image_size', '(28, 28)',\n"
         "    'tpu_cfg.compute_dtype', 'float32'])\n"
         "assert set(refined['SYN'].evaluator.result) == set(stats.get_result())\n"
+        "coral = cli.lt_train_main(['-c', os.path.join(root, 'coral.py'), '--device', 'cpu', '--work_dir', root,\n"
+        "    '--opts', 'dataset_cfg.dataset_dir', os.path.join(root, 'RefCOD'),\n"
+        "    'dataset_cfg.cache_dir', os.path.join(root, 'cache'), 'dataset_cfg.trainset_cfg.DATASET', 'SYN',\n"
+        "    'dataset_cfg.trainset_cfg.image_size', '(28, 28)', 'dataset_cfg.valset_cfg.image_size', '(28, 28)',\n"
+        "    'tpu_cfg.compute_dtype', 'float32', 'train_cfg.max_epoch', '1'])\n"
+        "assert len(coral.train_loop.epoch_losses) == 1 and coral.train_dataset.require_m_patches\n"
+        "assert os.path.exists(os.path.join(coral.log_path, 'refiner_ckp', 'epoch1_ema.safetensors'))\n"
         "bad = [m for m in sys.modules if m.startswith('jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "assert not jax_package(), jax_package()\n"

@@ -7,7 +7,8 @@ on the 8-device CPU mesh as tests/test_tp.py runs them.  The port's meshes
 name the CPU eight times (a mesh may name one device more than once), so its
 shards run one after another.  Tolerances are those of tests/test_tp.py:
 rtol 1e-4 / atol 1e-5 for the forward, 1e-5 / 1e-6 for attention, 2e-4 /
-2e-5 for the extractor.
+2e-5 for the extractor; the CLS attention path (the pseudo-label
+generator's input) tests/test_torch_pseudo_label.py's 1e-5.
 """
 
 import numpy as np
@@ -75,6 +76,32 @@ def test_tp_dino_forward_matches_jax_tp_forward(mesh_cfg):
     unsharded = TD.dino_forward(tp, torch.from_numpy(px), TCFG)
     for key, value in got.items():
         np.testing.assert_allclose(value, unsharded[key].numpy(), rtol=1e-4, atol=1e-5)
+
+
+# the CLS attention's tolerance: tests/test_torch_pseudo_label.py's
+CLS_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("mesh_cfg", MESHES)
+def test_tp_cls_attention_matches_jax_tp_and_unsharded(mesh_cfg):
+    """``want_cls_attention`` under TP: each shard's heads' CLS row (model=2:
+    4 heads a shard, model=4: 2), concatenated in shard order, against the
+    JAX TP forward (GSPMD) and the port's unsharded forward."""
+    jp, tp = _jax_params(4)
+    px = _pixels(4, 4)
+    jmesh = jax_build_mesh(mesh_cfg)
+    fwd = jax.jit(lambda p, x: JD.dino_forward(p, x, CFG, tp_shard=(jmesh, "model"), want_cls_attention=True))
+    want = fwd(jax_shard_dino_params(jp, jmesh),
+               jax.device_put(jnp.asarray(px), NamedSharding(jmesh, P("data", None, None, None))))
+    mesh = _cpu_mesh(mesh_cfg)
+    got = _port_tp(shard_dino_params(tp, mesh), mesh, px, want_cls_attention=True)
+    unsharded = TD.dino_forward(tp, torch.from_numpy(px), TCFG, want_cls_attention=True)
+    assert set(got) == {"key_tokens", "key_features", "cls_attention"}
+    assert got["cls_attention"].shape == (4, 8, 5) and got["cls_attention"].dtype == np.float32
+    for key, value in got.items():
+        np.testing.assert_allclose(value, np.asarray(want[key]), err_msg=key, **CLS_TOL)
+        np.testing.assert_allclose(value, unsharded[key].numpy(), err_msg=key, **CLS_TOL)
+    np.testing.assert_allclose(got["cls_attention"].sum(-1), 1.0, rtol=1e-5)
 
 
 def test_tp_dino_forward_refuses_int8_and_differentiation():
@@ -193,6 +220,22 @@ def test_feature_extractor_mesh_matches_jax_tp_extractor(checkpoint, mesh_cfg):
         got = fe.extract(px)
         assert got.shape == (b, 4, 4, 128) and got.dtype == np.float32
         np.testing.assert_allclose(got, jfe.extract(px), rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("mesh_cfg", MESHES)
+def test_feature_extractor_mesh_extract_with_attention_matches_jax(checkpoint, mesh_cfg):
+    """``FeatureExtractor(mesh=).extract_with_attention`` (the pseudo-label
+    generator's call) against the JAX TP extractor's, float32, at a batch
+    the data axis splits and at one it does not."""
+    jfe = JaxFeatureExtractor(_fe_cfg(checkpoint, JaxCfgNode), compute_dtype=jnp.float32, strict=True,
+                              mesh=jax_build_mesh(mesh_cfg))
+    fe = FeatureExtractor(_fe_cfg(checkpoint, CfgNode), strict=True, mesh=_cpu_mesh(mesh_cfg))
+    for b in (4, 3):
+        px = _pixels(10 + b, b, hw=56)
+        got, want = fe.extract_with_attention(px), jfe.extract_with_attention(px)
+        for g, w, shape in zip(got, want, ((b, 17, 128), (b, 4, 4, 128), (b, 8, 17))):
+            assert g.shape == shape and g.dtype == np.float32
+            np.testing.assert_allclose(g, w, **CLS_TOL)
 
 
 def test_feature_extractor_data_mesh_matches_no_mesh(checkpoint):

@@ -6,6 +6,8 @@ Counterpart of :mod:`ucod_dpl_tpu.cli` (the reference's ``scripts/*.py``)::
         [--resume STATE] [--load_from CKPT] [--profile] [--device cuda|cpu] [--opts key value ...]
     python3 -m ucod_dpl_tpu_torch.cli eval -c configs/uscod/UCOD-DPL_dinov2.py \\
         [--load_from CKPT] [--datasets A,B] [--device cuda|cpu] [--opts key value ...]
+    python3 -m ucod_dpl_tpu_torch.cli lt_train -c configs/uscod/CORAL_dinov2.py \\
+        [--load_from CKPT] [--refiner_path CKPT] [--profile] [--device cuda|cpu] [--opts ...]
     python3 -m ucod_dpl_tpu_torch.cli lt_eval -c configs/uscod/CORAL_dinov2.py \\
         [--load_from CKPT] [--refiner_path CKPT] [--datasets A,B] [--device cuda|cpu] [--opts ...]
     python3 -m ucod_dpl_tpu_torch.cli generate_pseudo_label [--dataset A+B] [--image_path TEMPLATE] \\
@@ -13,13 +15,13 @@ Counterpart of :mod:`ucod_dpl_tpu.cli` (the reference's ``scripts/*.py``)::
         [--image_size 224] [--fe_type dinov2|dinov1] [--overwrite] [--device cuda|cpu]
 
 The flags are the JAX package's, plus ``--device`` (default ``cuda``: the
-card; ``cpu`` runs the plain versions of the kernels).  Stage-1 training
+card; ``cpu`` runs the plain versions of the kernels): stage-1 training
 (``train``; ``--resume`` takes a ``state_epochN`` or ``state_preempt`` of
-either package), stage-1 evaluation (``eval``), CORAL stage-2 evaluation
-(``lt_eval``) and pseudo-label generation are ported; ``lt_train`` raises
-``NotImplementedError`` (ROADMAP Queue 1 item 15's training half).  The
-engine is imported inside the entry bodies, so ``--help`` and argument
-errors cost nothing.
+either package), stage-1 evaluation (``eval``), CORAL stage-2 training
+(``lt_train``; a preempted run restarts with ``--refiner_path`` set to its
+``epoch{N}_preempt`` file) and evaluation (``lt_eval``), and pseudo-label
+generation.  The engine is imported inside the entry bodies, so ``--help``
+and argument errors cost nothing.
 """
 
 from __future__ import annotations
@@ -51,7 +53,10 @@ def parse_args(description: str = "ucod-dpl-tpu-torch", argv=None):
     parser.add_argument("--work_dir", type=str, default="work_dir", help="work dir")
     parser.add_argument("--resume", type=str, default=None, help="resume from checkpoint")
     parser.add_argument("--load_from", type=str, default=None, help="load from checkpoint")
-    parser.add_argument("--refiner_path", type=str, default=None, help="load refiner checkpoint")
+    parser.add_argument(
+        "--refiner_path", type=str, default=None,
+        help="refiner checkpoint: lt_eval's weights, or where lt_train starts (an epoch{N}_preempt file restarts it)"
+    )
     parser.add_argument(
         "--datasets", type=str, default=None, help="comma-separated eval dataset names (overrides the default list)"
     )
@@ -139,7 +144,27 @@ def eval_main(argv=None) -> Dict[str, object]:
 
 
 def lt_train_main(argv=None):
-    raise NotImplementedError("CORAL stage-2 training is ROADMAP Queue 1 item 15's training half")
+    """CORAL stage-2 training of the UDLR refiner (the reference's
+    ``scripts/LTtrain.py``; its loop was never released, the JAX package's
+    completes it): the frozen stage-1 decoder from ``--load_from``, the
+    refiner from ``--refiner_path`` (a restart, say from an
+    ``epoch{N}_preempt`` file) or a seeded init.  Writes
+    ``<log_path>/refiner_ckp/epoch{N}.safetensors`` and
+    ``epoch{N}_ema.safetensors`` each epoch.  Returns the
+    ``LocalRefineRunner`` (``runner.train_loop`` holds the loop)."""
+    args = parse_args("CORAL stage-2 training", argv)
+    cfg = init_cfg(args, mode="train")
+
+    from ucod_dpl_tpu_torch.engine.runner import LocalRefineRunner
+    from ucod_dpl_tpu_torch.utils.profiling import maybe_profile
+    from ucod_dpl_tpu_torch.utils.seed import set_random_seed
+
+    set_random_seed(42)
+    with maybe_profile(args.profile, os.path.join(cfg.work_dir, "profile")):
+        runner = LocalRefineRunner(cfg, mode="train", load_from=args.load_from, refiner_path=args.refiner_path,
+                                   device=args.device)
+        runner.launch_train()
+    return runner
 
 
 def lt_eval_main(argv=None) -> Dict[str, object]:

@@ -193,43 +193,46 @@ class FeatureExtractor:
             )
         return arr
 
-    def _features(self, params, images: np.ndarray, device) -> torch.Tensor:
-        """Key features of ``images`` on the device, launched and not waited for."""
-        pixels = torch.from_numpy(np.asarray(images, np.float32)).to(device)
-        return dino_forward(params, pixels, self.config, compute_dtype=self.compute_dtype,
-                            quant=self._qparams, tp_shard=self.tp_shard)["key_features"]
+    def _forwards(self, images_nhwc: np.ndarray, **kw):
+        """``dino_forward`` of ``images_nhwc`` on each ``data`` coordinate of
+        the mesh (the whole batch on the extractor's device without one),
+        every coordinate launched before any result is read, so that their
+        devices run side by side.  A batch the data axis does not divide
+        runs once (replicated, every coordinate would compute the same)."""
+        images = np.asarray(images_nhwc, np.float32)
+        if self.mesh is None:
+            parts = [(self.params, slice(None), self.device)]
+        else:
+            slices = data_sharding(self.mesh, images.shape[0])
+            if slices[0] == slice(None):
+                slices = slices[:1]
+            parts = []
+            for d, sl in enumerate(slices):
+                params = self._mesh_params[d]
+                parts.append((params, sl, (params[0] if self.tp_shard else params)["pos_embed"].device))
+        return [dino_forward(params, torch.from_numpy(images[sl]).to(device), self.config,
+                             compute_dtype=self.compute_dtype, tp_shard=self.tp_shard, **kw)
+                for params, sl, device in parts]
 
     def extract(self, images_nhwc: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) normalised images -> (B, h, w, hidden) float32 key
-        features on the host.  With a mesh, every ``data`` coordinate's
-        forward is launched before the first copy to the host, so the
-        coordinates' devices run side by side."""
+        features on the host, over the mesh's ``data`` coordinates when there
+        is a mesh."""
         with torch.inference_mode():
-            if self.mesh is None:
-                return self._to_host_f32(self._features(self.params, images_nhwc, self.device), "features")
-            images = np.asarray(images_nhwc)
-            slices = data_sharding(self.mesh, images.shape[0])
-            if slices[0] == slice(None):  # replicated: every coordinate would compute the same batch
-                slices = slices[:1]
-            feats = []
-            for d, sl in enumerate(slices):
-                params = self._mesh_params[d]
-                device = (params[0] if self.tp_shard else params)["pos_embed"].device
-                feats.append(self._features(params, images[sl], device))
-            return np.concatenate([self._to_host_f32(f, "features") for f in feats])
+            outs = self._forwards(images_nhwc, quant=self._qparams)
+            return np.concatenate([self._to_host_f32(o["key_features"], "features") for o in outs])
 
     def extract_with_attention(self, images_nhwc: np.ndarray):
         """(B, H, W, 3) normalised images -> host float32 ``(key_tokens (B,
         1+N, C), key_features (B, h, w, C), cls_attention (B, heads, 1+N))``,
-        the pseudo-label generator's inputs, on the extractor's device.
-        Always the full-precision forward: an int8 extractor passes no int8
-        linears (the CLS attention is a parity surface).  Tokens and
+        the pseudo-label generator's inputs, on the extractor's device or over
+        its mesh (under tensor parallelism each shard computes its heads'
+        rows).  Always the full-precision forward: an int8 extractor passes
+        no int8 linears (the CLS attention is a parity surface).  Tokens and
         attention are checked for non-finite values (NaN probabilities would
-        threshold into silently degenerate masks).  Under tensor parallelism
-        ``dino_forward`` raises NotImplementedError."""
+        threshold into silently degenerate masks)."""
         with torch.inference_mode():
-            pixels = torch.from_numpy(np.asarray(images_nhwc, np.float32)).to(self.device)
-            out = dino_forward(self.params, pixels, self.config, compute_dtype=self.compute_dtype,
-                               tp_shard=self.tp_shard, want_cls_attention=True)
-            return (self._to_host_f32(out["key_tokens"], "key tokens"), out["key_features"].float().cpu().numpy(),
-                    self._to_host_f32(out["cls_attention"], "CLS attention"))
+            outs = self._forwards(images_nhwc, want_cls_attention=True)
+            return (np.concatenate([self._to_host_f32(o["key_tokens"], "key tokens") for o in outs]),
+                    np.concatenate([o["key_features"].float().cpu().numpy() for o in outs]),
+                    np.concatenate([self._to_host_f32(o["cls_attention"], "CLS attention") for o in outs]))

@@ -1,17 +1,20 @@
-"""CORAL stage-2 evaluation, jax-free: UDLR local refinement.
+"""CORAL stage-2 loops, jax-free: UDLR evaluation and refiner training.
 
-Counterpart of the evaluation half of :mod:`ucod_dpl_tpu.engine.coral_loop`
-(the reference's ``LocalRefineValidationLoop``, ``engine/runner/
+Counterpart of :mod:`ucod_dpl_tpu.engine.coral_loop`.  The evaluation (the
+reference's ``LocalRefineValidationLoop``, ``engine/runner/
 loop_CORAL.py:41-341``): multi-resolution features, the optional 2 x 2
 m-patch prediction stitch (68px windows at stride 34 on a 102px canvas,
 ``concate_preds`` at ``loop_CORAL.py:62-96``), the centre-crop fallback when
 the coarse foreground share is under 0.1%, the SparseRefiner forward, the
-centre pad of a cropped sample, metrics and PNG masks.  The decoder and
-the refiner run on the runner's device in float32 (plain PyTorch, as the
-JAX package leaves them to XLA); the features come from the caches of
+centre pad of a cropped sample, metrics and PNG masks.  The training (the
+reference ships only a stub, ``loop_CORAL.py:38-39``; the JAX package's
+trainer): the refiner distils toward the frozen stage-1 decoder evaluated on
+each window's high-res features, with AdamW at a per-epoch step rate, an EMA
+copy, periodic validation and deferred preemption.  The decoder and the
+refiner run on the runner's device in float32 (plain PyTorch, as the JAX
+package leaves them to XLA); the features come from the caches of
 :class:`~ucod_dpl_tpu_torch.data.dataset.LRDataset` or, for the fallback,
-from the extractor (on the card through K1 and K6).  The refiner's
-training loop is ROADMAP Queue 1 item 15's training half.
+from the extractor (on the card through K1 and K6).
 """
 
 from __future__ import annotations
@@ -23,9 +26,11 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ucod_dpl_tpu_torch.models.convert import params_to
+from ucod_dpl_tpu_torch.engine import preempt
+from ucod_dpl_tpu_torch.engine.train_step import Optimizer
+from ucod_dpl_tpu_torch.models.convert import params_to, snapshot, tree_leaves, tree_map
 from ucod_dpl_tpu_torch.models.dba import rev_decoder_forward
-from ucod_dpl_tpu_torch.models.udlr import sparse_refiner_forward
+from ucod_dpl_tpu_torch.models.udlr import refiner_train_loss, save_refiner_checkpoint, sparse_refiner_forward
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear_nhwc, interpolate_bilinear_np
 
 
@@ -156,7 +161,6 @@ class LocalRefineEvaluator:
         tail batch is padded by repeating its last sample, as the JAX loop
         does, which the batch-global maxima of the refiner see), the
         fallback per image, per-image metrics and mask writes."""
-        from ucod_dpl_tpu_torch.engine import preempt
         from ucod_dpl_tpu_torch.utils.fileio import save_binary_mask
         from ucod_dpl_tpu_torch.utils.metrics import CODStatistics
         from ucod_dpl_tpu_torch.utils.progress import ProgressReporter
@@ -214,3 +218,143 @@ class LocalRefineEvaluator:
                           f"{self.refine_seconds:.3f} s of {self.seconds:.3f} s")
         runner.logger.log_table({k: [round(v, 4)] for k, v in result.items()})
         return result
+
+
+def _ema(ema, params, alpha: float):
+    """``alpha * ema + (1 - alpha) * params`` leaf by leaf, as the JAX loop writes it."""
+    if isinstance(params, torch.Tensor):
+        return alpha * ema + (1.0 - alpha) * params.detach()
+    return {k: _ema(ema[k], v, alpha) for k, v in params.items()}
+
+
+class LocalRefineTrainLoop:
+    """CORAL stage-2 refiner training on ``runner.device``, step for step the
+    JAX package's loop.  Each step: the refiner on the batch's features and
+    the coarse prediction (the frozen decoder on the 2 x 2 m-patch stitch
+    when the batch has m-patches, else on the l-features), window targets
+    ``sigmoid(decoder(window features)) > 0.5`` from the raw decoder under
+    ``no_grad``, :func:`~ucod_dpl_tpu_torch.models.udlr.refiner_train_loss`,
+    AdamW on the refiner alone.  The rate is set once per epoch to ``lr0 *
+    gamma ** (epoch // step_lr_size)`` (optax's ``inject_hyperparams``, not
+    stage 1's per-batch StepLR).  The EMA copy follows the refiner until
+    ``start_ema`` and then ``alpha = min(1 - 1/(step + 1), ema_weight)``
+    with ``step`` counting the steps since.  Validation every
+    ``val_interval`` epochs from ``val_start``; the refiner and its EMA are
+    saved every epoch.  A preemption signal saves
+    ``epoch{N}_preempt.safetensors`` from the current weights and exits
+    ``128 + signum``; a restart begins from that refiner with fresh
+    optimizer moments, as the JAX package's does.  ``epoch_losses`` holds
+    each epoch's mean loss."""
+
+    def __init__(self, cfg, runner):
+        self.cfg = cfg
+        self.runner = runner
+        self.device = runner.device
+        tc, mc, vc = cfg.train_cfg, cfg.model_cfg, cfg.val_cfg
+        self.max_epoch = tc.max_epoch
+        self.window_length = mc.window_length
+        self.window_size = mc.get("window_size", 3)
+        self.threshold = float(mc.get("threshold", 0.0015))
+        self.lr0 = tc.get("lr0", 1e-4)
+        self.gamma = tc.get("step_lr_gamma", 0.95)
+        self.step_size = tc.get("step_lr_size", 2)
+        self.ema_weight = mc.get("ema_weight", 0.70)
+        self.start_ema = cfg.get("start_ema", 1)
+        self.val_interval = vc.get("val_interval", 4)
+        self.val_start = vc.get("val_start", 4)
+        self.decoder = params_to(runner.decoder_params, self.device)
+        self.trainable = tree_map(lambda t: t.detach().to(self.device, torch.float32).clone().requires_grad_(True),
+                                  runner.refiner_params)
+        self.optimizer = Optimizer(tree_leaves(self.trainable), self.lr0)
+        self.lr = self.lr0
+        self.ema_params = None
+        self.ema_step = 0  # steps since start_ema
+        self.epoch_losses = []
+
+    def set_epoch_lr(self, epoch: int) -> None:
+        self.lr = self.lr0 * self.gamma ** (epoch // self.step_size)
+        # optax keeps the injected rate as a float32
+        self.optimizer.set_lr(float(np.float32(self.lr)))
+
+    def prepare(self, batch):
+        """A batch's refiner inputs (l features, h features, coarse
+        prediction) on the device."""
+        m_input = batch.get("m_inputs")
+        if m_input is None or isinstance(m_input, list):
+            m_input = None
+        with torch.no_grad():
+            return prepare_refine_inputs(self.decoder, batch["features"], batch["h_inputs"], m_input,
+                                         self.window_length)
+
+    def train_step(self, l_feat: torch.Tensor, h_feat: torch.Tensor, preds: torch.Tensor) -> torch.Tensor:
+        """One AdamW step of the refiner; returns the loss (on the device)."""
+        ws, wl = self.window_size, self.window_length
+        out = sparse_refiner_forward(self.trainable, l_feat, h_feat, preds, window_size=ws, threshold=self.threshold)
+        with torch.no_grad():
+            b, c = l_feat.shape[0], l_feat.shape[-1]
+            logits = decoder_fg(self.decoder, h_feat.reshape(b * ws * ws, wl, wl, c))
+            h_targets = (torch.sigmoid(logits) > 0.5).float()
+        loss = refiner_train_loss(out, preds, h_targets, window_size=ws)
+        self.optimizer.zero_grad()
+        loss.backward()
+        self.optimizer.step()
+        return loss.detach()
+
+    def update_ema(self, epoch: int) -> None:
+        with torch.no_grad():
+            if epoch >= self.start_ema:
+                alpha = min(1.0 - 1.0 / (self.ema_step + 1.0), self.ema_weight)
+                self.ema_params = _ema(self.ema_params, self.trainable, alpha)
+                self.ema_step += 1
+            else:
+                self.ema_params = snapshot(self.trainable)
+
+    def _maybe_preempt_exit(self, epoch: int, signum=None) -> None:
+        """Save the current refiner and exit if a preemption signal was
+        flagged (:func:`preempt.requested_global`, this process's own flag)."""
+        signum = signum if signum is not None else preempt.requested_global()
+        if signum is None:
+            return
+        self.runner.refiner_params = snapshot(self.trainable)
+        path = self.runner.save_refiner(f"{epoch}_preempt")
+        self.runner.logger.log(f"Preemption signal {signum}: refiner saved to {path}; restart stage 2 with "
+                               f"--refiner_path {path}")
+        raise SystemExit(128 + signum)
+
+    def _run_epoch(self, epoch: int) -> float:
+        """The epoch's steps; returns their mean loss."""
+        self.set_epoch_lr(epoch)
+        losses = []
+        self.runner.train_dataloader.set_epoch(epoch)
+        for batch in self.runner.train_dataloader:
+            losses.append(self.train_step(*self.prepare(batch)))
+            self._maybe_preempt_exit(epoch)
+            self.update_ema(epoch)
+        return float(np.mean(torch.stack(losses).cpu().double().numpy()))
+
+    def run(self) -> None:
+        runner = self.runner
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+            # no cross-process gradient sum: ranks would train divergent
+            # refiners and race on the same checkpoint paths
+            raise NotImplementedError("stage-2 (CORAL) training is single-process: run it as one process")
+        preempt.install()
+        for epoch in range(self.max_epoch):
+            self.epoch_losses.append(self._run_epoch(epoch))
+            runner.logger.log(f"[stage2] epoch {epoch}: loss={self.epoch_losses[-1]:.4f} lr={self.lr:.2e}")
+            runner.refiner_params = snapshot(self.trainable)
+            if (epoch + 1) % self.val_interval == 0 and (epoch + 1) >= self.val_start:
+                try:
+                    runner.launch_val()
+                except preempt.Preempted as e:
+                    # validation never changes the refiner: save it and exit now
+                    self._maybe_preempt_exit(epoch, e.signum)
+            self._save(epoch + 1)
+            self._maybe_preempt_exit(epoch)
+
+    def _save(self, epoch: int) -> None:
+        path = self.runner.save_refiner(epoch)
+        self.runner.logger.log(f"Saved refiner checkpoint {path}")
+        if self.ema_params is not None:
+            save_refiner_checkpoint(os.path.join(self.runner.log_path, "refiner_ckp", f"epoch{epoch}_ema.safetensors"),
+                                    self.ema_params)

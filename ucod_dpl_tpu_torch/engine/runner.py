@@ -7,7 +7,7 @@ device mesh from ``tpu_cfg.mesh``, the feature extractor in
 (seeded, or a checkpoint), the train and val dataloaders, the config dump,
 checkpoints, stage-1 training (:mod:`.train_loop`) and the stage-1 LookTwice
 evaluation; and the CORAL stage-2 runner (``LocalRefineRunner``: its
-evaluation; its training is ROADMAP Queue 1 item 15's training half).
+evaluation and the refiner's training).
 """
 
 from __future__ import annotations
@@ -268,8 +268,22 @@ class LocalRefineRunner(Runner):
         return self.evaluator.run()
 
     def launch_train(self) -> None:
-        raise NotImplementedError("CORAL stage-2 training (LocalRefineTrainLoop) is ROADMAP Queue 1 item 15's "
-                                  "training half")
+        """CORAL stage-2 training of the refiner; the loop stays in
+        ``self.train_loop`` (its EMA copy and per-epoch losses)."""
+        from ucod_dpl_tpu_torch.engine.coral_loop import LocalRefineTrainLoop
 
-    def save_refiner(self, epoch: int) -> str:
-        raise NotImplementedError("saving the refiner during training is ROADMAP Queue 1 item 15's training half")
+        try:
+            self.train_loop = LocalRefineTrainLoop(self.cfg, self)
+            self.train_loop.run()
+        except Exception as e:
+            self.logger.error(f"Training failed: {e!r}")
+            raise
+
+    def save_refiner(self, epoch) -> str:
+        """Write ``refiner_params`` to ``<log_path>/refiner_ckp/epoch{epoch}.safetensors``
+        in the reference's names."""
+        from ucod_dpl_tpu_torch.models.udlr import save_refiner_checkpoint
+
+        path = os.path.join(self.log_path, "refiner_ckp", f"epoch{epoch}.safetensors")
+        save_refiner_checkpoint(path, self.refiner_params)
+        return path

@@ -30,6 +30,7 @@ import torch
 from ucod_dpl_tpu_torch.models.convert import (
     lora_state_from_jax,
     lora_state_to_jax,
+    snapshot,
     train_state_from_jax,
     train_state_to_jax,
     tree_map,
@@ -44,12 +45,6 @@ from .train_step import (
     make_train_step,
     restart_optimizers,
 )
-
-
-def _snapshot(tree):
-    """Detached copies: what the Runner reads (checkpoints, validation) must
-    not alias tensors that the next step changes in place."""
-    return tree_map(lambda t: t.detach().clone(), tree)
 
 
 class TrainLoop:
@@ -187,10 +182,10 @@ class TrainLoop:
         return torch.from_numpy(np.asarray(batch["pixels"], dtype=np.float32)).to(self.device)
 
     def _sync_runner_params(self) -> None:
-        self.runner.decoder_params = _snapshot(self.state.decoder)
-        self.runner.decoder_ema_params = _snapshot(self.state.decoder_ema)
-        self.runner.discriminator_params = _snapshot(self.state.dis_params)
-        self.runner.discriminator_stats = _snapshot(self.state.dis_stats)
+        self.runner.decoder_params = snapshot(self.state.decoder)
+        self.runner.decoder_ema_params = snapshot(self.state.decoder_ema)
+        self.runner.discriminator_params = snapshot(self.state.dis_params)
+        self.runner.discriminator_stats = snapshot(self.state.dis_stats)
 
     # ------------------------------------------------------------------
     def _maybe_preempt_exit(self, signum=None) -> None:

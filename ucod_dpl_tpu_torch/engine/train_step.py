@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Iterable, List, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -44,15 +44,22 @@ from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear
 
 class Optimizer:
     """AdamW (torch's, with the reference's betas, eps and weight decay) and
-    the reference's StepLR, stepped once per batch.  A parameter that got no
-    gradient (the last layer's q/v adapters, whose outputs the forward never
-    computes) is stepped with a zero gradient, as optax steps it: its weight
-    decay still applies."""
+    the reference's StepLR, stepped once per batch; without ``step_size`` no
+    schedule (the caller sets the rate with :meth:`set_lr`).  A parameter
+    that got no gradient (the last layer's q/v adapters, whose outputs the
+    forward never computes) is stepped with a zero gradient, as optax steps
+    it: its weight decay still applies."""
 
-    def __init__(self, params: Iterable[torch.Tensor], lr0: float, gamma: float, step_size: int):
+    def __init__(self, params: Iterable[torch.Tensor], lr0: float, gamma: float = 1.0,
+                 step_size: Optional[int] = None):
         self.params = list(params)
         self.adamw = torch.optim.AdamW(self.params, lr=lr0, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.01)
-        self.schedule = torch.optim.lr_scheduler.StepLR(self.adamw, step_size=step_size, gamma=gamma)
+        self.schedule = None if step_size is None else torch.optim.lr_scheduler.StepLR(
+            self.adamw, step_size=step_size, gamma=gamma)
+
+    def set_lr(self, lr: float) -> None:
+        for group in self.adamw.param_groups:
+            group["lr"] = lr
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -62,7 +69,8 @@ class Optimizer:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.adamw.step()
-        self.schedule.step()
+        if self.schedule is not None:
+            self.schedule.step()
 
     @property
     def count(self) -> int:

@@ -48,6 +48,12 @@ def params_to(tree: Any, device) -> Any:
     return tree_map(lambda t: t.to(device), tree)
 
 
+def snapshot(tree: Any) -> Any:
+    """Detached copies of a params tree: what a Runner reads (checkpoints,
+    validation) must not alias tensors that the next step changes in place."""
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
 def _t(x) -> torch.Tensor:
     """A C-contiguous float32 copy (a transposed view would otherwise keep
     its strides, and a product of a strided weight may round otherwise)."""

@@ -391,8 +391,8 @@ def dino_forward(
         against every key in ``compute_dtype``, scaled and softmaxed in f32,
         as the JAX package computes them.  Plain ``torch`` products, as the
         JAX package leaves them to XLA; layers before the last run as
-        always.  Not with ``key_fold`` or ``quant`` (ValueError), nor with
-        ``tp_shard`` (NotImplementedError, ROADMAP Queue 1 item 19).
+        always.  Not with ``key_fold`` or ``quant`` (ValueError).  Under
+        ``tp_shard`` each shard computes its own heads' rows.
 
     Returns ``key_tokens`` (B, 1+N, hidden) and ``key_features`` (B, h, w,
     hidden), with ``want_cls_attention`` also ``cls_attention`` (B, heads,
@@ -404,9 +404,6 @@ def dino_forward(
         if quant is not None:
             raise ValueError("pseudo-label generation is a parity contract; CLS attention runs on the "
                              "full-precision forward (quant=None)")
-        if tp_shard is not None:
-            raise NotImplementedError("CLS attention under tensor parallelism is ROADMAP Queue 1 item 19; run "
-                                      "pseudo-label generation on the unsharded forward")
     if tp_shard is not None:
         if quant is not None:
             raise ValueError("the int8 path is single-device; tp_shard shards the weights (needs quant=None)")
@@ -416,7 +413,8 @@ def dino_forward(
         if differentiable:
             raise NotImplementedError("no path differentiates under tensor parallelism; tp_shard needs "
                                       "differentiable=False")
-        return _tp_forward(params, pixels, cfg, tp_shard, dtype=compute_dtype, plain=plain)
+        return _tp_forward(params, pixels, cfg, tp_shard, dtype=compute_dtype, plain=plain,
+                           want_cls_attention=want_cls_attention)
     b, img_h, img_w, _ = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
     dtype = compute_dtype
@@ -509,12 +507,22 @@ def dino_forward(
     k = dense(h, last["k"], dtype) if quant is None else dense_w8a8(h, quant["layers"][-1]["k"], dtype)
     out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
     if want_cls_attention:
-        # the CLS row only: (B, 1, nh, d) against (B, 1+N, nh, d)
-        qh = dense(h[:, :1], last["q"], dtype).reshape(b, 1, cfg.num_heads, cfg.head_dim)
-        kh = k.reshape(b, -1, cfg.num_heads, cfg.head_dim)
-        logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float() * scale
-        out["cls_attention"] = torch.softmax(logits, dim=-1)[:, :, 0, :]
+        out["cls_attention"] = _cls_attention(h, k, last["q"], cfg.num_heads, cfg.head_dim, scale, dtype)
     return out
+
+
+def _cls_attention(h, k, q, num_heads: int, head_dim: int, scale: float, dtype) -> torch.Tensor:
+    """The last layer's CLS-row attention probabilities (B, heads, 1+N)
+    float32: the row's query ``LN1(x)[:, :1] @ Wq + b`` ((B, 1, heads, d))
+    against the keys ``k`` (B, 1+N, heads * d), logits in ``dtype`` (the JAX
+    einsum on ``dtype`` operands returns ``dtype``), then cast to f32,
+    scaled and softmaxed per head.  Head-local: a tensor-parallel shard
+    passes its own q columns and keys."""
+    b = h.shape[0]
+    qh = dense(h[:, :1], q, dtype).reshape(b, 1, num_heads, head_dim)
+    kh = k.reshape(b, -1, num_heads, head_dim)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh).float() * scale
+    return torch.softmax(logits, dim=-1)[:, :, 0, :]
 
 
 def _tp_forward(
@@ -525,6 +533,7 @@ def _tp_forward(
     *,
     dtype: torch.dtype,
     plain: bool,
+    want_cls_attention: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """The tensor-parallel forward of :func:`dino_forward` (JAX
     ``dino_forward(tp_shard=...)``): ``shards[m]`` holds shard ``m`` of the
@@ -540,7 +549,11 @@ def _tp_forward(
     0's device and each shard reads it from there, so it is identical on
     every shard and the result is deterministic.  Work that is replicated
     (LayerNorm of the residual stream) runs once per distinct device.  The
-    last layer computes LN1 and the key projection, gathered from the shards."""
+    last layer computes LN1 and the key projection, gathered from the shards;
+    with ``want_cls_attention`` each shard also takes its heads' CLS-row
+    query and attention (:func:`_cls_attention`, the unsharded path's
+    rounding), and the heads are concatenated in shard order on shard 0's
+    device."""
     mesh, axis = tp_shard
     tp = mesh.shape[axis]
     if len(shards) != tp:
@@ -584,5 +597,11 @@ def _tp_forward(
         x = x + h
 
     hs = replicated(lambda m: layer_norm(x.to(devs[m]), last[m]["norm1"], eps))
-    k = torch.cat([dense(h, layer["k"], dtype).to(devs[0]) for h, layer in zip(hs, last)], dim=-1)
-    return {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
+    ks = [dense(h, layer["k"], dtype) for h, layer in zip(hs, last)]
+    k = torch.cat([k_m.to(devs[0]) for k_m in ks], dim=-1)
+    out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
+    if want_cls_attention:
+        out["cls_attention"] = torch.cat(
+            [_cls_attention(h, k_m, layer["q"], cfg.num_heads // tp, cfg.head_dim, scale, dtype).to(devs[0])
+             for h, k_m, layer in zip(hs, ks, last)], dim=1)
+    return out

@@ -13,8 +13,9 @@ Parameters are held in the reference checkpoint's own layouts (linears
 7, 7)``, 1x1 convolutions as ``(out, in)`` matrices), so loading and saving
 a reference-format safetensors file only drops and restores the 1x1 tail.
 Everything here is plain float32 PyTorch, as the JAX package leaves it to
-XLA: no kernel of the port runs in the refiner.  The training losses are
-ROADMAP Queue 1 item 15.
+XLA: no kernel of the port runs in the refiner.  The forward is
+differentiable (no in-place op on a tensor autograd keeps), and the training
+losses (:func:`refiner_train_loss`) follow the JAX package's.
 """
 
 from __future__ import annotations
@@ -180,8 +181,9 @@ def sparse_refiner_forward(
         raise ValueError(f"h_features holds {ws2} windows; window_size {ws} needs {ws * ws}")
     mask, entropy = entropy_select(preds, ws, threshold)
 
-    # every window through CSF at once, each with its image's l-features as context
-    l_rep = torch.repeat_interleave(l_features, ws2, dim=0)
+    # every window through CSF at once, each with its image's l-features as
+    # context (an expand, whose gradient is a plain sum over the windows)
+    l_rep = l_features.unsqueeze(1).expand(b, ws2, *l_features.shape[1:]).reshape(b * ws2, *l_features.shape[1:])
     window_preds = csf_forward(params["csf"], l_rep, h_features.reshape(b * ws2, h, w, c), num_heads)
 
     # the windows tile the canvas without overlap, so the reference's
@@ -195,20 +197,77 @@ def sparse_refiner_forward(
     return RefinerOutput(outputs, h_preds, window_preds, mask, entropy, ge_w)
 
 
-def _training_half(name: str):
-    def loss(*args, **kwargs):
-        raise NotImplementedError(f"{name}, a UDLR training loss, is ROADMAP Queue 1 item 15's training half")
+def binary_iou_batch(preds: torch.Tensor, targets: torch.Tensor, threshold: float = 0.5) -> torch.Tensor:
+    """binary_iou (``UDLR.py:26-42``) over (N, h, w, 1) tensors -> (N,).
+    ``preds`` are taken through the sigmoid when the batch-global max
+    exceeds 1, as the reference does."""
+    p, t = preds[..., 0], targets[..., 0]
+    p = torch.where(p.max() > 1, torch.sigmoid(p), p)
+    pb, tb = (p > threshold).to(torch.int32), t.to(torch.int32)
+    inter = (pb & tb).sum(dim=(1, 2)).float()
+    union = (pb | tb).sum(dim=(1, 2)).float()
+    return inter / (union + 1e-6)
 
-    loss.__name__ = name
-    loss.__doc__ = f"The JAX package's ``models/udlr.py::{name}``: not ported yet (raises)."
-    return loss
+
+def _bce_with_logits(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE of logits ``x`` against ``t``, in the JAX package's form."""
+    return torch.maximum(x, x.new_zeros(())) - x * t + torch.log1p(torch.exp(-x.abs()))
 
 
-# the training losses (JAX models/udlr.py:234-364) wait for item 15's training half
-binary_iou_batch = _training_half("binary_iou_batch")
-refiner_distillation_loss = _training_half("refiner_distillation_loss")
-refiner_ensemble_loss = _training_half("refiner_ensemble_loss")
-refiner_train_loss = _training_half("refiner_train_loss")
+def _coarse_binary(coarse_preds: torch.Tensor, size) -> torch.Tensor:
+    """(B, h, w, 1) coarse logits -> (B, 1, H, W) their upsampled sigmoid > 0.5."""
+    up = interpolate_bilinear(coarse_preds.permute(0, 3, 1, 2), size)
+    return (torch.sigmoid(up) > 0.5).float()
+
+
+def _window_map(x: torch.Tensor, b: int, ws: int) -> torch.Tensor:
+    """(B * ws^2, h, w, 1) per-window tiles -> the (B, ws*h, ws*w, 1) canvas."""
+    _, h, w, _ = x.shape
+    return x.reshape(b, ws, ws, h, w, 1).permute(0, 1, 3, 2, 4, 5).reshape(b, ws * h, ws * w, 1)
+
+
+def refiner_distillation_loss(out: RefinerOutput, coarse_preds: torch.Tensor, h_targets: torch.Tensor,
+                              window_size: int) -> torch.Tensor:
+    """IoU-weighted BCE distillation (``cal_ex_loss``, ``UDLR.py:52-75``)
+    with the ragged selection replaced by a mask over the fixed window set:
+    each window's prediction against its high-res target ``h_targets``
+    (B*ws^2, h, w, 1) and the binarised coarse prediction cut into the same
+    tiles, weighted by their (detached) IoU x 1.5; the mean over the selected
+    windows' elements, halved."""
+    ws = window_size
+    b = coarse_preds.shape[0]
+    n, h, w, _ = out.window_preds.shape
+    l_bin = _coarse_binary(coarse_preds, (h * ws, w * ws))
+    l_tiles = l_bin.reshape(b, 1, ws, h, ws, w).permute(0, 2, 4, 1, 3, 5).reshape(n, h, w, 1)
+    ious = torch.clip(binary_iou_batch(h_targets, l_tiles) * 1.5, 0.0, 1.0).detach()[:, None, None, None]
+    x = out.window_preds
+    per_elem = ious * _bce_with_logits(x, h_targets) + (1.0 - ious) * _bce_with_logits(x, l_tiles)
+    sel = out.mask.reshape(n).float()[:, None, None, None]
+    num_sel = torch.clamp_min(sel.sum(), 1.0)
+    return (per_elem * sel).sum() / (num_sel * h * w) / 2.0
+
+
+def refiner_ensemble_loss(out: RefinerOutput, coarse_preds: torch.Tensor, h_targets: torch.Tensor,
+                          window_size: int) -> torch.Tensor:
+    """Output-level BCE for the GatedEnsembler (the JAX package's term: the
+    distillation alone gives the fuser no gradient).  The fused output is
+    pushed toward the composite target: the window targets where windows
+    were selected, the binarised coarse prediction elsewhere."""
+    ws = window_size
+    b = coarse_preds.shape[0]
+    n, h, w, _ = out.window_preds.shape
+    coarse_bin = _coarse_binary(coarse_preds, (h * ws, w * ws)).permute(0, 2, 3, 1)
+    selmap = _window_map(out.mask.reshape(n, 1, 1, 1).float().expand(n, h, w, 1), b, ws)
+    target = (selmap * _window_map(h_targets, b, ws) + (1.0 - selmap) * coarse_bin).detach()
+    return _bce_with_logits(out.outputs, target).mean()
+
+
+def refiner_train_loss(out: RefinerOutput, coarse_preds: torch.Tensor, h_targets: torch.Tensor,
+                       window_size: int) -> torch.Tensor:
+    """The stage-2 trainer's objective: the window-level distillation plus
+    the GE ensemble term."""
+    return (refiner_distillation_loss(out, coarse_preds, h_targets, window_size)
+            + refiner_ensemble_loss(out, coarse_preds, h_targets, window_size))
 
 
 # -- checkpoints -------------------------------------------------------------------

@@ -41,16 +41,9 @@ def compute_background_mask(
     nb, nh = cls_attention.shape[:2]
     c = key_tokens.shape[-1]
     dim = c // nh
-
-    att = cls_attention[:, :, 1:].reshape(nb, nh, h, w).float()
-    att = interpolate_bilinear(att, (up_size, up_size))
     n_up = up_size * up_size
+    scores, beta = reference_scores(cls_attention, grid_hw, up_size, epsilon, apply_weights)
     descs = key_tokens[:, 1:, :].float()
-
-    # CroW sparsity weighting: per-head share of above-mean attention
-    threshold = att.reshape(nb, -1).mean(dim=1)
-    q = (att.reshape(nb, nh, n_up) > threshold[:, None, None]).sum(dim=2).float() / n_up
-    beta = torch.log((q + epsilon).sum(dim=1)[:, None] / (q + epsilon))
     if apply_weights:
         descs = (descs.reshape(nb, -1, nh, dim) * beta[:, None, :, None]).reshape(nb, -1, c)
 
@@ -61,8 +54,7 @@ def compute_background_mask(
     descs = descs / torch.linalg.norm(descs, dim=-1, keepdim=True).clamp_min(1e-12)
 
     # the reference patch: the least attended (beta-weighted) one
-    att_w = att * beta[:, :, None, None] if apply_weights else att
-    ref_idx = torch.argmin(att_w.sum(dim=1).reshape(nb, -1), dim=-1)
+    ref_idx = torch.argmin(scores, dim=-1)
     ref_desc = descs[torch.arange(nb, device=descs.device), ref_idx][:, None]  # (B, 1, C)
     sim_row = torch.einsum("boc,bnc->bn", ref_desc, descs).reshape(nb, up_size, up_size)
 
@@ -70,6 +62,32 @@ def compute_background_mask(
     sim_map = 1.0 - sim_row
     sim_map = sim_map / (sim_map.max() + 1e-10)  # batch-global max, as the reference
     return bkg_mask, sim_map * (1.0 - bkg_mask)
+
+
+def reference_scores(
+    cls_attention: torch.Tensor,
+    grid_hw: Tuple[int, int],
+    up_size: Optional[int] = None,
+    epsilon: float = 1e-10,
+    apply_weights: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CLS attention on the ``up_size`` grid with the CroW sparsity
+    weighting (each head by the log of all heads' summed share of above-mean
+    attention over its own share), summed over heads: ``(scores (B, up *
+    up), beta (B, heads))``.  :func:`compute_background_mask`'s reference
+    patch is the argmin of ``scores``."""
+    h, w = grid_hw
+    if up_size is None:
+        up_size = w
+    nb, nh = cls_attention.shape[:2]
+    att = cls_attention[:, :, 1:].reshape(nb, nh, h, w).float()
+    att = interpolate_bilinear(att, (up_size, up_size))
+    n_up = up_size * up_size
+    threshold = att.reshape(nb, -1).mean(dim=1)
+    q = (att.reshape(nb, nh, n_up) > threshold[:, None, None]).sum(dim=2).float() / n_up
+    beta = torch.log((q + epsilon).sum(dim=1)[:, None] / (q + epsilon))
+    att_w = att * beta[:, :, None, None] if apply_weights else att
+    return att_w.sum(dim=1).reshape(nb, -1), beta
 
 
 def refine_small_components(mask: np.ndarray, area_threshold: int = 4) -> np.ndarray:
