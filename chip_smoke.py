@@ -188,7 +188,30 @@ Phases (each raises on failure; any failure exits non-zero):
      A's bit for bit (cuDNN deterministic), and a restart with
      ``--refiner_path`` on the preempt file to the end.  The kernels line
      gives each kernel's launches in run A and in phase I's CLS call
-     (``coral_train_launches``, ``tp_cls_launches``).
+     (``coral_train_launches``, ``tp_cls_launches``);
+  P. data parallel over ``torch.distributed``, each rank a subprocess of
+     this script (``--dp-worker``) with its kernel counts set to 0 before
+     its entry runs.  P1: phase L's run A (``cli.train_main``, the caches
+     read) under ``UCOD_DIST=1 WORLD_SIZE=1``, a group of one (NCCL default
+     group, gloo host group), which is a plain run: 12 decoder and 6
+     discriminator steps, no collective, K1 and K6 11 times per LookTwice
+     crop call and nothing else; the final state within rtol 1e-4 / atol
+     5e-6 of run A's (the learnable embeddings by drift), bitwise equal to
+     a second P1 run and to the same subprocess without a group; decoder
+     steps/s beside run A's.  P2: phase K's
+     ``cli.eval_main`` over 2 ranks on the one card (``RANK`` 0/1,
+     ``LOCAL_RANK`` 0), a fresh cache directory: rank 0 alone builds the
+     cache (K1/K6) and writes its index; 16 images a rank, the crop calls
+     of both adding up to phase K's; the metrics equal on both ranks and
+     within 1e-12 of phase K's; each rank's launches, eval img/s.  P3
+     (only with 2 cards; otherwise the script says why it did not run;
+     ``--only-p3`` runs it alone, after phase M's data and phase L's
+     checkpoint): P1 over 2 ranks on 2 cards, the gradient buckets and the
+     batch-norm moments over NCCL, each rank first checking those
+     collectives against one process's arithmetic; the ranks' final states
+     bitwise equal, one all-reduce an optimizer step.  The
+     kernels line gives each kernel's launches in P1 and in P2's two ranks
+     (``dp_train_launches``, ``dp_eval_launches``).
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -1699,6 +1722,7 @@ def phase_eval(seed: int, dev, smi: str) -> dict:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         _log(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  {e.key[:100]}")
     out["busy"] = busy / wall
+    out["argv"], out["root"] = argv, root  # phase P2 runs this entry over 2 ranks
     return out
 
 
@@ -2015,29 +2039,30 @@ def _train_params(runner) -> list:
             for t in tree_leaves(tree)]
 
 
+def _flat_state(state) -> dict:
+    """A ``TrainState`` as the JAX package's flat ``{key path: array}`` (the
+    ``.npz`` state files' keys: ``decoder/learnable_embedding``, ...)."""
+    from ucod_dpl_tpu_torch.engine.checkpoint import flatten_with_paths
+    from ucod_dpl_tpu_torch.models.convert import train_state_to_jax
+
+    return flatten_with_paths(train_state_to_jax(state))
+
+
 def _check_launches(what: str, launches: dict, want: dict) -> None:
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
 
 
-def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
-    """Phase L: ``cli.train_main`` on configs/uscod/UCOD-DPL_dinov2.py at full
-    width on the card over phase M's images and pseudo-labels (``world``):
-    run A (cached features, 4 epochs), run B (the same, preempted by SIGTERM
-    after its 7th decoder step and resumed), run C (LoRA, 2 epochs), run D
-    (run C preempted after its 4th LoRA step and resumed); launches,
-    outputs, files and rates."""
-    from ucod_dpl_tpu_torch import cli
+def _train_world(dev, world: dict) -> dict:
+    """Phase L's decoder checkpoint over phase M's ``world`` and the argv of
+    its train entry: ``{"towers", "argv": argv(run, *flags, **opts),
+    "root", "val_paths"}``."""
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.data.transforms import load_image_batch_transform
-    from ucod_dpl_tpu_torch.models.convert import tree_leaves
     from ucod_dpl_tpu_torch.models.dba import init_rev_decoder, rev_decoder_forward_resized
-    from ucod_dpl_tpu_torch.models.discriminator import init_discriminator
     from ucod_dpl_tpu_torch.models.safetensors_io import save_decoder_checkpoint
 
-    root, data, train_set = world["root"], world["data"], world["train_set"]
-    _log(f"train entry: {TRAIN_IMAGES} train images ({train_set}), {TRAIN_VAL_IMAGES} val images (TE-CAMO), the "
-         f"{PL_GRID}x{PL_GRID} pseudo-label cache generated in phase M")
+    root, data = world["root"], world["data"]
 
     # the Runner's seeded towers (student from the config's seed 42, EMA
     # teacher from 43), each with its fg bias moved to the 60th percentile
@@ -2069,6 +2094,28 @@ def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
                 "val_cfg.look_twice_th": "0.95", **{k.replace("__", "."): v for k, v in opts.items()}}
         return ["-c", "configs/uscod/UCOD-DPL_dinov2.py", "--work_dir", os.path.join(root, "work_dir"),
                 "--load_from", ckpt, *flags, "--opts", *(x for kv in over.items() for x in kv)]
+
+    return {"towers": towers, "argv": argv, "root": root, "val_paths": val_paths}
+
+
+def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
+    """Phase L: ``cli.train_main`` on configs/uscod/UCOD-DPL_dinov2.py at full
+    width on the card over phase M's images and pseudo-labels (``world``):
+    run A (cached features, 4 epochs), run B (the same, preempted by SIGTERM
+    after its 7th decoder step and resumed), run C (LoRA, 2 epochs), run D
+    (run C preempted after its 4th LoRA step and resumed); launches,
+    outputs, files and rates."""
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.data.transforms import load_image_batch_transform
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves
+    from ucod_dpl_tpu_torch.models.discriminator import init_discriminator
+
+    root, train_set = world["root"], world["train_set"]
+    _log(f"train entry: {TRAIN_IMAGES} train images ({train_set}), {TRAIN_VAL_IMAGES} val images (TE-CAMO), the "
+         f"{PL_GRID}x{PL_GRID} pseudo-label cache generated in phase M")
+    tw = _train_world(dev, world)
+    towers, argv, val_paths = tw["towers"], tw["argv"], tw["val_paths"]
 
     counts = {**_kernel_wrappers(), **_int8_wrappers()}
     # every run with cuDNN's deterministic algorithms (the discriminator's
@@ -2126,6 +2173,9 @@ def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
         out["val_s"] = [s for s, _ in pa.val]
         out["save_s"] = pa.saves
         out["launches_a"] = launches
+        # phase P1 runs this entry again in a process group of one
+        out["final_a"] = _flat_state(loop.state)
+        out["argv"], out["root"] = argv, root
         device_ms = pa.log_trace("epoch 1 (3 decoder steps, cached features)", smi)
         out["busy"] = device_ms / (pa.prof[1])
 
@@ -2672,10 +2722,411 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
     return out
 
 
+# Phase P: the data-parallel entries (``torch.distributed``), each rank a
+# subprocess of this script (``--dp-worker SPEC``): P1 phase L's run A in a
+# process group of one (``UCOD_DIST=1 WORLD_SIZE=1``: the NCCL default group
+# and the gloo host group start, and, the world being one, no collective
+# runs: a plain run), twice; P2 phase K's eval over 2 ranks sharing the one
+# card (host collectives over gloo); P3 P1 over 2 ranks on 2 cards where
+# there are 2, the only part whose gradient and batch-norm all-reduces run
+# over NCCL.
+DP_WORKER_TIMEOUT_S = 420
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _trace_summary(prof, wall_ms: float) -> dict:
+    """A profiled epoch's device time (annotation spans left out, as in
+    ``_TrainProbe.log_trace``), its NCCL kernels and its top operations."""
+    from torch.autograd import DeviceType
+
+    spans = {e.name for e in prof.events() if getattr(e, "is_user_annotation", False)}
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.key not in spans]
+    nccl = [e for e in ops if "nccl" in e.key.lower()]
+    return {"device_ms": sum(e.self_device_time_total for e in ops) / 1e3, "wall_ms": wall_ms,
+            "nccl_ms": sum(e.self_device_time_total for e in nccl) / 1e3, "nccl_count": sum(e.count for e in nccl),
+            "top": [(e.self_device_time_total / 1e3, e.count, e.key[:100])
+                    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:8]]}
+
+
+def _collectives_check(dev) -> dict:
+    """Each rank of a group of more than one, on its card: the
+    discriminator's global batch-norm moments (:func:`_global_moments`, two
+    differentiable all-reduces) of this rank's rows of a seeded global
+    batch against the local moments of the whole batch, forward and the
+    gradient of a weighted sum of the normalised rows back through both
+    all-reduces; and the gradient bucket (:func:`all_reduce_mean_`) on the
+    decoder's f32 size and an f64 tensor.  The batch is the first conv
+    block's output at phase L's shape (local batch ``TRAIN_BATCH``, 32
+    channels, 68 x 68).  Returns the largest differences."""
+    from ucod_dpl_tpu_torch.models import discriminator
+    from ucod_dpl_tpu_torch.parallel import distributed
+
+    rank, world = distributed.process_index(), distributed.process_count()
+    gen = torch.Generator().manual_seed(0)
+    y = torch.randn(world * TRAIN_BATCH, 32, 68, 68, generator=gen).add_(0.5).to(dev)
+    w = torch.randn(y.shape, generator=gen).to(dev)
+    rows = slice(rank * TRAIN_BATCH, (rank + 1) * TRAIN_BATCH)
+
+    def normalised_sum(x, moments, wx):
+        mean, var, factor = moments(x)
+        return (wx * (x - mean[:, None, None]) * torch.rsqrt(var + 1e-5)[:, None, None]).sum(), mean, var, factor
+
+    full = y.clone().requires_grad_(True)
+    loss, mean, var, factor = normalised_sum(full, discriminator._local_moments, w)
+    loss.backward()
+    part = y[rows].clone().requires_grad_(True)
+    gloss, gmean, gvar, gfactor = normalised_sum(part, discriminator._global_moments, w[rows])
+    gloss.backward()
+    want_grad = full.grad[rows]
+    gmean, gvar, mean, var = (t.detach() for t in (gmean, gvar, mean, var))
+    out = {"mean": float((gmean - mean).abs().max()), "var": float((gvar - var).abs().max()),
+           "factor": abs(float(gfactor) - factor),
+           "grad_rel": float((part.grad - want_grad).abs().max() / want_grad.abs().max())}
+    calls = dict(distributed.grad_all_reduce)
+    grads = [torch.full((98_690,), float(rank + 1), device=dev), torch.arange(5, dtype=torch.float64, device=dev)]
+    grads[1].mul_(rank)
+    distributed.all_reduce_mean_(grads)
+    out["bucket"] = max(float((grads[0] - (world + 1) / 2).abs().max()),
+                        float((grads[1] - torch.arange(5, dtype=torch.float64, device=dev) * (world - 1) / 2)
+                              .abs().max()))
+    out["bucket_calls"] = distributed.grad_all_reduce["calls"] - calls["calls"]
+    return out
+
+
+def _dp_worker(spec_path: str) -> int:
+    """One rank of phase P: run the entry of ``spec`` with every kernel count
+    at 0, write what the run did to ``result{rank}.json`` (and a train run's
+    final state to ``state{rank}.npz``) in ``spec["out"]``."""
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.parallel import distributed
+    from ucod_dpl_tpu_torch.utils import fileio
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = spec["deterministic"]
+    rank = int(os.environ.get("RANK", "0"))
+    flushes = []
+    orig_flush = fileio.ArrayCache.flush
+
+    def flush(cache, *a, **k):  # the cache writes of this rank (index.json is written by flush)
+        flushes.append(str(cache.base_path))
+        return orig_flush(cache, *a, **k)
+
+    fileio.ArrayCache.flush = flush
+    res = {"rank": rank}
+    if spec.get("check_collectives"):
+        distributed.maybe_initialize_distributed("cuda")
+        res["collectives"] = _collectives_check(torch.device("cuda", torch.cuda.current_device()))
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    for fn in counts.values():
+        fn.launches = 0
+    distributed.grad_all_reduce.update(calls=0, bytes=0)
+    t0 = time.perf_counter()
+    if spec["entry"] == "train":
+        with _TrainProbe(profile_epoch=spec.get("profile_epoch")) as probe:
+            runner = cli.train_main(spec["argv"])
+        torch.cuda.synchronize()
+        res.update(steps={k: len(v) for k, v in probe.losses.items()}, epochs=probe.epochs,
+                   crop_batches=probe.crop_batches(), losses=probe.finite_losses("train").tolist())
+        if probe.prof is not None:
+            res["trace"] = _trace_summary(*probe.prof)
+        np.savez(os.path.join(spec["out"], f"state{rank}.npz"), **_flat_state(runner.train_loop.state))
+    else:
+        runner = cli.eval_main(spec["argv"])["SYN"]
+        ev = runner.evaluator
+        res.update(result=ev.result, eval_s=ev.seconds, build_s=runner.val_dataset.build_seconds, crops=ev.crops,
+                   crop_batches=ev.crop_batches, images=int(len(runner.val_dataloader._indices())))
+    res.update(secs=time.perf_counter() - t0, launches={k: fn.launches for k, fn in counts.items()},
+               grad_all_reduce=dict(distributed.grad_all_reduce), world=distributed.process_count(),
+               backend=str(torch.distributed.get_backend()) if torch.distributed.is_initialized() else None,
+               flushes=flushes, device=torch.cuda.current_device())
+    distributed.shutdown()
+    with open(os.path.join(spec["out"], f"result{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _run_ranks(spec: dict, envs: list) -> list:
+    """Start one ``--dp-worker`` process per entry of ``envs`` (each rank's
+    extra environment), wait for all, and return their result dicts; a rank
+    that fails or runs past ``DP_WORKER_TIMEOUT_S`` fails the phase, and no
+    process is left behind."""
+    os.makedirs(spec["out"], exist_ok=True)
+    spec_path = os.path.join(spec["out"], "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+                         "UCOD_DIST")}
+    procs, logs = [], []
+    try:
+        for rank, extra in enumerate(envs):
+            log = open(os.path.join(spec["out"], f"rank{rank}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", spec_path],
+                                          stdout=log, stderr=subprocess.STDOUT, env={**base, **extra},
+                                          cwd=os.path.dirname(os.path.abspath(__file__))))
+        deadline = time.monotonic() + DP_WORKER_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    out = []
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(spec["out"], f"rank{rank}.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"phase P {spec['entry']} rank {rank}: exit {p.returncode}\n{tail}")
+        with open(os.path.join(spec["out"], f"result{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _state_close(got: dict, want: dict, what: str) -> float:
+    """Two flat train states within rtol 1e-4 / atol 5e-6 (the port's tests'
+    hold on a stage-1 state, tests/test_torch_train_loop.py), the learnable
+    embeddings by their median and largest drift (their gradient is rounding
+    noise that AdamW turns into steps of up to lr); returns the largest
+    difference."""
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys {sorted(set(got) ^ set(want))[:5]} differ")
+    worst = 0.0
+    for k in sorted(want):
+        a, b = np.asarray(got[k], np.float64), np.asarray(want[k], np.float64)
+        d = np.abs(a - b)
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+        if k.endswith("learnable_embedding") and "/mu/" not in k and "/nu/" not in k:
+            if not (np.median(d) < 5e-5 and d.max() < 2.5e-3):
+                raise AssertionError(f"{what}: {k} drifts by median {np.median(d)}, max {d.max()}")
+        elif not np.allclose(a, b, rtol=1e-4, atol=5e-6):
+            raise AssertionError(f"{what}: {k} differs by up to {d.max()}")
+    return worst
+
+
+def phase_dp(smi: str, evalk: dict, train: dict) -> dict:
+    """Phase P: the data-parallel train and eval entries in subprocess ranks
+    (P1, P2, and P3 on 2 cards), their launches, all-reduces, outputs
+    against phases K and L, and rates."""
+    import shutil
+
+    out = {}
+    depth = 12  # dinov2-base: K1 and K6 launch 11 times a forward
+    want_zero = {k: 0 for k in {**_kernel_wrappers(), **_int8_wrappers()}}
+    by_a = train["decoder_steps_per_s"]
+
+    # P1: run A in a group of one, twice, between two runs of the same
+    # subprocess without a group (p0, p1, p1b, p0b), the first P1 run with
+    # its epoch 1 under the profiler; steps/s over the unprofiled epochs 2
+    # and 3 (6 decoder steps) of each.  A group of one is a plain run: no
+    # collective, the state bitwise the no-group run's
+    runs = {}
+    for run in ("p0", "p1", "p1b", "p0b"):
+        d = os.path.join(train["root"], f"dp_{run}")
+        shutil.rmtree(d, ignore_errors=True)
+        env = {} if run.startswith("p0") else {"UCOD_DIST": "1", "WORLD_SIZE": "1"}
+        (res,) = _run_ranks({"entry": "train", "argv": train["argv"](run), "out": d, "deterministic": True,
+                             "profile_epoch": 1 if run == "p1" else None}, [env])
+        with np.load(os.path.join(d, "state0.npz")) as f:
+            res["state"] = {k: f[k] for k in f.files}
+        res["rate"] = _epoch_rate(res, (2, 3))
+        runs[run] = res
+    res = runs["p1"]
+    ar = res["grad_all_reduce"]
+    rate = float(np.median([runs["p1"]["rate"], runs["p1b"]["rate"]]))
+    rate0 = float(np.median([runs["p0"]["rate"], runs["p0b"]["rate"]]))
+    launches = res["launches"]
+    want = {**want_zero, "K1": (depth - 1) * res["crop_batches"], "K6": (depth - 1) * res["crop_batches"]}
+    _log(f"phase P1: run A's train entry under UCOD_DIST=1 WORLD_SIZE=1 (world {res['world']}, backend "
+         f"{res['backend']}, device cuda:{res['device']}), the caches read: {res['secs']:.3f} s host clock in the "
+         f"rank; {res['steps']['train']} decoder and {res['steps']['dis']} discriminator steps; launches {launches} "
+         f"({res['crop_batches']} LookTwice crop calls); grad all-reduces {ar} (a world of one launches no "
+         f"collective) [{smi}]")
+    _log("  decoder steps/s host clock over epochs 2-3, each run a subprocess: "
+         + ", ".join(f"{r} {runs[r]['rate']:.3f}" for r in runs)
+         + f"; group of one {rate:.3f} against no group {rate0:.3f} (medians); run A in this process "
+         f"(epoch 3) {by_a:.3f} [{smi}]")
+    trace = res["trace"]
+    _log(f"  trace of P1's epoch 1 (3 decoder steps): {trace['device_ms']:.3f} ms of device time in "
+         f"{trace['wall_ms']:.3f} ms of host wall under the profiler, device busy "
+         f"{trace['device_ms'] / trace['wall_ms']:.4f}; NCCL kernels {trace['nccl_ms']:.4f} ms in "
+         f"{trace['nccl_count']} launches [{smi}]")
+    for ms, count, name in trace["top"]:
+        _log(f"    {ms:8.3f} ms x{count:5d}  {name}")
+    _check_launches("P1", launches, want)
+    if (res["steps"]["train"], res["steps"]["dis"]) != (12, 6) or res["world"] != 1:
+        raise AssertionError(f"P1: {res['steps']} steps in a world of {res['world']}")
+    if ar["calls"] or runs["p0"]["grad_all_reduce"]["calls"] or runs["p0"]["world"] != 1:
+        raise AssertionError(f"P1: grad all-reduces {ar}, no group {runs['p0']['grad_all_reduce']}: a world of one "
+                             "launches none")
+    if res["crop_batches"] == 0:
+        raise AssertionError("P1: no LookTwice crop call (the kernels of the path did not run)")
+    diff_a = _state_close(res["state"], train["final_a"], "P1 against run A")
+
+    def differ(a, b):
+        return max(float(np.abs(np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64)).max(initial=0))
+                   for k in a)
+
+    worst, worst0 = differ(runs["p1b"]["state"], res["state"]), differ(runs["p0"]["state"], res["state"])
+    _log(f"  final state against run A's: largest difference {diff_a:.6g} (rtol 1e-4 / atol 5e-6, the learnable "
+         f"embeddings by drift); a second P1 run: largest difference {worst:.6g}; the run without a group: "
+         f"{worst0:.6g} (both bitwise must hold)")
+    if worst != 0.0 or worst0 != 0.0:
+        raise AssertionError(f"P1: a second run differs by up to {worst}, the run without a group by {worst0}")
+    out.update(p1_launches=launches, p1_rate=rate, p0_rate=rate0, run_a_rate=by_a, p1_diff_a=diff_a,
+               p1_busy=trace["device_ms"] / trace["wall_ms"])
+
+    # P2: phase K's eval over 2 ranks on the one card, a fresh cache
+    d = os.path.join(evalk["root"], "dp_p2")
+    shutil.rmtree(d, ignore_errors=True)
+    argv = list(evalk["argv"])
+    for key, val in (("dataset_cfg.cache_dir", os.path.join(d, "cache")), ("log_cfg.log_path", os.path.join(d, "logs")),
+                     ("--work_dir", os.path.join(d, "work_dir"))):
+        argv[argv.index(key) + 1] = val
+    port = str(_free_port())
+    ranks = _run_ranks({"entry": "eval", "argv": argv, "out": d, "deterministic": False},
+                       [{"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
+                         "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port} for r in range(2)])
+    first = evalk["first"]
+    cache_batches = -(-EVAL_IMAGES // EVAL_CACHE_BATCH)
+    for r in ranks:
+        _log(f"phase P2 rank {r['rank']} (cuda:{r['device']}, world {r['world']}, backend {r['backend']}): "
+             f"{r['images']} images, cache build "
+             + (f"{r['build_s']:.3f} s" if r["build_s"] else "none (waited for rank 0)")
+             + f", eval sweep {r['eval_s']:.3f} s, {r['crops']} crops in {r['crop_batches']} calls, K1 "
+             f"{r['launches']['K1']} and K6 {r['launches']['K6']} launches, cache flushes {len(r['flushes'])} "
+             f"[{smi}]")
+    r0, r1 = ranks
+    for r in ranks:
+        fwd = r["crop_batches"] + (cache_batches if r["rank"] == 0 else 0)
+        _check_launches(f"P2 rank {r['rank']}", r["launches"],
+                        {**want_zero, "K1": (depth - 1) * fwd, "K6": (depth - 1) * fwd})
+    if (len(r0["flushes"]), len(r1["flushes"]), r1["build_s"]) != (1, 0, None) or not r0["build_s"]:
+        raise AssertionError(f"P2: cache flushes {r0['flushes']} / {r1['flushes']}, builds {r0['build_s']} / "
+                             f"{r1['build_s']}: rank 0 alone must build the cache")
+    if (r0["images"], r1["images"]) != (16, 16) or r0["crop_batches"] + r1["crop_batches"] != first["crop_batches"]:
+        raise AssertionError(f"P2: images {r0['images']} + {r1['images']}, crop calls {r0['crop_batches']} + "
+                             f"{r1['crop_batches']} against phase K's {first['crop_batches']}")
+    if r0["result"] != r1["result"]:
+        raise AssertionError(f"P2: the ranks' metrics differ: {r0['result']} != {r1['result']}")
+    diff_k = max(abs(r0["result"][k] - first["result"][k]) for k in EVAL_KEYS)
+    img_s = EVAL_IMAGES / max(r0["eval_s"], r1["eval_s"])
+    _log(f"  metrics equal on both ranks, largest difference from phase K's {diff_k:.3g} (1e-12); eval "
+         f"{img_s:.2f} img/s over both ranks by the slower sweep's host clock, phase K's one process "
+         f"{EVAL_IMAGES / first['eval_s']:.2f} [{smi}]")
+    if not diff_k <= 1e-12:
+        raise AssertionError(f"P2: metrics {r0['result']} differ from phase K's {first['result']} by {diff_k}")
+    out.update(p2_launches={k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}, p2_img_s=img_s,
+               p2_diff_k=diff_k)
+
+    # P3: P1 over 2 ranks on 2 cards
+    out.update(phase_dp_p3(smi, train))
+    return out
+
+
+def _epoch_rate(res: dict, epochs) -> float:
+    """Decoder steps/s by host clock over the train phases of ``epochs``."""
+    by = {(k, e): (n, dt) for k, e, n, dt in res["epochs"]}
+    return sum(by[("train", e)][0] for e in epochs) / sum(by[("train", e)][1] for e in epochs)
+
+
+def phase_dp_p3(smi: str, train: dict) -> dict:
+    """Phase P3 (with 2 cards; otherwise the script says why it did not
+    run): phase L's train entry over 2 ranks, one a card, the NCCL default
+    group carrying the gradient buckets and the batch-norm moments.  Before
+    the entry each rank checks those collectives (:func:`_collectives_check`,
+    the moments within 1e-5, their gradient within 1e-4 of its largest
+    value, the bucket exactly); then both ranks' final states bitwise equal
+    and finite, one gradient all-reduce an optimizer step of the decoder's
+    or the discriminator's f32 bytes, K1 and K6 11 times a forward;
+    decoder steps/s and the profiled epoch's NCCL kernels."""
+    import shutil
+
+    if torch.cuda.device_count() < 2:
+        _log(f"phase P3: not run: {torch.cuda.device_count()} CUDA device visible, it needs 2")
+        return {}
+    d = os.path.join(train["root"], "dp_p3")
+    shutil.rmtree(d, ignore_errors=True)
+    port = str(_free_port())
+    ranks = _run_ranks({"entry": "train", "argv": train["argv"]("p3"), "out": d, "deterministic": True,
+                        "profile_epoch": 1, "check_collectives": True},
+                       [{"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2",
+                         "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port} for r in range(2)])
+    states = []
+    for r in ranks:
+        with np.load(os.path.join(d, f"state{r['rank']}.npz")) as f:
+            states.append({k: f[k] for k in f.files})
+    dec_bytes = 4 * sum(v.size for k, v in states[0].items() if k.startswith("decoder/"))
+    dis_bytes = 4 * sum(v.size for k, v in states[0].items() if k.startswith("dis_params/"))
+    bad = [k for k in states[0] if not np.array_equal(states[0][k], states[1][k])]
+    want_zero = {k: 0 for k in {**_kernel_wrappers(), **_int8_wrappers()}}
+    fails = []
+    for r in ranks:
+        c, ar, steps, trace = r["collectives"], r["grad_all_reduce"], r["steps"], r["trace"]
+        forwards = r["crop_batches"] + (-(-TRAIN_IMAGES // EVAL_CACHE_BATCH) - (-TRAIN_VAL_IMAGES // EVAL_CACHE_BATCH)
+                                        if r["flushes"] else 0)
+        _log(f"phase P3 rank {r['rank']} (cuda:{r['device']}, world {r['world']}, backend {r['backend']}): "
+             f"collectives on the card: moments mean {c['mean']:.3g}, var {c['var']:.3g}, factor {c['factor']:.3g}, "
+             f"their gradient {c['grad_rel']:.3g} of its largest, bucket {c['bucket']:.3g} in {c['bucket_calls']} "
+             f"all-reduces; {steps['train']} decoder and {steps['dis']} discriminator steps, grad all-reduces "
+             f"{ar} ({dec_bytes} bytes a decoder step, {dis_bytes} a discriminator step); {r['secs']:.3f} s host "
+             f"clock; launches {r['launches']} ({r['crop_batches']} crop calls, cache flushes {len(r['flushes'])}); "
+             f"decoder steps/s over epochs 2-3 {_epoch_rate(r, (2, 3)):.3f}; trace of epoch 1: "
+             f"{trace['device_ms']:.3f} ms of device time in {trace['wall_ms']:.3f} ms, NCCL kernels "
+             f"{trace['nccl_ms']:.4f} ms in {trace['nccl_count']} launches [{smi}]")
+        for ms, count, name in trace["top"]:
+            _log(f"    {ms:8.3f} ms x{count:5d}  {name}")
+        if not (c["mean"] <= 1e-5 and c["var"] <= 1e-5 and c["factor"] <= 1e-6 and c["grad_rel"] <= 1e-4
+                and c["bucket"] == 0.0 and c["bucket_calls"] == 2):
+            fails.append(f"rank {r['rank']} collectives {c}")
+        n = steps["train"] + steps["dis"]
+        if r["world"] != 2 or ar["calls"] != n or ar["bytes"] != steps["train"] * dec_bytes + steps["dis"] * dis_bytes:
+            fails.append(f"rank {r['rank']}: grad all-reduces {ar} for {steps} in a world of {r['world']}")
+        if r["launches"] != {**want_zero, "K1": 11 * forwards, "K6": 11 * forwards} or not r["crop_batches"]:
+            fails.append(f"rank {r['rank']}: launches {r['launches']} for {forwards} forwards")
+        if trace["nccl_count"] == 0:
+            fails.append(f"rank {r['rank']}: no NCCL kernel in the profiled epoch")
+    _log(f"  keys that differ between the ranks' final states: {bad[:5]} [{smi}]")
+    if bad or not all(np.isfinite(v).all() for v in states[0].values()):
+        fails.append(f"the ranks differ in {bad[:5]} or hold non-finite values")
+    if fails:
+        raise AssertionError("P3: " + "; ".join(fails))
+    return {"p3_rate": _epoch_rate(ranks[0], (2, 3)), "p3_nccl_ms": ranks[0]["trace"]["nccl_ms"]}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
+    parser.add_argument("--dp-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase P
+    parser.add_argument("--only-p3", action="store_true",
+                        help="run phase P3 alone (2 cards), after the data and checkpoint it needs")
     args = parser.parse_args(argv)
+    if args.dp_worker:
+        return _dp_worker(args.dp_worker)
+    if args.only_p3:
+        smi = phase_device()
+        if torch.cuda.device_count() < 2:
+            print(f"chip_smoke: --only-p3 needs 2 CUDA devices, {torch.cuda.device_count()} visible", file=sys.stderr)
+            return 1
+        phase_build()
+        dev = torch.device("cuda", 0)
+        phase_dp_p3(smi, _train_world(dev, phase_pseudo_labels(args.seed, dev, smi)))
+        _log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
 
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -2718,6 +3169,8 @@ def main(argv=None) -> int:
     coral = phase_coral(args.seed, dev, smi, pl)
     torch.cuda.empty_cache()
     coral_train = phase_coral_train(args.seed, dev, smi, pl)
+    torch.cuda.empty_cache()
+    dp = phase_dp(smi, evalk, train)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
@@ -2773,6 +3226,11 @@ def main(argv=None) -> int:
         "coral_train_steps_per_s": coral_train["steps_per_s"], "coral_train_step_ms": coral_train["step_ms"],
         "coral_train_step_host_ms": coral_train["step_host_ms"], "coral_train_step_peak_gib": coral_train["peak_gib"],
         "coral_train_epoch_device_busy": coral_train["busy"],
+        "dp_p1_decoder_steps_per_s": dp["p1_rate"], "dp_no_group_decoder_steps_per_s": dp["p0_rate"],
+        "dp_run_a_decoder_steps_per_s": dp["run_a_rate"], "dp_p1_epoch_device_busy": dp["p1_busy"],
+        "dp_p1_max_abs_diff_vs_run_a": dp["p1_diff_a"], "dp_eval_img_per_s": dp["p2_img_s"],
+        "dp_eval_max_abs_diff_vs_phase_k": dp["p2_diff_k"], "dp_p3_decoder_steps_per_s": dp.get("p3_rate"),
+        "dp_p3_nccl_ms_per_epoch": dp.get("p3_nccl_ms"),
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -2814,6 +3272,7 @@ def main(argv=None) -> int:
                 "refine_serving_launches": coral["serve_launches"].get(key, 0),
                 "refine_int8_launches": coral["serve_int8_launches"].get(key, 0),
                 "coral_train_launches": coral_train["launches"].get(key, 0),
+                "dp_train_launches": dp["p1_launches"].get(key, 0), "dp_eval_launches": dp["p2_launches"].get(key, 0),
                 "tp_cls_launches": tp_cls["launches"].get("K1" if kid == "K5" else key, 0), **device}
 
     attn, fused = "ucod_dpl_tpu/ops/attention.py", "ucod_dpl_tpu/ops/fused_layers.py"

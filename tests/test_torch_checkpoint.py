@@ -159,12 +159,12 @@ def test_npz_save_is_atomic_and_meta_embedded(saved, tmp_path):
     TCK.save_train_state(str(tmp_path / "bad"), bad, {})
     with pytest.raises(ValueError, match="missing keys"):
         TCK.load_train_state(str(tmp_path / "bad"), state)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="JAX library's format"):
         TCK.save_train_state(path, state, {}, backend="orbax")
     with pytest.raises(ValueError, match="unknown checkpoint backend"):
         TCK.save_train_state(path, state, {}, backend="zarr")
     os.makedirs(path + ".orbax")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="JAX library's format"):
         TCK.load_train_state(path, state)
     TCK.save_train_state(path, state, {"epoch": 4})  # a save removes the other backend's stale state
     assert not os.path.exists(path + ".orbax")
@@ -296,7 +296,11 @@ def test_preempted_run_resumes_bitwise(tmp_path, kind, target, enable_val, save_
 
 def test_requested_global_is_the_local_flag_in_one_process(monkeypatch):
     """The preemption flag every process agrees on: this process's own in a
-    run of one; a launch of more raises (multi-process runs are item 13)."""
+    run of one, with no collective.  The process group decides, not the
+    launcher's variables: with ``WORLD_SIZE=2`` set but no group started,
+    the answer is still the local flag and ``GlobalPoll`` is a per-batch
+    check (the gloo agreement of more than one process is
+    tests/test_torch_distributed.py's)."""
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     TP.clear()
     assert TP.requested_global() is None
@@ -304,7 +308,12 @@ def test_requested_global_is_the_local_flag_in_one_process(monkeypatch):
     try:
         assert TP.requested_global() == signal.SIGTERM
         monkeypatch.setenv("WORLD_SIZE", "2")
-        with pytest.raises(NotImplementedError, match="item 13"):
-            TP.requested_global()
+        assert not torch.distributed.is_initialized()
+        assert TP.requested_global() == signal.SIGTERM
+        poll = TP.GlobalPoll(5, every=2)
+        assert poll.single and poll.rounds_total == 0
+        with pytest.raises(TP.Preempted):
+            poll.step()
+        assert not torch.distributed.is_initialized()
     finally:
         TP.clear()

@@ -280,6 +280,18 @@ def test_port_imports_no_jax():
         "    'tpu_cfg.compute_dtype', 'float32', 'train_cfg.max_epoch', '1'])\n"
         "assert len(coral.train_loop.epoch_losses) == 1 and coral.train_dataset.require_m_patches\n"
         "assert os.path.exists(os.path.join(coral.log_path, 'refiner_ckp', 'epoch1_ema.safetensors'))\n"
+        "os.environ['UCOD_DIST'] = '1'  # a gloo group of one: the process-group path without jax\n"
+        "dp = cli.train_main(['-c', os.path.join(root, 'tiny.py'), '--device', 'cpu', '--work_dir', root + '/dp',\n"
+        "    '--opts', 'dataset_cfg.dataset_dir', os.path.join(root, 'RefCOD'),\n"
+        "    'dataset_cfg.cache_dir', os.path.join(root, 'cache'), 'dataset_cfg.trainset_cfg.DATASET', 'SYN',\n"
+        "    'dataset_cfg.valset_cfg.DATASET', 'SYN', 'dataset_cfg.trainset_cfg.image_size', '(28, 28)',\n"
+        "    'dataset_cfg.valset_cfg.image_size', '(28, 28)', 'dataset_cfg.trainloader_cfg.batch_size', '2',\n"
+        "    'tpu_cfg.compute_dtype', 'float32', 'train_cfg.max_epoch', '2', 'train_cfg.start_finetune', '-1'])\n"
+        "import torch\n"
+        "assert torch.distributed.is_initialized() and distributed.process_count() == 1\n"
+        "assert distributed.grad_all_reduce['calls'] == 0, distributed.grad_all_reduce  # a plain run\n"
+        "assert all(torch.isfinite(t).all() for t in dp.decoder_params)\n"
+        "distributed.shutdown()\n"
         "bad = [m for m in sys.modules if m.startswith('jax') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "assert not jax_package(), jax_package()\n"

@@ -518,5 +518,5 @@ def test_train_entry_errors(tmp_path, case):
         with pytest.raises(NotImplementedError, match="model-parallel"):
             TLoop(cfg, PortRunner(weights, batches, tmp_path / "t", mesh=mesh))
     else:
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(NotImplementedError, match="JAX library's format"):
             TCLI.main(argv)

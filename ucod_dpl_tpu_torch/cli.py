@@ -22,6 +22,16 @@ either package), stage-1 evaluation (``eval``), CORAL stage-2 training
 ``epoch{N}_preempt`` file) and evaluation (``lt_eval``), and pseudo-label
 generation.  The engine is imported inside the entry bodies, so ``--help``
 and argument errors cost nothing.
+
+``train``, ``eval`` and ``lt_eval`` also run data-parallel, one process per
+card, with the results of one process::
+
+    torchrun --nproc_per_node N -m ucod_dpl_tpu_torch.cli eval -c ... [flags]
+
+(NCCL for the device collectives, gloo for the host ones; ``--device cpu``:
+gloo for all).  Process 0 builds the caches, writes the files and prints
+the result lines.  ``lt_train`` and ``generate_pseudo_label`` run as one
+process.
 """
 
 from __future__ import annotations
@@ -124,22 +134,26 @@ def eval_main(argv=None) -> Dict[str, object]:
     datasets = args.datasets.split(",") if args.datasets else _EVAL_DEFAULT_DATASETS
 
     from ucod_dpl_tpu_torch.engine.runner import Runner
+    from ucod_dpl_tpu_torch.parallel.distributed import is_main_process, maybe_initialize_distributed
     from ucod_dpl_tpu_torch.utils.profiling import maybe_profile
     from ucod_dpl_tpu_torch.utils.seed import set_random_seed
 
+    maybe_initialize_distributed(args.device)  # the group decides who prints
     set_random_seed(42)
     results, runners = {}, {}
     fe = None  # built by the first Runner, shared by the rest
     with maybe_profile(args.profile, os.path.join(cfg.work_dir, "profile")):
         for dataset in datasets:
             cfg.dataset_cfg.valset_cfg.DATASET = dataset
-            print(f"running {dataset}")
+            if is_main_process():
+                print(f"running {dataset}")
             runner = Runner(cfg, mode="eval", load_from=args.load_from, feature_extractor=fe, device=args.device)
             fe = runner.feature_extractor
             results[dataset] = runner.launch_val_look_twice()
             runners[dataset] = runner
-    for name, res in results.items():
-        print(name, {k: round(v, 4) for k, v in res.items()})
+    if is_main_process():  # every rank holds the same results
+        for name, res in results.items():
+            print(name, {k: round(v, 4) for k, v in res.items()})
     return runners
 
 
@@ -179,23 +193,27 @@ def lt_eval_main(argv=None) -> Dict[str, object]:
     datasets = args.datasets.split(",") if args.datasets else _EVAL_DEFAULT_DATASETS
 
     from ucod_dpl_tpu_torch.engine.runner import LocalRefineRunner
+    from ucod_dpl_tpu_torch.parallel.distributed import is_main_process, maybe_initialize_distributed
     from ucod_dpl_tpu_torch.utils.profiling import maybe_profile
     from ucod_dpl_tpu_torch.utils.seed import set_random_seed
 
+    maybe_initialize_distributed(args.device)  # the group decides who prints
     set_random_seed(42)
     results, runners = {}, {}
     fe = None  # built by the first Runner, shared by the rest
     with maybe_profile(args.profile, os.path.join(cfg.work_dir, "profile")):
         for dataset in datasets:
             cfg.dataset_cfg.valset_cfg.DATASET = dataset
-            print(f"running {dataset}")
+            if is_main_process():
+                print(f"running {dataset}")
             runner = LocalRefineRunner(cfg, mode="eval", load_from=args.load_from, refiner_path=args.refiner_path,
                                        feature_extractor=fe, device=args.device)
             fe = runner.feature_extractor
             results[dataset] = runner.launch_val()
             runners[dataset] = runner
-    for name, res in results.items():
-        print(name, {k: round(v, 4) for k, v in res.items()})
+    if is_main_process():  # every rank holds the same results
+        for name, res in results.items():
+            print(name, {k: round(v, 4) for k, v in res.items()})
     return runners
 
 

@@ -39,7 +39,7 @@ from ucod_dpl_tpu_torch.data.transforms import (
     load_label_transform,
     resize_bilinear,
 )
-from ucod_dpl_tpu_torch.parallel.distributed import process_count
+from ucod_dpl_tpu_torch.parallel.distributed import is_main_process
 from ucod_dpl_tpu_torch.utils.fileio import ArrayCache, ImageIO
 from ucod_dpl_tpu_torch.utils.logger import get_logger
 from ucod_dpl_tpu_torch.utils.progress import ProgressReporter
@@ -108,6 +108,17 @@ class CacheSet:
             self._caches[kind] = ArrayCache(self._path(kind), logger=self.logger)
         return self._caches[kind]
 
+    def index_exists(self, kind: str) -> bool:
+        """The cheap completion probe: a build writes ``index.json`` last and
+        atomically, so one stat stands in for ``reopen``'s check of every
+        sample file."""
+        return os.path.exists(os.path.join(self._path(kind), "index.json"))
+
+    def reopen(self, kind: str) -> ArrayCache:
+        """Drop the handle and open the cache again (its integrity check)."""
+        self._caches.pop(kind, None)
+        return self.get(kind)
+
 
 @DATASETS.register("USCODDataset")
 @DATASETS.register()
@@ -158,34 +169,64 @@ class CODDataset:
         stems = "\n".join(p.stem for p in self.image_paths)
         return {"n": len(self.image_paths), "fingerprint": hashlib.sha1(stems.encode()).hexdigest()}
 
+    def _stale_reason(self, kind: str) -> Optional[str]:
+        """Why a complete-looking cache does not belong to the dataset, or
+        None.  Reference caches carry no fingerprint sidecar: for those only
+        the count is checked (a same-size rename goes unseen)."""
+        cache = self.caches.get(kind)
+        ident = self._cache_identity()
+        if len(cache) != ident["n"]:
+            return f"{len(cache)} cached entries for {ident['n']} images: the dataset changed since the cache was built"
+        meta = cache.read_meta()
+        if meta is not None and meta.get("fingerprint") != ident["fingerprint"]:
+            return ("image set changed since the cache was built (fingerprint mismatch at equal count: renamed or "
+                    "replaced files)")
+        return None
+
     def _validate_cache(self, kind: str) -> None:
         """Invalidate a complete-looking cache whose identity does not match
-        the dataset.  Reference caches carry no fingerprint sidecar: for
-        those only the count is checked (a same-size rename goes unseen)."""
+        the dataset.  With more than one process only process 0 deletes the
+        manifest; the others drop the handle to write mode in memory and
+        wait in :meth:`_build_coordinated` for the rebuild."""
         cache = self.caches.get(kind)
         if cache.mode != "r":
             return
-        ident = self._cache_identity()
-        if len(cache) != ident["n"]:
-            cache.invalidate(
-                f"{len(cache)} cached entries for {ident['n']} images: the dataset changed since the cache was built"
-            )
+        why = self._stale_reason(kind)
+        if why is None:
             return
-        meta = cache.read_meta()
-        if meta is not None and meta.get("fingerprint") != ident["fingerprint"]:
-            cache.invalidate(
-                "image set changed since the cache was built (fingerprint mismatch at equal count: "
-                "renamed or replaced files)"
-            )
+        if is_main_process():
+            cache.invalidate(why)
+        else:
+            cache.index_map, cache.mode = {}, "w"
 
-    def _build_coordinated(self, kinds, build_fn) -> None:
-        """Build the caches ``kinds`` with ``build_fn``.  One process builds
-        them itself; the JAX package's multi-process protocol (process 0
-        builds, the others poll for ``index.json``) waits for ROADMAP Queue 1
-        item 13."""
-        if process_count() != 1:
-            raise NotImplementedError(f"multi-process builds of the {kinds} cache(s) are ROADMAP Queue 1 item 13")
-        build_fn()
+    def _build_coordinated(self, kinds, build_fn, timeout_s: float = 7200.0) -> None:
+        """Build the caches ``kinds`` with ``build_fn``.  With more than one
+        process, process 0 builds them and the others poll the shared cache
+        directory every 2 s until each cache is complete and matches the
+        dataset: the ``index.json`` probe first, the full integrity check
+        once it passes.  A poll, unlike a collective, has no connection
+        timeout while process 0 computes; after ``timeout_s`` the waiters
+        give up."""
+        if is_main_process():
+            build_fn()
+            return
+        self.logger.log(f"waiting for process 0 to build {kinds} cache(s) for {self.set_cfg.DATASET}")
+        deadline = time.monotonic() + timeout_s
+        while True:
+            bad = [k for k in kinds if not self.caches.index_exists(k)]
+            if not bad:
+                try:
+                    bad = [k for k in kinds if self.caches.reopen(k).mode != "r" or self._stale_reason(k)]
+                except (OSError, ValueError):  # a partial state mid-build
+                    bad = list(kinds)
+                if not bad:
+                    return
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    f"timed out after {timeout_s}s waiting for process 0 to build {bad} caches for "
+                    f"{self.set_cfg.DATASET} — is the cache directory on a filesystem shared by all processes?"
+                )
+            time.sleep(2.0)
 
     # -- files -----------------------------------------------------------------
     def _scan_files(self) -> None:

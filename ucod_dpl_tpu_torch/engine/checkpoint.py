@@ -11,9 +11,11 @@ and lists) in the JAX package's layout, what
 package's, and either package resumes the other's ``state_epochN`` and
 ``state_preempt`` files.
 
-The JAX package's ``orbax`` backend (multi-host sharded saves) waits for
-multi-process runs (ROADMAP Queue 1 item 13): asking for it, or loading an
-``.orbax`` directory, raises ``NotImplementedError``.
+The JAX package's ``orbax`` backend is a JAX library's format (sharded
+saves, each process writing the shards it owns) and stays refused: asking
+for it, or loading an ``.orbax`` directory, raises ``NotImplementedError``.
+Under the port's data parallelism the state is replicated, so process 0
+writes the ``.npz`` (``engine/train_loop.py``) and every rank reads it.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ from typing import Any, Callable, Dict, Mapping, Tuple
 import numpy as np
 
 _META_KEY = "__meta_json__"
-_ORBAX = "the orbax checkpoint backend (multi-host sharded saves) is ROADMAP Queue 1 item 13; use backend='npz'"
+_ORBAX = ("the orbax checkpoint backend is a JAX library's format, which the PyTorch port does not read or write; "
+          "use backend='npz' (data-parallel runs write it from process 0)")
 
 
 def _map_with_paths(fn: Callable[[str, Any], Any], tree: Any, prefix: str = "") -> Any:

@@ -227,6 +227,17 @@ def _ema(ema, params, alpha: float):
     return {k: _ema(ema[k], v, alpha) for k, v in params.items()}
 
 
+def require_one_process() -> None:
+    """Refuse stage-2 training when the launcher asks for more than one
+    process (``WORLD_SIZE > 1``, the variable that starts the group): the
+    stage-2 loaders are per-rank and the refiner's step takes no
+    cross-process gradient sum, so ranks would train divergent refiners and
+    race on the same checkpoint paths (its whole schedule is minutes of
+    device time on one card).  The runner calls it before any cache build."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        raise NotImplementedError("stage-2 (CORAL) training is single-process: run it as one process")
+
+
 class LocalRefineTrainLoop:
     """CORAL stage-2 refiner training on ``runner.device``, step for step the
     JAX package's loop.  Each step: the refiner on the batch's features and
@@ -334,10 +345,7 @@ class LocalRefineTrainLoop:
 
     def run(self) -> None:
         runner = self.runner
-        if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-            # no cross-process gradient sum: ranks would train divergent
-            # refiners and race on the same checkpoint paths
-            raise NotImplementedError("stage-2 (CORAL) training is single-process: run it as one process")
+        require_one_process()
         preempt.install()
         for epoch in range(self.max_epoch):
             self.epoch_losses.append(self._run_epoch(epoch))

@@ -1,22 +1,23 @@
-"""Deferred preemption signalling shared by the loops, for one process.
+"""Deferred preemption signalling shared by the loops.
 
 Counterpart of :mod:`ucod_dpl_tpu.engine.preempt`.  A SIGTERM/SIGINT
 handler only records the signal; loops poll :func:`requested` or call
 :func:`check` at safe boundaries (between eval batches) and raise
 :class:`Preempted`, so a long validation cannot swallow the platform's
 grace period.  Processes that never call :func:`install` (the eval entry)
-keep the default signal behaviour and the polls do nothing.  The
-cluster-agreed flag of the JAX package (an all-gather MAX over processes)
-is this process's own flag until multi-process runs land (ROADMAP Queue 1
-item 13): :func:`requested_global` answers for one process and
-:class:`GlobalPoll` is a per-batch :func:`check`.
+keep the default signal behaviour and the polls do nothing.  With more
+than one process the loops act on the cluster-agreed flag
+(:func:`requested_global`, an all-gather MAX over the gloo group of
+:mod:`ucod_dpl_tpu_torch.parallel.distributed`), on the fixed schedule of
+:class:`GlobalPoll` where the ranks' batch counts differ.
 """
 
 from __future__ import annotations
 
-import os
 import signal
 from typing import Optional
+
+from ucod_dpl_tpu_torch.parallel.distributed import all_gather_host, process_count
 
 _signum: Optional[int] = None
 
@@ -58,18 +59,47 @@ def check() -> None:
 
 class GlobalPoll:
     """Preemption polling for loops whose batch counts differ by process
-    (the eval sweeps).  In one process a per-batch :func:`check`; the JAX
-    package's fixed schedule of all-gather rounds waits for item 13."""
+    (the eval sweeps over ragged shards).
+
+    A per-batch :func:`check` is unsound with more than one process: a rank
+    that raises alone strands the others in the final metric gather.  So
+    every rank runs the same fixed schedule of :func:`requested_global`
+    rounds, ``ceil(max local batches / every)`` of them, fired every
+    ``every`` local batches and drained in :meth:`finish` by the ranks with
+    fewer batches; all ranks see the flag at the same round, so either all
+    raise :class:`Preempted` or none does.  In a world of one: a per-batch
+    :func:`check` and no collective."""
 
     def __init__(self, local_batches: int, every: int = 8):
-        pass  # the round schedule (every ``every`` of ``local_batches``) needs more than one process
+        self.single = process_count() == 1
+        self.every = max(int(every), 1)
+        self.i = 0
+        self.rounds_done = 0
+        self.rounds_total = 0
+        if not self.single:
+            self.rounds_total = -(-int(all_gather_host([local_batches]).max()) // self.every)
+
+    def _round(self) -> None:
+        self.rounds_done += 1
+        s = requested_global()
+        if s is not None:
+            raise Preempted(s)
 
     def step(self) -> None:
         """Call once per local batch."""
-        check()
+        if self.single:
+            check()
+            return
+        self.i += 1
+        if self.i % self.every == 0 and self.rounds_done < self.rounds_total:
+            self._round()
 
     def finish(self) -> None:
-        """Drain the remaining rounds: none in one process."""
+        """Drain the rounds this rank has not run, so that the schedule is
+        the same on every rank; call it before any end-of-sweep collective
+        (the metric gather)."""
+        while not self.single and self.rounds_done < self.rounds_total:
+            self._round()
 
 
 def clear() -> None:
@@ -78,11 +108,14 @@ def clear() -> None:
 
 
 def requested_global() -> Optional[int]:
-    """The preemption signal every process agrees on (the JAX package's
-    all-gather MAX of the processes' flags): this process's own flag in a
-    run of one.  A launch with ``WORLD_SIZE > 1`` raises: multi-process runs
-    are ROADMAP Queue 1 item 13."""
-    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
-        raise NotImplementedError("the cluster-agreed preemption flag (an all-gather over torch.distributed) is "
-                                  "ROADMAP Queue 1 item 13; run one process")
-    return requested()
+    """The preemption signal every process agrees on: the MAX of the
+    processes' local flags, all-gathered over the gloo group.
+
+    The platform signals each process on its own, so the local flags race
+    the batch boundaries; ranks that acted on their own flag would save
+    different steps or leave the others waiting in the next collective.
+    All ranks call this at the same boundary and take the same action.  In a
+    world of one: :func:`requested`, no collective."""
+    if process_count() == 1:
+        return requested()
+    return int(all_gather_host([_signum or 0]).max()) or None

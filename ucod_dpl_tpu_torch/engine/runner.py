@@ -23,7 +23,13 @@ from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
 from ucod_dpl_tpu_torch.models.dba import init_rev_decoder
 from ucod_dpl_tpu_torch.models.discriminator import init_discriminator
 from ucod_dpl_tpu_torch.models.safetensors_io import load_decoder_checkpoint, save_decoder_checkpoint
-from ucod_dpl_tpu_torch.parallel.distributed import maybe_initialize_distributed
+from ucod_dpl_tpu_torch.parallel.distributed import (
+    barrier,
+    is_main_process,
+    maybe_initialize_distributed,
+    process_count,
+    process_shard,
+)
 from ucod_dpl_tpu_torch.parallel.mesh import build_mesh
 from ucod_dpl_tpu_torch.utils.logger import Logger
 from ucod_dpl_tpu_torch.utils.registry import DATASETS
@@ -50,18 +56,29 @@ class Runner:
         """``feature_extractor``: one built before, shared across Runners
         (the eval entry builds one Runner per test set).  ``device``: where
         the backbone and decoder run; the card unless the caller asks for
-        the CPU (``"cpu"``).  On CUDA the mesh takes every visible card."""
+        the CPU (``"cpu"``).  On CUDA the mesh takes every visible card; in
+        a data-parallel run (a ``torch.distributed`` group of more than one
+        process, started here from the launcher's environment; a group of
+        one is a plain run) each process's mesh is its own card,
+        ``cuda:LOCAL_RANK``, and the loaders read its shard."""
         self.cfg = cfg
         self.mode = mode
-        maybe_initialize_distributed()
+        device = maybe_initialize_distributed(device)
         self._setup_dirs()
         self.logger = Logger(
             "ucod", log_file=os.path.join(self.log_path, "run.log"), ranks=cfg.log_cfg.get("multi_rank", [0])
         )
-        device = torch.device(device)
-        self.mesh = build_mesh(
-            cfg.get("tpu_cfg", {}).get("mesh"), devices=None if device.type == "cuda" else [device]
-        )
+        mesh_cfg = cfg.get("tpu_cfg", {}).get("mesh")
+        if process_count() > 1:
+            # each process's mesh is its own device: {"data": -1, "model": 1} resolves to 1
+            if any(v not in (-1, 1) for v in (mesh_cfg or {}).values()):
+                raise NotImplementedError(
+                    f"tpu_cfg.mesh {dict(mesh_cfg)} over {process_count()} process(es): in a data-parallel run each "
+                    'process\'s mesh is its own card ({"data": -1, "model": 1}); tensor parallelism runs in one '
+                    "process over the cards of one host")
+            self.mesh = build_mesh(mesh_cfg, devices=[device])
+        else:
+            self.mesh = build_mesh(mesh_cfg, devices=None if device.type == "cuda" else [device])
         # LoRA training merges its adapters into float32 q/k/v masters
         lora = mode == "train" and cfg.model_cfg.get("lora", {}).get("enable", False)
         self.feature_extractor = feature_extractor or FeatureExtractor(
@@ -130,7 +147,8 @@ class Runner:
 
     def _build_dataloaders(self) -> None:
         """In train mode the train dataloader (shuffled per (seed, epoch),
-        whole batches only), and the val dataloader."""
+        whole batches only), and the val dataloader; each reads this
+        process's shard."""
         dc = self.cfg.dataset_cfg
         self.train_dataset = self.train_dataloader = None
         if self.mode == "train":
@@ -139,9 +157,11 @@ class Runner:
                 dc.trainset_cfg.require_pixels = True
             self.train_dataset = self._make_dataset(dc.trainset_cfg, "train", keep_size=False)
             tl = dc.trainloader_cfg
+            # every process runs the same number of steps (wrap-padded
+            # shards): a train step is a collective
             self.train_dataloader = DataLoader(
                 self.train_dataset, batch_size=tl.get("batch_size", 16), shuffle=tl.get("shuffle", True),
-                seed=self.cfg.get("seed", 42), drop_last=True, pad_shards=True,
+                seed=self.cfg.get("seed", 42), drop_last=True, shard=process_shard(), pad_shards=True,
             )
             if len(self.train_dataloader) == 0:
                 raise ValueError(
@@ -154,9 +174,13 @@ class Runner:
         # the reference builds its val loaders with mode "test", so the caches
         # land under features_cache/{extractor}/test/{DATASET}
         self.val_dataset = self._make_dataset(valset_cfg, "test", keep_size=keep_size)
-        self.val_dataloader = DataLoader(self.val_dataset, batch_size=dc.val_loader_cfg.get("batch_size", 1))
+        # ragged shards: the metric gather takes each process's count
+        self.val_dataloader = DataLoader(self.val_dataset, batch_size=dc.val_loader_cfg.get("batch_size", 1),
+                                         shard=process_shard())
 
     def _dump_config(self) -> None:
+        if not is_main_process():
+            return
         try:
             self.cfg.dump_yaml(os.path.join(self.log_path, "config.yaml"))
         except Exception as e:  # a run never fails over its config dump (yaml missing, say)
@@ -179,9 +203,12 @@ class Runner:
         return str(p)
 
     def save_checkpoint(self, epoch: int) -> str:
+        """Write the decoder towers (process 0; the others wait for it)."""
         path = os.path.join(self.ckp_dir, f"epoch{epoch}.safetensors")
-        save_decoder_checkpoint(path, self.decoder_params, self.decoder_ema_params)
-        self.logger.log(f"Saved checkpoint {path}")
+        if is_main_process():
+            save_decoder_checkpoint(path, self.decoder_params, self.decoder_ema_params)
+            self.logger.log(f"Saved checkpoint {path}")
+        barrier("save_checkpoint")
         return path
 
     def load_latest_checkpoint(self) -> Optional[str]:
@@ -235,7 +262,12 @@ class LocalRefineRunner(Runner):
         device="cuda",
     ):
         """``refiner_path``: a reference-format refiner checkpoint; without
-        one the refiner is a seeded init (``seed + 2``)."""
+        one the refiner is a seeded init (``seed + 2``).  Training refuses a
+        launch of more than one process before any cache is built."""
+        if mode == "train":
+            from ucod_dpl_tpu_torch.engine.coral_loop import require_one_process
+
+            require_one_process()
         self._refiner_path = refiner_path
         super().__init__(cfg, mode=mode, load_from=load_from, feature_extractor=feature_extractor, device=device)
 

@@ -13,9 +13,15 @@ backbone's q/k/v trained from live pixels beside the decoder).
 The steps of :mod:`.train_step` update their state in place on
 ``runner.device``; nothing moves to the CPU unless the Runner was built with
 ``device="cpu"``.  Full states are written in the JAX package's file format
-(:mod:`.checkpoint`), so either package resumes the other's.  One process:
-the Runner's mesh decides the device and refuses LoRA with ``model > 1``;
-data-parallel training over ``torch.distributed`` is ROADMAP Queue 1 item 13.
+(:mod:`.checkpoint`), so either package resumes the other's.  The Runner's
+mesh decides the device and refuses LoRA with ``model > 1``.  Data
+parallel over ``torch.distributed`` (one process per card, each on its
+shard of every global batch): the steps keep the ranks equal (see
+:mod:`.train_step`), process 0 writes every file while the others wait,
+every rank resumes from the same file, the logged losses are global means,
+and the ranks agree on a preemption signal every
+``train_cfg.preempt_poll_interval`` batches and at every phase and epoch
+boundary.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from ucod_dpl_tpu_torch.models.convert import (
     train_state_to_jax,
     tree_map,
 )
+from ucod_dpl_tpu_torch.parallel.distributed import all_reduce_mean, barrier, is_main_process, process_count
 from . import preempt
 from .checkpoint import load_train_state, save_train_state
 from .train_step import (
@@ -60,6 +67,10 @@ class TrainLoop:
         self.dis_epochs = tc.get("dis_epoch", 1)
         self.merge_method = tc.get("merge_method", "dis")
         self.log_interval = cfg.log_cfg.get("log_interval", 50)
+        # batches between the ranks' agreements on a preemption signal (an
+        # all-gather on the host): grace periods are tens of seconds, steps
+        # milliseconds
+        self.preempt_poll = max(int(tc.get("preempt_poll_interval", 16)), 1)
 
         vc = cfg.val_cfg
         self.enable_val = vc.get("enable_val", True)
@@ -148,6 +159,13 @@ class TrainLoop:
                                f"finetune={self.finetune})")
 
     def _save_full_state(self, path: str, epoch: int, phase_meta=None) -> None:
+        """Write the state (and the adapters' pair file) from process 0; the
+        others wait for it."""
+        if is_main_process():
+            self._write_full_state(path, epoch, phase_meta)
+        barrier("full state")
+
+    def _write_full_state(self, path: str, epoch: int, phase_meta=None) -> None:
         meta = {"epoch": epoch, "finetune": self.finetune, "best_mae": self.best_mae}
         if getattr(self, "_val_pending", False):
             # this boundary's validation has not run yet: a resume from this
@@ -166,9 +184,9 @@ class TrainLoop:
         # collate passes Nones and ragged arrays through as a list: no usable cache
         if plabels is None or isinstance(plabels, list):
             raise RuntimeError(
-                "Training requires a pseudo-label cache; run generate_pseudo_label first (the port's entry "
-                "is ROADMAP Queue 1 item 14: the JAX package's scripts/generate_pseudo_label.py writes the "
-                "same cache)."
+                "Training requires a pseudo-label cache; run generate_pseudo_label first (python3 -m "
+                "ucod_dpl_tpu_torch.cli generate_pseudo_label, or the JAX package's "
+                "scripts/generate_pseudo_label.py: the same cache)."
             )
         plabels = torch.from_numpy(np.asarray(plabels, dtype=np.float32)).to(self.device)
         features = None
@@ -188,7 +206,7 @@ class TrainLoop:
         self.runner.discriminator_stats = snapshot(self.state.dis_stats)
 
     # ------------------------------------------------------------------
-    def _maybe_preempt_exit(self, signum=None) -> None:
+    def _maybe_preempt_exit(self, signum=None, batch_idx=None) -> None:
         """Save the full state and exit if a preemption signal was flagged.
 
         The handler (:func:`preempt.install`) only sets a flag; this runs at
@@ -196,13 +214,21 @@ class TrainLoop:
         when a validation raises :class:`preempt.Preempted`.  The checkpoint
         records the phase progress of the current epoch (``phase``,
         ``dis_pass``, ``batch_done``) so that a resumed run skips the batches
-        whose updates the saved state already holds.  The flag is the one
-        every process agrees on (:func:`preempt.requested_global`), this
-        process's own in a run of one; the JAX package's cadence of
-        ``preempt_poll_interval`` batches between agreements waits for
-        multi-process runs (ROADMAP Queue 1 item 13)."""
+        whose updates the saved state already holds.
+
+        One process checks its own flag at every call.  With more, the ranks
+        take the flag they agree on (:func:`preempt.requested_global`, a
+        host all-gather): mid-phase calls pass ``batch_idx`` and agree only
+        every ``preempt_poll_interval`` batches, the same arithmetic on
+        every rank; phase and epoch boundaries always agree.  So every rank
+        saves and exits at the same batch."""
         if signum is None:
-            signum = preempt.requested_global()
+            if process_count() == 1:
+                signum = preempt.requested()
+            elif batch_idx is None or batch_idx % self.preempt_poll == 0:
+                signum = preempt.requested_global()
+            else:
+                return
         if signum is None:
             return
         path = f"{self.runner.ckp_dir}/state_preempt"
@@ -286,7 +312,13 @@ class TrainLoop:
         """The adapters and the backbone with them merged densely (the
         HuggingFace layout, which eval and serving load through the ordinary
         ``backbone_weights`` path at the base model's cost).  The merge takes
-        the backbone's float32 weights, as the JAX package's does."""
+        the backbone's float32 weights, as the JAX package's does.  Process
+        0 writes; the others wait for it."""
+        if is_main_process():
+            self._write_lora(epoch)
+        barrier("lora save")
+
+    def _write_lora(self, epoch: int) -> None:
         from ucod_dpl_tpu_torch.models.lora import save_lora_checkpoint, save_merged_backbone
 
         lc = self.cfg.model_cfg.lora
@@ -328,15 +360,16 @@ class TrainLoop:
             last_aux = aux
             n += 1
             self._phase = ("train", 0, n)
-            self._maybe_preempt_exit()
+            self._maybe_preempt_exit(batch_idx=n)
             if n % max(self.log_interval, 1) == 0:
-                logger.log(f"epoch {epoch} iter {n}: loss={float(aux['loss']):.4f} "
-                           f"dis={float(aux['dis_loss']):.4f} w={float(aux['merge_weight']):.2f}")
+                loss, dis, w = (float(all_reduce_mean(aux[k])) for k in ("loss", "dis_loss", "merge_weight"))
+                logger.log(f"epoch {epoch} iter {n}: loss={loss:.4f} dis={dis:.4f} w={w:.2f}")
         self._phase = None
         dt = time.perf_counter() - t0
         if last_aux is not None:
+            loss = float(all_reduce_mean(last_aux["loss"]))
             logger.log(f"epoch {epoch} done: {n} iters in {dt:.1f}s ({n / max(dt, 1e-9):.2f} it/s), "
-                       f"loss={float(last_aux['loss']):.4f}")
+                       f"loss={loss:.4f}")
 
     def _consume_resume_skip(self, phase: str, epoch: int, dis_pass: int = 0) -> int:
         """Batches of (phase, epoch[, dis_pass]) the preempted run already
@@ -367,12 +400,13 @@ class TrainLoop:
                 if self.lora_enabled:
                     features = self._lora_extract(self.lora_params, self._device_pixels(batch))
                 aux = self._dis_step(self.state, features, plabels)
-                losses.append(float(aux["dis_train_loss"]))
+                losses.append(aux["dis_train_loss"])
                 n += 1
                 self._phase = ("dis", d, n)
-                self._maybe_preempt_exit()
+                self._maybe_preempt_exit(batch_idx=n)
             if losses:
-                logger.log(f"epoch {epoch}: discriminator pass mean loss {np.mean(losses):.4f}")
+                mean = float(all_reduce_mean(torch.stack(losses).mean()))
+                logger.log(f"epoch {epoch}: discriminator pass mean loss {mean:.4f}")
         self._phase = None
 
     def _update_best(self, result: Dict[str, float]) -> None:

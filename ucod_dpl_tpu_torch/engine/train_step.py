@@ -26,6 +26,12 @@ PyTorch idiom in place of the JAX package's pure functions: a step updates
 its :class:`TrainState` (and the adapters) in place and returns the scalars
 it reports.  Gradients stay in the parameters' ``.grad`` until the next
 step, for inspection.
+
+Data parallel (a ``torch.distributed`` group): each rank steps on its local
+batch; :class:`Optimizer` averages the gradients over the ranks and the
+discriminator takes its batch-norm moments over the global batch, so the
+ranks take the step of the mean loss over the concatenated global batch
+and stay equal.  The returned scalars are the rank's own.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ucod_dpl_tpu_torch.models.convert import tree_leaves, tree_map
 from ucod_dpl_tpu_torch.models.dba import RevDecoderParams, rev_decoder_forward
 from ucod_dpl_tpu_torch.models.discriminator import discriminator_forward
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear
+from ucod_dpl_tpu_torch.parallel.distributed import all_reduce_mean_
 
 
 class Optimizer:
@@ -48,7 +55,9 @@ class Optimizer:
     schedule (the caller sets the rate with :meth:`set_lr`).  A parameter
     that got no gradient (the last layer's q/v adapters, whose outputs the
     forward never computes) is stepped with a zero gradient, as optax steps
-    it: its weight decay still applies."""
+    it: its weight decay still applies.  In a data-parallel run the
+    gradients are averaged over the ranks first, in one bucket
+    (:func:`~ucod_dpl_tpu_torch.parallel.distributed.all_reduce_mean_`)."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr0: float, gamma: float = 1.0,
                  step_size: Optional[int] = None):
@@ -68,6 +77,8 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        # data parallel: the gradient of the mean loss over the global batch
+        all_reduce_mean_([p.grad for p in self.params])
         self.adamw.step()
         if self.schedule is not None:
             self.schedule.step()

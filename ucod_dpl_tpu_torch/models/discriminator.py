@@ -7,7 +7,9 @@ channels, flatten, Linear -> sigmoid.  Every ConvBlock is a bias-free 3x3
 convolution, batch norm and leaky ReLU(0.1).
 
 Batch norm always normalises with the current batch's biased moments (the
-reference only calls the discriminator in train mode).  Trainable parameters
+reference only calls the discriminator in train mode); in a data-parallel
+run of more than one process those of the global batch, all-reduced over
+the ranks.  Trainable parameters
 and the BN running statistics are separate dicts, so an optimizer never
 touches the running moments; those follow torch's train-mode update
 (momentum 0.1, unbiased variance) and are kept for checkpoints.
@@ -25,6 +27,8 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ucod_dpl_tpu_torch.parallel.distributed import all_reduce_sum, process_count
 
 _LEAKY_SLOPE = 0.1
 _BN_EPS = 1e-5
@@ -64,19 +68,43 @@ def init_discriminator(
     return params, stats
 
 
+def _local_moments(y: torch.Tensor):
+    """Per-channel (mean, biased variance, n / (n - 1)) over this batch's
+    (N, H, W)."""
+    mean = y.mean(dim=(0, 2, 3))
+    var = ((y - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+    n = y.shape[0] * y.shape[2] * y.shape[3]
+    return mean, var, n / max(n - 1, 1)
+
+
+def _global_moments(y: torch.Tensor):
+    """The same over the global batch of a data-parallel run: the sums and
+    counts of every rank all-reduced (one all-reduce for the mean and the
+    count, one for the two-pass variance), the gradient flowing back
+    through both, as batch-statistics BN over the whole batch under GSPMD
+    gives it in the JAX package."""
+    c = y.shape[1]
+    count = y.new_full((1,), float(y.shape[0] * y.shape[2] * y.shape[3]))
+    sums = all_reduce_sum(torch.cat([y.sum(dim=(0, 2, 3)), count]))
+    n = sums[c:].detach()
+    mean = sums[:c] / n
+    var = all_reduce_sum(((y - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3))) / n
+    return mean, var, n / (n - 1).clamp(min=1)
+
+
 def _conv_block(
     params: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor], x: torch.Tensor, stride: int
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """NCHW conv + batch-statistics BN + leaky ReLU, and the refreshed
     running statistics."""
     y = F.conv2d(x, params["conv_w"], stride=stride, padding=1)
-    mean = y.mean(dim=(0, 2, 3))
-    var = ((y - mean[:, None, None]) ** 2).mean(dim=(0, 2, 3))
+    # one process (a group of one too) keeps the local formula, whose bits
+    # the one-process runs and their bitwise resume tests pin
+    mean, var, unbiased_factor = (_global_moments if process_count() > 1 else _local_moments)(y)
     y = (y - mean[:, None, None]) * torch.rsqrt(var + _BN_EPS)[:, None, None]
     y = y * params["bn_scale"][:, None, None] + params["bn_bias"][:, None, None]
     y = torch.where(y >= 0, y, _LEAKY_SLOPE * y)
-    n = y.shape[0] * y.shape[2] * y.shape[3]
-    unbiased = var.detach() * (n / max(n - 1, 1))
+    unbiased = var.detach() * unbiased_factor
     new_stats = {
         "mean": (1 - _BN_MOMENTUM) * stats["mean"] + _BN_MOMENTUM * mean.detach(),
         "var": (1 - _BN_MOMENTUM) * stats["var"] + _BN_MOMENTUM * unbiased,
