@@ -212,6 +212,28 @@ Phases (each raises on failure; any failure exits non-zero):
      bitwise equal, one all-reduce an optimizer step.  The
      kernels line gives each kernel's launches in P1 and in P2's two ranks
      (``dp_train_launches``, ``dp_eval_launches``).
+  Q. sequence parallelism (``parallel/sp.py``), after phase J, on one card
+     named four times: Q0 K2 with an f32 output and K3/K4 with f32 outputs
+     against their plain versions at the ring's chunk shapes ((4, 730, 768)
+     at 756px, (16, 343, 768) at 518px) with the chunks' key bounds (730
+     and 727, 343 and 341), timed at the 756px chunk beside SDPA; Q1
+     ``FeatureExtractor`` over ``{"data": 1, "seq": 4}`` at 756px bs4 (L
+     2917 padded to 2920) and 518px bs16 (1370 to 1372), and over
+     ``{"data": 1, "model": 2, "seq": 2}`` at 756px: K2 176 (88) times a
+     forward and nothing else, err <= 1.5 * err(bf16 unsharded plain) +
+     1e-3 against the f32 unsharded plain path, ms against the unsharded
+     extract, interleaved; Q2 three LoRA steps (``make_lora_train_step(
+     sp_shard=)``) at 756px bs4 over ``{"seq": 4}``, remat none: 176 K2 and
+     176 K3/K4 launches a step, the third step's gradients within 0.1 of
+     the unsharded kernel step's, two runs bitwise equal, step ms and peak
+     memory against the unsharded step; Q3 remat "dots" at bs16 518px:
+     gradients within 0.1 of "none", 22 K2 and 11 K3/K4 launches a step,
+     ms and peak memory of none, layer and dots, interleaved.  The kernels
+     line gives K2's and K3/K4's launches in Q1's seq=4 756px forward and
+     in a Q2 step (``sp_launches``, ``sp_lora_launches``) and their chunk
+     times (``sp_chunk_*``).  ``--only-q4`` (four cards) runs Q1 and Q2
+     over ``cuda:0..3`` and phase I's ``{"model": 4}`` over four cards
+     against one card, with each card's peak memory, alone.
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -598,10 +620,10 @@ def _train_cfg(remat: str = "none"):
     )
 
 
-def _lora_setup(seed: int, dev, batch: int):
+def _lora_setup(seed: int, dev, batch: int, size: int = 518):
     """A full-width dinov2-base with float32 q/k/v masters (seeded random
     weights), fresh decoder/EMA/discriminator state and adapters, and seeded
-    518px pixels and 68x68 pseudo-labels of ``batch`` images."""
+    ``size``-px pixels and 68x68 pseudo-labels of ``batch`` images."""
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.engine.train_step import init_train_state, make_optimizer
     from ucod_dpl_tpu_torch.models.convert import tree_leaves, tree_map
@@ -617,7 +639,7 @@ def _lora_setup(seed: int, dev, batch: int):
     lora = tree_map(lambda t: t.requires_grad_(True), init_lora(seed + 3, fe.params, rank=2))
     lora_opt = make_optimizer(tree_leaves(lora), cfg.model_cfg.lora.lr, 0.95, 25)
     rng = np.random.default_rng(seed + 6)
-    pixels = torch.from_numpy(rng.standard_normal((batch, 518, 518, 3)).astype(np.float32)).to(dev)
+    pixels = torch.from_numpy(rng.standard_normal((batch, size, size, 3)).astype(np.float32)).to(dev)
     labels = torch.from_numpy((rng.random((batch, 68, 68, 1)) > 0.5).astype(np.float32)).to(dev)
     return cfg, fe, state, lora, lora_opt, pixels, labels
 
@@ -3107,15 +3129,367 @@ def phase_dp_p3(smi: str, train: dict) -> dict:
     return {"p3_rate": _epoch_rate(ranks[0], (2, 3)), "p3_nccl_ms": ranks[0]["trace"]["nccl_ms"]}
 
 
+# Phase Q: sequence parallelism (``parallel/sp.py``): each image's tokens
+# padded to a multiple of the ring and split over a ``seq`` mesh axis,
+# attention as a ring of K2 calls (one per query chunk and key/value chunk
+# with a real key, f32 outputs merged by their log-sum-exps) and, in the
+# LoRA step, a ring of K3/K4 calls; on one card named four times (with
+# ``--only-q4``, on four cards).  2917 tokens (756px) over 4: chunks of 730,
+# the last with 727 real keys; 1370 (518px) over 4: 343, the last 341.
+SP_MESHES = (("seq=4", {"data": 1, "seq": 4}), ("model=2 x seq=2", {"data": 1, "model": 2, "seq": 2}))
+SP_SHAPES = ((756, 4), (518, 16))  # (image size, batch) of the extraction checks
+SP_CHUNKS = (("756px bs4 chunk", 4, 730, (730, 727)), ("518px bs16 chunk", 16, 343, (343, 341)))
+
+
+def _fe_cfg():
+    return _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None)
+
+
+def _sp_pairs(mesh_cfg: dict, seq_len: int) -> int:
+    """The ring's K2 (and K3/K4) calls a layer: per model shard, query chunk
+    and chunk with a real key."""
+    from ucod_dpl_tpu_torch.parallel.sp import chunk_kv_lens
+
+    n = mesh_cfg["seq"]
+    return mesh_cfg.get("model", 1) * n * sum(1 for k in chunk_kv_lens(seq_len, n) if k)
+
+
+def _peaks(devices) -> list:
+    """Each distinct card's peak allocated GiB since its last reset."""
+    return [torch.cuda.max_memory_allocated(d) / 2**30 for d in sorted(set(devices), key=str)]
+
+
+def _reset_peaks(devices) -> None:
+    for d in set(devices):
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def phase_sp_kernels(gen, dev) -> dict:
+    """Q0: K2 with an f32 output and K3/K4 with f32 outputs at the ring's
+    chunk shapes and key bounds, against their plain versions (outputs
+    pre-filled with NaN; dK/dV rows past the bound exactly 0); then both
+    timed at the 756px chunk, (4, 730, 768), beside SDPA on the same
+    tensors."""
+    from ucod_dpl_tpu_torch.ops.attention import (
+        packed_attention_bwd,
+        packed_attention_bwd_reference,
+        packed_attention_fwd_lse,
+        packed_attention_fwd_lse_reference,
+    )
+
+    f32 = torch.float32
+    _log("Q0 ring chunk calls vs plain (bf16 in, f32 out, key bound kv_len):")
+    worst = {"fwd_lse": 0.0, "bwd": 0.0}
+    for name, b, l, kv_lens in SP_CHUNKS:
+        q, k, v, do = (_nan_tailed(gen, dev, b, l) for _ in range(4))
+        for kv in kv_lens:
+            o = torch.full((b, l, SERVE_DIM), float("nan"), device=dev)
+            lse = torch.full((b, NUM_HEADS, l), float("nan"), device=dev)
+            packed_attention_fwd_lse(q, k, v, NUM_HEADS, 0.125, out=(o, lse), kv_len=kv, out_dtype=f32)
+            o_ref, lse_ref = packed_attention_fwd_lse_reference(q, k, v, NUM_HEADS, 0.125, kv_len=kv, out_dtype=f32)
+            worst["fwd_lse"] = max(worst["fwd_lse"], _check(f"{name} kv_len {kv} o", o, o_ref,
+                                                            K1_TOL * o_ref.abs().max().item()))
+            _check(f"{name} kv_len {kv} lse", lse, lse_ref, LSE_TOL)
+            o16 = o.to(torch.bfloat16)
+            grads = packed_attention_bwd(q, k, v, o16, do, lse, NUM_HEADS, 0.125, kv_len=kv, out_dtype=f32,
+                                         out=tuple(torch.full((b, l, SERVE_DIM), float("nan"), device=dev)
+                                                   for _ in range(3)))
+            refs = packed_attention_bwd_reference(q, k, v, o16, do, lse, NUM_HEADS, 0.125, kv_len=kv, out_dtype=f32)
+            for which, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+                worst["bwd"] = max(worst["bwd"], _check_grad(f"{name} kv_len {kv} {which}", got, ref))
+            if grads[1][:, kv:].any() or grads[2][:, kv:].any():
+                raise AssertionError(f"{name} kv_len {kv}: dk/dv rows past the bound are not 0")
+
+    b, l = 4, 730
+    q, k, v, do = (torch.randn(b, l, SERVE_DIM, generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+    out = {"err": worst}
+    out["K2"] = _ab_ms(lambda: packed_attention_fwd_lse_reference(q, k, v, NUM_HEADS, 0.125, out_dtype=f32),
+                       lambda: packed_attention_fwd_lse(q, k, v, NUM_HEADS, 0.125, out_dtype=f32), 20)
+    out["K2_sdpa"] = _sdpa_ms(*(_packed_heads(x) for x in (q, k, v)), 0.125, 20)
+    o, lse = packed_attention_fwd_lse(q, k, v, NUM_HEADS, 0.125)
+    out["K3"] = _ab_ms(lambda: packed_attention_bwd_reference(q, k, v, o, do, lse, NUM_HEADS, 0.125, out_dtype=f32),
+                       lambda: packed_attention_bwd(q, k, v, o, do, lse, NUM_HEADS, 0.125, out_dtype=f32), 20)
+    heads = [_packed_heads(x).detach().requires_grad_(True) for x in (q, k, v)]
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(*heads, scale=0.125)
+    out["K3_sdpa"] = _time_ms(lambda: torch.autograd.grad(o_sdpa, heads, _packed_heads(do), retain_graph=True), 20)
+    bh = b * NUM_HEADS
+    # bf16 q/k/v (and o, dO) read once, f32 outputs (and the f32 log-sum-exp) written once
+    out["K2_bound"] = _bound(2 * 2.0 * bh * l * l * 64, (3 * 2 + 4) * bh * l * 64 + 4 * bh * l, PEAK_BF16)
+    out["K3_bound"] = _bound(5 * 2.0 * bh * l * l * 64, (5 * 2 + 3 * 4) * bh * l * 64 + 4 * bh * l, PEAK_BF16)
+    _log(f"  K2 (4, 730, 768) f32 out: kernel {out['K2'][0]:.4f} ms, plain {out['K2'][1]:.4f} ms, "
+         f"SDPA {out['K2_sdpa']:.4f} ms, bound {out['K2_bound'][0]:.4f} ms ({out['K2_bound'][1]})")
+    _log(f"  K3/K4 (4, 730, 768) f32 out: kernel {out['K3'][0]:.4f} ms, plain {out['K3'][1]:.4f} ms, "
+         f"SDPA backward {out['K3_sdpa']:.4f} ms, bound {out['K3_bound'][0]:.4f} ms ({out['K3_bound'][1]})")
+    return out
+
+
+def phase_sp_extract(seed: int, dev, devices) -> dict:
+    """Q1: ``FeatureExtractor`` over ``{"data": 1, "seq": 4}`` at 756px bs4
+    and 518px bs16 and over ``{"data": 1, "model": 2, "seq": 2}`` at 756px
+    bs4 (full-width dinov2-base, seeded random weights, bf16): finite
+    features, K2 launched once per model shard, query chunk and key chunk a
+    layer (176 and 88 a forward) and nothing else, and err(SP kernels vs f32
+    unsharded plain) <= 1.5 * err(bf16 unsharded plain) + 1e-3; then ms per
+    extract against the unsharded extractor (K1 + K6), interleaved, and
+    each card's peak memory."""
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.parallel import build_mesh
+
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    f32 = FeatureExtractor(_fe_cfg(), device=dev, compute_dtype=torch.float32, seed=seed, strict=False)
+    unsharded = FeatureExtractor(_fe_cfg(), device=dev, seed=seed, strict=False)
+    fes = {name: FeatureExtractor(_fe_cfg(), mesh=build_mesh(cfg, devices=devices), seed=seed, strict=False)
+           for name, cfg in SP_MESHES}
+    depth = f32.config.num_layers
+    cards = sorted({str(d) for d in devices})
+    out = {"launches": {}, "err": {}, "ms": {}, "peak_gib": {}}
+    for size, b in SP_SHAPES:
+        images = np.random.default_rng(seed + size).standard_normal((b, size, size, 3)).astype(np.float32)
+        seq_len = 1 + (size // f32.config.patch_size) ** 2
+        ref = _features_plain(f32, images, f32.params, torch.float32)
+        err_plain = (_features_plain(unsharded, images, unsharded.params, torch.bfloat16) - ref).abs().max().item()
+        bound = 1.5 * err_plain + 1e-3
+        meshes = [(name, cfg) for name, cfg in SP_MESHES if size == 756 or "model" not in cfg]
+        for name, mesh_cfg in meshes:
+            for fn in counts.values():
+                fn.launches = 0
+            _reset_peaks(devices)
+            feats = fes[name].extract(images)
+            launches = {k: fn.launches for k, fn in counts.items()}
+            peaks = _peaks(devices)
+            want = {**{k: 0 for k in counts}, "fwd_lse": (depth - 1) * _sp_pairs(mesh_cfg, seq_len)}
+            grid = size // f32.config.patch_size
+            if launches != want:
+                raise AssertionError(f"SP extract {name} {size}px: launches {launches}, expected {want}")
+            if feats.shape != (b, grid, grid, f32.config.hidden_size) or not np.isfinite(feats).all():
+                raise AssertionError(f"SP extract {name} {size}px: features {feats.shape}, finite "
+                                     f"{np.isfinite(feats).all()}")
+            err = (torch.from_numpy(feats).to(dev) - ref).abs().max().item()
+            _log(f"Q1 SP extraction {name} ({', '.join(cards)}), {size}px bs{b} (L {seq_len}): launches "
+                 f"{ {k: v for k, v in launches.items() if v} }, max_abs_err {err:.6g} vs f32 unsharded plain, "
+                 f"bf16 unsharded plain {err_plain:.6g}, bound {bound:.6g}; peak GiB per card "
+                 f"{[round(p, 3) for p in peaks]}")
+            if not (np.isfinite(err) and err <= bound):
+                raise AssertionError(f"SP extract {name} {size}px: error {err} exceeds {bound}")
+            out["launches"][f"{name} {size}px"] = launches
+            out["err"][f"{name} {size}px"] = err
+            out["peak_gib"][f"{name} {size}px"] = peaks
+        out["err"][f"bf16 unsharded plain {size}px"] = err_plain
+        del ref
+        runs = {"unsharded": lambda: unsharded.extract(images),
+                **{name: (lambda fe=fes[name]: fe.extract(images)) for name, _ in meshes}}
+        _reset_peaks(devices)
+        unsharded.extract(images)
+        out["peak_gib"][f"unsharded {size}px"] = _peaks([dev])
+        samples = {k: [] for k in runs}
+        with torch.inference_mode():
+            for k in list(runs) + list(runs)[::-1]:
+                samples[k].append(_time_ms(runs[k], 3, warmup=1))
+        for k, v in samples.items():
+            out["ms"][f"{k} {size}px"] = sum(v) / len(v)
+            _log(f"  {size}px bs{b} extract {k}: {out['ms'][f'{k} {size}px']:.3f} ms (runs {v[0]:.3f}, {v[1]:.3f}; "
+                 f"CUDA events, interleaved, host copies included)")
+    _trace(lambda: fes["seq=4"].extract(np.zeros((4, 756, 756, 3), np.float32)), "SP seq=4 extract 756px bs4")
+    return out
+
+
+def phase_sp_lora(seed: int, dev, devices) -> dict:
+    """Q2: ``make_lora_train_step(sp_shard=)`` over ``{"seq": 4}`` at 756px
+    bs4 (full-width dinov2-base, remat none, bf16): three steps with finite
+    losses and moving adapters, each launching K2 and K3/K4 176 times and
+    nothing else; the third step's decoder + LoRA gradients against the
+    unsharded kernel step's on the same state (norm-relative <= 0.1, phase
+    B's bound, also the LoRA gradients alone); a second run of the three
+    steps equal bit for bit; step ms by CUDA events and each card's peak
+    memory against the unsharded step."""
+    from ucod_dpl_tpu_torch.engine.train_step import make_lora_train_step
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves
+    from ucod_dpl_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh({"seq": 4}, devices=devices)
+    counts = _kernel_wrappers()
+    out = {}
+
+    def run(check: bool):
+        cfg, fe, state, lora, lora_opt, pixels, labels = _lora_setup(seed + 20, dev, 4, size=756)
+        step = make_lora_train_step(cfg, fe.config, torch.bfloat16, sp_shard=(mesh, "seq"))
+        pairs = (fe.config.num_layers - 1) * _sp_pairs({"seq": 4}, 1 + (756 // fe.config.patch_size) ** 2)
+        for i in range(3):
+            if i == 2 and check:
+                g_sp = _grads(step.loss_fn, state, lora, fe, pixels, labels)
+                plain_step = make_lora_train_step(cfg, fe.config, torch.bfloat16)
+                g_un = _grads(plain_step.loss_fn, state, lora, fe, pixels, labels)
+                for name, gs, gu in (("decoder + LoRA", torch.cat(g_sp), torch.cat(g_un)),
+                                     ("LoRA alone", g_sp[1], g_un[1])):
+                    rel = ((gs - gu).norm() / gu.norm()).item()
+                    out[f"grad_rel {name}"] = rel
+                    _log(f"  step 3 grads, SP vs unsharded kernels, {name}: norm-relative difference {rel:.6g} "
+                         f"(bound 0.1), largest difference {(gs - gu).abs().max().item():.6g}")
+                    if not (np.isfinite(rel) and rel <= 0.1):
+                        raise AssertionError(f"SP LoRA grads ({name}): {rel} exceeds 0.1")
+                del g_sp, g_un
+            for fn in counts.values():
+                fn.launches = 0
+            aux = step(state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+            loss = aux["loss"].item()
+            launches = {k: fn.launches for k, fn in counts.items()}
+            b_norm = torch.sqrt(sum(e["b"].float().square().sum() for layer in lora for e in layer.values())).item()
+            if check:
+                _log(f"  step {i + 1}: loss {loss:.6f}, adapter B-norm {b_norm:.6g}, launches {launches}")
+            want = {"K1": 0, "K5": 0, "K6": 0, "K7": 0, "fwd_lse": pairs, "bwd": pairs}
+            if launches != want or not np.isfinite(loss) or not b_norm > 0:
+                raise AssertionError(f"SP LoRA step {i + 1}: loss {loss}, B-norm {b_norm}, launches {launches}, "
+                                     f"expected {want}")
+            out["launches"] = launches
+        return cfg, fe, state, lora, lora_opt, pixels, labels, step
+
+    _log(f"Q2 LoRA step under SP {{'seq': 4}} ({', '.join(sorted({str(d) for d in devices}))}), dinov2-base "
+         f"756px bs4 bf16, remat none:")
+    first = run(check=True)
+    second = run(check=False)
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(first[3]) + tree_leaves(first[2].decoder),
+                                                   tree_leaves(second[3]) + tree_leaves(second[2].decoder)))
+    _log(f"  two runs of three steps bitwise equal (adapters and decoder): {same}")
+    if not same:
+        raise AssertionError("SP LoRA: two runs differ")
+    del second
+    cfg, fe, state, lora, lora_opt, pixels, labels, sp_step = first
+    un_step = make_lora_train_step(cfg, fe.config, torch.bfloat16)
+
+    def call(step):
+        return lambda: step(state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+
+    for name, step in (("SP", sp_step), ("unsharded", un_step)):
+        torch.cuda.synchronize()
+        _reset_peaks(devices)
+        call(step)()
+        torch.cuda.synchronize()
+        out[f"peak_gib {name}"] = _peaks(devices if name == "SP" else [dev])
+    out["ms"] = _ab_ms(call(un_step), call(sp_step), 3)
+    _log(f"  step 756px bs4: SP {out['ms'][0]:.3f} ms, unsharded {out['ms'][1]:.3f} ms (CUDA events, "
+         f"interleaved); peak GiB per card SP {[round(p, 3) for p in out['peak_gib SP']]}, unsharded "
+         f"{[round(p, 3) for p in out['peak_gib unsharded']]}")
+    _trace(call(sp_step), "SP LoRA step 756px bs4", inference=False)
+    return out
+
+
+def phase_remat_dots(seed: int, dev) -> dict:
+    """Q3: the LoRA step at bs16 518px, unsharded, with remat "dots" (the
+    outputs of the projections saved, the rest recomputed): at the third
+    step its decoder + LoRA gradients against remat "none"'s on the same
+    state (phase B's bound, 0.1; the largest difference printed), 22
+    forward-LSE launches (the attention forward recomputed) and 11 backward
+    a step; ms and peak memory of none, layer and dots, interleaved."""
+    from ucod_dpl_tpu_torch.engine.train_step import make_lora_train_step
+
+    cfg, fe, state, lora, lora_opt, pixels, labels = _lora_setup(seed + 30, dev, 16)
+    steps = {mode: make_lora_train_step(_train_cfg(mode), fe.config, torch.bfloat16)
+             for mode in ("none", "layer", "dots")}
+    for _ in range(2):
+        steps["none"](state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+    g_none = torch.cat(_grads(steps["none"].loss_fn, state, lora, fe, pixels, labels))
+    g_dots = torch.cat(_grads(steps["dots"].loss_fn, state, lora, fe, pixels, labels))
+    rel = ((g_dots - g_none).norm() / g_none.norm()).item()
+    largest = (g_dots - g_none).abs().max().item()
+    _log(f"Q3 remat dots, LoRA step 3 bs16 518px bf16: grads vs none norm-relative {rel:.6g} (bound 0.1), largest "
+         f"difference {largest:.6g} (max |g| {g_none.abs().max().item():.6g})")
+    if not (np.isfinite(rel) and rel <= 0.1):
+        raise AssertionError(f"remat dots grads: {rel} exceeds 0.1")
+    del g_none, g_dots
+    out = {"grad_rel": rel, "grad_max_diff": largest, "ms": {}, "peak_gib": {}, "launches": {}}
+    counts = _kernel_wrappers()
+
+    def call(mode):
+        return lambda: steps[mode](state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+
+    for mode in steps:
+        for fn in counts.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call(mode)()
+        torch.cuda.synchronize()
+        out["peak_gib"][mode] = torch.cuda.max_memory_allocated() / 2**30
+        out["launches"][mode] = {k: fn.launches for k, fn in counts.items() if fn.launches}
+    depth = fe.config.num_layers
+    want = {"fwd_lse": 2 * (depth - 1), "bwd": depth - 1}  # the attention forward runs again in the backward
+    if out["launches"]["dots"] != want:
+        raise AssertionError(f"remat dots: launches {out['launches']['dots']}, expected {want}")
+    samples = {mode: [] for mode in steps}
+    for mode in list(steps) + list(steps)[::-1]:
+        samples[mode].append(_time_ms(call(mode), 3, warmup=1))
+    for mode, v in samples.items():
+        out["ms"][mode] = sum(v) / len(v)
+        _log(f"  remat {mode}: {out['ms'][mode]:.3f} ms (runs {v[0]:.3f}, {v[1]:.3f}), peak "
+             f"{out['peak_gib'][mode]:.3f} GiB, launches {out['launches'][mode]}")
+    return out
+
+
+def phase_tp_cards(seed: int, devices) -> dict:
+    """``--only-q4``: phase I's ``{"model": 4}`` extract at bs16 518px over
+    four cards against the same mesh on one card named four times and the
+    unsharded extract, interleaved, with each card's peak memory."""
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.parallel import build_mesh
+
+    dev = devices[0]
+    fes = {"unsharded": FeatureExtractor(_fe_cfg(), device=dev, seed=seed, strict=False),
+           "model=4, one card": FeatureExtractor(_fe_cfg(), mesh=build_mesh({"data": 1, "model": 4},
+                                                                           devices=[dev] * 4), seed=seed, strict=False),
+           "model=4, four cards": FeatureExtractor(_fe_cfg(), mesh=build_mesh({"data": 1, "model": 4},
+                                                                             devices=devices), seed=seed, strict=False)}
+    images = np.random.default_rng(seed + 9).standard_normal((16, 518, 518, 3)).astype(np.float32)
+    feats = {k: fe.extract(images) for k, fe in fes.items()}
+    diff = float(np.abs(feats["model=4, four cards"] - feats["model=4, one card"]).max())
+    out = {"max_abs_diff four vs one card": diff, "ms": {}, "peak_gib": {}}
+    for k, fe in fes.items():
+        _reset_peaks(devices)
+        fe.extract(images)
+        out["peak_gib"][k] = _peaks(devices)
+    samples = {k: [] for k in fes}
+    with torch.inference_mode():
+        for k in list(fes) + list(fes)[::-1]:
+            samples[k].append(_time_ms(lambda fe=fes[k]: fe.extract(images), 3, warmup=1))
+    _log(f"TP model=4 over {len(set(devices))} cards, bs16 518px bf16: features differ from one card's by "
+         f"{diff:.6g}")
+    for k, v in samples.items():
+        out["ms"][k] = sum(v) / len(v)
+        _log(f"  {k}: {out['ms'][k]:.3f} ms (runs {v[0]:.3f}, {v[1]:.3f}), peak GiB per card "
+             f"{[round(p, 3) for p in out['peak_gib'][k]]}")
+    if not (np.isfinite(diff) and diff <= 1e-3):
+        raise AssertionError(f"TP over four cards differs from one card's by {diff}")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
     parser.add_argument("--dp-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase P
     parser.add_argument("--only-p3", action="store_true",
                         help="run phase P3 alone (2 cards), after the data and checkpoint it needs")
+    parser.add_argument("--only-q4", action="store_true",
+                        help="run phases Q1 and Q2 over four cards and phase I's model=4 over four cards alone")
     args = parser.parse_args(argv)
     if args.dp_worker:
         return _dp_worker(args.dp_worker)
+    if args.only_q4:
+        smi = phase_device()
+        if torch.cuda.device_count() < 4:
+            print(f"chip_smoke: --only-q4 needs 4 CUDA devices, {torch.cuda.device_count()} visible", file=sys.stderr)
+            return 1
+        phase_build()
+        devices = [torch.device("cuda", i) for i in range(4)]
+        sp = phase_sp_extract(args.seed, devices[0], devices)
+        sp_lora = phase_sp_lora(args.seed, devices[0], devices)
+        tp = phase_tp_cards(args.seed, devices)
+        _log(json.dumps({"card": smi, "sp_extract_ms": sp["ms"], "sp_extract_peak_gib": sp["peak_gib"],
+                         "sp_lora_step_ms": sp_lora["ms"][0], "unsharded_lora_step_ms": sp_lora["ms"][1],
+                         "sp_lora_peak_gib": sp_lora["peak_gib SP"],
+                         "unsharded_lora_peak_gib": sp_lora["peak_gib unsharded"], "tp_ms": tp["ms"],
+                         "tp_peak_gib": tp["peak_gib"]}))
+        _log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
     if args.only_p3:
         smi = phase_device()
         if torch.cuda.device_count() < 2:
@@ -3159,6 +3533,13 @@ def main(argv=None) -> int:
                           smi)
     k7 = phase_k7(gen, dev, fe8)
     del fe8
+    torch.cuda.empty_cache()
+    sp_kernels = phase_sp_kernels(gen, dev)
+    sp = phase_sp_extract(args.seed, dev, [dev] * 4)
+    torch.cuda.empty_cache()
+    sp_lora = phase_sp_lora(args.seed, dev, [dev] * 4)
+    torch.cuda.empty_cache()
+    dots = phase_remat_dots(args.seed, dev)
     torch.cuda.empty_cache()
     evalk = phase_eval(args.seed, dev, smi)
     torch.cuda.empty_cache()
@@ -3231,6 +3612,13 @@ def main(argv=None) -> int:
         "dp_p1_max_abs_diff_vs_run_a": dp["p1_diff_a"], "dp_eval_img_per_s": dp["p2_img_s"],
         "dp_eval_max_abs_diff_vs_phase_k": dp["p2_diff_k"], "dp_p3_decoder_steps_per_s": dp.get("p3_rate"),
         "dp_p3_nccl_ms_per_epoch": dp.get("p3_nccl_ms"),
+        "sp_extract_ms": sp["ms"], "sp_features_max_abs_err": sp["err"], "sp_extract_peak_gib": sp["peak_gib"],
+        "sp_lora_step_ms": sp_lora["ms"][0], "unsharded_756_lora_step_ms": sp_lora["ms"][1],
+        "sp_lora_grad_rel_diff": sp_lora["grad_rel decoder + LoRA"],
+        "sp_lora_lora_grad_rel_diff": sp_lora["grad_rel LoRA alone"],
+        "sp_lora_peak_gib": sp_lora["peak_gib SP"], "unsharded_756_lora_peak_gib": sp_lora["peak_gib unsharded"],
+        "remat_step_ms": dots["ms"], "remat_peak_gib": dots["peak_gib"], "remat_dots_grad_rel_diff": dots["grad_rel"],
+        "remat_dots_grad_max_diff": dots["grad_max_diff"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -3273,7 +3661,16 @@ def main(argv=None) -> int:
                 "refine_int8_launches": coral["serve_int8_launches"].get(key, 0),
                 "coral_train_launches": coral_train["launches"].get(key, 0),
                 "dp_train_launches": dp["p1_launches"].get(key, 0), "dp_eval_launches": dp["p2_launches"].get(key, 0),
-                "tp_cls_launches": tp_cls["launches"].get("K1" if kid == "K5" else key, 0), **device}
+                "tp_cls_launches": tp_cls["launches"].get("K1" if kid == "K5" else key, 0),
+                "sp_launches": sp["launches"]["seq=4 756px"].get(key, 0),
+                "sp_lora_launches": sp_lora["launches"].get(key, 0), **device}
+
+    def sp_chunk(kid):
+        """K2 and K3/K4 at the ring's 756px chunk, (4, 730, 768), f32 out (phase Q0)."""
+        ms, plain_ms = sp_kernels[kid]
+        return {"sp_chunk_ms": ms, "sp_chunk_plain_ms": plain_ms, "sp_chunk_bound_ms": sp_kernels[f"{kid}_bound"][0],
+                "sp_chunk_bound_by": sp_kernels[f"{kid}_bound"][1], "sp_chunk_library_ms": sp_kernels[f"{kid}_sdpa"],
+                "sp_chunk_max_abs_err": sp_kernels["err"]["fwd_lse" if kid == "K2" else "bwd"]}
 
     attn, fused = "ucod_dpl_tpu/ops/attention.py", "ucod_dpl_tpu/ops/fused_layers.py"
     _log(json.dumps({"kernels": [
@@ -3283,11 +3680,14 @@ def main(argv=None) -> int:
               evalk["first"]["launches"]["K1"], k1_err, *times["K1"], times["sdpa_fwd"],
               serving_launches=launches["K1"]),
         entry("K2", "attention forward with log-sum-exp", "attention_fwd.cu", f"{attn}:309",
-              train_launches["fwd_lse"], grad_err["fwd_lse"], *train_times["fwd_lse"], times["sdpa_fwd"]),
+              train_launches["fwd_lse"], grad_err["fwd_lse"], *train_times["fwd_lse"], times["sdpa_fwd"],
+              **sp_chunk("K2")),
         entry("K3", "attention backward from the log-sum-exp (one backward with K4)", "attention_bwd.cu",
-              f"{attn}:440", train_launches["bwd"], grad_err["bwd"], *train_times["bwd"], train_times["sdpa_bwd"]),
+              f"{attn}:440", train_launches["bwd"], grad_err["bwd"], *train_times["bwd"], train_times["sdpa_bwd"],
+              **sp_chunk("K3")),
         entry("K4", "KV-blocked attention backward (one backward with K3)", "attention_bwd.cu",
-              f"{attn}:684,716", train_launches["bwd"], grad_err["bwd"], *train_times["bwd"], train_times["sdpa_bwd"]),
+              f"{attn}:684,716", train_launches["bwd"], grad_err["bwd"], *train_times["bwd"], train_times["sdpa_bwd"],
+              **sp_chunk("K3")),
         # K5's path is the TP model=4 extract, where the packed forward runs
         # 3 heads a shard: its launches are that run's, its time the shard's shape's
         entry("K5", "per-head attention forward (the forward kernel at 3 heads a shard)", "attention_fwd.cu",

@@ -111,3 +111,43 @@ def test_cpu_wrappers_take_plain_versions_count_nothing_and_keep_dtype():
     out = (torch.full_like(q, float("nan")), torch.full((1, 2, 70), float("nan")))
     got = TA.packed_attention_fwd_lse(q.detach(), k.detach(), v.detach(), 2, 0.125, out=out)
     assert got[0] is out[0] and got[1] is out[1] and torch.isfinite(got[1]).all()
+
+
+@pytest.mark.parametrize("kv_len", [1, 5, 63, 64, 65, 67])
+def test_plain_versions_with_a_key_bound_equal_dense_attention_on_the_valid_keys(kv_len):
+    """``kv_len``: the plain forward with log-sum-exp and the plain backward
+    over the keys [0, kv_len) equal dense attention (and its autograd) on
+    those keys alone; dk/dv rows past the bound are exact zeros; an f32
+    ``out_dtype`` from bf16 inputs keeps the unrounded values."""
+    b, l, nh, scale = 2, 70, 2, 0.125
+    q, k, v = (torch.from_numpy(x) for x in _inputs(kv_len, b, l, nh))
+    do = torch.from_numpy(np.random.default_rng(kv_len + 1).standard_normal(q.shape).astype(np.float32))
+    o, lse = TA.packed_attention_fwd_lse_reference(q, k, v, nh, scale, kv_len=kv_len)
+    leaves = [q.clone().requires_grad_(True), k[:, :kv_len].clone().requires_grad_(True),
+              v[:, :kv_len].clone().requires_grad_(True)]
+    qh, kh, vh = (x.reshape(b, x.shape[1], nh, 64) for x in leaves)
+    s = torch.einsum("bqhd,bkhd->bhqk", qh, kh) * scale
+    dense = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), vh).reshape(b, l, nh * 64)
+    torch.testing.assert_close(o, dense.detach(), rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(lse, torch.logsumexp(s, dim=-1).detach(), rtol=1e-5, atol=1e-5)
+    dq, dk, dv = TA.packed_attention_bwd_reference(q, k, v, o, do, lse, nh, scale, kv_len=kv_len)
+    want = torch.autograd.grad(dense, leaves, do)
+    torch.testing.assert_close(dq, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dk[:, :kv_len], want[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dv[:, :kv_len], want[2], rtol=1e-5, atol=1e-5)
+    assert not dk[:, kv_len:].any() and not dv[:, kv_len:].any()
+    # the CPU wrappers take the same plain versions
+    got = TA.packed_attention_fwd_lse(q, k, v, nh, scale, kv_len=kv_len)
+    assert torch.equal(got[0], o) and torch.equal(got[1], lse)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    o32, _ = TA.packed_attention_fwd_lse(qb, kb, vb, nh, scale, kv_len=kv_len, out_dtype=torch.float32)
+    o16, _ = TA.packed_attention_fwd_lse(qb, kb, vb, nh, scale, kv_len=kv_len)
+    assert o32.dtype == torch.float32 and torch.equal(o32.to(torch.bfloat16), o16)
+    g32 = TA.packed_attention_bwd(qb, kb, vb, o16, do.to(torch.bfloat16), lse, nh, scale, kv_len=kv_len,
+                                  out_dtype=torch.float32)
+    assert all(g.dtype == torch.float32 for g in g32)
+    for bad in (0, l + 1):
+        with pytest.raises(ValueError, match="kv_len"):
+            TA.packed_attention_fwd_lse(q, k, v, nh, scale, kv_len=bad)
+        with pytest.raises(ValueError, match="kv_len"):
+            TA.packed_attention_bwd(q, k, v, o, do, lse, nh, scale, kv_len=bad)

@@ -1,7 +1,8 @@
 """Card-only checks of the port's CUDA kernels at edge shapes: the attention
 forward (K1 at every head dim and head count, also with its log-sum-exp
 output, and on the per-head layout, K5), the attention backward (also equal
-bit for bit from call to call), K6, K7
+bit for bit from call to call), both with a key bound and f32 outputs and
+as the sequence-parallel ring, K6, K7
 (LayerNorm + fc1 + GELU) and the int8 kernels K8-K11; the eval entry
 (``cli.eval_main``) at a small width, by its K1/K6 launches; the train
 entry (``cli.train_main``, LoRA off and on) at a small width, by its
@@ -88,13 +89,13 @@ def test_attention_backward_edge_shapes(dev, b, l, nh):
     _assert_grads_close(grads, packed_attention_bwd_reference(q, k, v, o, do, lse, nh, 0.125))
 
 
-def _assert_grads_close(grads, refs):
+def _assert_grads_close(grads, refs, atol=1e-5):
     for got, ref in zip(grads, refs):
         got, ref = got.float(), ref.float()
         assert torch.isfinite(got).all()
         # 1e-5 absolute: dq and dk are zero in exact arithmetic at L = 1
-        assert (got - ref).abs().max().item() <= 2.0 ** -5 * ref.abs().max().item() + 1e-5
-        assert (got - ref).norm().item() <= 2e-2 * ref.norm().item() + 1e-5 * ref.numel() ** 0.5
+        assert (got - ref).abs().max().item() <= 2.0 ** -5 * ref.abs().max().item() + atol
+        assert (got - ref).norm().item() <= 2e-2 * ref.norm().item() + atol * ref.numel() ** 0.5
 
 
 def test_attention_kernels_take_16_byte_aligned_bases(dev):
@@ -153,6 +154,87 @@ def test_attention_backward_is_deterministic(dev, b, l):
         for name, x, y in zip(("dq", "dk", "dv"), runs[0], again):
             assert torch.equal(x, y), f"{name} differs between runs by up to {(x.float() - y.float()).abs().max()}"
     _assert_grads_close(runs[0], packed_attention_bwd_reference(q, k, v, o, do, lse, nh, 0.125))
+
+
+# the ring's chunk lengths: 2917 (756px) over 4 chunks of 730 and 1370 (518px)
+# over 4 of 343, and an unsharded 2917; the key bound on both sides of the
+# 64- and 128-key tiles, near L and at L
+@pytest.mark.parametrize("l", [730, 343, 2917])
+@pytest.mark.parametrize("kv", [1, 63, 64, 65, -3, 0])
+def test_attention_kernels_with_a_key_bound(dev, l, kv):
+    """K2 and K3/K4 with ``kv_len`` (kv <= 0: L + kv) against their plain
+    versions, bf16 and f32 outputs pre-filled with NaN: keys past the bound
+    add nothing, and their dK/dV rows come out as exact zeros."""
+    kv_len = l + kv if kv <= 0 else kv
+    b, nh = 2, 12
+    g = torch.Generator(device=dev).manual_seed(l + kv_len)
+    q, k, v, do = (torch.randn(b, l, nh * 64, generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+    o_ref, lse_ref = packed_attention_fwd_lse_reference(q, k, v, nh, 0.125, kv_len=kv_len)
+    for dtype in (torch.bfloat16, torch.float32):
+        nan = torch.full(q.shape, float("nan"), device=dev, dtype=dtype)
+        o, lse = packed_attention_fwd_lse(q, k, v, nh, 0.125, kv_len=kv_len, out_dtype=dtype,
+                                          out=(nan, torch.full((b, nh, l), float("nan"), device=dev)))
+        assert o.dtype == dtype and torch.isfinite(o).all() and torch.isfinite(lse).all()
+        assert (o.float() - o_ref.float()).abs().max().item() <= 2.0 ** -6 * o_ref.float().abs().max().item()
+        assert (lse - lse_ref).abs().max().item() <= 1e-3
+        if dtype == torch.float32:
+            o_bf = packed_attention_fwd_lse(q, k, v, nh, 0.125, kv_len=kv_len)[0]
+            assert torch.equal(o.to(torch.bfloat16), o_bf)  # the kernel rounds the same f32 values
+    o = o_ref
+    refs = packed_attention_bwd_reference(q, k, v, o, do, lse_ref, nh, 0.125, kv_len=kv_len)
+    # at kv_len 1 dq and dk are zero in exact arithmetic (a constant softmax):
+    # both sides hold the f32 roundoff of dP - D, and dk sums it over the L
+    # query rows, so the absolute floor grows as sqrt(L) (1e-5 at L = 64)
+    atol = 1e-5 * max(1.0, l / 64) ** 0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        grads = packed_attention_bwd(q, k, v, o, do, lse_ref, nh, 0.125, kv_len=kv_len, out_dtype=dtype,
+                                     out=tuple(torch.full(q.shape, float("nan"), device=dev, dtype=dtype)
+                                               for _ in range(3)))
+        assert all(x.dtype == dtype for x in grads)
+        assert not grads[1][:, kv_len:].any() and not grads[2][:, kv_len:].any()
+        _assert_grads_close(grads, refs, atol)
+    with pytest.raises(ValueError, match="kv_len"):
+        packed_attention_fwd_lse(q, k, v, nh, 0.125, kv_len=0)
+    with pytest.raises(ValueError, match="kv_len"):
+        packed_attention_bwd(q, k, v, o, do, lse_ref, nh, 0.125, kv_len=l + 1)
+
+
+@pytest.mark.parametrize("seq_len", [2917, 1370, 5])
+def test_ring_attention_on_the_card(dev, seq_len):
+    """The ring over 4 chunks on one card (bf16, 12 heads of 64) against its
+    plain version: outputs within K1's bound, gradients within the
+    backward's; one forward-LSE launch per query chunk and chunk with a real
+    key, as many backward launches; two runs equal bit for bit."""
+    from ucod_dpl_tpu_torch.parallel import build_mesh
+    from ucod_dpl_tpu_torch.parallel import sp as SP
+
+    mesh = build_mesh({"seq": 4}, devices=[dev] * 4)
+    b, nh = 2, 12
+    lens = SP.chunk_kv_lens(seq_len, 4)
+    g = torch.Generator(device=dev).manual_seed(seq_len)
+    full = [torch.randn(b, SP.padded_len(seq_len, 4), nh * 64, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(4)]
+
+    def run(plain):
+        leaves = [x.clone().requires_grad_(True) for x in full[:3]]
+        chunks = [list(x.chunk(4, dim=1)) for x in leaves]
+        out = torch.cat(SP.ring_attention(*chunks, nh, scale=0.125, kv_lens=lens, mesh=mesh, plain=plain), dim=1)
+        out.backward(full[3])
+        return out.detach(), [x.grad for x in leaves]
+
+    ref = run(plain=True)
+    before = (packed_attention_fwd_lse.launches, packed_attention_bwd.launches)
+    first = run(plain=False)
+    n_pairs = 4 * sum(1 for n in lens if n)
+    assert (packed_attention_fwd_lse.launches - before[0], packed_attention_bwd.launches - before[1]) == (
+        n_pairs, n_pairs)
+    second = run(plain=False)
+    assert torch.equal(first[0], second[0]) and all(torch.equal(x, y) for x, y in zip(first[1], second[1]))
+    out, r = first[0].float()[:, :seq_len], ref[0].float()[:, :seq_len]
+    assert torch.isfinite(out).all() and (out - r).abs().max().item() <= 2.0 ** -6 * r.abs().max().item()
+    _assert_grads_close(first[1], ref[1])
+    for grad in first[1][1:]:
+        assert not grad[:, seq_len:].any()
 
 
 def test_attention_diff_counts_both_kernels_and_returns_input_dtype(dev):

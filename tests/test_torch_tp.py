@@ -105,17 +105,21 @@ def test_tp_cls_attention_matches_jax_tp_and_unsharded(mesh_cfg):
 
 
 def test_tp_dino_forward_refuses_int8_and_differentiation():
-    """Also a key fold: no caller folds the key projection under TP, so the
-    TP forward has no fold of its own."""
+    """A key fold runs under TP (as JAX allows it): the last layer's LN1 on
+    shard 0's device and the whole fold there, equal to the unsharded fold."""
     _, tp = _jax_params(0)
     mesh = _cpu_mesh({"data": 4, "model": 2})
     shards = shard_dino_params(tp, mesh)[0]
     px = torch.from_numpy(_pixels(0, 1))
     with pytest.raises(ValueError, match="int8"):
         TD.dino_forward(shards, px, TCFG, tp_shard=(mesh, "model"), quant=quantize_dino_linears(tp))
-    fold = (torch.zeros(32, 128), torch.zeros(32))
-    with pytest.raises(ValueError, match="key_fold"):
-        TD.dino_forward(shards, px, TCFG, tp_shard=(mesh, "model"), key_fold=fold)
+    rng = np.random.default_rng(1)
+    fold = (torch.from_numpy(rng.standard_normal((32, 128)).astype(np.float32)),
+            torch.from_numpy(rng.standard_normal(32).astype(np.float32)))
+    got = TD.dino_forward(shards, px, TCFG, tp_shard=(mesh, "model"), key_fold=fold)["folded_features"]
+    want = TD.dino_forward(tp, px, TCFG, key_fold=fold)["folded_features"]
+    assert got.shape == want.shape == (1, 2, 2, 32)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
     with pytest.raises(NotImplementedError):
         TD.dino_forward(shards, px, TCFG, tp_shard=(mesh, "model"), differentiable=True)
     with pytest.raises(ValueError, match="shards"):
@@ -250,13 +254,15 @@ def test_feature_extractor_data_mesh_matches_no_mesh(checkpoint):
 
 def test_feature_extractor_mesh_refusals(checkpoint, monkeypatch):
     """Indivisible heads (tests/test_tp.py::test_tp_runner_rejects_indivisible_heads),
-    int8 with TP, a seq axis, and TP across processes."""
+    int8 with TP or with a seq axis (which now runs sequence-parallel:
+    tests/test_torch_sp.py), and TP across processes."""
     with pytest.raises(ValueError, match="heads"):
         FeatureExtractor(_fe_cfg(checkpoint, CfgNode, num_heads=6), mesh=_cpu_mesh({"data": 2, "model": 4}))
     with pytest.raises(ValueError, match="int8"):
         FeatureExtractor(_fe_cfg(checkpoint, CfgNode), quantize="int8", mesh=_cpu_mesh({"data": 4, "model": 2}))
-    with pytest.raises(NotImplementedError, match="sequence"):
-        FeatureExtractor(_fe_cfg(checkpoint, CfgNode), mesh=_cpu_mesh({"data": 4, "seq": 2}))
+    with pytest.raises(ValueError, match="int8"):
+        FeatureExtractor(_fe_cfg(checkpoint, CfgNode), quantize="int8", mesh=_cpu_mesh({"data": 4, "seq": 2}))
+    assert FeatureExtractor(_fe_cfg(checkpoint, CfgNode), mesh=_cpu_mesh({"data": 4, "seq": 2})).sp_shard
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
     with pytest.raises(NotImplementedError, match="single-process"):

@@ -88,7 +88,7 @@ def _assert_trees_close(got, want, rtol, atol, what):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("remat", ["none", "layer"])
+@pytest.mark.parametrize("remat", ["none", "layer", "dots"])
 def test_lora_grads_through_backbone_match_jax(tiny, remat):
     cfg, tcfg, jp, tp, lora = tiny
     px = np.random.default_rng(3).standard_normal((2, 56, 56, 3)).astype(np.float32)
@@ -388,5 +388,41 @@ def test_step_guards():
             make(bad)
     tcfg = TD.DinoConfig(image_size=28, hidden_size=128, num_layers=2, num_heads=2)
     tp = TD.init_dino(0, tcfg)
-    with pytest.raises(NotImplementedError):  # remat "dots" is not ported yet
-        TL.lora_forward(tp, TL.init_lora(0, tp), torch.zeros(1, 28, 28, 3), tcfg, remat="dots")
+    with pytest.raises(ValueError, match="dots"):  # the three JAX modes, nothing else
+        TL.lora_forward(tp, TL.init_lora(0, tp), torch.zeros(1, 28, 28, 3), tcfg, remat="typo")
+
+
+def test_remat_dots_saves_the_products_and_matches_none(tiny):
+    """remat "dots" (the JAX ``dots_with_no_batch_dims_saveable`` policy):
+    the same forward and adapter gradients as "none" bit for bit on the CPU
+    (the recomputed chains are deterministic), the products' outputs saved
+    (the policy sees one ``aten.mm`` per projection) and the rest marked for
+    recomputation."""
+    cfg, tcfg, jp, tp, lora = tiny
+    px = torch.from_numpy(np.random.default_rng(5).standard_normal((2, 56, 56, 3)).astype(np.float32))
+    seen = []
+    orig = TD._dots_policy
+
+    def recording(ctx, op, *a, **k):
+        seen.append((ctx.is_recompute, op))
+        return orig(ctx, op, *a, **k)
+
+    grads = {}
+    for remat in ("none", "dots"):
+        lt = [{t: {n: x.clone().requires_grad_(True) for n, x in e.items()} for t, e in layer.items()}
+              for layer in C.lora_from_jax(_np(lora))]
+        TD._dots_policy = recording
+        try:
+            out = TL.lora_forward(tp, lt, px, tcfg, rank=2, alpha=4.0, remat=remat)["key_features"]
+            torch.sum(out ** 2).backward()
+        finally:
+            TD._dots_policy = orig
+        grads[remat] = (out.detach(), [p.grad for layer in lt[:-1] for e in layer.values() for p in e.values()])
+    assert torch.equal(grads["dots"][0], grads["none"][0])
+    for a, b in zip(grads["dots"][1], grads["none"][1]):
+        assert torch.equal(a, b)
+    saved = [op for rec, op in seen if not rec and op in TD._DOTS_SAVED]
+    assert len(saved) == 6 * (tcfg.num_layers - 1)  # q, k, v, out, fc1, fc2 per checkpointed layer
+    # the rest is marked for recomputation: the LayerNorms and the GELU among it
+    assert {torch.ops.aten.native_layer_norm.default, torch.ops.aten.gelu.default} <= {
+        op for _, op in seen if op not in TD._DOTS_SAVED}

@@ -61,12 +61,18 @@
 //     tile), so the CTAs waited on are resident, finished or next to be
 //     launched once the heads before them have finished.  dK and dV are
 //     summed in registers in the order of the walk;
-//   * key rows >= L get P = 0 before any product uses P; the dK/dV stores
-//     and the dq cast skip rows >= L;
-//   * a last pass rounds dq_acc to bf16 into dq.
+//   * key rows >= kv_len get P = 0 before any product uses P; the dK/dV
+//     stores skip them and the dq cast skips rows >= L.  kv_len is L, but
+//     for a sequence-parallel ring's chunk that ends in padding
+//     (parallel/sp.py): only ceil(kv_len / 128) key tiles are launched, and
+//     dK/dV rows [kv_len, L) are set to exact zeros by one 2-D memset;
+//   * a last pass rounds dq_acc to bf16 into dq; dq, dk and dv may be f32
+//     instead (a ring sums its partial gradients before it rounds).
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -157,10 +163,11 @@ __device__ __forceinline__ int dq_half_offset(int row, int col) {
   return row * 32 + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
 }
 
-// dq = bf16(dq_acc).  dq_acc holds, per (batch * head, 64-row q tile), the
+// dq = OutT(dq_acc).  dq_acc holds, per (batch * head, 64-row q tile), the
 // tile's 64 x 64 f32 sums as two halves of columns [0, 32) and [32, 64),
 // each laid out as dq_half_offset says; one float4 (four columns) a thread.
-__global__ void attention_bwd_dq_cast_kernel(const float4* __restrict__ src, bf16* __restrict__ dq, int64_t n4,
+template <typename OutT>
+__global__ void attention_bwd_dq_cast_kernel(const float4* __restrict__ src, OutT* __restrict__ dq, int64_t n4,
                                              int seq_len, int n_q, int num_heads) {
   const int64_t row_stride = (int64_t)num_heads * kHeadDim;
   for (int64_t f = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; f < n4; f += (int64_t)gridDim.x * blockDim.x) {
@@ -172,8 +179,12 @@ __global__ void attention_bwd_dq_cast_kernel(const float4* __restrict__ src, bf1
     const int col = 32 * half + 4 * ((int)(f % 8) ^ (row_in & 7));
     const int64_t bh = tile / n_q;
     const float4 x = src[f];
-    *reinterpret_cast<uint2*>(dq + ((bh / num_heads) * seq_len + row) * row_stride + (bh % num_heads) * kHeadDim +
-                              col) = make_uint2(ucod::pack_bf16x2(x.x, x.y), ucod::pack_bf16x2(x.z, x.w));
+    OutT* dst = dq + ((bh / num_heads) * seq_len + row) * row_stride + (bh % num_heads) * kHeadDim + col;
+    if constexpr (std::is_same_v<OutT, float>) {
+      *reinterpret_cast<float4*>(dst) = x;
+    } else {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(ucod::pack_bf16x2(x.x, x.y), ucod::pack_bf16x2(x.z, x.w));
+    }
   }
 }
 
@@ -218,11 +229,12 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&d)
   }
 }
 
+template <typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_bwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                          const float2* __restrict__ stats, float* __restrict__ dq_acc, int* __restrict__ sem,
-                         bf16* __restrict__ dk, bf16* __restrict__ dv, int seq_len, int padded_len,
+                         OutT* __restrict__ dk, OutT* __restrict__ dv, int seq_len, int kv_len, int padded_len,
                          int num_heads, float scale, float scale_log2) {
   extern __shared__ uint8_t smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
@@ -307,7 +319,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bf16* v_c = sm.v + c * 64 * kHeadDim;
     bf16* ds = sm.ds[c];
     const int key0 = k0 + 64 * c + 16 * warp + g;  // this thread's keys: key0, key0 + 8
-    const bool keys_past_l = k0 + 64 * c + 64 > seq_len;
+    const bool keys_past_l = k0 + 64 * c + 64 > kv_len;
     const int64_t row_stride = (int64_t)num_heads * kHeadDim;
 
     float dk_acc[32], dv_acc[32], dq[32];
@@ -343,7 +355,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       ucod::wgmma_wait<1>();
       ucod::fence_regs(s);
       // P^T = exp2(S^T * scale log2 e - lse log2 e): query columns >= L have
-      // lse = +inf (P = 0); key rows >= L are zeroed
+      // lse = +inf (P = 0); key rows >= kv_len are zeroed
       const float2* stat = sm.stats[st];
 #pragma unroll
       for (int e = 0; e < 32; ++e) {
@@ -352,7 +364,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (keys_past_l) {
 #pragma unroll
         for (int e = 0; e < 32; ++e) {
-          if (key0 + 8 * ((e >> 1) & 1) >= seq_len) s[e] = 0.f;
+          if (key0 + 8 * ((e >> 1) & 1) >= kv_len) s[e] = 0.f;
         }
       }
       uint32_t pa[4][4];
@@ -427,39 +439,82 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     finish(n_q - 1);
 
-    bf16* dk_h = dk + (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
-    bf16* dv_h = dv + (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
+    OutT* dk_h = dk + (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
+    OutT* dv_h = dv + (int64_t)b * seq_len * row_stride + (int64_t)h * kHeadDim;
 #pragma unroll
     for (int jb = 0; jb < kHeadDim / 8; ++jb) {
       const int col = 8 * jb + 2 * tq;
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         const int key = key0 + 8 * rh;
-        if (key < seq_len) {
-          *reinterpret_cast<uint32_t*>(dk_h + (int64_t)key * row_stride + col) =
-              ucod::pack_bf16x2(dk_acc[4 * jb + 2 * rh], dk_acc[4 * jb + 2 * rh + 1]);
-          *reinterpret_cast<uint32_t*>(dv_h + (int64_t)key * row_stride + col) =
-              ucod::pack_bf16x2(dv_acc[4 * jb + 2 * rh], dv_acc[4 * jb + 2 * rh + 1]);
+        if (key < kv_len) {
+          const int e = 4 * jb + 2 * rh;
+          if constexpr (std::is_same_v<OutT, float>) {
+            *reinterpret_cast<float2*>(dk_h + (int64_t)key * row_stride + col) = make_float2(dk_acc[e], dk_acc[e + 1]);
+            *reinterpret_cast<float2*>(dv_h + (int64_t)key * row_stride + col) = make_float2(dv_acc[e], dv_acc[e + 1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(dk_h + (int64_t)key * row_stride + col) =
+                ucod::pack_bf16x2(dk_acc[e], dk_acc[e + 1]);
+            *reinterpret_cast<uint32_t*>(dv_h + (int64_t)key * row_stride + col) =
+                ucod::pack_bf16x2(dv_acc[e], dv_acc[e + 1]);
+          }
         }
       }
     }
   }
 }
 
+// The main kernel and the dq cast, dq/dk/dv of type OutT.
+template <typename OutT>
+int launch_main(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
+                const CUtensorMap& tm_do, const float2* stats, float* dq_acc, int* sem, void* dq, void* dk,
+                void* dv, int batch, int seq_len, int kv_len, int padded, int num_heads, float scale,
+                cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (kv_len < seq_len) {  // dK/dV rows [kv_len, L) of every batch element: exact zeros
+    const size_t row_bytes = (size_t)num_heads * kHeadDim * sizeof(OutT);
+    void* grads[2] = {dk, dv};
+    for (void* g : grads) {
+      err = cudaMemset2DAsync(static_cast<char*>(g) + kv_len * row_bytes, seq_len * row_bytes, 0,
+                              (seq_len - kv_len) * row_bytes, batch, s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+  }
+  const dim3 grid((kv_len + kBlockK - 1) / kBlockK, batch * num_heads);
+  attention_bwd_kernel<OutT><<<grid, kThreads, kSmemBytes, s>>>(
+      tm_q, tm_k, tm_v, tm_do, stats, dq_acc, sem, static_cast<OutT*>(dk), static_cast<OutT*>(dv), seq_len, kv_len,
+      padded, num_heads, scale, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int64_t n4 = (int64_t)batch * num_heads * padded * kHeadDim / 4;
+  const unsigned blocks = (unsigned)((n4 + 255) / 256 < 8192 ? (n4 + 255) / 256 : 8192);
+  attention_bwd_dq_cast_kernel<OutT><<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(dq_acc),
+                                                            static_cast<OutT*>(dq), n4, seq_len, padded / kBlockQ,
+                                                            num_heads);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// q, k, v, o, d_o, dq, dk, dv: contiguous bf16 (batch, seq_len, num_heads *
-// 64), 16-byte aligned; lse: contiguous f32 (batch, num_heads, seq_len) from
-// ucod_attention_fwd_lse; stats and dq_acc: f32 scratch of batch * num_heads
-// * padded * 2 and * 64 values, padded = seq_len rounded up to a multiple of
+// q, k, v, o, d_o: contiguous bf16 (batch, seq_len, num_heads * 64), 16-byte
+// aligned; dq, dk, dv the same, or f32 when out_f32 is nonzero; lse:
+// contiguous f32 (batch, num_heads, seq_len) from ucod_attention_fwd_lse over
+// the same keys [0, kv_len), 1 <= kv_len <= seq_len (dK/dV rows past kv_len
+// come out as zeros); stats and dq_acc: f32 scratch of batch * num_heads *
+// padded * 2 and * 64 values, padded = seq_len rounded up to a multiple of
 // 64, 16-byte aligned, filled by the pre-pass; dq_acc followed by batch *
-// num_heads * padded / 64 * 2 int32 semaphores (the same allocation).  Launches the pre-pass, the
-// main kernel and the dq cast on `stream`; returns the first failed launch's
-// cudaError_t (cudaErrorInvalidValue when a tensor map cannot be made), or 0.
+// num_heads * padded / 64 * 2 int32 semaphores (the same allocation).
+// Launches the pre-pass, the main kernel and the dq cast on `stream`;
+// returns the first failed launch's cudaError_t (cudaErrorInvalidValue for a
+// kv_len out of range or when a tensor map cannot be made), or 0.
 extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                   const void* d_o, const void* lse, void* stats, void* dq_acc, void* dq,
-                                  void* dk, void* dv, int batch, int seq_len, int num_heads, float scale,
-                                  void* stream) {
+                                  void* dk, void* dv, int batch, int seq_len, int kv_len, int num_heads, float scale,
+                                  int out_f32, void* stream) {
+  if (kv_len < 1 || kv_len > seq_len) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int padded = (seq_len + kBlockQ - 1) / kBlockQ * kBlockQ;
   const int64_t n_units = (int64_t)batch * padded * num_heads;
@@ -478,18 +533,10 @@ extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, c
       !ucod::packed_tensor_map(&tm_v, v, batch, seq_len, cols, kBlockK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  err = cudaFuncSetAttribute(attention_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((seq_len + kBlockK - 1) / kBlockK, batch * num_heads);
-  attention_bwd_kernel<<<grid, kThreads, kSmemBytes, s>>>(
-      tm_q, tm_k, tm_v, tm_do, static_cast<const float2*>(stats), static_cast<float*>(dq_acc), sem,
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq_len, padded, num_heads, scale, scale * kLog2e);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int64_t n4 = (int64_t)batch * num_heads * padded * kHeadDim / 4;
-  const unsigned blocks = (unsigned)((n4 + 255) / 256 < 8192 ? (n4 + 255) / 256 : 8192);
-  attention_bwd_dq_cast_kernel<<<blocks, 256, 0, s>>>(static_cast<const float4*>(dq_acc), static_cast<bf16*>(dq),
-                                                      n4, seq_len, padded / kBlockQ, num_heads);
-  return static_cast<int>(cudaGetLastError());
+  const float2* st = static_cast<const float2*>(stats);
+  float* acc = static_cast<float*>(dq_acc);
+  return out_f32 ? launch_main<float>(tm_q, tm_k, tm_v, tm_do, st, acc, sem, dq, dk, dv, batch, seq_len, kv_len,
+                                      padded, num_heads, scale, s)
+                 : launch_main<bf16>(tm_q, tm_k, tm_v, tm_do, st, acc, sem, dq, dk, dv, batch, seq_len, kv_len,
+                                     padded, num_heads, scale, s);
 }

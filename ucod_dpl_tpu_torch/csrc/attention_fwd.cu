@@ -56,13 +56,19 @@
 //     product of tile j - 1 before tile j's softmax runs, so the
 //     exponentials of one warpgroup run under the wgmmas of both;
 //     per score one FFMA folds the scale into the exponent (exp2(s *
-//     scale_log2 - m)), and the key mask (col >= L -> -inf) is applied on
-//     the last K/V tile only; rows with no finite score yet keep the
-//     running-max guard (m = -inf -> shift 0);
+//     scale_log2 - m)), and the key mask (col >= kv_len -> -inf) is applied
+//     on the last K/V tile only; rows with no finite score yet keep the
+//     running-max guard (m = -inf -> shift 0).  kv_len is L, but for the
+//     forward with log-sum-exp of a sequence-parallel ring, whose last
+//     chunks end in padding (parallel/sp.py): there the tiles past kv_len
+//     are not loaded at all, and the output may be f32 (the ring merges its
+//     partial outputs before it rounds);
 //   * the epilogue rounds O / l to bf16 once and stores rows < L.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -136,15 +142,15 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&p
 }
 
 // One K/V tile of the online softmax for this thread's rows g and g + 8:
-// masks keys >= L (only a tile that reaches past L has any), updates the
+// masks keys >= kv_len (only a tile that reaches past it has any), updates the
 // running max m (log2 units) and sum l, sets alpha to the rescale O owes,
 // and turns S into P = exp2(s * scale_log2 - m) in place.
 __device__ __forceinline__ void online_softmax(float (&s)[kBlockK / 2], float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2], int k0, int seq_len, int tq, float scale_log2) {
-  if (k0 + kBlockK > seq_len) {
+                                               float (&alpha)[2], int k0, int kv_len, int tq, float scale_log2) {
+  if (k0 + kBlockK > kv_len) {
 #pragma unroll
     for (int i = 0; i < kBlockK / 2; ++i) {
-      if (k0 + 8 * (i >> 2) + 2 * tq + (i & 1) >= seq_len) s[i] = -INFINITY;
+      if (k0 + 8 * (i >> 2) + 2 * tq + (i & 1) >= kv_len) s[i] = -INFINITY;
     }
   }
   float mx[2] = {-INFINITY, -INFINITY};
@@ -178,17 +184,19 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&pa)[kBlockK / 16][4], cons
   }
 }
 
-template <int D, bool kLse>
+// OutT: bf16, or float for the f32 partial outputs of a sequence-parallel
+// ring (merged by their log-sum-exps, then rounded once).
+template <int D, bool kLse, typename OutT>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                         const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o, float* __restrict__ lse,
-                         int seq_len, int num_heads, int n_work, float scale_log2) {
+                         const __grid_constant__ CUtensorMap tm_v, OutT* __restrict__ o, float* __restrict__ lse,
+                         int seq_len, int kv_len, int num_heads, int n_work, float scale_log2) {
   using H = Head<D>;
   extern __shared__ uint8_t smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
   const int wg = threadIdx.x / 128;
   const int n_qt = (seq_len + kBlockQ - 1) / kBlockQ;
-  const int n_kv = (seq_len + kBlockK - 1) / kBlockK;
+  const int n_kv = (kv_len + kBlockK - 1) / kBlockK;  // keys >= kv_len are never loaded
 
   if (threadIdx.x == 0) {
     ucod::mbar_init(&sm.q_full, 1);
@@ -290,7 +298,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           ucod::mbar_arrive(&sm.k_empty[st]);
           if (n_kv == 1) ucod::mbar_arrive(&sm.q_empty);  // Q's last product is done
         }
-        online_softmax(s, m, l, alpha, 0, seq_len, tq, scale_log2);
+        online_softmax(s, m, l, alpha, 0, kv_len, tq, scale_log2);
         to_a_frags(pa, s);
       }
 
@@ -312,7 +320,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           ucod::mbar_arrive(&sm.k_empty[st]);
           if (j == n_kv - 1) ucod::mbar_arrive(&sm.q_empty);
         }
-        online_softmax(s, m, l, alpha, j * kBlockK, seq_len, tq, scale_log2);  // under the PV product
+        online_softmax(s, m, l, alpha, j * kBlockK, kv_len, tq, scale_log2);  // under the PV product
         ucod::wgmma_wait<0>();
         ucod::fence_regs(acc);
         if (lane == 0) ucod::mbar_arrive(&sm.v_empty[pst]);
@@ -338,17 +346,20 @@ __global__ void __launch_bounds__(kThreads, 1)
         inv[r] = 1.f / l[r];
       }
       const int r0 = t % n_qt * kBlockQ + 64 * c + 16 * warp + g;
-      bf16* oh = o + (int64_t)(bh / num_heads) * seq_len * row_stride + (int64_t)(bh % num_heads) * D;
+      OutT* oh = o + (int64_t)(bh / num_heads) * seq_len * row_stride + (int64_t)(bh % num_heads) * D;
 #pragma unroll
       for (int jb = 0; jb < D / 8; ++jb) {
         const int col = 8 * jb + 2 * tq;
-        if (r0 < seq_len) {
-          *reinterpret_cast<uint32_t*>(oh + (int64_t)r0 * row_stride + col) =
-              ucod::pack_bf16x2(acc[4 * jb] * inv[0], acc[4 * jb + 1] * inv[0]);
-        }
-        if (r0 + 8 < seq_len) {
-          *reinterpret_cast<uint32_t*>(oh + (int64_t)(r0 + 8) * row_stride + col) =
-              ucod::pack_bf16x2(acc[4 * jb + 2] * inv[1], acc[4 * jb + 3] * inv[1]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (r0 + 8 * r < seq_len) {
+            const float x = acc[4 * jb + 2 * r] * inv[r], y = acc[4 * jb + 2 * r + 1] * inv[r];
+            if constexpr (std::is_same_v<OutT, float>) {
+              *reinterpret_cast<float2*>(oh + (int64_t)(r0 + 8 * r) * row_stride + col) = make_float2(x, y);
+            } else {
+              *reinterpret_cast<uint32_t*>(oh + (int64_t)(r0 + 8 * r) * row_stride + col) = ucod::pack_bf16x2(x, y);
+            }
+          }
         }
       }
       if (kLse && tq == 0) {
@@ -360,10 +371,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-template <int D, bool kLse>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int seq_len, int num_heads,
-           float scale_log2, void* stream) {
+template <int D, bool kLse, typename OutT = bf16>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int seq_len, int kv_len,
+           int num_heads, float scale_log2, void* stream) {
   using H = Head<D>;
+  if (kv_len < 1 || kv_len > seq_len) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_q, tm_k, tm_v;
   const int cols = num_heads * D;
   if (!ucod::packed_tensor_map(&tm_q, q, batch, seq_len, cols, kBlockQ, H::kAtomCols) ||
@@ -372,16 +384,16 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int smem = (int)kSmemBytes<D>;
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         smem);
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D, kLse, OutT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int device = 0, n_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_work = (seq_len + kBlockQ - 1) / kBlockQ * batch * num_heads;
-  attention_fwd_kernel<D, kLse><<<n_work < n_sm ? n_work : n_sm, kThreads, smem,
-                                  static_cast<cudaStream_t>(stream)>>>(tm_q, tm_k, tm_v, static_cast<bf16*>(o), lse,
-                                                                       seq_len, num_heads, n_work, scale_log2);
+  attention_fwd_kernel<D, kLse, OutT><<<n_work < n_sm ? n_work : n_sm, kThreads, smem,
+                                        static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, static_cast<OutT*>(o), lse, seq_len, kv_len, num_heads, n_work, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -396,23 +408,27 @@ extern "C" int ucod_attention_fwd(const void* q, const void* k, const void* v, v
                                   int seq_len, int num_heads, int head_dim, float scale_log2, void* stream) {
   switch (head_dim) {
     case 16:
-      return launch<16, false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+      return launch<16, false>(q, k, v, o, nullptr, batch, seq_len, seq_len, num_heads, scale_log2, stream);
     case 32:
-      return launch<32, false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+      return launch<32, false>(q, k, v, o, nullptr, batch, seq_len, seq_len, num_heads, scale_log2, stream);
     case 64:
-      return launch<64, false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+      return launch<64, false>(q, k, v, o, nullptr, batch, seq_len, seq_len, num_heads, scale_log2, stream);
     case 128:
-      return launch<128, false>(q, k, v, o, nullptr, batch, seq_len, num_heads, scale_log2, stream);
+      return launch<128, false>(q, k, v, o, nullptr, batch, seq_len, seq_len, num_heads, scale_log2, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// As ucod_attention_fwd at head dim 64, and also lse: contiguous f32 (batch,
-// num_heads, seq_len), the natural-log log-sum-exp of each query row's scaled
-// scores.
+// As ucod_attention_fwd at head dim 64, over the keys [0, kv_len) only (1 <=
+// kv_len <= seq_len; the keys past it get probability 0 and are not read),
+// and also lse: contiguous f32 (batch, num_heads, seq_len), the natural-log
+// log-sum-exp of each query row's scaled scores over those keys.  o is bf16,
+// or f32 when out_f32 is nonzero (a ring's partial outputs).
 extern "C" int ucod_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
-                                      void* lse, int batch, int seq_len, int num_heads,
-                                      float scale_log2, void* stream) {
-  return launch<64, true>(q, k, v, o, static_cast<float*>(lse), batch, seq_len, num_heads, scale_log2, stream);
+                                      void* lse, int batch, int seq_len, int kv_len, int num_heads,
+                                      float scale_log2, int out_f32, void* stream) {
+  float* l = static_cast<float*>(lse);
+  return out_f32 ? launch<64, true, float>(q, k, v, o, l, batch, seq_len, kv_len, num_heads, scale_log2, stream)
+                 : launch<64, true>(q, k, v, o, l, batch, seq_len, kv_len, num_heads, scale_log2, stream);
 }

@@ -5,8 +5,9 @@ Counterpart of :mod:`ucod_dpl_tpu.data.feature_extractor` (the reference's
 discovery, strict loading, a compute dtype chosen by device (bf16 on CUDA,
 float32 on the CPU), and host float32 key features that are checked for
 non-finite values.  With a device mesh (``parallel.mesh.build_mesh``) the
-batch is split over its ``data`` axis and, when its ``model`` axis is > 1,
-the backbone runs tensor-parallel (``parallel/tp.py``).
+batch is split over its ``data`` axis; when its ``model`` axis is > 1 the
+backbone runs tensor-parallel (``parallel/tp.py``), when its ``seq`` axis is
+> 1 sequence-parallel (``parallel/sp.py``), and with both 2D.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ucod_dpl_tpu_torch.models.dino import (
 )
 from ucod_dpl_tpu_torch.ops.quant import quantize_dino_linears
 from ucod_dpl_tpu_torch.parallel.mesh import data_sharding
+from ucod_dpl_tpu_torch.parallel.sp import sp_param_grid
 from ucod_dpl_tpu_torch.parallel.tp import shard_dino_params
 
 logger = logging.getLogger(__name__)
@@ -82,16 +84,21 @@ class FeatureExtractor:
         weights before the cast, into ``_qparams`` (inference only, so not
         with ``qkv_masters``).
 
-        ``mesh``: a device mesh (``tpu_cfg.mesh = {"data": N, "model": M}``
-        in the JAX package).  ``extract`` splits the batch over its ``data``
-        axis (or, when the batch does not divide it, runs it whole on the
-        first ``data`` coordinate); when ``model`` > 1 the backbone runs
-        tensor-parallel, with the params sharded Megatron-style into
-        ``_mesh_params``.  Raises for heads that ``model`` does not divide,
-        for ``quantize`` with tensor parallelism, for a ``seq`` axis > 1
-        (NotImplementedError: sequence parallelism is not ported), and for
-        tensor parallelism when ``torch.distributed`` runs more than one
-        process (NotImplementedError: extraction is per-process work)."""
+        ``mesh``: a device mesh (``tpu_cfg.mesh = {"data": N, "model": M,
+        "seq": S}`` in the JAX package).  ``extract`` splits the batch over
+        its ``data`` axis (or, when the batch does not divide it, runs it
+        whole on the first ``data`` coordinate); when ``model`` > 1 the
+        backbone runs tensor-parallel, with the params sharded
+        Megatron-style into ``_mesh_params``; when ``seq`` > 1 each data
+        coordinate's slice runs sequence-parallel over its ``seq`` devices
+        (ring attention; ``_mesh_params`` holds the params per chunk
+        device, :func:`~ucod_dpl_tpu_torch.parallel.sp.sp_param_grid`), and
+        with both 2D.  ``extract_with_attention`` runs without the ``seq``
+        split, as in JAX (the pseudo-label parity contract).  Raises for
+        heads that ``model`` does not divide, for ``quantize`` with tensor
+        or sequence parallelism, and for either when ``torch.distributed``
+        runs more than one process (NotImplementedError: extraction is
+        per-process work)."""
         if quantize not in (None, "int8"):
             raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
         if quantize is not None and qkv_masters:
@@ -104,13 +111,12 @@ class FeatureExtractor:
             self.config = dataclasses.replace(self.config, **dict(arch))
         self.mesh = mesh
         self.tp_shard = None
+        self.sp_shard = None
         if mesh is not None:
-            if mesh.shape.get("seq", 1) > 1:
-                raise NotImplementedError("sequence-parallel feature extraction (a mesh seq axis > 1) is not "
-                                          "ported yet")
+            processes = torch.distributed.get_world_size() if torch.distributed.is_available() \
+                and torch.distributed.is_initialized() else 1
             if mesh.shape.get("model", 1) > 1:
-                if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                        and torch.distributed.get_world_size() > 1:
+                if processes > 1:
                     raise NotImplementedError(
                         "tensor-parallel feature extraction requires a single-process mesh (TP over the "
                         "cards of one host); use data parallelism across processes")
@@ -120,6 +126,15 @@ class FeatureExtractor:
                 if quantize is not None:
                     raise ValueError("the int8 path is single-device; tensor parallelism shards the weights")
                 self.tp_shard = (mesh, "model")
+            if mesh.shape.get("seq", 1) > 1:
+                if processes > 1:
+                    # the same lockstep argument as for tensor parallelism
+                    raise NotImplementedError(
+                        "sequence-parallel feature extraction requires a single-process mesh (SP over the cards of "
+                        "one host); use data parallelism across processes")
+                if quantize is not None:
+                    raise ValueError("int8 path is single-chip (SP shards the token dim)")
+                self.sp_shard = (mesh, "seq")
             if device is None:
                 device = mesh.devices.flat[0]
         self.device = torch.device("cuda" if device is None else device)
@@ -137,8 +152,13 @@ class FeatureExtractor:
         # quantized from the float32 weights: a bf16 copy gives other codes and scales
         self._qparams = quantize_dino_linears(masters) if quantize == "int8" else None
         self.params = cast_params(masters, compute_dtype, qkv_masters)
-        self._mesh_params = None  # per data coordinate: a params dict, or the list of its model shards
-        if self.tp_shard is not None:
+        # per data coordinate: a params dict, the list of its model shards, or
+        # (sequence parallel) the rows of each chunk's device
+        self._mesh_params = None
+        if self.sp_shard is not None:
+            self._mesh_params = [sp_param_grid(self.params, mesh, "seq", self.tp_shard and "model", data=d)
+                                 for d in range(mesh.shape.get("data", 1))]
+        elif self.tp_shard is not None:
             self._mesh_params = shard_dino_params(self.params, mesh)
         elif mesh is not None:
             data = range(mesh.shape["data"]) if "data" in mesh.shape else [None]
@@ -193,15 +213,18 @@ class FeatureExtractor:
             )
         return arr
 
-    def _forwards(self, images_nhwc: np.ndarray, **kw):
+    def _forwards(self, images_nhwc: np.ndarray, sequence_parallel: bool = True, **kw):
         """``dino_forward`` of ``images_nhwc`` on each ``data`` coordinate of
         the mesh (the whole batch on the extractor's device without one),
         every coordinate launched before any result is read, so that their
         devices run side by side.  A batch the data axis does not divide
-        runs once (replicated, every coordinate would compute the same)."""
+        runs once (replicated, every coordinate would compute the same).
+        ``sequence_parallel=False`` runs a ``seq`` mesh's coordinates on
+        their first chunk's device (or model shards) alone."""
         images = np.asarray(images_nhwc, np.float32)
+        sp_shard = self.sp_shard if sequence_parallel else None
         if self.mesh is None:
-            parts = [(self.params, slice(None), self.device)]
+            parts = [(self.params, slice(None))]
         else:
             slices = data_sharding(self.mesh, images.shape[0])
             if slices[0] == slice(None):
@@ -209,10 +232,18 @@ class FeatureExtractor:
             parts = []
             for d, sl in enumerate(slices):
                 params = self._mesh_params[d]
-                parts.append((params, sl, (params[0] if self.tp_shard else params)["pos_embed"].device))
-        return [dino_forward(params, torch.from_numpy(images[sl]).to(device), self.config,
-                             compute_dtype=self.compute_dtype, tp_shard=self.tp_shard, **kw)
-                for params, sl, device in parts]
+                if self.sp_shard is not None and sp_shard is None:
+                    params = params[0] if self.tp_shard else params[0][0]
+                parts.append((params, sl))
+        outs = []
+        for params, sl in parts:
+            first = params
+            while not isinstance(first, dict):
+                first = first[0]
+            outs.append(dino_forward(params, torch.from_numpy(images[sl]).to(first["pos_embed"].device), self.config,
+                                     compute_dtype=self.compute_dtype, tp_shard=self.tp_shard, sp_shard=sp_shard,
+                                     **kw))
+        return outs
 
     def extract(self, images_nhwc: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) normalised images -> (B, h, w, hidden) float32 key
@@ -227,12 +258,13 @@ class FeatureExtractor:
         1+N, C), key_features (B, h, w, C), cls_attention (B, heads, 1+N))``,
         the pseudo-label generator's inputs, on the extractor's device or over
         its mesh (under tensor parallelism each shard computes its heads'
-        rows).  Always the full-precision forward: an int8 extractor passes
+        rows; a ``seq`` axis is not used: the parity contract runs
+        unsharded, as in JAX).  Always the full-precision forward: an int8 extractor passes
         no int8 linears (the CLS attention is a parity surface).  Tokens and
         attention are checked for non-finite values (NaN probabilities would
         threshold into silently degenerate masks)."""
         with torch.inference_mode():
-            outs = self._forwards(images_nhwc, want_cls_attention=True)
+            outs = self._forwards(images_nhwc, sequence_parallel=False, want_cls_attention=True)
             return (np.concatenate([self._to_host_f32(o["key_tokens"], "key tokens") for o in outs]),
                     np.concatenate([o["key_features"].float().cpu().numpy() for o in outs]),
                     np.concatenate([self._to_host_f32(o["cls_attention"], "CLS attention") for o in outs]))

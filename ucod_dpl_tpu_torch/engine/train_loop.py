@@ -14,7 +14,9 @@ The steps of :mod:`.train_step` update their state in place on
 ``runner.device``; nothing moves to the CPU unless the Runner was built with
 ``device="cpu"``.  Full states are written in the JAX package's file format
 (:mod:`.checkpoint`), so either package resumes the other's.  The Runner's
-mesh decides the device and refuses LoRA with ``model > 1``.  Data
+mesh decides the device and refuses LoRA with ``model > 1``; with ``seq >
+1`` the LoRA step and the discriminator passes' adapted forward run
+sequence-parallel.  Data
 parallel over ``torch.distributed`` (one process per card, each on its
 shard of every global batch): the steps keep the ranks equal (see
 :mod:`.train_step`), process 0 writes every file while the others wait,
@@ -104,7 +106,9 @@ class TrainLoop:
             self.lora_params = tree_map(lambda t: t.requires_grad_(True),
                                         init_lora(cfg.get("seed", 42) + 3, fe.params, rank=rank))
             self.lora_opt = make_lora_optimizer(self.lora_params, cfg)
-            self._lora_step = make_lora_train_step(cfg, fe.config, fe.compute_dtype)
+            # a seq mesh axis shards the adapted backbone's tokens in training
+            # too: the ring carries its own backward (parallel/sp.py)
+            self._lora_step = make_lora_train_step(cfg, fe.config, fe.compute_dtype, sp_shard=fe.sp_shard)
 
             # discriminator inter-training scores the features the stage-1
             # step scores it on: the live adapted backbone's, not the cached
@@ -112,8 +116,8 @@ class TrainLoop:
             def lora_extract(lora_p, px):
                 with torch.no_grad():
                     out = lora_forward(fe.params, lora_p, px, fe.config, rank=rank, alpha=alpha,
-                                       compute_dtype=fe.compute_dtype, remat=False)
-                return out["key_features"].float()
+                                       compute_dtype=fe.compute_dtype, remat=False, sp_shard=fe.sp_shard)
+                return out["key_features"].to(px.device).float()
 
             self._lora_extract = lora_extract
 

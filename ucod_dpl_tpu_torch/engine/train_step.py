@@ -319,7 +319,7 @@ def make_train_step(cfg):
     return step
 
 
-def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bool = False):
+def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bool = False, sp_shard=None):
     """The stage-1 step with a live LoRA-adapted backbone:
     ``step(state, lora, lora_opt, backbone_params, pixels (B, H, W, 3),
     pseudo_labels, epoch, adv_coeff) -> aux``, updating ``state``, ``lora``
@@ -331,8 +331,15 @@ def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bo
     stage-1 student loss.  The APM merge and the EMA teacher see detached
     features.  Gradients reach the decoder and the adapters only (the
     backbone's tensors do not require grad).  ``cfg.model_cfg.lora`` gives
-    ``rank``, ``alpha`` and ``remat`` (``"none"``/``False`` or
-    ``"layer"``/``True``).
+    ``rank``, ``alpha`` and ``remat`` (``"none"``/``False``,
+    ``"layer"``/``True`` or ``"dots"``).
+
+    ``sp_shard``: ``(mesh, "seq")``: the adapted backbone runs
+    sequence-parallel (``dino_forward(sp_shard=)``: ring attention through
+    the forward-LSE and backward kernels per chunk pair), on the devices of
+    the mesh's data coordinate 0, with the whole batch; the key features
+    are gathered on the device of ``pseudo_labels``, where the decoder
+    runs.  The scaling lever for fine-tuning at 756px and above.
 
     ``step.loss_fn(state, lora, backbone_params, pixels, pseudo_labels,
     epoch, adv_coeff) -> (loss, aux)`` is the differentiable loss alone."""
@@ -350,8 +357,8 @@ def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bo
     def loss_fn(state: TrainState, lora, backbone_params, pixels, pseudo_labels, epoch: float, adv_coeff: float):
         pl = _to_feature_size(pseudo_labels.float(), feature_size)
         out = lora_forward(backbone_params, lora, pixels, dino_cfg, rank=rank, alpha=alpha,
-                           compute_dtype=compute_dtype, remat=remat, plain=plain)
-        f = _to_feature_size(out["key_features"].float(), feature_size)
+                           compute_dtype=compute_dtype, remat=remat, plain=plain, sp_shard=sp_shard)
+        f = _to_feature_size(out["key_features"].to(pl.device).float(), feature_size)
         f_sg = f.detach()
         return _stage1_decoder_loss(state.decoder, state, f, pl, _teacher_bin(state, f_sg), epoch, adv_coeff,
                                     use_dis_merge, denom, f_apm=f_sg)

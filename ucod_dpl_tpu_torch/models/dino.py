@@ -15,8 +15,10 @@ PyTorch versions instead, on any device.  Attention
 head count of a head dim in 16-128 through the packed forward on the card,
 where the JAX package splits odd counts to its per-head kernel K5 (the same
 function).  ``tp_shard`` runs the
-tensor-parallel forward, heads and MLP expansion split over a mesh axis
-(:func:`_tp_forward`).  With ``quant`` (the opt-in int8
+tensor-parallel forward, heads and MLP expansion split over a mesh axis,
+``sp_shard`` the sequence-parallel one, tokens split over a mesh axis and
+attention as a ring of the forward-with-log-sum-exp kernel, and both
+together the 2D forward (:func:`_sharded_forward`).  With ``quant`` (the opt-in int8
 serving path, :func:`~ucod_dpl_tpu_torch.ops.quant.quantize_dino_linears`)
 the linears of layers 0..n-2 run through the int8 kernels K8 (LN + q/k/v),
 K10 (out-projection) and K9 (LN + fc1 + GELU, then fc2 as a plain int8
@@ -53,6 +55,7 @@ from ucod_dpl_tpu_torch.ops import fused_layers as FL
 from ucod_dpl_tpu_torch.ops.fused_layers import dense, layer_norm, layernorm_qkv, layernorm_qkv_reference
 from ucod_dpl_tpu_torch.ops.quant import dense_w8a8, dense_w8a8_pre, quantize_linear
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bicubic
+from ucod_dpl_tpu_torch.parallel.sp import chunk_kv_lens, gather_tokens, ring_attention, sp_param_grid, split_tokens
 
 
 @dataclass(frozen=True)
@@ -319,17 +322,53 @@ def _embed(params, pixels: torch.Tensor, cfg: DinoConfig, dtype: torch.dtype) ->
     return x + interpolate_pos_embed(params["pos_embed"], (gh, gw), orig_grid).to(dtype)
 
 
-def _check_remat(remat) -> bool:
-    """True/"layer" -> True, False/"none"/"" -> False (the JAX modes)."""
+def _remat_mode(remat) -> str:
+    """True/"layer" -> "layer", False/"none"/"" -> "none", "dots" (the JAX
+    modes)."""
     if isinstance(remat, str):
         if remat in ("none", ""):
-            return False
-        if remat == "layer":
-            return True
-        if remat == "dots":
-            raise NotImplementedError("remat='dots' is not ported yet; use 'none' or 'layer'")
+            return "none"
+        if remat in ("layer", "dots"):
+            return remat
         raise ValueError(f"remat={remat!r}: expected False/'none', True/'layer', or 'dots'")
-    return bool(remat)
+    return "layer" if remat else "none"
+
+
+# The "dots" policy (the JAX ``dots_with_no_batch_dims_saveable``): the
+# outputs of the 2-D products are saved, i.e. the q/k/v, out, fc1 and fc2
+# projections (``F.linear`` of a (B, L, D) activation is one ``aten.mm`` on
+# its (B * L, D) view); everything else in the layer is recomputed in the
+# backward: the LayerNorms, casts, bias adds, layerscales, GELU, residual
+# adds and the attention autograd Function (its forward with log-sum-exp
+# runs again, 2 launches a layer per step as under "layer").
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _remat(fn, remat):
+    """``fn`` under the remat mode: as is ("none"), saving only its inputs
+    and recomputing it in the backward ("layer"), or saving the outputs of
+    its 2-D products and recomputing the rest ("dots")."""
+    mode = _remat_mode(remat)
+    if mode == "none":
+        return fn
+    kwargs = {"context_fn": _dots_context} if mode == "dots" else {}
+
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+    return run
 
 
 def dino_forward(
@@ -345,6 +384,7 @@ def dino_forward(
     quant: Optional[Dict[str, Any]] = None,
     int8_mlp: str = "split",
     tp_shard: Optional[Tuple[Any, str]] = None,
+    sp_shard: Optional[Tuple[Any, str]] = None,
     want_cls_attention: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Run the ViT and return the reference hook contract.
@@ -370,7 +410,9 @@ def dino_forward(
         the plain version.
       remat: ``False``/``"none"`` saves every activation for the backward;
         ``True``/``"layer"`` saves only each layer's input and recomputes the
-        layer in the backward (``torch.utils.checkpoint``).
+        layer in the backward (``torch.utils.checkpoint``); ``"dots"`` saves
+        the outputs of the layer's projections and recomputes the rest
+        (selective checkpointing, :data:`_DOTS_SAVED`).
       quant: int8 linears from ``quantize_dino_linears`` (of the float32
         weights): the W8A8 forward, inference only.  The last layer's key
         projection or ``key_fold`` (quantized at each call) becomes a plain
@@ -382,9 +424,21 @@ def dino_forward(
         ``tp_shard``), heads and the MLP expansion split over ``axis``;
         ``params`` is then the list of that axis's shards from
         :func:`~ucod_dpl_tpu_torch.parallel.tp.shard_dino_params` (one row of
-        it), each on its own device (see :func:`_tp_forward`).  Not with
-        ``quant`` or ``key_fold`` (ValueError) or ``differentiable``
+        it), each on its own device (see :func:`_sharded_forward`).  Not
+        with ``quant`` (ValueError) or ``differentiable``
         (NotImplementedError).
+      sp_shard: ``(mesh, axis)``: the sequence-parallel forward (the JAX
+        ``sp_shard``): the tokens padded to the ring size and split over
+        ``axis``, every token-local operation on its chunk's device and
+        attention by :func:`~ucod_dpl_tpu_torch.parallel.sp.ring_attention`
+        (the forward with log-sum-exp per chunk pair, and its backward
+        under ``differentiable``).  ``params``: one dict (placed here on
+        data coordinate 0's devices, differentiably) or the per-chunk list
+        of :func:`~ucod_dpl_tpu_torch.parallel.sp.sp_param_grid` (rows of
+        model shards with ``tp_shard``).  With ``tp_shard`` on the same mesh
+        it is the 2D forward, heads and MLP split over ``tp_shard``'s axis
+        inside each chunk.  Not with ``want_cls_attention`` or ``quant``
+        (ValueError).
       want_cls_attention: also return the last layer's attention
         probabilities of the CLS row over the 1+N keys (the pseudo-label
         generator's input): its query ``LN1(x)[:, :1] @ Wq + b``, the logits
@@ -404,17 +458,24 @@ def dino_forward(
         if quant is not None:
             raise ValueError("pseudo-label generation is a parity contract; CLS attention runs on the "
                              "full-precision forward (quant=None)")
+    if sp_shard is not None:
+        if tp_shard is not None and tp_shard[0] is not sp_shard[0]:
+            raise ValueError("sp_shard + tp_shard must share one Mesh (2D-sharded attention rings tokens and "
+                             "shards heads on the same device grid)")
+        if want_cls_attention:
+            raise ValueError("pseudo-label generation is a bitwise parity contract; run it on the unsharded "
+                             "forward")
+        if quant is not None:
+            raise ValueError("int8 path is single-chip; sp_shard shards tokens")
     if tp_shard is not None:
         if quant is not None:
             raise ValueError("the int8 path is single-device; tp_shard shards the weights (needs quant=None)")
-        if key_fold is not None:
-            raise ValueError("no caller folds the key projection under tensor parallelism; tp_shard needs "
-                             "key_fold=None")
         if differentiable:
             raise NotImplementedError("no path differentiates under tensor parallelism; tp_shard needs "
                                       "differentiable=False")
-        return _tp_forward(params, pixels, cfg, tp_shard, dtype=compute_dtype, plain=plain,
-                           want_cls_attention=want_cls_attention)
+    if sp_shard is not None or tp_shard is not None:
+        return _sharded_forward(params, pixels, cfg, tp_shard, sp_shard, dtype=compute_dtype, plain=plain,
+                                remat=remat, key_fold=key_fold, want_cls_attention=want_cls_attention)
     b, img_h, img_w, _ = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
     dtype = compute_dtype
@@ -484,11 +545,7 @@ def dino_forward(
             h = h * layer["ls2"].to(dtype)
         return x + h
 
-    if _check_remat(remat):
-        def run_block(x, layer):
-            return torch.utils.checkpoint.checkpoint(block, x, layer, use_reentrant=False)
-    else:
-        run_block = block
+    run_block = _remat(block, remat)
 
     x = _embed(params, pixels, cfg, dtype)
     *layers, last = params["layers"]
@@ -525,83 +582,151 @@ def _cls_attention(h, k, q, num_heads: int, head_dim: int, scale: float, dtype) 
     return torch.softmax(logits, dim=-1)[:, :, 0, :]
 
 
-def _tp_forward(
-    shards,
+def _param_grid(params, tp_shard, sp_shard):
+    """``grid[i][m]``: the params of token chunk ``i`` and model shard ``m``
+    (one chunk without ``sp_shard``, one shard without ``tp_shard``)."""
+    if sp_shard is None:
+        shards = params
+        tp = tp_shard[0].shape[tp_shard[1]]
+        if len(shards) != tp:
+            raise ValueError(f"tp_shard over {tp_shard[1]}={tp} needs {tp} parameter shards; got {len(shards)}")
+        return [list(shards)]
+    mesh, axis = sp_shard
+    if isinstance(params, dict):
+        return sp_param_grid(params, mesh, axis, None if tp_shard is None else tp_shard[1])
+    if len(params) != mesh.shape[axis]:
+        raise ValueError(f"sp_shard over {axis}={mesh.shape[axis]} needs a parameter row per chunk; got "
+                         f"{len(params)}")
+    grid = [[row] if isinstance(row, dict) else list(row) for row in params]
+    tp = 1 if tp_shard is None else tp_shard[0].shape[tp_shard[1]]
+    if any(len(row) != tp for row in grid):
+        raise ValueError(f"the 2D forward needs {tp} model shards per chunk")
+    return grid
+
+
+def _sharded_forward(
+    params,
     pixels: torch.Tensor,
     cfg: DinoConfig,
-    tp_shard: Tuple[Any, str],
+    tp_shard: Optional[Tuple[Any, str]],
+    sp_shard: Optional[Tuple[Any, str]],
     *,
     dtype: torch.dtype,
     plain: bool,
+    remat=False,
+    key_fold: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     want_cls_attention: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """The tensor-parallel forward of :func:`dino_forward` (JAX
-    ``dino_forward(tp_shard=...)``): ``shards[m]`` holds shard ``m`` of the
-    ``axis`` split, on its own device.
+    """The tensor-parallel, sequence-parallel and 2D forwards of
+    :func:`dino_forward` (JAX ``dino_forward(tp_shard=..., sp_shard=...)``)
+    over ``grid[i][m]``, the params of token chunk ``i`` (one without
+    ``sp_shard``) and model shard ``m`` (one without ``tp_shard``), each on
+    its own device.
 
     Every layer is unfused, as in JAX (LayerNorm, then dense per shard; K6
-    never runs).  The column-parallel q/k/v and fc1 products stay on their
-    shards; attention runs per shard through :func:`tp_multi_head_attention`.
-    The row-parallel out-projection and fc2 products are partial sums: each
-    shard's product is rounded to ``dtype`` (bf16 partials), the partials are
-    added in f32 in shard order on shard 0's device and rounded once, and the
-    bias is added after that reduce.  The residual stream then lives on shard
-    0's device and each shard reads it from there, so it is identical on
-    every shard and the result is deterministic.  Work that is replicated
-    (LayerNorm of the residual stream) runs once per distinct device.  The
-    last layer computes LN1 and the key projection, gathered from the shards;
-    with ``want_cls_attention`` each shard also takes its heads' CLS-row
-    query and attention (:func:`_cls_attention`, the unsharded path's
-    rounding), and the heads are concatenated in shard order on shard 0's
-    device."""
-    mesh, axis = tp_shard
-    tp = mesh.shape[axis]
-    if len(shards) != tp:
-        raise ValueError(f"tp_shard over {axis}={tp} needs {tp} parameter shards; got {len(shards)}")
-    devs = [s["pos_embed"].device for s in shards]
+    never runs).  Under ``sp_shard`` the embedded tokens are padded to the
+    ring size and split into chunks (:func:`~ucod_dpl_tpu_torch.parallel.
+    sp.split_tokens`); the residual chunk ``i`` lives on the device of its
+    shard 0, and every token-local operation runs per chunk.  The
+    column-parallel q/k/v and fc1 products stay on their shards; attention
+    runs per shard through :func:`tp_multi_head_attention` (one chunk) or
+    as the ring of :func:`~ucod_dpl_tpu_torch.parallel.sp.ring_attention`
+    over the chunks, each model shard ringing its own heads.  The
+    row-parallel out-projection and fc2 products are partial sums: each
+    shard's product is rounded to ``dtype`` (bf16 partials), the partials
+    are added in f32 in shard order on the chunk's home device and rounded
+    once, and the bias is added after that reduce (with one shard this is
+    the unsharded dense).  Each shard reads the residual stream from its
+    home device, so it is identical on every shard and the result is
+    deterministic.  Work that is replicated (LayerNorm of the residual
+    stream) runs once per distinct device.  The last layer computes LN1 and
+    the key projection (gathered from the shards) or the key fold, per
+    chunk; the chunks are gathered on the first chunk's device and the
+    padding sliced off.  With ``want_cls_attention`` (tensor parallelism
+    alone) each shard also takes its heads' CLS-row query and attention
+    (:func:`_cls_attention`, the unsharded path's rounding), and the heads
+    are concatenated in shard order."""
+    grid = _param_grid(params, tp_shard, sp_shard)
+    n, tp = len(grid), len(grid[0])
+    devs = [[p["pos_embed"].device for p in row] for row in grid]
+    home = [row[0] for row in devs]
     b, img_h, img_w, _ = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
     eps = cfg.layer_norm_eps
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
 
-    def replicated(fn):
-        """[fn(m) for each shard], computed once per distinct device."""
+    def replicated(i, fn):
+        """[fn(m) for each shard of chunk i], computed once per distinct device."""
         done: Dict[torch.device, torch.Tensor] = {}
-        return [done[d] if d in done else done.setdefault(d, fn(m)) for m, d in enumerate(devs)]
+        return [done[d] if d in done else done.setdefault(d, fn(m)) for m, d in enumerate(devs[i])]
 
-    def reduce(partials, bias):
+    def reduce(i, partials, bias):
         acc = partials[0].float()
         for p in partials[1:]:
-            acc = acc + p.to(devs[0]).float()
+            acc = acc + p.to(home[i]).float()
         return acc.to(dtype) + bias.to(dtype)
 
     def gelu(h):
         # tanh-approx GELU in bf16, exact erf in f32 (the JAX split)
         return F.gelu(h, approximate="tanh") if dtype == torch.bfloat16 else F.gelu(h.float()).to(dtype)
 
-    x = _embed(shards[0], pixels.to(devs[0]), cfg, dtype)
-    *layers, last = zip(*(s["layers"] for s in shards))
-    for ls in layers:
-        hs = replicated(lambda m: layer_norm(x.to(devs[m]), ls[m]["norm1"], eps))
-        qs, ks, vs = ([dense(h, layer[name], dtype) for h, layer in zip(hs, ls)] for name in "qkv")
-        attn = tp_multi_head_attention(qs, ks, vs, cfg.num_heads, scale=scale, mesh=mesh, axis=axis, plain=plain)
-        attn = reduce([F.linear(a, layer["out"]["w"].to(dtype)) for a, layer in zip(attn, ls)], ls[0]["out"]["b"])
-        if cfg.use_layerscale:
-            attn = attn * ls[0]["ls1"].to(dtype)
-        x = x + attn
-        hs = replicated(lambda m: layer_norm(x.to(devs[m]), ls[m]["norm2"], eps))
-        gs = [gelu(dense(h, layer["fc1"], dtype)) for h, layer in zip(hs, ls)]
-        h = reduce([F.linear(g, layer["fc2"]["w"].to(dtype)) for g, layer in zip(gs, ls)], ls[0]["fc2"]["b"])
-        if cfg.use_layerscale:
-            h = h * ls[0]["ls2"].to(dtype)
-        x = x + h
+    x = _embed(grid[0][0], pixels.to(home[0]), cfg, dtype)
+    seq_len = x.shape[1]
+    if sp_shard is None:
+        xs = [x]
 
-    hs = replicated(lambda m: layer_norm(x.to(devs[m]), last[m]["norm1"], eps))
-    ks = [dense(h, layer["k"], dtype) for h, layer in zip(hs, last)]
-    k = torch.cat([k_m.to(devs[0]) for k_m in ks], dim=-1)
+        def attention(qs, ks, vs):  # [m][0] -> [m][0]
+            mesh, axis = tp_shard
+            return [[o] for o in tp_multi_head_attention([q[0] for q in qs], [k[0] for k in ks], [v[0] for v in vs],
+                                                         cfg.num_heads, scale=scale, mesh=mesh, axis=axis,
+                                                         plain=plain)]
+    else:
+        mesh, axis = sp_shard
+        xs = split_tokens(x, home)
+        kv_lens = chunk_kv_lens(seq_len, n)
+
+        def attention(qs, ks, vs):  # [m][i] -> [m][i]
+            if tp_shard is None:
+                return [ring_attention(qs[0], ks[0], vs[0], cfg.num_heads, scale=scale, kv_lens=kv_lens, mesh=mesh,
+                                       axis=axis, plain=plain)]
+            return ring_attention(qs, ks, vs, cfg.num_heads, scale=scale, kv_lens=kv_lens, mesh=mesh, axis=axis,
+                                  h_axis=tp_shard[1], plain=plain)
+
+    def layer_fn(li, *xs):
+        ls = [[p["layers"][li] for p in row] for row in grid]
+        hs = [replicated(i, lambda m: layer_norm(xs[i].to(devs[i][m]), ls[i][m]["norm1"], eps)) for i in range(n)]
+        q, k, v = ([[dense(hs[i][m], ls[i][m][name], dtype) for i in range(n)] for m in range(tp)] for name in "qkv")
+        attn = attention(q, k, v)
+        out = []
+        for i in range(n):
+            a = reduce(i, [F.linear(attn[m][i], ls[i][m]["out"]["w"].to(dtype)) for m in range(tp)],
+                       ls[i][0]["out"]["b"])
+            if cfg.use_layerscale:
+                a = a * ls[i][0]["ls1"].to(dtype)
+            x = xs[i] + a
+            h2 = replicated(i, lambda m: layer_norm(x.to(devs[i][m]), ls[i][m]["norm2"], eps))
+            g = [gelu(dense(h2[m], ls[i][m]["fc1"], dtype)) for m in range(tp)]
+            h = reduce(i, [F.linear(g[m], ls[i][m]["fc2"]["w"].to(dtype)) for m in range(tp)], ls[i][0]["fc2"]["b"])
+            if cfg.use_layerscale:
+                h = h * ls[i][0]["ls2"].to(dtype)
+            out.append(x + h)
+        return tuple(out)
+
+    for li in range(len(grid[0][0]["layers"]) - 1):
+        xs = _remat(lambda *xs, li=li: layer_fn(li, *xs), remat)(*xs)
+
+    last = [[p["layers"][-1] for p in row] for row in grid]
+    hs = [replicated(i, lambda m: layer_norm(xs[i].to(devs[i][m]), last[i][m]["norm1"], eps)) for i in range(n)]
+    if key_fold is not None:
+        fw, fb = key_fold
+        folded = [dense(hs[i][0], {"w": fw.to(home[i]), "b": fb.to(home[i])}, dtype) for i in range(n)]
+        folded = gather_tokens(folded, seq_len, home[0])
+        return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
+    ks = [[dense(hs[i][m], last[i][m]["k"], dtype) for m in range(tp)] for i in range(n)]
+    k = gather_tokens([torch.cat([k_m.to(home[i]) for k_m in ks[i]], dim=-1) for i in range(n)], seq_len, home[0])
     out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
     if want_cls_attention:
         out["cls_attention"] = torch.cat(
-            [_cls_attention(h, k_m, layer["q"], cfg.num_heads // tp, cfg.head_dim, scale, dtype).to(devs[0])
-             for h, k_m, layer in zip(hs, ks, last)], dim=1)
+            [_cls_attention(h, k_m, layer["q"], cfg.num_heads // tp, cfg.head_dim, scale, dtype).to(home[0])
+             for h, k_m, layer in zip(hs[0], ks[0], last[0])], dim=1)
     return out

@@ -61,8 +61,9 @@ def apply_lora(dino_params: Dict[str, Any], lora: Lora, rank: int = 2, alpha: fl
 def lora_forward(dino_params, lora: Lora, pixels, cfg, rank: int = 2, alpha: float = 4.0, **kwargs):
     """Forward through the LoRA-adapted backbone, always on the differentiated
     routing (``dino_forward(differentiable=True)``: LayerNorm + dense q/k/v,
-    attention through the forward-LSE and backward kernels).  Gradients reach
-    the adapters; the base weights stay frozen as long as they do not
+    attention through the forward-LSE and backward kernels; ``sp_shard=``
+    passes through, the ring of the sequence-parallel forward).  Gradients
+    reach the adapters; the base weights stay frozen as long as they do not
     require grad."""
     from ucod_dpl_tpu_torch.models.dino import dino_forward
 

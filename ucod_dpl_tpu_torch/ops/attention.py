@@ -133,14 +133,45 @@ def _merge_heads(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, l, nh * hd).to(dtype)
 
 
+def _kv_len(kv_len: Optional[int], l: int) -> int:
+    """The key bound of the forward with log-sum-exp and the backward: the
+    keys ``[0, kv_len)`` of a length-``l`` tensor take part, the rest get
+    probability 0 (a sequence-parallel ring's chunk that ends in padding);
+    None means all ``l``."""
+    if kv_len is None:
+        return l
+    if not 1 <= int(kv_len) <= l:
+        raise ValueError(f"attention kv_len must be in [1, {l}]; got {kv_len} (a ring skips a chunk with no key)")
+    return int(kv_len)
+
+
+def _masked_scores(q: torch.Tensor, k: torch.Tensor, num_heads: int, scale: float, kv_len: int) -> torch.Tensor:
+    """f32 (B, nh, L, L) scores ``scale q.k``, -inf at keys >= ``kv_len``."""
+    s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * scale
+    if kv_len < s.shape[-1]:
+        s = s.masked_fill(torch.arange(s.shape[-1], device=s.device) >= kv_len, float("-inf"))
+    return s
+
+
 def packed_attention_fwd_lse_reference(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    num_heads: int,
+    scale: float,
+    kv_len: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`packed_attention_fwd_lse`: the output of
-    :func:`packed_attention_reference` and the f32 (B, num_heads, L)
-    log-sum-exp ``ln sum_j exp(scale q.k_j)`` of each query row."""
-    s = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2)) * scale
-    return packed_attention_reference(q, k, v, num_heads, scale), torch.logsumexp(s, dim=-1)
+    :func:`packed_attention_reference` over the keys ``[0, kv_len)`` (their
+    scores masked before the softmax), rounded to ``out_dtype`` (default
+    q's), and the f32 (B, num_heads, L) log-sum-exp ``ln sum_{j < kv_len}
+    exp(scale q.k_j)`` of each query row."""
+    kv_len = _kv_len(kv_len, q.shape[1])
+    s = _masked_scores(q, k, num_heads, scale, kv_len)
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = _merge_heads(torch.matmul(p.float(), _heads(v, num_heads)), out_dtype or q.dtype)
+    return o, torch.logsumexp(s, dim=-1)
 
 
 def packed_attention_bwd_reference(
@@ -152,19 +183,36 @@ def packed_attention_bwd_reference(
     lse: torch.Tensor,
     num_heads: int,
     scale: float,
+    kv_len: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`packed_attention_bwd`: the f32 flash algebra of
     the JAX ``_xla_attention_packed_bwd`` with the probabilities recomputed
-    from the saved log-sum-exp, ``P = exp(scale q k^T - lse)``; (dq, dk, dv)
-    in the dtype of q/k/v."""
+    from the saved log-sum-exp, ``P = exp(scale q k^T - lse)``, 0 at keys >=
+    ``kv_len``; (dq, dk, dv) in ``out_dtype`` (default the dtype of
+    q/k/v)."""
     qh, kh, vh, oh, doh = (_heads(x, num_heads) for x in (q, k, v, o, do))
-    p = torch.exp(torch.matmul(qh, kh.transpose(-1, -2)) * scale - lse.float()[..., None])
+    p = torch.exp(_masked_scores(q, k, num_heads, scale, _kv_len(kv_len, q.shape[1])) - lse.float()[..., None])
     dp = torch.matmul(doh, vh.transpose(-1, -2))
     ds = p * (dp - torch.sum(doh * oh, dim=-1, keepdim=True)) * scale
     dq = torch.matmul(ds, kh)
     dk = torch.matmul(ds.transpose(-1, -2), qh)
     dv = torch.matmul(p.transpose(-1, -2), doh)
-    return _merge_heads(dq, q.dtype), _merge_heads(dk, k.dtype), _merge_heads(dv, v.dtype)
+    return (_merge_heads(dq, out_dtype or q.dtype), _merge_heads(dk, out_dtype or k.dtype),
+            _merge_heads(dv, out_dtype or v.dtype))
+
+
+def _check_outputs(what: str, q: torch.Tensor, dtype: torch.dtype, **outs) -> None:
+    """Raise unless every tensor of ``outs`` is a contiguous, 16-byte aligned
+    ``dtype`` (bf16 or f32) tensor of q's shape on q's device."""
+    if dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} kernel writes bf16 or f32; asked for {dtype}")
+    for name, x in outs.items():
+        if x.dtype != dtype or x.shape != q.shape or x.device != q.device or not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous {dtype} {tuple(q.shape)}@{q.device}; got "
+                             f"{x.dtype} {tuple(x.shape)}@{x.device}")
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what} kernel needs 16-byte aligned {name}")
 
 
 def _check_lse(lse: torch.Tensor, q: torch.Tensor, num_heads: int) -> None:
@@ -183,28 +231,38 @@ def packed_attention_fwd_lse(
     num_heads: int,
     scale: float,
     out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    *,
+    kv_len: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, L, num_heads * 64) bf16 q/k/v -> (attention output, f32 (B,
     num_heads, L) log-sum-exp), written into ``out = (o, lse)`` when given.
 
-    CUDA tensors launch K1 with its log-sum-exp store (counted in
-    ``packed_attention_fwd_lse.launches``); CPU tensors take
-    :func:`packed_attention_fwd_lse_reference`."""
+    ``kv_len`` (1..L, default L): only the keys ``[0, kv_len)`` take part;
+    the rest get probability 0 and are not read.  ``out_dtype``: the
+    output's dtype, q's (bf16) or float32 (a ring's partial outputs, merged
+    before they are rounded).  CUDA tensors launch K1 with its log-sum-exp
+    store (counted in ``packed_attention_fwd_lse.launches``); CPU tensors
+    take :func:`packed_attention_fwd_lse_reference`."""
+    kv_len = _kv_len(kv_len, q.shape[1])
     if q.device.type == "cpu":
-        refs = packed_attention_fwd_lse_reference(q, k, v, num_heads, scale)
+        refs = packed_attention_fwd_lse_reference(q, k, v, num_heads, scale, kv_len, out_dtype)
         return refs if out is None else tuple(o.copy_(r) for o, r in zip(out, refs))
     b, l, _ = q.shape
+    dtype = out_dtype or q.dtype
     if out is None:
-        o = torch.empty_like(q)
+        o = torch.empty(q.shape, device=q.device, dtype=dtype)
         lse = torch.empty(b, num_heads, l, device=q.device, dtype=torch.float32)
     else:
         o, lse = out
-    _check_kernel_inputs(q, num_heads, k=k, v=v, out=o)
+    _check_kernel_inputs(q, num_heads, k=k, v=v)
+    _check_outputs("packed_attention_fwd_lse", q, dtype, out=o)
     _check_lse(lse, q, num_heads)
     with torch.cuda.device(q.device):
         err = _build.kernels().ucod_attention_fwd_lse(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, l,
-            num_heads, float(scale) * _LOG2E, torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, l, kv_len,
+            num_heads, float(scale) * _LOG2E, int(dtype == torch.float32),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check_cuda(err, "attention_fwd_lse")
     packed_attention_fwd_lse.launches += 1
@@ -236,28 +294,38 @@ def packed_attention_bwd(
     num_heads: int,
     scale: float,
     out: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    *,
+    kv_len: Optional[int] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of packed attention from its inputs, output
     ``o``, output cotangent ``do`` and saved log-sum-exp, written into ``out``
-    when given; bf16 (B, L, num_heads * 64) like q.
+    when given; (B, L, num_heads * 64) like q, bf16 or ``out_dtype``
+    (float32 for a ring's partial gradients, summed before they are
+    rounded).
 
-    CUDA tensors launch the statistics pre-pass, the one-pass backward and
-    the dq cast of ``csrc/attention_bwd.cu`` (counted once per call in
+    ``kv_len`` (1..L, default L): the key bound of the forward that saved
+    ``lse``; dk and dv rows past it come out as exact zeros.  CUDA tensors
+    launch the statistics pre-pass, the one-pass backward and the dq cast of
+    ``csrc/attention_bwd.cu`` (counted once per call in
     ``packed_attention_bwd.launches``); dq is summed in f32 by reduce-adds in
     a fixed order, so equal inputs give equal gradients bit for bit.  CPU
     tensors take :func:`packed_attention_bwd_reference`."""
+    kv_len = _kv_len(kv_len, q.shape[1])
     if q.device.type == "cpu":
-        refs = packed_attention_bwd_reference(q, k, v, o, do, lse, num_heads, scale)
+        refs = packed_attention_bwd_reference(q, k, v, o, do, lse, num_heads, scale, kv_len, out_dtype)
         return refs if out is None else tuple(t.copy_(r) for t, r in zip(out, refs))
-    grads = tuple(torch.empty_like(q) for _ in range(3)) if out is None else tuple(out)
-    _check_kernel_inputs(q, num_heads, k=k, v=v, o=o, do=do, dq=grads[0], dk=grads[1], dv=grads[2])
+    dtype = out_dtype or q.dtype
+    grads = tuple(torch.empty(q.shape, device=q.device, dtype=dtype) for _ in range(3)) if out is None else tuple(out)
+    _check_kernel_inputs(q, num_heads, k=k, v=v, o=o, do=do)
+    _check_outputs("packed_attention_bwd", q, dtype, dq=grads[0], dk=grads[1], dv=grads[2])
     _check_lse(lse, q, num_heads)
     b, l, _ = q.shape
     stats, dq_acc = bwd_scratch(b, l, num_heads, q.device)
     with torch.cuda.device(q.device):
         err = _build.kernels().ucod_attention_bwd(
-            *(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)), b, l, num_heads,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+            *(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)), b, l, kv_len, num_heads,
+            float(scale), int(dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check_cuda(err, "attention_bwd")
     packed_attention_bwd.launches += 1

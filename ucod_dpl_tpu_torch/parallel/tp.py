@@ -41,6 +41,18 @@ def _to(p, device: torch.device):
     return p.to(device).contiguous()
 
 
+def place_shard(params: Dict[str, Any], m: int, tp: int, device: torch.device) -> Dict[str, Any]:
+    """Shard ``m`` of ``tp`` of ``params`` (the whole ViT when ``tp`` is 1)
+    on ``device``; differentiable, and sharing the tensors already there."""
+    return {
+        "patch_embed": _to(params["patch_embed"], device),
+        "cls_token": _to(params["cls_token"], device),
+        "pos_embed": _to(params["pos_embed"], device),
+        "layers": [_shard_layer(layer, m, tp, device) for layer in params["layers"]],
+        "final_norm": _to(params["final_norm"], device),
+    }
+
+
 def shard_dino_params(params: Dict[str, Any], mesh: Mesh, axis: str = "model") -> List[List[Dict[str, Any]]]:
     """``params`` (one ViT, any device) -> ``shards[d][m]``: the parameter
     dict of ``axis`` shard ``m`` on the device at ``data`` coordinate ``d``
@@ -59,13 +71,7 @@ def shard_dino_params(params: Dict[str, Any], mesh: Mesh, axis: str = "model") -
         for m in range(tp):
             device = mesh.device(**({"data": d} if "data" in mesh.shape else {}), **{axis: m})
             if (m, device) not in placed:
-                placed[(m, device)] = {
-                    "patch_embed": _to(params["patch_embed"], device),
-                    "cls_token": _to(params["cls_token"], device),
-                    "pos_embed": _to(params["pos_embed"], device),
-                    "layers": [_shard_layer(layer, m, tp, device) for layer in params["layers"]],
-                    "final_norm": _to(params["final_norm"], device),
-                }
+                placed[(m, device)] = place_shard(params, m, tp, device)
             row.append(placed[(m, device)])
         shards.append(row)
     return shards

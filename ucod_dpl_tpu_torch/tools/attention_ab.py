@@ -12,13 +12,13 @@ the backward), the forward at K5's shapes (per-head (48, 1370, 64) and the
 tensor-parallel shard's packed (16, 1370, 3 * 64)) beside SDPA, and a
 torch.profiler breakdown of the backward's kernels.
 
-* ``--parent DIR``: DIR is a checkout of a parent tree whose forward takes
-  no head-dim argument (built for 64) and whose per-head forward is a kernel
-  of its own (``ucod_attention_heads``), with this tree's
-  ``ucod_attention_fwd_lse`` and ``ucod_attention_bwd``.  Its kernels are
-  built from DIR by DIR's own ``ops/_build.py`` and timed against this
-  tree's, interleaved parent, this, this, parent; the outputs of the two are
-  compared (whether they are equal bit for bit, and the largest difference).
+* ``--parent DIR``: DIR is a checkout of a parent tree whose
+  ``ucod_attention_fwd`` takes a head-dim argument and whose
+  ``ucod_attention_fwd_lse`` and ``ucod_attention_bwd`` take no key bound
+  and no f32-output flag.  Its kernels are built from DIR by DIR's own
+  ``ops/_build.py`` and timed against this tree's, interleaved parent,
+  this, this, parent, at bs16 L1370 and bs4 L2917; the outputs of the two
+  are compared bit for bit (K1, K2's o and log-sum-exp, dq, dk, dv).
 * ``--variants [NAME ...]``: variants of this tree's kernels (all, or those
   named), each an edit of its source
   (``VARIANTS``), built into ``build/ucod_dpl_tpu_torch/variants/`` and timed
@@ -175,20 +175,18 @@ def _parent_lib(parent: Path):
 
 
 def parent_ab(parent: Path, results: dict) -> None:
-    lib = _parent_lib(parent)
+    """The parent's K1, K2 and backward (its C entries: the forward with a
+    head-dim argument, the forward with log-sum-exp and the backward
+    without a key bound or an f32-output flag) against this tree's at the
+    same shapes: whether the outputs are equal bit for bit, and their times
+    interleaved parent, this, this, parent."""
+    lib = _parent_lib(parent)  # its own _build declares its entries' C signatures
 
     def fwd(q, k, v):
         o = torch.empty_like(q)
         b, l, _ = q.shape
         _build.check_cuda(lib.ucod_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, HEADS,
-                                                 SCALE * A._LOG2E, _stream()), "parent fwd")
-        return o
-
-    def heads(q, k, v):
-        o = torch.empty_like(q)
-        bh, l, d = q.shape
-        _build.check_cuda(lib.ucod_attention_heads(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), bh, l, d,
-                                                   SCALE * A._LOG2E, _stream()), "parent heads")
+                                                 64, SCALE * A._LOG2E, _stream()), "parent fwd")
         return o
 
     def fwd_lse(q, k, v):
@@ -209,38 +207,23 @@ def parent_ab(parent: Path, results: dict) -> None:
         return grads
 
     _log(f"parent {parent} against this tree (interleaved parent, this, this, parent):")
-    g = torch.Generator(device="cuda").manual_seed(2)
-    q, k, v = (torch.randn(48, 1370, 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(3))
-    old, new = heads(q, k, v), A.heads_attention(q, k, v, SCALE)
-    row = {"K5": _ab_ms(lambda: heads(q, k, v), lambda: A.heads_attention(q, k, v, SCALE)),
-           "max_abs_diff": (old.float() - new.float()).abs().max().item()}
-    _log(f"  K5 48 heads L1370 d64: parent {row['K5'][0]:.4f} ms, this {row['K5'][1]:.4f} ms "
-         f"({row['K5'][0] / row['K5'][1]:.3f}x); largest difference {row['max_abs_diff']:.4g}")
-    results["parent K5 48 heads L1370 d64"] = row
     for b, l in SHAPES:
         q, k, v, do, o, lse = _inputs(b, l)
-        o_old, (o2_old, lse_old) = fwd(q, k, v), fwd_lse(q, k, v)
-        o_new, (o2_new, lse_new) = A.packed_attention(q, k, v, HEADS, SCALE), A.packed_attention_fwd_lse(q, k, v, HEADS,
-                                                                                                         SCALE)
-        diffs = {
-            "K1": (o_old.float() - o_new.float()).abs().max().item(),
-            "K1 equal": torch.equal(o_old, o_new),
-            "K2 equal": torch.equal(o2_old, o2_new) and torch.equal(lse_old, lse_new),
-            "lse": (lse_old - lse).abs().max().item(),
-            "bwd": max((p.float() - t.float()).abs().max().item() for p, t in
-                       zip(bwd(q, k, v, o, do, lse), A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE))),
-        }
+        old = (fwd(q, k, v), *fwd_lse(q, k, v), *bwd(q, k, v, o, do, lse))
+        new = (A.packed_attention(q, k, v, HEADS, SCALE), *A.packed_attention_fwd_lse(q, k, v, HEADS, SCALE),
+               *A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE))
+        equal = {name: torch.equal(x, y) for name, x, y in zip(("K1", "K2 o", "K2 lse", "dq", "dk", "dv"), old, new)}
         row = {}
-        for name, old, new in (
+        for name, old_fn, new_fn in (
             ("K1", lambda: fwd(q, k, v), lambda: A.packed_attention(q, k, v, HEADS, SCALE)),
             ("K2", lambda: fwd_lse(q, k, v), lambda: A.packed_attention_fwd_lse(q, k, v, HEADS, SCALE)),
             ("bwd", lambda: bwd(q, k, v, o, do, lse), lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)),
         ):
-            row[name] = _ab_ms(old, new)
+            row[name] = _ab_ms(old_fn, new_fn)
             _log(f"  bs{b} L{l} {name}: parent {row[name][0]:.4f} ms, this {row[name][1]:.4f} ms "
                  f"({row[name][0] / row[name][1]:.3f}x)")
-        _log(f"  bs{b} L{l} largest difference parent vs this: {diffs}")
-        results[f"parent bs{b} L{l}"] = {**row, "max_abs_diff": diffs}
+        _log(f"  bs{b} L{l} equal bit for bit, parent vs this: {equal}")
+        results[f"parent bs{b} L{l}"] = {**row, "equal": equal}
 
 
 # ---- variants of this tree's kernels -----------------------------------------
@@ -392,13 +375,13 @@ def variants(results: dict, names=None) -> None:
                 this, refs = (lambda: A.packed_attention(q, k, v, HEADS, SCALE)), (ref_o,)
             else:
                 fn = getattr(lib, f"ucod_attention_bwd_{name}")
-                fn.argtypes = [ptr] * 11 + [i32, i32, i32, f32, ptr]
+                fn.argtypes = [ptr] * 11 + [i32, i32, i32, i32, f32, i32, ptr]
 
                 def run(fn=fn):
                     grads = [torch.empty_like(q) for _ in range(3)]
                     stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device)
                     _build.check_cuda(fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)), b, l,
-                                         HEADS, SCALE, _stream()), name)
+                                         l, HEADS, SCALE, 0, _stream()), name)
                     return grads
 
                 this, refs = (lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)), ref_g
