@@ -109,8 +109,14 @@ Phases (each raises on failure; any failure exits non-zero):
      path is (err <= 1.5 * err_plain + 1e-3); host-clock cache-build and
      eval img/s, the eval's time by stage, the crop count, a profiler split
      of one cache-build batch and the device's busy share of an eval from
-     the cache.  The kernels line's K1/K6 launches are this phase's first
-     run's (the serving phase's beside them);
+     the cache.  Every image of each run is scored by the native scorer
+     (``native/metrics_kernel.cpp``, counted in
+     ``utils/metrics.native_scored``); with ``--numpy-scorer``, a third run
+     from the cache under ``UCOD_NATIVE_METRICS=0`` scores them in NumPy, to
+     metrics within 1e-9, its metric seconds beside the native scorer's
+     (the CPU tests hold the two scorers' parity).  The kernels
+     line's K1/K6 launches are this phase's first run's (the serving
+     phase's beside them);
   M. pseudo-labels: ``ucod_dpl_tpu_torch.cli.generate_pseudo_label_main``
      at full width (seeded random dinov2-base, 224px, bf16, batch 16) over
      48 synthetic train images in two directories (TR-CAMO+TR-COD10K): K1
@@ -234,6 +240,29 @@ Phases (each raises on failure; any failure exits non-zero):
      times (``sp_chunk_*``).  ``--only-q4`` (four cards) runs Q1 and Q2
      over ``cuda:0..3`` and phase I's ``{"model": 4}`` over four cards
      against one card, with each card's peak memory, alone.
+  R. (``--only-r4``, four cards, alone) sequence parallelism across
+     processes: ranks are this script run as ``--sp-worker SPEC``, one
+     process per card over NCCL (R1, R2) or per two cards (R3), the ring
+     between processes by NCCL send/recv.  R1: the ring alone over
+     ``{"seq": 4}`` at the 756px bs4 chunk (4, 730, 768) bf16, forward and
+     backward: 4 K2 and 4 K3/K4 launches a rank, every rank's output and
+     dq/dk/dv bitwise the one-process ring's on the same inputs (rank 0's
+     card named four times); ms of the process ring, the one-process ring
+     on one card and on four.  R2: ``make_lora_train_step(sp_shard=)`` on
+     ``{"seq": 4}`` over 4 processes at 756px bs4 (full-width dinov2-base,
+     bf16, remat none), three steps: finite losses, moving adapters, 44 K2
+     and 44 K3/K4 launches a rank a step and nothing else; ranks' states
+     bitwise equal; the third step's reduced gradients within 0.1 of the
+     unsharded kernel step's from the same state (phase B's rule; in this
+     process, after the ranks), and within about 10x the H100's measured
+     difference (3e-3 decoder + LoRA, 2e-2 LoRA alone); step ms by CUDA events and host wall, ring
+     bytes, gradient all-reduces, a trace (busy share, NCCL kernels) and
+     each card's peak memory per rank.  R3: the same over ``{"data": 2,
+     "seq": 2}`` on 2 processes of 2 cards at bs8 (the JAX multi-process
+     test's layout: the ring inside each process, the data axis across).
+     Then the unsharded step at bs4 and bs8 and the one-process SP step
+     over the four cards (one process driving every card) at bs4, with
+     their peak memory.
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -248,6 +277,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import glob
 import json
 import os
@@ -706,16 +736,18 @@ def phase_lora(seed: int, dev) -> dict:
     return {"launches": launches, "peak_gib": peak, "state": (cfg, fe, state, lora, lora_opt, pixels, labels)}
 
 
-def _grads(loss_fn, state, lora, fe, pixels, labels):
+def _grads(loss_fn, state, lora, fe, pixels, labels, epoch: float = 2.0):
     """The decoder's and the adapters' gradients of one loss, each group
     flattened into one f32 vector."""
     from ucod_dpl_tpu_torch.models.convert import tree_leaves
 
     groups = (tree_leaves(state.decoder), tree_leaves(lora))
-    loss, _ = loss_fn(state, lora, fe.params, pixels, labels, 2.0, 1.0)
+    loss, _ = loss_fn(state, lora, fe.params, pixels, labels, epoch, 1.0)
     grads = iter(torch.autograd.grad(loss, groups[0] + groups[1], allow_unused=True))
+    # leaves first in the zip: it stops on them without taking the next
+    # group's first gradient
     return [torch.cat([(torch.zeros_like(t) if g is None else g).float().flatten()
-                       for g, t in zip(grads, leaves)]) for leaves in groups]
+                       for t, g in zip(leaves, grads)]) for leaves in groups]
 
 
 def phase_lora_grads(seed: int, dev) -> float:
@@ -1609,11 +1641,12 @@ def _write_cod_images(root: str, name: str, n: int, seed: int, labels: bool = Tr
     return sizes
 
 
-def phase_eval(seed: int, dev, smi: str) -> dict:
+def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
     """Phase K: ``cli.eval_main`` on configs/uscod/UCOD-DPL_dinov2.py over a
     32-image synthetic dataset on the card, twice (the first run builds the
     feature cache, the second reads it), with its launch counts, outputs,
-    cached-feature accuracy, host-clock rates and a profiler split."""
+    cached-feature accuracy, host-clock rates and a profiler split;
+    ``numpy_scorer``: a third sweep from the cache with the NumPy scorer."""
     import shutil
 
     from ucod_dpl_tpu_torch import cli
@@ -1621,6 +1654,7 @@ def phase_eval(seed: int, dev, smi: str) -> dict:
     from ucod_dpl_tpu_torch.data.transforms import load_image_batch_transform
     from ucod_dpl_tpu_torch.models.dba import init_rev_decoder, rev_decoder_forward_resized
     from ucod_dpl_tpu_torch.models.safetensors_io import save_decoder_checkpoint
+    from ucod_dpl_tpu_torch.utils import metrics
     from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
 
     _log(f"eval entry: host stack: {_host_stack()}")
@@ -1655,10 +1689,12 @@ def phase_eval(seed: int, dev, smi: str) -> dict:
     for run in ("first", "second"):
         for fn in counts.values():
             fn.launches = 0
+        metrics.native_scored.update(native=0, numpy=0)
         t0 = time.perf_counter()
         runner = cli.eval_main(argv)["SYN"]
         secs = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counts.items()}
+        scored = dict(metrics.native_scored)
         ev, ds = runner.evaluator, runner.val_dataset
         cache = ds.caches.get("features")
         # the first run builds the cache (batches of 8) and the second reads it
@@ -1669,7 +1705,10 @@ def phase_eval(seed: int, dev, smi: str) -> dict:
                 else "none (read)")
              + f", eval sweep {ev.seconds:.3f} s ({EVAL_IMAGES / ev.seconds:.2f} img/s), {ev.crops} LookTwice "
              f"crops in {ev.crop_batches} backbone calls, launches {launches} [{smi}]")
-        _log("    eval sweep by stage, host clock: " + ", ".join(f"{k} {v:.3f} s" for k, v in ev.split.items()))
+        _log("    eval sweep by stage, host clock: " + ", ".join(f"{k} {v:.3f} s" for k, v in ev.split.items())
+             + f"; images scored by the native scorer {scored['native']}, by NumPy {scored['numpy']}")
+        if scored != {"native": EVAL_IMAGES, "numpy": 0}:
+            raise AssertionError(f"eval {run} run: scored {scored}, expected all {EVAL_IMAGES} by the native scorer")
         if launches != want:
             raise AssertionError(f"eval {run} run: launches {launches}, expected {want}")
         if (ds.build_seconds is None) != (run == "second"):
@@ -1683,9 +1722,27 @@ def phase_eval(seed: int, dev, smi: str) -> dict:
             raise AssertionError(f"eval {run} run: result {result}")
         _log(f"    result {result}")
         out[run] = dict(secs=secs, launches=launches, build_s=ds.build_seconds, eval_s=ev.seconds,
-                        crops=ev.crops, crop_batches=ev.crop_batches, result=result, split=dict(ev.split))
+                        crops=ev.crops, crop_batches=ev.crop_batches, result=result, split=dict(ev.split),
+                        scored=scored)
     if out["second"]["result"] != out["first"]["result"]:
         raise AssertionError(f"eval from the cache: {out['second']['result']} != {out['first']['result']}")
+    if numpy_scorer:
+        # the same sweep from the cache with the NumPy scorer (UCOD_NATIVE_METRICS=0):
+        # its metric seconds beside the native scorer's, and the same metrics
+        metrics.native_scored.update(native=0, numpy=0)
+        os.environ["UCOD_NATIVE_METRICS"] = "0"
+        try:
+            ev = cli.eval_main(argv)["SYN"].evaluator
+        finally:
+            del os.environ["UCOD_NATIVE_METRICS"]
+        numpy_diff = max(abs(ev.result[k] - v) for k, v in out["second"]["result"].items())
+        out["numpy"] = dict(eval_s=ev.seconds, split=dict(ev.split), scored=dict(metrics.native_scored),
+                            diff=numpy_diff)
+        _log(f"  from the cache with the NumPy scorer: eval sweep {ev.seconds:.3f} s, metrics "
+             f"{ev.split['metrics']:.3f} s (native scorer {out['second']['split']['metrics']:.3f} s), scored "
+             f"{out['numpy']['scored']}, metrics within {numpy_diff:.3g} of the native run's [{smi}]")
+        if out["numpy"]["scored"] != {"native": 0, "numpy": EVAL_IMAGES} or not numpy_diff <= 1e-9:
+            raise AssertionError(f"NumPy scorer run: scored {out['numpy']['scored']}, metrics differ by {numpy_diff}")
 
     # what the first run wrote: 32 finite cache entries of the JAX package's
     # shape, 32 masks at their ground-truth sizes
@@ -2877,10 +2934,17 @@ def _dp_worker(spec_path: str) -> int:
     return 0
 
 
-def _run_ranks(spec: dict, envs: list) -> list:
-    """Start one ``--dp-worker`` process per entry of ``envs`` (each rank's
-    extra environment), wait for all, and return their result dicts; a rank
-    that fails or runs past ``DP_WORKER_TIMEOUT_S`` fails the phase, and no
+def _rank_env(world: int, port: str) -> list:
+    """Each rank's launcher environment for ``world`` ranks on this host."""
+    return [{"RANK": str(r), "WORLD_SIZE": str(world), "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": str(world),
+             "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port} for r in range(world)]
+
+
+def _run_ranks(spec: dict, envs: list, worker: str = "--dp-worker") -> list:
+    """Start one ``worker`` process (``--dp-worker``, ``--sp-worker``) per
+    entry of ``envs`` (each rank's extra environment), wait for all, and
+    return their result dicts; a rank that fails or runs past
+    ``DP_WORKER_TIMEOUT_S`` fails the phase, and no
     process is left behind."""
     os.makedirs(spec["out"], exist_ok=True)
     spec_path = os.path.join(spec["out"], "spec.json")
@@ -2894,7 +2958,7 @@ def _run_ranks(spec: dict, envs: list) -> list:
         for rank, extra in enumerate(envs):
             log = open(os.path.join(spec["out"], f"rank{rank}.log"), "w")
             logs.append(log)
-            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker", spec_path],
+            procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__), worker, spec_path],
                                           stdout=log, stderr=subprocess.STDOUT, env={**base, **extra},
                                           cwd=os.path.dirname(os.path.abspath(__file__))))
         deadline = time.monotonic() + DP_WORKER_TIMEOUT_S
@@ -2912,7 +2976,8 @@ def _run_ranks(spec: dict, envs: list) -> list:
         if p.returncode != 0:
             with open(os.path.join(spec["out"], f"rank{rank}.log")) as f:
                 tail = f.read()[-4000:]
-            raise AssertionError(f"phase P {spec['entry']} rank {rank}: exit {p.returncode}\n{tail}")
+            raise AssertionError(f"phase {spec.get('phase', 'P')} {spec['entry']} rank {rank}: exit {p.returncode}\n"
+                                 f"{tail}")
         with open(os.path.join(spec["out"], f"result{rank}.json")) as f:
             out.append(json.load(f))
     return out
@@ -3085,8 +3150,7 @@ def phase_dp_p3(smi: str, train: dict) -> dict:
     port = str(_free_port())
     ranks = _run_ranks({"entry": "train", "argv": train["argv"]("p3"), "out": d, "deterministic": True,
                         "profile_epoch": 1, "check_collectives": True},
-                       [{"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": str(r), "LOCAL_WORLD_SIZE": "2",
-                         "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port} for r in range(2)])
+                       _rank_env(2, port))
     states = []
     for r in ranks:
         with np.load(os.path.join(d, f"state{r['rank']}.npz")) as f:
@@ -3461,6 +3525,312 @@ def phase_tp_cards(seed: int, devices) -> dict:
     return out
 
 
+# Phase R (``--only-r4``, four cards): sequence parallelism across
+# processes, one process per card (R1, R2) or per two cards (R3), the ring
+# between processes over NCCL send/recv (``parallel/distributed.py::
+# ring_exchange``) and inside a process by device copies.  Each rank is this
+# script run as ``--sp-worker SPEC``.
+SP_RANK_SEQ_LEN = 1 + (756 // 14) ** 2  # 2917 tokens at 756px, chunks of 730 over 4
+
+
+def _world_gather(t: torch.Tensor) -> list:
+    """``t`` of every rank, in rank order, over NCCL (the default group)."""
+    parts = [torch.empty_like(t) for _ in range(torch.distributed.get_world_size())]
+    torch.distributed.all_gather(parts, t.contiguous())
+    return parts
+
+
+def _r1_ring(spec: dict, dev) -> dict:
+    """R1 in one rank: the ring over ``{"seq": 4}`` across the processes at
+    the 756px bs4 chunk (4, 730, 768) bf16, forward and backward (the
+    incoming gradient a seeded tensor), then every rank's output and
+    gradient chunks gathered on rank 0 and held bit for bit against the
+    one-process ring on rank 0's card (named four times) over the same
+    inputs.  Times: the process ring's forward + backward by CUDA events
+    (all ranks in step), and on rank 0 alone the one-process ring on one
+    card and on the four cards."""
+    from ucod_dpl_tpu_torch.parallel import build_mesh, distributed
+    from ucod_dpl_tpu_torch.parallel import sp as SP
+
+    mesh = build_mesh({"seq": 4})
+    rank = distributed.process_index()
+    (i,) = mesh.local_block()["seq"]
+    kv_lens = SP.chunk_kv_lens(SP_RANK_SEQ_LEN, 4)
+    gen = torch.Generator().manual_seed(spec["seed"])
+    full = [torch.randn(4, SP_RANK_SEQ_LEN, SERVE_DIM, generator=gen).to(dev, torch.bfloat16) for _ in range(4)]
+    scale = 1.0 / 8.0
+    counts = _kernel_wrappers()
+
+    def chunks(devices, positions):
+        """The q/k/v and incoming-gradient chunks at ``positions`` (all when
+        None) on ``devices``."""
+        return [SP.split_tokens(x, devices, n=4, positions=positions) for x in full]
+
+    def ring(parts, m):
+        leaves = [[c.detach().requires_grad_(True) for c in cs] for cs in parts[:3]]
+        outs = SP.ring_attention(*leaves, NUM_HEADS, scale=scale, kv_lens=kv_lens, mesh=m)
+        torch.autograd.backward(outs, parts[3])
+        return outs, leaves
+
+    mine = chunks([dev], [i])
+    for fn in counts.values():
+        fn.launches = 0
+    outs, leaves = ring(mine, mesh)
+    launches = {k: fn.launches for k, fn in counts.items() if fn.launches}
+    gathered = [_world_gather(t) for t in [outs[0].detach()] + [t[0].grad for t in leaves]]
+    distributed.ring_traffic.update(calls=0, bytes=0)
+    ring(mine, mesh)
+    traffic = dict(distributed.ring_traffic)
+    ms = _time_ms(lambda: ring(mine, mesh), 5, warmup=2)
+    out = {"launches": launches, "ms": ms, "traffic": traffic}
+    distributed.barrier("R1 one-process ring")
+    if rank == 0:
+        one, on_one = build_mesh({"seq": 4}, devices=[dev] * 4), chunks([dev] * 4, None)
+        outs, leaves = ring(on_one, one)
+        ref = [[o.detach() for o in outs]] + [[t.grad for t in ts] for ts in leaves]
+        out["equal"] = {name: all(torch.equal(g.to(dev), r) for g, r in zip(got, want))
+                        for name, got, want in zip(("out", "dq", "dk", "dv"), gathered, ref)}
+        out["one_card_ms"] = _time_ms(lambda: ring(on_one, one), 5, warmup=2)
+        cards = [torch.device("cuda", c) for c in range(4)]
+        four, on_four = build_mesh({"seq": 4}, devices=cards), chunks(cards, None)
+        out["four_cards_ms"] = _time_ms(lambda: ring(on_four, four), 5, warmup=2)
+    distributed.barrier("R1 end")
+    return out
+
+
+def _r_lora(spec: dict, dev) -> dict:
+    """R2 or R3 in one rank: ``make_lora_train_step(sp_shard=)`` on the mesh
+    over processes of ``spec["mesh"]`` at 756px, the global batch of
+    ``spec["batch"]`` on every rank, full-width dinov2-base bf16, remat
+    none.  Three steps: finite losses, moving adapters, each step's
+    launches; rank 0 writes the state the third step starts from and that
+    step's reduced gradients (left in ``.grad``) for the unsharded step's
+    gradients in the parent process.  After the steps every rank's state
+    is gathered and compared with rank 0's bit for bit.
+    Then the step's ms by CUDA events and host wall (all ranks in step),
+    a trace of one step (busy share, NCCL kernels) and each local card's
+    peak memory over one step."""
+    from ucod_dpl_tpu_torch.engine.train_step import make_lora_train_step
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves, tree_map
+    from ucod_dpl_tpu_torch.parallel import build_mesh, distributed
+
+    mesh = build_mesh(spec["mesh"])
+    rank = distributed.process_index()
+    cards = sorted({mesh.device(**dict(zip(mesh.axis_names, c))) for c in
+                    np.argwhere(mesh.ranks == rank).tolist()}, key=str)
+    cfg, fe, state, lora, lora_opt, pixels, labels = _lora_setup(spec["seed"], dev, spec["batch"], size=756)
+    step = make_lora_train_step(cfg, fe.config, torch.bfloat16, sp_shard=(mesh, "seq"))
+    counts = _kernel_wrappers()
+    out = {"cards": [str(c) for c in cards], "steps": []}
+
+    def call():
+        return step(state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+
+    for i in range(3):
+        if i == 2 and rank == 0:
+            torch.save({k: tree_map(lambda t: t.detach().cpu(), v) for k, v in (
+                ("decoder", state.decoder), ("decoder_ema", state.decoder_ema), ("dis_params", state.dis_params),
+                ("dis_stats", state.dis_stats), ("lora", lora))}, os.path.join(spec["out"], "before_step3.pt"))
+        for fn in counts.values():
+            fn.launches = 0
+        aux = call()
+        loss = aux["loss"].item()
+        b_norm = torch.sqrt(sum(e["b"].float().square().sum() for layer in lora for e in layer.values())).item()
+        out["steps"].append({"loss": loss, "lora_grad_norm": aux["lora_grad_norm"].item(), "b_norm": b_norm,
+                             "launches": {k: fn.launches for k, fn in counts.items()}})
+        if i == 2 and rank == 0:
+            torch.save([torch.cat([t.grad.float().flatten() for t in tree_leaves(tree)]).cpu()
+                        for tree in (state.decoder, lora)], os.path.join(spec["out"], "grads_step3.pt"))
+    flat = torch.cat([t.detach().float().flatten() for t in tree_leaves(state.decoder) + tree_leaves(state.decoder_ema)
+                      + tree_leaves(lora)])
+    out["bitwise_equal_ranks"] = all(torch.equal(f, flat) for f in _world_gather(flat))
+    out["finite_state"] = bool(torch.isfinite(flat).all())
+
+    distributed.ring_traffic.update(calls=0, bytes=0)
+    distributed.grad_all_reduce.update(calls=0, bytes=0)
+    call()
+    out["ring_traffic"], out["grad_all_reduce"] = dict(distributed.ring_traffic), dict(distributed.grad_all_reduce)
+    out["ms"] = _time_ms(call, 3, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    out["host_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    call()
+    torch.cuda.synchronize()
+    out["peak_gib"] = [torch.cuda.max_memory_allocated(c) / 2**30 for c in cards]
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    out["trace"] = _trace_summary(prof, wall)
+    distributed.barrier("R end")
+    return out
+
+
+def _sp_worker(spec_path: str) -> int:
+    """One rank of phase R: join the NCCL group with ``spec["cards"]`` cards,
+    run ``spec["entry"]`` (``ring``: R1, ``lora``: R2/R3) and write
+    ``result{rank}.json`` to ``spec["out"]``."""
+    from ucod_dpl_tpu_torch.parallel import distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed.maybe_initialize_distributed("cuda", cards=spec["cards"])
+    rank = distributed.process_index()
+    t0 = time.perf_counter()
+    res = {"rank": rank, "device": str(dev), "world": distributed.process_count(),
+           "backend": str(torch.distributed.get_backend())}
+    res.update(_r1_ring(spec, dev) if spec["entry"] == "ring" else _r_lora(spec, dev))
+    res["secs"] = time.perf_counter() - t0
+    distributed.shutdown()
+    with open(os.path.join(spec["out"], f"result{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+# phase R's bounds on the norm-relative gradient difference from the
+# unsharded step: about 10x what the H100 gave (decoder + LoRA 2.86e-4 and
+# 1.98e-4, LoRA alone 1.66e-3 and 1.62e-3 in R2 and R3), under phase B's
+# 0.1, so a fault outside the ring (a wrong data or seq reduction) shows
+R_GRAD_BOUND = {"decoder + LoRA": 3e-3, "LoRA alone": 2e-2}
+
+
+def phase_sp_processes(seed: int, smi: str) -> dict:
+    """Phase R on four cards: R1 the ring alone over 4 processes (bitwise the
+    one-process ring, 4 K2 and 4 K3/K4 launches a rank), R2 the SP LoRA
+    step over ``{"seq": 4}`` on 4 processes at 756px bs4 (44 K2 and 44
+    K3/K4 a rank a step and nothing else of K1/K5/K6/K7, ranks bitwise
+    equal, gradients within ``R_GRAD_BOUND`` of the unsharded step's), R3
+    over ``{"data": 2, "seq": 2}`` on 2 processes of 2 cards at 756px bs8
+    (the JAX oracle's layout: the ring inside each process, the data axis
+    across).  Then, in
+    this process, the unsharded step at bs4 and bs8 and the one-process SP
+    step over the four cards (one process driving every card) at bs4,
+    interleaved with the unsharded bs4 step, and their peak memory."""
+    import shutil
+
+    from ucod_dpl_tpu_torch.engine.train_step import make_lora_train_step
+    from ucod_dpl_tpu_torch.parallel import build_mesh
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_sp")
+    shutil.rmtree(root, ignore_errors=True)
+    out, fails = {}, []
+
+    d = os.path.join(root, "r1")
+    r1 = _run_ranks({"phase": "R1", "entry": "ring", "out": d, "cards": 1, "seed": seed},
+                    _rank_env(4, str(_free_port())), worker="--sp-worker")
+    for r in r1:
+        _log(f"R1 rank {r['rank']} ({r['device']}, {r['backend']}): the ring at 756px bs4 over 4 processes, "
+             f"launches {r['launches']}, forward + backward {r['ms']:.3f} ms (CUDA events), sent "
+             f"{r['traffic']['bytes'] / 1e6:.2f} MB in {r['traffic']['calls']} exchanges a call [{smi}]")
+        if r["launches"] != {"fwd_lse": 4, "bwd": 4}:
+            fails.append(f"R1 rank {r['rank']}: launches {r['launches']}")
+    r0 = r1[0]
+    _log(f"  one-process ring on one card {r0['one_card_ms']:.3f} ms, on four cards {r0['four_cards_ms']:.3f} ms; "
+         f"the process ring bitwise equal to the one-process ring: {r0['equal']}")
+    if not all(r0["equal"].values()):
+        fails.append(f"R1: the process ring differs from the one-process ring: {r0['equal']}")
+    out["r1"] = {"ms": r0["ms"], "one_card_ms": r0["one_card_ms"], "four_cards_ms": r0["four_cards_ms"],
+                 "equal": r0["equal"], "launches": r0["launches"]}
+
+    depth_pairs = 11 * 4  # 11 attention layers x (one query chunk x 4 key chunks, or 2 x 2)
+    for name, mesh_cfg, world, cards, batch in (("R2", {"seq": 4}, 4, 1, 4), ("R3", {"data": 2, "seq": 2}, 2, 2, 8)):
+        d = os.path.join(root, name.lower())
+        ranks = _run_ranks({"phase": name, "entry": "lora", "out": d, "cards": cards, "seed": seed + 20,
+                            "mesh": mesh_cfg, "batch": batch}, _rank_env(world, str(_free_port())), worker="--sp-worker")
+        want = {"K1": 0, "K5": 0, "K6": 0, "K7": 0, "fwd_lse": depth_pairs, "bwd": depth_pairs}
+        for r in ranks:
+            for i, st in enumerate(r["steps"]):
+                _log(f"{name} rank {r['rank']} ({', '.join(r['cards'])}) step {i + 1}: loss {st['loss']:.6f}, lora grad "
+                     f"norm {st['lora_grad_norm']:.6g}, adapter B-norm {st['b_norm']:.6g}, launches {st['launches']}")
+                if st["launches"] != want or not np.isfinite(st["loss"]) or not st["b_norm"] > 0:
+                    fails.append(f"{name} rank {r['rank']} step {i + 1}: {st}, expected launches {want}")
+            tr = r["trace"]
+            _log(f"  {name} rank {r['rank']}: step {r['ms']:.3f} ms (CUDA events), {r['host_ms']:.3f} ms host wall; "
+                 f"peak GiB {[round(p, 3) for p in r['peak_gib']]}; ring {r['ring_traffic']['bytes'] / 1e6:.2f} MB in "
+                 f"{r['ring_traffic']['calls']} exchanges, gradient all-reduces {r['grad_all_reduce']} a step; "
+                 f"trace: {tr['device_ms']:.3f} ms of device time in {tr['wall_ms']:.3f} ms (busy "
+                 f"{tr['device_ms'] / tr['wall_ms']:.4f}), NCCL kernels {tr['nccl_ms']:.3f} ms in {tr['nccl_count']} "
+                 f"launches; ranks bitwise equal {r['bitwise_equal_ranks']} [{smi}]")
+            for ms, count, kname in tr["top"]:
+                _log(f"      {ms:8.3f} ms x{count:5d}  {kname}")
+            if not (r["bitwise_equal_ranks"] and r["finite_state"]):
+                fails.append(f"{name} rank {r['rank']}: states equal {r['bitwise_equal_ranks']}, finite "
+                             f"{r['finite_state']}")
+        r0 = ranks[0]
+        out[name.lower()] = {"ms": [r["ms"] for r in ranks], "host_ms": [r["host_ms"] for r in ranks],
+                             "busy": [r["trace"]["device_ms"] / r["trace"]["wall_ms"] for r in ranks],
+                             "nccl_ms": [r["trace"]["nccl_ms"] for r in ranks],
+                             "nccl_count": [r["trace"]["nccl_count"] for r in ranks],
+                             "peak_gib": [r["peak_gib"] for r in ranks], "launches": r0["steps"][-1]["launches"],
+                             "ring_bytes": r0["ring_traffic"]["bytes"]}
+    if fails:
+        raise AssertionError("phase R: " + "; ".join(fails))
+
+    # the references in this process, the ranks gone: the unsharded step's
+    # gradients from the state each run's third step started from, against
+    # that step's; the unsharded step at both batches and the one-process SP
+    # step over the four cards at bs4
+    from ucod_dpl_tpu_torch.models.convert import tree_map
+
+    devices = [torch.device("cuda", c) for c in range(4)]
+    dev = devices[0]
+    for name, batch in (("R2", 4), ("R3", 8)):
+        cfg, fe, state, lora, lora_opt, pixels, labels = _lora_setup(seed + 20, dev, batch, size=756)
+        un = make_lora_train_step(cfg, fe.config, torch.bfloat16)
+        d = os.path.join(root, name.lower())
+        saved = torch.load(os.path.join(d, "before_step3.pt"), weights_only=False)  # the decoder's NamedTuple
+        grad_state = dataclasses.replace(state, **{
+            k: tree_map(lambda t: t.to(dev).requires_grad_(k == "decoder"), saved[k])
+            for k in ("decoder", "decoder_ema", "dis_params", "dis_stats")})
+        grad_lora = tree_map(lambda t: t.to(dev).requires_grad_(True), saved["lora"])
+        g_un = _grads(un.loss_fn, grad_state, grad_lora, fe, pixels, labels, epoch=0.0)
+        g_sp = [g.to(dev) for g in torch.load(os.path.join(d, "grads_step3.pt"))]
+        for g, a, b in (("decoder + LoRA", torch.cat(g_sp), torch.cat(g_un)), ("LoRA alone", g_sp[1], g_un[1])):
+            rel = ((a - b).norm() / b.norm()).item()
+            out[name.lower()][f"grad_rel {g}"] = rel
+            _log(f"  {name} step 3 grads vs the unsharded kernel step on the global batch from the same state, {g}: "
+                 f"norm-relative {rel:.6g} (bound {R_GRAD_BOUND[g]:g}; phase B's 0.1), largest difference "
+                 f"{(a - b).abs().max().item():.6g}")
+            if not (np.isfinite(rel) and rel <= R_GRAD_BOUND[g]):
+                raise AssertionError(f"{name} grads ({g}): {rel} exceeds {R_GRAD_BOUND[g]:g}")
+        del saved, grad_state, grad_lora, g_un, g_sp
+        steps = {"unsharded": un}
+        if batch == 4:
+            steps["one process, four cards"] = make_lora_train_step(
+                cfg, fe.config, torch.bfloat16, sp_shard=(build_mesh({"seq": 4}, devices=devices), "seq"))
+        ref = {}
+        for k, st in steps.items():
+            torch.cuda.synchronize()
+            _reset_peaks(devices)
+            st(state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0)
+            torch.cuda.synchronize()
+            ref[f"peak_gib {k}"] = _peaks(devices if k != "unsharded" else [dev])
+        calls = {k: (lambda st=st: st(state, lora, lora_opt, fe.params, pixels, labels, 0.0, 1.0))
+                 for k, st in steps.items()}
+        if batch == 4:
+            ref["ms"] = dict(zip(("one process, four cards", "unsharded"),
+                                 _ab_ms(calls["unsharded"], calls["one process, four cards"], 3)))
+        else:
+            ref["ms"] = {"unsharded": _time_ms(calls["unsharded"], 3, warmup=1)}
+        _log(f"reference steps at 756px bs{batch} in one process: "
+             + ", ".join(f"{k} {v:.3f} ms (peak GiB {[round(p, 3) for p in ref[f'peak_gib {k}']]})"
+                         for k, v in ref["ms"].items()) + f" [{smi}]")
+        out[f"reference_bs{batch}"] = ref
+        del cfg, fe, state, lora, lora_opt, pixels, labels, steps, calls
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
@@ -3469,9 +3839,40 @@ def main(argv=None) -> int:
                         help="run phase P3 alone (2 cards), after the data and checkpoint it needs")
     parser.add_argument("--only-q4", action="store_true",
                         help="run phases Q1 and Q2 over four cards and phase I's model=4 over four cards alone")
+    parser.add_argument("--sp-worker", metavar="SPEC", help=argparse.SUPPRESS)  # one rank of phase R
+    parser.add_argument("--only-r4", action="store_true",
+                        help="run phase R (sequence parallelism across processes) on four cards alone")
+    parser.add_argument("--numpy-scorer", action="store_true",
+                        help="phase K also sweeps the cache with the NumPy scorer, for its metric seconds")
     args = parser.parse_args(argv)
     if args.dp_worker:
         return _dp_worker(args.dp_worker)
+    if args.sp_worker:
+        return _sp_worker(args.sp_worker)
+    if args.only_r4:
+        smi = phase_device()
+        if torch.cuda.device_count() < 4:
+            print(f"chip_smoke: --only-r4 needs 4 CUDA devices, {torch.cuda.device_count()} visible", file=sys.stderr)
+            return 1
+        phase_build()
+        r = phase_sp_processes(args.seed, smi)
+        _log(json.dumps({"card": smi, "sp_process_ring_ms": r["r1"]["ms"],
+                         "sp_one_process_ring_one_card_ms": r["r1"]["one_card_ms"],
+                         "sp_one_process_ring_four_cards_ms": r["r1"]["four_cards_ms"],
+                         "sp_process_lora_step_ms": r["r2"]["ms"], "sp_process_lora_host_ms": r["r2"]["host_ms"],
+                         "sp_process_lora_busy": r["r2"]["busy"], "sp_process_lora_peak_gib": r["r2"]["peak_gib"],
+                         "sp_process_lora_nccl_ms": r["r2"]["nccl_ms"],
+                         "sp_process_lora_nccl_count": r["r2"]["nccl_count"],
+                         "sp_process_lora_launches": r["r2"]["launches"], "sp_process_ring_bytes": r["r2"]["ring_bytes"],
+                         "sp_process_lora_grad_rel_diff": r["r2"]["grad_rel decoder + LoRA"],
+                         "sp_process_lora_lora_grad_rel_diff": r["r2"]["grad_rel LoRA alone"],
+                         "sp_2d_lora_step_ms": r["r3"]["ms"], "sp_2d_lora_host_ms": r["r3"]["host_ms"],
+                         "sp_2d_lora_busy": r["r3"]["busy"], "sp_2d_lora_peak_gib": r["r3"]["peak_gib"],
+                         "sp_2d_lora_grad_rel_diff": r["r3"]["grad_rel decoder + LoRA"],
+                         "reference_bs4": r["reference_bs4"], "reference_bs8": r["reference_bs8"]}))
+        _log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
     if args.only_q4:
         smi = phase_device()
         if torch.cuda.device_count() < 4:
@@ -3541,7 +3942,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dots = phase_remat_dots(args.seed, dev)
     torch.cuda.empty_cache()
-    evalk = phase_eval(args.seed, dev, smi)
+    evalk = phase_eval(args.seed, dev, smi, numpy_scorer=args.numpy_scorer)
     torch.cuda.empty_cache()
     pl = phase_pseudo_labels(args.seed, dev, smi)
     torch.cuda.empty_cache()
@@ -3582,6 +3983,9 @@ def main(argv=None) -> int:
         "k11_split_half_device_ms": int8_times["K11_vs_split_device"][1],
         "eval_cache_build_img_per_s": EVAL_IMAGES / evalk["first"]["build_s"],
         "eval_img_per_s": EVAL_IMAGES / evalk["first"]["eval_s"],
+        "eval_native_scored": evalk["first"]["scored"]["native"],
+        "eval_metrics_s_native": evalk["second"]["split"]["metrics"],
+        "eval_metrics_s_numpy": evalk["numpy"]["split"]["metrics"] if "numpy" in evalk else None,
         "eval_from_cache_img_per_s": EVAL_IMAGES / evalk["second"]["eval_s"],
         "eval_look_twice_crops": evalk["first"]["crops"], "eval_device_busy": evalk["busy"],
         "eval_cached_features_max_abs_err": evalk["err"],

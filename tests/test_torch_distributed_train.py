@@ -85,7 +85,7 @@ if "lora" in w:
 else:
     for variant in ("state", "local_bn"):
         if variant == "local_bn":  # the fault to catch: each rank normalises by its own batch's moments
-            TDis._global_moments = TDis._local_moments
+            TDis._global_moments = lambda y, group=None: TDis._local_moments(y)
         state = TT.init_train_state(*w["weights"], cfg.train_cfg, "cpu")
         dis_step, step = TT.make_discriminator_step(cfg), TT.make_train_step(cfg)
         for f, pl in w["batches"]:  # one discriminator pass, then the stage-1 steps

@@ -115,6 +115,10 @@ class FeatureExtractor:
         if mesh is not None:
             processes = torch.distributed.get_world_size() if torch.distributed.is_available() \
                 and torch.distributed.is_initialized() else 1
+            if mesh.spans_processes:
+                raise NotImplementedError(
+                    f"feature extraction requires a single-process mesh; {mesh} spans processes (build the mesh "
+                    "of this process's cards with build_mesh(cfg, devices=...))")
             if mesh.shape.get("model", 1) > 1:
                 if processes > 1:
                     raise NotImplementedError(
@@ -128,10 +132,12 @@ class FeatureExtractor:
                 self.tp_shard = (mesh, "model")
             if mesh.shape.get("seq", 1) > 1:
                 if processes > 1:
-                    # the same lockstep argument as for tensor parallelism
+                    # extraction is per-process work, as in the JAX extractor; the ring
+                    # crosses processes only in the LoRA train step
                     raise NotImplementedError(
                         "sequence-parallel feature extraction requires a single-process mesh (SP over the cards of "
-                        "one host); use data parallelism across processes")
+                        "one host); use data parallelism across processes.  Sequence parallelism across processes "
+                        "runs in make_lora_train_step(sp_shard=) on a mesh over processes, as in the JAX package")
                 if quantize is not None:
                     raise ValueError("int8 path is single-chip (SP shards the token dim)")
                 self.sp_shard = (mesh, "seq")

@@ -74,9 +74,10 @@ class Runner:
             if any(v not in (-1, 1) for v in (mesh_cfg or {}).values()):
                 raise NotImplementedError(
                     f"tpu_cfg.mesh {dict(mesh_cfg)} over {process_count()} process(es): in a data-parallel run each "
-                    'process\'s mesh is its own card ({"data": -1, "model": 1}); tensor and sequence parallelism '
-                    "(the model and seq axes) run in one process over the cards of one host (sequence parallelism "
-                    "across processes is ROADMAP.md item 18b)")
+                    'process\'s mesh is its own card ({"data": -1, "model": 1}); the Runner runs tensor and sequence '
+                    "parallelism (the model and seq axes) in one process over the cards of one host.  Sequence "
+                    "parallelism across processes runs in make_lora_train_step(sp_shard=) on a mesh over processes, "
+                    "as in the JAX package")
             self.mesh = build_mesh(mesh_cfg, devices=[device])
         else:
             self.mesh = build_mesh(mesh_cfg, devices=None if device.type == "cuda" else [device])

@@ -31,7 +31,10 @@ Data parallel (a ``torch.distributed`` group): each rank steps on its local
 batch; :class:`Optimizer` averages the gradients over the ranks and the
 discriminator takes its batch-norm moments over the global batch, so the
 ranks take the step of the mean loss over the concatenated global batch
-and stay equal.  The returned scalars are the rank's own.
+and stay equal.  The returned scalars are the rank's own.  Sequence
+parallel across processes (:func:`make_lora_train_step` on a mesh over
+processes): the same, with the ``seq`` ranks of a data coordinate feeding
+the same rows (see there).
 """
 
 from __future__ import annotations
@@ -46,7 +49,8 @@ from ucod_dpl_tpu_torch.models.convert import tree_leaves, tree_map
 from ucod_dpl_tpu_torch.models.dba import RevDecoderParams, rev_decoder_forward
 from ucod_dpl_tpu_torch.models.discriminator import discriminator_forward
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear
-from ucod_dpl_tpu_torch.parallel.distributed import all_reduce_mean_
+from ucod_dpl_tpu_torch.parallel.distributed import LOCAL, all_reduce_mean_, all_reduce_sum_
+from ucod_dpl_tpu_torch.parallel.mesh import data_sharding
 
 
 class Optimizer:
@@ -57,7 +61,8 @@ class Optimizer:
     forward never computes) is stepped with a zero gradient, as optax steps
     it: its weight decay still applies.  In a data-parallel run the
     gradients are averaged over the ranks first, in one bucket
-    (:func:`~ucod_dpl_tpu_torch.parallel.distributed.all_reduce_mean_`)."""
+    (:func:`~ucod_dpl_tpu_torch.parallel.distributed.all_reduce_mean_`)
+    over the group :meth:`step` is given."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr0: float, gamma: float = 1.0,
                  step_size: Optional[int] = None):
@@ -73,12 +78,17 @@ class Optimizer:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
+    def step(self, group=None, sum_group=LOCAL) -> None:
+        """One AdamW (and StepLR) step, the gradients first summed over
+        ``sum_group`` (each rank holds a share of them; none by default),
+        then averaged over ``group`` (the default group when None)."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        all_reduce_sum_(grads, sum_group)
         # data parallel: the gradient of the mean loss over the global batch
-        all_reduce_mean_([p.grad for p in self.params])
+        all_reduce_mean_(grads, group)
         self.adamw.step()
         if self.schedule is not None:
             self.schedule.step()
@@ -238,20 +248,22 @@ def _stage1_decoder_loss(
     use_dis_merge: bool,
     denom: float,
     f_apm: torch.Tensor = None,
+    group=None,
 ):
     """The stage-1 student loss (loop:164-173 + merge_pseudo_label
     loop:257-272), shared by the cached-feature and LoRA steps.  ``f_apm``
-    (default ``f``) feeds the discriminator; the APM merge builds the
-    training target, so it runs without gradient and leaves the BN running
-    statistics as they are."""
+    (default ``f``) feeds the discriminator, whose batch-norm moments run
+    over the ranks of ``group``; the APM merge builds the training target,
+    so it runs without gradient and leaves the BN running statistics as
+    they are."""
     if f_apm is None:
         f_apm = f
     fg, bg_rev, ortho = rev_decoder_forward(dec_params, f, with_loss=True)
     with torch.no_grad():
         if use_dis_merge:
             student_bin = (torch.sigmoid(fg) > 0.5).float()
-            p_s, _ = discriminator_forward(state.dis_params, state.dis_stats, student_bin, f_apm)
-            p_p, _ = discriminator_forward(state.dis_params, state.dis_stats, (pl > 0.5).float(), f_apm)
+            p_s, _ = discriminator_forward(state.dis_params, state.dis_stats, student_bin, f_apm, group=group)
+            p_p, _ = discriminator_forward(state.dis_params, state.dis_stats, (pl > 0.5).float(), f_apm, group=group)
             w = 0.5 * (1.0 + torch.cos(torch.abs(p_s - p_p) * math.pi)) + epoch / denom
             w = torch.clamp(w, 0.0, 1.0)[:, :, None, None]  # (B, 1, 1, 1)
             merged = pl * (1.0 - w) + teacher_bin * w
@@ -341,8 +353,25 @@ def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bo
     are gathered on the device of ``pseudo_labels``, where the decoder
     runs.  The scaling lever for fine-tuning at 756px and above.
 
+    On a mesh over processes (the JAX step on a global mesh whose ``seq``
+    axis spans processes) every process calls the step with the same
+    global batch and takes the rows of its data coordinates
+    (:func:`~ucod_dpl_tpu_torch.parallel.mesh.data_sharding`); the ``seq``
+    ranks of a data coordinate feed the same rows, each running its token
+    chunks, the ring crossing processes, and compute the same loss on the
+    gathered key features.  The step then takes the gradient of the mean
+    loss over the global batch: the LoRA gradients (each ``seq`` rank holds
+    its chunks' share) summed over the ``seq`` group, then averaged over
+    the ``data`` group; the decoder's (whole on every ``seq`` rank) averaged
+    over the ``data`` group; the discriminator's batch-norm moments run over
+    the ``data`` group.  Every rank ends each step with the same state.  A
+    ``model`` axis over processes raises NotImplementedError, as the JAX
+    LoRA step refuses tensor parallelism.  The returned scalars are the
+    process's own (its rows' loss); ``lora_grad_norm`` is the global one.
+
     ``step.loss_fn(state, lora, backbone_params, pixels, pseudo_labels,
-    epoch, adv_coeff) -> (loss, aux)`` is the differentiable loss alone."""
+    epoch, adv_coeff) -> (loss, aux)`` is the differentiable loss alone (on
+    a mesh over processes, of this process's rows)."""
     from ucod_dpl_tpu_torch.models.lora import lora_forward
 
     feature_size = cfg.model_cfg.feature_size
@@ -353,15 +382,34 @@ def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bo
     rank = int(lc.get("rank", 2))
     alpha = float(lc.get("alpha", 4.0))
     remat = lc.get("remat", True)
+    mesh = sp_shard[0] if sp_shard is not None and sp_shard[0].spans_processes else None
+    data_group, seq_group = None, LOCAL  # without a mesh over processes: data parallel over the world
+    if mesh is not None:
+        if mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(f"the LoRA step does not run tensor parallelism: mesh {mesh.shape} over "
+                                      "processes has a model axis (sp_shard takes data and seq axes)")
+        block = mesh.local_block()
+        data_coords = block.get("data", [0])
+        data_group, seq_group = mesh.group("data"), mesh.group(sp_shard[1])
+
+    def rows(batch: torch.Tensor) -> torch.Tensor:
+        """This process's rows of the global batch (all without a mesh over
+        processes)."""
+        if mesh is None:
+            return batch
+        slices = data_sharding(mesh, batch.shape[0])
+        first, last = slices[data_coords[0]], slices[data_coords[-1]]
+        return batch if first == slice(None) else batch[first.start:last.stop]
 
     def loss_fn(state: TrainState, lora, backbone_params, pixels, pseudo_labels, epoch: float, adv_coeff: float):
+        pixels, pseudo_labels = rows(pixels), rows(pseudo_labels)
         pl = _to_feature_size(pseudo_labels.float(), feature_size)
         out = lora_forward(backbone_params, lora, pixels, dino_cfg, rank=rank, alpha=alpha,
                            compute_dtype=compute_dtype, remat=remat, plain=plain, sp_shard=sp_shard)
         f = _to_feature_size(out["key_features"].to(pl.device).float(), feature_size)
         f_sg = f.detach()
         return _stage1_decoder_loss(state.decoder, state, f, pl, _teacher_bin(state, f_sg), epoch, adv_coeff,
-                                    use_dis_merge, denom, f_apm=f_sg)
+                                    use_dis_merge, denom, f_apm=f_sg, group=data_group)
 
     def step(state: TrainState, lora, lora_opt: Optimizer, backbone_params, pixels, pseudo_labels,
              epoch: float, adv_coeff: float):
@@ -369,8 +417,8 @@ def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bo
         lora_opt.zero_grad()
         loss, aux = loss_fn(state, lora, backbone_params, pixels, pseudo_labels, epoch, adv_coeff)
         loss.backward()
-        state.opt.step()
-        lora_opt.step()
+        state.opt.step(group=data_group)
+        lora_opt.step(group=data_group, sum_group=seq_group)
         aux["lora_grad_norm"] = torch.sqrt(sum(torch.sum(t.grad.float() ** 2) for t in tree_leaves(lora)))
         _ema_update(state, ema_weight)
         aux["loss"] = loss.detach()

@@ -55,6 +55,7 @@ from ucod_dpl_tpu_torch.ops import fused_layers as FL
 from ucod_dpl_tpu_torch.ops.fused_layers import dense, layer_norm, layernorm_qkv, layernorm_qkv_reference
 from ucod_dpl_tpu_torch.ops.quant import dense_w8a8, dense_w8a8_pre, quantize_linear
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bicubic
+from ucod_dpl_tpu_torch.parallel.distributed import LOCAL
 from ucod_dpl_tpu_torch.parallel.sp import chunk_kv_lens, gather_tokens, ring_attention, sp_param_grid, split_tokens
 
 
@@ -435,10 +436,13 @@ def dino_forward(
         under ``differentiable``).  ``params``: one dict (placed here on
         data coordinate 0's devices, differentiably) or the per-chunk list
         of :func:`~ucod_dpl_tpu_torch.parallel.sp.sp_param_grid` (rows of
-        model shards with ``tp_shard``).  With ``tp_shard`` on the same mesh
-        it is the 2D forward, heads and MLP split over ``tp_shard``'s axis
-        inside each chunk.  Not with ``want_cls_attention`` or ``quant``
-        (ValueError).
+        model shards with ``tp_shard``).  On a mesh over processes each
+        process runs its own chunks and its first data coordinate, and the
+        ring crosses processes; every process of the ring calls this at the
+        same point with the same pixels.  With ``tp_shard`` on the same mesh
+        (of one process) it is the 2D forward, heads and MLP split over
+        ``tp_shard``'s axis inside each chunk.  Not with
+        ``want_cls_attention`` or ``quant`` (ValueError).
       want_cls_attention: also return the last layer's attention
         probabilities of the CLS row over the 1+N keys (the pseudo-label
         generator's input): its query ``LN1(x)[:, :1] @ Wq + b``, the logits
@@ -583,8 +587,9 @@ def _cls_attention(h, k, q, num_heads: int, head_dim: int, scale: float, dtype) 
 
 
 def _param_grid(params, tp_shard, sp_shard):
-    """``grid[i][m]``: the params of token chunk ``i`` and model shard ``m``
-    (one chunk without ``sp_shard``, one shard without ``tp_shard``)."""
+    """``grid[a][m]``: the params of this process's token chunk ``a`` and
+    model shard ``m`` (one chunk without ``sp_shard``, one shard without
+    ``tp_shard``)."""
     if sp_shard is None:
         shards = params
         tp = tp_shard[0].shape[tp_shard[1]]
@@ -594,9 +599,10 @@ def _param_grid(params, tp_shard, sp_shard):
     mesh, axis = sp_shard
     if isinstance(params, dict):
         return sp_param_grid(params, mesh, axis, None if tp_shard is None else tp_shard[1])
-    if len(params) != mesh.shape[axis]:
-        raise ValueError(f"sp_shard over {axis}={mesh.shape[axis]} needs a parameter row per chunk; got "
-                         f"{len(params)}")
+    held = len(mesh.local_block()[axis])
+    if len(params) != held:
+        raise ValueError(f"sp_shard over {axis}={mesh.shape[axis]} needs a parameter row per chunk this process "
+                         f"holds ({held}); got {len(params)}")
     grid = [[row] if isinstance(row, dict) else list(row) for row in params]
     tp = 1 if tp_shard is None else tp_shard[0].shape[tp_shard[1]]
     if any(len(row) != tp for row in grid):
@@ -620,8 +626,8 @@ def _sharded_forward(
     """The tensor-parallel, sequence-parallel and 2D forwards of
     :func:`dino_forward` (JAX ``dino_forward(tp_shard=..., sp_shard=...)``)
     over ``grid[i][m]``, the params of token chunk ``i`` (one without
-    ``sp_shard``) and model shard ``m`` (one without ``tp_shard``), each on
-    its own device.
+    ``sp_shard``; on a mesh over processes, this process's chunks) and model
+    shard ``m`` (one without ``tp_shard``), each on its own device.
 
     Every layer is unfused, as in JAX (LayerNorm, then dense per shard; K6
     never runs).  Under ``sp_shard`` the embedded tokens are padded to the
@@ -641,8 +647,10 @@ def _sharded_forward(
     deterministic.  Work that is replicated (LayerNorm of the residual
     stream) runs once per distinct device.  The last layer computes LN1 and
     the key projection (gathered from the shards) or the key fold, per
-    chunk; the chunks are gathered on the first chunk's device and the
-    padding sliced off.  With ``want_cls_attention`` (tensor parallelism
+    chunk; the chunks are gathered on the first chunk's device (on a mesh
+    over processes, every process embeds the whole image, keeps its own
+    chunks, and gathers the others' last over the ring's subgroup, the
+    backward keeping its own slice) and the padding sliced off.  With ``want_cls_attention`` (tensor parallelism
     alone) each shard also takes its heads' CLS-row query and attention
     (:func:`_cls_attention`, the unsharded path's rounding), and the heads
     are concatenated in shard order."""
@@ -672,6 +680,7 @@ def _sharded_forward(
 
     x = _embed(grid[0][0], pixels.to(home[0]), cfg, dtype)
     seq_len = x.shape[1]
+    group = LOCAL
     if sp_shard is None:
         xs = [x]
 
@@ -682,8 +691,13 @@ def _sharded_forward(
                                                          plain=plain)]
     else:
         mesh, axis = sp_shard
-        xs = split_tokens(x, home)
-        kv_lens = chunk_kv_lens(seq_len, n)
+        if mesh.spans_processes and tp_shard is not None:
+            raise NotImplementedError("the 2D (SP x TP) forward runs in one process; a mesh over processes takes "
+                                      "sp_shard alone")
+        ring = mesh.shape[axis]
+        xs = split_tokens(x, home, n=ring, positions=mesh.local_block()[axis])
+        kv_lens = chunk_kv_lens(seq_len, ring)
+        group = mesh.group(axis)
 
         def attention(qs, ks, vs):  # [m][i] -> [m][i]
             if tp_shard is None:
@@ -720,10 +734,11 @@ def _sharded_forward(
     if key_fold is not None:
         fw, fb = key_fold
         folded = [dense(hs[i][0], {"w": fw.to(home[i]), "b": fb.to(home[i])}, dtype) for i in range(n)]
-        folded = gather_tokens(folded, seq_len, home[0])
+        folded = gather_tokens(folded, seq_len, home[0], group)
         return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
     ks = [[dense(hs[i][m], last[i][m]["k"], dtype) for m in range(tp)] for i in range(n)]
-    k = gather_tokens([torch.cat([k_m.to(home[i]) for k_m in ks[i]], dim=-1) for i in range(n)], seq_len, home[0])
+    k = gather_tokens([torch.cat([k_m.to(home[i]) for k_m in ks[i]], dim=-1) for i in range(n)], seq_len, home[0],
+                      group)
     out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
     if want_cls_attention:
         out["cls_attention"] = torch.cat(

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ucod_dpl_tpu_torch.parallel.distributed import all_reduce_sum, process_count
+from ucod_dpl_tpu_torch.parallel.distributed import all_reduce_sum, group_size
 
 _LEAKY_SLOPE = 0.1
 _BN_EPS = 1e-5
@@ -77,30 +77,32 @@ def _local_moments(y: torch.Tensor):
     return mean, var, n / max(n - 1, 1)
 
 
-def _global_moments(y: torch.Tensor):
+def _global_moments(y: torch.Tensor, group=None):
     """The same over the global batch of a data-parallel run: the sums and
-    counts of every rank all-reduced (one all-reduce for the mean and the
-    count, one for the two-pass variance), the gradient flowing back
-    through both, as batch-statistics BN over the whole batch under GSPMD
-    gives it in the JAX package."""
+    counts of every rank of ``group`` (the default group when None; the
+    ``data`` replica set under sequence parallelism, whose ``seq`` ranks hold
+    the same rows) all-reduced (one all-reduce for the mean and the count,
+    one for the two-pass variance), the gradient flowing back through both,
+    as batch-statistics BN over the whole batch under GSPMD gives it in the
+    JAX package."""
     c = y.shape[1]
     count = y.new_full((1,), float(y.shape[0] * y.shape[2] * y.shape[3]))
-    sums = all_reduce_sum(torch.cat([y.sum(dim=(0, 2, 3)), count]))
+    sums = all_reduce_sum(torch.cat([y.sum(dim=(0, 2, 3)), count]), group)
     n = sums[c:].detach()
     mean = sums[:c] / n
-    var = all_reduce_sum(((y - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3))) / n
+    var = all_reduce_sum(((y - mean[:, None, None]) ** 2).sum(dim=(0, 2, 3)), group) / n
     return mean, var, n / (n - 1).clamp(min=1)
 
 
 def _conv_block(
-    params: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor], x: torch.Tensor, stride: int
+    params: Dict[str, torch.Tensor], stats: Dict[str, torch.Tensor], x: torch.Tensor, stride: int, group=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """NCHW conv + batch-statistics BN + leaky ReLU, and the refreshed
-    running statistics."""
+    """NCHW conv + batch-statistics BN (over the ranks of ``group``) + leaky
+    ReLU, and the refreshed running statistics."""
     y = F.conv2d(x, params["conv_w"], stride=stride, padding=1)
     # one process (a group of one too) keeps the local formula, whose bits
     # the one-process runs and their bitwise resume tests pin
-    mean, var, unbiased_factor = (_global_moments if process_count() > 1 else _local_moments)(y)
+    mean, var, unbiased_factor = _global_moments(y, group) if group_size(group) > 1 else _local_moments(y)
     y = (y - mean[:, None, None]) * torch.rsqrt(var + _BN_EPS)[:, None, None]
     y = y * params["bn_scale"][:, None, None] + params["bn_bias"][:, None, None]
     y = torch.where(y >= 0, y, _LEAKY_SLOPE * y)
@@ -117,6 +119,7 @@ def discriminator_forward(
     stats: Dict[str, Any],
     mask: torch.Tensor,
     features: Optional[torch.Tensor] = None,
+    group=None,
 ):
     """Score masks as real/fake.
 
@@ -125,18 +128,20 @@ def discriminator_forward(
       mask: (B, H, W, 1) mask (NHWC).
       features: (B, H, W, feature_dim), read only when the feature branch
         exists.
+      group: the process group whose ranks' rows make the batch of the
+        batch-norm moments (the default group when None).
 
     Returns ((B, 1) sigmoid probabilities, refreshed stats dict).
     """
-    x, mc_s = _conv_block(params["mask_conv"], stats["mask_conv"], mask.permute(0, 3, 1, 2), stride=1)
+    x, mc_s = _conv_block(params["mask_conv"], stats["mask_conv"], mask.permute(0, 3, 1, 2), stride=1, group=group)
     new_stats: Dict[str, Any] = {"mask_conv": mc_s, "convs": []}
     if "feature_conv" in params:
         f, fc_s = _conv_block(params["feature_conv"], stats["feature_conv"],
-                              features.permute(0, 3, 1, 2), stride=1)
+                              features.permute(0, 3, 1, 2), stride=1, group=group)
         new_stats["feature_conv"] = fc_s
         x = torch.cat([x, f], dim=1)
     for blk_p, blk_s in zip(params["convs"], stats["convs"]):
-        x, nb_s = _conv_block(blk_p, blk_s, x, stride=2)
+        x, nb_s = _conv_block(blk_p, blk_s, x, stride=2, group=group)
         new_stats["convs"].append(nb_s)
     logits = F.linear(x.reshape(x.shape[0], -1), params["linear_w"], params["linear_b"])
     return torch.sigmoid(logits), new_stats

@@ -1,4 +1,5 @@
-"""Process groups over ``torch.distributed`` for data-parallel runs.
+"""Process groups over ``torch.distributed`` for data- and sequence-parallel
+runs.
 
 Counterpart of :mod:`ucod_dpl_tpu.parallel.distributed` (``jax.distributed``
 over a TPU pod).  A launcher (``torchrun``, or anything that sets the same
@@ -16,54 +17,90 @@ over a TPU pod).  A launcher (``torchrun``, or anything that sets the same
   over two ranks that share one card never opens an NCCL communicator
   (NCCL refuses two ranks on one device).
 
+A mesh over processes (:func:`~ucod_dpl_tpu_torch.parallel.mesh.build_mesh`
+under a group) adds one subgroup per line of each mesh axis
+(:func:`subgroup`): the ``seq`` ring's processes and the ``data`` replica
+sets.  Over them run the ring's shift (:func:`ring_exchange`, NCCL send and
+receive on the card), the all-gather of token chunks
+(:func:`all_gather_tokens`) and the reductions below, each given its
+``group``: the default group (the world) when it is None, and :data:`LOCAL`,
+this process alone, where a mesh line stays in one process.
+
 ``UCOD_DIST=1`` (the JAX package's trigger) starts a group without a
 launcher's ``WORLD_SIZE > 1``: a group of one.  One rule decides every
-collective here, :func:`process_count` ``> 1``: in a world of one, with a
-group of one or without a group, every function answers for that world
-and launches no collective, so a group of one is exactly a plain run.
+collective here, :func:`group_size` ``> 1`` (of the group it runs over;
+:func:`process_count` for the default group; 1 for :data:`LOCAL`): over one
+process, with a group of one or without a group, every function answers
+for that process and launches no collective, so a group of one is exactly a
+plain run.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+class _Local:
+    """The group of this process alone (:data:`LOCAL`)."""
+
+    def __repr__(self) -> str:
+        return "LOCAL"
+
+
+# the group of a mesh line that stays in this process: every collective over
+# it is a no-op (None, by contrast, is the default group, the whole world)
+LOCAL = _Local()
+
 _host_group = None  # the gloo group of the host collectives, once a group is up
+_subgroups: Dict[Tuple[int, ...], Any] = {}  # the subgroups made so far, by their global ranks
+_cards = 1  # the cards of each process (maybe_initialize_distributed's ``cards``)
 
-# device collectives launched by all_reduce_mean_ (calls and payload bytes),
-# read by chip_smoke.py's phase P
+# device collectives launched by all_reduce_mean_ and all_reduce_sum_ (calls
+# and payload bytes), read by chip_smoke.py's phases P and R
 grad_all_reduce = {"calls": 0, "bytes": 0}
+# the ring's cross-process shifts (ring_exchange: calls and bytes sent), read
+# by chip_smoke.py's phase R
+ring_traffic = {"calls": 0, "bytes": 0}
 
 
-def maybe_initialize_distributed(device="cuda") -> torch.device:
+def maybe_initialize_distributed(device="cuda", cards: int = 1) -> torch.device:
     """Start the process groups when the launcher asks for more than one
     process (``WORLD_SIZE > 1``) or ``UCOD_DIST=1`` is set; return this
     process's device.  Idempotent.
 
-    On CUDA a rank's device is ``cuda:LOCAL_RANK``; a rank without a card
-    raises, as does a ``LOCAL_RANK`` past the visible card count: nothing
-    falls back to the CPU.  The rendezvous is torchrun's ``env://``; a group
-    of one started by ``UCOD_DIST=1`` without ``MASTER_ADDR`` rendezvous in
-    process.  Without a group the device is ``device`` as given."""
+    On CUDA a rank's device is ``cuda:LOCAL_RANK`` (one rank per card), or,
+    with ``cards`` = k > 1 (a mesh over processes of k cards each), the first
+    of its cards ``cuda:LOCAL_RANK * k`` ... ``cuda:LOCAL_RANK * k + k - 1``;
+    a rank without a card raises, as does a ``LOCAL_RANK`` whose cards are not
+    all visible: nothing falls back to the CPU.  The rendezvous is torchrun's
+    ``env://``; a group of one started by ``UCOD_DIST=1`` without
+    ``MASTER_ADDR`` rendezvous in process.  Without a group the device is
+    ``device`` as given."""
+    global _cards
     device = torch.device(device)
     want = int(os.environ.get("WORLD_SIZE", "1")) > 1 or os.environ.get("UCOD_DIST") == "1"
     if not want and not dist.is_initialized():
         return device
+    if cards < 1:
+        raise ValueError(f"cards={cards}: a process holds at least one card")
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a data-parallel rank on CUDA, but CUDA is not available; pass device='cpu'")
         local_rank = int(os.environ.get("LOCAL_RANK", "0"))
-        if local_rank >= torch.cuda.device_count():
-            raise RuntimeError(f"LOCAL_RANK={local_rank}, but {torch.cuda.device_count()} CUDA device(s) are "
-                               "visible: one rank per card")
-        device = torch.device("cuda", local_rank)
+        first = local_rank * cards
+        if first + cards > torch.cuda.device_count():
+            raise RuntimeError(f"LOCAL_RANK={local_rank} with {cards} card(s) a rank needs cards {first}.."
+                               f"{first + cards - 1}, but {torch.cuda.device_count()} CUDA device(s) are visible"
+                               + (": one rank per card" if cards == 1 else ""))
+        device = torch.device("cuda", first)
         torch.cuda.set_device(device)
     elif device.type != "cpu":
         raise ValueError(f"no process-group backend for device {device}")
+    _cards = cards
     if not dist.is_initialized():
         backend = "cpu:gloo,cuda:nccl" if device.type == "cuda" else "gloo"
         world = int(os.environ.get("WORLD_SIZE", "1"))
@@ -83,6 +120,30 @@ def maybe_initialize_distributed(device="cuda") -> torch.device:
 
 def _group_up() -> bool:
     return dist.is_available() and dist.is_initialized()
+
+
+def cards_per_process() -> int:
+    """The ``cards`` this process was started with (1 without a group)."""
+    return _cards if _group_up() else 1
+
+
+def subgroup(ranks: Sequence[int]):
+    """The process group of the global ``ranks`` (made once, then reused).
+    Every process must ask for every subgroup, in the same order, as
+    ``torch.distributed.new_group`` requires."""
+    key = tuple(sorted(int(r) for r in ranks))
+    if key not in _subgroups:
+        _subgroups[key] = dist.new_group(list(key))
+    return _subgroups[key]
+
+
+def group_size(group=None) -> int:
+    """The processes of ``group`` (the default group when None); 1 for
+    :data:`LOCAL` and without a group.  A collective of this module runs only
+    over more than one."""
+    if group is LOCAL or not _group_up():
+        return 1
+    return dist.get_world_size() if group is None else dist.get_world_size(group)
 
 
 def process_count() -> int:
@@ -163,65 +224,126 @@ def barrier(name: str = "barrier") -> None:
         dist.barrier(group=_host())
 
 
-def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Average ``tensors`` in place over the default group: one flat
-    all-reduce per dtype (a bucket), not a call per tensor.  No-op in a
-    world of one."""
-    world = process_count()
-    if world == 1:
+def _all_reduce_buckets_(tensors: Sequence[torch.Tensor], group, mean: bool) -> None:
+    """Sum (or average) ``tensors`` in place over ``group``: one flat
+    all-reduce per dtype (a bucket), not a call per tensor."""
+    size = group_size(group)
+    if size == 1:
         return
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
-    for group in by_dtype.values():
-        flat = torch.cat([t.reshape(-1) for t in group])
-        dist.all_reduce(flat)
-        flat.div_(world)
+    for bucket in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        if mean:
+            flat.div_(size)
         grad_all_reduce["calls"] += 1
         grad_all_reduce["bytes"] += flat.numel() * flat.element_size()
         off = 0
-        for t in group:
+        for t in bucket:
             t.copy_(flat[off : off + t.numel()].view_as(t))
             off += t.numel()
 
 
+def all_reduce_mean_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Average ``tensors`` in place over ``group`` (the default group when
+    None), one flat all-reduce per dtype.  No-op over one process."""
+    _all_reduce_buckets_(tensors, group, mean=True)
+
+
+def all_reduce_sum_(tensors: Sequence[torch.Tensor], group=None) -> None:
+    """Sum ``tensors`` in place over ``group``, as :func:`all_reduce_mean_`."""
+    _all_reduce_buckets_(tensors, group, mean=False)
+
+
 class _AllReduceSum(torch.autograd.Function):
-    """Sum over the default group; the backward sums the incoming gradients
-    over the ranks (as ``torch.distributed.nn.functional.all_reduce``)."""
+    """Sum over a group; the backward sums the incoming gradients over the
+    group's ranks (as ``torch.distributed.nn.functional.all_reduce``)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         out = x.clone()
-        dist.all_reduce(out)
+        dist.all_reduce(out, group=group)
         return out
 
     @staticmethod
     def backward(ctx, grad):
         out = grad.clone()
-        dist.all_reduce(out)
-        return out
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` summed over the default group, differentiable; ``x`` itself in
-    a world of one."""
-    return _AllReduceSum.apply(x) if process_count() > 1 else x
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over ``group`` (the default group when None),
+    differentiable; ``x`` itself over one process."""
+    return _AllReduceSum.apply(x, group) if group_size(group) > 1 else x
 
 
-def all_reduce_mean(x: torch.Tensor) -> torch.Tensor:
-    """A detached copy of ``x`` averaged over the default group (logged
-    losses); ``x`` detached in a world of one."""
+def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """A detached copy of ``x`` averaged over ``group`` (logged losses); ``x``
+    detached over one process."""
     x = x.detach()
-    if process_count() == 1:
+    size = group_size(group)
+    if size == 1:
         return x
     out = x.clone()
-    dist.all_reduce(out)
-    return out / process_count()
+    dist.all_reduce(out, group=group)
+    return out / size
+
+
+class _AllGatherTokens(torch.autograd.Function):
+    """The token chunks of every rank of a group concatenated along dim 1, in
+    the group's rank order.  The backward returns this rank's own slice of
+    the incoming gradient, without a sum: every rank computes the same loss
+    on the gathered tokens, so each rank's replica already holds the whole
+    gradient of its chunk."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous()
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x, group=group)
+        ctx.index, ctx.width = dist.get_rank(group), x.shape[1]
+        return torch.cat(parts, dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.narrow(1, ctx.index * ctx.width, ctx.width), None
+
+
+def all_gather_tokens(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, c, D) chunks of every rank of ``group`` -> (B, size * c, D), rank
+    order, differentiable (:class:`_AllGatherTokens`); ``x`` over one
+    process."""
+    return _AllGatherTokens.apply(x, group) if group_size(group) > 1 else x
+
+
+def ring_exchange(send: Sequence[torch.Tensor], recv: Sequence[torch.Tensor], group, send_to: Optional[int],
+                  recv_from: Optional[int]) -> None:
+    """One hop of a ring between processes: ``send`` goes to global rank
+    ``send_to`` and ``recv`` is filled from global rank ``recv_from`` (either
+    None: no such transfer), every send and receive posted together
+    (``batch_isend_irecv``), so no pair of ranks waits on the other's order.
+    Returns when all have completed; a failed transfer raises."""
+    ops = []
+    if send_to is not None:
+        ops += [dist.P2POp(dist.isend, t, send_to, group) for t in send]
+        ring_traffic["calls"] += 1
+        ring_traffic["bytes"] += sum(t.numel() * t.element_size() for t in send)
+    if recv_from is not None:
+        ops += [dist.P2POp(dist.irecv, t, recv_from, group) for t in recv]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
 
 
 def shutdown() -> None:
     """Destroy the process groups (tests and workers that start several)."""
-    global _host_group
+    global _host_group, _cards
     if _group_up():
         dist.destroy_process_group()
     _host_group = None
+    _subgroups.clear()
+    _cards = 1

@@ -1,4 +1,5 @@
-"""Sequence-parallel (ring) attention over a mesh axis, in one process.
+"""Sequence-parallel (ring) attention over a mesh axis, in one process or
+across processes.
 
 Counterpart of :mod:`ucod_dpl_tpu.parallel.sp`.  Sequence parallelism
 splits the token dimension, the one that grows with resolution (1370 tokens
@@ -8,34 +9,46 @@ chunks, chunk ``i`` holding tokens ``[i * L / n, (i + 1) * L / n)`` on its
 device.  Everything in a ViT block but attention is token-local and runs on
 each chunk's own device; attention is the ring below.
 
-Where the JAX ring rotates k/v chunks with ``ppermute`` and merges them into
-an f32 online-softmax accumulator, here each (query chunk i, key/value
-chunk j) pair is one call of the forward with log-sum-exp (the port of K2,
+The ring follows the JAX ``_local_ring``: at hop ``t`` query chunk ``i``
+meets key/value chunk ``(i - t) mod n``, then every k/v chunk moves one
+step along the ring (position ``i`` to ``i + 1``).  A step between two
+chunks of this process is a device copy; a step to or from another
+process's chunk is a send/recv (:func:`~ucod_dpl_tpu_torch.parallel.
+distributed.ring_exchange`: NCCL on the card, gloo on the CPU).  A process
+holds consecutive chunks of the ring (a mesh of one process holds all of
+them), so each hop it sends at most one chunk and receives at most one.
+
+Where the JAX ring merges every hop into an f32 online-softmax accumulator,
+here each (query chunk i, key/value chunk j) pair is one call of the
+forward with log-sum-exp (the port of K2,
 :func:`~ucod_dpl_tpu_torch.ops.attention.packed_attention_fwd_lse`) on
-query chunk i's device, with an f32 output.  The partial outputs are merged
-by their log-sum-exps in f32 and rounded once::
+query chunk i's device, with an f32 output.  The partial outputs are kept
+and merged by their log-sum-exps in f32, in chunk order ``j`` whatever the
+hop that brought them, and rounded once::
 
     lse_i = logsumexp_j lse_ij,   o_i = sum_j exp(lse_ij - lse_i) o_ij,
 
 which is JAX's online softmax regrouped.  The backward
-(:class:`RingAttention`) runs one flash backward (the port of K3/K4,
+(:class:`RingAttention`, the JAX ``_local_ring_bwd``) runs one flash
+backward (the port of K3/K4,
 :func:`~ucod_dpl_tpu_torch.ops.attention.packed_attention_bwd`) per pair
-from the global o_i and lse_i, with f32 outputs: dQ_i summed over j on
-chunk i's device, dK_j and dV_j over i on chunk j's device, each rounded
-once, as the JAX ``_local_ring_bwd`` accumulates them.  The pairs run in a
-fixed order (i, then j), so equal inputs give equal outputs and gradients
-bit for bit.
+from the global o_i and lse_i, with f32 outputs, in the same hop order:
+dQ_i sums on chunk i's device, and the f32 dK_j and dV_j accumulators ride
+the ring with their k/v chunk and are home after n hops; each is rounded
+once.  The order of every sum is fixed by the ring, not by where a chunk
+lives, so both transports give equal outputs and gradients bit for bit.
 
 Padding: ViT lengths are 1 + grid**2 (2917 at 756px is prime), so the
 tokens are padded at the end to ``padded_len(L, n)``, a multiple of n, as
 JAX pads them.  Chunk j then holds ``kv_lens[j]`` real keys (the first
 tokens hold the data, only the last chunks padding); the kernels take that
-count as their key bound, so padded keys add exactly nothing, and a chunk
-with no real key is never launched.  Padded query rows give finite values
-that the caller slices off.
+count as their key bound, so padded keys add exactly nothing, and a pair
+whose key chunk has no real key launches no kernel (its tensors still move
+on, or the ring would stall).  Padded query rows give finite values that the
+caller slices off.
 
 2D (SP x TP): attention is head-local, so with a head axis each tensor-
-parallel shard rings its own heads over the ``seq`` chunks.
+parallel shard rings its own heads over the ``seq`` chunks (in one process).
 """
 
 from __future__ import annotations
@@ -50,6 +63,7 @@ from ucod_dpl_tpu_torch.ops.attention import (
     packed_attention_fwd_lse,
     packed_attention_fwd_lse_reference,
 )
+from ucod_dpl_tpu_torch.parallel import distributed as D
 from ucod_dpl_tpu_torch.parallel.mesh import Mesh
 from ucod_dpl_tpu_torch.parallel.tp import place_shard
 
@@ -67,19 +81,67 @@ def chunk_kv_lens(seq_len: int, n: int) -> List[int]:
     return [max(0, min(c, seq_len - i * c)) for i in range(n)]
 
 
-def split_tokens(x: torch.Tensor, devices: Sequence[torch.device]) -> List[torch.Tensor]:
-    """(B, L, D) -> its ``len(devices)`` token chunks, padded with zeros at
-    the end to :func:`padded_len`, chunk i on ``devices[i]``."""
-    n = len(devices)
+def split_tokens(x: torch.Tensor, devices: Sequence[torch.device], n: Optional[int] = None,
+                 positions: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """(B, L, D) -> its ``n`` token chunks (``len(devices)`` by default),
+    padded with zeros at the end to :func:`padded_len`; the chunks at
+    ``positions`` (all by default), chunk ``positions[a]`` on
+    ``devices[a]``."""
+    n = len(devices) if n is None else n
+    positions = range(n) if positions is None else positions
     pad = padded_len(x.shape[1], n) - x.shape[1]
     if pad:
         x = torch.cat([x, x.new_zeros(x.shape[0], pad, x.shape[2])], dim=1)
-    return [c.to(d) for c, d in zip(x.chunk(n, dim=1), devices)]
+    chunks = x.chunk(n, dim=1)
+    return [chunks[i].to(d) for i, d in zip(positions, devices, strict=True)]
 
 
-def gather_tokens(chunks: Sequence[torch.Tensor], seq_len: int, device: torch.device) -> torch.Tensor:
-    """The chunks concatenated on ``device``, the padding sliced off."""
-    return torch.cat([c.to(device) for c in chunks], dim=1)[:, :seq_len]
+def gather_tokens(chunks: Sequence[torch.Tensor], seq_len: int, device: torch.device,
+                  group=D.LOCAL) -> torch.Tensor:
+    """The chunks concatenated on ``device``, those of the other processes of
+    ``group`` (:meth:`Mesh.group` of the ring's axis) gathered after them in
+    rank order (differentiable: the backward keeps this process's slice),
+    the padding sliced off."""
+    x = torch.cat([c.to(device) for c in chunks], dim=1)
+    return D.all_gather_tokens(x, group)[:, :seq_len]
+
+
+class Ring:
+    """This process's part of the ring over ``axis`` of ``mesh``: ``n``
+    positions, of which it holds ``positions`` (consecutive), the global
+    ranks of the processes before and after them (None when the ring closes
+    in this process) and the ring's subgroup."""
+
+    def __init__(self, mesh: Mesh, axis: str = "seq"):
+        self.n = mesh.shape[axis]
+        block = mesh.local_block()
+        self.positions = block[axis]
+        self.prev_rank = self.next_rank = None
+        self.group = mesh.group(axis)
+        if len(self.positions) < self.n:
+            first = {a: v[0] for a, v in block.items()}
+            self.prev_rank = mesh.owner(**{**first, axis: (self.positions[0] - 1) % self.n})
+            self.next_rank = mesh.owner(**{**first, axis: (self.positions[-1] + 1) % self.n})
+
+    def shift(self, tensors: Sequence[Sequence[torch.Tensor]]) -> List[List[torch.Tensor]]:
+        """One step along the ring for each list of ``tensors`` (one tensor
+        per held position): position i's tensor goes to position i + 1, by a
+        device copy inside the process, else sent to the next process, while
+        the first position receives from the previous one.  On the card the
+        transfers go through this process's current device."""
+        out = [[t[a - 1].to(t[a].device) for a in range(1, len(t))] for t in tensors]
+        if self.next_rank is None:
+            for o, t in zip(out, tensors):
+                o.insert(0, t[-1].to(t[0].device))
+            return out
+        last = [t[-1] for t in tensors]
+        via = torch.device("cuda", torch.cuda.current_device()) if last[0].is_cuda else last[0].device
+        send = [x.to(via).contiguous() for x in last]
+        recv = [torch.empty_like(x) for x in send]
+        D.ring_exchange(send, recv, self.group, self.next_rank, self.prev_rank)
+        for o, t, r in zip(out, tensors, recv):
+            o.insert(0, r.to(t[0].device))
+        return out
 
 
 def _merge(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]], num_heads: int, dtype: torch.dtype):
@@ -98,20 +160,30 @@ def _merge(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]], num_heads: int, d
     return acc.reshape(b, c, dm).to(dtype), lse
 
 
-def _ring_forward(qs, ks, vs, num_heads: int, scale: float, kv_lens, plain: bool):
-    """The forward ring: per query chunk, one forward with log-sum-exp per
-    chunk with a real key, merged -> (outputs, global log-sum-exps)."""
+def _ring_forward(qs, ks, vs, num_heads: int, scale: float, kv_lens, plain: bool, ring: Ring):
+    """The forward ring over this process's query chunks: per hop one
+    forward with log-sum-exp per pair with a real key, the k/v chunks moved
+    on after each hop but the last; each query chunk's partials merged in
+    chunk order -> (outputs, global log-sum-exps)."""
     fwd = packed_attention_fwd_lse_reference if plain else packed_attention_fwd_lse
-    valid = [j for j, n_j in enumerate(kv_lens) if n_j > 0]
-    if len(valid) == 1 and len(qs) == 1:
+    n = ring.n
+    if n == 1:
         # no ring: one masked call, rounded by the kernel
         o, lse = fwd(qs[0], ks[0], vs[0], num_heads, scale, kv_len=kv_lens[0])
         return [o], [lse]
+    parts: List[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = [{} for _ in qs]
+    kv = [list(ks), list(vs)]
+    for t in range(n):
+        for a, i in enumerate(ring.positions):
+            j = (i - t) % n
+            if kv_lens[j]:
+                parts[a][j] = fwd(qs[a], kv[0][a], kv[1][a], num_heads, scale, kv_len=kv_lens[j],
+                                  out_dtype=torch.float32)
+        if t < n - 1:
+            kv = ring.shift(kv)
     outs, lses = [], []
-    for q in qs:
-        parts = [fwd(q, ks[j].to(q.device), vs[j].to(q.device), num_heads, scale, kv_len=kv_lens[j],
-                     out_dtype=torch.float32) for j in valid]
-        o, lse = _merge(parts, num_heads, q.dtype)
+    for q, p in zip(qs, parts):
+        o, lse = _merge([p[j] for j in sorted(p)], num_heads, q.dtype)
         outs.append(o)
         lses.append(lse)
     return outs, lses
@@ -120,51 +192,56 @@ def _ring_forward(qs, ks, vs, num_heads: int, scale: float, kv_lens, plain: bool
 class RingAttention(torch.autograd.Function):
     """Ring attention whose backward is a ring of flash backwards from the
     saved global output and log-sum-exp (the JAX ring's custom VJP).
-    ``apply(meta, *q_chunks, *k_chunks, *v_chunks)`` with ``meta = (num_heads,
-    scale, kv_lens, plain)`` -> the output chunks."""
+    ``apply(meta, *q_chunks, *k_chunks, *v_chunks)`` over this process's
+    chunks, with ``meta = (num_heads, scale, kv_lens, plain, ring)`` -> the
+    output chunks."""
 
     @staticmethod
     def forward(ctx, meta, *chunks):
-        num_heads, scale, kv_lens, plain = meta
-        n = len(kv_lens)
-        qs, ks, vs = chunks[:n], chunks[n:2 * n], chunks[2 * n:]
-        outs, lses = _ring_forward(qs, ks, vs, num_heads, scale, kv_lens, plain)
+        num_heads, scale, kv_lens, plain, ring = meta
+        m = len(chunks) // 3
+        qs, ks, vs = chunks[:m], chunks[m:2 * m], chunks[2 * m:]
+        outs, lses = _ring_forward(qs, ks, vs, num_heads, scale, kv_lens, plain, ring)
         ctx.save_for_backward(*qs, *ks, *vs, *outs, *lses)
         ctx.meta = meta
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *d_outs):
-        num_heads, scale, kv_lens, plain = ctx.meta
-        n = len(kv_lens)
+        num_heads, scale, kv_lens, plain, ring = ctx.meta
         saved = ctx.saved_tensors
-        qs, ks, vs, outs, lses = (saved[i * n:(i + 1) * n] for i in range(5))
+        m = len(saved) // 5
+        qs, ks, vs, outs, lses = (saved[i * m:(i + 1) * m] for i in range(5))
         bwd = packed_attention_bwd_reference if plain else packed_attention_bwd
         f32 = torch.float32
-        dk = [torch.zeros(k.shape, device=k.device, dtype=f32) for k in ks]
-        dv = [torch.zeros(v.shape, device=v.device, dtype=f32) for v in vs]
-        dq = []
-        for i, q in enumerate(qs):
-            do = torch.zeros_like(outs[i]) if d_outs[i] is None else d_outs[i].contiguous()
-            dq_i = None
-            for j, n_j in enumerate(kv_lens):
-                if n_j == 0:
+        dos = [torch.zeros_like(o) if d is None else d.contiguous() for o, d in zip(outs, d_outs)]
+        # k, v and their f32 dK/dV accumulators ride the ring together
+        cur = [list(ks), list(vs), [torch.zeros(k.shape, device=k.device, dtype=f32) for k in ks],
+               [torch.zeros(v.shape, device=v.device, dtype=f32) for v in vs]]
+        dq: List[Optional[torch.Tensor]] = [None] * m
+        n = ring.n
+        for t in range(n):
+            for a, i in enumerate(ring.positions):
+                j = (i - t) % n
+                if not kv_lens[j]:
                     continue
-                g = bwd(q, ks[j].to(q.device), vs[j].to(q.device), outs[i], do, lses[i], num_heads, scale,
-                        kv_len=n_j, out_dtype=f32)
-                dq_i = g[0] if dq_i is None else dq_i + g[0]
-                dk[j] += g[1].to(dk[j].device)
-                dv[j] += g[2].to(dv[j].device)
-            dq.append(dq_i.to(q.dtype))
-        return (None, *dq, *(g.to(k.dtype) for g, k in zip(dk, ks)), *(g.to(v.dtype) for g, v in zip(dv, vs)))
+                g = bwd(qs[a], cur[0][a], cur[1][a], outs[a], dos[a], lses[a], num_heads, scale, kv_len=kv_lens[j],
+                        out_dtype=f32)
+                dq[a] = g[0] if dq[a] is None else dq[a] + g[0]
+                cur[2][a] = cur[2][a] + g[1]
+                cur[3][a] = cur[3][a] + g[2]
+            # after the last hop only the accumulators move, home
+            cur = ring.shift(cur) if t < n - 1 else [None, None, *ring.shift(cur[2:])]
+        return (None, *(g.to(q.dtype) for g, q in zip(dq, qs)), *(g.to(k.dtype) for g, k in zip(cur[2], ks)),
+                *(g.to(v.dtype) for g, v in zip(cur[3], vs)))
 
 
-def _ring(qs, ks, vs, num_heads: int, scale: float, kv_lens, plain: bool) -> List[torch.Tensor]:
+def _ring(qs, ks, vs, num_heads: int, scale: float, kv_lens, plain: bool, ring: Ring) -> List[torch.Tensor]:
     """One head group's ring; through :class:`RingAttention` when autograd
     records."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (*qs, *ks, *vs)):
-        return list(RingAttention.apply((num_heads, float(scale), tuple(kv_lens), plain), *qs, *ks, *vs))
-    return _ring_forward(qs, ks, vs, num_heads, scale, kv_lens, plain)[0]
+        return list(RingAttention.apply((num_heads, float(scale), tuple(kv_lens), plain, ring), *qs, *ks, *vs))
+    return _ring_forward(qs, ks, vs, num_heads, scale, kv_lens, plain, ring)[0]
 
 
 def ring_attention(
@@ -181,11 +258,14 @@ def ring_attention(
     plain: bool = False,
 ) -> List[Any]:
     """Sequence-parallel attention over ``axis`` of ``mesh`` (the JAX
-    ``ring_attention``): ``qs``/``ks``/``vs`` are the token chunks of q/k/v,
-    (B, L / n, num_heads * d) each on its chunk's device, ``kv_lens[j]`` the
-    real tokens of chunk j (:func:`chunk_kv_lens`).  Returns the output
-    chunks; differentiable through :class:`RingAttention` when autograd
-    records.  CPU tensors and ``plain`` take the kernels' plain versions.
+    ``ring_attention``): ``qs``/``ks``/``vs`` are this process's token chunks
+    of q/k/v (all ``n`` on a mesh of one process; on a mesh over processes
+    those of its block, :meth:`Mesh.local_block`), (B, L / n, num_heads * d)
+    each on its chunk's device, ``kv_lens[j]`` the real tokens of chunk j of
+    the whole ring (:func:`chunk_kv_lens`).  Returns the output chunks;
+    differentiable through :class:`RingAttention` when autograd records.
+    Every process of the ring must call it at the same point.  CPU tensors
+    and ``plain`` take the kernels' plain versions.
 
     ``h_axis``: the 2D (SP x TP) case.  Each of ``qs``/``ks``/``vs`` is then
     the list over the ``h_axis`` shards (``num_heads / size`` heads each) of
@@ -195,6 +275,9 @@ def ring_attention(
     if h_axis is not None and mesh.shape.get(h_axis, 1) == 1:
         h_axis = None
     if h_axis is not None:
+        if mesh.spans_processes:
+            raise NotImplementedError("2D (SP x TP) ring attention runs in one process; a mesh over processes "
+                                      "rings without a head axis")
         if h_axis == axis:
             raise ValueError(f"h_axis={h_axis!r} must differ from the ring axis {axis!r}")
         tp = mesh.shape[h_axis]
@@ -204,30 +287,37 @@ def ring_attention(
             raise ValueError(f"ring_attention over {h_axis}={tp} needs {tp} head shards; got {len(qs)}")
         return [ring_attention(q, k, v, num_heads // tp, scale=scale, kv_lens=kv_lens, mesh=mesh, axis=axis,
                                plain=plain) for q, k, v in zip(qs, ks, vs)]
-    if not len(qs) == len(ks) == len(vs) == len(kv_lens) == n:
-        raise ValueError(f"ring_attention over {axis}={n} needs {n} chunks of q/k/v and kv_lens; got "
-                         f"{len(qs)}, {len(ks)}, {len(vs)}, {len(kv_lens)}")
+    ring = Ring(mesh, axis)
+    m = len(ring.positions)
+    if not len(qs) == len(ks) == len(vs) == m or len(kv_lens) != n:
+        raise ValueError(f"ring_attention over {axis}={n} needs this process's {m} chunks of q/k/v and {n} kv_lens; "
+                         f"got {len(qs)}, {len(ks)}, {len(vs)}, {len(kv_lens)}")
     if kv_lens[0] < 1:
         raise ValueError("ring_attention: the first chunk holds no real token")
     # the kernels take contiguous chunks (a view of a (B, L, D) tensor split
     # along L is not, for B > 1)
     qs, ks, vs = ([x.contiguous() for x in xs] for xs in (qs, ks, vs))
-    return _ring(qs, ks, vs, num_heads, scale, kv_lens, plain)
+    return _ring(qs, ks, vs, num_heads, scale, kv_lens, plain, ring)
 
 
 def sp_param_grid(params, mesh: Mesh, axis: str = "seq", tp_axis: Optional[str] = None,
-                  data: int = 0) -> List[List[Dict[str, Any]]]:
+                  data: Optional[int] = None) -> List[List[Dict[str, Any]]]:
     """``params`` placed for the sequence-parallel forward at ``data``
-    coordinate ``data`` of ``mesh``: ``grid[i][m]`` is the parameter dict (of
+    coordinate ``data`` of ``mesh`` (by default this process's first: 0 on a
+    mesh of one process): ``grid[a][m]`` is the parameter dict (of
     ``tp_axis`` shard ``m``, the whole ViT without one) on the device at
-    ``axis`` coordinate ``i`` and ``tp_axis`` coordinate ``m``.  Each distinct
-    (shard, device) is placed once and shared (one card named several
-    times holds one copy of each shard).  The copies are differentiable:
-    a forward of LoRA-merged weights places them at each call."""
+    this process's ``a``-th ``axis`` coordinate (every one on a mesh of one
+    process) and ``tp_axis`` coordinate ``m``.  Each distinct (shard,
+    device) is placed once and shared (one card named several times holds
+    one copy of each shard).  The copies are differentiable: a forward of
+    LoRA-merged weights places them at each call."""
     tp = mesh.shape[tp_axis] if tp_axis is not None else 1
+    block = mesh.local_block()
+    if data is None:
+        data = block["data"][0] if "data" in block else 0
     placed: Dict[Any, Dict[str, Any]] = {}
     grid = []
-    for i in range(mesh.shape[axis]):
+    for i in block[axis]:
         row = []
         for m in range(tp):
             coords = {axis: i, **({tp_axis: m} if tp_axis is not None else {})}

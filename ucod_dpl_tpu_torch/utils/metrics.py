@@ -5,8 +5,11 @@ which matches the reference metric suite (``engine/utils/metrics/metric.py``
 of Heartfirey/UCOD-DPL, after PySODMetrics): MAE, S-measure (Fan et al.),
 E-measure (adaptive and a 256-threshold curve), F-measure (beta = 0.3,
 adaptive and curve), weighted F-measure (Margolin et al.), pixel accuracy
-and mIoU.  The JAX package's native scorer (``native/metrics_kernel.cpp``)
-is not carried over: every image is scored here in NumPy.
+and mIoU.  Each image is scored by the native scorer
+(``native/metrics_kernel.cpp`` through :mod:`.native`, the same float64
+math) when its library builds, as the JAX package scores it, and in NumPy
+under ``UCOD_NATIVE_METRICS=0`` or without the library.
+:data:`native_scored` counts the images each path scored.
 """
 
 from __future__ import annotations
@@ -18,6 +21,10 @@ import numpy as np
 from scipy.ndimage import convolve, distance_transform_edt
 
 EPS = np.spacing(1)
+
+# images scored by the native scorer and by NumPy, counted in the process
+# that accumulates them (CODStatistics), read by chip_smoke.py's phase K
+native_scored = {"native": 0, "numpy": 0}
 
 
 def normalize_pair(pred: np.ndarray, gt: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -238,11 +245,26 @@ def weighted_f_measure(pred: np.ndarray, gt: np.ndarray, beta: float = 1.0) -> f
     return float((1 + beta) * recall * precision / (recall + beta * precision + EPS))
 
 
-def _score_one(args) -> tuple:
-    """Per-image metric bundle of a (gt, pred) pair (module level, so a
-    process pool can pickle it)."""
+def _native_scorer_enabled() -> bool:
+    return os.environ.get("UCOD_NATIVE_METRICS", "1") != "0"
+
+
+def _score_one(args) -> Tuple[tuple, bool]:
+    """(the per-image metric bundle of a (gt, pred) pair: S-measure, MAE,
+    WFM, accuracy, IoU, E curve, F curve; whether the native scorer computed
+    it).  Native unless ``UCOD_NATIVE_METRICS=0`` or its library is missing,
+    as the JAX ``_score_one`` routes it.  Module level, so a process pool can
+    pickle it."""
     g, p = args
     pn, gn = normalize_pair(p, g)
+    if _native_scorer_enabled():
+        from ucod_dpl_tpu_torch.utils.native import score_one_native
+
+        # pn keeps normalize_pair's dtype: int64 signals the constant-pred
+        # quirk (integer-arithmetic WFM convolution) to the native scorer
+        native = score_one_native(pn, gn, _gauss_kernel_matlab())
+        if native is not None:
+            return native, True
     _, e_curve = e_measure(pn, gn)
     _, f_curve, _, _ = f_measure(pn, gn)
     return (
@@ -253,7 +275,7 @@ def _score_one(args) -> tuple:
         binary_iou(pn, gn),
         e_curve,
         f_curve,
-    )
+    ), False
 
 
 class CODStatistics:
@@ -324,8 +346,9 @@ class CODStatistics:
             else:
                 self._record(_score_one((g, p)))
 
-    def _record(self, scores: tuple) -> None:
-        sm, m, wfm, acc, iou, e_curve, f_curve = scores
+    def _record(self, scored: Tuple[tuple, bool]) -> None:
+        (sm, m, wfm, acc, iou, e_curve, f_curve), native = scored
+        native_scored["native" if native else "numpy"] += 1
         self._sm.append(sm)
         self._mae.append(m)
         self._wfm.append(wfm)

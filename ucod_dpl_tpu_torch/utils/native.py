@@ -1,14 +1,24 @@
-"""The native image resize (``native/imagepipe.cpp``) for the port's host
-pipeline, jax-free.
+"""The native host modules (``native/*.cpp``) of the port's host pipeline,
+jax-free.
 
-The port's copy of the image-pipe part of :mod:`ucod_dpl_tpu.utils.native`:
-``imagepipe.cpp`` is built with g++ on first use into the port's own build
-directory (``build/ucod_dpl_tpu_torch/native/``; the source directory
-``native/`` is only read), rebuilt when the source is newer, and loaded with
-ctypes.  When it cannot be built or loaded, or ``UCOD_NATIVE_IO=0``,
-:func:`resize_u8_native` returns None and the caller resizes with Pillow,
-whose BILINEAR filter the native resize reproduces bit for bit.  This is the
-host's image decode path, not a device path.
+The port's copy of :mod:`ucod_dpl_tpu.utils.native`: each source is built
+with g++ on first use into the port's own build directory
+(``build/ucod_dpl_tpu_torch/native/``; the source directory ``native/`` is
+only read), rebuilt when the source is newer, and loaded with ctypes.  When a
+library cannot be built or loaded, its entry returns None and the caller
+takes the NumPy, scipy or Pillow path, which computes the same values.
+
+* ``metrics_kernel.cpp``: the per-image metric bundle
+  (:func:`score_one_native`), the eval's default scorer
+  (``utils/metrics.py``; ``UCOD_NATIVE_METRICS=0`` keeps NumPy);
+* ``cc_label.cpp``: 8-connected labelling and per-component statistics
+  (:func:`cc_label`, :func:`cc_stats`), opt-in through ``UCOD_NATIVE_CC=1``
+  (``utils/components.py``; scipy is the default);
+* ``imagepipe.cpp``: the PIL-exact bilinear resize (:func:`resize_u8_native`,
+  off with ``UCOD_NATIVE_IO=0``); it links libjpeg and libpng, and where
+  they are missing the transforms resize with Pillow.
+
+These are host paths, not device paths.
 """
 
 from __future__ import annotations
@@ -22,12 +32,22 @@ from typing import Optional, Tuple
 import numpy as np
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_IMAGEPIPE_SRC = os.path.join(_REPO_ROOT, "native", "imagepipe.cpp")
-_IMAGEPIPE_SO = os.path.join(_REPO_ROOT, "build", "ucod_dpl_tpu_torch", "native", "libimagepipe.so")
+_SRC_DIR = os.path.join(_REPO_ROOT, "native")
+_BUILD_DIR = os.path.join(_REPO_ROOT, "build", "ucod_dpl_tpu_torch", "native")
+_IMAGEPIPE_SRC = os.path.join(_SRC_DIR, "imagepipe.cpp")
+_IMAGEPIPE_SO = os.path.join(_BUILD_DIR, "libimagepipe.so")
+_CC_SRC = os.path.join(_SRC_DIR, "cc_label.cpp")
+_CC_SO = os.path.join(_BUILD_DIR, "libcclabel.so")
+_METRICS_SRC = os.path.join(_SRC_DIR, "metrics_kernel.cpp")
+_METRICS_SO = os.path.join(_BUILD_DIR, "libmetrics.so")
 
 _lock = threading.Lock()
 _imagepipe_lib: Optional[ctypes.CDLL] = None
 _imagepipe_tried = False
+_cc_lib: Optional[ctypes.CDLL] = None
+_cc_tried = False
+_metrics_lib: Optional[ctypes.CDLL] = None
+_metrics_tried = False
 
 
 def _build_so(src: str, so: str, ldflags: Tuple[str, ...] = ()) -> bool:
@@ -104,3 +124,114 @@ def resize_u8_native(arr: np.ndarray, size_hw: Tuple[int, int]) -> Optional[np.n
     if rc != 0:
         return None
     return dst[..., 0] if squeeze else dst
+
+
+# ---------------------------------------------------------------------------
+# connected components (native/cc_label.cpp)
+# ---------------------------------------------------------------------------
+
+
+def get_lib() -> Optional[ctypes.CDLL]:
+    """The labeller library with its entries declared, or None."""
+    global _cc_lib, _cc_tried
+    with _lock:
+        if _cc_lib is not None or _cc_tried:
+            return _cc_lib
+        _cc_tried = True
+        lib = _load_so(_CC_SRC, _CC_SO)
+        if lib is None:
+            return None
+        lib.cc_label_u8.restype = ctypes.c_int32
+        lib.cc_label_u8.argtypes = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int32,
+                                    ctypes.POINTER(ctypes.c_int32)]
+        lib.cc_stats.restype = None
+        lib.cc_stats.argtypes = [ctypes.POINTER(ctypes.c_int32), ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                                 ctypes.POINTER(ctypes.c_int32)]
+        _cc_lib = lib
+        return _cc_lib
+
+
+def cc_label(mask: np.ndarray) -> Optional[Tuple[int, np.ndarray]]:
+    """8-connected labelling of ``mask > 0`` -> (components, (H, W) int32
+    labels, 0 the background), or None when the library is not available."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    mask_u8 = np.ascontiguousarray((np.asarray(mask) > 0).astype(np.uint8))
+    h, w = mask_u8.shape
+    labels = np.empty((h, w), dtype=np.int32)
+    n = lib.cc_label_u8(mask_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+                        labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return int(n), labels
+
+
+def cc_stats(labels: np.ndarray, num: int) -> Optional[np.ndarray]:
+    """(num, 5) int32 [area, x0, y0, x1, y1] of each component of ``labels``,
+    or None when the library is not available."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if num == 0:
+        return np.zeros((0, 5), np.int32)
+    labels = np.ascontiguousarray(labels, dtype=np.int32)
+    out = np.empty((num, 5), dtype=np.int32)
+    lib.cc_stats(labels.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)), labels.shape[0], labels.shape[1], num,
+                 out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the metric scorer (native/metrics_kernel.cpp)
+# ---------------------------------------------------------------------------
+
+
+def get_metrics_lib() -> Optional[ctypes.CDLL]:
+    """The scorer library with its entry declared, or None."""
+    global _metrics_lib, _metrics_tried
+    with _lock:
+        if _metrics_lib is not None or _metrics_tried:
+            return _metrics_lib
+        _metrics_tried = True
+        lib = _load_so(_METRICS_SRC, _METRICS_SO)
+        if lib is None:
+            return None
+        dp = ctypes.POINTER(ctypes.c_double)
+        lib.score_one.restype = None
+        lib.score_one.argtypes = [
+            dp,  # pred (normalised)
+            ctypes.POINTER(ctypes.c_uint8),  # gt (bool)
+            ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32,  # pred_is_int (the constant-prediction quirk)
+            dp,  # 7x7 gaussian kernel
+            dp,  # scalars[5]
+            dp,  # e_curve[256]
+            dp,  # f_curve[256]
+        ]
+        _metrics_lib = lib
+        return _metrics_lib
+
+
+def score_one_native(pred_norm: np.ndarray, gt_bool: np.ndarray, kernel7: np.ndarray):
+    """The per-image metric bundle of a protocol-normalised pair
+    ``(sm, mae, wfm, acc, iou, e_curve, f_curve)``, in float64 as the NumPy
+    path computes it, or None when the library is not available.
+
+    ``pred_norm`` keeps ``normalize_pair``'s dtype: an integer array signals
+    the constant-prediction quirk, where the reference's WFM convolution runs
+    in integer arithmetic (scipy truncates the int64 output toward zero)."""
+    lib = get_metrics_lib()
+    if lib is None:
+        return None
+    pred_is_int = np.issubdtype(np.asarray(pred_norm).dtype, np.integer)
+    pred = np.ascontiguousarray(pred_norm, dtype=np.float64)
+    gt = np.ascontiguousarray(gt_bool, dtype=np.uint8)
+    k = np.ascontiguousarray(kernel7, dtype=np.float64)
+    h, w = pred.shape
+    scalars = np.empty(5, np.float64)
+    e_curve = np.empty(256, np.float64)
+    f_curve = np.empty(256, np.float64)
+    dp = ctypes.POINTER(ctypes.c_double)
+    lib.score_one(pred.ctypes.data_as(dp), gt.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h, w,
+                  int(pred_is_int), k.ctypes.data_as(dp), scalars.ctypes.data_as(dp), e_curve.ctypes.data_as(dp),
+                  f_curve.ctypes.data_as(dp))
+    return (*(float(x) for x in scalars), e_curve, f_curve)
