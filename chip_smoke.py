@@ -263,6 +263,20 @@ Phases (each raises on failure; any failure exits non-zero):
      Then the unsharded step at bs4 and bs8 and the one-process SP step
      over the four cards (one process driving every card) at bs4, with
      their peak memory.
+  S. (after phase P) the serving forward's two fusion prototypes, on no
+     product path: K12 (``attention_outproj_residual``: attention +
+     out-projection + bias + layerscale + residual in one kernel) at bs16
+     L1370 and K13 (``patch_embed``: the 14 x 14 patch embed as one im2col
+     GEMM + bias, with and without the position rows) at bs16 518px, each
+     once with its count set to 0 just before (1 and 2 launches), outputs
+     pre-filled with NaN, against their plain versions; then K12 at B1 L65
+     and K13 at B2 224px; timing: K12 against its plain version, the
+     composed path the port runs (K1, ``dense``, the layerscale and the
+     residual in bf16, models/dino.py) and the cuBLAS out-projection alone;
+     K13 against its plain version, ``_embed``'s convolution path (a
+     permuted bf16 copy, cuDNN, flatten/transpose, the bias add; + the
+     position rows) and one ``F.conv2d`` with its bias (``library_ms``),
+     by events and by the card's own time.
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -280,6 +294,7 @@ import contextlib
 import dataclasses
 import glob
 import json
+import math
 import os
 import signal
 import subprocess
@@ -353,6 +368,24 @@ ODD_HEADS_CASES = (("B2 L257 3x16", 2, 257, 3, 16), ("B2 L257 5x32", 2, 257, 5, 
                    ("B2 L1370 3x128", 2, 1370, 3, 128), ("B1 L65 1x128", 1, 65, 1, 128))
 K7_ROWS = (("bs16 L1370", 16 * 1370), ("rows 1", 1), ("rows 17", 17), ("rows 65", 65),
            ("rows 5483", 1370 * 4 + 3))
+# Phase S.  K12 against its plain version: both round each head's output
+# to bf16 (the plain version's softmax by exp, the kernel's by ex2.approx,
+# sums in other orders) and the result x + (attn Wo^T + bo) ls once.  The
+# residual x (N(0, 1), max about 5.8) sets max|out| but is passed through,
+# so the part K12 computes, out - x, is held: its difference from the plain
+# version's within K1's bound, 2^-6 of max|plain - x|, plus, per element,
+# one bf16 ulp of the larger of |out| and |plain| for the final rounding
+# (two roundings of nearly equal values land on the same or adjacent bf16
+# values).  A bound of 2^-6 of max|out| would be about 2 standard
+# deviations of out - x and let a dropped head through.  On an H100 the
+# worst element takes 0.76 of this bound at bs16 L1370 (one ulp at |out|
+# in [4, 8); max|plain - x| 0.633) and 0.18 at B1 L65.
+# K13: both round the pixels to bf16 (exactly the same values) and the f32
+# sum once; only the order of the f32 additions differs, which moves a
+# result across a bf16 rounding boundary at most: one bf16 ulp of
+# max|plain| (2^-7 of it at most).
+K12_TOL = 2.0 ** -6
+K13_TOL = 2.0 ** -7
 SERVE_DIM = 768
 NUM_HEADS = 12
 MLP_DIM = 3072
@@ -385,6 +418,33 @@ def _check(name: str, got: torch.Tensor, ref: torch.Tensor, tol: float) -> float
     _log(f"  {name}: max_abs_err {err:.6g} (tol {tol:.4g}, max |plain| {ref.float().abs().max().item():.4g})")
     if not err <= tol:
         raise AssertionError(f"{name}: max abs error {err} exceeds {tol}")
+    return err
+
+
+def _bf16_ulp(t: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp of each value of ``t``, f32: 2^(e - 8) for |t| in
+    [2^(e - 1), 2^e)."""
+    e = torch.frexp(t.float().abs().clamp_min(2.0 ** -126)).exponent
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+def _check_residual(name: str, got: torch.Tensor, ref: torch.Tensor, x: torch.Tensor, tol: float) -> float:
+    """``got`` against ``ref``, outputs x + f(...) rounded to bf16 once, on
+    the part they compute: |got - ref| = |(got - x) - (ref - x)| within
+    ``tol`` times max|ref - x|, plus one bf16 ulp per element of the larger
+    of |got| and |ref| (the final rounding).  Returns max|got - ref|."""
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    g, r = got.float(), ref.float()
+    diff = (g - r).abs()
+    scale = (r - x.float()).abs().max().item()
+    bound = tol * scale + _bf16_ulp(torch.maximum(g.abs(), r.abs()))
+    err, worst = diff.max().item(), (diff / bound).max().item()
+    _log(f"  {name}: max_abs_err {err:.6g}, at most {worst:.4f} of its bound (2^{math.log2(tol):.0f} of "
+         f"max |plain - x| {scale:.4g} + one bf16 ulp of the output; max |plain| {r.abs().max().item():.4g})")
+    if not worst <= 1.0:
+        raise AssertionError(f"{name}: |kernel - plain| exceeds 2^{math.log2(tol):.0f} max|plain - x| + 1 ulp "
+                             f"({worst} of the bound)")
     return err
 
 
@@ -1580,6 +1640,135 @@ def phase_k5_timing(gen, dev) -> dict:
          f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {sdpa:.4f} ms")
     out["tp-shard"] = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa}
     return out
+
+
+def phase_prototypes(seed: int, dev) -> dict:
+    """Phase S: K12 and K13, the TPU fusion prototypes' ports, on their own
+    (no product path runs them): launches, agreement with the plain
+    versions, and times beside the paths the port runs today, on the timing
+    tools' inputs and comparison paths."""
+    import torch.nn.functional as F
+
+    from ucod_dpl_tpu_torch.ops.attention import (
+        attention_outproj_residual,
+        attention_outproj_residual_reference,
+        packed_attention,
+    )
+    from ucod_dpl_tpu_torch.ops.patch_embed import patch_embed, patch_embed_reference, pqc_weight
+    from ucod_dpl_tpu_torch.tools import attn_outproj_ab as AO
+    from ucod_dpl_tpu_torch.tools import patch_embed_ab as PE
+    from ucod_dpl_tpu_torch.tools.attention_ab import _device_ms
+
+    started = time.perf_counter()
+    bf16, scale = torch.bfloat16, AO.SCALE
+    k12_in = AO._inputs(16, 1370, seed)
+    px, kernel, bias, pos = PE._inputs(16, 518, seed)
+    w = pqc_weight(kernel).to(bf16).contiguous()
+    # the phase's path: K12 once at the serving shape, K13 with and without
+    # the position rows at 518px, every count at 0 just before
+    attention_outproj_residual.launches = patch_embed.launches = 0
+    got12 = attention_outproj_residual(*k12_in, NUM_HEADS, scale, out=_nan_like(k12_in[0]))
+    got13 = {p is not None: patch_embed(px, w, bias, p, out=torch.full((16, 37 * 37, SERVE_DIM), float("nan"),
+                                                                       device=dev, dtype=bf16))
+             for p in (pos, None)}
+    torch.cuda.synchronize()
+    launches = {"K12": attention_outproj_residual.launches, "K13": patch_embed.launches}
+    _log(f"prototypes (phase S): launches {launches}")
+    if launches != {"K12": 1, "K13": 2}:
+        raise AssertionError(f"phase S launched {launches}, expected K12 once and K13 twice")
+    res = {"launches": launches, "err": {}}
+
+    def check12(name, inputs, got):
+        ref = attention_outproj_residual_reference(*inputs, NUM_HEADS, scale)
+        return _check_residual(f"K12 {name}", got, ref, inputs[3], K12_TOL)
+
+    def check13(name, inputs, got):
+        ref = patch_embed_reference(*inputs)
+        return _check(f"K13 {name}", got, ref, K13_TOL * ref.float().abs().max().item())
+
+    small = AO._inputs(1, 65, seed + 1)
+    res["err"]["K12"] = max(
+        check12("bs16 L1370", k12_in, got12),
+        check12("B1 L65", small, attention_outproj_residual(*small, NUM_HEADS, scale, out=_nan_like(small[0]))))
+    px2, kernel2, bias2, pos2 = PE._inputs(2, 224, seed + 1)
+    w2 = pqc_weight(kernel2).to(bf16).contiguous()
+    res["err"]["K13"] = max(
+        check13("bs16 518px pos", (px, w, bias, pos), got13[True]),
+        check13("bs16 518px", (px, w, bias), got13[False]),
+        check13("B2 224px pos", (px2, w2, bias2, pos2), patch_embed(px2, w2, bias2, pos2)))
+    del got12, got13, small
+
+    # K12 beside its plain version, the composed path of models/dino.py and
+    # the cuBLAS out-projection alone
+    q, k, v, _, wo = k12_in[:5]
+
+    def k12():
+        return attention_outproj_residual(*k12_in, NUM_HEADS, scale)
+
+    def k12_plain():
+        return attention_outproj_residual_reference(*k12_in, NUM_HEADS, scale)
+
+    def composed():
+        return AO.composed(*k12_in)
+
+    attn = packed_attention(q, k, v, NUM_HEADS, scale)
+    ms, plain_ms = _ab_ms(k12_plain, k12, 10)
+    ms2, composed_ms = _ab_ms(composed, k12, 20)
+    res["K12"] = {"ms": (ms + ms2) / 2, "plain_ms": plain_ms, "composed_ms": composed_ms,
+                  "outproj_ms": _time_ms(lambda: F.linear(attn, wo), 20),
+                  "device_ms": _device_ms(k12), "composed_device_ms": _device_ms(composed),
+                  "composed_max_abs_diff": (k12().float() - composed().float()).abs().max().item()}
+    # K13 beside its plain version, _embed's convolution path (and its
+    # position add) and one F.conv2d with its bias on the bf16 pixels
+    calls = PE.paths(px, kernel, bias, pos)
+    px_bf16, kernel_bf16, bias_bf16 = px.to(bf16).permute(0, 3, 1, 2), kernel.to(bf16), bias.to(bf16)
+    ms, plain_ms = _ab_ms(calls["plain"], calls["K13"], 20)
+    ms2, conv_ms = _ab_ms(calls["conv"], calls["K13"], 20)
+    res["K13"] = {"ms": (ms + ms2) / 2, "plain_ms": plain_ms, "conv_path_ms": conv_ms,
+                  "library_ms": _time_ms(lambda: F.conv2d(px_bf16, kernel_bf16, bias_bf16, stride=14), 20),
+                  "device_ms": _device_ms(calls["K13"]), "conv_path_device_ms": _device_ms(calls["conv"]),
+                  "conv_path_max_abs_diff": (calls["K13"]().float() - calls["conv"]().float()).abs().max().item()}
+    for kid in ("K12", "K13"):
+        _log(f"  {kid} timing: " + ", ".join(f"{key} {val:.4f}" for key, val in res[kid].items()))
+    _log(f"prototypes (phase S): {time.perf_counter() - started:.1f} s wall, inputs, checks and timing included")
+    return res
+
+
+def _prototype_entries(proto: dict) -> list:
+    """The kernels line's entries of K12 and K13 (phase S).  Bounds at the
+    shapes timed: K12 the attention's two products of 2 L^2 64 a head and the
+    out-projection's 2 * rows * D^2, against q, k, v, x and out (bf16) and
+    wo moved once; K13 2 * rows * 588 * D against the f32 pixels, the bf16
+    output, position rows and weight (the f32 vectors left out)."""
+    b, l, d, rows = 16, 1370, SERVE_DIM, 16 * 1370
+    patches = 16 * 37 * 37
+    k12_bound = _bound(2 * 2.0 * b * NUM_HEADS * l * l * (d // NUM_HEADS) + 2.0 * rows * d * d,
+                       (5 * rows * d + d * d) * 2, PEAK_BF16)
+    k13_bound = _bound(2.0 * patches * 588 * d, 16 * 518 * 518 * 3 * 4 + (patches * d + 37 * 37 * d + 588 * d) * 2,
+                       PEAK_BF16)
+    micro = "scripts/microbench"
+    k12, k13 = proto["K12"], proto["K13"]
+    return [
+        # launches: phase S's own (no product path runs K12 or K13);
+        # composed_ms: K1 + dense + layerscale + residual as models/dino.py
+        # runs them, the path K12 would replace (no one PyTorch call
+        # computes K12's function)
+        {"name": "K12 attention + out-projection + bias + layerscale + residual", "route": "cuda",
+         "source": "ucod_dpl_tpu_torch/csrc/attn_outproj.cu", "replaces": f"{micro}/bench_attn_outproj.py:96",
+         "launches": proto["launches"]["K12"], "max_abs_err": proto["err"]["K12"], "ms": k12["ms"],
+         "plain_ms": k12["plain_ms"], "bound_ms": k12_bound[0], "bound_by": k12_bound[1], "library_ms": None,
+         "composed_ms": k12["composed_ms"], "outproj_ms": k12["outproj_ms"], "device_ms": k12["device_ms"],
+         "composed_device_ms": k12["composed_device_ms"]},
+        # library_ms: one F.conv2d with its bias on the bf16 pixels;
+        # conv_path_ms: models/dino.py::_embed's convolution path + position
+        {"name": "K13 patch embed as one im2col GEMM + bias + position", "route": "cuda",
+         "source": "ucod_dpl_tpu_torch/csrc/patch_embed.cu",
+         "replaces": f"{micro}/bench_patch_embed.py:69,105; {micro}/bench_patch_embed3.py:79",
+         "launches": proto["launches"]["K13"], "max_abs_err": proto["err"]["K13"], "ms": k13["ms"],
+         "plain_ms": k13["plain_ms"], "bound_ms": k13_bound[0], "bound_by": k13_bound[1],
+         "library_ms": k13["library_ms"], "conv_path_ms": k13["conv_path_ms"], "device_ms": k13["device_ms"],
+         "conv_path_device_ms": k13["conv_path_device_ms"]},
+    ]
 
 
 # Phase K: the synthetic RefCOD layout of the eval entry (COD-like image
@@ -3903,6 +4092,7 @@ def main(argv=None) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
 
+    started = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     phase_build()
@@ -3953,6 +4143,8 @@ def main(argv=None) -> int:
     coral_train = phase_coral_train(args.seed, dev, smi, pl)
     torch.cuda.empty_cache()
     dp = phase_dp(smi, evalk, train)
+    torch.cuda.empty_cache()
+    proto = phase_prototypes(args.seed, dev)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
@@ -4077,6 +4269,8 @@ def main(argv=None) -> int:
                 "sp_chunk_max_abs_err": sp_kernels["err"]["fwd_lse" if kid == "K2" else "bwd"]}
 
     attn, fused = "ucod_dpl_tpu/ops/attention.py", "ucod_dpl_tpu/ops/fused_layers.py"
+    _log(f"default run: {time.perf_counter() - started:.1f} s from the device check to the kernels line, "
+         f"build included")
     _log(json.dumps({"kernels": [
         # K1 and K6: launches on the eval entry's first run (cache build and
         # crop pass), beside those of the serving phase
@@ -4110,6 +4304,7 @@ def main(argv=None) -> int:
                                 ("K9", "int8 LayerNorm + quantize + fc1 + GELU + requantize", 218),
                                 ("K10", "int8 quantize + out-projection", 479),
                                 ("K11", "int8 whole MLP half", 327))),
+        *_prototype_entries(proto),
     ]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -3,7 +3,9 @@ forward (K1 at every head dim and head count, also with its log-sum-exp
 output, and on the per-head layout, K5), the attention backward (also equal
 bit for bit from call to call), both with a key bound and f32 outputs and
 as the sequence-parallel ring, K6, K7
-(LayerNorm + fc1 + GELU) and the int8 kernels K8-K11; the eval entry
+(LayerNorm + fc1 + GELU), the int8 kernels K8-K11, and the fusion
+prototypes' ports K12 (attention + out-projection + layerscale + residual)
+and K13 (the patch embed as one im2col GEMM); the eval entry
 (``cli.eval_main``) at a small width, by its K1/K6 launches; the train
 entry (``cli.train_main``, LoRA off and on) at a small width, by its
 launches, losses and a preemption resumed bit for bit; and CORAL stage-2
@@ -22,7 +24,8 @@ floor), K6 within 2% of max|plain|; the int8 kernels as in chip_smoke.py's
 phase D: codes within one step and at least 99% equal, scales within rtol
 1e-5, bf16 outputs, row by row, within one code step (s_x * 127 * max w_s) plus
 one bf16 ulp of the row's max|plain|; K11 equal bit for bit to the split
-kernel path (K9's kernel, then ``dense_w8a8_pre``).
+kernel path (K9's kernel, then ``dense_w8a8_pre``); K12 within 2^-6 and K13
+within 2^-7 of max|plain|.
 """
 
 import os
@@ -45,6 +48,8 @@ from ucod_dpl_tpu_torch.ops.attention import (
 from ucod_dpl_tpu_torch.ops import fused_layers as FL
 from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv, layernorm_qkv_reference
 from ucod_dpl_tpu_torch.ops.quant import dense_w8a8_pre, quantize_act, quantize_linear
+from ucod_dpl_tpu_torch.ops.attention import attention_outproj_residual, attention_outproj_residual_reference
+from ucod_dpl_tpu_torch.ops.patch_embed import patch_embed, patch_embed_reference
 
 pytestmark = pytest.mark.cuda
 
@@ -457,6 +462,89 @@ def _nan_tailed(g, dev, shape, scale=1.0):
     x = buf[:n].view(shape)
     x.copy_(torch.randn(shape, generator=g, device=dev) * scale)
     return x
+
+
+# K12 at D 768 (12 heads), 512 and 256, L on both sides of the 64-row query
+# block and the 128-key tile, 1 and the serving length
+@pytest.mark.parametrize("b,l,nh", [(1, 1370, 12), (1, 65, 12), (2, 1, 12), (3, 129, 12), (2, 200, 4),
+                                    (1, 257, 8), (2, 64, 4), (1, 128, 12)])
+def test_attention_outproj_kernel_edge_shapes(dev, b, l, nh):
+    """K12 on the part it computes, out - x: within 2^-6 of max|plain - x|
+    plus one bf16 ulp of the output per element (chip_smoke.py's K12 bound),
+    NaN past the inputs and in the output buffer."""
+    g = torch.Generator(device=dev).manual_seed(7 * l + nh)
+    d = 64 * nh
+    q, k, v, x = (_nan_tailed(g, dev, (b, l, d)) for _ in range(4))
+    wo = (torch.randn(d, d, generator=g, device=dev) / d ** 0.5).to(torch.bfloat16)
+    bo, ls = 0.1 * torch.randn(d, generator=g, device=dev), 1 + 0.1 * torch.randn(d, generator=g, device=dev)
+    out = attention_outproj_residual(q, k, v, x, wo, bo, ls, nh, 0.125, out=torch.full_like(q, float("nan")))
+    ref = attention_outproj_residual_reference(q, k, v, x, wo, bo, ls, nh, 0.125).float()
+    assert torch.isfinite(out).all()
+    out = out.float()
+    exponent = torch.frexp(torch.maximum(out.abs(), ref.abs()).clamp_min(2.0 ** -126)).exponent
+    ulp = torch.ldexp(torch.ones_like(ref), exponent - 8)
+    assert ((out - ref).abs() <= 2.0 ** -6 * (ref - x.float()).abs().max().item() + ulp).all()
+
+
+# K13 at 224px (pseudo-labels), 756px (CORAL's m-patches), the serving size
+# without position rows, non-square images, D 512
+@pytest.mark.parametrize("b,h,w,d,with_pos", [(1, 224, 224, 768, True), (2, 756, 756, 768, True),
+                                              (1, 518, 518, 768, False), (3, 14, 28, 768, True),
+                                              (1, 42, 518, 768, False), (2, 56, 70, 512, True)])
+def test_patch_embed_kernel_edge_shapes(dev, b, h, w, d, with_pos):
+    """K13 within one bf16 ulp of max|plain| (2^-7 of it: chip_smoke.py's
+    K13_TOL), NaN past the pixels; its output is a view of a larger buffer
+    whose rows past the last stay NaN."""
+    g = torch.Generator(device=dev).manual_seed(h + w + d)
+    buf = torch.full((b * h * w * 3 + 1024,), float("nan"), device=dev)
+    px = buf[:b * h * w * 3].view(b, h, w, 3)
+    px.copy_(torch.randn(b, h, w, 3, generator=g, device=dev))
+    n = h // 14 * (w // 14)
+    weight = (0.02 * torch.randn(588, d, generator=g, device=dev)).to(torch.bfloat16)
+    bias = 0.1 * torch.randn(d, generator=g, device=dev)
+    pos = (0.1 * torch.randn(n, d, generator=g, device=dev)).to(torch.bfloat16) if with_pos else None
+    obuf = torch.full((b * n + 128, d), float("nan"), dtype=torch.bfloat16, device=dev)
+    out = patch_embed(px, weight, bias, pos, out=obuf[:b * n].view(b, n, d))
+    ref = patch_embed_reference(px, weight, bias, pos).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -7 * ref.abs().max().item()
+    assert torch.isnan(obuf[b * n:].float()).all()
+
+
+def test_prototype_kernels_count_launches_and_reject_what_they_do_not_take(dev):
+    q, k, v, x = (torch.randn(2, 70, 768, device=dev, dtype=torch.bfloat16) for _ in range(4))
+    wo = torch.randn(768, 768, device=dev).to(torch.bfloat16)
+    bo, ls = torch.zeros(768, device=dev), torch.ones(768, device=dev)
+    px = torch.randn(2, 56, 56, 3, device=dev)
+    weight, bias = torch.randn(588, 768, device=dev).to(torch.bfloat16), torch.zeros(768, device=dev)
+    before = (attention_outproj_residual.launches, patch_embed.launches)
+    attention_outproj_residual(q, k, v, x, wo, bo, ls, 12, 0.125)
+    patch_embed(px, weight, bias)
+    assert (attention_outproj_residual.launches, patch_embed.launches) == (before[0] + 1, before[1] + 1)
+    with pytest.raises(TypeError):  # f32 activations
+        attention_outproj_residual(q.float(), k, v, x, wo, bo, ls, 12, 0.125)
+    with pytest.raises(ValueError):  # f32 out-projection
+        attention_outproj_residual(q, k, v, x, wo.float(), bo, ls, 12, 0.125)
+    with pytest.raises(ValueError):  # bf16 bias
+        attention_outproj_residual(q, k, v, x, wo, bo.to(torch.bfloat16), ls, 12, 0.125)
+    with pytest.raises(ValueError):  # head dim 128
+        attention_outproj_residual(q, k, v, x, wo, bo, ls, 6, 0.125)
+    with pytest.raises(ValueError):  # 20 heads: D 1280 > 768
+        big = torch.randn(1, 8, 1280, device=dev, dtype=torch.bfloat16)
+        attention_outproj_residual(big, big, big, big, torch.randn(1280, 1280, device=dev).to(torch.bfloat16),
+                                   torch.zeros(1280, device=dev), torch.ones(1280, device=dev), 20, 0.125)
+    with pytest.raises(ValueError):  # bf16 pixels
+        patch_embed(px.to(torch.bfloat16), weight, bias)
+    with pytest.raises(ValueError):  # 50 px: not a multiple of 14
+        patch_embed(px[:, :50].contiguous(), weight, bias)
+    with pytest.raises(ValueError):  # f32 weight
+        patch_embed(px, weight.float(), bias)
+    with pytest.raises(ValueError):  # position rows of another grid
+        patch_embed(px, weight, bias, torch.zeros(15, 768, device=dev, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):  # D 384: not a multiple of 256
+        patch_embed(px, weight[:, :384].contiguous(), bias[:384])
+    assert (attention_outproj_residual.launches, patch_embed.launches) == (before[0] + 1, before[1] + 1)
 
 
 @pytest.mark.parametrize("bh,l,d", [(1, 1, 16), (3, 65, 16), (5, 63, 32), (80, 257, 32), (4, 129, 64),

@@ -177,7 +177,8 @@ def test_decoder_checkpoints_cross_load(tiny, tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, loading a config, reading an image
+    """Importing every module of the port (the kernels' wrappers and the
+    timing tools among them), loading a config, reading an image
     from a path for a request, running the LookTwice helpers and running the
     eval entry end to end on the CPU (``cli.eval_main``: runner, dataset cache
     build, evaluator, metrics), the train entry (``cli.train_main``: train
@@ -199,7 +200,8 @@ def test_port_imports_no_jax():
         "                  and sys.modules[m] is not None)\n"
         "import ucod_dpl_tpu_torch\n"
         "from ucod_dpl_tpu_torch import serving\n"
-        "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, pseudo_label, quant, resize\n"
+        "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, patch_embed, pseudo_label, quant, resize\n"
+        "from ucod_dpl_tpu_torch.tools import attention_ab, attn_outproj_ab, int8_ab, lnqkv_ab, patch_embed_ab, serve_ab\n"
         "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io, udlr\n"
         "from ucod_dpl_tpu_torch.data import feature_extractor, transforms\n"
         "from ucod_dpl_tpu_torch.data import dataset\n"

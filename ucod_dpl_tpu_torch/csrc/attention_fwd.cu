@@ -70,6 +70,7 @@
 
 #include <type_traits>
 
+#include "attention_common.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -78,25 +79,17 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kConsumers = 2;             // warpgroups of 64 query rows
 constexpr int kBlockQ = 64 * kConsumers;  // query rows per CTA
-constexpr int kBlockK = 128;              // keys per K/V tile
+using ucod::flash::kBlockK;               // keys per K/V tile
 constexpr int kStages = 3;
 constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kSchedBar = 1;  // named barriers 1, 2: the consumers' turns
 constexpr float kLn2 = 0.69314718055994531f;
 
-// The shared-memory layout at head dim D: a tile of R rows is kAtoms column
-// atoms of R rows x kAtomCols, each swizzled over its kSwizzle-byte rows.
+// The shared-memory layout at head dim D (attention_common.cuh) and the
+// sizes of this kernel's Q tile and K/V tiles.
 template <int D>
-struct Head {
-  static_assert(D == 16 || D == 32 || D == 64 || D == 128, "head dim 16, 32, 64 or 128");
-  static constexpr int kAtomCols = D < 64 ? D : 64;
-  static constexpr int kAtoms = D / kAtomCols;
-  static constexpr int kSwizzle = 2 * kAtomCols;
-  static constexpr int kStepsPerAtom = kAtomCols / 16;  // 16-column k-steps
+struct Head : ucod::flash::Layout<D> {
   static constexpr uint32_t kQBytes = kBlockQ * D * 2;
-  static constexpr uint32_t kKvBytes = kBlockK * D * 2;
-  // V read MN-major: its column atoms along N lie a whole atom apart
-  static constexpr uint32_t kVLbo = kAtoms > 1 ? kBlockK * kSwizzle : 1024;
 };
 
 template <int D>
@@ -111,78 +104,12 @@ template <int D>
 constexpr size_t kSmemBytes = sizeof(Smem<D>) + 1024;  // + alignment slack
 static_assert(kSmemBytes<128> <= 232448, "the head-dim-128 stages exceed a CTA's shared memory");
 
-// S = Q K^T for a warpgroup's 64 rows x 128 keys (one commit group); q_tile
-// is the warpgroup's rows in Q's first column atom.
-template <int D>
-__device__ __forceinline__ void issue_s(float (&s)[kBlockK / 2], const bf16* q_tile, const bf16* k_tile) {
-  using H = Head<D>;
-  ucod::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int atom = kk / H::kStepsPerAtom;
-    const int step = kk % H::kStepsPerAtom;
-    ucod::wgmma_m64n128k16_ss<0, 0>(
-        s, ucod::desc_kmajor<H::kSwizzle>(q_tile + atom * kBlockQ * H::kAtomCols, step),
-        ucod::desc_kmajor<H::kSwizzle>(k_tile + atom * kBlockK * H::kAtomCols, step), kk);
-  }
-  ucod::wgmma_commit();
-}
-
-// O += P V, P from registers, V read MN-major (one commit group).
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], const uint32_t (&pa)[kBlockK / 16][4],
-                                         const bf16* v_tile) {
-  using H = Head<D>;
-  ucod::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kBlockK / 16; ++kk) {
-    ucod::wgmma_rs<D, 1>(acc, pa[kk], ucod::desc_mnmajor<H::kSwizzle>(v_tile, kk, H::kVLbo), 1);
-  }
-  ucod::wgmma_commit();
-}
-
-// One K/V tile of the online softmax for this thread's rows g and g + 8:
-// masks keys >= kv_len (only a tile that reaches past it has any), updates the
-// running max m (log2 units) and sum l, sets alpha to the rescale O owes,
-// and turns S into P = exp2(s * scale_log2 - m) in place.
-__device__ __forceinline__ void online_softmax(float (&s)[kBlockK / 2], float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2], int k0, int kv_len, int tq, float scale_log2) {
-  if (k0 + kBlockK > kv_len) {
-#pragma unroll
-    for (int i = 0; i < kBlockK / 2; ++i) {
-      if (k0 + 8 * (i >> 2) + 2 * tq + (i & 1) >= kv_len) s[i] = -INFINITY;
-    }
-  }
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int i = 0; i < kBlockK / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
-  float mu[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    const float m_new = fmaxf(m[r], mx[r] * scale_log2);
-    mu[r] = m_new == -INFINITY ? 0.f : m_new;  // a row with no finite score yet
-    alpha[r] = ucod::exp2_ftz(m[r] - mu[r]);
-    m[r] = m_new;
-    l[r] *= alpha[r];
-  }
-#pragma unroll
-  for (int i = 0; i < kBlockK / 2; ++i) {
-    s[i] = ucod::exp2_ftz(fmaf(s[i], scale_log2, -mu[(i >> 1) & 1]));
-    l[(i >> 1) & 1] += s[i];
-  }
-}
-
-// The S accumulators of key blocks 2k and 2k + 1 as the bf16 A fragment of
-// k-step k of O += P V (see hopper.cuh).
-__device__ __forceinline__ void to_a_frags(uint32_t (&pa)[kBlockK / 16][4], const float (&s)[kBlockK / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < kBlockK / 16; ++kk) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) pa[kk][r] = ucod::pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-  }
-}
+// The flash loop's products, online softmax and P fragments
+// (attention_common.cuh), shared with K12 (attn_outproj.cu).
+using ucod::flash::issue_pv;
+using ucod::flash::issue_s;
+using ucod::flash::online_softmax;
+using ucod::flash::to_a_frags;
 
 // OutT: bf16, or float for the f32 partial outputs of a sequence-parallel
 // ring (merged by their log-sum-exps, then rounded once).
@@ -290,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int st = it % kStages;
         ucod::mbar_wait(&sm.k_full[st], (it / kStages) & 1);
         ucod::named_sync(kSchedBar + c, 256);
-        issue_s<D>(s, q_tile, sm.k[st]);
+        issue_s<D, kBlockQ>(s, q_tile, sm.k[st]);
         if (!(c == 1 && last_work && n_kv == 1)) ucod::named_arrive(kSchedBar + (c ^ 1), 256);
         ucod::wgmma_wait<0>();
         ucod::fence_regs(s);
@@ -307,7 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int pst = (it + j - 1) % kStages;  // stage of K/V tile j - 1
         ucod::mbar_wait(&sm.k_full[st], ((it + j) / kStages) & 1);
         ucod::named_sync(kSchedBar + c, 256);
-        issue_s<D>(s, q_tile, sm.k[st]);
+        issue_s<D, kBlockQ>(s, q_tile, sm.k[st]);
         // O = alpha O + P_{j-1} V_{j-1}, issued behind S_j
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];

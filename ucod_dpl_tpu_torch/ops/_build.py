@@ -117,6 +117,10 @@ def kernels() -> ctypes.CDLL:
     lib.ucod_layernorm_fc1_gelu_w8a8.restype = i32
     lib.ucod_layernorm_mlp_w8a8.argtypes = [ptr] * 12 + [i32, i32, i32, f32, ptr]
     lib.ucod_layernorm_mlp_w8a8.restype = i32
+    lib.ucod_attention_outproj.argtypes = [ptr] * 8 + [i32, i32, i32, f32, ptr]
+    lib.ucod_attention_outproj.restype = i32
+    lib.ucod_patch_embed.argtypes = [ptr] * 5 + [i32, i32, i32, i32, ptr]
+    lib.ucod_patch_embed.restype = i32
     return lib
 
 

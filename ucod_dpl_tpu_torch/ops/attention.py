@@ -16,6 +16,14 @@ Hopper kernels, each with its plain PyTorch version beside it:
   ``_attention_bwd_kernel_headpair`` and K4 ``_bwd2d_dq_kernel`` +
   ``_bwd2d_dkv_kernel``): the flash backward from the saved log-sum-exp.
 
+* :func:`attention_outproj_residual` (K12, ``csrc/attn_outproj.cu``, the
+  port of the TPU prototype ``scripts/microbench/bench_attn_outproj.py::
+  fused``): the forward, the out-projection, its bias, the layerscale and
+  the residual add in one kernel, the attention output kept on chip.  Its
+  plain version :func:`attention_outproj_residual_reference` follows the
+  prototype's roundings.  A timing tool and a ``chip_smoke.py`` phase call
+  it; no product path does.
+
 :func:`packed_attention_diff` ties the last two together as a
 ``torch.autograd.Function`` (the JAX ``_packed_attention_diff`` custom VJP).
 
@@ -119,6 +127,86 @@ def packed_attention(
 
 
 packed_attention.launches = 0
+
+
+def attention_outproj_residual_reference(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    x: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    ls: torch.Tensor,
+    num_heads: int,
+    scale: float,
+) -> torch.Tensor:
+    """Plain version of :func:`attention_outproj_residual`, with the roundings
+    of the TPU prototype ``bench_attn_outproj.py::_kernel`` in q's dtype:
+    ``q * scale`` rounded; per head f32 scores and ``p = exp(s - max)``, ``p``
+    rounded before its f32 product with v and the sum of the unrounded ``p``
+    as the denominator; each head's output rounded; its product with the
+    (out, in) weight ``wo`` (rounded) summed over heads in f32; then ``x + (.
+    + bo) * ls`` in f32 and one rounding.  Every key takes part: the
+    prototype's padded tail (NaN where it is not finite) has no counterpart."""
+    dtype = q.dtype
+    s = torch.matmul(_heads((q.float() * scale).to(dtype), num_heads), _heads(k, num_heads).transpose(-1, -2))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(p.to(dtype).float(), _heads(v, num_heads)) / p.sum(dim=-1, keepdim=True)
+    y = torch.matmul(_merge_heads(o, dtype).float(), wo.to(dtype).float().t()) + bo.float().reshape(-1)
+    return (x.float() + y * ls.float().reshape(-1)).to(dtype)
+
+
+def attention_outproj_residual(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    x: torch.Tensor,
+    wo: torch.Tensor,
+    bo: torch.Tensor,
+    ls: torch.Tensor,
+    num_heads: int,
+    scale: float,
+    out: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``x + (attention(q, k, v) wo^T + bo) * ls``: (B, L, D) bf16 q/k/v and
+    residual ``x``, ``wo`` the (D, D) out-projection in (out, in) layout, ``bo``
+    and ``ls`` its bias and the layerscale, (D,) -> (B, L, D), written into
+    ``out`` when given.
+
+    CUDA tensors launch K12 (counted in
+    ``attention_outproj_residual.launches``): bf16 q/k/v/x/wo, f32 bo and
+    ls, head dim 64, an even head count, D a multiple of 256 and at most
+    768; CPU tensors take :func:`attention_outproj_residual_reference`."""
+    if q.device.type == "cpu":
+        ref = attention_outproj_residual_reference(q, k, v, x, wo, bo, ls, num_heads, scale)
+        return ref if out is None else out.copy_(ref)
+    what = "attention_outproj_residual"
+    out = torch.empty_like(q) if out is None else out
+    _check_kernel_inputs(q, num_heads, (HEAD_DIM,), what, k=k, v=v, x=x, out=out)
+    b, l, d = q.shape
+    if num_heads % 2 or d % 256 or d > 768:
+        raise ValueError(f"{what} kernel needs an even head count and D % 256 == 0, D <= 768; got "
+                         f"{num_heads} heads, D {d}")
+    if wo.dtype != torch.bfloat16 or wo.shape != (d, d) or wo.device != q.device or not wo.is_contiguous() \
+            or wo.data_ptr() % 16:
+        raise ValueError(f"{what} kernel needs a contiguous 16-byte aligned bf16 ({d}, {d}) wo on {q.device}; "
+                         f"got {wo.dtype} {tuple(wo.shape)}@{wo.device}")
+    for name, t in (("bo", bo), ("ls", ls)):
+        if t.dtype != torch.float32 or t.numel() != d or t.device != q.device or not t.is_contiguous() \
+                or t.data_ptr() % 8:
+            raise ValueError(f"{what} kernel needs a contiguous f32 {name} of {d} values on {q.device}; got "
+                             f"{t.dtype} {tuple(t.shape)}@{t.device}")
+    with torch.cuda.device(q.device):
+        err = _build.kernels().ucod_attention_outproj(
+            *(t.data_ptr() for t in (q, k, v, x, wo, bo, ls, out)), b, l, num_heads, float(scale) * _LOG2E,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    _build.check_cuda(err, "attention_outproj")
+    attention_outproj_residual.launches += 1
+    return out
+
+
+attention_outproj_residual.launches = 0
 
 
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:

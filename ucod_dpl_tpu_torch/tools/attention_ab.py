@@ -20,8 +20,8 @@ torch.profiler breakdown of the backward's kernels.
   this, this, parent, at bs16 L1370 and bs4 L2917; the outputs of the two
   are compared bit for bit (K1, K2's o and log-sum-exp, dq, dk, dv).
 * ``--variants [NAME ...]``: variants of this tree's kernels (all, or those
-  named), each an edit of its source
-  (``VARIANTS``), built into ``build/ucod_dpl_tpu_torch/variants/`` and timed
+  named), each an edit of its source (``VARIANTS``; the shared flash-loop
+  header ``attention_common.cuh`` written into it, see ``variant_source``), built into ``build/ucod_dpl_tpu_torch/variants/`` and timed
   interleaved against the kernel it varies.  Variants marked "diagnostic"
   compute a wrong result on purpose: they show what one part costs.
 * ``--sass``: instruction counts in the SASS of the built attention objects
@@ -228,6 +228,22 @@ def parent_ab(parent: Path, results: dict) -> None:
 
 # ---- variants of this tree's kernels -----------------------------------------
 
+# headers a variant's edit may reach: inlined into the source it edits
+_EDITABLE_HEADERS = ("attention_common.cuh",)
+
+
+def variant_source(src_name: str) -> str:
+    """The text of ``csrc/<src_name>`` with the headers in
+    ``_EDITABLE_HEADERS`` written in place of their ``#include``, so that a
+    variant's edit reaches the code they hold (K1's and K12's online
+    softmax); the other headers stay included."""
+    src = (_build.CSRC / src_name).read_text()
+    for header in _EDITABLE_HEADERS:
+        text = (_build.CSRC / header).read_text().replace("#pragma once\n", "")
+        src = src.replace(f'#include "{header}"\n', text)
+    return src
+
+
 def _sub(old: str, new: str):
     def edit(src: str) -> str:
         if old not in src:
@@ -332,7 +348,7 @@ def build_variants(names, variants=VARIANTS, entries=_ENTRIES, subdir="variants"
     objs, procs = [], []
     for name in names:
         src_name, _, edit = variants[name]
-        src = edit((_build.CSRC / src_name).read_text())
+        src = edit(variant_source(src_name))
         for entry in entries:
             src = src.replace(f'extern "C" int {entry}(', f'extern "C" int {entry}_{name}(')
         cu = out / f"{name}.cu"
