@@ -277,6 +277,17 @@ Phases (each raises on failure; any failure exits non-zero):
      permuted bf16 copy, cuDNN, flatten/transpose, the bias add; + the
      position rows) and one ``F.conv2d`` with its bias (``library_ms``),
      by events and by the card's own time.
+  T. (after phase S) the K1 variants that port the eight TPU attention
+     prototypes (``tools/attention_ab.py``: ``SITES``, on no product path):
+     all built from this checkout in parallel, each launched once at bs16
+     L1370 (the row variants, fwd_rows64 and fwd_rows192, also at bs8
+     L2917, bench_attention_756.py's shape) with the counts at 0 just
+     before, into NaN-filled outputs, held against its plain function
+     (K1's, or the diagnostics' and the constant shift's own) within K1's
+     bound, and timed against K1 by the card's own time (interleaved K1,
+     variant, variant, K1), beside its plain function and one
+     ``scaled_dot_product_attention`` call; one kernels-line entry per
+     prototype site.
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -292,6 +303,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import glob
 import json
 import math
@@ -1769,6 +1781,97 @@ def _prototype_entries(proto: dict) -> list:
          "library_ms": k13["library_ms"], "conv_path_ms": k13["conv_path_ms"], "device_ms": k13["device_ms"],
          "conv_path_device_ms": k13["conv_path_device_ms"]},
     ]
+
+
+# Phase T: the K1 variants that port the TPU attention prototypes (their
+# shapes: bs16 L1370, and bench_attention_756.py's bs8 L2917 for the row
+# variants)
+T_SHAPES = {"bs16 L1370": (16, 1370), "bs8 L2917": (8, 2917)}
+
+
+def phase_attention_variants(seed: int, dev) -> dict:
+    """Phase T: the K1 variants of ``tools/attention_ab.py`` that port the
+    eight TPU attention prototypes (``SITES``), on no product path: built
+    from this checkout in parallel, each launched once at bs16 L1370 (the
+    row variants also at bs8 L2917) into a NaN-filled output with its count
+    at 0 just before, held against its plain function within K1's bound,
+    and timed against K1 by the card's own time (interleaved K1, variant,
+    variant, K1), with its plain function and one
+    ``scaled_dot_product_attention`` call at the same shape."""
+    import torch.nn.functional as F
+
+    from ucod_dpl_tpu_torch.ops.attention import packed_attention
+    from ucod_dpl_tpu_torch.tools import attention_ab as AB
+
+    started = time.perf_counter()
+    names = list(AB.PROTO_VARIANTS)
+    lib = AB.build_variants(names)
+    build_s = time.perf_counter() - started
+    calls = {name: AB.variant_fn(lib, name) for name in names}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    inputs = {key: tuple(torch.randn(b, l, SERVE_DIM, generator=gen, device=dev).to(torch.bfloat16) for _ in range(3))
+              for key, (b, l) in T_SHAPES.items()}
+    runs = {"bs16 L1370": names, "bs8 L2917": list(AB.ROW_VARIANTS)}
+    res = {"build_s": build_s, "launches": {}, "err": {}, "ms": {}, "k1_ms": {}, "plain_ms": {}, "sdpa_ms": {}}
+    for key, run_names in runs.items():
+        q, k, v = inputs[key]
+        # the phase's path at this shape: each variant once, every count at 0 just before
+        AB.LAUNCHES.clear()
+        outs = {name: calls[name](q, k, v, out=_nan_like(q)) for name in run_names}
+        torch.cuda.synchronize()
+        res["launches"][key] = dict(AB.LAUNCHES)
+        if res["launches"][key] != {name: 1 for name in run_names}:
+            raise AssertionError(f"phase T at {key} launched {res['launches'][key]}, expected each variant once")
+        _log(f"attention variants (phase T) at {key}: launches {res['launches'][key]}")
+        for name, out in outs.items():
+            ref = AB.plain_of(name)(q, k, v, NUM_HEADS, AB.SCALE)
+            res["err"][name, key] = _check(f"{name} {key}", out, ref, K1_TOL * ref.float().abs().max().item())
+        del outs, ref
+        k1 = functools.partial(packed_attention, q, k, v, NUM_HEADS, AB.SCALE)
+        for name in run_names:
+            res["k1_ms"][name, key], res["ms"][name, key] = AB._ab_ms(
+                k1, functools.partial(calls[name], q, k, v), AB._device_ms)
+            res["plain_ms"][name, key] = AB._device_ms(functools.partial(AB.plain_of(name), q, k, v, NUM_HEADS,
+                                                                      AB.SCALE), iters=5, warmup=1)
+            _log(f"  {name} {key}: {res['ms'][name, key]:.4f} ms against K1's {res['k1_ms'][name, key]:.4f} "
+                 f"({res['ms'][name, key] / res['k1_ms'][name, key]:.3f}x), plain {res['plain_ms'][name, key]:.4f}")
+        res["sdpa_ms"][key] = AB._device_ms(lambda: F.scaled_dot_product_attention(
+            *(_packed_heads(x) for x in (q, k, v)), scale=AB.SCALE))
+    res["wall_s"] = time.perf_counter() - started
+    _log(f"attention variants (phase T): {res['wall_s']:.1f} s wall, {build_s:.1f} s of it the build")
+    _log(json.dumps({"phase_t": {f"{name} {key}": {field: res[field][name, key]
+                                                    for field in ("ms", "k1_ms", "plain_ms", "err")}
+                                  for name, key in res["ms"]}, "sdpa_ms": res["sdpa_ms"],
+                     "wall_s": res["wall_s"], "build_s": build_s}))
+    return res
+
+
+def _variant_entries(t: dict) -> list:
+    """The kernels line's entry of each TPU attention prototype site (phase
+    T): its first variant's ms, plain ms and error, every variant's beside
+    them and K1's, at bs16 L1370 (bench_attention_756.py's at bs8 L2917);
+    the bound of K1's function there (two products of 2 L^2 64 a head, q, k,
+    v and o moved once) and SDPA's time as the library's."""
+    from ucod_dpl_tpu_torch.tools import attention_ab as AB
+
+    entries = []
+    for site, (question, variants) in AB.SITES.items():
+        key = "bs8 L2917" if site == AB.SITE_756 else "bs16 L1370"
+        b, l = T_SHAPES[key]
+        bound = _attention_bound(b * NUM_HEADS, l, SERVE_DIM // NUM_HEADS)
+        first = variants[0]
+        entries.append({
+            "name": f"{site.rsplit('/', 1)[1]} ({question}) as K1 variants {', '.join(variants)}, {key}",
+            "route": "cuda", "source": "ucod_dpl_tpu_torch/csrc/attention_fwd.cu", "replaces": site,
+            # launches: phase T's own (no product path runs a variant)
+            "launches": sum(t["launches"][key].get(v, 0) for v in variants),
+            "max_abs_err": max(t["err"][v, key] for v in variants), "ms": t["ms"][first, key],
+            "plain_ms": t["plain_ms"][first, key], "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": t["sdpa_ms"][key], "k1_ms": t["k1_ms"][first, key],
+            "variants": {v: {"ms": t["ms"][v, key], "k1_ms": t["k1_ms"][v, key], "plain_ms": t["plain_ms"][v, key],
+                             "max_abs_err": t["err"][v, key]} for v in variants},
+        })
+    return entries
 
 
 # Phase K: the synthetic RefCOD layout of the eval entry (COD-like image
@@ -4145,6 +4248,8 @@ def main(argv=None) -> int:
     dp = phase_dp(smi, evalk, train)
     torch.cuda.empty_cache()
     proto = phase_prototypes(args.seed, dev)
+    torch.cuda.empty_cache()
+    variants_t = phase_attention_variants(args.seed, dev)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
@@ -4305,6 +4410,7 @@ def main(argv=None) -> int:
                                 ("K10", "int8 quantize + out-projection", 479),
                                 ("K11", "int8 whole MLP half", 327))),
         *_prototype_entries(proto),
+        *_variant_entries(variants_t),
     ]}))
     _log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -5,7 +5,11 @@ bit for bit from call to call), both with a key bound and f32 outputs and
 as the sequence-parallel ring, K6, K7
 (LayerNorm + fc1 + GELU), the int8 kernels K8-K11, and the fusion
 prototypes' ports K12 (attention + out-projection + layerscale + residual)
-and K13 (the patch embed as one im2col GEMM); the eval entry
+and K13 (the patch embed as one im2col GEMM); the K1 variants that port the
+TPU attention prototypes (``tools/attention_ab.py``) and compute K1's
+function, the constant-shift variant and the scale folded into q, against
+their plain functions;
+the eval entry
 (``cli.eval_main``) at a small width, by its K1/K6 launches; the train
 entry (``cli.train_main``, LoRA off and on) at a small width, by its
 launches, losses and a preemption resumed bit for bit; and CORAL stage-2
@@ -50,6 +54,7 @@ from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv, layernorm_qkv_ref
 from ucod_dpl_tpu_torch.ops.quant import dense_w8a8_pre, quantize_act, quantize_linear
 from ucod_dpl_tpu_torch.ops.attention import attention_outproj_residual, attention_outproj_residual_reference
 from ucod_dpl_tpu_torch.ops.patch_embed import patch_embed, patch_embed_reference
+from ucod_dpl_tpu_torch.tools import attention_ab as AB
 
 pytestmark = pytest.mark.cuda
 
@@ -545,6 +550,32 @@ def test_prototype_kernels_count_launches_and_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):  # D 384: not a multiple of 256
         patch_embed(px, weight[:, :384].contiguous(), bias[:384])
     assert (attention_outproj_residual.launches, patch_embed.launches) == (before[0] + 1, before[1] + 1)
+
+
+# the prototype variants that compute K1's function, the constant shift, and
+# the scale folded into q by the kernel
+K1_FUNCTION_VARIANTS = [n for n in AB.PROTO_VARIANTS
+                        if AB.plain_of(n) is packed_attention_reference] + ["fwd_shift", "fwd_scale_q"]
+
+
+@pytest.fixture(scope="module")
+def variants_lib():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return AB.build_variants(K1_FUNCTION_VARIANTS, subdir="variants_test")
+
+
+@pytest.mark.parametrize("l", [1, 65, 257, 1370])
+@pytest.mark.parametrize("name", K1_FUNCTION_VARIANTS)
+def test_attention_prototype_variant_matches_its_plain_function(dev, variants_lib, name, l):
+    """Within K1's bound (2^-6 of max|plain|), into a NaN-filled output."""
+    g = torch.Generator(device=dev).manual_seed(l)
+    q, k, v = (torch.randn(2, l, 768, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = AB.variant_fn(variants_lib, name)(q, k, v, out=torch.full_like(q, float("nan")))
+    ref = AB.plain_of(name)(q, k, v, 12, AB.SCALE).float()
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
 
 
 @pytest.mark.parametrize("bh,l,d", [(1, 1, 16), (3, 65, 16), (5, 63, 32), (80, 257, 32), (4, 129, 64),

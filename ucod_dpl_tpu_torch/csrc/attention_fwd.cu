@@ -64,6 +64,13 @@
 //     are not loaded at all, and the output may be f32 (the ring merges its
 //     partial outputs before it rounds);
 //   * the epilogue rounds O / l to bf16 once and stores rows < L.
+//
+// The schedule above is `Schedule`'s; the kernel and `launch` take it as a
+// template parameter whose other values only the timing tool instantiates
+// (tools/attention_ab.py, each the port of a TPU scheduling prototype in
+// scripts/microbench/bench_attention*.py): 64 or 192 query rows a CTA, a
+// head pair a CTA, all q tiles of a head in one CTA, and a TMA-store
+// epilogue (with a head pair, one box of both heads).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -73,36 +80,110 @@
 #include "attention_common.cuh"
 #include "hopper.cuh"
 
+
 namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kConsumers = 2;             // warpgroups of 64 query rows
-constexpr int kBlockQ = 64 * kConsumers;  // query rows per CTA
-using ucod::flash::kBlockK;               // keys per K/V tile
+using ucod::flash::kBlockK;  // keys per K/V tile
 constexpr int kStages = 3;
-constexpr int kThreads = 128 * (1 + kConsumers);
-constexpr int kSchedBar = 1;  // named barriers 1, 2: the consumers' turns
+constexpr int kSchedBar = 1;  // named barriers 1 .. consumers: the consumers' turns
 constexpr float kLn2 = 0.69314718055994531f;
 
-// The shared-memory layout at head dim D (attention_common.cuh) and the
-// sizes of this kernel's Q tile and K/V tiles.
-template <int D>
-struct Head : ucod::flash::Layout<D> {
-  static constexpr uint32_t kQBytes = kBlockQ * D * 2;
+// How a CTA divides its work.  The product's entries take Schedule as it
+// stands; the other values exist for the timing tool's variants
+// (tools/attention_ab.py derives a struct from this one in a build of its
+// own, each the port of a TPU scheduling prototype; the main library
+// instantiates none of them):
+//   kConsumers: warpgroups of 64 query rows, taking turns in a ring (1 to
+//     3: three hold 160 registers a thread, so that 4 x 128 threads fit the
+//     SM's 64 K, and cover L = 1370 with 8 tiles of 192 = 1536 rows);
+//   kHeadPair: a CTA owns 64 query rows of heads 2p and 2p + 1, one a
+//     warpgroup, and a K/V tile holds both heads' 64 columns (two boxes
+//     side by side), as the TPU kernel's 128-lane head pairs do;
+//   kQLoop: a CTA takes one (batch, head) and runs all its q tiles in turn,
+//     so that its K/V come back from L2 to the same SM.  The TPU kernel
+//     kept a whole head's K/V resident; here that is 360 KB at L 1408,
+//     against the 227 KB a CTA may hold, so the tiles stream again for
+//     every q tile;
+//   kTmaStore: the epilogue stages O in shared memory and writes it by TMA
+//     stores, not by per-thread 4-byte stores: a 64 x 64 box a warpgroup,
+//     or with kHeadPair one 64-row box of both heads' 128 columns, stored
+//     by one thread for the CTA, as the TPU kernel's one 128-lane store.
+// Text edits of this source (the tool's other variants) reach what a
+// member cannot.
+struct Schedule {
+  static constexpr int kConsumers = 2;
+  static constexpr bool kHeadPair = false;
+  static constexpr bool kQLoop = false;
+  static constexpr bool kTmaStore = false;
 };
 
-template <int D>
+// What a schedule's tiles come to.
+template <typename S>
+struct Tiling {
+  static_assert(S::kConsumers >= 1 && S::kConsumers <= 3, "one to three consumer warpgroups");
+  static_assert(!S::kHeadPair || S::kConsumers == 2, "a head pair takes one warpgroup a head");
+  static constexpr int kHeads = S::kHeadPair ? 2 : 1;                     // heads of a work tile
+  static constexpr int kBlockQ = S::kHeadPair ? 64 : 64 * S::kConsumers;  // query rows of a work tile
+  static constexpr int kThreads = 128 * (1 + S::kConsumers);
+  static constexpr int kConsumerRegs = S::kConsumers == 3 ? 160 : 240;  // with 24 for the producer
+  static constexpr int kOutBar = kSchedBar + S::kConsumers;  // named barriers of the TMA-store epilogue
+};
+
+template <int D, typename S>
 struct Smem {  // every tile 1024-byte aligned (whole swizzle atoms)
-  bf16 q[kBlockQ * D];
-  bf16 k[kStages][kBlockK * D];
-  bf16 v[kStages][kBlockK * D];
+  bf16 q[Tiling<S>::kHeads * Tiling<S>::kBlockQ * D];
+  bf16 k[kStages][Tiling<S>::kHeads * kBlockK * D];
+  bf16 v[kStages][Tiling<S>::kHeads * kBlockK * D];
   uint64_t q_full, q_empty;
   uint64_t k_full[kStages], k_empty[kStages], v_full[kStages], v_empty[kStages];
 };
-template <int D>
-constexpr size_t kSmemBytes = sizeof(Smem<D>) + 1024;  // + alignment slack
+template <int D, typename S>
+struct SmemStaged : Smem<D, S> {  // + 64 rows x D of O staged per consumer warpgroup
+  alignas(1024) bf16 o[S::kConsumers * 64 * D];
+};
+template <int D, typename S>
+using SmemOf = std::conditional_t<S::kTmaStore, SmemStaged<D, S>, Smem<D, S>>;
+template <int D, typename S = Schedule>
+constexpr size_t kSmemBytes = sizeof(SmemOf<D, S>) + 1024;  // + alignment slack
 static_assert(kSmemBytes<128> <= 232448, "the head-dim-128 stages exceed a CTA's shared memory");
+
+// The output's tensor map where the epilogue stores by TMA; nothing else.
+struct NoMap {};
+template <typename S>
+using OutMap = std::conditional_t<S::kTmaStore, CUtensorMap, NoMap>;
+
+// The bf16 output (batch, rows, num_heads * 64) as a 4-D map (64 columns,
+// head, row, batch) whose box is 64 columns x 2 heads x 64 rows: a head
+// pair's 64 rows, one TMA store.  Shared memory holds the box as 128-byte
+// rows u = 2 * row + head under the 128-byte swizzle (chunk c at c ^ u % 8).
+inline bool head_pair_map(CUtensorMap* map, void* base, int batch, int rows, int num_heads) {
+  const ucod::EncodeTiledFn encode = ucod::encode_tiled_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)num_heads, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)num_heads * 128, (cuuint64_t)num_heads * 128 * rows};  // bytes
+  const cuuint32_t box[4] = {64, 2, 64, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, base, dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// This CTA's work tiles: blockIdx.x, + gridDim.x, ...; with kQLoop every
+// q tile of unit (batch, head) blockIdx.x in turn, then of unit + gridDim.x.
+template <typename S>
+__device__ __forceinline__ int first_tile(int n_qt) {
+  return S::kQLoop ? blockIdx.x * n_qt : blockIdx.x;
+}
+template <typename S>
+__device__ __forceinline__ int next_tile(int t, int n_qt) {
+  if constexpr (S::kQLoop) {
+    return (t + 1) % n_qt ? t + 1 : t + 1 + ((int)gridDim.x - 1) * n_qt;
+  } else {
+    return t + (int)gridDim.x;
+  }
+}
 
 // The flash loop's products, online softmax and P fragments
 // (attention_common.cuh), shared with K12 (attn_outproj.cu).
@@ -113,17 +194,23 @@ using ucod::flash::to_a_frags;
 
 // OutT: bf16, or float for the f32 partial outputs of a sequence-parallel
 // ring (merged by their log-sum-exps, then rounded once).
-template <int D, bool kLse, typename OutT>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int D, bool kLse, typename OutT, typename S>
+__global__ void __launch_bounds__(Tiling<S>::kThreads, 1)
     attention_fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                          const __grid_constant__ CUtensorMap tm_v, OutT* __restrict__ o, float* __restrict__ lse,
-                         int seq_len, int kv_len, int num_heads, int n_work, float scale_log2) {
-  using H = Head<D>;
+                         int seq_len, int kv_len, int num_heads, int n_work, float scale_log2,
+                         const __grid_constant__ OutMap<S> tm_o) {
+  using H = ucod::flash::Layout<D>;
+  using T = Tiling<S>;
+  constexpr int kConsumers = S::kConsumers;
+  constexpr int kBlockQ = T::kBlockQ;
   extern __shared__ uint8_t smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
+  SmemOf<D, S>& sm =
+      *reinterpret_cast<SmemOf<D, S>*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
   const int wg = threadIdx.x / 128;
   const int n_qt = (seq_len + kBlockQ - 1) / kBlockQ;
   const int n_kv = (kv_len + kBlockK - 1) / kBlockK;  // keys >= kv_len are never loaded
+  const int groups = num_heads / T::kHeads;           // work tiles of a batch element and q tile
 
   if (threadIdx.x == 0) {
     ucod::mbar_init(&sm.q_full, 1);
@@ -139,24 +226,25 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // Persistent: this CTA takes work tiles blockIdx.x, + gridDim.x, ...; tile
-  // t is q tile t % n_qt of batch * head t / n_qt.  The ring of K/V stages
-  // runs on across tiles (`it` counts the K/V tiles so far), so the next
-  // tile's Q and first K/V tiles load while this one finishes.
+  // Persistent: this CTA takes its work tiles in turn (first_tile,
+  // next_tile); tile t is q tile t % n_qt of batch * head group t / n_qt.
+  // The ring of K/V stages runs on across tiles (`it` counts the K/V tiles
+  // so far), so the next tile's Q and first K/V tiles load while this one
+  // finishes.  A box of a head pair's tile is one head's columns.
   if (wg == 0) {
     // producer: one thread keeps the ring full
-    ucod::reg_dealloc<24>();
+    if constexpr (kConsumers > 1) ucod::reg_dealloc<24>();
     if (threadIdx.x == 0) {
       int it = 0;
       int n = 0;
-      for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++n) {
+      for (int t = first_tile<S>(n_qt); t < n_work; t = next_tile<S>(t, n_qt), ++n) {
         const int bh = t / n_qt;
-        const int b = bh / num_heads;
-        const int h = bh % num_heads;
+        const int b = bh / groups;
+        const int h = bh % groups * T::kHeads;
         ucod::mbar_wait(&sm.q_empty, (n & 1) ^ 1);
-        ucod::mbar_expect_tx(&sm.q_full, H::kQBytes);
+        ucod::mbar_expect_tx(&sm.q_full, T::kHeads * kBlockQ * D * 2);
 #pragma unroll
-        for (int a = 0; a < H::kAtoms; ++a) {
+        for (int a = 0; a < T::kHeads * H::kAtoms; ++a) {
           ucod::tma_load_3d(sm.q + a * kBlockQ * H::kAtomCols, &tm_q, &sm.q_full, h * D + a * H::kAtomCols,
                             t % n_qt * kBlockQ, b);
         }
@@ -164,16 +252,16 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int st = it % kStages;
           const uint32_t ph = (it / kStages) & 1;
           ucod::mbar_wait(&sm.k_empty[st], ph ^ 1);
-          ucod::mbar_expect_tx(&sm.k_full[st], H::kKvBytes);
+          ucod::mbar_expect_tx(&sm.k_full[st], T::kHeads * H::kKvBytes);
 #pragma unroll
-          for (int a = 0; a < H::kAtoms; ++a) {
+          for (int a = 0; a < T::kHeads * H::kAtoms; ++a) {
             ucod::tma_load_3d(sm.k[st] + a * kBlockK * H::kAtomCols, &tm_k, &sm.k_full[st],
                               h * D + a * H::kAtomCols, j * kBlockK, b);
           }
           ucod::mbar_wait(&sm.v_empty[st], ph ^ 1);
-          ucod::mbar_expect_tx(&sm.v_full[st], H::kKvBytes);
+          ucod::mbar_expect_tx(&sm.v_full[st], T::kHeads * H::kKvBytes);
 #pragma unroll
-          for (int a = 0; a < H::kAtoms; ++a) {
+          for (int a = 0; a < T::kHeads * H::kAtoms; ++a) {
             ucod::tma_load_3d(sm.v[st] + a * kBlockK * H::kAtomCols, &tm_v, &sm.v_full[st],
                               h * D + a * H::kAtomCols, j * kBlockK, b);
           }
@@ -181,14 +269,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    ucod::reg_alloc<240>();
+    if constexpr (kConsumers > 1) ucod::reg_alloc<T::kConsumerRegs>();
     const int c = wg - 1;
+    const int next_c = kConsumers == 2 ? c ^ 1 : (c + 1) % kConsumers;  // whose turn follows
     const int tid = threadIdx.x % 128;
     const int warp = tid / 32;
     const int lane = tid % 32;
     const int g = lane / 4;
     const int tq = lane % 4;
     const bf16* q_tile = sm.q + c * 64 * H::kAtomCols;
+    const int kv_off = S::kHeadPair ? c * kBlockK * D : 0;  // this warpgroup's head in a K/V stage
     const int64_t row_stride = (int64_t)num_heads * D;
 
     float s[kBlockK / 2];   // S (then P in f32): 64 rows x 128 keys
@@ -196,12 +286,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     uint32_t pa[kBlockK / 16][4];  // P in bf16, the A fragments of O += P V
 
     // Warpgroup 0 issues first; every K/V tile is one turn of each
-    // warpgroup, and warpgroup 1's last turn is not taken up.
-    if (c == 1) ucod::named_arrive(kSchedBar, 256);
+    // warpgroup, and the last warpgroup's last turn is not taken up.
+    if (kConsumers > 1 && c == kConsumers - 1) ucod::named_arrive(kSchedBar, 256);
     int it = 0;
     int n = 0;
-    for (int t = blockIdx.x; t < n_work; t += gridDim.x, ++n) {
-      const bool last_work = t + (int)gridDim.x >= n_work;
+    for (int t = first_tile<S>(n_qt); t < n_work; t = next_tile<S>(t, n_qt), ++n) {
+      const bool last_work = next_tile<S>(t, n_qt) >= n_work;
       const int bh = t / n_qt;
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
@@ -216,9 +306,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       {
         const int st = it % kStages;
         ucod::mbar_wait(&sm.k_full[st], (it / kStages) & 1);
-        ucod::named_sync(kSchedBar + c, 256);
-        issue_s<D, kBlockQ>(s, q_tile, sm.k[st]);
-        if (!(c == 1 && last_work && n_kv == 1)) ucod::named_arrive(kSchedBar + (c ^ 1), 256);
+        if (kConsumers > 1) ucod::named_sync(kSchedBar + c, 256);
+        issue_s<D, kBlockQ>(s, q_tile, sm.k[st] + kv_off);
+        if (kConsumers > 1 && !(c == kConsumers - 1 && last_work && n_kv == 1)) ucod::named_arrive(kSchedBar + next_c, 256);
         ucod::wgmma_wait<0>();
         ucod::fence_regs(s);
         if (lane == 0) {
@@ -233,14 +323,14 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int st = (it + j) % kStages;
         const int pst = (it + j - 1) % kStages;  // stage of K/V tile j - 1
         ucod::mbar_wait(&sm.k_full[st], ((it + j) / kStages) & 1);
-        ucod::named_sync(kSchedBar + c, 256);
-        issue_s<D, kBlockQ>(s, q_tile, sm.k[st]);
+        if (kConsumers > 1) ucod::named_sync(kSchedBar + c, 256);
+        issue_s<D, kBlockQ>(s, q_tile, sm.k[st] + kv_off);
         // O = alpha O + P_{j-1} V_{j-1}, issued behind S_j
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
         ucod::mbar_wait(&sm.v_full[pst], ((it + j - 1) / kStages) & 1);
-        issue_pv<D>(acc, pa, sm.v[pst]);
-        if (!(c == 1 && last_work && j == n_kv - 1)) ucod::named_arrive(kSchedBar + (c ^ 1), 256);
+        issue_pv<D>(acc, pa, sm.v[pst] + kv_off);
+        if (kConsumers > 1 && !(c == kConsumers - 1 && last_work && j == n_kv - 1)) ucod::named_arrive(kSchedBar + next_c, 256);
         ucod::wgmma_wait<1>();
         ucod::fence_regs(s);
         if (lane == 0) {
@@ -259,7 +349,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
       ucod::mbar_wait(&sm.v_full[lst], ((it + n_kv - 1) / kStages) & 1);
-      issue_pv<D>(acc, pa, sm.v[lst]);
+      issue_pv<D>(acc, pa, sm.v[lst] + kv_off);
       ucod::wgmma_wait<0>();
       ucod::fence_regs(acc);
       if (lane == 0) ucod::mbar_arrive(&sm.v_empty[lst]);
@@ -272,55 +362,107 @@ __global__ void __launch_bounds__(kThreads, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         inv[r] = 1.f / l[r];
       }
-      const int r0 = t % n_qt * kBlockQ + 64 * c + 16 * warp + g;
-      OutT* oh = o + (int64_t)(bh / num_heads) * seq_len * row_stride + (int64_t)(bh % num_heads) * D;
+      const int b = bh / groups;
+      const int head = bh % groups * T::kHeads + (S::kHeadPair ? c : 0);
+      const int row0 = t % n_qt * kBlockQ + (S::kHeadPair ? 0 : 64 * c);  // this warpgroup's first row
+      const int r0 = row0 + 16 * warp + g;
+      if constexpr (S::kTmaStore) {
+        static_assert(D == 64 && std::is_same_v<OutT, bf16>, "the TMA-store epilogue takes bf16 at head dim 64");
+        // The staged box, swizzled as a load of the same map writes it
+        // (hopper.cuh), free once the previous tile's store has read it; the
+        // store drops the rows past L.  This warpgroup's 64 x 64 box, or with
+        // a head pair the CTA's box of both heads (head_pair_map: 128-byte
+        // row u = 2 * row + c), stored by warpgroup 0's first thread.
+        constexpr int kBoxHeads = S::kHeadPair ? 2 : 1;
+        uint8_t* stage = reinterpret_cast<uint8_t*>(sm.o + (S::kHeadPair ? 0 : c * 64 * D));
+        const int bar = S::kHeadPair ? T::kOutBar : T::kOutBar + c;
+        const bool issuer = tid == 0 && (!S::kHeadPair || c == 0);
+        if (issuer) ucod::bulk_wait_read<0>();
+        ucod::named_sync(bar, 128 * kBoxHeads);
+        const int u = kBoxHeads * (16 * warp + g) + (S::kHeadPair ? c : 0);  // rows u, u + 8 * kBoxHeads
+        const int sw = u & 7;                                                 // the swizzle of both
 #pragma unroll
-      for (int jb = 0; jb < D / 8; ++jb) {
-        const int col = 8 * jb + 2 * tq;
+        for (int jb = 0; jb < D / 8; ++jb) {
+          uint8_t* chunk = stage + ((jb ^ sw) << 4) + 4 * tq;
+          *reinterpret_cast<uint32_t*>(chunk + u * 128) =
+              ucod::pack_bf16x2(acc[4 * jb] * inv[0], acc[4 * jb + 1] * inv[0]);
+          *reinterpret_cast<uint32_t*>(chunk + (u + 8 * kBoxHeads) * 128) =
+              ucod::pack_bf16x2(acc[4 * jb + 2] * inv[1], acc[4 * jb + 3] * inv[1]);
+        }
+        ucod::fence_proxy_async();
+        ucod::named_sync(bar, 128 * kBoxHeads);
+        if (issuer) {
+          if constexpr (S::kHeadPair) {
+            ucod::tma_store_4d(&tm_o, stage, 0, head, row0, b);  // head: the pair's first (c = 0)
+          } else {
+            ucod::tma_store_3d(&tm_o, stage, head * D, row0, b);
+          }
+          ucod::bulk_commit();
+        }
+      } else {
+        OutT* oh = o + (int64_t)b * seq_len * row_stride + (int64_t)head * D;
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          if (r0 + 8 * r < seq_len) {
-            const float x = acc[4 * jb + 2 * r] * inv[r], y = acc[4 * jb + 2 * r + 1] * inv[r];
-            if constexpr (std::is_same_v<OutT, float>) {
-              *reinterpret_cast<float2*>(oh + (int64_t)(r0 + 8 * r) * row_stride + col) = make_float2(x, y);
-            } else {
-              *reinterpret_cast<uint32_t*>(oh + (int64_t)(r0 + 8 * r) * row_stride + col) = ucod::pack_bf16x2(x, y);
+        for (int jb = 0; jb < D / 8; ++jb) {
+          const int col = 8 * jb + 2 * tq;
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (r0 + 8 * r < seq_len) {
+              const float x = acc[4 * jb + 2 * r] * inv[r], y = acc[4 * jb + 2 * r + 1] * inv[r];
+              if constexpr (std::is_same_v<OutT, float>) {
+                *reinterpret_cast<float2*>(oh + (int64_t)(r0 + 8 * r) * row_stride + col) = make_float2(x, y);
+              } else {
+                *reinterpret_cast<uint32_t*>(oh + (int64_t)(r0 + 8 * r) * row_stride + col) =
+                    ucod::pack_bf16x2(x, y);
+              }
             }
           }
         }
       }
       if (kLse && tq == 0) {
-        float* lh = lse + (int64_t)bh * seq_len;
+        float* lh = lse + (int64_t)(bh * T::kHeads + (S::kHeadPair ? c : 0)) * seq_len;  // head b * H + head
         if (r0 < seq_len) lh[r0] = m[0] * kLn2 + logf(l[0]);
         if (r0 + 8 < seq_len) lh[r0 + 8] = m[1] * kLn2 + logf(l[1]);
       }
     }
+    if constexpr (S::kTmaStore) {
+      if (tid == 0) ucod::bulk_wait<0>();  // the last stores have completed
+    }
   }
 }
 
-template <int D, bool kLse, typename OutT = bf16>
+template <int D, bool kLse, typename OutT = bf16, typename S = Schedule>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int batch, int seq_len, int kv_len,
            int num_heads, float scale_log2, void* stream) {
-  using H = Head<D>;
-  if (kv_len < 1 || kv_len > seq_len) return static_cast<int>(cudaErrorInvalidValue);
+  using H = ucod::flash::Layout<D>;
+  using T = Tiling<S>;
+  if (kv_len < 1 || kv_len > seq_len || num_heads % T::kHeads) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap tm_q, tm_k, tm_v;
+  OutMap<S> tm_o{};
   const int cols = num_heads * D;
-  if (!ucod::packed_tensor_map(&tm_q, q, batch, seq_len, cols, kBlockQ, H::kAtomCols) ||
+  if (!ucod::packed_tensor_map(&tm_q, q, batch, seq_len, cols, T::kBlockQ, H::kAtomCols) ||
       !ucod::packed_tensor_map(&tm_k, k, batch, seq_len, cols, kBlockK, H::kAtomCols) ||
       !ucod::packed_tensor_map(&tm_v, v, batch, seq_len, cols, kBlockK, H::kAtomCols)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  constexpr int smem = (int)kSmemBytes<D>;
-  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D, kLse, OutT>,
+  if constexpr (S::kTmaStore) {
+    if (!(S::kHeadPair ? head_pair_map(&tm_o, o, batch, seq_len, num_heads)
+                       : ucod::packed_tensor_map(&tm_o, o, batch, seq_len, cols, 64, H::kAtomCols))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  constexpr int smem = (int)kSmemBytes<D, S>;
+  cudaError_t err = cudaFuncSetAttribute(attention_fwd_kernel<D, kLse, OutT, S>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int device = 0, n_sm = 0;
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n_work = (seq_len + kBlockQ - 1) / kBlockQ * batch * num_heads;
-  attention_fwd_kernel<D, kLse, OutT><<<n_work < n_sm ? n_work : n_sm, kThreads, smem,
-                                        static_cast<cudaStream_t>(stream)>>>(
-      tm_q, tm_k, tm_v, static_cast<OutT*>(o), lse, seq_len, kv_len, num_heads, n_work, scale_log2);
+  const int n_qt = (seq_len + T::kBlockQ - 1) / T::kBlockQ;
+  const int n_work = n_qt * batch * (num_heads / T::kHeads);
+  const int n_units = S::kQLoop ? n_work / n_qt : n_work;  // what a CTA takes at a time
+  attention_fwd_kernel<D, kLse, OutT, S><<<n_units < n_sm ? n_units : n_sm, T::kThreads, smem,
+                                           static_cast<cudaStream_t>(stream)>>>(
+      tm_q, tm_k, tm_v, static_cast<OutT*>(o), lse, seq_len, kv_len, num_heads, n_work, scale_log2, tm_o);
   return static_cast<int>(cudaGetLastError());
 }
 

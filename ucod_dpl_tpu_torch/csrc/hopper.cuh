@@ -160,6 +160,15 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
                : "memory");
 }
 
+// The same for a 4-D tensor map.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+               : "memory");
+}
+
 // `bytes` (a multiple of 16, 16-byte aligned ends) from global into shared
 // memory; completes on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
