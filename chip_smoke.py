@@ -288,6 +288,41 @@ Phases (each raises on failure; any failure exits non-zero):
      variant, variant, K1), beside its plain function and one
      ``scaled_dot_product_attention`` call; one kernels-line entry per
      prototype site.
+  U. (after phase Q) the multi-device dry run
+     (``tools/dryrun_multichip.py``, the JAX ``__graft_entry__.py::
+     dryrun_multichip``) on one card named 8 times, bf16 through the
+     kernels: 1 the stage-1 and discriminator steps (dim 768, feature size
+     17), 2 the TP forward over ``{"data": 4, "model": 2}`` (28px, 768
+     wide, 12 heads, 2 layers), 3 a CORAL refiner step, 4 the Runner's TP
+     LookTwice eval (``tpu_cfg.mesh``, a 256-wide backbone at 56px, 3
+     synthetic images) and its extract, 5 the LoRA step, 6 the SP forward
+     over ``{"data": 2, "seq": 4}`` and the SP LoRA step, 7 the 2D forward
+     over ``{"data": 2, "model": 2, "seq": 2}``; finite losses and metrics,
+     each sharded result within 1.5 x the bf16 unsharded plain path's error
+     + 1e-3 of the f32 unsharded plain path, and each backbone part's
+     launches exactly as expected and no other kernel's (the packed forward
+     8 times in part 2; in part 4 the cache build's TP forwards and K6 + K1
+     per LookTwice crop pass, counted from the evaluator's crop batches;
+     K2 and K3/K4 in the LoRA steps; K2 in the SP and 2D forwards); each
+     part's numbers (part 4's crop count among them), launches and wall
+     seconds.  Part 8
+     (the LoRA step over 2 NCCL processes against the one-process ring)
+     runs with phase R in ``--only-r4``.  The kernels line gives each
+     kernel's launches by part (``dryrun_launches``);
+  V. (last) the randomized preemption soak (``tools/soak_preempt.py``) of
+     ``cli train`` on the card: 4 cycles started within 3 minutes rotating
+     plain, discriminator, validation and LoRA runs (256-wide backbone,
+     56px, 4 synthetic images in ``work/chip_smoke_soak/``, the caches
+     shared by the cycles as in the JAX soak, so the cycle that builds them
+     launches K1 and K6), SIGTERM 0.5-6 s after each child's train loop
+     starts (``--kill-from loop``: the signal lands in the loop however long
+     the child takes to start), a child still running 2 minutes past the
+     3 killed and failed; every variant at least once, at least one cycle
+     preempted and resumed, no failed cycle; each cycle's label, outcome
+     and time to its loop, and each variant's launches in its children
+     (``soak_launches`` in the kernels line).  ``--only-uv`` runs phases U
+     and V alone (after the device check and the build), V with 8 cycles
+     within 6 minutes.
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -748,17 +783,12 @@ def _lora_setup(seed: int, dev, batch: int, size: int = 518):
 
 def _kernel_wrappers():
     """The bf16 wrappers whose ``launches`` count the main paths' kernel
-    launches."""
-    from ucod_dpl_tpu_torch.ops.attention import (
-        heads_attention,
-        packed_attention,
-        packed_attention_bwd,
-        packed_attention_fwd_lse,
-    )
-    from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_fc1_gelu, layernorm_qkv
+    launches (``ops.kernel_wrappers``, K2 and K3/K4 under the names of
+    their wrappers' roles)."""
+    from ucod_dpl_tpu_torch.ops import kernel_wrappers
 
-    return {"K1": packed_attention, "K5": heads_attention, "K6": layernorm_qkv, "K7": layernorm_fc1_gelu,
-            "fwd_lse": packed_attention_fwd_lse, "bwd": packed_attention_bwd}
+    w = kernel_wrappers()
+    return {"K1": w["K1"], "K5": w["K5"], "K6": w["K6"], "K7": w["K7"], "fwd_lse": w["K2"], "bwd": w["K3/K4"]}
 
 
 def phase_lora(seed: int, dev) -> dict:
@@ -1013,10 +1043,9 @@ def phase_train_timing(lora_run: dict, gen) -> dict:
 
 def _int8_wrappers():
     """The int8 kernels' wrappers, by kernel id."""
-    from ucod_dpl_tpu_torch.ops import fused_layers as FL
+    from ucod_dpl_tpu_torch.ops import kernel_wrappers
 
-    return {"K8": FL.layernorm_qkv_w8a8, "K9": FL.layernorm_fc1_gelu_w8a8, "K10": FL.dense_quant_w8a8,
-            "K11": FL.layernorm_mlp_w8a8}
+    return {k: fn for k, fn in kernel_wrappers().items() if k in ("K8", "K9", "K10", "K11")}
 
 
 def _int8_layer(gen, dev, with_f32=False):
@@ -4123,6 +4152,108 @@ def phase_sp_processes(seed: int, smi: str) -> dict:
     return out
 
 
+# Phase V: one cycle per variant within 3 minutes (``--only-uv``: two per
+# variant within 6); the SIGTERM lands 0.5-6 s after the child's train loop
+# starts.  The delay counts from the loop's start line, not from the launch:
+# a child takes 15-21 s or more to reach its loop on an H100, and that
+# start-up varies between calls, so a delay counted from the launch could
+# land before the loop in every cycle
+SOAK_KILL_AFTER, SOAK_KILL_FROM = (0.5, 6.0), "loop"
+SOAK_CYCLES, SOAK_MINUTES = 4, 3.0
+SOAK_CYCLES_UV, SOAK_MINUTES_UV = 8, 6.0
+# the backbone parts of the dry run, each of which must reach a kernel
+DRYRUN_BACKBONE_PARTS = ("2", "4", "5", "6", "7")
+
+
+def _dry_key(kid: str) -> str:
+    """The dry run's and the soak's name of a kernel (``ops.launches``)."""
+    return "K3/K4" if kid in ("K3", "K4") else kid
+
+
+def phase_dryrun(smi: str) -> dict:
+    """Phase U: the port's multi-device dry run
+    (``tools/dryrun_multichip.py``) on one card named 8 times, bf16 through
+    the kernels: parts 1-7, each part's checked numbers, its launches per
+    kernel (counts set to 0 just before the path it drives, read just
+    after) and its wall seconds; every backbone part must have launched a
+    kernel."""
+    from ucod_dpl_tpu_torch.tools.dryrun_multichip import dryrun_multichip
+
+    started = time.perf_counter()
+    parts = dryrun_multichip(8, device="cuda", log=_log)
+    for number, part in parts.items():
+        if number == "mesh":
+            continue
+        numbers = {k: v for k, v in part.items() if k not in ("launches", "seconds")}
+        _log(f"U part {number}: {json.dumps(numbers, default=str)}; launches {part['launches']}; "
+             f"{part['seconds']:.3f} s [{smi}]")
+    idle = [p for p in DRYRUN_BACKBONE_PARTS if not any(sum(v.values()) for v in parts[p]["launches"].values())]
+    if idle:
+        raise AssertionError(f"phase U: backbone parts {idle} launched no kernel on the card")
+    parts["wall_s"] = time.perf_counter() - started
+    _log(f"dry run (phase U): {parts['wall_s']:.1f} s wall [{smi}]")
+    return parts
+
+
+def _dryrun_launches(dry: dict, kid: str) -> dict:
+    """One kernel's launches in each part of phase U (K5: the packed forward
+    of the tensor-parallel parts, as in phase I)."""
+    key = "K1" if kid == "K5" else _dry_key(kid)
+    out = {}
+    for number in DRYRUN_BACKBONE_PARTS:
+        if kid == "K5" and number not in ("2", "4"):
+            continue
+        n = sum(v.get(key, 0) for v in dry[number]["launches"].values())
+        if n:
+            out[f"part {number}"] = n
+    return out
+
+
+def phase_soak(seed: int, smi: str, cycles: int = SOAK_CYCLES, minutes: float = SOAK_MINUTES) -> dict:
+    """Phase V: the randomized preemption soak (``tools/soak_preempt.py``)
+    of ``cli train`` on the card, ``cycles`` cycles started within
+    ``minutes`` (the soak kills a child still running 2 minutes after
+    that): every variant at least once, at least one cycle preempted and
+    resumed, none failed; each cycle's label, outcome and time to its train
+    loop, the counts, and each variant's kernel launches (its children's,
+    summed)."""
+    import shutil
+
+    from ucod_dpl_tpu_torch.tools.soak_preempt import VARIANTS, soak
+
+    started = time.perf_counter()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_soak")
+    shutil.rmtree(root, ignore_errors=True)
+    res = soak(minutes, cycles, seed, SOAK_KILL_AFTER, device="cuda", root=root, log=_log, kill_from=SOAK_KILL_FROM)
+    for c in res["cycles"]:
+        _log(f"  V {c['label']}: {c['outcome']}, {c['seconds']:.1f} s, train loop at {c['loop_s']} s after the "
+             f"launch, launches {c['launches']}")
+    res["wall_s"] = time.perf_counter() - started
+    _log(f"soak (phase V): {len(res['cycles'])} cycles {res['counts']} in {res['wall_s']:.1f} s; launches by "
+         f"variant {res['launches']} [{smi}]")
+    seen = {c["variant"] for c in res["cycles"]}
+    missing = [v["name"] for v in VARIANTS if v["name"] not in seen]
+    if res["failed"] or missing or not res["counts"]["preempted+resumed"]:
+        raise AssertionError(f"phase V: failed {res['failed']}, variants not run {missing}, counts {res['counts']}")
+    return res
+
+
+def phase_dryrun_processes(smi: str) -> dict:
+    """Part 8 of the dry run (with phase R, four cards): the LoRA step on a
+    ``{"seq": 2}`` mesh over 2 processes, NCCL, ranks on ``cuda:0`` and
+    ``cuda:1``, against the one-process ring's step on ``cuda:0`` named
+    twice; K2 and K3/K4 in every rank."""
+    from ucod_dpl_tpu_torch.tools import dryrun_multichip as DR
+
+    w, x = DR.init_world(), DR.dryrun_inputs(8)
+    part = DR.lora_over_processes(2, "cuda", [w[k] for k in ("decoder", "decoder_ema", "dis_params", "dis_stats")],
+                                  w["lora"], w["backbone"], x["lora_pixels"], x["plabels"])
+    _log(f"U part 8: LoRA step over 2 processes ({part['rank_devices']}): losses {part['loss']} against the "
+         f"one-process ring's {part['one_process_loss']}, LoRA gradient norms {part['lora_grad_norm']}, launches "
+         f"{part['launches']}, {part['seconds']:.3f} s [{smi}]")
+    return part
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the random weights and inputs")
@@ -4136,6 +4267,8 @@ def main(argv=None) -> int:
                         help="run phase R (sequence parallelism across processes) on four cards alone")
     parser.add_argument("--numpy-scorer", action="store_true",
                         help="phase K also sweeps the cache with the NumPy scorer, for its metric seconds")
+    parser.add_argument("--only-uv", action="store_true",
+                        help="run phases U (the dry run) and V (the preemption soak) alone, on one card")
     args = parser.parse_args(argv)
     if args.dp_worker:
         return _dp_worker(args.dp_worker)
@@ -4148,7 +4281,10 @@ def main(argv=None) -> int:
             return 1
         phase_build()
         r = phase_sp_processes(args.seed, smi)
-        _log(json.dumps({"card": smi, "sp_process_ring_ms": r["r1"]["ms"],
+        part8 = phase_dryrun_processes(smi)
+        _log(json.dumps({"card": smi, "dryrun_part8": {k: part8[k] for k in (
+                             "loss", "one_process_loss", "lora_grad_norm", "launches", "seconds")},
+                         "sp_process_ring_ms": r["r1"]["ms"],
                          "sp_one_process_ring_one_card_ms": r["r1"]["one_card_ms"],
                          "sp_one_process_ring_four_cards_ms": r["r1"]["four_cards_ms"],
                          "sp_process_lora_step_ms": r["r2"]["ms"], "sp_process_lora_host_ms": r["r2"]["host_ms"],
@@ -4180,6 +4316,16 @@ def main(argv=None) -> int:
                          "sp_lora_peak_gib": sp_lora["peak_gib SP"],
                          "unsharded_lora_peak_gib": sp_lora["peak_gib unsharded"], "tp_ms": tp["ms"],
                          "tp_peak_gib": tp["peak_gib"]}))
+        _log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
+    if args.only_uv:
+        smi = phase_device()
+        phase_build()
+        dry = phase_dryrun(smi)
+        soaked = phase_soak(args.seed, smi, SOAK_CYCLES_UV, SOAK_MINUTES_UV)
+        _log(json.dumps({"card": smi, "dryrun_wall_s": dry["wall_s"], "soak_wall_s": soaked["wall_s"],
+                         "soak_counts": soaked["counts"], "soak_launches": soaked["launches"]}))
         _log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
@@ -4235,6 +4381,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     dots = phase_remat_dots(args.seed, dev)
     torch.cuda.empty_cache()
+    dry = phase_dryrun(smi)
+    torch.cuda.empty_cache()
     evalk = phase_eval(args.seed, dev, smi, numpy_scorer=args.numpy_scorer)
     torch.cuda.empty_cache()
     pl = phase_pseudo_labels(args.seed, dev, smi)
@@ -4250,6 +4398,8 @@ def main(argv=None) -> int:
     proto = phase_prototypes(args.seed, dev)
     torch.cuda.empty_cache()
     variants_t = phase_attention_variants(args.seed, dev)
+    torch.cuda.empty_cache()
+    soaked = phase_soak(args.seed, smi)
     _log(json.dumps({
         "fg_logits_live_img_per_s": times["fg_logits_live_img_per_s"],
         "fg_logits_live_plain_img_per_s": times["fg_logits_live_plain_img_per_s"],
@@ -4320,6 +4470,8 @@ def main(argv=None) -> int:
         "sp_lora_peak_gib": sp_lora["peak_gib SP"], "unsharded_756_lora_peak_gib": sp_lora["peak_gib unsharded"],
         "remat_step_ms": dots["ms"], "remat_peak_gib": dots["peak_gib"], "remat_dots_grad_rel_diff": dots["grad_rel"],
         "remat_dots_grad_max_diff": dots["grad_max_diff"],
+        "dryrun_wall_s": dry["wall_s"], "dryrun_part_s": {k: v["seconds"] for k, v in dry.items() if k.isdigit()},
+        "soak_wall_s": soaked["wall_s"], "soak_counts": soaked["counts"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -4364,7 +4516,9 @@ def main(argv=None) -> int:
                 "dp_train_launches": dp["p1_launches"].get(key, 0), "dp_eval_launches": dp["p2_launches"].get(key, 0),
                 "tp_cls_launches": tp_cls["launches"].get("K1" if kid == "K5" else key, 0),
                 "sp_launches": sp["launches"]["seq=4 756px"].get(key, 0),
-                "sp_lora_launches": sp_lora["launches"].get(key, 0), **device}
+                "sp_lora_launches": sp_lora["launches"].get(key, 0),
+                "dryrun_launches": _dryrun_launches(dry, kid),
+                "soak_launches": {v: c.get(_dry_key(kid), 0) for v, c in soaked["launches"].items()}, **device}
 
     def sp_chunk(kid):
         """K2 and K3/K4 at the ring's 756px chunk, (4, 730, 768), f32 out (phase Q0)."""

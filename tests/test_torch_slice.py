@@ -202,6 +202,7 @@ def test_port_imports_no_jax():
         "from ucod_dpl_tpu_torch import serving\n"
         "from ucod_dpl_tpu_torch.ops import _build, attention, fused_layers, patch_embed, pseudo_label, quant, resize\n"
         "from ucod_dpl_tpu_torch.tools import attention_ab, attn_outproj_ab, int8_ab, lnqkv_ab, patch_embed_ab, serve_ab\n"
+        "from ucod_dpl_tpu_torch.tools import dryrun_multichip, soak_preempt\n"
         "from ucod_dpl_tpu_torch.models import convert, dba, dino, discriminator, lora, safetensors_io, udlr\n"
         "from ucod_dpl_tpu_torch.data import feature_extractor, transforms\n"
         "from ucod_dpl_tpu_torch.data import dataset\n"

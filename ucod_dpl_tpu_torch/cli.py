@@ -13,6 +13,7 @@ Counterpart of :mod:`ucod_dpl_tpu.cli` (the reference's ``scripts/*.py``)::
     python3 -m ucod_dpl_tpu_torch.cli generate_pseudo_label [--dataset A+B] [--image_path TEMPLATE] \\
         [--cache_path DIR] [--backbone_weights DIR] [--th_bkg 0.6] [--batch_size 16] \\
         [--image_size 224] [--fe_type dinov2|dinov1] [--overwrite] [--device cuda|cpu]
+    python3 -m ucod_dpl_tpu_torch.cli compute_metrics --gt-dir DIR --pred-dir DIR [--json OUT]
 
 The flags are the JAX package's, plus ``--device`` (default ``cuda``: the
 card; ``cpu`` runs the plain versions of the kernels): stage-1 training
@@ -20,8 +21,10 @@ card; ``cpu`` runs the plain versions of the kernels): stage-1 training
 either package), stage-1 evaluation (``eval``), CORAL stage-2 training
 (``lt_train``; a preempted run restarts with ``--refiner_path`` set to its
 ``epoch{N}_preempt`` file) and evaluation (``lt_eval``), and pseudo-label
-generation.  The engine is imported inside the entry bodies, so ``--help``
-and argument errors cost nothing.
+generation; ``compute_metrics`` scores a directory of predicted masks
+against ground truth on the host (the JAX package's
+``scripts/compute_metrics.py``).  The engine is imported inside the entry
+bodies, so ``--help`` and argument errors cost nothing.
 
 ``train``, ``eval`` and ``lt_eval`` also run data-parallel, one process per
 card, with the results of one process::
@@ -49,6 +52,7 @@ __all__ = [
     "lt_train_main",
     "lt_eval_main",
     "generate_pseudo_label_main",
+    "compute_metrics_main",
     "main",
 ]
 
@@ -311,12 +315,39 @@ def generate_pseudo_label_main(argv=None) -> str:
     return str(cache.base_path)
 
 
+def compute_metrics_main(argv=None) -> Dict[str, float]:
+    """Offline scoring of a directory of predicted masks against ground
+    truth without running the model (the JAX package's
+    ``scripts/compute_metrics.py``, the reference's standalone
+    ``calculate_cod_metrics``): prints ``key: value`` per metric and, with
+    ``--json``, writes the values rounded to 6 places.  Returns the
+    result."""
+    import json
+
+    ap = argparse.ArgumentParser(description="Offline dir-vs-dir COD metric computation")
+    ap.add_argument("--gt-dir", required=True)
+    ap.add_argument("--pred-dir", required=True)
+    ap.add_argument("--json", default=None, help="also write the result dict here")
+    args = ap.parse_args(argv)
+
+    from ucod_dpl_tpu_torch.utils.metrics import calculate_cod_metrics
+
+    result = calculate_cod_metrics(args.gt_dir, args.pred_dir)
+    for k, v in result.items():
+        print(f"{k}: {v:.4f}")
+    if args.json:
+        with open(args.json, "w") as f:
+            json.dump({k: round(float(v), 6) for k, v in result.items()}, f, indent=2)
+    return result
+
+
 _COMMANDS = {
     "train": train_main,
     "eval": eval_main,
     "lt_train": lt_train_main,
     "lt_eval": lt_eval_main,
     "generate_pseudo_label": generate_pseudo_label_main,
+    "compute_metrics": compute_metrics_main,
 }
 
 

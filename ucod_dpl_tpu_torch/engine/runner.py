@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import os
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -52,6 +52,7 @@ class Runner:
         load_from: Optional[str] = None,
         feature_extractor: Optional[FeatureExtractor] = None,
         device="cuda",
+        devices: Optional[Sequence] = None,
     ):
         """``feature_extractor``: one built before, shared across Runners
         (the eval entry builds one Runner per test set).  ``device``: where
@@ -60,7 +61,11 @@ class Runner:
         a data-parallel run (a ``torch.distributed`` group of more than one
         process, started here from the launcher's environment; a group of
         one is a plain run) each process's mesh is its own card,
-        ``cuda:LOCAL_RANK``, and the loaders read its shard."""
+        ``cuda:LOCAL_RANK``, and the loaders read its shard.  ``devices``:
+        the devices ``tpu_cfg.mesh`` is built over in a run of one process,
+        in place of that default (a device may repeat, as in
+        :func:`~ucod_dpl_tpu_torch.parallel.mesh.build_mesh`: one card, or
+        the CPU, named once per coordinate)."""
         self.cfg = cfg
         self.mode = mode
         device = maybe_initialize_distributed(device)
@@ -78,7 +83,12 @@ class Runner:
                     "parallelism (the model and seq axes) in one process over the cards of one host.  Sequence "
                     "parallelism across processes runs in make_lora_train_step(sp_shard=) on a mesh over processes, "
                     "as in the JAX package")
+            if devices is not None:
+                raise NotImplementedError("Runner(devices=) builds the mesh of a run of one process; in a "
+                                          "data-parallel run each process's mesh is its own card")
             self.mesh = build_mesh(mesh_cfg, devices=[device])
+        elif devices is not None:
+            self.mesh = build_mesh(mesh_cfg, devices=devices)
         else:
             self.mesh = build_mesh(mesh_cfg, devices=None if device.type == "cuda" else [device])
         # LoRA training merges its adapters into float32 q/k/v masters

@@ -71,10 +71,15 @@ def build() -> tuple[Path, float]:
             return lib, 0.0
         start = time.perf_counter()
         nvcc = _nvcc()
+        # a build killed before its link leaves its nvcc children running
+        # on: every build writes objects of its own and renames them once
+        # linked, so that none is read half-written
+        for stale in (*out_dir.glob("*.tmp.o"), *out_dir.glob(f"{LIB_NAME}.tmp.*")):
+            stale.unlink(missing_ok=True)
         tmp = out_dir / f"{LIB_NAME}.tmp.{os.getpid()}"
-        objs = [out_dir / f"{src.stem}.o" for src in sorted(CSRC.glob("*.cu"))]
-        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / f"{o.stem}.cu"), "-o", str(o)]
-                for o in objs]
+        srcs = sorted(CSRC.glob("*.cu"))
+        objs = [out_dir / f"{src.stem}.{os.getpid()}.tmp.o" for src in srcs]  # nvcc links by the .o suffix
+        cmds = [[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(o)] for src, o in zip(srcs, objs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for c in cmds]
         results = [(c, p.communicate()[0], p.returncode) for c, p in zip(cmds, procs)]
@@ -86,9 +91,12 @@ def build() -> tuple[Path, float]:
             "".join(" ".join(c) + "\n" + out for c, out, _ in results))
         failed = [(c, out, rc) for c, out, rc in results if rc != 0]
         if failed:
-            tmp.unlink(missing_ok=True)
+            for f in (tmp, *objs):
+                f.unlink(missing_ok=True)
             c, out, rc = failed[0]
             raise RuntimeError(f"nvcc failed (exit {rc}) building {lib}: {' '.join(c)}\n{out[-6000:]}")
+        for src, o in zip(srcs, objs):
+            os.replace(o, out_dir / f"{src.stem}.o")  # the objects the SASS tools read
         os.replace(tmp, lib)
         return lib, time.perf_counter() - start
 

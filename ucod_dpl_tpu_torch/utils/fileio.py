@@ -16,7 +16,7 @@ from __future__ import annotations
 import json
 import os
 from pathlib import Path
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -108,6 +108,12 @@ class ArrayCache:
         fname = f"{self.file_prefix}_{index}.npy"
         np.save(self.base_path / fname, _to_numpy(array))
         self.index_map[str(index)] = fname  # type: ignore[assignment]
+
+    def dump_list(self, arrays: Sequence[np.ndarray]) -> None:
+        """Write ``arrays`` as entries 0, 1, ... and flush the index."""
+        for i, arr in enumerate(arrays):
+            self.write(i, arr)
+        self.flush()
 
     def flush(self, meta: Optional[Dict[str, Any]] = None) -> None:
         """Write the identity sidecar ``meta`` (if given), then the index:

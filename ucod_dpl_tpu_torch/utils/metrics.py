@@ -245,6 +245,58 @@ def weighted_f_measure(pred: np.ndarray, gt: np.ndarray, beta: float = 1.0) -> f
     return float((1 + beta) * recall * precision / (recall + beta * precision + EPS))
 
 
+def auroc(pred: np.ndarray, gt: np.ndarray) -> float:
+    """Area under the ROC curve of the raw (unnormalised) prediction map
+    (counterpart of the JAX ``auroc``, AUROCMeasure in the reference): the
+    Mann-Whitney rank statistic with tied scores given their average rank,
+    which is what ``sklearn.metrics.roc_auc_score`` computes.  Raises
+    ``ValueError`` when ``gt`` holds one class, as sklearn does."""
+    from scipy.stats import rankdata
+
+    y = np.asarray(gt).ravel()
+    classes = np.unique(y)
+    if len(classes) == 1:
+        raise ValueError("Only one class present in y_true. ROC AUC score is not defined in that case.")
+    if len(classes) != 2:
+        raise ValueError(f"auroc takes a binary ground truth; got {len(classes)} classes")
+    pos = y == classes[1]
+    n_pos = int(pos.sum())
+    n_neg = y.size - n_pos
+    ranks = rankdata(np.asarray(pred, dtype=np.float64).ravel())  # ties: average rank
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
+
+
+def calculate_cod_metrics(gt_paths, pred_paths, verbose: bool = True) -> Dict[str, float]:
+    """Offline directory-vs-directory (or list-vs-list) scoring, the
+    counterpart of the JAX ``calculate_cod_metrics`` (the reference's
+    metric.py:76-122): each prediction is resized to its ground truth's size
+    (bilinear, PIL's default) before scoring; a prediction path falls back
+    from ``.png`` to ``.jpg``.  Returns E_MAX, E_MEAN, F_MAX, F_MEAN,
+    SMeasure, MAE and WFM."""
+    from PIL import Image
+
+    if isinstance(gt_paths, str) and isinstance(pred_paths, str):
+        gt_paths = sorted(os.path.join(gt_paths, x) for x in os.listdir(gt_paths))
+        pred_paths = sorted(os.path.join(pred_paths, x) for x in os.listdir(pred_paths))
+    if len(gt_paths) != len(pred_paths):
+        raise ValueError(f"gt/pred count mismatch: {len(gt_paths)} ground truths, {len(pred_paths)} predictions")
+
+    stats = CODStatistics()
+    for gt_p, pred_p in zip(gt_paths, pred_paths):
+        base = os.path.splitext(str(pred_p))[0]
+        cand = base + ".png"
+        if not os.path.exists(cand):
+            cand = base + ".jpg"
+        with Image.open(cand) as pi:
+            pred_img = pi.convert("L")
+        with Image.open(gt_p) as gi:
+            gt_arr = np.asarray(gi.convert("L"), dtype=np.float64)
+        pred_arr = np.asarray(pred_img.resize((gt_arr.shape[1], gt_arr.shape[0])), dtype=np.float64)
+        stats.step(gt_arr[None], pred_arr[None])
+    result = stats.get_result()
+    return {k: result[k] for k in ("E_MAX", "E_MEAN", "F_MAX", "F_MEAN", "SMeasure", "MAE", "WFM")}
+
+
 def _native_scorer_enabled() -> bool:
     return os.environ.get("UCOD_NATIVE_METRICS", "1") != "0"
 

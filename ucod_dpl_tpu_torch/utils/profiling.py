@@ -1,5 +1,6 @@
-"""Profiling hook (counterpart of :mod:`ucod_dpl_tpu.utils.profiling`):
-``--profile`` on the entry points records a ``torch.profiler`` trace."""
+"""Profiling hooks (counterpart of :mod:`ucod_dpl_tpu.utils.profiling`):
+``--profile`` on the entry points records a ``torch.profiler`` trace, and
+:func:`annotate` names a region of it."""
 
 from __future__ import annotations
 
@@ -25,3 +26,11 @@ def maybe_profile(enabled: bool, log_dir: str):
     with profile(activities=activities) as prof:
         yield
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name: str):
+    """A named trace region for step-level attribution (a context manager:
+    ``torch.profiler.record_function``)."""
+    import torch
+
+    return torch.profiler.record_function(name)
