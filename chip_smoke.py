@@ -323,6 +323,29 @@ Phases (each raises on failure; any failure exits non-zero):
      (``soak_launches`` in the kernels line).  ``--only-uv`` runs phases U
      and V alone (after the device check and the build), V with 8 cycles
      within 6 minutes.
+  W. (after phase O) the DINOv1 family: ViT-B/8 (patch 8, LayerNorm eps
+     1e-12, no layerscale) at full width and depth, seeded weights, bf16,
+     through its shipped configs by the phases above, each run again on
+     the family (``_Family``, ``DINOV1``): ``Predictor.from_config`` of
+     configs/uscod/UCOD-DPL_dinov1.py answers requests of 16, 5 and 1
+     images and a soft one at 296px (L 1370; K1 and K6 11 times a forward,
+     phase 5), against the f32 plain path (phase 6), ``fg_logits_live`` at
+     bs16 timed against plain (phase 7's forward); the same config with
+     ``quantize="int8"`` (K8, K10, K9 and K1 11 times a forward, then a
+     whole-MLP forward, phase E) and its accuracy (F); ``cli eval`` on 8
+     images (K); ``cli generate_pseudo_label --fe_type dinov1`` at 224px
+     over 32 images (M: a 28 x 28 grid, L 785); ``cli train`` run A
+     (cached, 2 steps an epoch), run C (LoRA: 11 forward-LSE and 11
+     backward launches a step) and run D (C preempted after its 3rd LoRA
+     step and resumed bit for bit) (L); ``cli lt_eval`` on
+     configs/uscod/CORAL_dinov1.py over 8 images with m-patches in val
+     (432px, L 2917) and ``RefinePredictor`` bf16 and int8 (N); ``cli
+     lt_train`` on 8 train images, 4 epochs, run B preempted (O).  Every
+     K1 launch of each entry is recorded by its token count, which must be
+     the entry's (``W_K1_LENGTHS``: 1370; 785 for the pseudo-labels; 1370
+     and 2917 for CORAL).  Each entry's wall seconds; the kernels line
+     gives each kernel's launches in each of W's runs (``dinov1_launches``).
+     ``--only-w`` runs it alone (after the device check and the build).
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -446,6 +469,54 @@ class _Cfg(dict):
     """The attribute-style config node the feature extractor reads."""
 
     __getattr__ = dict.__getitem__
+
+
+@dataclasses.dataclass(frozen=True)
+class _Family:
+    """A backbone family with its shipped configs, as the serving and entry
+    phases run it, and the number of synthetic images each entry gets:
+    phases 5-6, E-F and K-O run dinov2-base, phase W ViT-B/8 on fewer
+    images, to fit its time."""
+
+    label: str
+    fe_type: str
+    backbone: str
+    stage1_cfg: str
+    coral_cfg: str
+    size: int  # the configs' image size: serving, eval, stage-1 training
+    m_size: int  # the CORAL m-patch size (data/dataset.py::fe_image_size)
+    patch: int
+    work: str  # the suffix of the phases' work directories
+    eval_images: int
+    train_sets: tuple  # ((dataset, images), ...)
+    train_val_images: int
+    coral_val_images: int
+    coral_train_per_set: int
+    coral_train_val_images: int
+
+    def fe_cfg(self) -> _Cfg:
+        return _Cfg(type=self.fe_type, backbone=self.backbone, backbone_weights=None)
+
+    @property
+    def train_images(self) -> int:
+        return sum(n for _, n in self.train_sets)
+
+    @property
+    def grid(self) -> int:
+        return self.size // self.patch
+
+
+DINOV2 = _Family("dinov2-base", "dinov2", "facebook/dinov2-base", "configs/uscod/UCOD-DPL_dinov2.py",
+                 "configs/uscod/CORAL_dinov2.py", 518, 756, 14, "", eval_images=32,
+                 train_sets=(("TR-CAMO", 24), ("TR-COD10K", 24)), train_val_images=8, coral_val_images=16,
+                 coral_train_per_set=8, coral_train_val_images=8)
+# ViT-B/8 (patch 8, eps 1e-12, no layerscale) on its shipped configs: 296px
+# (L 1370, as dinov2-base at 518px), m-patches at 432px (L 2917) in the CORAL
+# eval and training, pseudo-labels at 224px (L 785)
+DINOV1 = _Family("ViT-B/8", "dinov1", "facebook/dino-vitb8", "configs/uscod/UCOD-DPL_dinov1.py",
+                 "configs/uscod/CORAL_dinov1.py", 296, 432, 8, "_dinov1", eval_images=8,
+                 train_sets=(("TR-CAMO", 16), ("TR-COD10K", 16)), train_val_images=4, coral_val_images=8,
+                 coral_train_per_set=4, coral_train_val_images=4)
 
 
 def _log(msg: str) -> None:
@@ -708,26 +779,30 @@ def _serving_model(seed: int, dev, quantize=None):
     return fe, decoder
 
 
-def phase_serving(fe, decoder, seed: int) -> dict:
+def phase_serving(fe, decoder, seed: int, fam: _Family = DINOV2, predictor=None) -> dict:
+    """Requests of 16, 5 and 1 images and a soft one to ``predictor`` (by
+    default a Predictor of ``fe`` and ``decoder`` at 518px)."""
     from ucod_dpl_tpu_torch.ops.attention import packed_attention
     from ucod_dpl_tpu_torch.ops.fused_layers import layernorm_qkv
     from ucod_dpl_tpu_torch.serving import Predictor
 
     depth = fe.config.num_layers
-    predictor = Predictor(fe, decoder, image_size=(518, 518), feature_size=68, max_batch=16)
+    if predictor is None:
+        predictor = Predictor(fe, decoder, image_size=(518, 518), feature_size=68, max_batch=16)
+    size = predictor.image_size[0]
     rng = np.random.default_rng(seed + 2)
-    _log(f"serving: dinov2-base {fe.config.hidden_size}-wide x{depth} layers, 518px, "
+    _log(f"serving: {fam.label} {fe.config.hidden_size}-wide x{depth} layers, {size}px, "
          f"{fe.compute_dtype}, max_batch 16")
     for fn in _kernel_wrappers().values():  # every count, the training kernels' too
         fn.launches = 0
     for n, soft in ((16, False), (5, False), (1, False), (5, True)):
         before = (packed_attention.launches, layernorm_qkv.launches)
-        images = rng.standard_normal((n, 518, 518, 3)).astype(np.float32)
+        images = rng.standard_normal((n, size, size, 3)).astype(np.float32)
         t0 = time.perf_counter()
         masks = predictor.predict(list(images), soft=soft)
         secs = time.perf_counter() - t0
         delta = (packed_attention.launches - before[0], layernorm_qkv.launches - before[1])
-        if len(masks) != n or any(m.shape != (518, 518) for m in masks):
+        if len(masks) != n or any(m.shape != (size, size) for m in masks):
             raise AssertionError(f"request of {n}: wrong mask count or shape")
         stack = np.stack(masks)
         if soft:
@@ -880,7 +955,9 @@ def phase_lora_grads(seed: int, dev) -> float:
     return rels["decoder + LoRA"]
 
 
-def phase_composed(fe, decoder, seed: int) -> None:
+def phase_composed(fe, decoder, seed: int, fam: _Family = DINOV2) -> dict:
+    """``fg_logits_live`` at bs4 and the family's size through the kernels,
+    bf16, against the float32 plain path, beside the bf16 plain path."""
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.models.convert import params_to
     from ucod_dpl_tpu_torch.models.dba import fg_logits_live
@@ -889,9 +966,9 @@ def phase_composed(fe, decoder, seed: int) -> None:
     dec = params_to(decoder, dev)
     # the same seeded weights, kept in float32 for the reference
     f32_params = FeatureExtractor(fe.fe_cfg, device=dev, compute_dtype=torch.float32,
-                                  seed=seed, strict=False).params
+                                  seed=fe.seed, strict=False).params
     px = torch.from_numpy(
-        np.random.default_rng(seed + 3).standard_normal((4, 518, 518, 3)).astype(np.float32)
+        np.random.default_rng(seed + 3).standard_normal((4, fam.size, fam.size, 3)).astype(np.float32)
     ).to(dev)
     with torch.inference_mode():
         def run(params, dtype, plain):
@@ -902,15 +979,14 @@ def phase_composed(fe, decoder, seed: int) -> None:
         err_kernel = (run(fe.params, torch.bfloat16, False) - ref).abs().max().item()
         err_plain = (run(fe.params, torch.bfloat16, True) - ref).abs().max().item()
     bound = 1.5 * err_plain + 1e-3
-    _log(f"composed fg_logits_live bs4 518px vs f32 plain: kernel bf16 max_abs_err {err_kernel:.6g}, "
-         f"plain bf16 {err_plain:.6g}, bound {bound:.6g} (max |f32| {ref.abs().max().item():.4g})")
+    _log(f"composed fg_logits_live bs4 {fam.size}px ({fam.label}) vs f32 plain: kernel bf16 max_abs_err "
+         f"{err_kernel:.6g}, plain bf16 {err_plain:.6g}, bound {bound:.6g} (max |f32| {ref.abs().max().item():.4g})")
     if not (np.isfinite(err_kernel) and err_kernel <= bound):
         raise AssertionError(f"kernel path error {err_kernel} exceeds {bound}")
+    return {"err": err_kernel, "err_plain": err_plain}
 
 
 def phase_timing(fe, decoder, gen) -> dict:
-    from ucod_dpl_tpu_torch.models.convert import params_to
-    from ucod_dpl_tpu_torch.models.dba import fg_logits_live
     from ucod_dpl_tpu_torch.ops.attention import packed_attention, packed_attention_reference
     from ucod_dpl_tpu_torch.ops.fused_layers import layer_norm, layernorm_qkv, layernorm_qkv_reference
 
@@ -934,19 +1010,31 @@ def phase_timing(fe, decoder, gen) -> dict:
     _log(f"  K6 bs16 L1370 768->3x768: kernel {k6_ms:.4f} ms, plain {k6_plain:.4f} ms, "
          f"cuBLAS GEMM alone (h @ W_qkv^T) {gemm_ms:.4f} ms")
 
-    dec = params_to(decoder, dev)
-    px = torch.randn(16, 518, 518, 3, generator=gen, device=dev)
+    fwd_ms, fwd_plain = _fwd_timing(fe, decoder, gen, DINOV2)
+    return {"K1": (k1_ms, k1_plain), "K6": (k6_ms, k6_plain), "K6_gemm_alone": gemm_ms, "sdpa_fwd": sdpa_ms,
+            "fg_logits_live_img_per_s": 16e3 / fwd_ms, "fg_logits_live_plain_img_per_s": 16e3 / fwd_plain}
+
+
+def _fwd_timing(fe, decoder, gen, fam: _Family):
+    """``fg_logits_live`` at bs16 and the family's size, bf16, kernels
+    against plain by CUDA events (interleaved), and a trace of the kernel
+    path: (kernels ms, plain ms) per batch."""
+    from ucod_dpl_tpu_torch.models.convert import params_to
+    from ucod_dpl_tpu_torch.models.dba import fg_logits_live
+
+    dec = params_to(decoder, fe.device)
+    px = torch.randn(16, fam.size, fam.size, 3, generator=gen, device=fe.device)
     with torch.inference_mode():
         def fwd(plain):
             return lambda: fg_logits_live(fe.params, dec, px, fe.config, compute_dtype=torch.bfloat16,
                                           size=68, plain=plain)
 
         fwd_ms, fwd_plain = _ab_ms(fwd(True), fwd(False), 5)
-    _log(f"  fg_logits_live bs16 518px bf16: kernels {fwd_ms:.3f} ms = {16e3 / fwd_ms:.2f} img/s; "
+    what = f"fg_logits_live bs16 {fam.size}px bf16 ({fam.label})"
+    _log(f"  {what}: kernels {fwd_ms:.3f} ms = {16e3 / fwd_ms:.2f} img/s; "
          f"plain {fwd_plain:.3f} ms = {16e3 / fwd_plain:.2f} img/s")
-    _trace(fwd(False), "fg_logits_live bs16 518px bf16")
-    return {"K1": (k1_ms, k1_plain), "K6": (k6_ms, k6_plain), "K6_gemm_alone": gemm_ms, "sdpa_fwd": sdpa_ms,
-            "fg_logits_live_img_per_s": 16e3 / fwd_ms, "fg_logits_live_plain_img_per_s": 16e3 / fwd_plain}
+    _trace(fwd(False), what)
+    return fwd_ms, fwd_plain
 
 
 def phase_train_timing(lora_run: dict, gen) -> dict:
@@ -1156,8 +1244,9 @@ def phase_int8_kernels(gen, dev) -> dict:
     return worst
 
 
-def phase_int8_serving(fe8, decoder, seed: int) -> dict:
-    """Phase E: ``Predictor(quantize="int8")`` requests, then one whole-MLP
+def phase_int8_serving(fe8, decoder, seed: int, fam: _Family = DINOV2, predictor=None) -> dict:
+    """Phase E: ``Predictor(quantize="int8")`` requests (to ``predictor``,
+    by default one of ``fe8`` and ``decoder`` at 518px), then one whole-MLP
     forward, each with every count set to 0 just before it."""
     from ucod_dpl_tpu_torch.models.convert import params_to
     from ucod_dpl_tpu_torch.models.dba import fg_logits_live
@@ -1165,24 +1254,26 @@ def phase_int8_serving(fe8, decoder, seed: int) -> dict:
 
     n = fe8.config.num_layers - 1
     counts = {**_kernel_wrappers(), **_int8_wrappers()}
-    predictor = Predictor(fe8, decoder, image_size=(518, 518), feature_size=68, max_batch=16)
+    if predictor is None:
+        predictor = Predictor(fe8, decoder, image_size=(518, 518), feature_size=68, max_batch=16)
     if predictor.quantize != "int8" or predictor._qparams is not fe8._qparams:
         raise AssertionError("an int8 extractor did not opt the Predictor in")
+    px_size = predictor.image_size[0]
     rng = np.random.default_rng(seed + 7)
-    _log(f"int8 serving: dinov2-base {fe8.config.hidden_size}-wide x{n + 1} layers, 518px, "
+    _log(f"int8 serving: {fam.label} {fe8.config.hidden_size}-wide x{n + 1} layers, {px_size}px, "
          f"{fe8.compute_dtype} + int8 linears, max_batch 16")
     for fn in counts.values():
         fn.launches = 0
     want = {"K1": n, "K5": 0, "K6": 0, "K7": 0, "fwd_lse": 0, "bwd": 0, "K8": n, "K9": n, "K10": n, "K11": 0}
     for size in (16, 5, 1):
         before = {k: fn.launches for k, fn in counts.items()}
-        images = rng.standard_normal((size, 518, 518, 3)).astype(np.float32)
+        images = rng.standard_normal((size, px_size, px_size, 3)).astype(np.float32)
         t0 = time.perf_counter()
         masks = predictor.predict(list(images))
         secs = time.perf_counter() - t0
         delta = {k: fn.launches - before[k] for k, fn in counts.items()}
         stack = np.stack(masks)
-        if stack.shape != (size, 518, 518) or not np.isin(stack, (0.0, 1.0)).all():
+        if stack.shape != (size, px_size, px_size) or not np.isin(stack, (0.0, 1.0)).all():
             raise AssertionError(f"int8 request of {size}: wrong masks")
         if delta != want:
             raise AssertionError(f"int8 request of {size}: launches {delta}, expected {want}")
@@ -1191,7 +1282,7 @@ def phase_int8_serving(fe8, decoder, seed: int) -> dict:
 
     for fn in counts.values():
         fn.launches = 0
-    px = torch.from_numpy(rng.standard_normal((2, 518, 518, 3)).astype(np.float32)).to(fe8.device)
+    px = torch.from_numpy(rng.standard_normal((2, px_size, px_size, 3)).astype(np.float32)).to(fe8.device)
     with torch.inference_mode():
         fg, _, _ = fg_logits_live(fe8.params, params_to(decoder, fe8.device), px, fe8.config,
                                   compute_dtype=torch.bfloat16, size=68, quant=fe8._qparams, int8_mlp="whole")
@@ -1205,18 +1296,18 @@ def phase_int8_serving(fe8, decoder, seed: int) -> dict:
     return launches
 
 
-def phase_int8_composed(fe8, decoder, seed: int) -> float:
-    """Phase F: bs4 518px against the float32 plain path; returns the int8
-    kernel path's error."""
+def phase_int8_composed(fe8, decoder, seed: int, fam: _Family = DINOV2) -> float:
+    """Phase F: bs4 at the family's size against the float32 plain path;
+    returns the int8 kernel path's error."""
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.models.convert import params_to
     from ucod_dpl_tpu_torch.models.dba import fg_logits_live
 
     dev = fe8.device
     dec = params_to(decoder, dev)
-    f32_params = FeatureExtractor(fe8.fe_cfg, device=dev, compute_dtype=torch.float32, seed=seed,
+    f32_params = FeatureExtractor(fe8.fe_cfg, device=dev, compute_dtype=torch.float32, seed=fe8.seed,
                                   strict=False).params
-    px = torch.from_numpy(np.random.default_rng(seed + 8).standard_normal((4, 518, 518, 3))
+    px = torch.from_numpy(np.random.default_rng(seed + 8).standard_normal((4, fam.size, fam.size, 3))
                           .astype(np.float32)).to(dev)
     with torch.inference_mode():
         def run(params, dtype, plain, quant):
@@ -1230,7 +1321,8 @@ def phase_int8_composed(fe8, decoder, seed: int) -> float:
         err_plain = (run(fe8.params, torch.bfloat16, True, fe8._qparams) - ref).abs().max().item()
     agree = ((got > 0) == (ref > 0)).float().mean().item()
     bound = 1.5 * err_plain + 1e-3
-    _log(f"composed int8 fg_logits_live bs4 518px vs f32 plain: kernels max_abs_err {err:.6g}, int8 plain "
+    _log(f"composed int8 fg_logits_live bs4 {fam.size}px ({fam.label}) vs f32 plain: kernels max_abs_err {err:.6g}, "
+         "int8 plain "
          f"{err_plain:.6g}, bound {bound:.6g}; masks agree with f32 on {agree:.6f} (bound 0.9; "
          f"max |f32| {ref.abs().max().item():.4g})")
     if not (np.isfinite(err) and err <= bound):
@@ -1905,7 +1997,6 @@ def _variant_entries(t: dict) -> list:
 
 # Phase K: the synthetic RefCOD layout of the eval entry (COD-like image
 # sizes, one ground-truth blob each), written in JPEG/PNG through Pillow.
-EVAL_IMAGES = 32
 EVAL_SIZES = ((480, 640), (600, 800), (720, 1280))
 EVAL_CACHE_BATCH = 8  # CODDataset's default cache_build_batch
 EVAL_KEYS = ("ACC", "mIOU", "E_MAX", "E_MEAN", "F_MAX", "F_MEAN", "SMeasure", "MAE", "WFM")
@@ -1927,11 +2018,6 @@ def _host_stack() -> str:
     built = native.get_imagepipe_lib() is not None
     parts.append("native image pipe " + ("built" if built else "not built (Pillow resizes)"))
     return ", ".join(parts)
-
-
-def _write_eval_dataset(root: str, seed: int) -> list:
-    """``root/SYN/{im,gt}``: phase K's 32 images."""
-    return _write_cod_images(root, "SYN", EVAL_IMAGES, seed + 20)
 
 
 def _write_cod_images(root: str, name: str, n: int, seed: int, labels: bool = True) -> list:
@@ -1962,11 +2048,12 @@ def _write_cod_images(root: str, name: str, n: int, seed: int, labels: bool = Tr
     return sizes
 
 
-def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
-    """Phase K: ``cli.eval_main`` on configs/uscod/UCOD-DPL_dinov2.py over a
-    32-image synthetic dataset on the card, twice (the first run builds the
-    feature cache, the second reads it), with its launch counts, outputs,
-    cached-feature accuracy, host-clock rates and a profiler split;
+def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False, fam: _Family = DINOV2) -> dict:
+    """Phase K: ``cli.eval_main`` on the family's stage-1 config
+    (configs/uscod/UCOD-DPL_dinov2.py) over a synthetic dataset of
+    ``fam.eval_images`` images (32) on the card, twice (the first run builds
+    the feature cache, the second reads it), with its launch counts,
+    outputs, cached-feature accuracy, host-clock rates and a profiler split;
     ``numpy_scorer``: a third sweep from the cache with the NumPy scorer."""
     import shutil
 
@@ -1979,20 +2066,22 @@ def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
     from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
 
     _log(f"eval entry: host stack: {_host_stack()}")
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_eval")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", f"chip_smoke_eval{fam.work}")
     shutil.rmtree(root, ignore_errors=True)
+    n_images, px = fam.eval_images, (fam.size, fam.size)
     t0 = time.perf_counter()
-    sizes = _write_eval_dataset(os.path.join(root, "RefCOD"), seed)
-    _log(f"  dataset: {EVAL_IMAGES} images at {sorted(set(sizes))}, written in {time.perf_counter() - t0:.2f} s")
+    sizes = _write_cod_images(os.path.join(root, "RefCOD"), "SYN", n_images, seed + 20)
+    _log(f"  dataset: {n_images} images at {sorted(set(sizes))}, written in {time.perf_counter() - t0:.2f} s; "
+         f"{fam.label} at {fam.size}px ({fam.stage1_cfg})")
     paths = sorted(glob.glob(os.path.join(root, "RefCOD", "SYN", "im", "*.jpg")))
 
     # the seeded decoder, its fg bias moved to the 60th percentile of its
     # logits on the first cache batch (the eval's own seeded backbone), so
     # that its masks mix foreground and background and the crop path runs
-    fe_cfg = _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None)
+    fe_cfg = fam.fe_cfg()
     fe = FeatureExtractor(fe_cfg, device=dev, seed=0, strict=False)
     decoder = init_rev_decoder(seed + 1, SERVE_DIM)
-    batch = load_image_batch_transform(paths[:EVAL_CACHE_BATCH], (518, 518))
+    batch = load_image_batch_transform(paths[:EVAL_CACHE_BATCH], px)
     with torch.inference_mode():
         fg, _, _ = rev_decoder_forward_resized(decoder, torch.from_numpy(fe.extract(batch)), 68)
     decoder = decoder._replace(conv_out_fg_b=decoder.conv_out_fg_b - torch.quantile(fg.flatten(), 0.6))
@@ -2000,7 +2089,7 @@ def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
     save_decoder_checkpoint(ckpt, decoder, init_rev_decoder(seed + 2, SERVE_DIM))
 
     counts = {**_kernel_wrappers(), **_int8_wrappers()}
-    argv = ["-c", "configs/uscod/UCOD-DPL_dinov2.py", "--load_from", ckpt, "--datasets", "SYN",
+    argv = ["-c", fam.stage1_cfg, "--load_from", ckpt, "--datasets", "SYN",
             "--work_dir", os.path.join(root, "work_dir"), "--opts",
             "dataset_cfg.dataset_dir", os.path.join(root, "RefCOD"),
             "dataset_cfg.cache_dir", os.path.join(root, "cache"),
@@ -2019,22 +2108,22 @@ def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
         ev, ds = runner.evaluator, runner.val_dataset
         cache = ds.caches.get("features")
         # the first run builds the cache (batches of 8) and the second reads it
-        forwards = ev.crop_batches + (-(-EVAL_IMAGES // EVAL_CACHE_BATCH) if run == "first" else 0)
+        forwards = ev.crop_batches + (-(-n_images // EVAL_CACHE_BATCH) if run == "first" else 0)
         want = {**{k: 0 for k in counts}, "K1": (depth - 1) * forwards, "K6": (depth - 1) * forwards}
         _log(f"  {run} run: {secs:.3f} s host clock in all, cache build "
-             + (f"{ds.build_seconds:.3f} s ({EVAL_IMAGES / ds.build_seconds:.2f} img/s)" if ds.build_seconds
+             + (f"{ds.build_seconds:.3f} s ({n_images / ds.build_seconds:.2f} img/s)" if ds.build_seconds
                 else "none (read)")
-             + f", eval sweep {ev.seconds:.3f} s ({EVAL_IMAGES / ev.seconds:.2f} img/s), {ev.crops} LookTwice "
+             + f", eval sweep {ev.seconds:.3f} s ({n_images / ev.seconds:.2f} img/s), {ev.crops} LookTwice "
              f"crops in {ev.crop_batches} backbone calls, launches {launches} [{smi}]")
         _log("    eval sweep by stage, host clock: " + ", ".join(f"{k} {v:.3f} s" for k, v in ev.split.items())
              + f"; images scored by the native scorer {scored['native']}, by NumPy {scored['numpy']}")
-        if scored != {"native": EVAL_IMAGES, "numpy": 0}:
-            raise AssertionError(f"eval {run} run: scored {scored}, expected all {EVAL_IMAGES} by the native scorer")
+        if scored != {"native": n_images, "numpy": 0}:
+            raise AssertionError(f"eval {run} run: scored {scored}, expected all {n_images} by the native scorer")
         if launches != want:
             raise AssertionError(f"eval {run} run: launches {launches}, expected {want}")
         if (ds.build_seconds is None) != (run == "second"):
             raise AssertionError(f"eval {run} run: cache build {ds.build_seconds}")
-        if cache.mode != "r" or len(cache) != EVAL_IMAGES:
+        if cache.mode != "r" or len(cache) != n_images:
             raise AssertionError(f"eval {run} run: feature cache mode {cache.mode}, {len(cache)} entries")
         if ev.crops == 0:
             raise AssertionError(f"eval {run} run: no LookTwice crop (look_twice_th 0.95 should force them)")
@@ -2062,13 +2151,13 @@ def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
         _log(f"  from the cache with the NumPy scorer: eval sweep {ev.seconds:.3f} s, metrics "
              f"{ev.split['metrics']:.3f} s (native scorer {out['second']['split']['metrics']:.3f} s), scored "
              f"{out['numpy']['scored']}, metrics within {numpy_diff:.3g} of the native run's [{smi}]")
-        if out["numpy"]["scored"] != {"native": 0, "numpy": EVAL_IMAGES} or not numpy_diff <= 1e-9:
+        if out["numpy"]["scored"] != {"native": 0, "numpy": n_images} or not numpy_diff <= 1e-9:
             raise AssertionError(f"NumPy scorer run: scored {out['numpy']['scored']}, metrics differ by {numpy_diff}")
 
-    # what the first run wrote: 32 finite cache entries of the JAX package's
-    # shape, 32 masks at their ground-truth sizes
-    grid = 518 // fe.config.patch_size
-    feats = [cache.read(i) for i in range(EVAL_IMAGES)]
+    # what the first run wrote: finite cache entries of the JAX package's
+    # shape, masks at their ground-truth sizes
+    grid = fam.size // fe.config.patch_size
+    feats = [cache.read(i) for i in range(n_images)]
     if any(f.shape != (grid, grid, SERVE_DIM) or f.dtype != np.float32 or not np.isfinite(f).all() for f in feats):
         raise AssertionError("feature cache: an entry of the wrong shape or dtype, or not finite")
     from PIL import Image
@@ -2076,14 +2165,14 @@ def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
     preds = os.path.join(root, "logs", "preds", "SYN")
     masks = sorted(os.listdir(preds))
     got_sizes = [Image.open(os.path.join(preds, m)).size[::-1] for m in masks]
-    if masks != [f"{i:03d}.png" for i in range(EVAL_IMAGES)] or got_sizes != sizes:
+    if masks != [f"{i:03d}.png" for i in range(n_images)] or got_sizes != sizes:
         raise AssertionError(f"masks: {masks[:3]}... at {got_sizes[:3]}...")
-    _log(f"  cache: {EVAL_IMAGES} finite float32 entries of {feats[0].shape}; {len(masks)} masks at their "
+    _log(f"  cache: {n_images} finite float32 entries of {feats[0].shape}; {len(masks)} masks at their "
          "ground-truth sizes")
 
     # accuracy: the cached features (the kernels, bf16) of 4 images against
     # the f32 plain path, beside the bf16 plain path
-    images = load_image_batch_transform(paths[:4], (518, 518))
+    images = load_image_batch_transform(paths[:4], px)
     f32 = FeatureExtractor(fe_cfg, device=dev, compute_dtype=torch.float32, seed=0, strict=False)
     ref = _features_plain(f32, images, f32.params, torch.float32)
     del f32
@@ -2099,13 +2188,13 @@ def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
     # where a cache-build batch's time goes: the host decode (by host clock)
     # and the extract on the card (profiler)
     t0 = time.perf_counter()
-    batch = load_image_batch_transform(paths[:EVAL_CACHE_BATCH], (518, 518))
+    batch = load_image_batch_transform(paths[:EVAL_CACHE_BATCH], px)
     decode_s = time.perf_counter() - t0
     _log(f"  cache-build batch of {EVAL_CACHE_BATCH}: host decode + resize + normalise {decode_s * 1e3:.1f} ms "
          f"host clock [{smi}]")
     out["decode_ms"] = decode_s * 1e3
-    _trace(lambda: fe.extract(batch), f"one cache-build batch (FeatureExtractor.extract, {EVAL_CACHE_BATCH} x "
-           f"518px, host copies included) [{smi}]")
+    _trace(lambda: fe.extract(batch), f"one cache-build batch (FeatureExtractor.extract, {len(batch)} x "
+           f"{fam.size}px, host copies included) [{smi}]")
     # and the eval sweep from the cache: the device's share of its wall
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2130,31 +2219,30 @@ def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False) -> dict:
 # shipped (its train set TR-CAMO+TR-COD10K, val set TE-CAMO, batch 16), on
 # synthetic images at the COD sizes of phase K and the pseudo-label cache
 # that phase M generates for them.
-TRAIN_SETS = (("TR-CAMO", 24), ("TR-COD10K", 24))
-TRAIN_IMAGES = sum(n for _, n in TRAIN_SETS)
-TRAIN_VAL_IMAGES = 8
 TRAIN_BATCH = 16
 PL_SIZE = 224  # the generator's defaults: 224px in batches of 16, th_bkg 0.6
 PL_BATCH = 16
 PL_GRID = PL_SIZE // 14
 
 
-def _pl_masks(attn: torch.Tensor, toks: torch.Tensor) -> np.ndarray:
-    """The generator's masks of a batch's CLS attention and key tokens: 1 -
-    the background mask at th_bkg 0.6, small components cleaned."""
+def _pl_masks(attn: torch.Tensor, toks: torch.Tensor, grid: int = PL_GRID) -> np.ndarray:
+    """The generator's masks of a batch's CLS attention and key tokens on
+    its ``grid`` x ``grid`` patches: 1 - the background mask at th_bkg 0.6,
+    small components cleaned."""
     from ucod_dpl_tpu_torch.ops.pseudo_label import compute_background_mask, refine_small_components
 
-    bkg, _ = compute_background_mask(attn.float(), toks.float(), (PL_GRID, PL_GRID), th_bkg=0.6)
+    bkg, _ = compute_background_mask(attn.float(), toks.float(), (grid, grid), th_bkg=0.6)
     return np.stack([refine_small_components(m) for m in 1.0 - bkg.cpu().numpy()])
 
 
-def phase_pseudo_labels(seed: int, dev, smi: str) -> dict:
-    """Phase M: ``cli.generate_pseudo_label_main`` at full width on the card
-    (seeded random dinov2-base, 224px, bf16, batch 16) over phase L's 48
-    synthetic train images in two directories, with its launches, the cache
-    and its meta, the kernel path's CLS attention, key tokens and masks on
-    4 images against the f32 plain path, img/s by host clock and the
-    device's busy share.  Returns phase L's world (its directories)."""
+def phase_pseudo_labels(seed: int, dev, smi: str, fam: _Family = DINOV2) -> dict:
+    """Phase M: ``cli.generate_pseudo_label_main --fe_type`` of the family
+    at full width on the card (seeded random dinov2-base, 224px, bf16, batch
+    16) over phase L's synthetic train images (48) in two directories, with
+    its launches, the cache and its meta, the kernel path's CLS attention,
+    key tokens and masks on 4 images against the f32 plain path, img/s by
+    host clock and the device's busy share.  Returns phase L's world (its
+    directories and ``fam``)."""
     import hashlib
     import shutil
     from pathlib import Path
@@ -2165,23 +2253,24 @@ def phase_pseudo_labels(seed: int, dev, smi: str) -> dict:
     from ucod_dpl_tpu_torch.models.dino import dino_forward
     from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_train")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", f"chip_smoke_train{fam.work}")
     shutil.rmtree(root, ignore_errors=True)
     data = os.path.join(root, "RefCOD")
+    n_train, grid = fam.train_images, PL_SIZE // fam.patch
     t0 = time.perf_counter()
-    for i, (name, n) in enumerate(TRAIN_SETS):
+    for i, (name, n) in enumerate(fam.train_sets):
         _write_cod_images(data, name, n, seed + 30 + i, labels=False)
-    _write_cod_images(data, "TE-CAMO", TRAIN_VAL_IMAGES, seed + 40)
-    train_set = "+".join(name for name, _ in TRAIN_SETS)
-    _log(f"pseudo-labels: {TRAIN_IMAGES} train images ({train_set}) and {TRAIN_VAL_IMAGES} val images (TE-CAMO) at "
-         f"{EVAL_SIZES}, written in {time.perf_counter() - t0:.2f} s")
+    _write_cod_images(data, "TE-CAMO", fam.train_val_images, seed + 40)
+    train_set = "+".join(name for name, _ in fam.train_sets)
+    _log(f"pseudo-labels: {n_train} train images ({train_set}) and {fam.train_val_images} val images (TE-CAMO) at "
+         f"{EVAL_SIZES}, written in {time.perf_counter() - t0:.2f} s; {fam.label}, a {grid}x{grid} grid at {PL_SIZE}px")
 
     # no backbone weights are in the repository: the generator's extractor
     # takes its seeded random init (seed 0, as the train entry's Runner)
     argv = ["--dataset", train_set, "--image_path", os.path.join(data, "{}", "im"),
             "--cache_path", os.path.join(root, "cache", "pseudo_label_cache"),
             "--backbone_weights", os.path.join(root, "no_weights"), "--image_size", str(PL_SIZE),
-            "--batch_size", str(PL_BATCH), "--device", str(dev)]
+            "--batch_size", str(PL_BATCH), "--fe_type", fam.fe_type, "--device", str(dev)]
     counts = {**_kernel_wrappers(), **_int8_wrappers()}
     times = []
     orig = fe_mod.FeatureExtractor.extract_with_attention
@@ -2203,9 +2292,9 @@ def phase_pseudo_labels(seed: int, dev, smi: str) -> dict:
     finally:
         fe_mod.FeatureExtractor.extract_with_attention = orig
     launches = {k: fn.launches for k, fn in counts.items()}
-    batches = -(-TRAIN_IMAGES // PL_BATCH)
+    batches = -(-n_train // PL_BATCH)
     want = {**{k: 0 for k in counts}, "K1": 11 * batches, "K6": 11 * batches}
-    img_per_s = TRAIN_IMAGES / (t1 - times[0])
+    img_per_s = n_train / (t1 - times[0])
     _log(f"  generate_pseudo_label: {t1 - t0:.3f} s host clock in all, {t1 - times[0]:.3f} s from the first batch "
          f"({img_per_s:.2f} img/s, {batches} batches of {PL_BATCH} at {PL_SIZE}px), launches {launches} [{smi}]")
     _check_launches("generate_pseudo_label", launches, want)
@@ -2214,12 +2303,12 @@ def phase_pseudo_labels(seed: int, dev, smi: str) -> dict:
     # generator's meta
     cache = ArrayCache(cache_dir)
     paths = sorted(p for ds in train_set.split("+") for p in Path(data, ds, "im").glob("*.jpg"))
-    meta = {"n": TRAIN_IMAGES, "fingerprint": hashlib.sha1("\n".join(p.stem for p in paths).encode()).hexdigest(),
+    meta = {"n": n_train, "fingerprint": hashlib.sha1("\n".join(p.stem for p in paths).encode()).hexdigest(),
             "th_bkg": 0.6}
     entries = [cache.read(i) for i in range(len(cache))] if cache.mode == "r" else []
-    if len(entries) != TRAIN_IMAGES or cache.read_meta() != meta:
+    if len(entries) != n_train or cache.read_meta() != meta:
         raise AssertionError(f"pseudo-label cache: mode {cache.mode}, {len(entries)} entries, meta {cache.read_meta()}")
-    if any(e.shape != (PL_GRID, PL_GRID, 1) or e.dtype != np.float32 or not np.isin(e, (0.0, 1.0)).all()
+    if any(e.shape != (grid, grid, 1) or e.dtype != np.float32 or not np.isin(e, (0.0, 1.0)).all()
            for e in entries):
         raise AssertionError("pseudo-label cache: an entry of the wrong shape or dtype, or not binary")
     fg_share = float(np.mean(entries))
@@ -2229,7 +2318,7 @@ def phase_pseudo_labels(seed: int, dev, smi: str) -> dict:
     # accuracy on 4 images: the kernel path (bf16, K1 + K6) and the bf16
     # plain path against the f32 plain path
     images = load_image_batch_transform(paths[:4], (PL_SIZE, PL_SIZE))
-    fe_cfg = _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None)
+    fe_cfg = fam.fe_cfg()
     fe = fe_mod.FeatureExtractor(fe_cfg, device=dev, seed=0, strict=False)
     f32 = fe_mod.FeatureExtractor(fe_cfg, device=dev, compute_dtype=torch.float32, seed=0, strict=False)
     px = torch.from_numpy(images).to(dev)
@@ -2241,7 +2330,8 @@ def phase_pseudo_labels(seed: int, dev, smi: str) -> dict:
         ref, bf16_plain = plain(f32, torch.float32), plain(fe, torch.bfloat16)
         toks, _, attn = fe.extract_with_attention(images)
         kern = (torch.from_numpy(attn).to(dev), torch.from_numpy(toks).to(dev))
-        masks = {name: _pl_masks(*v) for name, v in (("f32", ref), ("bf16 plain", bf16_plain), ("kernels", kern))}
+        masks = {name: _pl_masks(*v, grid) for name, v in (("f32", ref), ("bf16 plain", bf16_plain),
+                                                            ("kernels", kern))}
     del f32
     out = {"launches": launches, "img_per_s": img_per_s, "fg_share": fg_share}
     for i, what in enumerate(("cls_attention", "key_tokens")):
@@ -2278,7 +2368,7 @@ def phase_pseudo_labels(seed: int, dev, smi: str) -> dict:
          f"{wall:.3f} ms of host wall under the profiler, device busy {busy / wall:.4f} [{smi}]")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
         _log(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  {e.key[:100]}")
-    out.update(busy=busy / wall, root=root, data=data, train_set=train_set)
+    out.update(busy=busy / wall, root=root, data=data, train_set=train_set, fam=fam)
     return out
 
 
@@ -2462,7 +2552,7 @@ def _train_world(dev, world: dict) -> dict:
     from ucod_dpl_tpu_torch.models.dba import init_rev_decoder, rev_decoder_forward_resized
     from ucod_dpl_tpu_torch.models.safetensors_io import save_decoder_checkpoint
 
-    root, data = world["root"], world["data"]
+    root, data, fam = world["root"], world["data"], world["fam"]
 
     # the Runner's seeded towers (student from the config's seed 42, EMA
     # teacher from 43), each with its fg bias moved to the 60th percentile
@@ -2470,12 +2560,11 @@ def _train_world(dev, world: dict) -> dict:
     # teacher's masks are the student's targets through the APM merge, so
     # with both mixed the validations' masks mix foreground and background
     # and the crop path runs
-    fe = FeatureExtractor(_Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None), device=dev,
-                          seed=0, strict=False)
+    fe = FeatureExtractor(fam.fe_cfg(), device=dev, seed=0, strict=False)
     val_paths = sorted(glob.glob(os.path.join(data, "TE-CAMO", "im", "*.jpg")))
     towers = []
     with torch.inference_mode():
-        feats = torch.from_numpy(fe.extract(load_image_batch_transform(val_paths, (518, 518))))
+        feats = torch.from_numpy(fe.extract(load_image_batch_transform(val_paths, (fam.size, fam.size))))
         for tower_seed in (42, 43):
             tower = init_rev_decoder(tower_seed, SERVE_DIM)
             fg, _, _ = rev_decoder_forward_resized(tower, feats, 68)
@@ -2492,28 +2581,32 @@ def _train_world(dev, world: dict) -> dict:
                 "train_cfg.save_cfg.save_mode": "all", "train_cfg.save_cfg.save_interval": "2",
                 "train_cfg.save_cfg.start_save": "0", "val_cfg.val_interval": "2", "val_cfg.start_val": "2",
                 "val_cfg.look_twice_th": "0.95", **{k.replace("__", "."): v for k, v in opts.items()}}
-        return ["-c", "configs/uscod/UCOD-DPL_dinov2.py", "--work_dir", os.path.join(root, "work_dir"),
+        return ["-c", fam.stage1_cfg, "--work_dir", os.path.join(root, "work_dir"),
                 "--load_from", ckpt, *flags, "--opts", *(x for kv in over.items() for x in kv)]
 
     return {"towers": towers, "argv": argv, "root": root, "val_paths": val_paths}
 
 
-def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
-    """Phase L: ``cli.train_main`` on configs/uscod/UCOD-DPL_dinov2.py at full
-    width on the card over phase M's images and pseudo-labels (``world``):
-    run A (cached features, 4 epochs), run B (the same, preempted by SIGTERM
-    after its 7th decoder step and resumed), run C (LoRA, 2 epochs), run D
-    (run C preempted after its 4th LoRA step and resumed); launches,
-    outputs, files and rates."""
+def phase_train(seed: int, dev, smi: str, world: dict, runs: str = "bcd") -> dict:
+    """Phase L: ``cli.train_main`` on the family's stage-1 config
+    (configs/uscod/UCOD-DPL_dinov2.py) at full width on the card over phase
+    M's images and pseudo-labels (``world``), S steps an epoch (3): run A
+    (cached features, 4 epochs), and those of ``runs``: run B (run A
+    preempted by SIGTERM after decoder step 2S + 1 and resumed), run C
+    (LoRA, 2 epochs), run D (run C preempted after LoRA step S + 1 and
+    resumed; needs C); launches, outputs, files and rates."""
     from ucod_dpl_tpu_torch import cli
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.data.transforms import load_image_batch_transform
     from ucod_dpl_tpu_torch.models.convert import tree_leaves
     from ucod_dpl_tpu_torch.models.discriminator import init_discriminator
 
-    root, train_set = world["root"], world["train_set"]
-    _log(f"train entry: {TRAIN_IMAGES} train images ({train_set}), {TRAIN_VAL_IMAGES} val images (TE-CAMO), the "
-         f"{PL_GRID}x{PL_GRID} pseudo-label cache generated in phase M")
+    root, train_set, fam = world["root"], world["train_set"], world["fam"]
+    n_train, n_val = fam.train_images, fam.train_val_images
+    spe = n_train // TRAIN_BATCH  # steps an epoch
+    grid = PL_SIZE // fam.patch
+    _log(f"train entry: {fam.label} at {fam.size}px ({fam.stage1_cfg}), {n_train} train images ({train_set}), "
+         f"{n_val} val images (TE-CAMO), the {grid}x{grid} pseudo-label cache generated in phase M")
     tw = _train_world(dev, world)
     towers, argv, val_paths = tw["towers"], tw["argv"], tw["val_paths"]
 
@@ -2525,7 +2618,7 @@ def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
     torch.backends.cudnn.deterministic = True
     out = {}
     try:
-        # run A: cached features, 4 epochs of 3 steps, discriminator passes
+        # run A: cached features, 4 epochs of S steps, discriminator passes
         # at epochs 0 and 2, the finetune switch at epoch 3, saves and
         # validations at epochs 2 and 4
         for fn in counts.values():
@@ -2536,13 +2629,13 @@ def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
         secs = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counts.items()}
         depth = run_a.feature_extractor.config.num_layers
-        forwards = -(-TRAIN_IMAGES // EVAL_CACHE_BATCH) + -(-TRAIN_VAL_IMAGES // EVAL_CACHE_BATCH) + pa.crop_batches()
+        forwards = -(-n_train // EVAL_CACHE_BATCH) + -(-n_val // EVAL_CACHE_BATCH) + pa.crop_batches()
         want = {**{k: 0 for k in counts}, "K1": (depth - 1) * forwards, "K6": (depth - 1) * forwards}
         losses, dis_losses = pa.finite_losses("train"), pa.finite_losses("dis")
         loop = run_a.train_loop
         _log(f"  run A (cached features, bs{TRAIN_BATCH}, 4 epochs): {secs:.3f} s host clock in all; train-set "
              f"cache build {run_a.train_dataset.build_seconds:.3f} s "
-             f"({TRAIN_IMAGES / run_a.train_dataset.build_seconds:.2f} img/s), val-set "
+             f"({n_train / run_a.train_dataset.build_seconds:.2f} img/s), val-set "
              f"{run_a.val_dataset.build_seconds:.3f} s; launches {launches} [{smi}]")
         _log(f"    decoder losses {np.round(losses, 5).tolist()}, discriminator losses "
              f"{np.round(dis_losses, 5).tolist()}, best {loop.best_result}")
@@ -2551,7 +2644,7 @@ def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
         _log("    validations (s, LookTwice crop calls): " + ", ".join(f"{s:.3f} ({c})" for s, c in pa.val)
              + "; saves: " + ", ".join(f"{w} {s:.4f} s" for w, s in pa.saves) + f" [{smi}]")
         _check_launches("run A", launches, want)
-        if (len(losses), len(dis_losses)) != (12, 6):
+        if (len(losses), len(dis_losses)) != (4 * spe, 2 * spe):
             raise AssertionError(f"run A: {len(losses)} decoder and {len(dis_losses)} discriminator steps")
         init = [*towers, init_discriminator(44, 68, SERVE_DIM, False)[0]]
         final = [run_a.decoder_params, run_a.decoder_ema_params, run_a.discriminator_params]
@@ -2567,7 +2660,7 @@ def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
         if pa.crop_batches() == 0:
             raise AssertionError("run A: the validations made no LookTwice crop (the crop path did not run)")
         by = {(k, e): (s, dt) for k, e, s, dt in pa.epochs}
-        out["cache_build_img_per_s"] = TRAIN_IMAGES / run_a.train_dataset.build_seconds
+        out["cache_build_img_per_s"] = n_train / run_a.train_dataset.build_seconds
         out["decoder_steps_per_s"] = by[("train", 3)][0] / by[("train", 3)][1]
         out["dis_steps_per_s"] = by[("dis", 2)][0] / by[("dis", 2)][1]
         out["val_s"] = [s for s, _ in pa.val]
@@ -2576,121 +2669,127 @@ def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
         # phase P1 runs this entry again in a process group of one
         out["final_a"] = _flat_state(loop.state)
         out["argv"], out["root"] = argv, root
-        device_ms = pa.log_trace("epoch 1 (3 decoder steps, cached features)", smi)
+        device_ms = pa.log_trace(f"epoch 1 ({spe} decoder steps, cached features)", smi)
         out["busy"] = device_ms / (pa.prof[1])
 
-        # run B: preempted by SIGTERM after the 7th decoder step (epoch 2,
-        # batch 1), then resumed from state_preempt to the end
-        with _TrainProbe(preempt_after=7):
-            try:
-                cli.train_main(argv("b"))
-                raise AssertionError("run B: the train entry did not exit on SIGTERM")
-            except SystemExit as e:
-                code = e.code
-        path = os.path.join(root, "logs_b", "ckp", "state_preempt")
-        with np.load(path + ".npz") as f:
-            meta = json.loads(bytes(f["__meta_json__"]).decode())
-        _log(f"  run B: exit {code} after the 7th decoder step, state_preempt metadata {meta}")
-        if code != 128 + signal.SIGTERM or (meta.get("phase"), meta.get("batch_done"), meta.get("epoch")) != \
-                ("train", 1, 2):
-            raise AssertionError(f"run B: exit {code}, metadata {meta}")
-        run_b = cli.train_main(argv("b", "--resume", path))
-        pa_final, pb_final = _train_params(run_a), _train_params(run_b)
-        worst = max((x - y).abs().max().item() for x, y in zip(pb_final, pa_final))
-        _log(f"  run B resumed to the end: largest difference from run A {worst:.6g} (decoder, EMA, "
-             "discriminator and its statistics; bitwise must hold)")
-        if worst != 0.0:
-            raise AssertionError(f"run B: the resumed run differs from run A by up to {worst}")
-        out["resume"] = ("bitwise", 0.0)
+        if "b" in runs:
+            # run B: preempted by SIGTERM after decoder step 2S + 1 (epoch 2,
+            # batch 1), then resumed from state_preempt to the end
+            with _TrainProbe(preempt_after=2 * spe + 1):
+                try:
+                    cli.train_main(argv("b"))
+                    raise AssertionError("run B: the train entry did not exit on SIGTERM")
+                except SystemExit as e:
+                    code = e.code
+            path = os.path.join(root, "logs_b", "ckp", "state_preempt")
+            with np.load(path + ".npz") as f:
+                meta = json.loads(bytes(f["__meta_json__"]).decode())
+            _log(f"  run B: exit {code} after decoder step {2 * spe + 1}, state_preempt metadata {meta}")
+            if code != 128 + signal.SIGTERM or (meta.get("phase"), meta.get("batch_done"), meta.get("epoch")) != \
+                    ("train", 1, 2):
+                raise AssertionError(f"run B: exit {code}, metadata {meta}")
+            run_b = cli.train_main(argv("b", "--resume", path))
+            pa_final, pb_final = _train_params(run_a), _train_params(run_b)
+            worst = max((x - y).abs().max().item() for x, y in zip(pb_final, pa_final))
+            _log(f"  run B resumed to the end: largest difference from run A {worst:.6g} (decoder, EMA, "
+                 "discriminator and its statistics; bitwise must hold)")
+            if worst != 0.0:
+                raise AssertionError(f"run B: the resumed run differs from run A by up to {worst}")
+            out["resume"] = ("bitwise", 0.0)
 
-        # run C: LoRA (rank 2, alpha 4, lr 1e-4, remat none: the shipped
-        # config's lora block), 2 epochs: a discriminator pass on the adapted
-        # features at epoch 0, the finetune switch at epoch 1, the saves and
-        # the validation at epoch 2
-        for fn in counts.values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        with _TrainProbe(profile_epoch=1) as pc:
-            run_c = cli.train_main(argv("c", model_cfg__lora__enable="True", train_cfg__max_epoch="2"))
-        secs = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counts.items()}
-        lora_losses, dis_losses = pc.finite_losses("lora"), pc.finite_losses("dis")
-        n_lora, n_dis = len(lora_losses), len(dis_losses)
-        want = {**{k: 0 for k in counts}, "K1": (depth - 1) * pc.crop_batches(), "K6": (depth - 1) * pc.crop_batches(),
-                "fwd_lse": (depth - 1) * (n_lora + n_dis), "bwd": (depth - 1) * n_lora}
-        # the steps after the first (which pays for its first launches) and
-        # outside the profiled epoch: each starts on an idle card, as in the
-        # loop, where the pageable copy of the next batch's pixels waits for
-        # the step before it
-        timed = [t for t in pc.lora_times[1:] if not t[3]]
-        ev_ms = [e0.elapsed_time(e1) for e0, e1, _, _ in timed]
-        host_ms = [h * 1e3 for _, _, h, _ in timed]
-        lora = run_c.train_loop.lora_params
-        b_norm = torch.sqrt(sum(e["b"].float().square().sum() for layer in lora for e in layer.values())).item()
-        _log(f"  run C (LoRA, bs{TRAIN_BATCH} 518px, 2 epochs): {secs:.3f} s host clock in all, {n_lora} LoRA steps, "
-             f"{n_dis} discriminator steps on the adapted features, launches {launches} [{smi}]")
-        _log(f"    LoRA losses {np.round(lora_losses, 5).tolist()}, adapter B-norm {b_norm:.6g}; LoRA step "
-             f"({len(timed)} unprofiled steps after the first) median {np.median(ev_ms):.3f} ms by CUDA events, "
-             f"{np.median(host_ms):.3f} ms "
-             f"host clock; validations (s, crop calls) {pc.val}; saves "
-             + ", ".join(f"{w} {s:.4f} s" for w, s in pc.saves) + f" [{smi}]")
-        _check_launches("run C", launches, want)
-        if (n_lora, n_dis) != (6, 3) or not b_norm > 0:
-            raise AssertionError(f"run C: {n_lora} LoRA and {n_dis} discriminator steps, adapter B-norm {b_norm}")
-        files = set(os.listdir(run_c.ckp_dir))
-        need = {"lora_epoch2.safetensors", "backbone_merged_epoch2.safetensors", "state_epoch2.npz",
-                "state_epoch2_lora.npz", "epoch2.safetensors"}
-        if not need <= files:
-            raise AssertionError(f"run C: files {sorted(files)}, missing {sorted(need - files)}")
-        merged = FeatureExtractor(_Cfg(dict(run_c.cfg.dataset_cfg.feature_extractor_cfg), backbone_weights=os.path.join(
-            run_c.ckp_dir, "backbone_merged_epoch2.safetensors")), device=dev, strict=True)
-        images = load_image_batch_transform(val_paths[:2], (518, 518))
-        f_merged, f_base = merged.extract(images), run_c.feature_extractor.extract(images)
-        moved = float(np.abs(f_merged - f_base).max())
-        _log(f"    the merged backbone in a FeatureExtractor: features of 2 val images differ from the base "
-             f"backbone's by up to {moved:.6g} (max |base| {np.abs(f_base).max():.4g})")
-        if not (np.isfinite(f_merged).all() and moved > 0):
-            raise AssertionError(f"run C: merged-backbone features moved {moved}")
-        # the profiler's own host cost inflates a LoRA epoch's wall several
-        # times, so the busy share is the trace's device time per step over
-        # the unprofiled steps' host clock
-        device_ms = pc.log_trace("epoch 1 of run C (3 LoRA steps, the finetune epoch)", smi) / 3
-        out["lora_busy"] = device_ms / np.median(host_ms)
-        _log(f"    LoRA step: {device_ms:.3f} ms of device time (trace) per {np.median(host_ms):.3f} ms unprofiled "
-             f"step, device busy {out['lora_busy']:.4f}; every step (events ms, host ms, profiled): "
-             + ", ".join(f"({e0.elapsed_time(e1):.2f}, {h * 1e3:.2f}, {p})" for e0, e1, h, p in pc.lora_times)
-             + f" [{smi}]")
-        out.update(launches_c=launches, lora_ms=float(np.median(ev_ms)), lora_host_ms=float(np.median(host_ms)),
-                   lora_val_s=[s for s, _ in pc.val], lora_save_s=pc.saves)
+        if "c" in runs:
+            # run C: LoRA (rank 2, alpha 4, lr 1e-4, remat none: the shipped
+            # config's lora block), 2 epochs: a discriminator pass on the adapted
+            # features at epoch 0, the finetune switch at epoch 1, the saves and
+            # the validation at epoch 2
+            for fn in counts.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with _TrainProbe(profile_epoch=1) as pc:
+                run_c = cli.train_main(argv("c", model_cfg__lora__enable="True", train_cfg__max_epoch="2"))
+            secs = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counts.items()}
+            lora_losses, dis_losses = pc.finite_losses("lora"), pc.finite_losses("dis")
+            n_lora, n_dis = len(lora_losses), len(dis_losses)
+            crops = (depth - 1) * pc.crop_batches()
+            want = {**{k: 0 for k in counts}, "K1": crops, "K6": crops,
+                    "fwd_lse": (depth - 1) * (n_lora + n_dis), "bwd": (depth - 1) * n_lora}
+            # the steps after the first (which pays for its first launches) and
+            # outside the profiled epoch: each starts on an idle card, as in the
+            # loop, where the pageable copy of the next batch's pixels waits for
+            # the step before it
+            timed = [t for t in pc.lora_times[1:] if not t[3]]
+            ev_ms = [e0.elapsed_time(e1) for e0, e1, _, _ in timed]
+            host_ms = [h * 1e3 for _, _, h, _ in timed]
+            lora = run_c.train_loop.lora_params
+            b_norm = torch.sqrt(sum(e["b"].float().square().sum() for layer in lora for e in layer.values())).item()
+            _log(f"  run C (LoRA, bs{TRAIN_BATCH} {fam.size}px, 2 epochs): {secs:.3f} s host clock in all, "
+                 f"{n_lora} LoRA steps, "
+                 f"{n_dis} discriminator steps on the adapted features, launches {launches} [{smi}]")
+            _log(f"    LoRA losses {np.round(lora_losses, 5).tolist()}, adapter B-norm {b_norm:.6g}; LoRA step "
+                 f"({len(timed)} unprofiled steps after the first) median {np.median(ev_ms):.3f} ms by CUDA events, "
+                 f"{np.median(host_ms):.3f} ms "
+                 f"host clock; validations (s, crop calls) {pc.val}; saves "
+                 + ", ".join(f"{w} {s:.4f} s" for w, s in pc.saves) + f" [{smi}]")
+            _check_launches("run C", launches, want)
+            if (n_lora, n_dis) != (2 * spe, spe) or not b_norm > 0:
+                raise AssertionError(f"run C: {n_lora} LoRA and {n_dis} discriminator steps, adapter B-norm {b_norm}")
+            files = set(os.listdir(run_c.ckp_dir))
+            need = {"lora_epoch2.safetensors", "backbone_merged_epoch2.safetensors", "state_epoch2.npz",
+                    "state_epoch2_lora.npz", "epoch2.safetensors"}
+            if not need <= files:
+                raise AssertionError(f"run C: files {sorted(files)}, missing {sorted(need - files)}")
+            merged_cfg = _Cfg(dict(run_c.cfg.dataset_cfg.feature_extractor_cfg),
+                              backbone_weights=os.path.join(run_c.ckp_dir, "backbone_merged_epoch2.safetensors"))
+            merged = FeatureExtractor(merged_cfg, device=dev, strict=True)
+            images = load_image_batch_transform(val_paths[:2], (fam.size, fam.size))
+            f_merged, f_base = merged.extract(images), run_c.feature_extractor.extract(images)
+            moved = float(np.abs(f_merged - f_base).max())
+            _log(f"    the merged backbone in a FeatureExtractor: features of 2 val images differ from the base "
+                 f"backbone's by up to {moved:.6g} (max |base| {np.abs(f_base).max():.4g})")
+            if not (np.isfinite(f_merged).all() and moved > 0):
+                raise AssertionError(f"run C: merged-backbone features moved {moved}")
+            # the profiler's own host cost inflates a LoRA epoch's wall several
+            # times, so the busy share is the trace's device time per step over
+            # the unprofiled steps' host clock
+            device_ms = pc.log_trace(f"epoch 1 of run C ({spe} LoRA steps, the finetune epoch)", smi) / spe
+            out["lora_busy"] = device_ms / np.median(host_ms)
+            _log(f"    LoRA step: {device_ms:.3f} ms of device time (trace) per {np.median(host_ms):.3f} ms unprofiled "
+                 f"step, device busy {out['lora_busy']:.4f}; every step (events ms, host ms, profiled): "
+                 + ", ".join(f"({e0.elapsed_time(e1):.2f}, {h * 1e3:.2f}, {p})" for e0, e1, h, p in pc.lora_times)
+                 + f" [{smi}]")
+            out.update(launches_c=launches, lora_ms=float(np.median(ev_ms)), lora_host_ms=float(np.median(host_ms)),
+                       lora_val_s=[s for s, _ in pc.val], lora_save_s=pc.saves)
 
-        # run D: run C preempted by SIGTERM after its 4th LoRA step (epoch 1,
-        # batch 1), then resumed from state_preempt to the end: bit for bit
-        # run C (the backward's dQ is summed in a fixed order)
-        lora_argv = dict(model_cfg__lora__enable="True", train_cfg__max_epoch="2")
-        with _TrainProbe(preempt_after=4):
-            try:
-                cli.train_main(argv("d", **lora_argv))
-                raise AssertionError("run D: the train entry did not exit on SIGTERM")
-            except SystemExit as e:
-                code = e.code
-        path = os.path.join(root, "logs_d", "ckp", "state_preempt")
-        with np.load(path + ".npz") as f:
-            meta = json.loads(bytes(f["__meta_json__"]).decode())
-        _log(f"  run D (LoRA): exit {code} after the 4th LoRA step, state_preempt metadata {meta}")
-        if code != 128 + signal.SIGTERM or (meta.get("phase"), meta.get("batch_done"), meta.get("epoch")) != \
-                ("train", 1, 1):
-            raise AssertionError(f"run D: exit {code}, metadata {meta}")
-        run_d = cli.train_main(argv("d", "--resume", path, **lora_argv))
+        if "d" in runs:
+            # run D: run C preempted by SIGTERM after LoRA step S + 1 (epoch 1,
+            # batch 1), then resumed from state_preempt to the end: bit for bit
+            # run C (the backward's dQ is summed in a fixed order)
+            lora_argv = dict(model_cfg__lora__enable="True", train_cfg__max_epoch="2")
+            with _TrainProbe(preempt_after=spe + 1):
+                try:
+                    cli.train_main(argv("d", **lora_argv))
+                    raise AssertionError("run D: the train entry did not exit on SIGTERM")
+                except SystemExit as e:
+                    code = e.code
+            path = os.path.join(root, "logs_d", "ckp", "state_preempt")
+            with np.load(path + ".npz") as f:
+                meta = json.loads(bytes(f["__meta_json__"]).decode())
+            _log(f"  run D (LoRA): exit {code} after LoRA step {spe + 1}, state_preempt metadata {meta}")
+            if code != 128 + signal.SIGTERM or (meta.get("phase"), meta.get("batch_done"), meta.get("epoch")) != \
+                    ("train", 1, 1):
+                raise AssertionError(f"run D: exit {code}, metadata {meta}")
+            run_d = cli.train_main(argv("d", "--resume", path, **lora_argv))
 
-        def lora_params(run):
-            return _train_params(run) + [t.detach().float().cpu() for t in tree_leaves(run.train_loop.lora_params)]
+            def lora_params(run):
+                return _train_params(run) + [t.detach().float().cpu() for t in tree_leaves(run.train_loop.lora_params)]
 
-        worst = max((x - y).abs().max().item() for x, y in zip(lora_params(run_d), lora_params(run_c)))
-        _log(f"  run D resumed to the end: largest difference from run C {worst:.6g} (decoder, EMA, discriminator "
-             "and its statistics, LoRA adapters; bitwise must hold)")
-        if worst != 0.0:
-            raise AssertionError(f"run D: the resumed LoRA run differs from run C by up to {worst}")
-        out["lora_resume"] = ("bitwise", 0.0)
+            worst = max((x - y).abs().max().item() for x, y in zip(lora_params(run_d), lora_params(run_c)))
+            _log(f"  run D resumed to the end: largest difference from run C {worst:.6g} (decoder, EMA, discriminator "
+                 "and its statistics, LoRA adapters; bitwise must hold)")
+            if worst != 0.0:
+                raise AssertionError(f"run D: the resumed LoRA run differs from run C by up to {worst}")
+            out["lora_resume"] = ("bitwise", 0.0)
     finally:
         torch.backends.cudnn.deterministic = cudnn_det
     return out
@@ -2700,8 +2799,6 @@ def phase_train(seed: int, dev, smi: str, world: dict) -> dict:
 # from paths (val set TE-CAMO at batch 1, window size 3, window length 56,
 # threshold 0.0015, no m-patches in its eval), over 16 synthetic val images
 # at the COD sizes of phase K.
-CORAL_VAL_IMAGES = 16
-CORAL_CFG = "configs/uscod/CORAL_dinov2.py"
 
 
 def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
@@ -2711,14 +2808,15 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
     and rates; the refined logits of 4 images through the kernels against
     the f32 plain path; ``RefinePredictor`` with m-patches (the 756px
     forward, L 2917) and with ``quantize="int8"``, by their launches and
-    img/s."""
+    img/s.  On the family of ``world`` (its CORAL config, sizes and number
+    of val images; with m-patches in val where the config asks for them)."""
     import shutil
 
     from PIL import Image
 
     from ucod_dpl_tpu_torch import cli
     from ucod_dpl_tpu_torch.config import load_config
-    from ucod_dpl_tpu_torch.data.dataset import grid_patch_arrays
+    from ucod_dpl_tpu_torch.data.dataset import M_PATCH_SLICE, grid_patch_arrays
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.data.transforms import load_image_batch_transform
     from ucod_dpl_tpu_torch.engine.coral_loop import _make_refine, prepare_refine_inputs
@@ -2728,24 +2826,28 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
     from ucod_dpl_tpu_torch.serving import RefinePredictor
     from ucod_dpl_tpu_torch.utils.fileio import ImageIO
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_coral")
+    fam = world["fam"]
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", f"chip_smoke_coral{fam.work}")
     shutil.rmtree(root, ignore_errors=True)
     data = os.path.join(root, "RefCOD")
-    sizes = _write_cod_images(data, "TE-CAMO", CORAL_VAL_IMAGES, seed + 50)
+    n_val, px = fam.coral_val_images, (fam.size, fam.size)
+    sizes = _write_cod_images(data, "TE-CAMO", n_val, seed + 50)
     paths = sorted(glob.glob(os.path.join(data, "TE-CAMO", "im", "*.jpg")))
     ckpt = os.path.join(world["root"], "decoder.safetensors")  # phase L's seeded towers
-    mc = load_config(CORAL_CFG).model_cfg
+    coral_cfg = load_config(fam.coral_cfg)
+    mc, val_m = coral_cfg.model_cfg, bool(coral_cfg.dataset_cfg.valset_cfg.get("require_m_patches", False))
     ws, wl, th = mc.window_size, mc.window_length, mc.threshold
+    _log(f"CORAL eval: {fam.label}, {fam.coral_cfg} (val at {fam.size}px, m-patches at {fam.m_size}px: {val_m}), "
+         f"{n_val} val images")
     decoder = params_to(load_decoder_checkpoint(ckpt)[0], dev)
     refine = _make_refine(ws, th)
 
     # the seeded refiner, its output bias moved to the 60th percentile of its
     # logits on 4 of the images (the run's own seeded backbone), so that the
     # refined masks mix foreground and background
-    fe_cfg = _Cfg(type="dinov2", backbone="facebook/dinov2-base", backbone_weights=None)
-    fe = FeatureExtractor(fe_cfg, device=dev, seed=0, strict=False)
-    l_images = load_image_batch_transform(paths[:4], (518, 518))
-    grids = np.concatenate([grid_patch_arrays(ImageIO.read_image(p, "RGB"), (518, 518), ws) for p in paths[:4]])
+    fe = FeatureExtractor(fam.fe_cfg(), device=dev, seed=0, strict=False)
+    l_images = load_image_batch_transform(paths[:4], px)
+    grids = np.concatenate([grid_patch_arrays(ImageIO.read_image(p, "RGB"), px, ws) for p in paths[:4]])
     refiner = init_sparse_refiner(seed + 3, SERVE_DIM)
     with torch.inference_mode():
         h = fe.extract(grids)
@@ -2755,7 +2857,7 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
     del fe
     refiner_path = os.path.join(root, "refiner.safetensors")
     save_refiner_checkpoint(refiner_path, refiner)
-    argv = ["-c", CORAL_CFG, "--load_from", ckpt, "--refiner_path", refiner_path, "--datasets", "TE-CAMO",
+    argv = ["-c", fam.coral_cfg, "--load_from", ckpt, "--refiner_path", refiner_path, "--datasets", "TE-CAMO",
             "--device", str(dev), "--work_dir", os.path.join(root, "work_dir"), "--opts", "dataset_cfg.dataset_dir", data,
             "dataset_cfg.cache_dir", os.path.join(root, "cache"), "log_cfg.log_path", os.path.join(root, "logs")]
     counts = {**_kernel_wrappers(), **_int8_wrappers()}
@@ -2770,15 +2872,17 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
         launches = {k: fn.launches for k, fn in counts.items()}
         ev, ds = runner.evaluator, runner.val_dataset
         # the first run's cache builds (8 images a feature batch, 9 crops an
-        # image a grid batch), and two forwards (the grid and the l pass) for
-        # each centre-crop fallback
-        forwards = 2 * ev.crops + ((-(-CORAL_VAL_IMAGES // EVAL_CACHE_BATCH) + -(-CORAL_VAL_IMAGES // per_chunk))
+        # image a grid batch, the m-patch images of the same chunks in one
+        # batch each), and two forwards (the grid and the l pass) for each
+        # centre-crop fallback
+        chunks = -(-n_val // per_chunk)
+        forwards = 2 * ev.crops + ((-(-n_val // EVAL_CACHE_BATCH) + chunks * (2 if val_m else 1))
                                    if run == "first" else 0)
         want = {**{k: 0 for k in counts}, "K1": 11 * forwards, "K6": 11 * forwards}
         _log(f"  lt_eval {run} run: {secs:.3f} s host clock in all, feature cache "
              + (f"{ds.build_seconds:.3f} s" if ds.build_seconds else "read")
              + ", grid-patch cache " + (f"{ds.patch_build_seconds:.3f} s" if ds.patch_build_seconds else "read")
-             + f", eval sweep {ev.seconds:.3f} s ({CORAL_VAL_IMAGES / ev.seconds:.2f} img/s; device passes "
+             + f", eval sweep {ev.seconds:.3f} s ({n_val / ev.seconds:.2f} img/s; device passes "
              f"{ev.refine_seconds:.3f} s), {ev.crops} centre-crop fallbacks, launches {launches} [{smi}]")
         _check_launches(f"lt_eval {run} run", launches, want)
         result = ev.result
@@ -2792,15 +2896,22 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
     if out["second"]["result"] != out["first"]["result"]:
         raise AssertionError(f"lt_eval from the cache: {out['second']['result']} != {out['first']['result']}")
     patch = ds.caches.get("patch")
-    entries = [patch.read(i) for i in range(CORAL_VAL_IMAGES)]
-    if any(e.shape != (ws ** 2, 37, 37, SERVE_DIM) or e.dtype != np.float32 or not np.isfinite(e).all()
+    entries = [patch.read(i) for i in range(n_val)]
+    if any(e.shape != (ws ** 2, fam.grid, fam.grid, SERVE_DIM) or e.dtype != np.float32 or not np.isfinite(e).all()
            for e in entries):
         raise AssertionError("grid-patch cache: an entry of the wrong shape or dtype, or not finite")
+    if val_m:
+        m_entries = [ds.caches.get("m_patch").read(i) for i in range(n_val)]
+        m_grid = fam.m_size // fam.patch
+        if any(e.shape != (4, M_PATCH_SLICE, M_PATCH_SLICE, SERVE_DIM) or not np.isfinite(e).all()
+               for e in m_entries):
+            raise AssertionError(f"m-patch cache: an entry of the wrong shape or not finite: {m_entries[0].shape}")
+        _log(f"  m-patch cache: {n_val} finite entries of {m_entries[0].shape} (a {m_grid}x{m_grid} key map each)")
     masks = sorted(os.listdir(os.path.join(root, "logs", "preds", "TE-CAMO")))
     got_sizes = [Image.open(os.path.join(root, "logs", "preds", "TE-CAMO", m)).size[::-1] for m in masks]
-    if len(masks) != CORAL_VAL_IMAGES or got_sizes != sizes:
+    if len(masks) != n_val or got_sizes != sizes:
         raise AssertionError(f"lt_eval masks: {masks[:3]}... at {got_sizes[:3]}...")
-    _log(f"  caches: {CORAL_VAL_IMAGES} finite float32 grid-patch entries of {entries[0].shape}; {len(masks)} masks "
+    _log(f"  caches: {n_val} finite float32 grid-patch entries of {entries[0].shape}; {len(masks)} masks "
          "at their ground-truth sizes")
 
     # accuracy on 4 images: the refiner (f32) on the cached features (the
@@ -2831,8 +2942,8 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
     out["err"], out["err_plain"] = err, err_plain
 
     # serving: RefinePredictor with m-patches (l at 518px, the 3 x 3 grid, the
-    # 2 x 2 m-patches of one 756px forward, L 2917) on the eval's extractor,
-    # then from the shipped config with the int8 backbone
+    # 2 x 2 m-patches of one 756px forward, L 2917; for ViT-B/8 296, 432) on
+    # the eval's extractor, then from the shipped config with the int8 backbone
     def serve(rp, what):
         calls, fallbacks = [], []
         extract, cropped = rp.fe.extract, rp._refine_cropped
@@ -2853,21 +2964,21 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
         launches = {k: fn.launches for k, fn in counts.items()}
         _log(f"  RefinePredictor ({what}): 4 images in {secs * 1e3:.1f} ms host clock ({4 / secs:.2f} img/s), "
              f"extractor calls {calls}, {len(fallbacks)} centre-crop fallbacks, launches {launches} [{smi}]")
-        if len(masks) != 4 or any(m.shape != (518, 518) or not np.isin(m, (0.0, 1.0)).all() for m in masks):
+        if len(masks) != 4 or any(m.shape != px or not np.isin(m, (0.0, 1.0)).all() for m in masks):
             raise AssertionError(f"RefinePredictor ({what}): masks {[m.shape for m in masks]}")
         return len(calls), launches, 4 / secs, calls
 
-    rp = RefinePredictor(fe, load_decoder_checkpoint(ckpt)[0], refiner, image_size=(518, 518), window_size=ws,
+    rp = RefinePredictor(fe, load_decoder_checkpoint(ckpt)[0], refiner, image_size=px, window_size=ws,
                          window_length=wl, threshold=th, use_m_patches=True, max_batch=4)
     n_calls, launches, img_s, calls = serve(rp, "bf16, m-patches")
-    if (4, 756, 756, 3) not in calls:
-        raise AssertionError(f"RefinePredictor with m-patches: no 756px forward in {calls}")
+    if (4, fam.m_size, fam.m_size, 3) not in calls:
+        raise AssertionError(f"RefinePredictor with m-patches: no {fam.m_size}px forward in {calls}")
     _check_launches("RefinePredictor bf16", launches, {**{k: 0 for k in counts}, "K1": 11 * n_calls,
                                                        "K6": 11 * n_calls})
     out.update(serve_launches=launches, serve_img_s=img_s)
     del rp
-    rp8 = RefinePredictor.from_config(CORAL_CFG, ckpt, refiner_path, device=dev, strict=False, quantize="int8")
-    n_calls, launches, img_s, _ = serve(rp8, "int8, the shipped config: no m-patches")
+    rp8 = RefinePredictor.from_config(fam.coral_cfg, ckpt, refiner_path, device=dev, strict=False, quantize="int8")
+    n_calls, launches, img_s, _ = serve(rp8, f"int8, the shipped config: m-patches {rp8.use_m_patches}")
     _check_launches("RefinePredictor int8", launches, {**{k: 0 for k in counts}, **{k: 11 * n_calls for k in
                                                                                    ("K1", "K8", "K9", "K10")}})
     out.update(serve_int8_launches=launches, serve_int8_img_s=img_s)
@@ -2881,9 +2992,6 @@ def phase_coral(seed: int, dev, smi: str, world: dict) -> dict:
 # epochs cut to 4: 8 of each of phase M's train sets (the same seeded
 # images, here with the ground truth the shipped train set requires) with
 # their entries of phase M's pseudo-label cache, and 8 val images.
-CORAL_TRAIN_PER_SET = 8
-CORAL_TRAIN_IMAGES = CORAL_TRAIN_PER_SET * len(TRAIN_SETS)
-CORAL_TRAIN_VAL_IMAGES = 8
 CORAL_TRAIN_EPOCHS = 4
 CORAL_TRAIN_BATCH = 2  # the shipped trainloader_cfg.batch_size
 
@@ -2964,8 +3072,10 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
     centre-crop fallbacks, finite losses, a moving refiner, the epoch and
     EMA files, the epoch-4 validation's metrics, ``cli.lt_eval_main`` on the
     trained file; rates, step ms, peak memory, a trace of one epoch.  Run B:
-    SIGTERM after its 10th step, one ``epoch1_preempt`` file, its epoch-1
-    file bitwise run A's, and a restart from the preempt file to the end."""
+    SIGTERM after step S + 2 (S steps an epoch: 8), one ``epoch1_preempt``
+    file, its epoch-1 file bitwise run A's, and a restart from the preempt
+    file to the end.  On the family of ``world`` (its CORAL config, sizes
+    and numbers of images)."""
     import filecmp
     import hashlib
     import shutil
@@ -2973,21 +3083,28 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
     from safetensors.torch import load_file
 
     from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.config import load_config
     from ucod_dpl_tpu_torch.models.convert import tree_leaves
     from ucod_dpl_tpu_torch.models.udlr import init_sparse_refiner
     from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_coral_train")
+    fam = world["fam"]
+    coral_cfg = load_config(fam.coral_cfg)
+    val_m = bool(coral_cfg.dataset_cfg.valset_cfg.get("require_m_patches", False))
+    per_set, n_val = fam.coral_train_per_set, fam.coral_train_val_images
+    n_train = per_set * len(fam.train_sets)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", f"chip_smoke_coral_train{fam.work}")
     shutil.rmtree(root, ignore_errors=True)
     data = os.path.join(root, "RefCOD")
     # the first 8 images of each of phase M's sets (their seeds draw the same
     # images whether or not the ground truth is written), and their entries
     # of phase M's pseudo-label cache (sorted paths over the two sets)
     src = ArrayCache(os.path.join(world["root"], "cache", "pseudo_label_cache", world["train_set"]))
-    m_paths = sorted(p for name, _ in TRAIN_SETS for p in glob.glob(os.path.join(world["data"], name, "im", "*.jpg")))
+    m_paths = sorted(p for name, _ in fam.train_sets
+                     for p in glob.glob(os.path.join(world["data"], name, "im", "*.jpg")))
     paths = []
-    for i, (name, _) in enumerate(TRAIN_SETS):
-        _write_cod_images(data, name, CORAL_TRAIN_PER_SET, seed + 30 + i)
+    for i, (name, _) in enumerate(fam.train_sets):
+        _write_cod_images(data, name, per_set, seed + 30 + i)
         paths += sorted(glob.glob(os.path.join(data, name, "im", "*.jpg")))
     paths = sorted(paths)
     cache = ArrayCache(os.path.join(root, "cache", "pseudo_label_cache", world["train_set"]))
@@ -2998,13 +3115,14 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
         cache.write(i, src.read(m_paths.index(twin)))
     stems = "\n".join(os.path.splitext(os.path.basename(p))[0] for p in paths)
     cache.flush(meta={"n": len(paths), "fingerprint": hashlib.sha1(stems.encode()).hexdigest(), "th_bkg": 0.6})
-    _write_cod_images(data, "TE-CAMO", CORAL_TRAIN_VAL_IMAGES, seed + 60)
+    _write_cod_images(data, "TE-CAMO", n_val, seed + 60)
     ckpt = os.path.join(world["root"], "decoder.safetensors")  # phase L's seeded towers
-    _log(f"CORAL stage-2 training: {CORAL_TRAIN_IMAGES} of phase M's train images ({world['train_set']}) with their "
-         f"pseudo-labels, {CORAL_TRAIN_VAL_IMAGES} val images (TE-CAMO), phase L's decoder, a seeded refiner")
+    _log(f"CORAL stage-2 training: {fam.label}, {fam.coral_cfg}, {n_train} of phase M's train images "
+         f"({world['train_set']}) with their pseudo-labels, {n_val} val images (TE-CAMO; m-patches {val_m}), phase "
+         f"L's decoder, a seeded refiner")
 
     def argv(run, *flags):
-        return ["-c", CORAL_CFG, "--load_from", ckpt, "--device", str(dev), "--work_dir",
+        return ["-c", fam.coral_cfg, "--load_from", ckpt, "--device", str(dev), "--work_dir",
                 os.path.join(root, "work_dir"), *flags, "--opts", "dataset_cfg.dataset_dir", data,
                 "dataset_cfg.cache_dir", os.path.join(root, "cache"), "log_cfg.log_path",
                 os.path.join(root, f"logs_{run}"), "train_cfg.max_epoch", str(CORAL_TRAIN_EPOCHS)]
@@ -3024,22 +3142,23 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
         ev, tr_ds, val_ds = run_a.evaluator, run_a.train_dataset, run_a.val_dataset
         per_chunk = max(1, EVAL_CACHE_BATCH // 9)  # LRDataset's images per grid-patch call
         # train: feature batches, grid-patch and m-patch calls; val: feature
-        # batches and grid-patch calls (no m-patches); 2 a centre-crop fallback
-        forwards = (-(-CORAL_TRAIN_IMAGES // EVAL_CACHE_BATCH) + 2 * -(-CORAL_TRAIN_IMAGES // per_chunk)
-                    + -(-CORAL_TRAIN_VAL_IMAGES // EVAL_CACHE_BATCH) + -(-CORAL_TRAIN_VAL_IMAGES // per_chunk)
+        # batches and grid-patch calls (and m-patch calls where the config
+        # asks for them); 2 a centre-crop fallback
+        forwards = (-(-n_train // EVAL_CACHE_BATCH) + 2 * -(-n_train // per_chunk)
+                    + -(-n_val // EVAL_CACHE_BATCH) + -(-n_val // per_chunk) * (2 if val_m else 1)
                     + 2 * ev.crops)
         want = {**{k: 0 for k in counts}, "K1": 11 * forwards, "K6": 11 * forwards}
         losses = torch.stack([st["loss"] for st in pa.steps]).float().cpu().numpy()
         build_s = tr_ds.build_seconds + tr_ds.patch_build_seconds
         _log(f"  run A ({CORAL_TRAIN_EPOCHS} epochs at batch {CORAL_TRAIN_BATCH}, m-patches): {secs:.3f} s host "
-             f"clock in all; train caches {build_s:.3f} s ({CORAL_TRAIN_IMAGES / build_s:.2f} img/s: features "
+             f"clock in all; train caches {build_s:.3f} s ({n_train / build_s:.2f} img/s: features "
              f"{tr_ds.build_seconds:.3f} s, grid and m-patches {tr_ds.patch_build_seconds:.3f} s), val caches "
              f"{val_ds.build_seconds + val_ds.patch_build_seconds:.3f} s; {ev.crops} centre-crop fallbacks in the "
              f"validation; launches {launches} [{smi}]")
         _log(f"    losses {np.round(losses, 5).tolist()}; epoch means "
              f"{np.round(run_a.train_loop.epoch_losses, 5).tolist()}")
         _check_launches("lt_train run A", launches, want)
-        steps_per_epoch = CORAL_TRAIN_IMAGES // CORAL_TRAIN_BATCH
+        steps_per_epoch = n_train // CORAL_TRAIN_BATCH
         if len(losses) != CORAL_TRAIN_EPOCHS * steps_per_epoch or not np.isfinite(losses).all():
             raise AssertionError(f"lt_train run A: {len(losses)} steps, losses {losses}")
         init = tree_leaves(init_sparse_refiner(42 + 2, SERVE_DIM))  # the Runner's seeded refiner (seed + 2)
@@ -3081,13 +3200,13 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
             _log(f"      {e.self_device_time_total / 1e3:8.3f} ms {e.self_device_time_total / 1e3 / device_ms:6.3f} "
                  f"x{e.count:5d}  {e.key[:100]}")
         unprof = [(n, dt) for epoch, n, dt in pa.epochs if epoch != pa.profile_epoch]
-        out.update(launches=launches, build_img_per_s=CORAL_TRAIN_IMAGES / build_s,
+        out.update(launches=launches, build_img_per_s=n_train / build_s,
                    steps_per_s=sum(n for n, _ in unprof) / sum(dt for _, dt in unprof), step_ms=float(np.median(ev_ms)),
                    step_host_ms=float(np.median(host_ms)), peak_gib=peak, busy=device_ms / wall, result=result)
 
         # the trained refiner through the eval entry (the val caches read)
         runner = cli.lt_eval_main([
-            "-c", CORAL_CFG, "--load_from", ckpt, "--refiner_path",
+            "-c", fam.coral_cfg, "--load_from", ckpt, "--refiner_path",
             os.path.join(ckp, f"epoch{CORAL_TRAIN_EPOCHS}.safetensors"), "--datasets", "TE-CAMO", "--device", str(dev),
             "--work_dir", os.path.join(root, "work_dir"), "--opts", "dataset_cfg.dataset_dir", data,
             "dataset_cfg.cache_dir", os.path.join(root, "cache"), "log_cfg.log_path",
@@ -3096,8 +3215,8 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
         if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in runner.evaluator.result.values()):
             raise AssertionError(f"lt_eval of the trained refiner: {runner.evaluator.result}")
 
-        # run B: SIGTERM after the 10th step (epoch 1, its 2nd batch)
-        with _CoralTrainProbe(preempt_after=10):
+        # run B: SIGTERM after step S + 2 (epoch 1, its 2nd batch)
+        with _CoralTrainProbe(preempt_after=steps_per_epoch + 2):
             try:
                 cli.lt_train_main(argv("b"))
                 raise AssertionError("lt_train run B: the entry did not exit on SIGTERM")
@@ -3107,7 +3226,8 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
         preempted = sorted(f for f in os.listdir(ckp_b) if f.endswith("_preempt.safetensors"))
         epoch1 = load_file(os.path.join(ckp_b, "epoch1.safetensors"))
         worst = max((epoch1[k] - files["epoch1.safetensors"][k]).abs().max().item() for k in epoch1)
-        _log(f"  run B: exit {code} after the 10th step, files {sorted(os.listdir(ckp_b))}; epoch1.safetensors "
+        _log(f"  run B: exit {code} after step {steps_per_epoch + 2}, files {sorted(os.listdir(ckp_b))}; "
+             "epoch1.safetensors "
              f"differs from run A's by up to {worst:.6g} (bitwise must hold)")
         if code != 128 + signal.SIGTERM or preempted != ["epoch1_preempt.safetensors"] or worst != 0.0:
             raise AssertionError(f"lt_train run B: exit {code}, preempt files {preempted}, epoch-1 difference {worst}")
@@ -3120,6 +3240,124 @@ def phase_coral_train(seed: int, dev, smi: str, world: dict) -> dict:
     finally:
         torch.backends.cudnn.deterministic = cudnn_det
     return out
+
+
+@contextlib.contextmanager
+def _k1_lengths():
+    """The token count L of every launch of the packed attention forward
+    kernel in the block (``ops.attention._launch_forward``, which K1's and
+    K5's wrappers call), in launch order."""
+    from ucod_dpl_tpu_torch.ops import attention
+
+    seen, launch = [], attention._launch_forward
+
+    def recording(q, *args):
+        seen.append(q.shape[1])
+        return launch(q, *args)
+
+    attention._launch_forward = recording
+    try:
+        yield seen
+    finally:
+        attention._launch_forward = launch
+
+
+# Phase W's entries and the token counts their K1 launches must take: 296px
+# (L 1370) for serving, eval and stage-1 training, 224px (785) for the
+# pseudo-labels, and 296px with the 432px m-patches (2917) for CORAL
+W_K1_LENGTHS = {"serving": [1370], "int8_serving": [1370], "eval": [1370], "pseudo_labels": [785],
+                "train": [1370], "coral_eval": [1370, 2917], "coral_train": [1370, 2917]}
+
+
+def phase_dinov1(seed: int, dev, smi: str) -> dict:
+    """Phase W: the DINOv1 family (ViT-B/8: patch 8, eps 1e-12, no
+    layerscale) at full width and depth, seeded weights, bf16, through the
+    entries on its shipped configs, each by the phase that runs it for
+    dinov2-base: the ``Predictor.from_config`` of UCOD-DPL_dinov1.py, bf16
+    (phases 5, 6 and 7's forward timing) and int8 (E, F); ``cli eval`` (K),
+    ``cli generate_pseudo_label --fe_type dinov1`` (M), ``cli train`` plain
+    and LoRA with the LoRA run preempted and resumed bit for bit (L: runs
+    A, C, D), ``cli lt_eval`` with m-patches in val and ``RefinePredictor``
+    (N) and ``cli lt_train`` with its preempted run (O) on CORAL_dinov1.py,
+    on fewer images (``DINOV1``).  Each entry's launches are its phase's
+    exact counts; every K1 launch of an entry takes one of the entry's
+    token counts (``W_K1_LENGTHS``) and each of them at least once."""
+    from ucod_dpl_tpu_torch.models.dba import init_rev_decoder
+    from ucod_dpl_tpu_torch.models.safetensors_io import save_decoder_checkpoint
+    from ucod_dpl_tpu_torch.serving import Predictor
+
+    fam = DINOV1
+    started = time.perf_counter()
+    _log(f"phase W: {fam.label} on {fam.stage1_cfg} and {fam.coral_cfg}, full width and depth, seeded weights [{smi}]")
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", f"chip_smoke_serve{fam.work}")
+    os.makedirs(root, exist_ok=True)
+    ckpt = os.path.join(root, "decoder.safetensors")
+    save_decoder_checkpoint(ckpt, init_rev_decoder(seed + 1, SERVE_DIM), init_rev_decoder(seed + 2, SERVE_DIM))
+    out = {"k1_lengths": {}, "seconds": {}}
+
+    def entry(name, fn):
+        t0 = time.perf_counter()
+        with _k1_lengths() as lengths:
+            result = fn()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["k1_lengths"][name] = seen = sorted(set(lengths))
+        _log(f"  W {name}: {out['seconds'][name]:.1f} s, K1 launches at L {seen} [{smi}]")
+        if seen != W_K1_LENGTHS[name]:
+            raise AssertionError(f"phase W {name}: K1 launched at L {seen}, expected {W_K1_LENGTHS[name]}")
+        torch.cuda.empty_cache()
+        return result
+
+    for quantize in (None, "int8"):
+        predictor = Predictor.from_config(fam.stage1_cfg, ckpt, device=dev, strict=False, quantize=quantize)
+        cfg = predictor.fe.config
+        if (cfg.variant, cfg.patch_size, cfg.layer_norm_eps, cfg.use_layerscale, predictor.image_size) != \
+                ("dinov1", 8, 1e-12, False, (fam.size, fam.size)):
+            raise AssertionError(f"{fam.stage1_cfg}: the Predictor holds {cfg} at {predictor.image_size}")
+        fe, decoder = predictor.fe, predictor.decoder_params
+        if quantize is None:
+            out["serving_launches"] = entry("serving", lambda: phase_serving(fe, decoder, seed, fam, predictor))
+            out["composed"] = phase_composed(fe, decoder, seed, fam)
+            out["fwd_ms"] = _fwd_timing(fe, decoder, torch.Generator(device=dev).manual_seed(seed + 90), fam)
+        else:
+            out["int8_launches"] = entry("int8_serving",
+                                         lambda: phase_int8_serving(fe, decoder, seed, fam, predictor))
+            out["int8_err"] = phase_int8_composed(fe, decoder, seed, fam)
+        del predictor, fe, decoder
+        torch.cuda.empty_cache()
+    out["eval"] = entry("eval", lambda: phase_eval(seed, dev, smi, fam=fam))
+    out["pl"] = world = entry("pseudo_labels", lambda: phase_pseudo_labels(seed, dev, smi, fam))
+    out["train"] = entry("train", lambda: phase_train(seed, dev, smi, world, runs="cd"))
+    out["coral"] = entry("coral_eval", lambda: phase_coral(seed, dev, smi, world))
+    out["coral_train"] = entry("coral_train", lambda: phase_coral_train(seed, dev, smi, world))
+    out["wall_s"] = time.perf_counter() - started
+    _log(f"phase W: {out['wall_s']:.1f} s in all [{smi}]")
+    return out
+
+
+def _w_launches(w: dict, key: str) -> dict:
+    """One kernel's launches (by the key of its wrapper) in each of phase
+    W's runs."""
+    runs = {"serving": w["serving_launches"], "int8_serving": w["int8_launches"],
+            "eval": w["eval"]["first"]["launches"], "pseudo_labels": w["pl"]["launches"],
+            "train": w["train"]["launches_a"], "lora_train": w["train"]["launches_c"],
+            "coral_eval": w["coral"]["first"]["launches"], "refine_serving": w["coral"]["serve_launches"],
+            "refine_int8": w["coral"]["serve_int8_launches"], "coral_train": w["coral_train"]["launches"]}
+    return {run: launches.get(key, 0) for run, launches in runs.items()}
+
+
+def _w_summary(w: dict) -> dict:
+    """Phase W's numbers for the summary line."""
+    fwd_ms, fwd_plain_ms = w["fwd_ms"]
+    return {"dinov1_fg_logits_live_img_per_s": 16e3 / fwd_ms, "dinov1_fg_logits_live_ms": fwd_ms,
+            "dinov1_fg_logits_live_plain_ms": fwd_plain_ms, "dinov1_composed_max_abs_err": w["composed"]["err"],
+            "dinov1_composed_plain_max_abs_err": w["composed"]["err_plain"],
+            "dinov1_int8_composed_max_abs_err": w["int8_err"], "dinov1_eval_crops": w["eval"]["first"]["crops"],
+            "dinov1_eval_crop_batches": w["eval"]["first"]["crop_batches"],
+            "dinov1_pseudo_label_mask_differ": w["pl"]["mask_differ"],
+            "dinov1_lora_train_resume": w["train"]["lora_resume"][0],
+            "dinov1_lora_entry_step_ms": w["train"]["lora_ms"], "dinov1_coral_refined_max_abs_err": w["coral"]["err"],
+            "dinov1_coral_train_step_ms": w["coral_train"]["step_ms"],
+            "dinov1_k1_lengths": w["k1_lengths"], "dinov1_seconds": w["seconds"], "dinov1_wall_s": w["wall_s"]}
 
 
 # Phase P: the data-parallel entries (``torch.distributed``), each rank a
@@ -3409,7 +3647,7 @@ def phase_dp(smi: str, evalk: dict, train: dict) -> dict:
                        [{"RANK": str(r), "WORLD_SIZE": "2", "LOCAL_RANK": "0", "LOCAL_WORLD_SIZE": "1",
                          "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": port} for r in range(2)])
     first = evalk["first"]
-    cache_batches = -(-EVAL_IMAGES // EVAL_CACHE_BATCH)
+    cache_batches = -(-DINOV2.eval_images // EVAL_CACHE_BATCH)
     for r in ranks:
         _log(f"phase P2 rank {r['rank']} (cuda:{r['device']}, world {r['world']}, backend {r['backend']}): "
              f"{r['images']} images, cache build "
@@ -3431,10 +3669,10 @@ def phase_dp(smi: str, evalk: dict, train: dict) -> dict:
     if r0["result"] != r1["result"]:
         raise AssertionError(f"P2: the ranks' metrics differ: {r0['result']} != {r1['result']}")
     diff_k = max(abs(r0["result"][k] - first["result"][k]) for k in EVAL_KEYS)
-    img_s = EVAL_IMAGES / max(r0["eval_s"], r1["eval_s"])
+    img_s = DINOV2.eval_images / max(r0["eval_s"], r1["eval_s"])
     _log(f"  metrics equal on both ranks, largest difference from phase K's {diff_k:.3g} (1e-12); eval "
          f"{img_s:.2f} img/s over both ranks by the slower sweep's host clock, phase K's one process "
-         f"{EVAL_IMAGES / first['eval_s']:.2f} [{smi}]")
+         f"{DINOV2.eval_images / first['eval_s']:.2f} [{smi}]")
     if not diff_k <= 1e-12:
         raise AssertionError(f"P2: metrics {r0['result']} differ from phase K's {first['result']} by {diff_k}")
     out.update(p2_launches={k: r0["launches"][k] + r1["launches"][k] for k in r0["launches"]}, p2_img_s=img_s,
@@ -3483,8 +3721,8 @@ def phase_dp_p3(smi: str, train: dict) -> dict:
     fails = []
     for r in ranks:
         c, ar, steps, trace = r["collectives"], r["grad_all_reduce"], r["steps"], r["trace"]
-        forwards = r["crop_batches"] + (-(-TRAIN_IMAGES // EVAL_CACHE_BATCH) - (-TRAIN_VAL_IMAGES // EVAL_CACHE_BATCH)
-                                        if r["flushes"] else 0)
+        builds = -(-DINOV2.train_images // EVAL_CACHE_BATCH) - (-DINOV2.train_val_images // EVAL_CACHE_BATCH)
+        forwards = r["crop_batches"] + (builds if r["flushes"] else 0)
         _log(f"phase P3 rank {r['rank']} (cuda:{r['device']}, world {r['world']}, backend {r['backend']}): "
              f"collectives on the card: moments mean {c['mean']:.3g}, var {c['var']:.3g}, factor {c['factor']:.3g}, "
              f"their gradient {c['grad_rel']:.3g} of its largest, bucket {c['bucket']:.3g} in {c['bucket_calls']} "
@@ -4269,6 +4507,8 @@ def main(argv=None) -> int:
                         help="phase K also sweeps the cache with the NumPy scorer, for its metric seconds")
     parser.add_argument("--only-uv", action="store_true",
                         help="run phases U (the dry run) and V (the preemption soak) alone, on one card")
+    parser.add_argument("--only-w", action="store_true",
+                        help="run phase W (the DINOv1 family through its entries) alone, on one card")
     args = parser.parse_args(argv)
     if args.dp_worker:
         return _dp_worker(args.dp_worker)
@@ -4326,6 +4566,16 @@ def main(argv=None) -> int:
         soaked = phase_soak(args.seed, smi, SOAK_CYCLES_UV, SOAK_MINUTES_UV)
         _log(json.dumps({"card": smi, "dryrun_wall_s": dry["wall_s"], "soak_wall_s": soaked["wall_s"],
                          "soak_counts": soaked["counts"], "soak_launches": soaked["launches"]}))
+        _log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
+    if args.only_w:
+        smi = phase_device()
+        phase_build()
+        w = phase_dinov1(args.seed, torch.device("cuda", 0), smi)
+        _log(json.dumps({"card": smi, **_w_summary(w), "dinov1_launches": {
+            kid: _w_launches(w, key) for kid, key in (("K1", "K1"), ("K2", "fwd_lse"), ("K3/K4", "bwd"), ("K6", "K6"),
+                                                      ("K8", "K8"), ("K9", "K9"), ("K10", "K10"))}}))
         _log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
@@ -4393,6 +4643,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     coral_train = phase_coral_train(args.seed, dev, smi, pl)
     torch.cuda.empty_cache()
+    w = phase_dinov1(args.seed, dev, smi)
+    torch.cuda.empty_cache()
     dp = phase_dp(smi, evalk, train)
     torch.cuda.empty_cache()
     proto = phase_prototypes(args.seed, dev)
@@ -4428,12 +4680,12 @@ def main(argv=None) -> int:
         "k11_ms": int8_times["K11"][0], "k11_split_half_ms": int8_times["K11_vs_split"][1],
         "k11_device_ms": int8_times["K11_vs_split_device"][0],
         "k11_split_half_device_ms": int8_times["K11_vs_split_device"][1],
-        "eval_cache_build_img_per_s": EVAL_IMAGES / evalk["first"]["build_s"],
-        "eval_img_per_s": EVAL_IMAGES / evalk["first"]["eval_s"],
+        "eval_cache_build_img_per_s": DINOV2.eval_images / evalk["first"]["build_s"],
+        "eval_img_per_s": DINOV2.eval_images / evalk["first"]["eval_s"],
         "eval_native_scored": evalk["first"]["scored"]["native"],
         "eval_metrics_s_native": evalk["second"]["split"]["metrics"],
         "eval_metrics_s_numpy": evalk["numpy"]["split"]["metrics"] if "numpy" in evalk else None,
-        "eval_from_cache_img_per_s": EVAL_IMAGES / evalk["second"]["eval_s"],
+        "eval_from_cache_img_per_s": DINOV2.eval_images / evalk["second"]["eval_s"],
         "eval_look_twice_crops": evalk["first"]["crops"], "eval_device_busy": evalk["busy"],
         "eval_cached_features_max_abs_err": evalk["err"],
         "train_cache_build_img_per_s": train["cache_build_img_per_s"],
@@ -4444,9 +4696,9 @@ def main(argv=None) -> int:
         "pseudo_label_img_per_s": pl["img_per_s"], "pseudo_label_device_busy": pl["busy"],
         "pseudo_label_cls_attention_max_abs_err": pl["err_cls_attention"],
         "pseudo_label_key_tokens_max_abs_err": pl["err_key_tokens"], "pseudo_label_mask_differ": pl["mask_differ"],
-        "coral_eval_img_per_s": CORAL_VAL_IMAGES / coral["first"]["eval_s"],
-        "coral_eval_from_cache_img_per_s": CORAL_VAL_IMAGES / coral["second"]["eval_s"],
-        "coral_cache_build_img_per_s": CORAL_VAL_IMAGES / coral["first"]["build_s"],
+        "coral_eval_img_per_s": DINOV2.coral_val_images / coral["first"]["eval_s"],
+        "coral_eval_from_cache_img_per_s": DINOV2.coral_val_images / coral["second"]["eval_s"],
+        "coral_cache_build_img_per_s": DINOV2.coral_val_images / coral["first"]["build_s"],
         "coral_refined_max_abs_err": coral["err"], "coral_centre_crop_fallbacks": coral["first"]["crops"],
         "refine_predictor_m_patches_img_per_s": coral["serve_img_s"],
         "refine_predictor_int8_img_per_s": coral["serve_int8_img_s"],
@@ -4471,7 +4723,7 @@ def main(argv=None) -> int:
         "remat_step_ms": dots["ms"], "remat_peak_gib": dots["peak_gib"], "remat_dots_grad_rel_diff": dots["grad_rel"],
         "remat_dots_grad_max_diff": dots["grad_max_diff"],
         "dryrun_wall_s": dry["wall_s"], "dryrun_part_s": {k: v["seconds"] for k, v in dry.items() if k.isdigit()},
-        "soak_wall_s": soaked["wall_s"], "soak_counts": soaked["counts"],
+        "soak_wall_s": soaked["wall_s"], "soak_counts": soaked["counts"], **_w_summary(w),
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -4518,7 +4770,8 @@ def main(argv=None) -> int:
                 "sp_launches": sp["launches"]["seq=4 756px"].get(key, 0),
                 "sp_lora_launches": sp_lora["launches"].get(key, 0),
                 "dryrun_launches": _dryrun_launches(dry, kid),
-                "soak_launches": {v: c.get(_dry_key(kid), 0) for v, c in soaked["launches"].items()}, **device}
+                "soak_launches": {v: c.get(_dry_key(kid), 0) for v, c in soaked["launches"].items()},
+                "dinov1_launches": _w_launches(w, key), **device}
 
     def sp_chunk(kid):
         """K2 and K3/K4 at the ring's 756px chunk, (4, 730, 768), f32 out (phase Q0)."""

@@ -10,7 +10,10 @@ each on the same numpy inputs and weights as its JAX counterpart.  Small
 width: DINO 64 hidden, 3 layers, 4 heads of 16 at 56px (the JAX package
 sends them to its XLA attention); the refiner at dim 64 with 4 heads (8 in
 the loops, as both packages' trainers run it), window size 3, window length
-8.  float32 throughout.
+8.  The entries also run on DINOv1's twin (ViT-B/8's patch 8, eps 1e-12, no
+layerscale and 28 x 28 position grid, 128 wide in two heads of 64, its
+m-patches at 432px), as CORAL_dinov1.py runs them with m-patches in val.
+float32 throughout.
 
 Tolerances: the pools 1e-6 (two f32 products of bin matrices, or one f32
 window sum, in other orders); the refiner's functions 1e-5 (f32 products
@@ -63,6 +66,10 @@ from ucod_dpl_tpu_torch.serving import RefinePredictor as TPredictor
 DIM = 64
 HEADS = 4
 ARCH = {"hidden_size": DIM, "num_layers": 3, "num_heads": 4, "patch_size": 14, "image_size": 56}
+# the entries' backbone and refiner width by family
+DIMS = {"dinov2": DIM, "dinov1": 128}
+ARCHS = {"dinov2": ARCH, "dinov1": {"hidden_size": 128, "num_layers": 3, "num_heads": 2}}
+BACKBONES = {"dinov2": "facebook/dinov2-base", "dinov1": "facebook/dino-vitb8"}
 KEYS = ("ACC", "mIOU", "E_MAX", "E_MEAN", "F_MAX", "F_MEAN", "SMeasure", "MAE", "WFM")
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -333,12 +340,12 @@ def _write_images(root, name, n, seed, labels=True):
             Image.fromarray(mask).save(root / name / "gt" / f"img{i}.png")
 
 
-def _cfg_dict(root, tag, weights, m_patches=False, val_batch=2):
+def _cfg_dict(root, tag, weights, m_patches=False, val_batch=2, variant="dinov2"):
     return {
         "work_dir": str(root / f"work_{tag}"),
         "mode": "eval",
         "seed": 42,
-        "model_cfg": {"dim": DIM, "feature_size": 8, "dis_use_features": False, "ema_weight": 0.99,
+        "model_cfg": {"dim": DIMS[variant], "feature_size": 8, "dis_use_features": False, "ema_weight": 0.99,
                       "window_size": 3, "window_length": 8, "threshold": 0.0015},
         "val_cfg": {"look_twice": False, "enable_val": True, "metric_workers": 0},
         "log_cfg": {"log_path": str(root / f"logs_{tag}"), "multi_rank": [0]},
@@ -351,48 +358,65 @@ def _cfg_dict(root, tag, weights, m_patches=False, val_batch=2):
             "trainset_cfg": {"DATASET": "TINY", "require_label": True, "image_size": (56, 56)},
             "val_loader_cfg": {"batch_size": val_batch},
             "trainloader_cfg": {"batch_size": 2, "shuffle": True},
-            "feature_extractor_cfg": {"type": "dinov2", "backbone": "facebook/dinov2-base",
-                                      "backbone_weights": str(weights), "arch": dict(ARCH)},
+            "feature_extractor_cfg": {"type": variant, "backbone": BACKBONES[variant],
+                                      "backbone_weights": str(weights), "arch": dict(ARCHS[variant])},
         },
     }
 
 
+# the entries' cases on DINOv1 (``world`` parametrised indirectly): those
+# with m-patches, the path CORAL_dinov1.py takes in val and train
+def _with_dinov1(names, cases, dinov1_cases):
+    """``pytest.mark.parametrize`` over ``world`` + ``names``: each of
+    ``cases`` on dinov2 under its own id, then each of ``dinov1_cases``."""
+    def case_id(case):
+        return "-".join(str(v) for v in case)
+
+    params = [pytest.param("dinov2", *c, id=case_id(c)) for c in cases]
+    params += [pytest.param("dinov1", *c, id=f"dinov1-{case_id(c)}") for c in dinov1_cases]
+    return pytest.mark.parametrize(",".join(["world", *names]), params, indirect=["world"])
+
+
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world(tmp_path_factory, request):
     """5 images with labels, one backbone, a decoder whose coarse
     predictions mark about a third of the pixels (its fg bias at the 67th
     percentile of its logits on these images) and one that marks none (every
     sample takes the centre-crop fallback), and a refiner checkpoint."""
-    root = tmp_path_factory.mktemp("coral")
+    variant = getattr(request, "param", "dinov2")
+    dim = DIMS[variant]
+    root = tmp_path_factory.mktemp(f"coral_{variant}")
     _write_images(root / "RefCOD", "TINY", 5, 0)
-    dcfg = dataclasses.replace(DinoConfig.from_type("dinov2"), **ARCH)
+    dcfg = dataclasses.replace(DinoConfig.from_type(variant), **ARCHS[variant])
     (root / "hf").mkdir()
     save_hf_checkpoint(str(root / "hf" / "model.safetensors"), init_dino(0, dcfg), dcfg)
-    fe = TFE(TCfg(_cfg_dict(root, "x", root / "hf")["dataset_cfg"]["feature_extractor_cfg"]), device="cpu")
+    fe = TFE(TCfg(_cfg_dict(root, "x", root / "hf", variant=variant)["dataset_cfg"]["feature_extractor_cfg"]),
+             device="cpu")
     paths = sorted((root / "RefCOD" / "TINY" / "im").iterdir())
     feats = torch.from_numpy(fe.extract(load_image_batch_transform(paths, (56, 56))))
-    dec = init_rev_decoder(1, DIM)
+    dec = init_rev_decoder(1, dim)
     fg = rev_decoder_forward_resized(dec, feats, 8)[0]
     mixed = dec._replace(conv_out_fg_b=dec.conv_out_fg_b - torch.quantile(fg.flatten(), 0.67))
     empty = dec._replace(conv_out_fg_b=dec.conv_out_fg_b - 1e3)
     ckpts = {}
     for name, d in (("mixed", mixed), ("empty", empty)):
         ckpts[name] = str(root / f"decoder_{name}.safetensors")
-        save_decoder_checkpoint(ckpts[name], d, init_rev_decoder(2, DIM))
-    jp = jax.tree_util.tree_map(np.asarray, JU.init_sparse_refiner(jax.random.PRNGKey(9), dim=DIM))
+        save_decoder_checkpoint(ckpts[name], d, init_rev_decoder(2, dim))
+    jp = jax.tree_util.tree_map(np.asarray, JU.init_sparse_refiner(jax.random.PRNGKey(9), dim=dim))
     refiner = str(root / "refiner.safetensors")
     JU.save_refiner_checkpoint(refiner, jp)
-    return dict(root=root, weights=root / "hf", ckpts=ckpts, refiner=refiner, fe=fe)
+    return dict(root=root, weights=root / "hf", ckpts=ckpts, refiner=refiner, fe=fe, variant=variant, dim=dim,
+                grid=56 // dcfg.patch_size)
 
 
-@pytest.mark.parametrize("m_patches", [False, True])
+@_with_dinov1(["m_patches"], [(False,), (True,)], [(True,)])
 def test_lr_dataset_caches_read_by_either_package(world, m_patches):
     """Each package builds its own grid- and m-patch caches (the port in
     one chunk of 2 images: cache_build_batch 18 over 9 crops an image); the
     entries agree, and each package's dataset reads the other's caches."""
-    root, weights = world["root"], world["weights"]
+    root, weights, dim, g = world["root"], world["weights"], world["dim"], world["grid"]
     tag = f"ds{int(m_patches)}"
-    fe_cfg = _cfg_dict(root, tag, weights)["dataset_cfg"]["feature_extractor_cfg"]
+    fe_cfg = _cfg_dict(root, tag, weights, variant=world["variant"])["dataset_cfg"]["feature_extractor_cfg"]
     kw = dict(dataset_dir=str(root / "RefCOD"), mode="test", image_size=(56, 56), require_label=True,
               keep_size=True, window_size=3, require_m_patches=m_patches, cache_build_batch=18)
     set_cfg = {"DATASET": "TINY"}
@@ -409,7 +433,7 @@ def test_lr_dataset_caches_read_by_either_package(world, m_patches):
     assert cross_t.patch_build_seconds is None  # read, not built
     for i in range(5):
         a, b, ct, cj = tds[i], jds[i], cross_t[i], cross_j[i]
-        assert a["h_inputs"].shape == (9, 4, 4, DIM)
+        assert a["h_inputs"].shape == (9, g, g, dim)
         for key in ("features", "h_inputs", "m_inputs"):
             if not m_patches and key == "m_inputs":
                 assert a[key] is None and b[key] is None
@@ -418,7 +442,7 @@ def test_lr_dataset_caches_read_by_either_package(world, m_patches):
             np.testing.assert_array_equal(ct[key], b[key])
             np.testing.assert_array_equal(cj[key], a[key])
         if m_patches:
-            assert a["m_inputs"].shape == (4, 36, 36, DIM)
+            assert a["m_inputs"].shape == (4, 36, 36, dim)
     got = tds.get_features(str(tds.image_paths[1]), crop_center=True)
     want = jds.get_features(str(jds.image_paths[1]), crop_center=True)
     for g, w in zip(got, want):
@@ -433,8 +457,8 @@ def _masks(log_path):
     return {f: np.asarray(Image.open(os.path.join(d, f))) for f in sorted(os.listdir(d))}
 
 
-@pytest.mark.parametrize("decoder,m_patches,val_batch", [("mixed", False, 2), ("mixed", True, 2),
-                                                         ("empty", False, 3)])
+@_with_dinov1(["decoder", "m_patches", "val_batch"], [("mixed", False, 2), ("mixed", True, 2), ("empty", False, 3)],
+              [("mixed", True, 2)])
 def test_cli_lt_eval_matches_jax(world, tmp_path, capsys, decoder, m_patches, val_batch):
     """``cli.lt_eval_main`` on both packages, same config file, decoder and
     refiner checkpoints: the printed lines, the metrics (the port's runner
@@ -444,7 +468,8 @@ def test_cli_lt_eval_matches_jax(world, tmp_path, capsys, decoder, m_patches, va
     root = world["root"]
     lines, runs = {}, {}
     for name, main, extra in (("jax", JCLI.lt_eval_main, []), ("port", TCLI.lt_eval_main, ["--device", "cpu"])):
-        cfg = _cfg_dict(tmp_path, name, world["weights"], m_patches=m_patches, val_batch=val_batch)
+        cfg = _cfg_dict(tmp_path, name, world["weights"], m_patches=m_patches, val_batch=val_batch,
+                        variant=world["variant"])
         cfg["dataset_cfg"]["dataset_dir"] = str(root / "RefCOD")
         (tmp_path / f"coral_{name}.py").write_text(f"cfg = {cfg!r}\n")
         runs[name] = main(["-c", str(tmp_path / f"coral_{name}.py"), "--work_dir", str(tmp_path / f"wd_{name}"),
@@ -456,7 +481,8 @@ def test_cli_lt_eval_matches_jax(world, tmp_path, capsys, decoder, m_patches, va
     runner = runs["port"]["TINY"]
     assert isinstance(runner, TRunner)
     assert runner.evaluator.crops == (5 if decoder == "empty" else 0)
-    jcfg = JCfg(_cfg_dict(tmp_path, "jax", world["weights"], m_patches=m_patches, val_batch=val_batch))
+    jcfg = JCfg(_cfg_dict(tmp_path, "jax", world["weights"], m_patches=m_patches, val_batch=val_batch,
+                          variant=world["variant"]))
     jcfg.dataset_cfg.dataset_dir = str(root / "RefCOD")
     jres = JRunner(jcfg, mode="eval", load_from=world["ckpts"][decoder], refiner_path=world["refiner"]).launch_val()
     assert set(runner.evaluator.result) == set(KEYS)
@@ -469,14 +495,14 @@ def test_cli_lt_eval_matches_jax(world, tmp_path, capsys, decoder, m_patches, va
         np.testing.assert_array_equal(got[f], want[f])
 
 
-@pytest.mark.parametrize("use_m_patches", [False, True])
+@_with_dinov1(["use_m_patches"], [(False,), (True,)], [(True,)])
 def test_refine_predictor_matches_jax(world, use_m_patches):
     """``RefinePredictor.predict`` on both packages from the same files
     (``from_config`` on the port): 3 images in chunks of 2 (a padded tail),
     masks equal, soft masks to 1e-5, one uint8 array input; the empty
     decoder takes the centre-crop fallback."""
     root = world["root"]
-    cfg = _cfg_dict(root, "serve", world["weights"], m_patches=use_m_patches)
+    cfg = _cfg_dict(root, "serve", world["weights"], m_patches=use_m_patches, variant=world["variant"])
     (root / f"serve_{int(use_m_patches)}.py").write_text(f"cfg = {cfg!r}\n")
     paths = [str(p) for p in sorted((root / "RefCOD" / "TINY" / "im").iterdir())[:3]]
     arr = np.asarray(Image.open(paths[0]).convert("RGB"))

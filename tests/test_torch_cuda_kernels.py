@@ -3,7 +3,9 @@ forward (K1 at every head dim and head count, also with its log-sum-exp
 output, and on the per-head layout, K5), the attention backward (also equal
 bit for bit from call to call), both with a key bound and f32 outputs and
 as the sequence-parallel ring, K6, K7
-(LayerNorm + fc1 + GELU), the int8 kernels K8-K11, and the fusion
+(LayerNorm + fc1 + GELU), the int8 kernels K8-K11 (K6, K8 and K9 also at
+DINOv1's LayerNorm eps 1e-12 with a constant row, and K1 at its 224px
+length 785), and the fusion
 prototypes' ports K12 (attention + out-projection + layerscale + residual)
 and K13 (the patch embed as one im2col GEMM); the K1 variants that port the
 TPU attention prototypes (``tools/attention_ab.py``) and compute K1's
@@ -275,6 +277,65 @@ def test_layernorm_qkv_kernel_edge_shapes(dev, rows, d):
     for o, r in zip(outs, layernorm_qkv_reference(x, norm, *lins, 1e-6)):
         assert torch.isfinite(o).all()
         assert (o.float() - r.float()).abs().max().item() <= 0.02 * r.float().abs().max().item()
+
+
+# DINOv1 (ViT-B/8): LayerNorm eps 1e-12, a constant row (variance 0: eps
+# alone keeps rstd finite) and a row of standard deviation 1e-2
+def _dinov1_rows(g, dev, rows, d):
+    x = torch.randn(1, rows, d, generator=g, device=dev)
+    x[0, 3] = 0.75
+    x[0, 5] = 0.5 + 1e-2 * torch.randn(d, generator=g, device=dev)
+    return x.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows", [129, 16 * 1370])
+def test_layernorm_qkv_kernel_at_dinov1_eps(dev, rows):
+    """K6 at eps 1e-12 (ViT-B/8's LayerNorm) against its plain version, the
+    constant row giving LN's bias through each projection."""
+    d = 768
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = _dinov1_rows(g, dev, rows, d)
+    norm = {"scale": 1 + 0.1 * torch.randn(d, generator=g, device=dev),
+            "bias": 0.1 * torch.randn(d, generator=g, device=dev)}
+    lins = [{"w": (torch.randn(d, d, generator=g, device=dev) / d ** 0.5).to(torch.bfloat16),
+             "b": 0.1 * torch.randn(d, generator=g, device=dev)} for _ in range(3)]
+    outs = layernorm_qkv(x, norm, *lins, 1e-12, out=tuple(torch.full_like(x, float("nan")) for _ in range(3)))
+    for o, r in zip(outs, layernorm_qkv_reference(x, norm, *lins, 1e-12)):
+        assert torch.isfinite(o).all()
+        assert (o.float() - r.float()).abs().max().item() <= 0.02 * r.float().abs().max().item()
+
+
+@pytest.mark.parametrize("rows", [129, 16 * 1370])
+def test_int8_layernorm_kernels_at_dinov1_eps(dev, rows):
+    """K8 and K9 through their wrappers at eps 1e-12, a constant row
+    included, against their plain versions (phase D's bounds)."""
+    d, f = 768, 3072
+    g = torch.Generator(device=dev).manual_seed(7 * rows)
+    x = _dinov1_rows(g, dev, rows, d)
+    norm = {"scale": 1 + 0.1 * torch.randn(d, generator=g, device=dev),
+            "bias": 0.1 * torch.randn(d, generator=g, device=dev)}
+    q8 = [_q8(g, dev, d, d) for _ in range(3)]
+    h_s = quantize_act(FL._layernorm_f32(x, norm, 1e-12))[1]
+    outs = FL.layernorm_qkv_w8a8(x, norm, *q8, 1e-12, out=tuple(torch.full_like(x, float("nan")) for _ in range(3)))
+    for o, r, qp in zip(outs, FL.layernorm_qkv_w8a8_reference(x, norm, *q8, 1e-12), q8):
+        _assert_int8_close(o, r, h_s, qp["w_s"])
+    fc1 = _q8(g, dev, d, f)
+    codes = torch.full((1, rows, f), -128, dtype=torch.int8, device=dev)
+    scales = torch.full((1, rows, 1), float("nan"), device=dev)
+    FL.layernorm_fc1_gelu_w8a8(x, norm, fc1, 1e-12, out=(codes, scales))
+    _assert_codes_close(codes, scales, *FL.layernorm_fc1_gelu_w8a8_reference(x, norm, fc1, 1e-12))
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_attention_kernel_at_the_pseudo_label_length_of_dinov1(dev, b):
+    """K1 at L 785 (ViT-B/8 at 224px: 28 x 28 patches and CLS), 12 heads of
+    64, into a NaN-filled output, against its plain version."""
+    g = torch.Generator(device=dev).manual_seed(785 + b)
+    q, k, v = (torch.randn(b, 785, 768, generator=g, device=dev).to(torch.bfloat16) for _ in range(3))
+    out = packed_attention(q, k, v, 12, 0.125, out=torch.full_like(q, float("nan")))
+    ref = packed_attention_reference(q, k, v, 12, 0.125).float()
+    assert torch.isfinite(out).all()
+    assert (out.float() - ref).abs().max().item() <= 2.0 ** -6 * ref.abs().max().item()
 
 
 def test_kernels_count_launches_and_reject_what_they_do_not_take(dev):

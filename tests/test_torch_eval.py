@@ -3,7 +3,9 @@
 ``cli eval`` -> ``Runner`` -> ``CODDataset`` feature-cache build ->
 ``LookTwiceEvaluator`` -> ``CODStatistics`` on both sides, with the tiny
 configuration of tests/test_eval_e2e.py (DIM 64, feature size 8, 56px, a
-2-layer backbone) in float32.  Both sides load the same backbone (a seeded
+2-layer backbone) in float32, and its DINOv1 twin (ViT-B/8's patch 8, eps
+1e-12, no layerscale and 28 x 28 position grid, at 128 wide in two heads of
+64: a 7 x 7 grid at 56px).  Both sides load the same backbone (a seeded
 HuggingFace-layout checkpoint written by the port) and the same decoder
 checkpoint; the images are seeded numpy arrays written as JPEG/PNG.  The
 JAX side runs as test_eval_e2e.py runs it on the CPU.  Tolerances: cached
@@ -48,9 +50,15 @@ from ucod_dpl_tpu_torch.models.safetensors_io import save_decoder_checkpoint
 from ucod_dpl_tpu_torch.utils.fileio import ArrayCache as TCache
 from ucod_dpl_tpu_torch.utils.metrics import CODStatistics as TStats
 
+from test_torch_dinov1 import on_dinov1
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DIM = 64
 ARCH = {"hidden_size": DIM, "num_layers": 2, "num_heads": 4, "patch_size": 14, "image_size": 56}
+DIMS = {"dinov2": DIM, "dinov1": 128}
+ARCHS = {"dinov2": ARCH, "dinov1": {"hidden_size": 128, "num_layers": 2, "num_heads": 2}}
+GRIDS = {"dinov2": 4, "dinov1": 7}  # the patch grid at 56px
+BACKBONES = {"dinov2": "facebook/dinov2-base", "dinov1": "facebook/dino-vitb8"}
 SIZES = ((80, 100), (90, 70))  # two image sizes, alternating
 N_IMAGES = 5
 KEYS = ("ACC", "mIOU", "E_MAX", "E_MEAN", "F_MAX", "F_MEAN", "SMeasure", "MAE", "WFM")
@@ -69,14 +77,14 @@ def _make_dataset(root, name="TINY", n=N_IMAGES):
         Image.fromarray(mask).save(gt / f"img{i}.png")
 
 
-def _cfg_dict(root, tag, weights, look_twice=True, val_batch=1):
-    """tests/test_eval_e2e.py's tiny configuration, float32, with its own
-    cache and log directories per ``tag``."""
+def _cfg_dict(root, tag, weights, look_twice=True, val_batch=1, variant="dinov2"):
+    """tests/test_eval_e2e.py's tiny configuration (or its ``variant``
+    twin), float32, with its own cache and log directories per ``tag``."""
     return {
         "work_dir": str(root / f"work_{tag}"),
         "mode": "eval",
         "seed": 42,
-        "model_cfg": {"dim": DIM, "feature_size": 8, "dis_use_features": False, "ema_weight": 0.99},
+        "model_cfg": {"dim": DIMS[variant], "feature_size": 8, "dis_use_features": False, "ema_weight": 0.99},
         "val_cfg": {"look_twice": look_twice, "look_twice_th": 0.95, "expand_type": "dynamic",
                     "enable_val": True, "metric_workers": 0},
         "log_cfg": {"log_path": str(root / f"logs_{tag}"), "multi_rank": [0]},
@@ -88,8 +96,8 @@ def _cfg_dict(root, tag, weights, look_twice=True, val_batch=1):
             "trainset_cfg": {"DATASET": "TINY", "require_label": False, "image_size": (56, 56), "bkg_th": 0.6},
             "val_loader_cfg": {"batch_size": val_batch},
             "trainloader_cfg": {"batch_size": 2, "shuffle": True},
-            "feature_extractor_cfg": {"type": "dinov2", "backbone": "facebook/dinov2-base",
-                                      "backbone_weights": str(weights), "arch": dict(ARCH)},
+            "feature_extractor_cfg": {"type": variant, "backbone": BACKBONES[variant],
+                                      "backbone_weights": str(weights), "arch": dict(ARCHS[variant])},
         },
     }
 
@@ -113,56 +121,62 @@ def _assert_metrics_close(got, want, tol):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world(tmp_path_factory, request):
     """A 5-image dataset, one backbone and one decoder checkpoint, and three
     runs: the JAX package (its own cache), the port building its own cache,
     and the port reading the JAX package's cache."""
-    root = tmp_path_factory.mktemp("eval")
+    variant = getattr(request, "param", "dinov2")  # an indirect parameter names another family
+    root = tmp_path_factory.mktemp(f"eval_{variant}")
     _make_dataset(root / "RefCOD")
-    dcfg = dataclasses.replace(DinoConfig.from_type("dinov2"), **ARCH)
+    dcfg = dataclasses.replace(DinoConfig.from_type(variant), **ARCHS[variant])
     weights = root / "hf"
     weights.mkdir()
     save_hf_checkpoint(str(weights / "model.safetensors"), init_dino(0, dcfg), dcfg)
 
     # a decoder whose first pass marks about a third of the pixels: its fg
     # bias moved to the 67th percentile of the logits on these images
-    fe = FeatureExtractor(TCfg(_cfg_dict(root, "x", weights)["dataset_cfg"]["feature_extractor_cfg"]),
-                          device="cpu")
+    fe = FeatureExtractor(TCfg(_cfg_dict(root, "x", weights, variant=variant)["dataset_cfg"]
+                               ["feature_extractor_cfg"]), device="cpu")
     paths = sorted((root / "RefCOD" / "TINY" / "im").iterdir())
     feats = torch.from_numpy(fe.extract(load_image_batch_transform(paths, (56, 56))))
-    dec = init_rev_decoder(1, DIM)
+    dec = init_rev_decoder(1, DIMS[variant])
     fg, _, _ = rev_decoder_forward_resized(dec, feats, 8)
     dec = dec._replace(conv_out_fg_b=dec.conv_out_fg_b - torch.quantile(fg.flatten(), 0.67))
     ckpt = str(root / "decoder.safetensors")
-    save_decoder_checkpoint(ckpt, dec, init_rev_decoder(2, DIM))
+    save_decoder_checkpoint(ckpt, dec, init_rev_decoder(2, DIMS[variant]))
 
-    jrun = JRunner(JCfg(_cfg_dict(root, "jax", weights)), mode="eval", load_from=ckpt)
+    jrun = JRunner(JCfg(_cfg_dict(root, "jax", weights, variant=variant)), mode="eval", load_from=ckpt)
     jres = jrun.launch_val_look_twice()
-    trun = TRunner(TCfg(_cfg_dict(root, "port", weights)), mode="eval", load_from=ckpt, device="cpu")
+    trun = TRunner(TCfg(_cfg_dict(root, "port", weights, variant=variant)), mode="eval", load_from=ckpt,
+                   device="cpu")
     tres = trun.launch_val_look_twice()
-    shared = _cfg_dict(root, "shared", weights)
+    shared = _cfg_dict(root, "shared", weights, variant=variant)
     shared["dataset_cfg"]["cache_dir"] = str(root / "cache_jax")
     srun = TRunner(TCfg(shared), mode="eval", load_from=ckpt, device="cpu")
     sres = srun.launch_val_look_twice()
     return dict(root=root, weights=weights, ckpt=ckpt, jrun=jrun, jres=jres, trun=trun, tres=tres,
-                srun=srun, sres=sres)
+                srun=srun, sres=sres, variant=variant)
 
 
 def test_feature_cache_matches_jax(world):
     """The port's cache build against the JAX package's, entry by entry, in
     the same layout with the same identity sidecar."""
-    sub = os.path.join("features_cache", "dinov2", "test", "TINY")
+    variant = world["variant"]
+    sub = os.path.join("features_cache", variant, "test", "TINY")
     jc = JCache(os.path.join(world["root"], "cache_jax", sub))
     tc = TCache(os.path.join(world["root"], "cache_port", sub))
     assert jc.mode == tc.mode == "r" and len(jc) == len(tc) == N_IMAGES
     assert jc.read_meta() == tc.read_meta()
     for i in range(N_IMAGES):
         a, b = jc.read(i), tc.read(i)
-        assert a.shape == b.shape == (4, 4, DIM) and b.dtype == np.float32
+        assert a.shape == b.shape == (GRIDS[variant], GRIDS[variant], DIMS[variant]) and b.dtype == np.float32
         np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
     # the port's own cache gives masks and metrics like the JAX package's
     _assert_masks_agree(_masks(world["trun"].log_path), _masks(world["jrun"].log_path), share=0.99)
     _assert_metrics_close(world["tres"], world["jres"], 1e-2)
+
+
+test_feature_cache_matches_jax_on_dinov1 = on_dinov1(test_feature_cache_matches_jax, "world")
 
 
 def test_masks_bboxes_and_metrics_match_jax_from_one_cache(world):
@@ -190,6 +204,10 @@ def test_masks_bboxes_and_metrics_match_jax_from_one_cache(world):
     _assert_metrics_close(world["sres"], world["jres"], 1e-6)
 
 
+test_masks_bboxes_and_metrics_match_jax_from_one_cache_on_dinov1 = on_dinov1(
+    test_masks_bboxes_and_metrics_match_jax_from_one_cache, "world")
+
+
 @pytest.mark.parametrize("case", ["look_twice_off", "val_batch_4"])
 def test_eval_variants_match_jax(world, case):
     """tests/test_eval_e2e.py's cases mirrored: LookTwice off against the JAX
@@ -197,16 +215,19 @@ def test_eval_variants_match_jax(world, case):
     padded tail of 1) against the batch-1 run."""
     root, weights, ckpt = world["root"], world["weights"], world["ckpt"]
     d = _cfg_dict(root, f"{case}_port", weights, look_twice=case != "look_twice_off",
-                  val_batch=4 if case == "val_batch_4" else 1)
+                  val_batch=4 if case == "val_batch_4" else 1, variant=world["variant"])
     d["dataset_cfg"]["cache_dir"] = str(root / "cache_jax")
     got = TRunner(TCfg(d), mode="eval", load_from=ckpt, device="cpu").launch_val_look_twice()
     if case == "val_batch_4":
         want = world["sres"]
     else:
-        j = _cfg_dict(root, f"{case}_jax", weights, look_twice=False)
+        j = _cfg_dict(root, f"{case}_jax", weights, look_twice=False, variant=world["variant"])
         j["dataset_cfg"]["cache_dir"] = str(root / "cache_jax")
         want = JRunner(JCfg(j), mode="eval", load_from=ckpt).launch_val_look_twice()
     _assert_metrics_close(got, want, 1e-6)
+
+
+test_eval_variants_match_jax_on_dinov1 = on_dinov1(test_eval_variants_match_jax, "world")
 
 
 def test_load_latest_checkpoint_and_interchange(world):
@@ -227,6 +248,9 @@ def test_load_latest_checkpoint_and_interchange(world):
     for f in os.listdir(runner.ckp_dir):
         os.unlink(os.path.join(runner.ckp_dir, f))
     assert runner.load_latest_checkpoint() is None
+
+
+test_load_latest_checkpoint_and_interchange_on_dinov1 = on_dinov1(test_load_latest_checkpoint_and_interchange, "world")
 
 
 def _metric_pairs():
@@ -385,7 +409,7 @@ def test_cli_eval_prints_the_jax_results(world, tmp_path, capsys):
     lines = {}
     for name, main, extra in (("jax", JCLI.eval_main, []), ("port", TCLI.eval_main, ["--device", "cpu"])):
         cfg_path = tmp_path / f"tiny_{name}.py"
-        _write_config(cfg_path, _cfg_dict(tmp_path, name, world["weights"]))
+        _write_config(cfg_path, _cfg_dict(tmp_path, name, world["weights"], variant=world["variant"]))
         main(["-c", str(cfg_path), "--work_dir", str(tmp_path / f"wd_{name}"), "--load_from", world["ckpt"],
               "--datasets", "TINY", *extra, "--opts", "dataset_cfg.dataset_dir", str(world["root"] / "RefCOD")])
         out = capsys.readouterr().out.splitlines()
@@ -393,12 +417,16 @@ def test_cli_eval_prints_the_jax_results(world, tmp_path, capsys):
     assert len(lines["port"]) == 2 and lines["port"] == lines["jax"], lines
 
 
-def test_cli_eval_on_the_shipped_config_runs_on_the_cpu(tmp_path, capsys):
+test_cli_eval_prints_the_jax_results_on_dinov1 = on_dinov1(test_cli_eval_prints_the_jax_results, "world")
+
+
+def test_cli_eval_on_the_shipped_config_runs_on_the_cpu(tmp_path, capsys, variant="dinov2"):
     """``python3 -m ucod_dpl_tpu_torch.cli eval -c configs/uscod/UCOD-DPL_dinov2.py
     --device cpu --opts ...``: the full-width DINOv2-base backbone (random
-    weights: none are in the repository) at 56px, float32, on 3 images."""
+    weights: none are in the repository) at 56px, float32, on 3 images; and
+    the same on UCOD-DPL_dinov1.py (ViT-B/8, a 7 x 7 grid at 56px)."""
     _make_dataset(tmp_path / "RefCOD", name="SYN", n=3)
-    argv = ["eval", "-c", os.path.join(REPO, "configs", "uscod", "UCOD-DPL_dinov2.py"), "--device", "cpu",
+    argv = ["eval", "-c", os.path.join(REPO, "configs", "uscod", f"UCOD-DPL_{variant}.py"), "--device", "cpu",
             "--work_dir", str(tmp_path / "wd"), "--datasets", "SYN", "--opts",
             "dataset_cfg.dataset_dir", str(tmp_path / "RefCOD"), "dataset_cfg.cache_dir", str(tmp_path / "cache"),
             "dataset_cfg.valset_cfg.image_size", "(56, 56)", "model_cfg.feature_size", "8",
@@ -407,11 +435,15 @@ def test_cli_eval_on_the_shipped_config_runs_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     line = [s for s in out.splitlines() if s.startswith("SYN ")]
     assert len(line) == 1 and all(k in line[0] for k in KEYS), out
-    cache = TCache(tmp_path / "cache" / "features_cache" / "dinov2" / "test" / "SYN")
-    assert cache.mode == "r" and cache.read(0).shape == (4, 4, 768)
+    cache = TCache(tmp_path / "cache" / "features_cache" / variant / "test" / "SYN")
+    assert cache.mode == "r" and cache.read(0).shape == (GRIDS[variant], GRIDS[variant], 768)
     assert TCLI.main(["serve"]) == 2
     with pytest.raises(FileNotFoundError, match="Config file not found"):  # train is ported: it reads its config
         TCLI.main(["train", "-c", "x"])
     with pytest.raises(ValueError, match="does not exist"):  # ported: it parses its flags, refuses a missing dir
         TCLI.main(["generate_pseudo_label", "--image_path", str(tmp_path / "missing" / "{}"), "--device", "cpu",
                    "--backbone_weights", str(tmp_path / "none")])
+
+
+test_cli_eval_on_the_shipped_config_runs_on_the_cpu_on_dinov1 = on_dinov1(
+    test_cli_eval_on_the_shipped_config_runs_on_the_cpu)

@@ -6,9 +6,11 @@ extract_with_attention`` -> ``ops.pseudo_label.compute_background_mask`` and
 against its JAX counterpart on the same numpy inputs and weights, plus the
 port's copies of the bilateral solver and the visualisation helper.  Small
 width: 64 hidden, 3 layers, 4 heads of 16, patch 14, 56px (the JAX package
-sends 4 heads of 16 to its XLA attention, so no Pallas kernel runs there).
-The CLI runs at dinov2-base's full width (neither CLI has an architecture
-flag) over 17 tokens.
+sends 4 heads of 16 to its XLA attention, so no Pallas kernel runs there),
+and DINOv1's twin (ViT-B/8's patch 8, eps 1e-12, no layerscale and 28 x 28
+position grid, at 128 wide in two heads of 64: 7 x 7 patches at 56px).
+The CLI runs at each family's full width (neither CLI has an architecture
+flag; ``--fe_type`` picks the family) over 17 or 50 tokens.
 
 Tolerances: CLS attention and key tokens 1e-5 in float32 (the forward
 tolerance of tests/test_dino_parity.py:179); the weighted similarity map
@@ -52,14 +54,20 @@ from ucod_dpl_tpu_torch.utils import bilateral_solver as TBS
 from ucod_dpl_tpu_torch.utils import visualize as TVIS
 from ucod_dpl_tpu_torch.utils.fileio import ArrayCache as TCache
 
-ARCH = {"hidden_size": 64, "num_layers": 3, "num_heads": 4, "patch_size": 14, "image_size": 56}
+from test_torch_dinov1 import on_dinov1
+
+ARCHS = {"dinov2": {"hidden_size": 64, "num_layers": 3, "num_heads": 4, "patch_size": 14, "image_size": 56},
+         "dinov1": {"hidden_size": 128, "num_layers": 3, "num_heads": 2}}
+BACKBONES = {"dinov2": "facebook/dinov2-base", "dinov1": "facebook/dino-vitb8"}
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 @pytest.fixture(scope="module")
-def tiny():
-    cfg = dataclasses.replace(JD.DinoConfig.from_type("dinov2"), **ARCH)
-    tcfg = dataclasses.replace(TD.DinoConfig.from_type("dinov2"), **ARCH)
+def tiny(request):
+    variant = getattr(request, "param", "dinov2")  # an indirect parameter names another family
+    arch = ARCHS[variant]
+    cfg = dataclasses.replace(JD.DinoConfig.from_type(variant), **arch)
+    tcfg = dataclasses.replace(TD.DinoConfig.from_type(variant), **arch)
     jp = JD.init_dino(jax.random.PRNGKey(3), cfg)
     tp = C.dino_from_jax(jax.tree_util.tree_map(np.asarray, jp))
     return cfg, tcfg, jp, tp
@@ -76,29 +84,37 @@ def test_dino_cls_attention_matches_jax(tiny, hw):
     out_j = JD.dino_forward(jp, jnp.asarray(px), cfg, want_cls_attention=True)
     out_t = TD.dino_forward(tp, torch.from_numpy(px), tcfg, want_cls_attention=True)
     assert set(out_t) == {"key_tokens", "key_features", "cls_attention"}
-    assert tuple(out_t["cls_attention"].shape) == (3, 4, 1 + (hw[0] // 14) * (hw[1] // 14))
+    p = tcfg.patch_size
+    assert tuple(out_t["cls_attention"].shape) == (3, tcfg.num_heads, 1 + (hw[0] // p) * (hw[1] // p))
     for key in out_t:
         np.testing.assert_allclose(out_t[key].numpy(), np.asarray(out_j[key]), **TOL)
     np.testing.assert_allclose(out_t["cls_attention"].sum(-1).numpy(), 1.0, rtol=1e-5)
 
 
+test_dino_cls_attention_matches_jax_on_dinov1 = on_dinov1(test_dino_cls_attention_matches_jax, "tiny")
+
+
 def test_dino_cls_attention_refuses_fold_quant_and_tp(tiny):
     _, tcfg, _, tp = tiny
     px = torch.from_numpy(_pixels(2, b=1))
-    fold = (torch.zeros(8, 64), torch.zeros(8))
+    fold = (torch.zeros(8, tcfg.hidden_size), torch.zeros(8))
     with pytest.raises(ValueError, match="key_fold"):
         TD.dino_forward(tp, px, tcfg, key_fold=fold, want_cls_attention=True)
     with pytest.raises(ValueError, match="full-precision"):
         TD.dino_forward(tp, px, tcfg, quant=quantize_dino_linears(tp), want_cls_attention=True)
 
 
-def test_extract_with_attention_matches_jax_and_ignores_int8(tmp_path):
+test_dino_cls_attention_refuses_fold_quant_and_tp_on_dinov1 = on_dinov1(
+    test_dino_cls_attention_refuses_fold_quant_and_tp, "tiny")
+
+
+def test_extract_with_attention_matches_jax_and_ignores_int8(tmp_path, variant="dinov2"):
     """Both extractors on one seeded HF checkpoint; an int8 extractor of the
     port returns what its float32 twin does (no int8 linears on this path)."""
-    tcfg = dataclasses.replace(TD.DinoConfig.from_type("dinov2"), **ARCH)
+    tcfg = dataclasses.replace(TD.DinoConfig.from_type(variant), **ARCHS[variant])
     TD.save_hf_checkpoint(str(tmp_path / "model.safetensors"), TD.init_dino(4, tcfg), tcfg)
-    fe_cfg = {"type": "dinov2", "backbone": "facebook/dinov2-base", "backbone_weights": str(tmp_path),
-              "arch": dict(ARCH)}
+    fe_cfg = {"type": variant, "backbone": BACKBONES[variant], "backbone_weights": str(tmp_path),
+              "arch": dict(ARCHS[variant])}
     px = _pixels(5)
     got = TFE(TCfg(fe_cfg), device="cpu").extract_with_attention(px)
     want = JFE(JCfg(fe_cfg), compute_dtype=jnp.float32).extract_with_attention(px)
@@ -114,6 +130,10 @@ def test_extract_with_attention_matches_jax_and_ignores_int8(tmp_path):
         bad.extract_with_attention(px)
 
 
+test_extract_with_attention_matches_jax_and_ignores_int8_on_dinov1 = on_dinov1(
+    test_extract_with_attention_matches_jax_and_ignores_int8)
+
+
 def _near_threshold(jax_attn, jax_toks, grid, th, up_size, apply_weights):
     """Pixels whose JAX similarity lies within 1e-4 of ``th``: those the JAX
     masks at th - 1e-4 and th + 1e-4 disagree on."""
@@ -127,21 +147,25 @@ def _near_threshold(jax_attn, jax_toks, grid, th, up_size, apply_weights):
 @pytest.mark.parametrize("up_size,apply_weights,th", [(None, True, 0.6), (None, False, 0.3), (9, True, 0.5),
                                                       (16, True, 0.6)])
 def test_compute_background_mask_matches_jax(tiny, up_size, apply_weights, th):
-    """On the tiny backbone's own CLS attention and key tokens (4 x 4 grid),
-    at the grid's size and upsampled."""
+    """On the tiny backbone's own CLS attention and key tokens (4 x 4 grid;
+    7 x 7 at patch 8), at the grid's size and upsampled."""
     cfg, _, jp, _ = tiny
+    g = 56 // cfg.patch_size
     out = JD.dino_forward(jp, jnp.asarray(_pixels(6, b=4)), cfg, want_cls_attention=True)
     attn, toks = np.array(out["cls_attention"]), np.array(out["key_tokens"])
-    bkg_j, sim_j = JPL.compute_background_mask(jnp.asarray(attn), jnp.asarray(toks), (4, 4), th, up_size=up_size,
+    bkg_j, sim_j = JPL.compute_background_mask(jnp.asarray(attn), jnp.asarray(toks), (g, g), th, up_size=up_size,
                                                apply_weights=apply_weights)
-    bkg_t, sim_t = TPL.compute_background_mask(torch.from_numpy(attn), torch.from_numpy(toks), (4, 4), th,
+    bkg_t, sim_t = TPL.compute_background_mask(torch.from_numpy(attn), torch.from_numpy(toks), (g, g), th,
                                                up_size=up_size, apply_weights=apply_weights)
     assert bkg_t.dtype == sim_t.dtype == torch.float32 and tuple(bkg_t.shape) == bkg_j.shape
     np.testing.assert_allclose(sim_t.numpy(), np.asarray(sim_j), **TOL)
-    near = _near_threshold(jnp.asarray(attn), jnp.asarray(toks), (4, 4), th, up_size, apply_weights)
+    near = _near_threshold(jnp.asarray(attn), jnp.asarray(toks), (g, g), th, up_size, apply_weights)
     differ = bkg_t.numpy() != np.asarray(bkg_j)
     assert not (differ & ~near).any()
     assert 0 < np.asarray(bkg_j).mean() < 1  # both labels present: the rule compares something
+
+
+test_compute_background_mask_matches_jax_on_dinov1 = on_dinov1(test_compute_background_mask_matches_jax, "tiny")
 
 
 @pytest.mark.parametrize("seed,density,shape", [(0, 0.5, (16, 16)), (1, 0.2, (16, 16)), (2, 0.8, (16, 16)),
@@ -205,28 +229,29 @@ DATASETS = ("SET-A", "SET-B")
 
 
 @pytest.fixture(scope="module")
-def pl_world(tmp_path_factory):
+def pl_world(tmp_path_factory, request):
     """4 JPEGs in two dataset directories (blob images at two sizes), one
-    seeded full-width dinov2-base HF checkpoint, and both CLIs' caches at
-    56px in batches of 3."""
-    root = tmp_path_factory.mktemp("pl")
+    seeded full-width dinov2-base (or ViT-B/8) HF checkpoint, and both CLIs'
+    caches at 56px in batches of 3 (``--fe_type`` the family)."""
+    variant = getattr(request, "param", "dinov2")  # an indirect parameter names another family
+    root = tmp_path_factory.mktemp(f"pl_{variant}")
     for d, name in enumerate(DATASETS):
         (root / "RefCOD" / name / "im").mkdir(parents=True)
         for i in range(2):
             img, _ = _blob_image(10 * d + i, *((60, 80) if i else (72, 64)))
             Image.fromarray(img).save(root / "RefCOD" / name / "im" / f"{name.lower()}_{i}.jpg")
-    cfg = TD.DinoConfig.from_type("dinov2")
+    cfg = TD.DinoConfig.from_type(variant)
     (root / "hf").mkdir()
     TD.save_hf_checkpoint(str(root / "hf" / "model.safetensors"), TD.init_dino(7, cfg), cfg)
 
     def argv(tag, *extra):
         return ["--dataset", "+".join(DATASETS), "--image_path", str(root / "RefCOD" / "{}" / "im"),
                 "--cache_path", str(root / f"cache_{tag}" / "pseudo_label_cache"), "--backbone_weights",
-                str(root / "hf"), "--image_size", "56", "--batch_size", "3", *extra]
+                str(root / "hf"), "--image_size", "56", "--batch_size", "3", "--fe_type", variant, *extra]
 
     JCLI.generate_pseudo_label_main(argv("jax"))
     out = TCLI.generate_pseudo_label_main(argv("port", "--device", "cpu"))
-    return dict(root=root, argv=argv, port_dir=out)
+    return dict(root=root, argv=argv, port_dir=out, variant=variant)
 
 
 def _entries(path):
@@ -250,7 +275,9 @@ def test_cli_generate_pseudo_label_matches_jax(pl_world):
     assert meta_t == meta_j == _expected_meta(root)
     assert len(got) == len(want) == 4
     # the JAX package's near-threshold pixels, from its own extractor on the same batches
-    fe = JFE(JCfg({"type": "dinov2", "backbone": "facebook/dinov2-base", "backbone_weights": str(root / "hf")}))
+    variant = pl_world["variant"]
+    g = 56 // TD.DinoConfig.from_type(variant).patch_size
+    fe = JFE(JCfg({"type": variant, "backbone": BACKBONES[variant], "backbone_weights": str(root / "hf")}))
     from ucod_dpl_tpu.data.transforms import image_transform
     from ucod_dpl_tpu.utils.fileio import ImageIO
 
@@ -259,10 +286,13 @@ def test_cli_generate_pseudo_label_matches_jax(pl_world):
     for s in range(0, 4, 3):
         batch = np.stack([image_transform(ImageIO.read_image(p, "RGB"), (56, 56)) for p in paths[s : s + 3]])
         toks, _, attn = fe.extract_with_attention(batch)
-        near += list(_near_threshold(jnp.asarray(attn), jnp.asarray(toks), (4, 4), 0.6, None, True))
-    for g, w, n in zip(got, want, near):
-        assert g.shape == w.shape == (4, 4, 1) and g.dtype == np.float32
-        assert not ((g[..., 0] != w[..., 0]) & ~n).any()
+        near += list(_near_threshold(jnp.asarray(attn), jnp.asarray(toks), (g, g), 0.6, None, True))
+    for a, w, n in zip(got, want, near):
+        assert a.shape == w.shape == (g, g, 1) and a.dtype == np.float32
+        assert not ((a[..., 0] != w[..., 0]) & ~n).any()
+
+
+test_cli_generate_pseudo_label_matches_jax_on_dinov1 = on_dinov1(test_cli_generate_pseudo_label_matches_jax, "pl_world")
 
 
 def test_cli_generate_pseudo_label_early_exit_and_overwrite(pl_world):
@@ -291,7 +321,8 @@ def test_datasets_read_either_generators_cache(pl_world):
     pseudo-label cache, and the JAX one the port's, entry for entry."""
     root = pl_world["root"]
     name = "+".join(DATASETS)
-    fe_cfg = {"type": "dinov2", "backbone": "facebook/dinov2-base", "backbone_weights": str(root / "hf")}
+    fe_cfg = {"type": pl_world["variant"], "backbone": BACKBONES[pl_world["variant"]],
+              "backbone_weights": str(root / "hf")}
     kw = dict(dataset_dir=str(root / "RefCOD"), mode="train", image_size=(56, 56))
     for reader, cfg_cls, fe, tag, writer in (
             (TDataset, TCfg, TFE(TCfg(fe_cfg), device="cpu"), "jax", "jax"),

@@ -31,8 +31,13 @@ from ucod_dpl_tpu_torch.models import dino as TD
 from ucod_dpl_tpu_torch.ops import fused_layers as TF
 from ucod_dpl_tpu_torch.ops import quant as TQ
 
-TINY = dataclasses.replace(JD.DinoConfig.dinov2_base(), image_size=56, num_layers=2)
-TINY_T = TD.DinoConfig(**{f: getattr(TINY, f) for f in TINY.__dataclass_fields__})
+from test_torch_dinov1 import on_dinov1
+
+# the two shipped families at full width, 2 layers, 56px: dinov2-base (patch
+# 14, layerscale, eps 1e-6) and ViT-B/8 (patch 8, no layerscale, eps 1e-12)
+VARIANTS = ("dinov2", "dinov1")
+TINY = {v: dataclasses.replace(JD.DinoConfig.from_type(v), image_size=56, num_layers=2) for v in VARIANTS}
+TINY_T = {v: TD.DinoConfig(**dataclasses.asdict(c)) for v, c in TINY.items()}
 
 
 def _assert_codes_close(got, want):
@@ -105,8 +110,8 @@ def test_quantize_linear_and_act_match_jax(jit):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
-def test_quantize_dino_linears_matches_jax_and_round_trips():
-    params = JD.init_dino(jax.random.PRNGKey(0), TINY)
+def test_quantize_dino_linears_matches_jax_and_round_trips(variant="dinov2"):
+    params = JD.init_dino(jax.random.PRNGKey(0), TINY[variant])
     jq = jax.tree_util.tree_map(np.asarray, jax.jit(JQ.quantize_dino_linears)(params))
     want = C.quant_from_jax(jq)
     got = TQ.quantize_dino_linears(C.dino_from_jax(jax.tree_util.tree_map(np.asarray, params)))
@@ -121,6 +126,10 @@ def test_quantize_dino_linears_matches_jax_and_round_trips():
     back = C.quant_to_jax(want)
     for a, b in zip(jax.tree_util.tree_leaves(jq), jax.tree_util.tree_leaves(back)):
         np.testing.assert_array_equal(a, b)
+
+
+test_quantize_dino_linears_matches_jax_and_round_trips_on_dinov1 = on_dinov1(
+    test_quantize_dino_linears_matches_jax_and_round_trips)
 
 
 def test_int_matmul_is_exact():
@@ -250,15 +259,19 @@ def test_layernorm_mlp_w8a8_plain_matches_jax_kernel_at_serving_widths(monkeypat
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def tiny():
-    """dinov2-base widths (768 hidden, 12 heads of 64), 2 layers, 56px."""
+def tiny(request):
+    """Full width (768 hidden, 12 heads of 64), 2 layers, 56px, of dinov2-base
+    (or of the family an indirect parameter names); the last two items are
+    its JAX and port configs."""
+    variant = getattr(request, "param", "dinov2")
+    cfg, tcfg = TINY[variant], TINY_T[variant]
     k1, k2 = jax.random.split(jax.random.PRNGKey(0))
-    jp, jd = JD.init_dino(k1, TINY), JB.init_rev_decoder(k2, TINY.hidden_size)
+    jp, jd = JD.init_dino(k1, cfg), JB.init_rev_decoder(k2, cfg.hidden_size)
     jq = jax.jit(JQ.quantize_dino_linears)(jp)
     tp = C.dino_from_jax(jax.tree_util.tree_map(np.asarray, jp))
     td = C.decoder_from_jax(jax.tree_util.tree_map(np.asarray, jd))
     tq = TQ.quantize_dino_linears(tp)
-    return jp, jd, jq, tp, td, tq
+    return jp, jd, jq, tp, td, tq, cfg, tcfg
 
 
 def _agree(got, want, corr_min=0.999):
@@ -271,43 +284,51 @@ def _agree(got, want, corr_min=0.999):
 
 @pytest.mark.parametrize("int8_mlp", ["split", "whole"])
 def test_dino_forward_int8_matches_jax(tiny, monkeypatch, int8_mlp):
-    jp, _, jq, tp, _, tq = tiny
+    jp, _, jq, tp, _, tq, cfg, tcfg = tiny
     px = np.random.default_rng(3).standard_normal((1, 56, 56, 3)).astype(np.float32)
     monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
     if int8_mlp == "whole":
         monkeypatch.setenv("UCOD_INT8_WHOLE_MLP", "1")
-    want = JD.dino_forward(jp, jnp.asarray(px), TINY, quant=jq)["key_features"]
-    got = TD.dino_forward(tp, torch.from_numpy(px), TINY_T, quant=tq, int8_mlp=int8_mlp)["key_features"]
+    want = JD.dino_forward(jp, jnp.asarray(px), cfg, quant=jq)["key_features"]
+    got = TD.dino_forward(tp, torch.from_numpy(px), tcfg, quant=tq, int8_mlp=int8_mlp)["key_features"]
     _agree(got.numpy(), want)
-    full = TD.dino_forward(tp, torch.from_numpy(px), TINY_T)["key_features"]
+    full = TD.dino_forward(tp, torch.from_numpy(px), tcfg)["key_features"]
     assert not torch.equal(got, full)  # the int8 path was taken
 
 
+test_dino_forward_int8_matches_jax_on_dinov1 = on_dinov1(test_dino_forward_int8_matches_jax, "tiny")
+
+
 def test_fg_logits_live_int8_matches_jax(tiny, monkeypatch):
-    jp, jd, jq, tp, td, tq = tiny
+    jp, jd, jq, tp, td, tq, cfg, tcfg = tiny
     px = np.random.default_rng(4).standard_normal((2, 56, 56, 3)).astype(np.float32)
     monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
-    want, _, _ = JB.fg_logits_live(jp, jd, jnp.asarray(px), TINY, compute_dtype=jnp.float32, size=8, quant=jq)
-    got, _, _ = TB.fg_logits_live(tp, td, torch.from_numpy(px), TINY_T, compute_dtype=torch.float32, size=8,
+    want, _, _ = JB.fg_logits_live(jp, jd, jnp.asarray(px), cfg, compute_dtype=jnp.float32, size=8, quant=jq)
+    got, _, _ = TB.fg_logits_live(tp, td, torch.from_numpy(px), tcfg, compute_dtype=torch.float32, size=8,
                                   quant=tq)
     _agree(got.numpy(), want)
-    ref, _, _ = TB.fg_logits_live(tp, td, torch.from_numpy(px), TINY_T, compute_dtype=torch.float32, size=8)
+    ref, _, _ = TB.fg_logits_live(tp, td, torch.from_numpy(px), tcfg, compute_dtype=torch.float32, size=8)
     assert np.mean((ref.numpy() > 0) == (got.numpy() > 0)) > 0.9
 
 
-def _fe_cfg():
+test_fg_logits_live_int8_matches_jax_on_dinov1 = on_dinov1(test_fg_logits_live_int8_matches_jax, "tiny")
+
+
+def _fe_cfg(variant="dinov2"):
     from ucod_dpl_tpu.config import CfgNode
 
-    return CfgNode({"type": "dinov2", "backbone": "facebook/dinov2-base", "backbone_weights": "none",
-                    "arch": {"num_layers": 2, "image_size": 56}})
+    return CfgNode({"type": variant,
+                    "backbone": "facebook/dinov2-base" if variant == "dinov2" else "facebook/dino-vitb8",
+                    "backbone_weights": "none", "arch": {"num_layers": 2, "image_size": 56}})
 
 
-def test_predictor_int8_agrees_with_full_precision():
+def test_predictor_int8_agrees_with_full_precision(variant="dinov2"):
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.serving import Predictor
 
-    fe32 = FeatureExtractor(_fe_cfg(), device="cpu", seed=2)
-    fe8 = FeatureExtractor(_fe_cfg(), device="cpu", seed=2, quantize="int8")
+    fe32 = FeatureExtractor(_fe_cfg(variant), device="cpu", seed=2)
+    fe8 = FeatureExtractor(_fe_cfg(variant), device="cpu", seed=2, quantize="int8")
+    assert fe8.config == TINY_T[variant]
     decoder = TB.init_rev_decoder(3, 768)
     kw = dict(image_size=(56, 56), feature_size=8, max_batch=4)
     p32 = Predictor(fe32, decoder, **kw)
@@ -326,6 +347,9 @@ def test_predictor_int8_agrees_with_full_precision():
     ref, got = fe32.extract(px), fe8.extract(px)
     assert np.corrcoef(ref.ravel(), got.ravel())[0, 1] > 0.99
     assert not np.array_equal(ref, got)
+
+
+test_predictor_int8_agrees_with_full_precision_on_dinov1 = on_dinov1(test_predictor_int8_agrees_with_full_precision)
 
 
 def test_extractor_quantizes_float32_weights_before_the_cast():
@@ -358,12 +382,12 @@ def test_int8_guards(tiny):
     from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
     from ucod_dpl_tpu_torch.serving import Predictor
 
-    _, _, _, tp, td, tq = tiny
+    _, _, _, tp, td, tq, _, tcfg = tiny
     px = torch.zeros(1, 56, 56, 3)
     with pytest.raises(ValueError, match="inference-only"):
-        TD.dino_forward(tp, px, TINY_T, quant=tq, differentiable=True)
+        TD.dino_forward(tp, px, tcfg, quant=tq, differentiable=True)
     with pytest.raises(ValueError, match="int8_mlp"):
-        TD.dino_forward(tp, px, TINY_T, quant=tq, int8_mlp="fused")
+        TD.dino_forward(tp, px, tcfg, quant=tq, int8_mlp="fused")
     with pytest.raises(ValueError, match="int8"):
         FeatureExtractor(_fe_cfg(), device="cpu", quantize="int4")
     with pytest.raises(ValueError, match="qkv_masters"):
@@ -371,3 +395,6 @@ def test_int8_guards(tiny):
     fe = FeatureExtractor(_fe_cfg(), device="cpu")
     with pytest.raises(ValueError, match="int8"):
         Predictor(fe, td, quantize="int4")
+
+
+test_int8_guards_on_dinov1 = on_dinov1(test_int8_guards, "tiny")

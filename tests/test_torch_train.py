@@ -11,6 +11,8 @@ parameters after three AdamW steps (see ``_assert_states_close`` for the one
 leaf whose gradient is pure rounding noise).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +34,8 @@ from ucod_dpl_tpu_torch.models import discriminator as TDis
 from ucod_dpl_tpu_torch.models import lora as TL
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear
 
+from test_torch_dinov1 import on_dinov1
+
 DIM = 128
 FS = 8
 
@@ -46,9 +50,12 @@ def _np(tree):
 
 
 @pytest.fixture(scope="module")
-def tiny():
-    cfg = JD.DinoConfig(variant="dinov2", image_size=56, patch_size=14, hidden_size=DIM, num_layers=3,
-                        num_heads=2, mlp_ratio=2)
+def tiny(request):
+    """A family's geometry (dinov2, or the one an indirect parameter names:
+    dinov1, ViT-B/8, has patch 8, no layerscale and eps 1e-12) at hidden
+    128, two heads of 64, three layers, 56px."""
+    cfg = dataclasses.replace(JD.DinoConfig.from_type(getattr(request, "param", "dinov2")), image_size=56,
+                              hidden_size=DIM, num_layers=3, num_heads=2, mlp_ratio=2)
     tcfg = TD.DinoConfig(**{f: getattr(cfg, f) for f in cfg.__dataclass_fields__})
     jp = JD.init_dino(jax.random.PRNGKey(0), cfg)
     lora = JL.init_lora(jax.random.PRNGKey(1), jp, rank=2)
@@ -129,6 +136,9 @@ def test_init_and_apply_lora(tiny):
     _assert_trees_close(merged, want, 1e-6, 1e-7, "merged params")
 
 
+test_init_and_apply_lora_on_dinov1 = on_dinov1(test_init_and_apply_lora, "tiny")
+
+
 def test_lora_and_merged_backbone_checkpoints_round_trip(tiny, tmp_path):
     """Through real files: the port reads and writes the JAX package's
     adapter format, and the merged backbone is a HuggingFace checkpoint that
@@ -149,6 +159,10 @@ def test_lora_and_merged_backbone_checkpoints_round_trip(tiny, tmp_path):
     for a, b in zip(jax.tree_util.tree_leaves(JD.load_hf_checkpoint(path, cfg)),
                     jax.tree_util.tree_leaves(C.dino_to_jax(merged))):
         np.testing.assert_array_equal(np.asarray(a), b)
+
+
+test_lora_and_merged_backbone_checkpoints_round_trip_on_dinov1 = on_dinov1(
+    test_lora_and_merged_backbone_checkpoints_round_trip, "tiny")
 
 
 def test_qkv_masters_stay_float32(tiny):
@@ -364,6 +378,9 @@ def test_lora_train_step_matches_jax_at_step_3(tiny):
     assert any(e["a"].grad.abs().sum() > 0 for layer in tlora for e in layer.values())
     _assert_states_close(tstate, jstate)
     _assert_trees_close(tlora, C.lora_from_jax(_np(jlora)), 1e-4, 1e-5, "adapters")
+
+
+test_lora_train_step_matches_jax_at_step_3_on_dinov1 = on_dinov1(test_lora_train_step_matches_jax_at_step_3, "tiny")
 
 
 def _jax_lora_loss(dcfg, jstate, jp, px, pl, epoch, adv):

@@ -53,6 +53,7 @@ from ucod_dpl_tpu_torch.models import lora as TL
 from ucod_dpl_tpu_torch.parallel.mesh import build_mesh
 from ucod_dpl_tpu_torch.utils.fileio import ArrayCache
 
+from test_torch_dinov1 import on_dinov1
 from test_torch_eval import _make_dataset
 
 DIM = 32
@@ -276,25 +277,25 @@ def test_finetune_switch_restarts_the_optimizers_on_the_same_tensors(tmp_path):
     assert tl.state.ema_step == 0
 
 
-def test_runner_train_mode_matches_jax(tmp_path):
+def test_runner_train_mode_matches_jax(tmp_path, variant="dinov2"):
     """``Runner(mode="train")`` on a ``+``-joined dataset with the tiny
-    2-layer backbone of tests/test_torch_eval.py: the same train order, the
-    same pseudo-labels and pixels (LoRA on: ``require_pixels``) and
-    features within the float32 forward tolerance, against the JAX Runner,
-    for a train epoch and a discriminator pass's order."""
-    from test_torch_eval import _cfg_dict
+    2-layer backbone of tests/test_torch_eval.py (or its DINOv1 twin): the
+    same train order, the same pseudo-labels and pixels (LoRA on:
+    ``require_pixels``) and features within the float32 forward tolerance,
+    against the JAX Runner, for a train epoch and a discriminator pass's
+    order."""
+    from test_torch_eval import ARCHS, _cfg_dict
 
     root = tmp_path
     for name, n in (("A", 3), ("B", 4)):
         _make_dataset(root / "RefCOD", name=name, n=n)
     weights = root / "hf"
     weights.mkdir()
-    arch = {"hidden_size": 64, "num_layers": 2, "num_heads": 4, "patch_size": 14, "image_size": 56}
-    dcfg = dataclasses.replace(TD.DinoConfig.from_type("dinov2"), **arch)
+    dcfg = dataclasses.replace(TD.DinoConfig.from_type(variant), **ARCHS[variant])
     TD.save_hf_checkpoint(str(weights / "model.safetensors"), TD.init_dino(0, dcfg), dcfg)
     runners = {}
     for tag, cfg_cls, runner_cls, kw in (("jax", JCfg, JRunner, {}), ("port", TCfg, TRunner, {"device": "cpu"})):
-        d = _cfg_dict(root, tag, weights)
+        d = _cfg_dict(root, tag, weights, variant=variant)
         d["dataset_cfg"]["trainset_cfg"]["DATASET"] = "A+B"
         d["dataset_cfg"]["valset_cfg"]["DATASET"] = "A"
         d["dataset_cfg"]["trainloader_cfg"]["batch_size"] = 3
@@ -322,12 +323,18 @@ def test_runner_train_mode_matches_jax(tmp_path):
     assert orders[0] != orders[1]  # the order is a function of (seed, epoch)
 
 
+test_runner_train_mode_matches_jax_on_dinov1 = on_dinov1(test_runner_train_mode_matches_jax)
+
+
 # ---------------------------------------------------------------------------
 # the LoRA branch
 # ---------------------------------------------------------------------------
 
 
+# two heads of 64; DINOv1's ViT-B/8 keeps its patch 8, eps 1e-12, no
+# layerscale and 28 x 28 position grid (7 x 7 patches at 56px)
 LORA_ARCH = {"hidden_size": 128, "num_layers": 2, "num_heads": 2, "patch_size": 14, "image_size": 56}
+LORA_ARCHS = {"dinov2": LORA_ARCH, "dinov1": {"hidden_size": 128, "num_layers": 2, "num_heads": 2}}
 
 
 def _lora_cfg_dict(tmp_path, **train):
@@ -337,27 +344,28 @@ def _lora_cfg_dict(tmp_path, **train):
     return d
 
 
-def _lora_world(tmp_path):
+def _lora_world(tmp_path, variant="dinov2"):
     """Both packages' extractors on one seeded HuggingFace checkpoint of a
-    hidden-128 backbone (two heads of 64: the JAX attention takes its
-    Pallas kernel and flash VJP), float32; batches with pixels."""
-    dcfg = dataclasses.replace(TD.DinoConfig.from_type("dinov2"), **LORA_ARCH)
+    hidden-128 backbone of ``variant`` (two heads of 64: the JAX attention
+    takes its Pallas kernel and flash VJP), float32; batches with pixels."""
+    dcfg = dataclasses.replace(TD.DinoConfig.from_type(variant), **LORA_ARCHS[variant])
     path = tmp_path / "hf.safetensors"
     TD.save_hf_checkpoint(str(path), TD.init_dino(5, dcfg), dcfg)
-    fe_cfg = {"type": "dinov2", "backbone": "facebook/dinov2-base", "backbone_weights": str(path),
-              "arch": dict(LORA_ARCH)}
+    fe_cfg = {"type": variant, "backbone": "facebook/dinov2-base" if variant == "dinov2" else "facebook/dino-vitb8",
+              "backbone_weights": str(path), "arch": dict(LORA_ARCHS[variant])}
+    g = 56 // dcfg.patch_size
     jfe = JFeatureExtractor(JCfg(fe_cfg), compute_dtype=jnp.float32, strict=True)
     tfe = TFeatureExtractor(TCfg(fe_cfg), device="cpu", compute_dtype=torch.float32, strict=True, qkv_masters=True)
     rng = np.random.default_rng(7)
     batches = [{"pixels": rng.standard_normal((B, 56, 56, 3)).astype(np.float32),
                 "pseudo_label": np.where(rng.random((B, 16, 16, 1)) > 0.5, 0.9, 0.2).astype(np.float32),
-                "features": np.zeros((B, 4, 4, 128), np.float32)} for _ in range(2)]
+                "features": np.zeros((B, g, g, 128), np.float32)} for _ in range(2)]
     dec, ema = j_init_decoder(jax.random.PRNGKey(0), 128), j_init_decoder(jax.random.PRNGKey(1), 128)
     dis_p, dis_s = j_init_discriminator(jax.random.PRNGKey(3), feature_size=FS, feature_dim=128, use_features=False)
     return jfe, tfe, batches, np_tree((dec, ema, dis_p, dis_s))
 
 
-def test_lora_branch_matches_jax_for_2_epochs(tmp_path, monkeypatch):
+def test_lora_branch_matches_jax_for_2_epochs(tmp_path, monkeypatch, variant="dinov2"):
     """Two epochs with LoRA on: a discriminator pass on the adapted
     backbone's features, 2 LoRA steps, the finetune switch (the adapters'
     optimizer restarts too), 2 more, and the epoch-2 saves.  Losses within
@@ -368,7 +376,7 @@ def test_lora_branch_matches_jax_for_2_epochs(tmp_path, monkeypatch):
     loop.  The adapter and merged-backbone files load in the JAX package's
     loaders; a state pair from two saves is refused on resume."""
     monkeypatch.setenv("UCOD_PALLAS_INTERPRET", "1")
-    jfe, tfe, batches, weights = _lora_world(tmp_path)
+    jfe, tfe, batches, weights = _lora_world(tmp_path, variant)
     cfg = _lora_cfg_dict(tmp_path, save_cfg={"start_save": 0, "save_interval": 2, "save_mode": "all"})
     jl = JLoop(JCfg(cfg), JaxRunner(weights, batches, tmp_path / "j", fe=jfe))
     tl = TLoop(TCfg(cfg), PortRunner(weights, batches, tmp_path / "t", fe=tfe))
@@ -436,30 +444,42 @@ def test_lora_branch_matches_jax_for_2_epochs(tmp_path, monkeypatch):
               PortRunner(weights, batches, tmp_path / "r2", fe=tfe))
 
 
+test_lora_branch_matches_jax_for_2_epochs_on_dinov1 = on_dinov1(test_lora_branch_matches_jax_for_2_epochs)
+
+
 # ---------------------------------------------------------------------------
 # the entry point
 # ---------------------------------------------------------------------------
 
 
-def _tiny_train_config(root, train_cfg=None):
-    """A config file over configs/uscod/UCOD-DPL_dinov2.py: a 2-layer
-    32-wide backbone and feature size 4 (``train_cfg`` merged into its
-    train_cfg)."""
-    arch = {"hidden_size": 32, "num_layers": 2, "num_heads": 2, "patch_size": 14, "image_size": 28}
+# per family: the shipped config, the backbone over it, the decoder width and
+# the image size (DINOv1: ViT-B/8 at 128 wide in two heads of 64, 4 x 4
+# patches at 32px)
+TINY_TRAIN = {"dinov2": ("UCOD-DPL_dinov2.py", {"hidden_size": 32, "num_layers": 2, "num_heads": 2, "patch_size": 14,
+                                                "image_size": 28}, 32, 28),
+              "dinov1": ("UCOD-DPL_dinov1.py", {"hidden_size": 128, "num_layers": 2, "num_heads": 2}, 128, 32)}
+
+
+def _tiny_train_config(root, train_cfg=None, variant="dinov2"):
+    """A config file over configs/uscod/UCOD-DPL_dinov2.py (or _dinov1.py):
+    a 2-layer 32-wide (128-wide) backbone and feature size 4 (``train_cfg``
+    merged into its train_cfg)."""
+    base, arch, dim, _ = TINY_TRAIN[variant]
     cfg = {"_BASE_": [os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                                   "configs", "uscod", "UCOD-DPL_dinov2.py")],
-           "model_cfg": {"dim": 32, "feature_size": 4}, "train_cfg": train_cfg or {},
+                                   "configs", "uscod", base)],
+           "model_cfg": {"dim": dim, "feature_size": 4}, "train_cfg": train_cfg or {},
            "dataset_cfg": {"feature_extractor_cfg": {"arch": arch}}}
     path = root / "tiny_train.py"
     path.write_text(f"cfg = {cfg!r}\n")
     return path
 
 
-def _train_argv(root, path, *extra):
+def _train_argv(root, path, *extra, variant="dinov2"):
+    size = str((TINY_TRAIN[variant][3],) * 2)
     return ["train", "-c", str(path), "--device", "cpu", "--work_dir", str(root / "wd"), *extra, "--opts",
             "dataset_cfg.dataset_dir", str(root / "RefCOD"), "dataset_cfg.cache_dir", str(root / "cache"),
             "dataset_cfg.trainset_cfg.DATASET", "TR-A+TR-B", "dataset_cfg.valset_cfg.DATASET", "TE-A",
-            "dataset_cfg.trainset_cfg.image_size", "(28, 28)", "dataset_cfg.valset_cfg.image_size", "(28, 28)",
+            "dataset_cfg.trainset_cfg.image_size", size, "dataset_cfg.valset_cfg.image_size", size,
             "dataset_cfg.trainloader_cfg.batch_size", "2", "tpu_cfg.compute_dtype", "float32",
             "train_cfg.max_epoch", "2", "train_cfg.start_finetune", "-1", "train_cfg.dis_intertrain", "2",
             "train_cfg.save_cfg.save_mode", "all", "train_cfg.save_cfg.save_interval", "2",
@@ -474,15 +494,16 @@ def _train_world(root, pseudo_labels=True):
         write_pseudo_labels(root / "cache", root / "RefCOD", "TR-A+TR-B", shape=(2, 2, 1))
 
 
-def test_cli_train_on_the_cpu_end_to_end_and_resume(tmp_path):
+def test_cli_train_on_the_cpu_end_to_end_and_resume(tmp_path, variant="dinov2"):
     """``python3 -m ucod_dpl_tpu_torch.cli train --device cpu`` on a tiny
-    config over the shipped one: 2 epochs of 3 steps, finite losses, moved
-    parameters, the epoch-2 model and state files, a best result; then
-    ``--resume state_epoch2`` is a run with nothing left to do, ending on
-    the saved state."""
+    config over the shipped one (of either family): 2 epochs of 3 steps,
+    finite losses, moved parameters, the epoch-2 model and state files, a
+    best result; then ``--resume state_epoch2`` is a run with nothing left
+    to do, ending on the saved state."""
     _train_world(tmp_path)
-    path = _tiny_train_config(tmp_path)
-    runner = TCLI.train_main(_train_argv(tmp_path, path)[1:])
+    path = _tiny_train_config(tmp_path, variant=variant)
+    runner = TCLI.train_main(_train_argv(tmp_path, path, variant=variant)[1:])
+    assert runner.feature_extractor.config.variant == variant
     loop = runner.train_loop
     assert loop.state.opt.count == 3 and loop.state.ema_step == 6  # finetune at epoch 1: 3 steps since
     assert loop.best_result is not None and np.isfinite(loop.best_mae)
@@ -491,10 +512,14 @@ def test_cli_train_on_the_cpu_end_to_end_and_resume(tmp_path):
     fresh = TRunner(runner.cfg, mode="train", device="cpu")
     assert all(not torch.equal(a, b) for a, b in zip(runner.decoder_params, fresh.decoder_params))
     assert all(torch.isfinite(t).all() for t in runner.decoder_params)
-    resumed = TCLI.train_main(_train_argv(tmp_path, path, "--resume", os.path.join(ckp, "state_epoch2"))[1:])
+    resumed = TCLI.train_main(_train_argv(tmp_path, path, "--resume", os.path.join(ckp, "state_epoch2"),
+                                          variant=variant)[1:])
     assert resumed.train_loop.start_epoch == 2 and resumed.train_loop.finetune
     for a, b in zip(resumed.decoder_params, runner.decoder_params):
         assert torch.equal(a, b)
+
+
+test_cli_train_on_the_cpu_end_to_end_and_resume_on_dinov1 = on_dinov1(test_cli_train_on_the_cpu_end_to_end_and_resume)
 
 
 @pytest.mark.parametrize("case", ["empty_loader", "no_pseudo_labels", "lora_model_parallel", "orbax"])
