@@ -262,7 +262,18 @@ Phases (each raises on failure; any failure exits non-zero):
      test's layout: the ring inside each process, the data axis across).
      Then the unsharded step at bs4 and bs8 and the one-process SP step
      over the four cards (one process driving every card) at bs4, with
-     their peak memory.
+     their peak memory.  R5: 2D SP x TP, ``{"seq": 2, "model": 2}``, over 4
+     processes of one card (the model axis across them: the partial sums
+     and the last layer's keys go over the model line's NCCL subgroup) and
+     over 2 processes of two cards (the model axis inside each): the ring
+     of each rank's head shards at the 756px bs4 shape, every rank's output
+     and dq/dk/dv bitwise the one-process 2D ring's (rank 0's card named
+     four times); ``lora_forward(sp_shard=, tp_shard=)`` of dinov2-base at
+     756px bs2, forward + backward: each rank's K2 and K3/K4 launches (11
+     layers x its shards x its chunks x 2 key chunks), its features within
+     2^-6 of max|one-process 2D forward|, the ranks' adapter gradients
+     summed within 1e-3 (norm-relative) of the one-process forward's; ms
+     by CUDA events and the model axis's collectives (calls, bytes).
   S. (after phase P) the serving forward's two fusion prototypes, on no
      product path: K12 (``attention_outproj_residual``: attention +
      out-projection + bias + layerscale + residual in one kernel) at bs16
@@ -346,6 +357,25 @@ Phases (each raises on failure; any failure exits non-zero):
      and 2917 for CORAL).  Each entry's wall seconds; the kernels line
      gives each kernel's launches in each of W's runs (``dinov1_launches``).
      ``--only-w`` runs it alone (after the device check and the build).
+  X. (after phase Q) the differentiated path at head dim 128 and under
+     tensor parallelism.  X1: K2 and K3/K4 at head dim 128 (6 heads, D 768)
+     against their plain versions at bs16 L1370, bs4 L2917, L 257, 65 and
+     1, bs1 L1370, and with a key bound and f32 outputs (bs4 L730 kv_len
+     727 and 1, bs2 L343 kv_len 200), every output pre-filled with NaN and
+     NaN in memory past the inputs (phase A's bounds; at a key bound the
+     absolute floor grows as sqrt(L)); two backwards at bs16 L1370 equal
+     bit for bit; both timed at bs16 L1370 against their plain versions,
+     SDPA and its backward, and the backward at 12 heads of 64 on the same
+     tensors.  X2: ``lora_forward`` of a ViT of dinov2-base's width and
+     depth with 6 heads of 128 (seeded weights), bs4 518px: 11 K2 and 11
+     K3/K4, the adapters' gradients within 0.1 of the plain path's.  X3:
+     dinov2-base ``lora_forward(tp_shard=)`` at bs4 518px over ``{"model":
+     2}`` (22 K2 and 22 K3/K4) and ``{"model": 4}`` (3 heads a shard: the
+     plain version, no K2 or K3/K4), the adapters' gradients within 0.1 of
+     the unsharded path's.  X4: the discriminator's adapted forward
+     (``torch.no_grad``) launches K1 11 times and no K2.  The kernels line
+     gives K2 and K3/K4 at head dim 128 their own entries.  ``--only-x``
+     runs it alone (after the device check and the build).
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -687,12 +717,14 @@ def _nan_tailed(gen, dev, b, l, scale=1.0):
     return _nan_tailed_shape(gen, dev, (b, l, SERVE_DIM), scale)
 
 
-def _check_grad(name: str, got: torch.Tensor, ref: torch.Tensor) -> float:
-    """The backward's bounds (BWD_TOL, BWD_NORM_TOL, BWD_ATOL above)."""
+def _check_grad(name: str, got: torch.Tensor, ref: torch.Tensor, atol: float = BWD_ATOL) -> float:
+    """The backward's bounds (BWD_TOL, BWD_NORM_TOL, BWD_ATOL above; a
+    larger ``atol`` where a key bound makes dq and dk zero in exact
+    arithmetic at more rows)."""
     got, ref = got.float(), ref.float()
-    err = _check(name, got, ref, BWD_TOL * ref.abs().max().item() + BWD_ATOL)
+    err = _check(name, got, ref, BWD_TOL * ref.abs().max().item() + atol)
     diff, norm = (got - ref).norm().item(), ref.norm().item()
-    bound = BWD_NORM_TOL * norm + BWD_ATOL * ref.numel() ** 0.5
+    bound = BWD_NORM_TOL * norm + atol * ref.numel() ** 0.5
     _log(f"    norm of the error {diff:.6g}, {diff / max(norm, 1e-30):.6g} of the plain norm (bound {bound:.6g})")
     if not diff <= bound:
         raise AssertionError(f"{name}: error norm {diff} exceeds {bound}")
@@ -2712,8 +2744,10 @@ def phase_train(seed: int, dev, smi: str, world: dict, runs: str = "bcd") -> dic
             lora_losses, dis_losses = pc.finite_losses("lora"), pc.finite_losses("dis")
             n_lora, n_dis = len(lora_losses), len(dis_losses)
             crops = (depth - 1) * pc.crop_batches()
-            want = {**{k: 0 for k in counts}, "K1": crops, "K6": crops,
-                    "fwd_lse": (depth - 1) * (n_lora + n_dis), "bwd": (depth - 1) * n_lora}
+            # a discriminator batch's adapted forward runs under no_grad:
+            # K1, not the forward with log-sum-exp
+            want = {**{k: 0 for k in counts}, "K1": crops + (depth - 1) * n_dis, "K6": crops,
+                    "fwd_lse": (depth - 1) * n_lora, "bwd": (depth - 1) * n_lora}
             # the steps after the first (which pays for its first launches) and
             # outside the profiled epoch: each starts on an idle card, as in the
             # loop, where the pageable copy of the next batch's pixels waits for
@@ -3267,6 +3301,262 @@ def _k1_lengths():
 # pseudo-labels, and 296px with the 432px m-patches (2917) for CORAL
 W_K1_LENGTHS = {"serving": [1370], "int8_serving": [1370], "eval": [1370], "pseudo_labels": [785],
                 "train": [1370], "coral_eval": [1370, 2917], "coral_train": [1370, 2917]}
+
+
+# Phase X: the differentiated path at head dim 128, and under tensor
+# parallelism.  K2 and K3/K4 at head dim 128 at the serving shape with the
+# heads of 128 (bs16 L1370, 6 heads, D 768: the same products as 12 heads of
+# 64, so the same bounds), at edge lengths and with a key bound and f32
+# outputs (the ring's chunk calls), held to K2's and the backward's bounds
+# of their plain versions above; two backwards equal bit for bit.
+X_HEADS, X_HD = 6, 128
+X_CASES = (("bs16 L1370", 16, 1370, None, False), ("bs4 L2917", 4, 2917, None, False),
+           ("bs16 L257", 16, 257, None, False), ("bs16 L65", 16, 65, None, False), ("bs16 L1", 16, 1, None, False),
+           ("bs1 L1370", 1, 1370, None, False), ("bs4 L730 kv 727 f32", 4, 730, 727, True),
+           ("bs4 L730 kv 1 f32", 4, 730, 1, True), ("bs2 L343 kv 200 f32", 2, 343, 200, True),
+           ("bs2 L343 kv 200", 2, 343, 200, False))
+
+
+def _heads_view(x: torch.Tensor, nh: int) -> torch.Tensor:
+    """(B, L, nh * d) -> a (B, nh, L, d) view of the same memory."""
+    b, l, dm = x.shape
+    return x.view(b, l, nh, dm // nh).transpose(1, 2)
+
+
+def phase_x_kernels(gen, dev) -> dict:
+    """X1: K2 and K3/K4 at head dim 128 against their plain versions (every
+    output pre-filled with NaN, NaN in memory past the inputs' last row;
+    dK/dV rows past a key bound exactly 0), two backwards at bs16 L1370
+    equal bit for bit (a forward run on the card between them), then both
+    timed at bs16 L1370 beside SDPA and its backward on the same tensors."""
+    from ucod_dpl_tpu_torch.ops.attention import (
+        packed_attention,
+        packed_attention_bwd,
+        packed_attention_bwd_reference,
+        packed_attention_fwd_lse,
+        packed_attention_fwd_lse_reference,
+    )
+
+    nh = X_HEADS
+    _log(f"X1 attention forward + LSE and backward at head dim {X_HD} ({nh} heads, D {SERVE_DIM}) vs plain:")
+    worst = {"fwd_lse": 0.0, "bwd": 0.0}
+    for name, b, l, kv, f32 in X_CASES:
+        dtype = torch.float32 if f32 else torch.bfloat16
+        q, k, v, do = (_nan_tailed(gen, dev, b, l) for _ in range(4))
+        o = torch.full((b, l, SERVE_DIM), float("nan"), device=dev, dtype=dtype)
+        lse = torch.full((b, nh, l), float("nan"), device=dev)
+        packed_attention_fwd_lse(q, k, v, nh, X_HD ** -0.5, out=(o, lse), kv_len=kv, out_dtype=dtype)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = packed_attention_fwd_lse_reference(q, k, v, nh, X_HD ** -0.5, kv_len=kv, out_dtype=dtype)
+        worst["fwd_lse"] = max(worst["fwd_lse"], _check(f"{name} o", o, o_ref, K1_TOL * o_ref.float().abs().max().item()))
+        _check(f"{name} lse", lse, lse_ref, LSE_TOL)
+        o16 = o.to(torch.bfloat16)
+        grads = packed_attention_bwd(q, k, v, o16, do, lse, nh, X_HD ** -0.5, kv_len=kv, out_dtype=dtype,
+                                     out=tuple(torch.full(q.shape, float("nan"), device=dev, dtype=dtype)
+                                               for _ in range(3)))
+        torch.cuda.synchronize()
+        refs = packed_attention_bwd_reference(q, k, v, o16, do, lse, nh, X_HD ** -0.5, kv_len=kv, out_dtype=dtype)
+        # at kv_len 1 dq and dk are zero in exact arithmetic (a constant
+        # softmax): both sides hold the f32 roundoff of dP - D, which dk sums
+        # over the L query rows, so the absolute floor grows as sqrt(L)
+        # (tests/test_torch_cuda_kernels.py's key-bound floor)
+        atol = BWD_ATOL * max(1.0, l / 64) ** 0.5 if kv is not None else BWD_ATOL
+        for which, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+            worst["bwd"] = max(worst["bwd"], _check_grad(f"{name} {which}", got, ref, atol))
+        if kv is not None and (grads[1][:, kv:].any() or grads[2][:, kv:].any()):
+            raise AssertionError(f"{name}: dk/dv rows past the key bound are not 0")
+        del grads, refs
+
+    b, l = 16, 1370
+    q, k, v, do = (torch.randn(b, l, SERVE_DIM, generator=gen, device=dev).to(torch.bfloat16) for _ in range(4))
+    o, lse = packed_attention_fwd_lse(q, k, v, nh, X_HD ** -0.5)
+    runs = []
+    for _ in range(2):
+        runs.append(packed_attention_bwd(q, k, v, o, do, lse, nh, X_HD ** -0.5,
+                                         out=tuple(_nan_like(q) for _ in range(3))))
+        packed_attention(q, k, v, nh, X_HD ** -0.5)
+    torch.cuda.synchronize()
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    _log(f"  two head-dim-{X_HD} backwards at bs16 L1370 equal bit for bit (dq, dk, dv): {same}")
+    if not same:
+        raise AssertionError("X1: two head-dim-128 backwards differ")
+    out = {"err": worst, "repeat": same}
+    out["K2"] = _ab_ms(lambda: packed_attention_fwd_lse_reference(q, k, v, nh, X_HD ** -0.5),
+                       lambda: packed_attention_fwd_lse(q, k, v, nh, X_HD ** -0.5), 20)
+    out["K2_sdpa"] = _sdpa_ms(*(_heads_view(x, nh) for x in (q, k, v)), X_HD ** -0.5, 20)
+    out["K3"] = _ab_ms(lambda: packed_attention_bwd_reference(q, k, v, o, do, lse, nh, X_HD ** -0.5),
+                       lambda: packed_attention_bwd(q, k, v, o, do, lse, nh, X_HD ** -0.5), 20)
+    heads = [_heads_view(x, nh).detach().requires_grad_(True) for x in (q, k, v)]
+    o_sdpa = torch.nn.functional.scaled_dot_product_attention(*heads, scale=X_HD ** -0.5)
+    out["K3_sdpa"] = _time_ms(lambda: torch.autograd.grad(o_sdpa, heads, _heads_view(do, nh), retain_graph=True), 20)
+    # the same tensors as 12 heads of 64, in the same call: the ratio on one card
+    o64, lse64 = packed_attention_fwd_lse(q, k, v, NUM_HEADS, 0.125)
+    out["K3_hd64"] = _time_ms(lambda: packed_attention_bwd(q, k, v, o64, do, lse64, NUM_HEADS, 0.125), 20)
+    bh = b * nh
+    out["K2_bound"] = _attention_bound(bh, l, X_HD, lse=True)
+    out["K3_bound"] = _attention_bound(bh, l, X_HD, matmuls=5, tensors=8, lse=True)
+    _log(f"  K2 hd{X_HD} bs16 L1370: kernel {out['K2'][0]:.4f} ms, plain {out['K2'][1]:.4f} ms, SDPA "
+         f"{out['K2_sdpa']:.4f} ms, bound {out['K2_bound'][0]:.4f} ms ({out['K2_bound'][1]})")
+    _log(f"  K3/K4 hd{X_HD} bs16 L1370: kernel {out['K3'][0]:.4f} ms, plain {out['K3'][1]:.4f} ms, SDPA backward "
+         f"{out['K3_sdpa']:.4f} ms, bound {out['K3_bound'][0]:.4f} ms ({out['K3_bound'][1]}); the backward at 12 heads of 64 on the "
+         f"same tensors {out['K3_hd64']:.4f} ms")
+    return out
+
+
+def _lora_grads(params, lora, pixels, cfg, w, **kw) -> torch.Tensor:
+    """The adapters' gradients of ``sum(key_features * w)`` through
+    ``lora_forward`` (bf16, remat none), flattened into one f32 vector."""
+    from ucod_dpl_tpu_torch.models.convert import tree_leaves
+    from ucod_dpl_tpu_torch.models.lora import lora_forward
+
+    leaves = tree_leaves(lora)
+    feats = lora_forward(params, lora, pixels, cfg, compute_dtype=torch.bfloat16, **kw)["key_features"]
+    grads = torch.autograd.grad(torch.sum(feats.float() * w), leaves, allow_unused=True)
+    return torch.cat([(torch.zeros_like(t) if g is None else g).float().flatten() for t, g in zip(leaves, grads)])
+
+
+def _grad_rel(name: str, got: torch.Tensor, ref: torch.Tensor, bound: float) -> float:
+    rel = ((got - ref).norm() / ref.norm()).item()
+    _log(f"  {name}: norm-relative difference {rel:.6g} (bound {bound:g}; |g| {ref.norm().item():.6g}, "
+         f"{ref.numel()} values)")
+    if not (np.isfinite(rel) and rel <= bound):
+        raise AssertionError(f"{name}: {rel} exceeds {bound}")
+    return rel
+
+
+def phase_x_paths(seed: int, dev) -> dict:
+    """X2-X4, the differentiated paths that reach K2 and K3/K4 at head dim
+    128 or under tensor parallelism, each path's launches counted from 0
+    just before it and read just after.  X2: ``lora_forward`` of a ViT of
+    dinov2-base's width and depth with 6 heads of 128 (seeded random
+    weights; no shipped model has this head dim), bs4 518px bf16, forward +
+    backward of the adapters: 11 K2 and 11 K3/K4 launches, the adapters'
+    gradients within phase B's 0.1 of the plain path's.  X3: dinov2-base
+    ``lora_forward(tp_shard=)`` at bs4 518px over ``{"model": 2}`` (the card
+    named twice; 6 heads of 64 a shard: 22 K2 and 22 K3/K4) and ``{"model":
+    4}`` (3 heads a shard: the plain version under autograd, as the JAX
+    differentiable_mode routes it: no K2 or K3/K4), the adapters' gradients
+    against the unsharded step's.  X4: the discriminator's adapted forward
+    (``lora_forward`` under ``torch.no_grad``) launches K1, 11 times, and
+    no K2."""
+    from ucod_dpl_tpu_torch.models import dino as TD
+    from ucod_dpl_tpu_torch.models.convert import tree_map
+    from ucod_dpl_tpu_torch.models.lora import init_lora, lora_forward
+    from ucod_dpl_tpu_torch.parallel import build_mesh
+
+    counts = _kernel_wrappers()
+    out = {"launches": {}}
+
+    def counted(key, fn):
+        for c in counts.values():
+            c.launches = 0
+        res = fn()
+        torch.cuda.synchronize()
+        out["launches"][key] = {k: c.launches for k, c in counts.items() if c.launches}
+        return res
+
+    # X2: heads of 128
+    cfg128 = dataclasses.replace(TD.DinoConfig.dinov2_base(), num_heads=X_HEADS)
+    params = TD.cast_params(TD.init_dino(seed + 40, cfg128, device=dev), torch.bfloat16, qkv_masters=True)
+    lora = tree_map(lambda t: t.requires_grad_(True), init_lora(seed + 41, params, rank=2))
+    with torch.no_grad():
+        for entry in lora:  # B != 0, so the A gradients are live
+            for e in entry.values():
+                e["b"].normal_(0.0, 0.02, generator=torch.Generator(device=dev).manual_seed(seed + 42))
+    rng = np.random.default_rng(seed + 43)
+    pixels = torch.from_numpy(rng.standard_normal((4, 518, 518, 3)).astype(np.float32)).to(dev)
+    w = torch.from_numpy(rng.standard_normal((4, 37, 37, SERVE_DIM)).astype(np.float32)).to(dev)
+    depth = cfg128.num_layers - 1
+    _log(f"X2 lora_forward + backward, {cfg128.num_heads} heads of {cfg128.head_dim} (D {cfg128.hidden_size}, "
+         f"{cfg128.num_layers} layers), bs4 518px bf16:")
+    g = counted("hd128 lora", lambda: _lora_grads(params, lora, pixels, cfg128, w))
+    want = {"fwd_lse": depth, "bwd": depth}
+    _log(f"  launches {out['launches']['hd128 lora']} (expected {want})")
+    if out["launches"]["hd128 lora"] != want:
+        raise AssertionError(f"X2: launches {out['launches']['hd128 lora']}, expected {want}")
+    out["hd128_grad_rel"] = _grad_rel("X2 adapter grads, kernels vs plain", g,
+                                      _lora_grads(params, lora, pixels, cfg128, w, plain=True), 0.1)
+    out["hd128_ms"] = _time_ms(lambda: _lora_grads(params, lora, pixels, cfg128, w), 3, warmup=1)
+    _log(f"  forward + backward {out['hd128_ms']:.3f} ms (CUDA events)")
+    del params, lora, g
+    torch.cuda.empty_cache()
+
+    # X3: tensor parallelism, dinov2-base
+    cfg, fe, state, lora, lora_opt, pixels, labels = _lora_setup(seed + 44, dev, 4)
+    with torch.no_grad():
+        for entry in lora:
+            for e in entry.values():
+                e["b"].normal_(0.0, 0.02, generator=torch.Generator(device=dev).manual_seed(seed + 45))
+    un = _lora_grads(fe.params, lora, pixels, fe.config, w)
+    for tp, want_k2 in ((2, 2 * depth), (4, 0)):
+        mesh = build_mesh({"model": tp}, devices=[dev] * tp)
+        _log(f"X3 lora_forward(tp_shard=) over {{'model': {tp}}} ({fe.config.num_heads // tp} heads of "
+             f"{fe.config.head_dim} a shard), dinov2-base bs4 518px bf16:")
+        g = counted(f"tp{tp} lora", lambda: _lora_grads(fe.params, lora, pixels, fe.config, w,
+                                                        tp_shard=(mesh, "model")))
+        want = {"fwd_lse": want_k2, "bwd": want_k2} if want_k2 else {}
+        _log(f"  launches {out['launches'][f'tp{tp} lora']} (expected {want})")
+        if out["launches"][f"tp{tp} lora"] != want:
+            raise AssertionError(f"X3 model={tp}: launches {out['launches'][f'tp{tp} lora']}, expected {want}")
+        out[f"tp{tp}_grad_rel"] = _grad_rel(f"X3 model={tp} adapter grads against the unsharded path's", g, un, 0.1)
+        del g
+    out["tp2_ms"] = _ab_ms(lambda: _lora_grads(fe.params, lora, pixels, fe.config, w),
+                           lambda: _lora_grads(fe.params, lora, pixels, fe.config, w,
+                                               tp_shard=(build_mesh({"model": 2}, devices=[dev] * 2), "model")), 3)
+    _log(f"  model=2 forward + backward {out['tp2_ms'][0]:.3f} ms, unsharded {out['tp2_ms'][1]:.3f} ms (CUDA "
+         f"events, interleaved)")
+
+    # X4: the discriminator's adapted forward, no autograd
+    with torch.no_grad():
+        counted("no-grad lora", lambda: lora_forward(fe.params, lora, pixels, fe.config,
+                                                     compute_dtype=torch.bfloat16))
+    want = {"K1": depth}
+    _log(f"X4 lora_forward under torch.no_grad (the discriminator pass): launches "
+         f"{out['launches']['no-grad lora']} (expected {want})")
+    if out["launches"]["no-grad lora"] != want:
+        raise AssertionError(f"X4: launches {out['launches']['no-grad lora']}, expected {want}")
+    return out
+
+
+def phase_x(seed: int, dev, gen) -> dict:
+    """Phase X (in the default run, and alone with ``--only-x``)."""
+    t0 = time.perf_counter()
+    out = {"kernels": phase_x_kernels(gen, dev), **phase_x_paths(seed, dev)}
+    out["seconds"] = time.perf_counter() - t0
+    _log(f"phase X: {out['seconds']:.1f} s")
+    return out
+
+
+def _x_summary(x: dict) -> dict:
+    """Phase X's numbers for the summary line."""
+    return {"x_hd128_lora_grad_rel_diff": x["hd128_grad_rel"], "x_hd128_lora_fwd_bwd_ms": x["hd128_ms"],
+            "x_tp2_lora_grad_rel_diff": x["tp2_grad_rel"], "x_tp4_lora_grad_rel_diff": x["tp4_grad_rel"],
+            "x_tp2_lora_fwd_bwd_ms": x["tp2_ms"][0], "x_unsharded_lora_fwd_bwd_ms": x["tp2_ms"][1],
+            "x_launches": x["launches"], "x_hd128_bwd_repeats_bitwise": x["kernels"]["repeat"],
+            "x_hd64_bwd_same_tensors_ms": x["kernels"]["K3_hd64"], "x_seconds": x["seconds"]}
+
+
+def _x_entries(x: dict, attn: str) -> list:
+    """The kernels line's entries of K2 and K3/K4 at head dim 128 (phase X):
+    launches on X2's path (the head-dim-128 ViT's LoRA forward + backward),
+    times and errors from X1 at bs16 L1370, 6 heads of 128; beside them the
+    launches of X3's tensor-parallel paths (head dim 64)."""
+    k = x["kernels"]
+    out = []
+    for kid, name, source, line, key in (
+            ("K2", "attention forward with log-sum-exp, head dim 128", "attention_fwd.cu", 309, "fwd_lse"),
+            ("K3", "attention backward from the log-sum-exp, head dim 128 (one backward with K4)", "attention_bwd.cu",
+             440, "bwd"),
+            ("K4", "KV-blocked attention backward, head dim 128 (one backward with K3)", "attention_bwd.cu",
+             "684,716", "bwd")):
+        timed = "K2" if kid == "K2" else "K3"
+        out.append({"name": f"{kid} {name}", "route": "cuda", "source": f"ucod_dpl_tpu_torch/csrc/{source}",
+                    "replaces": f"{attn}:{line}", "launches": x["launches"]["hd128 lora"].get(key, 0),
+                    "max_abs_err": k["err"][key], "ms": k[timed][0], "plain_ms": k[timed][1],
+                    "bound_ms": k[f"{timed}_bound"][0], "bound_by": k[f"{timed}_bound"][1],
+                    "library_ms": k["K2_sdpa" if kid == "K2" else "K3_sdpa"],
+                    "tp_lora_launches": {f"model={tp}": x["launches"][f"tp{tp} lora"].get(key, 0) for tp in (2, 4)}})
+    return out
 
 
 def phase_dinov1(seed: int, dev, smi: str) -> dict:
@@ -4233,9 +4523,127 @@ def _r_lora(spec: dict, dev) -> dict:
     return out
 
 
+def _r5_2d(spec: dict, dev) -> dict:
+    """R5 in one rank: 2D SP x TP over ``{"seq": 2, "model": 2}`` across the
+    processes (one card a process: the model axis across them; two cards a
+    process: the model axis inside each).  The ring of this rank's head
+    shards and chunks at the 756px bs4 shape (2917 tokens, 12 heads of 64:
+    6 a shard), forward and backward with a seeded incoming gradient; every
+    rank's output and dq/dk/dv parts gathered on rank 0 and held bit for bit
+    against the one-process 2D ring on rank 0's card named four times.
+    Then ``lora_forward(sp_shard=, tp_shard=)`` of full-width dinov2-base at
+    756px bs``spec["batch"]``, bf16, and the adapters' gradients of a seeded
+    loss on its key features: each rank's launches, its features against
+    the one-process 2D forward's, and the sum over the ranks of their
+    adapter gradients (each rank holds its chunks' and shards' part)
+    against the one-process 2D forward's; ms by CUDA events, all ranks in
+    step."""
+    from ucod_dpl_tpu_torch.parallel import build_mesh, distributed
+    from ucod_dpl_tpu_torch.parallel import sp as SP
+
+    mesh = build_mesh(spec["mesh"])
+    rank = distributed.process_index()
+    block = mesh.local_block()
+    seqs, shards = block["seq"], block["model"]
+    n, tp = mesh.shape["seq"], mesh.shape["model"]
+    kv_lens = SP.chunk_kv_lens(SP_RANK_SEQ_LEN, n)
+    gen = torch.Generator().manual_seed(spec["seed"])
+    full = [torch.randn(4, SP_RANK_SEQ_LEN, SERVE_DIM, generator=gen).to(torch.bfloat16) for _ in range(4)]
+    dm = SERVE_DIM // tp
+    counts = _kernel_wrappers()
+    out = {"seq": seqs, "model": shards}
+
+    def inputs(m_list, positions, device_of):
+        """q, k, v and the incoming gradient, ``[m][i]``: head shard m's
+        chunk i on its card, made once (outside the timing)."""
+        return [[SP.split_tokens(x[..., m * dm:(m + 1) * dm].contiguous(), [device_of(m)] * len(positions), n=n,
+                                 positions=positions) for m in m_list] for x in full]
+
+    def ring(src, on):
+        leaves = [[[c.detach().requires_grad_(True) for c in row] for row in x] for x in src[:3]]
+        outs = SP.ring_attention(*leaves, NUM_HEADS, scale=0.125, kv_lens=kv_lens, mesh=on, h_axis="model")
+        torch.autograd.backward([o for row in outs for o in row], [d for row in src[3] for d in row])
+        return [o.detach() for row in outs for o in row], [[t.grad for row in ts for t in row] for ts in leaves]
+
+    mine = inputs(shards, seqs, lambda m: mesh.device(seq=seqs[0], model=m))
+    for fn in counts.values():
+        fn.launches = 0
+    outs, grads = ring(mine, mesh)
+    torch.cuda.synchronize()
+    out["ring_launches"] = {k: fn.launches for k, fn in counts.items() if fn.launches}
+    gathered = [_world_gather(torch.stack([t.to(dev) for t in ts])) for ts in [outs] + grads]
+    out["ring_ms"] = _time_ms(lambda: ring(mine, mesh), 5, warmup=2)
+    distributed.barrier("R5 ring")
+    if rank == 0:
+        one = build_mesh(spec["mesh"], devices=[dev] * (n * tp))
+        on_one = inputs(list(range(tp)), list(range(n)), lambda m: dev)
+        ref_outs, ref_grads = ring(on_one, one)
+        ref = {}
+        for name, ts in zip(("out", "dq", "dk", "dv"), [ref_outs] + ref_grads):
+            ref.update({(name, m, i): t for (m, i), t in zip([(m, i) for m in range(tp) for i in range(n)], ts)})
+        equal = {}
+        for name, g in zip(("out", "dq", "dk", "dv"), gathered):
+            ok = True
+            for r, stack in enumerate(g):
+                coords = np.argwhere(mesh.ranks == r)
+                r_seqs = sorted({int(c[mesh.axis_names.index("seq")]) for c in coords})
+                r_shards = sorted({int(c[mesh.axis_names.index("model")]) for c in coords})
+                for t, (m, i) in zip(stack, [(m, i) for m in r_shards for i in r_seqs]):
+                    ok = ok and torch.equal(t, ref[(name, m, i)])
+            equal[name] = ok
+        out["ring_equal"] = equal
+        out["one_ring_ms"] = _time_ms(lambda: ring(on_one, one), 5, warmup=2)
+        del ref, ref_outs, ref_grads, on_one
+    del gathered, outs, grads, mine
+    distributed.barrier("R5 ring reference")
+
+    cfg, fe, state, lora, lora_opt, pixels, labels = _lora_setup(spec["seed"], dev, spec["batch"], size=756)
+    with torch.no_grad():
+        for entry in lora:  # B != 0, so the A gradients are live
+            for e in entry.values():
+                e["b"].normal_(0.0, 0.02, generator=torch.Generator(device=dev).manual_seed(spec["seed"] + 1))
+    grid = 756 // fe.config.patch_size
+    w = torch.randn(spec["batch"], grid, grid, SERVE_DIM, generator=torch.Generator(device=dev).manual_seed(
+        spec["seed"] + 2), device=dev)
+    shard = {"sp_shard": (mesh, "seq"), "tp_shard": (mesh, "model")}
+
+    def fwd_bwd(**kw):
+        from ucod_dpl_tpu_torch.models.convert import tree_leaves
+        from ucod_dpl_tpu_torch.models.lora import lora_forward
+
+        leaves = tree_leaves(lora)
+        feats = lora_forward(fe.params, lora, pixels, fe.config, compute_dtype=torch.bfloat16, **kw)["key_features"]
+        g = torch.autograd.grad(torch.sum(feats.float() * w), leaves, allow_unused=True)
+        return feats.detach(), torch.cat([(torch.zeros_like(t) if x is None else x).float().flatten()
+                                          for t, x in zip(leaves, g)])
+
+    for fn in counts.values():
+        fn.launches = 0
+    feats, g = fwd_bwd(**shard)
+    torch.cuda.synchronize()
+    out["lora_launches"] = {k: fn.launches for k, fn in counts.items() if fn.launches}
+    g_sum = torch.stack(_world_gather(g)).sum(0)
+    f_all = _world_gather(feats.float())
+    out["lora_ms"] = _time_ms(lambda: fwd_bwd(**shard), 3, warmup=1)
+    distributed.barrier("R5 LoRA")
+    if rank == 0:
+        one = build_mesh(spec["mesh"], devices=[dev] * (n * tp))
+        ref_f, ref_g = fwd_bwd(sp_shard=(one, "seq"), tp_shard=(one, "model"))
+        ref_f = ref_f.float()
+        out["features_max_diff"] = max((f - ref_f).abs().max().item() for f in f_all)
+        out["features_bitwise"] = all(torch.equal(f, ref_f) for f in f_all)
+        out["features_max"] = ref_f.abs().max().item()
+        out["lora_grad_rel"] = ((g_sum - ref_g).norm() / ref_g.norm()).item()
+        out["lora_grad_bitwise"] = torch.equal(g_sum, ref_g)
+        out["one_lora_ms"] = _time_ms(lambda: fwd_bwd(sp_shard=(one, "seq"), tp_shard=(one, "model")), 3, warmup=1)
+    out["tp_traffic"] = dict(distributed.tp_traffic)
+    distributed.barrier("R5 end")
+    return out
+
+
 def _sp_worker(spec_path: str) -> int:
     """One rank of phase R: join the NCCL group with ``spec["cards"]`` cards,
-    run ``spec["entry"]`` (``ring``: R1, ``lora``: R2/R3) and write
+    run ``spec["entry"]`` (``ring``: R1, ``lora``: R2/R3, ``2d``: R5) and write
     ``result{rank}.json`` to ``spec["out"]``."""
     from ucod_dpl_tpu_torch.parallel import distributed
 
@@ -4248,7 +4656,7 @@ def _sp_worker(spec_path: str) -> int:
     t0 = time.perf_counter()
     res = {"rank": rank, "device": str(dev), "world": distributed.process_count(),
            "backend": str(torch.distributed.get_backend())}
-    res.update(_r1_ring(spec, dev) if spec["entry"] == "ring" else _r_lora(spec, dev))
+    res.update({"ring": _r1_ring, "lora": _r_lora, "2d": _r5_2d}[spec["entry"]](spec, dev))
     res["secs"] = time.perf_counter() - t0
     distributed.shutdown()
     with open(os.path.join(spec["out"], f"result{rank}.json"), "w") as f:
@@ -4261,6 +4669,64 @@ def _sp_worker(spec_path: str) -> int:
 # 1.98e-4, LoRA alone 1.66e-3 and 1.62e-3 in R2 and R3), under phase B's
 # 0.1, so a fault outside the ring (a wrong data or seq reduction) shows
 R_GRAD_BOUND = {"decoder + LoRA": 3e-3, "LoRA alone": 2e-2}
+
+
+# R5's bound on the norm-relative difference of the ranks' summed adapter
+# gradients from the one-process 2D forward's: the kernels and the ring are
+# the same bit for bit, but the bf16 gradients of the LayerNorm outputs and
+# of the residual stream are summed over the shards at other points (per
+# card, per process or after the model line's all-reduce) and the
+# adapters' parts over the ranks in f32; phase R's bound on the adapters'
+# gradients alone (R_GRAD_BOUND; an H100 gave 2.6e-3 and 6.0e-3)
+R5_GRAD_BOUND = R_GRAD_BOUND["LoRA alone"]
+
+
+def phase_sp_2d(seed: int, smi: str) -> dict:
+    """R5 (with phase R in ``--only-r4``): 2D SP x TP ``{"seq": 2, "model":
+    2}`` over 4 processes of one card and over 2 processes of two cards
+    (``_r5_2d``): the ring bitwise the one-process 2D ring; the LoRA
+    forward + backward's launches (11 layers x this rank's shards x its
+    chunks x 2 key chunks of K2 and of K3/K4), its features within 2^-6 of
+    max|one-process| and its summed adapter gradients within
+    ``R5_GRAD_BOUND`` of the one-process 2D forward's."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_sp", "r5")
+    shutil.rmtree(root, ignore_errors=True)
+    out, fails = {}, []
+    for name, world, cards in (("4x1", 4, 1), ("2x2", 2, 2)):
+        ranks = _run_ranks({"phase": "R5", "entry": "2d", "out": os.path.join(root, name), "cards": cards,
+                            "seed": seed + 50, "mesh": {"seq": 2, "model": 2}, "batch": 2},
+                           _rank_env(world, str(_free_port())), worker="--sp-worker")
+        for r in ranks:
+            held = len(r["seq"]) * len(r["model"])
+            want_ring, want_lora = {"fwd_lse": 2 * held, "bwd": 2 * held}, {"fwd_lse": 22 * held, "bwd": 22 * held}
+            _log(f"R5 {name} rank {r['rank']} ({r['device']}; seq {r['seq']}, model {r['model']}): ring launches "
+                 f"{r['ring_launches']}, forward + backward {r['ring_ms']:.3f} ms; LoRA 2D forward + backward "
+                 f"launches {r['lora_launches']}, {r['lora_ms']:.3f} ms (CUDA events); model-axis collectives "
+                 f"{r['tp_traffic']} [{smi}]")
+            if r["ring_launches"] != want_ring or r["lora_launches"] != want_lora:
+                fails.append(f"R5 {name} rank {r['rank']}: launches {r['ring_launches']}, {r['lora_launches']}, "
+                             f"expected {want_ring}, {want_lora}")
+        r0 = ranks[0]
+        _log(f"  R5 {name}: the process ring bitwise the one-process 2D ring: {r0['ring_equal']} (one-process ring "
+             f"{r0['one_ring_ms']:.3f} ms); features against the one-process 2D forward: max diff "
+             f"{r0['features_max_diff']:.6g} (bitwise {r0['features_bitwise']}, max |one-process| "
+             f"{r0['features_max']:.4g}); summed adapter grads norm-relative {r0['lora_grad_rel']:.6g} (bitwise "
+             f"{r0['lora_grad_bitwise']}, bound {R5_GRAD_BOUND:g}); one-process forward + backward "
+             f"{r0['one_lora_ms']:.3f} ms")
+        if not all(r0["ring_equal"].values()):
+            fails.append(f"R5 {name}: the process ring differs from the one-process ring: {r0['ring_equal']}")
+        if not r0["features_max_diff"] <= K1_TOL * r0["features_max"]:
+            fails.append(f"R5 {name}: features differ by {r0['features_max_diff']}")
+        if not (np.isfinite(r0["lora_grad_rel"]) and r0["lora_grad_rel"] <= R5_GRAD_BOUND):
+            fails.append(f"R5 {name}: adapter grads {r0['lora_grad_rel']} exceed {R5_GRAD_BOUND}")
+        out[name] = {k: r0[k] for k in ("ring_equal", "ring_ms", "one_ring_ms", "lora_ms", "one_lora_ms",
+                                        "features_max_diff", "features_bitwise", "lora_grad_rel",
+                                        "lora_grad_bitwise", "lora_launches", "tp_traffic")}
+    if fails:
+        raise AssertionError("phase R5: " + "; ".join(fails))
+    return out
 
 
 def phase_sp_processes(seed: int, smi: str) -> dict:
@@ -4509,6 +4975,8 @@ def main(argv=None) -> int:
                         help="run phases U (the dry run) and V (the preemption soak) alone, on one card")
     parser.add_argument("--only-w", action="store_true",
                         help="run phase W (the DINOv1 family through its entries) alone, on one card")
+    parser.add_argument("--only-x", action="store_true",
+                        help="run phase X (head dim 128 and tensor parallelism on the differentiated path) alone")
     args = parser.parse_args(argv)
     if args.dp_worker:
         return _dp_worker(args.dp_worker)
@@ -4521,6 +4989,7 @@ def main(argv=None) -> int:
             return 1
         phase_build()
         r = phase_sp_processes(args.seed, smi)
+        r5 = phase_sp_2d(args.seed, smi)
         part8 = phase_dryrun_processes(smi)
         _log(json.dumps({"card": smi, "dryrun_part8": {k: part8[k] for k in (
                              "loss", "one_process_loss", "lora_grad_norm", "launches", "seconds")},
@@ -4537,7 +5006,8 @@ def main(argv=None) -> int:
                          "sp_2d_lora_step_ms": r["r3"]["ms"], "sp_2d_lora_host_ms": r["r3"]["host_ms"],
                          "sp_2d_lora_busy": r["r3"]["busy"], "sp_2d_lora_peak_gib": r["r3"]["peak_gib"],
                          "sp_2d_lora_grad_rel_diff": r["r3"]["grad_rel decoder + LoRA"],
-                         "reference_bs4": r["reference_bs4"], "reference_bs8": r["reference_bs8"]}))
+                         "reference_bs4": r["reference_bs4"], "reference_bs8": r["reference_bs8"],
+                         "sp_tp_2d_processes": r5}))
         _log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
@@ -4566,6 +5036,15 @@ def main(argv=None) -> int:
         soaked = phase_soak(args.seed, smi, SOAK_CYCLES_UV, SOAK_MINUTES_UV)
         _log(json.dumps({"card": smi, "dryrun_wall_s": dry["wall_s"], "soak_wall_s": soaked["wall_s"],
                          "soak_counts": soaked["counts"], "soak_launches": soaked["launches"]}))
+        _log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
+    if args.only_x:
+        smi = phase_device()
+        phase_build()
+        dev = torch.device("cuda", 0)
+        x = phase_x(args.seed, dev, torch.Generator(device=dev).manual_seed(args.seed))
+        _log(json.dumps({"card": smi, **_x_summary(x)}))
         _log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
@@ -4630,6 +5109,8 @@ def main(argv=None) -> int:
     sp_lora = phase_sp_lora(args.seed, dev, [dev] * 4)
     torch.cuda.empty_cache()
     dots = phase_remat_dots(args.seed, dev)
+    torch.cuda.empty_cache()
+    x = phase_x(args.seed, dev, gen)
     torch.cuda.empty_cache()
     dry = phase_dryrun(smi)
     torch.cuda.empty_cache()
@@ -4723,7 +5204,7 @@ def main(argv=None) -> int:
         "remat_step_ms": dots["ms"], "remat_peak_gib": dots["peak_gib"], "remat_dots_grad_rel_diff": dots["grad_rel"],
         "remat_dots_grad_max_diff": dots["grad_max_diff"],
         "dryrun_wall_s": dry["wall_s"], "dryrun_part_s": {k: v["seconds"] for k, v in dry.items() if k.isdigit()},
-        "soak_wall_s": soaked["wall_s"], "soak_counts": soaked["counts"], **_w_summary(w),
+        "soak_wall_s": soaked["wall_s"], "soak_counts": soaked["counts"], **_w_summary(w), **_x_summary(x),
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -4816,6 +5297,7 @@ def main(argv=None) -> int:
                                 ("K9", "int8 LayerNorm + quantize + fc1 + GELU + requantize", 218),
                                 ("K10", "int8 quantize + out-projection", 479),
                                 ("K11", "int8 whole MLP half", 327))),
+        *_x_entries(x, attn),
         *_prototype_entries(proto),
         *_variant_entries(variants_t),
     ]}))

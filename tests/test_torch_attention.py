@@ -154,10 +154,11 @@ def test_differentiable_forward_routes_like_jax_differentiable_mode(monkeypatch,
     the CPU its plain versions, for any head dim), the rest through the plain
     version under autograd (the JAX ``_xla_attention``)."""
     calls = []
-    monkeypatch.setattr(TD, "packed_attention_diff",
-                        lambda *a, _p=TD.packed_attention_diff: calls.append("flash") or _p(*a))
-    monkeypatch.setattr(TD, "multi_head_attention",
-                        lambda *a, _p=TD.multi_head_attention, **kw: calls.append("plain") or _p(*a, **kw))
+    # the routing lives in ops.attention.differentiable_attention
+    monkeypatch.setattr(TA, "packed_attention_diff",
+                        lambda *a, _p=TA.packed_attention_diff: calls.append("flash") or _p(*a))
+    monkeypatch.setattr(TA, "multi_head_attention",
+                        lambda *a, _p=TA.multi_head_attention, **kw: calls.append("plain") or _p(*a, **kw))
     cfg = TD.DinoConfig(variant="dinov2", image_size=28, patch_size=14, hidden_size=nh * hd, num_layers=2,
                         num_heads=nh, mlp_ratio=2)
     out = TD.dino_forward(TD.init_dino(0, cfg), torch.randn(1, 28, 28, 3), cfg, differentiable=True)

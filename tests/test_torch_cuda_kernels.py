@@ -1,8 +1,8 @@
 """Card-only checks of the port's CUDA kernels at edge shapes: the attention
 forward (K1 at every head dim and head count, also with its log-sum-exp
 output, and on the per-head layout, K5), the attention backward (also equal
-bit for bit from call to call), both with a key bound and f32 outputs and
-as the sequence-parallel ring, K6, K7
+bit for bit from call to call), both with a key bound and f32 outputs, at
+head dims 64 and 128, and as the sequence-parallel ring, K6, K7
 (LayerNorm + fc1 + GELU), the int8 kernels K8-K11 (K6, K8 and K9 also at
 DINOv1's LayerNorm eps 1e-12 with a constant row, and K1 at its 224px
 length 785), and the fusion
@@ -99,6 +99,38 @@ def test_attention_backward_edge_shapes(dev, b, l, nh):
     grads = packed_attention_bwd(q, k, v, o, do, lse, nh, 0.125,
                                  out=tuple(torch.full_like(q, float("nan")) for _ in range(3)))
     _assert_grads_close(grads, packed_attention_bwd_reference(q, k, v, o, do, lse, nh, 0.125))
+
+
+# head dim 128 (the forward-LSE and the backward's second instantiation):
+# L on both sides of the 64- and 128-row tiles, and the key bound
+@pytest.mark.parametrize("b,l,nh,kv", [(1, 1, 2, None), (2, 63, 2, None), (2, 65, 4, None), (3, 129, 6, None),
+                                       (2, 192, 2, None), (1, 257, 6, None), (2, 1370, 6, None), (2, 730, 6, 727),
+                                       (2, 343, 6, 1), (2, 343, 2, 200), (1, 2917, 6, 2917)])
+def test_attention_kernels_at_head_dim_128(dev, b, l, nh, kv):
+    """K2 and K3/K4 at 128 against their plain versions, bf16 and f32
+    outputs pre-filled with NaN: keys past the bound add nothing and their
+    dK/dV rows come out as exact zeros; two backwards equal bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(300 + l)
+    q, k, v, do = (torch.randn(b, l, nh * 128, generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+    scale = 128 ** -0.5
+    kv_len = l if kv is None else kv
+    o_ref, lse_ref = packed_attention_fwd_lse_reference(q, k, v, nh, scale, kv_len=kv_len)
+    refs = packed_attention_bwd_reference(q, k, v, o_ref, do, lse_ref, nh, scale, kv_len=kv_len)
+    # at kv_len 1 dq and dk are zero in exact arithmetic: the floor grows as sqrt(L)
+    atol = 1e-5 * max(1.0, l / 64) ** 0.5
+    for dtype in (torch.bfloat16, torch.float32):
+        o, lse = packed_attention_fwd_lse(q, k, v, nh, scale, kv_len=kv_len, out_dtype=dtype,
+                                          out=(torch.full(q.shape, float("nan"), device=dev, dtype=dtype),
+                                               torch.full((b, nh, l), float("nan"), device=dev)))
+        assert o.dtype == dtype and torch.isfinite(o).all() and torch.isfinite(lse).all()
+        assert (o.float() - o_ref.float()).abs().max().item() <= 2.0 ** -6 * o_ref.float().abs().max().item()
+        assert (lse - lse_ref).abs().max().item() <= 1e-3
+        runs = [packed_attention_bwd(q, k, v, o_ref, do, lse_ref, nh, scale, kv_len=kv_len, out_dtype=dtype,
+                                     out=tuple(torch.full(q.shape, float("nan"), device=dev, dtype=dtype)
+                                               for _ in range(3))) for _ in range(2)]
+        assert all(torch.equal(x, y) for x, y in zip(*runs))
+        assert not runs[0][1][:, kv_len:].any() and not runs[0][2][:, kv_len:].any()
+        _assert_grads_close(runs[0], refs, atol)
 
 
 def _assert_grads_close(grads, refs, atol=1e-5):
@@ -684,23 +716,34 @@ def test_attention_forward_every_head_dim_and_count(dev, nh, d, l):
 def test_differentiable_forward_routes_like_jax_differentiable_mode(dev):
     """3 heads of 64, which the JAX differentiable_mode sends to
     _xla_attention, run the plain version under autograd (no attention kernel
-    launches); 2 heads of 128, which it sends to its flash VJP kernels, raise:
-    the port's flash backward is built for head dim 64."""
+    launches); 2 heads of 128, which it sends to its flash VJP kernels,
+    launch the forward-LSE and the backward (once each, one attention
+    layer), and K1 alone when autograd records nothing; 2 heads of 192,
+    which it sends there too, raise: the port's backward is built for head
+    dims 64 and 128, and nothing falls back."""
     from ucod_dpl_tpu_torch.models import dino as TD
 
-    px = torch.randn(1, 28, 28, 3, device=dev)
-    for nh, hd in ((3, 64), (2, 128)):
+    for nh, hd in ((3, 64), (2, 128), (2, 192)):
+        px = torch.randn(1, 28, 28, 3, device=dev, requires_grad=True)
         cfg = TD.DinoConfig(variant="dinov2", image_size=28, patch_size=14, hidden_size=nh * hd, num_layers=2,
                             num_heads=nh, mlp_ratio=2)
         params = TD.cast_params(TD.init_dino(0, cfg, device=dev), torch.bfloat16)
-        if nh == 3:
-            before = (packed_attention_fwd_lse.launches, heads_attention.launches)
-            out = TD.dino_forward(params, px, cfg, compute_dtype=torch.bfloat16, differentiable=True)
-            assert torch.isfinite(out["key_features"]).all()
-            assert (packed_attention_fwd_lse.launches, heads_attention.launches) == before
-        else:
-            with pytest.raises(NotImplementedError, match="head_dim 64"):
+        before = (packed_attention.launches, packed_attention_fwd_lse.launches, packed_attention_bwd.launches,
+                  heads_attention.launches)
+        if hd == 192:
+            with pytest.raises(ValueError, match="d in"):
                 TD.dino_forward(params, px, cfg, compute_dtype=torch.bfloat16, differentiable=True)
+            continue
+        out = TD.dino_forward(params, px, cfg, compute_dtype=torch.bfloat16, differentiable=True)
+        out["key_features"].float().square().sum().backward()
+        assert torch.isfinite(out["key_features"]).all() and torch.isfinite(px.grad).all()
+        after = (packed_attention.launches, packed_attention_fwd_lse.launches, packed_attention_bwd.launches,
+                 heads_attention.launches)
+        assert [a - b for a, b in zip(after, before)] == ([0, 0, 0, 0] if nh == 3 else [0, 1, 1, 0])
+        if nh == 2:
+            with torch.no_grad():
+                TD.dino_forward(params, px, cfg, compute_dtype=torch.bfloat16, differentiable=True)
+            assert (packed_attention.launches, packed_attention_fwd_lse.launches) == (after[0] + 1, after[1])
 
 
 def test_heads_attention_counts_launches_and_rejects_what_it_does_not_take(dev):
@@ -860,7 +903,7 @@ def test_train_entry_launches_and_resumes_on_the_card(dev, tmp_path, monkeypatch
     64, 3 layers, 56px, batch 2, 2 epochs): K1 and K6 launch twice per
     backbone forward of the cache builds and the crop pass and nowhere else;
     with LoRA each LoRA step launches the forward-LSE and the backward twice
-    and each discriminator batch's adapted forward the forward-LSE twice;
+    and each discriminator batch's adapted forward (no autograd) K1 twice;
     the losses are finite; two uninterrupted runs end bit for bit equal, and
     a run preempted by SIGTERM after its 3rd step and resumed from
     ``state_preempt`` ends bit for bit as an uninterrupted run does (cudnn
@@ -920,8 +963,10 @@ def test_train_entry_launches_and_resumes_on_the_card(dev, tmp_path, monkeypatch
         runner = cli.train_main(argv("a"))
         crops = runner.evaluator.crop_batches  # the one validation, at epoch 2
         forwards = 2 + crops  # the train-set and val-set cache builds (one batch each), the crop calls
-        assert packed_attention.launches == layernorm_qkv.launches == 2 * forwards
-        assert packed_attention_fwd_lse.launches == (2 * (4 + 2) if lora else 0)  # 4 LoRA steps, 2 dis batches
+        # K1 also in the 2 discriminator batches' adapted forwards, which run under no_grad
+        assert packed_attention.launches == 2 * forwards + (2 * 2 if lora else 0)
+        assert layernorm_qkv.launches == 2 * forwards
+        assert packed_attention_fwd_lse.launches == (2 * 4 if lora else 0)  # 4 LoRA steps
         assert packed_attention_bwd.launches == (2 * 4 if lora else 0)
         assert not any(fn.launches for fn in (heads_attention, *wrappers[5:]))
         assert steps["n"] == 4 and np.isfinite(steps["losses"]).all()

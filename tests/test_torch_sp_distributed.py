@@ -26,12 +26,24 @@ once, and the tests read what its ranks wrote.
   with tests/test_distributed_sp.py's bound (rtol 1e-3, atol 4.5e-4 on the
   decoder and the adapters), the loss at rtol 1e-5 and the LoRA gradient
   norm at 1e-4; every rank's final state is bitwise equal.
+* 2D SP x TP over processes, ``{"seq": 2, "model": 2}`` on 4 ranks (the
+  model axis across processes: the out-projection's and fc2's partial sums
+  added over the model line's subgroup, the last layer's keys gathered over
+  it) and on 2 ranks x 2 cards (the model axis inside each process, every
+  head shard's k/v in one exchange a hop): ``ring_attention(h_axis=)``'s
+  outputs and q/k/v gradients against JAX's one-process 2D ring (RING_TOL,
+  GRAD_TOL), and ``dino_forward(sp_shard=, tp_shard=, differentiable=True)``
+  against JAX's 2D forward: the key features at tests/test_torch_sp.py's
+  FWD_TOL, and the pixel gradients of a loss on them (each rank's those of
+  its own chunks, summed over the ring) at GRAD_TOL, equal on the model
+  line's replicas.  The LoRA step runs on the same meshes, replicated over
+  ``model`` (above).
 * Data-parallel ranks that each run the LoRA step on a one-process
   ``{"seq": 2}`` mesh step as the same ranks without a mesh.
 * The mesh over processes maps coordinates to processes as the JAX mesh
   over ``jax.distributed`` processes does, and the guards: the extractor
-  and the Runner refuse a process-spanning mesh, the LoRA step a ``model``
-  axis across processes.
+  and the Runner refuse a process-spanning mesh; the LoRA step takes a
+  ``model`` axis across processes (it once refused it) and steps as JAX's.
 """
 
 import json
@@ -54,21 +66,29 @@ from ucod_dpl_tpu.models.dba import init_rev_decoder as j_init_decoder
 from ucod_dpl_tpu.models.discriminator import init_discriminator as j_init_discriminator
 from ucod_dpl_tpu.parallel import build_mesh as jax_build_mesh
 from ucod_dpl_tpu.parallel.sp import ring_attention as jax_ring_attention
+from ucod_dpl_tpu.parallel.tp import shard_dino_params as jax_shard_dino_params
 from ucod_dpl_tpu_torch.config import CfgNode
 from ucod_dpl_tpu_torch.engine import runner as TR
 from ucod_dpl_tpu_torch.models import convert as C
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_distributed import result_lines, run_ranks  # noqa: E402
-from test_torch_sp import ARCH, CFG, GRAD_TOL, RING_TOL, TCFG  # noqa: E402
+from test_torch_sp import ARCH, CFG, FWD_TOL, GRAD_TOL, RING_TOL, TCFG  # noqa: E402
 
 pytestmark = pytest.mark.heavy  # multi-process: excluded from the quick loop
 
 RING_SHAPE = dict(b=2, l_valid=5, l_pad=8, d=128, nh=8, scale=0.125)
 # (name, mesh config, cards per process) of each group's ring and LoRA layouts
 RINGS = {4: [("seq4 on 4 ranks", {"seq": 4})], 2: [("seq2 on 2 ranks", {"seq": 2}), ("seq4 on 2x2", {"seq": 4})]}
-LORA_LAYOUTS = {4: [("data2xseq2 on 4 ranks", {"data": 2, "seq": 2}), ("seq4 on 4 ranks", {"seq": 4})],
-                2: [("data2xseq2 on 2x2", {"data": 2, "seq": 2}), ("seq2xdata2 on 2x2", {"seq": 2, "data": 2})]}
+LORA_LAYOUTS = {4: [("data2xseq2 on 4 ranks", {"data": 2, "seq": 2}), ("seq4 on 4 ranks", {"seq": 4}),
+                    ("seq2xmodel2 on 4 ranks", {"seq": 2, "model": 2})],
+                2: [("data2xseq2 on 2x2", {"data": 2, "seq": 2}), ("seq2xdata2 on 2x2", {"seq": 2, "data": 2}),
+                    ("seq2xmodel2 on 2x2", {"seq": 2, "model": 2})]}
+# 2D SP x TP over processes: the model axis across the processes (4 ranks)
+# and inside each (2 ranks x 2 cards)
+RINGS_2D = {4: [("seq2xmodel2 on 4 ranks", {"seq": 2, "model": 2})],
+            2: [("seq2xmodel2 on 2x2", {"seq": 2, "model": 2})]}
+MESH_2D = {"seq": 2, "model": 2}
 REMATS = ("none", "layer")
 STEPS, BATCH = 3, 4
 LORA_CFG = {"model_cfg": {"dim": 128, "feature_size": 8, "ema_weight": 0.99, "dis_use_features": False,
@@ -84,6 +104,7 @@ from ucod_dpl_tpu_torch.config import CfgNode
 from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
 from ucod_dpl_tpu_torch.engine import train_step as TT
 from ucod_dpl_tpu_torch.models import convert as C
+from ucod_dpl_tpu_torch.models import dino as TD
 from ucod_dpl_tpu_torch.parallel import build_mesh, distributed as D
 from ucod_dpl_tpu_torch.parallel import sp as SP
 
@@ -119,6 +140,33 @@ for name, cfg in w["rings"]:
         got["one_out"] = [o.detach().numpy().tolist() for o in outs]
         got["one_grads"] = [[t.grad.numpy().tolist() for t in ts] for ts in leaves]
     res["ring " + name] = got
+
+# 2D SP x TP over processes: each rank its chunks of its head shards
+for name, cfg in w["rings2d"]:
+    mesh = build_mesh(cfg)
+    n, tp = mesh.shape["seq"], mesh.shape["model"]
+    block = mesh.local_block()
+    mine, shards = block["seq"], block["model"]
+    c = r["q"].shape[1] // n
+    lens = [max(0, min(c, r["l_valid"] - i * c)) for i in range(n)]
+
+    def part(t, m, i):
+        return t.chunk(tp, dim=-1)[m].chunk(n, dim=1)[i]
+
+    full = [torch.from_numpy(x) for x in (r["q"], r["k"], r["v"])]
+    leaves = [[[part(t, m, i).clone().requires_grad_(True) for i in mine] for m in shards] for t in full]
+    outs = SP.ring_attention(*leaves, r["nh"], scale=r["scale"], kv_lens=lens, mesh=mesh, h_axis="model")
+    wt = torch.from_numpy(r["w"])
+    sum(torch.sum(outs[a][b] * part(wt, m, i)) for a, m in enumerate(shards) for b, i in enumerate(mine)).backward()
+    res["ring2d " + name] = {"seq": mine, "model": shards, "out": [[o.detach().numpy().tolist() for o in row]
+                                                                    for row in outs],
+                             "grads": [[[t.grad.numpy().tolist() for t in row] for row in ts] for ts in leaves]}
+    px = torch.from_numpy(w["batches"][0][0]).requires_grad_(True)
+    feats = TD.dino_forward(w["backbone"], px, w["dino_cfg"], sp_shard=(mesh, "seq"), tp_shard=(mesh, "model"),
+                            differentiable=True)["key_features"]
+    torch.sum(feats * torch.from_numpy(w["feat_w"])).backward()
+    res["fwd2d " + name] = {"features": feats.detach().numpy().tolist(), "pixel_grad": px.grad.numpy().tolist(),
+                            "seq": mine, "model": shards}
 
 # the LoRA step on a mesh over processes, each rank fed the global batches
 cfg = CfgNode(w["cfg"])
@@ -156,18 +204,12 @@ if w["dp_local"]:
         np.save(f"{out}/dp {name} {rank}.npy", torch.cat([t.reshape(-1) for t in flat]).numpy())
         res["dp " + name] = [float(a["loss"]) for a in aux]
 
-# guards: extraction refuses a mesh over processes, the LoRA step a model axis
+# guards: extraction refuses a mesh over processes
 try:
     FeatureExtractor(CfgNode(w["fe_cfg"]), mesh=build_mesh({"seq": D.process_count()}))
     res["fe_guard"] = None
 except NotImplementedError as e:
     res["fe_guard"] = str(e)
-try:
-    TT.make_lora_train_step(cfg, w["dino_cfg"], torch.float32,
-                            sp_shard=(build_mesh({"model": 2, "seq": D.process_count() * cards // 2}), "seq"))
-    res["model_guard"] = None
-except NotImplementedError as e:
-    res["model_guard"] = str(e)
 D.barrier("end")
 print("RESULT " + json.dumps(res))
 '''
@@ -196,6 +238,12 @@ def _lora_world():
 
 def _np(t):
     return jax.tree_util.tree_map(np.asarray, t)
+
+
+def _feat_w():
+    """The weights of the 2D forward's loss on its (4, 2, 2, 128) key
+    features."""
+    return np.random.default_rng(9).standard_normal((BATCH, 2, 2, 128)).astype(np.float32)
 
 
 def _jax_lora_run(world, mesh_cfg, remat):
@@ -240,7 +288,8 @@ def runs(tmp_path_factory):
         probes = [("data2xseq4", {"data": 2, "seq": 4}), ("seq4xdata2", {"seq": 4, "data": 2}),
                   ("data-1xseq2", {"data": -1, "seq": 2})] if cards == 2 else []
         torch.save({**port, "rings": RINGS[procs], "lora_layouts": LORA_LAYOUTS[procs], "layout_probes": probes,
-                    "dp_local": procs == 2}, out / f"world{procs}.pt")
+                    "dp_local": procs == 2, "rings2d": RINGS_2D[procs], "feat_w": _feat_w()},
+                   out / f"world{procs}.pt")
         res = run_ranks(out, f"ranks{procs}", _RANK, procs, args=(out / f"world{procs}.pt", out, cards), timeout=300)
         results[procs] = [result_lines(o)[0] for _, o in res]
     return results, out, world
@@ -373,15 +422,89 @@ def test_process_mesh_maps_coordinates_as_jax_does(runs):
         assert r["layouts"]["data-1xseq2"] == [[0, 0], [1, 1]]
 
 
-def test_guards_across_processes(runs, tmp_path, monkeypatch):
-    """The extractor refuses a mesh over processes and the LoRA step a
-    ``model`` axis across processes (in the ranks); the Runner refuses a
-    ``seq`` axis over more than one process."""
+def test_guards_across_processes(runs, jax_lora, tmp_path, monkeypatch):
+    """The extractor refuses a mesh over processes (in the ranks); the
+    LoRA step takes a ``model`` axis across processes, which it once
+    refused, and its first step's loss is JAX's on the same mesh shape; the
+    Runner refuses a ``seq`` axis over more than one process."""
+    want = jax_lora(MESH_2D, "none")["loss"][0]
     for procs in (4, 2):
         for r in runs[0][procs]:
             assert r["fe_guard"] and "single-process" in r["fe_guard"]
-            assert r["model_guard"] and "tensor parallelism" in r["model_guard"]
+        name = next(n for n, cfg in LORA_LAYOUTS[procs] if "model" in cfg)
+        loss = np.mean([r[f"lora {name} none"]["loss"][0] for r in runs[0][procs]])
+        np.testing.assert_allclose(loss, want, rtol=1e-5)
     monkeypatch.setattr(TR, "process_count", lambda: 2)
     cfg = CfgNode({"work_dir": str(tmp_path), "log_cfg": {}, "tpu_cfg": {"mesh": {"data": 1, "seq": 2}}})
     with pytest.raises(NotImplementedError, match="make_lora_train_step"):
         TR.Runner(cfg, mode="eval", device="cpu")
+
+
+ALL_2D = [(procs, name) for procs, cases in RINGS_2D.items() for name, _ in cases]
+
+
+@pytest.mark.parametrize("procs,name", ALL_2D, ids=[name for _, name in ALL_2D])
+def test_2d_ring_across_processes_matches_jax(runs, procs, name):
+    """Each rank's output and q/k/v gradient chunks of its head shards,
+    gathered, against JAX's 2D ring on the one-process mesh (valid rows;
+    the padded keys' gradients exactly 0)."""
+    r = _ring_inputs()
+    n, tp = MESH_2D["seq"], MESH_2D["model"]
+    jmesh = jax_build_mesh(MESH_2D, devices=jax.devices()[:n * tp])
+    valid = jnp.broadcast_to(jnp.arange(r["q"].shape[1]) < r["l_valid"], r["q"].shape[:2])
+
+    def fwd(q, k, v):
+        return jax_ring_attention(q, k, v, r["nh"], scale=r["scale"], mesh=jmesh, axis="seq", valid=valid,
+                                  h_axis="model")
+
+    want = np.asarray(jax.jit(fwd)(r["q"], r["k"], r["v"]))
+    want_g = jax.jit(jax.grad(lambda q, k, v: jnp.sum(fwd(q, k, v) * r["w"]), argnums=(0, 1, 2)))(
+        r["q"], r["k"], r["v"])
+    out, grads = {}, {}
+    for rk in runs[0][procs]:
+        res = rk["ring2d " + name]
+        for a, m in enumerate(res["model"]):
+            for b, i in enumerate(res["seq"]):
+                out[m, i] = np.asarray(res["out"][a][b], np.float32)
+                grads[m, i] = [np.asarray(res["grads"][t][a][b], np.float32) for t in range(3)]
+    assert set(out) == {(m, i) for m in range(tp) for i in range(n)}
+
+    def whole(parts):
+        return np.concatenate([np.concatenate([parts[m, i] for i in range(n)], axis=1) for m in range(tp)], axis=-1)
+
+    v = r["l_valid"]
+    np.testing.assert_allclose(whole(out)[:, :v], want[:, :v], **RING_TOL)
+    for t, wg in enumerate(want_g):
+        got = whole({key: g[t] for key, g in grads.items()})
+        np.testing.assert_allclose(got, np.asarray(wg), err_msg=f"d{'qkv'[t]}", **GRAD_TOL)
+        if t:
+            assert np.all(got[:, v:] == 0.0)
+
+
+@pytest.mark.parametrize("procs,name", ALL_2D, ids=[name for _, name in ALL_2D])
+def test_2d_forward_across_processes_matches_jax(runs, procs, name):
+    """The differentiated 2D forward over processes: every rank's key
+    features equal JAX's 2D forward; the pixel gradients of its loss, each
+    rank's over its own chunks, summed over one model coordinate's ranks,
+    equal jax.grad of the same loss, and each model coordinate's sum is the
+    same (the replicas hold whole gradients)."""
+    world = runs[2]
+    px, w = world["batches"][0][0], _feat_w()
+    jmesh = jax_build_mesh(MESH_2D, devices=jax.devices()[:4])
+    jp = jax_shard_dino_params(world["backbone"], jmesh)
+
+    def feats(x):
+        return JD.dino_forward(jp, x, CFG, sp_shard=(jmesh, "seq"), tp_shard=(jmesh, "model"))["key_features"]
+
+    want = np.asarray(jax.jit(feats)(jnp.asarray(px)))
+    want_g = np.asarray(jax.jit(jax.grad(lambda x: jnp.sum(feats(x) * w)))(jnp.asarray(px)))
+    ranks = [r["fwd2d " + name] for r in runs[0][procs]]
+    for r in ranks:
+        np.testing.assert_allclose(np.asarray(r["features"], np.float32), want, **FWD_TOL)
+    sums = {}
+    for r in ranks:
+        for m in r["model"]:
+            sums[m] = sums.get(m, 0.0) + np.asarray(r["pixel_grad"], np.float32)
+    assert sorted(sums) == list(range(MESH_2D["model"]))
+    for m, g in sums.items():
+        np.testing.assert_allclose(g, want_g, err_msg=f"model {m}", **GRAD_TOL)

@@ -105,8 +105,10 @@ def test_tp_cls_attention_matches_jax_tp_and_unsharded(mesh_cfg):
 
 
 def test_tp_dino_forward_refuses_int8_and_differentiation():
-    """A key fold runs under TP (as JAX allows it): the last layer's LN1 on
-    shard 0's device and the whole fold there, equal to the unsharded fold."""
+    """TP refuses the int8 path; a key fold runs under TP (as JAX allows it):
+    the last layer's LN1 on shard 0's device and the whole fold there, equal
+    to the unsharded fold; the differentiated forward runs too, equal to the
+    unsharded one."""
     _, tp = _jax_params(0)
     mesh = _cpu_mesh({"data": 4, "model": 2})
     shards = shard_dino_params(tp, mesh)[0]
@@ -120,8 +122,11 @@ def test_tp_dino_forward_refuses_int8_and_differentiation():
     want = TD.dino_forward(tp, px, TCFG, key_fold=fold)["folded_features"]
     assert got.shape == want.shape == (1, 2, 2, 32)
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
-    with pytest.raises(NotImplementedError):
-        TD.dino_forward(shards, px, TCFG, tp_shard=(mesh, "model"), differentiable=True)
+    # the differentiated forward runs under TP (it once raised): the
+    # unsharded differentiated forward's features
+    got = TD.dino_forward(shards, px, TCFG, tp_shard=(mesh, "model"), differentiable=True)["key_features"]
+    want = TD.dino_forward(tp, px, TCFG, differentiable=True)["key_features"]
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4, atol=1e-5)
     with pytest.raises(ValueError, match="shards"):
         TD.dino_forward(shards[:1], px, TCFG, tp_shard=(mesh, "model"))
 

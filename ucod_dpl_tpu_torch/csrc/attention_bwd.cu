@@ -68,6 +68,30 @@
 //     dK/dV rows [kv_len, L) are set to exact zeros by one 2-D memset;
 //   * a last pass rounds dq_acc to bf16 into dq; dq, dk and dv may be f32
 //     instead (a ring sums its partial gradients before it rounds).
+//
+// Head dim 128 (attention_bwd_d128_kernel; the TPU kernels take any head
+// dim with 2 * d % 128 == 0).  The layout above does not fit: K and V of
+// 128 keys take 64 KB, three stages of Q and dO 96 KB, dS^T 16 KB and the
+// doubled dQ hand-off buffers 128 KB, about 300 KB against the 227 KB a CTA
+// may hold; and a consumer thread would hold dK and dV (128 f32), S^T and
+// dP^T (64) and a whole dQ partial (64), about 256 registers against the
+// 240 that setmaxnreg gives it.  So at head dim 128 the kernel keeps the
+// 128 keys a CTA, the five products, the pre-pass, the key bound and the
+// ordered dQ additions, and changes three things:
+//   * two pipeline stages of Q and dO (64 KB);
+//   * dQ in two 64-column halves, each its own wgmma of 32 accumulators: a
+//     warpgroup first computes the other warpgroup's half over its own 64
+//     keys and writes it into that warpgroup's buffer, then its own half,
+//     which it adds to the other's partial in place; the buffer (64 x 64
+//     f32, double-buffered by step parity: 64 KB for both) is then what the
+//     writer reduce-adds into dq_acc, so no separate hand-over copy exists;
+//   * no software pipelining across steps: step i's S and dP are issued
+//     after step i - 1's dQ is handed over, so S^T, dP^T and a dQ half are
+//     never live together (dK, dV, S^T, dP^T and P: about 208 registers).
+// 210 KB of shared memory a CTA.  Two tiles of 64 columns side by side make
+// every 128-column operand (two TMA boxes a tile, as the forward's); a
+// product over the head dim takes 8 k-steps across the two, and dK/dV are
+// two 64-column accumulators each.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -113,8 +137,9 @@ constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 // L <= i < padded_len, dq_acc's row i of head bh set to zero, and with the
 // first row of a q tile the tile's two semaphores (one per half).  Eight
 // lanes take one (padded row, head) unit u: row u / num_heads of batch
-// element b, head u % num_heads, 16 bytes of the packed o/dO row and 16 of
-// the dq_acc row each.
+// element b, head u % num_heads, HD / 4 bytes of the packed o/dO row and
+// HD / 2 of each dq_acc half row each.
+template <int HD>
 __global__ void __launch_bounds__(256)
     attention_bwd_stats_kernel(const bf16* __restrict__ o, const bf16* __restrict__ d_o,
                                const float* __restrict__ lse, float2* __restrict__ stats,
@@ -129,22 +154,29 @@ __global__ void __launch_bounds__(256)
   const int i = (int)(bi % padded_len);
   const int64_t bh = (int64_t)b * num_heads + h;
   // row i % 64 of both halves of tile i / 64 (see dq_half_offset); part p
-  // zeroes columns [4p, 4p + 4) of the row in half 0 and in half 1
-  float* dq_row = dq_acc + (bh * (padded_len / 64) + i / 64) * 64 * kHeadDim + (i % 64) * 32 + 4 * part;
-  reinterpret_cast<float4*>(dq_row)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-  reinterpret_cast<float4*>(dq_row + 64 * 32)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  // zeroes columns [4p + 32r, 4p + 32r + 4) of the row in half 0 and in
+  // half 1, r < HD / 64
+  float* dq_row = dq_acc + (bh * (padded_len / 64) + i / 64) * 64 * HD + (i % 64) * (HD / 2) + 4 * part;
+#pragma unroll
+  for (int r = 0; r < HD / 64; ++r) {
+    reinterpret_cast<float4*>(dq_row + 32 * r)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<float4*>(dq_row + 32 * r + 64 * (HD / 2))[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
   if (i % 64 == 0 && part < 2) sem[(bh * (padded_len / 64) + i / 64) * 2 + part] = 0;
   float dot = 0.f;
   if (i < seq_len) {
-    const int64_t off = (((int64_t)b * seq_len + i) * num_heads + h) * kHeadDim + 8 * part;
-    const uint4 a = *reinterpret_cast<const uint4*>(o + off);
-    const uint4 c = *reinterpret_cast<const uint4*>(d_o + off);
-    const uint32_t av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[k]));
-      const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cv[k]));
-      dot = fmaf(x.x, y.x, fmaf(x.y, y.y, dot));
+    for (int r = 0; r < HD / 64; ++r) {
+      const int64_t off = (((int64_t)b * seq_len + i) * num_heads + h) * HD + 64 * r + 8 * part;
+      const uint4 a = *reinterpret_cast<const uint4*>(o + off);
+      const uint4 c = *reinterpret_cast<const uint4*>(d_o + off);
+      const uint32_t av[4] = {a.x, a.y, a.z, a.w}, cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[k]));
+        const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&cv[k]));
+        dot = fmaf(x.x, y.x, fmaf(x.y, y.y, dot));
+      }
     }
   }
   dot += __shfl_xor_sync(0xffffffffu, dot, 4);
@@ -156,30 +188,33 @@ __global__ void __launch_bounds__(256)
   }
 }
 
-// Offset (in floats) of (row, col) in a 64-row x 32-column f32 half-tile of
-// dQ sums: rows of 128 bytes whose 16-byte chunk k is stored at k ^ (row %
-// 8), so a warp's fragment stores meet no bank twice.
+// Offset (in floats) of (row, col) in a 64-row x HD / 2-column f32
+// half-tile of dQ sums: rows of 2 * HD bytes whose 16-byte chunk k is stored
+// at k ^ (row % 8), so a warp's fragment stores meet few banks twice.
+template <int HD>
 __device__ __forceinline__ int dq_half_offset(int row, int col) {
-  return row * 32 + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
+  return row * (HD / 2) + (((col >> 2) ^ (row & 7)) << 2) + (col & 3);
 }
 
 // dq = OutT(dq_acc).  dq_acc holds, per (batch * head, 64-row q tile), the
-// tile's 64 x 64 f32 sums as two halves of columns [0, 32) and [32, 64),
-// each laid out as dq_half_offset says; one float4 (four columns) a thread.
-template <typename OutT>
+// tile's 64 x HD f32 sums as two halves of columns [0, HD / 2) and [HD / 2,
+// HD), each laid out as dq_half_offset says; one float4 (four columns) a
+// thread.
+template <int HD, typename OutT>
 __global__ void attention_bwd_dq_cast_kernel(const float4* __restrict__ src, OutT* __restrict__ dq, int64_t n4,
                                              int seq_len, int n_q, int num_heads) {
-  const int64_t row_stride = (int64_t)num_heads * kHeadDim;
+  constexpr int kRow4 = HD / 8;  // float4 of a half row
+  const int64_t row_stride = (int64_t)num_heads * HD;
   for (int64_t f = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; f < n4; f += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t tile = f / 1024;
-    const int half = (int)(f / 512 % 2);
-    const int row_in = (int)(f % 512 / 8);
+    const int64_t tile = f / (128 * kRow4);
+    const int half = (int)(f / (64 * kRow4) % 2);
+    const int row_in = (int)(f % (64 * kRow4) / kRow4);
     const int row = (int)(tile % n_q) * 64 + row_in;
     if (row >= seq_len) continue;
-    const int col = 32 * half + 4 * ((int)(f % 8) ^ (row_in & 7));
+    const int col = HD / 2 * half + 4 * ((int)(f % kRow4) ^ (row_in & 7));
     const int64_t bh = tile / n_q;
     const float4 x = src[f];
-    OutT* dst = dq + ((bh / num_heads) * seq_len + row) * row_stride + (bh % num_heads) * kHeadDim + col;
+    OutT* dst = dq + ((bh / num_heads) * seq_len + row) * row_stride + (bh % num_heads) * HD + col;
     if constexpr (std::is_same_v<OutT, float>) {
       *reinterpret_cast<float4*>(dst) = x;
     } else {
@@ -214,8 +249,8 @@ __device__ __forceinline__ void dq_exchange_add(float (&dq)[32], float2 (*xchg)[
   for (int j = 0; j < 4; ++j) {
     const int jb = 4 * C + j;
     const int col = 8 * j + 2 * (tid % 4);
-    *reinterpret_cast<float2*>(out + dq_half_offset(row, col)) = make_float2(dq[4 * jb], dq[4 * jb + 1]);
-    *reinterpret_cast<float2*>(out + dq_half_offset(row + 8, col)) = make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);
+    *reinterpret_cast<float2*>(out + dq_half_offset<kHeadDim>(row, col)) = make_float2(dq[4 * jb], dq[4 * jb + 1]);
+    *reinterpret_cast<float2*>(out + dq_half_offset<kHeadDim>(row + 8, col)) = make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);
   }
 }
 
@@ -464,17 +499,315 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-// The main kernel and the dq cast, dq/dk/dv of type OutT.
+// ---- head dim 128 ----------------------------------------------------------
+
+constexpr int kD128 = 128;
+constexpr int kStages128 = 2;
+constexpr int kAtom = 64;  // columns of a 128-byte swizzled tile
+constexpr uint32_t kKvBytes128 = kBlockK * kD128 * 2;
+constexpr uint32_t kQBytes128 = kBlockQ * kD128 * 2;
+
+struct Smem128 {  // every tile 1024-byte aligned; a 128-column tile is two 64-column ones
+  bf16 k[2 * kBlockK * kAtom];
+  bf16 v[2 * kBlockK * kAtom];
+  bf16 q[kStages128][2 * kBlockQ * kAtom];
+  bf16 d_o[kStages128][2 * kBlockQ * kAtom];
+  bf16 ds[kConsumers][64 * kBlockQ];     // dS^T, [key][query], per warpgroup
+  float dq[kConsumers][2][64 * kAtom];   // half c of a step's dQ, by step parity (dq_half_offset<128>)
+  float2 stats[kStages128][kBlockQ];     // {lse * log2 e, D}
+  uint64_t kv_full;
+  uint64_t full[kStages128], empty[kStages128];
+  uint64_t part_full[kConsumers][2];  // dq[c][s] holds the other warpgroup's partial of half c
+  uint64_t dq_full[kConsumers][2];    // dq[c][s] holds the step's sums of half c
+  uint64_t dq_free[kConsumers][2];    // their addition to dq_acc has completed
+};
+constexpr size_t kSmemBytes128 = sizeof(Smem128) + 1024;  // + alignment slack
+static_assert(kSmemBytes128 <= 232448, "the head-dim-128 backward exceeds a CTA's shared memory");
+
+// The backward at head dim 128: the work, grid, producer and dQ writers of
+// attention_bwd_kernel, with the changes in the header note.
 template <typename OutT>
+__global__ void __launch_bounds__(kThreads, 1)
+    attention_bwd_d128_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                              const float2* __restrict__ stats, float* __restrict__ dq_acc, int* __restrict__ sem,
+                              OutT* __restrict__ dk, OutT* __restrict__ dv, int seq_len, int kv_len, int padded_len,
+                              int num_heads, float scale, float scale_log2) {
+  constexpr int D = kD128;
+  extern __shared__ uint8_t smem_raw[];
+  Smem128& sm = *reinterpret_cast<Smem128*>(smem_raw + ((1024 - (ucod::smem_addr(smem_raw) & 1023)) & 1023));
+  const int wg = threadIdx.x / 128;
+  const int bh = blockIdx.y;
+  const int b = bh / num_heads;
+  const int h = bh % num_heads;
+  const int k0 = blockIdx.x * kBlockK;
+  const int n_q = padded_len / kBlockQ;
+  const int q_first = blockIdx.x * n_q / gridDim.x;  // this CTA's first q tile; step i takes (q_first + i) % n_q
+
+  if (threadIdx.x == 0) {
+    ucod::mbar_init(&sm.kv_full, 1);
+#pragma unroll
+    for (int s = 0; s < kStages128; ++s) {
+      ucod::mbar_init(&sm.full[s], 1);
+      ucod::mbar_init(&sm.empty[s], 4 * kConsumers);  // lane 0 of every consumer warp
+    }
+#pragma unroll
+    for (int c = 0; c < kConsumers; ++c) {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        ucod::mbar_init(&sm.part_full[c][s], 128);
+        ucod::mbar_init(&sm.dq_full[c][s], 128);
+        ucod::mbar_init(&sm.dq_free[c][s], 1);
+      }
+    }
+    ucod::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    ucod::reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      ucod::mbar_expect_tx(&sm.kv_full, 2 * kKvBytes128);
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        ucod::tma_load_3d(sm.k + a * kBlockK * kAtom, &tm_k, &sm.kv_full, h * D + a * kAtom, k0, b);
+        ucod::tma_load_3d(sm.v + a * kBlockK * kAtom, &tm_v, &sm.kv_full, h * D + a * kAtom, k0, b);
+      }
+      const float2* stats_h = stats + (int64_t)bh * padded_len;
+      for (int i = 0; i < n_q; ++i) {
+        const int st = i % kStages128;
+        const int tile = (q_first + i) % n_q;
+        ucod::mbar_wait(&sm.empty[st], ((i / kStages128) & 1) ^ 1);
+        ucod::mbar_expect_tx(&sm.full[st], 2 * kQBytes128 + kStatBytes);
+#pragma unroll
+        for (int a = 0; a < 2; ++a) {
+          ucod::tma_load_3d(sm.q[st] + a * kBlockQ * kAtom, &tm_q, &sm.full[st], h * D + a * kAtom,
+                            tile * kBlockQ, b);
+          ucod::tma_load_3d(sm.d_o[st] + a * kBlockQ * kAtom, &tm_do, &sm.full[st], h * D + a * kAtom,
+                            tile * kBlockQ, b);
+        }
+        ucod::bulk_load(sm.stats[st], stats_h + tile * kBlockQ, kStatBytes, &sm.full[st]);
+      }
+    } else if (threadIdx.x == 32 || threadIdx.x == 64) {
+      // dQ writer of half c: as attention_bwd_kernel's, 16 KB a step
+      const int c = threadIdx.x / 32 - 1;
+      const int n_k = gridDim.x;
+      float* dq_head = dq_acc + (int64_t)bh * n_q * 64 * D;
+      int* sem_h = sem + (int64_t)bh * n_q * 2 + c;
+      for (int i = 0; i < n_q; ++i) {
+        const int tile = (q_first + i) % n_q;
+        const int m = ((tile + 1) * n_k + n_q - 1) / n_q;
+        const int rank = (int)blockIdx.x < m ? m - 1 - (int)blockIdx.x : m + n_k - 1 - (int)blockIdx.x;
+        const int64_t dst = (int64_t)tile * 64 * D + c * 64 * kAtom;
+        ucod::mbar_wait(&sm.dq_full[c][i & 1], (i >> 1) & 1);
+        while (ucod::ld_acquire_gpu(sem_h + 2 * tile) != rank) {}
+        ucod::fence_proxy_async_global();
+        ucod::bulk_reduce_add_f32(dq_head + dst, sm.dq[c][i & 1], 64 * kAtom * 4);
+        ucod::bulk_commit();
+        ucod::bulk_wait<0>();
+        ucod::fence_proxy_async_global();
+        ucod::st_release_gpu(sem_h + 2 * tile, rank + 1);
+        ucod::mbar_arrive(&sm.dq_free[c][i & 1]);
+      }
+    }
+  } else {
+    ucod::reg_alloc<240>();
+    const int c = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane / 4;
+    const int tq = lane % 4;
+    // this warpgroup's 64 keys in each 64-column tile of K and V
+    const bf16* k_c[2] = {sm.k + c * 64 * kAtom, sm.k + kBlockK * kAtom + c * 64 * kAtom};
+    const bf16* v_c[2] = {sm.v + c * 64 * kAtom, sm.v + kBlockK * kAtom + c * 64 * kAtom};
+    bf16* ds = sm.ds[c];
+    const int key0 = k0 + 64 * c + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const bool keys_past_l = k0 + 64 * c + 64 > kv_len;
+    const int64_t row_stride = (int64_t)num_heads * D;
+    const int row = 16 * warp + g;  // this thread's accumulator rows in a 64-row product: row, row + 8
+
+    float dk_acc[2][32], dv_acc[2][32];  // keys x columns [64a, 64a + 64)
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dk_acc[a][i] = dv_acc[a][i] = 0.f;
+    }
+    ucod::mbar_wait(&sm.kv_full, 0);
+
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % kStages128;
+      const int par = i & 1;
+      float s[32], dp[32];
+      ucod::mbar_wait(&sm.full[st], (i / kStages128) & 1);
+      const bf16* q_st = sm.q[st];
+      const bf16* do_st = sm.d_o[st];
+      // S^T = K Q^T, dP^T = V dO^T: 8 k-steps over the two column tiles
+      ucod::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ucod::wgmma_m64n64k16_ss<0, 0>(s, ucod::desc_kmajor(k_c[kk / 4], kk % 4),
+                                       ucod::desc_kmajor(q_st + kk / 4 * kBlockQ * kAtom, kk % 4), kk);
+      }
+      ucod::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        ucod::wgmma_m64n64k16_ss<0, 0>(dp, ucod::desc_kmajor(v_c[kk / 4], kk % 4),
+                                       ucod::desc_kmajor(do_st + kk / 4 * kBlockQ * kAtom, kk % 4), kk);
+      }
+      ucod::wgmma_commit();
+      ucod::wgmma_wait<1>();
+      ucod::fence_regs(s);
+      // P^T = exp2(S^T * scale log2 e - lse log2 e): query columns >= L have
+      // lse = +inf (P = 0); key rows >= kv_len are zeroed
+      const float2* stat = sm.stats[st];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        s[e] = ucod::exp2_ftz(fmaf(s[e], scale_log2, -stat[8 * (e >> 2) + 2 * tq + (e & 1)].x));
+      }
+      if (keys_past_l) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          if (key0 + 8 * ((e >> 1) & 1) >= kv_len) s[e] = 0.f;
+        }
+      }
+      uint32_t pa[4][4];
+      to_a_frags(pa, s);
+      ucod::wgmma_fence();
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {  // dV += P^T dO, one 64-column tile at a time
+#pragma unroll
+        for (int kk = 0; kk < kBlockQ / 16; ++kk) {
+          ucod::wgmma_m64n64k16_rs<1>(dv_acc[a], pa[kk], ucod::desc_mnmajor(do_st + a * kBlockQ * kAtom, kk), 1);
+        }
+      }
+      ucod::wgmma_commit();
+      ucod::wgmma_wait<1>();
+      ucod::fence_regs(dp);
+
+      // dS^T = P^T o (dP^T - D) * scale
+#pragma unroll
+      for (int e = 0; e < 32; ++e) dp[e] = s[e] * (dp[e] - stat[8 * (e >> 2) + 2 * tq + (e & 1)].y) * scale;
+      uint32_t da[4][4];
+      to_a_frags(da, dp);
+      ucod::wgmma_fence();
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {  // dK += dS^T Q
+#pragma unroll
+        for (int kk = 0; kk < kBlockQ / 16; ++kk) {
+          ucod::wgmma_m64n64k16_rs<1>(dk_acc[a], da[kk], ucod::desc_mnmajor(q_st + a * kBlockQ * kAtom, kk), 1);
+        }
+      }
+      ucod::wgmma_commit();
+
+      // dS^T into shared memory, [key][query] with the 128-byte swizzle, for
+      // dQ = dS K with dS read MN-major (the previous step's dQ has completed)
+#pragma unroll
+      for (int jb = 0; jb < kBlockQ / 8; ++jb) {
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int key = 16 * warp + g + 8 * rh;
+          *reinterpret_cast<uint32_t*>(ds + key * kBlockQ + ((jb ^ (key & 7)) * 8) + 2 * tq) =
+              da[jb >> 1][(jb & 1) * 2 + rh];
+        }
+      }
+      ucod::fence_proxy_async();
+      ucod::named_sync(kWgBar + c, 128);
+      ucod::wgmma_wait<0>();
+#pragma unroll
+      for (int a = 0; a < 2; ++a) {
+        ucod::fence_regs(dk_acc[a]);
+        ucod::fence_regs(dv_acc[a]);
+      }
+      if (lane == 0) ucod::mbar_arrive(&sm.empty[i % kStages128]);  // Q and dO are read
+
+      // dQ over this warpgroup's keys, the other warpgroup's 64 columns
+      // first (written into its buffer), then this one's (added to the
+      // other's partial in place and handed to the writer)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int half = hh == 0 ? c ^ 1 : c;
+        const bf16* k_half = sm.k + half * kBlockK * kAtom + c * 64 * kAtom;  // columns [64 half, + 64)
+        float dq[32];
+        ucod::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 64 / 16; ++kk) {
+          ucod::wgmma_m64n64k16_ss<1, 1>(dq, ucod::desc_mnmajor(ds, kk), ucod::desc_mnmajor(k_half, kk), kk);
+        }
+        ucod::wgmma_commit();
+        ucod::wgmma_wait<0>();
+        ucod::fence_regs(dq);
+        float* buf = sm.dq[half][par];
+        if (hh == 0) {
+          ucod::mbar_wait(&sm.dq_free[half][par], ((i >> 1) & 1) ^ 1);  // the writer has added step i - 2
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 8 * j + 2 * tq;
+            *reinterpret_cast<float2*>(buf + dq_half_offset<D>(row, col)) = make_float2(dq[4 * j], dq[4 * j + 1]);
+            *reinterpret_cast<float2*>(buf + dq_half_offset<D>(row + 8, col)) =
+                make_float2(dq[4 * j + 2], dq[4 * j + 3]);
+          }
+          ucod::mbar_arrive(&sm.part_full[half][par]);
+        } else {
+          ucod::mbar_wait(&sm.part_full[c][par], (i >> 1) & 1);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = 8 * j + 2 * tq;
+            float2* lo = reinterpret_cast<float2*>(buf + dq_half_offset<D>(row, col));
+            float2* hi = reinterpret_cast<float2*>(buf + dq_half_offset<D>(row + 8, col));
+            const float2 x = *lo, y = *hi;
+            *lo = make_float2(dq[4 * j] + x.x, dq[4 * j + 1] + x.y);
+            *hi = make_float2(dq[4 * j + 2] + y.x, dq[4 * j + 3] + y.y);
+          }
+          ucod::fence_proxy_async();
+          ucod::mbar_arrive(&sm.dq_full[c][par]);
+        }
+      }
+    }
+
+    OutT* dk_h = dk + (int64_t)b * seq_len * row_stride + (int64_t)h * D;
+    OutT* dv_h = dv + (int64_t)b * seq_len * row_stride + (int64_t)h * D;
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+#pragma unroll
+      for (int jb = 0; jb < kAtom / 8; ++jb) {
+        const int col = kAtom * a + 8 * jb + 2 * tq;
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int key = key0 + 8 * rh;
+          if (key < kv_len) {
+            const int e = 4 * jb + 2 * rh;
+            if constexpr (std::is_same_v<OutT, float>) {
+              *reinterpret_cast<float2*>(dk_h + (int64_t)key * row_stride + col) =
+                  make_float2(dk_acc[a][e], dk_acc[a][e + 1]);
+              *reinterpret_cast<float2*>(dv_h + (int64_t)key * row_stride + col) =
+                  make_float2(dv_acc[a][e], dv_acc[a][e + 1]);
+            } else {
+              *reinterpret_cast<uint32_t*>(dk_h + (int64_t)key * row_stride + col) =
+                  ucod::pack_bf16x2(dk_acc[a][e], dk_acc[a][e + 1]);
+              *reinterpret_cast<uint32_t*>(dv_h + (int64_t)key * row_stride + col) =
+                  ucod::pack_bf16x2(dv_acc[a][e], dv_acc[a][e + 1]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The main kernel of head dim HD and the dq cast, dq/dk/dv of type OutT.
+template <int HD, typename OutT>
 int launch_main(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensorMap& tm_v,
                 const CUtensorMap& tm_do, const float2* stats, float* dq_acc, int* sem, void* dq, void* dk,
                 void* dv, int batch, int seq_len, int kv_len, int padded, int num_heads, float scale,
                 cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(attention_bwd_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)kSmemBytes);
+  static_assert(HD == 64 || HD == 128, "the backward is built for head dims 64 and 128");
+  const auto kernel = HD == 64 ? attention_bwd_kernel<OutT> : attention_bwd_d128_kernel<OutT>;
+  constexpr size_t smem = HD == 64 ? kSmemBytes : kSmemBytes128;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (kv_len < seq_len) {  // dK/dV rows [kv_len, L) of every batch element: exact zeros
-    const size_t row_bytes = (size_t)num_heads * kHeadDim * sizeof(OutT);
+    const size_t row_bytes = (size_t)num_heads * HD * sizeof(OutT);
     void* grads[2] = {dk, dv};
     for (void* g : grads) {
       err = cudaMemset2DAsync(static_cast<char*>(g) + kv_len * row_bytes, seq_len * row_bytes, 0,
@@ -483,50 +816,35 @@ int launch_main(const CUtensorMap& tm_q, const CUtensorMap& tm_k, const CUtensor
     }
   }
   const dim3 grid((kv_len + kBlockK - 1) / kBlockK, batch * num_heads);
-  attention_bwd_kernel<OutT><<<grid, kThreads, kSmemBytes, s>>>(
-      tm_q, tm_k, tm_v, tm_do, stats, dq_acc, sem, static_cast<OutT*>(dk), static_cast<OutT*>(dv), seq_len, kv_len,
-      padded, num_heads, scale, scale * kLog2e);
+  kernel<<<grid, kThreads, smem, s>>>(tm_q, tm_k, tm_v, tm_do, stats, dq_acc, sem, static_cast<OutT*>(dk),
+                                      static_cast<OutT*>(dv), seq_len, kv_len, padded, num_heads, scale,
+                                      scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const int64_t n4 = (int64_t)batch * num_heads * padded * kHeadDim / 4;
+  const int64_t n4 = (int64_t)batch * num_heads * padded * HD / 4;
   const unsigned blocks = (unsigned)((n4 + 255) / 256 < 8192 ? (n4 + 255) / 256 : 8192);
-  attention_bwd_dq_cast_kernel<OutT><<<blocks, 256, 0, s>>>(reinterpret_cast<const float4*>(dq_acc),
-                                                            static_cast<OutT*>(dq), n4, seq_len, padded / kBlockQ,
-                                                            num_heads);
+  attention_bwd_dq_cast_kernel<HD, OutT><<<blocks, 256, 0, s>>>(
+      reinterpret_cast<const float4*>(dq_acc), static_cast<OutT*>(dq), n4, seq_len, padded / kBlockQ, num_heads);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// q, k, v, o, d_o: contiguous bf16 (batch, seq_len, num_heads * 64), 16-byte
-// aligned; dq, dk, dv the same, or f32 when out_f32 is nonzero; lse:
-// contiguous f32 (batch, num_heads, seq_len) from ucod_attention_fwd_lse over
-// the same keys [0, kv_len), 1 <= kv_len <= seq_len (dK/dV rows past kv_len
-// come out as zeros); stats and dq_acc: f32 scratch of batch * num_heads *
-// padded * 2 and * 64 values, padded = seq_len rounded up to a multiple of
-// 64, 16-byte aligned, filled by the pre-pass; dq_acc followed by batch *
-// num_heads * padded / 64 * 2 int32 semaphores (the same allocation).
-// Launches the pre-pass, the main kernel and the dq cast on `stream`;
-// returns the first failed launch's cudaError_t (cudaErrorInvalidValue for a
-// kv_len out of range or when a tensor map cannot be made), or 0.
-extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, const void* o,
-                                  const void* d_o, const void* lse, void* stats, void* dq_acc, void* dq,
-                                  void* dk, void* dv, int batch, int seq_len, int kv_len, int num_heads, float scale,
-                                  int out_f32, void* stream) {
-  if (kv_len < 1 || kv_len > seq_len) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The pre-pass, the tensor maps and the main kernel at head dim HD.
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* d_o, const void* lse,
+               void* stats, void* dq_acc, void* dq, void* dk, void* dv, int batch, int seq_len, int kv_len,
+               int num_heads, float scale, int out_f32, cudaStream_t s) {
   const int padded = (seq_len + kBlockQ - 1) / kBlockQ * kBlockQ;
   const int64_t n_units = (int64_t)batch * padded * num_heads;
-  int* sem = reinterpret_cast<int*>(static_cast<float*>(dq_acc) + n_units * kHeadDim);
-  attention_bwd_stats_kernel<<<(unsigned)((n_units * 8 + 255) / 256), 256, 0, s>>>(
+  int* sem = reinterpret_cast<int*>(static_cast<float*>(dq_acc) + n_units * HD);
+  attention_bwd_stats_kernel<HD><<<(unsigned)((n_units * 8 + 255) / 256), 256, 0, s>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
       static_cast<float2*>(stats), static_cast<float*>(dq_acc), sem, n_units, seq_len, padded, num_heads);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   CUtensorMap tm_q, tm_k, tm_v, tm_do;
-  const int cols = num_heads * kHeadDim;
+  const int cols = num_heads * HD;
   if (!ucod::packed_tensor_map(&tm_q, q, batch, seq_len, cols, kBlockQ) ||
       !ucod::packed_tensor_map(&tm_do, d_o, batch, seq_len, cols, kBlockQ) ||
       !ucod::packed_tensor_map(&tm_k, k, batch, seq_len, cols, kBlockK) ||
@@ -535,8 +853,40 @@ extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, c
   }
   const float2* st = static_cast<const float2*>(stats);
   float* acc = static_cast<float*>(dq_acc);
-  return out_f32 ? launch_main<float>(tm_q, tm_k, tm_v, tm_do, st, acc, sem, dq, dk, dv, batch, seq_len, kv_len,
-                                      padded, num_heads, scale, s)
-                 : launch_main<bf16>(tm_q, tm_k, tm_v, tm_do, st, acc, sem, dq, dk, dv, batch, seq_len, kv_len,
-                                     padded, num_heads, scale, s);
+  return out_f32 ? launch_main<HD, float>(tm_q, tm_k, tm_v, tm_do, st, acc, sem, dq, dk, dv, batch, seq_len,
+                                          kv_len, padded, num_heads, scale, s)
+                 : launch_main<HD, bf16>(tm_q, tm_k, tm_v, tm_do, st, acc, sem, dq, dk, dv, batch, seq_len,
+                                         kv_len, padded, num_heads, scale, s);
+}
+
+}  // namespace
+
+// q, k, v, o, d_o: contiguous bf16 (batch, seq_len, num_heads * head_dim),
+// head_dim 64 or 128, 16-byte aligned; dq, dk, dv the same, or f32 when
+// out_f32 is nonzero; lse: contiguous f32 (batch, num_heads, seq_len) from
+// ucod_attention_fwd_lse over the same keys [0, kv_len), 1 <= kv_len <=
+// seq_len (dK/dV rows past kv_len come out as zeros); stats and dq_acc: f32
+// scratch of batch * num_heads * padded * 2 and * head_dim values, padded =
+// seq_len rounded up to a multiple of 64, 16-byte aligned, filled by the
+// pre-pass; dq_acc followed by batch * num_heads * padded / 64 * 2 int32
+// semaphores (the same allocation).  Launches the pre-pass, the main kernel
+// and the dq cast on `stream`; returns the first failed launch's
+// cudaError_t (cudaErrorInvalidValue for another head dim, a kv_len out of
+// range or when a tensor map cannot be made), or 0.
+extern "C" int ucod_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                  const void* d_o, const void* lse, void* stats, void* dq_acc, void* dq,
+                                  void* dk, void* dv, int batch, int seq_len, int kv_len, int num_heads,
+                                  int head_dim, float scale, int out_f32, void* stream) {
+  if (kv_len < 1 || kv_len > seq_len) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64:
+      return launch_bwd<64>(q, k, v, o, d_o, lse, stats, dq_acc, dq, dk, dv, batch, seq_len, kv_len, num_heads,
+                            scale, out_f32, s);
+    case 128:
+      return launch_bwd<128>(q, k, v, o, d_o, lse, stats, dq_acc, dq, dk, dv, batch, seq_len, kv_len, num_heads,
+                             scale, out_f32, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -489,15 +489,26 @@ extern "C" int ucod_attention_fwd(const void* q, const void* k, const void* v, v
   }
 }
 
-// As ucod_attention_fwd at head dim 64, over the keys [0, kv_len) only (1 <=
-// kv_len <= seq_len; the keys past it get probability 0 and are not read),
-// and also lse: contiguous f32 (batch, num_heads, seq_len), the natural-log
+// As ucod_attention_fwd at head dim 64 or 128 (the head dims of the
+// backward, attention_bwd.cu), over the keys [0, kv_len) only (1 <= kv_len <=
+// seq_len; the keys past it get probability 0 and are not read), and also
+// lse: contiguous f32 (batch, num_heads, seq_len), the natural-log
 // log-sum-exp of each query row's scaled scores over those keys.  o is bf16,
 // or f32 when out_f32 is nonzero (a ring's partial outputs).
+// cudaErrorInvalidValue for another head dim.
 extern "C" int ucod_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int batch, int seq_len, int kv_len, int num_heads,
-                                      float scale_log2, int out_f32, void* stream) {
+                                      int head_dim, float scale_log2, int out_f32, void* stream) {
   float* l = static_cast<float*>(lse);
-  return out_f32 ? launch<64, true, float>(q, k, v, o, l, batch, seq_len, kv_len, num_heads, scale_log2, stream)
-                 : launch<64, true>(q, k, v, o, l, batch, seq_len, kv_len, num_heads, scale_log2, stream);
+  switch (head_dim) {
+    case 64:
+      return out_f32 ? launch<64, true, float>(q, k, v, o, l, batch, seq_len, kv_len, num_heads, scale_log2, stream)
+                     : launch<64, true>(q, k, v, o, l, batch, seq_len, kv_len, num_heads, scale_log2, stream);
+    case 128:
+      return out_f32 ? launch<128, true, float>(q, k, v, o, l, batch, seq_len, kv_len, num_heads, scale_log2,
+                                                stream)
+                     : launch<128, true>(q, k, v, o, l, batch, seq_len, kv_len, num_heads, scale_log2, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -37,6 +37,7 @@ from ucod_dpl_tpu_torch.data.transforms import (
     load_image_batch_transform,
     load_image_transform,
     load_label_transform,
+    patch_transform,
     resize_bilinear,
 )
 from ucod_dpl_tpu_torch.parallel.distributed import is_main_process
@@ -69,7 +70,7 @@ def grid_patch_arrays(img, image_size: Tuple[int, int], window_size: int) -> np.
     crop-then-transform loop gives, ``lr_dataset.py:136-152``)."""
     gh, gw = image_size
     ws = window_size
-    big = image_transform(resize_bilinear(img, (ws * gh, ws * gw)), None)
+    big = patch_transform(resize_bilinear(img, (ws * gh, ws * gw)))
     return np.stack([big[i * gh : (i + 1) * gh, j * gw : (j + 1) * gw] for i in range(ws) for j in range(ws)])
 
 

@@ -66,6 +66,12 @@ def label_transform(img, size_hw: Tuple[int, int], keep_size: bool = False) -> n
 # builds (bit-exact with Pillow's), the normalisation is numpy's.
 
 
+def patch_transform(img) -> np.ndarray:
+    """ToTensor + normalise without resizing (the LR patch pipeline): the
+    JAX ``patch_transform``."""
+    return image_transform(img, None)
+
+
 def load_image_transform(path, size_hw: Optional[Tuple[int, int]]) -> np.ndarray:
     """Decode + resize + normalise one image file -> (H, W, 3) float32."""
     from ucod_dpl_tpu_torch.utils.fileio import ImageIO

@@ -365,9 +365,12 @@ def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bo
     the ``data`` group; the decoder's (whole on every ``seq`` rank) averaged
     over the ``data`` group; the discriminator's batch-norm moments run over
     the ``data`` group.  Every rank ends each step with the same state.  A
-    ``model`` axis over processes raises NotImplementedError, as the JAX
-    LoRA step refuses tensor parallelism.  The returned scalars are the
-    process's own (its rows' loss); ``lora_grad_norm`` is the global one.
+    ``model`` axis, inside the processes or across them, is not used: the
+    step runs replicated over it (each model coordinate's processes step as
+    one of them would; in a process, on its first model coordinate's
+    devices), as the JAX step's ring, whose specs name no ``model`` axis,
+    runs replicated over it.  The returned scalars are the process's own
+    (its rows' loss); ``lora_grad_norm`` is the global one.
 
     ``step.loss_fn(state, lora, backbone_params, pixels, pseudo_labels,
     epoch, adv_coeff) -> (loss, aux)`` is the differentiable loss alone (on
@@ -385,9 +388,6 @@ def make_lora_train_step(cfg, dino_cfg, compute_dtype: torch.dtype, *, plain: bo
     mesh = sp_shard[0] if sp_shard is not None and sp_shard[0].spans_processes else None
     data_group, seq_group = None, LOCAL  # without a mesh over processes: data parallel over the world
     if mesh is not None:
-        if mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(f"the LoRA step does not run tensor parallelism: mesh {mesh.shape} over "
-                                      "processes has a model axis (sp_shard takes data and seq axes)")
         block = mesh.local_block()
         data_coords = block.get("data", [0])
         data_group, seq_group = mesh.group("data"), mesh.group(sp_shard[1])

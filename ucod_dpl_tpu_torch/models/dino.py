@@ -44,19 +44,14 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from ucod_dpl_tpu_torch.ops.attention import (
-    HEAD_DIM,
-    multi_head_attention,
-    packed_attention_diff,
-    packed_layout_ok,
-    tp_multi_head_attention,
-)
+from ucod_dpl_tpu_torch.ops.attention import differentiable_attention, multi_head_attention, tp_multi_head_attention
 from ucod_dpl_tpu_torch.ops import fused_layers as FL
 from ucod_dpl_tpu_torch.ops.fused_layers import dense, layer_norm, layernorm_qkv, layernorm_qkv_reference
 from ucod_dpl_tpu_torch.ops.quant import dense_w8a8, dense_w8a8_pre, quantize_linear
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bicubic
-from ucod_dpl_tpu_torch.parallel.distributed import LOCAL
+from ucod_dpl_tpu_torch.parallel.distributed import LOCAL, all_gather_tokens, model_parallel_input, model_parallel_sum
 from ucod_dpl_tpu_torch.parallel.sp import chunk_kv_lens, gather_tokens, ring_attention, sp_param_grid, split_tokens
+from ucod_dpl_tpu_torch.parallel.tp import place_model_row
 
 
 @dataclass(frozen=True)
@@ -406,9 +401,10 @@ def dino_forward(
       differentiable: the forward that is differentiated (the JAX
         ``differentiable_mode``): q/k/v by LayerNorm + three dense
         projections, attention through ``packed_attention_diff`` where
-        ``packed_layout_ok`` (on CUDA only at head dim 64, else
-        NotImplementedError), else (and when ``plain``) autograd through
-        the plain version.
+        ``packed_layout_ok`` (on CUDA at head dims 64 and 128; another
+        raises), else (and when ``plain``) autograd through the plain
+        version (``ops.attention.differentiable_attention``); under
+        ``tp_shard`` per model shard, by its heads.
       remat: ``False``/``"none"`` saves every activation for the backward;
         ``True``/``"layer"`` saves only each layer's input and recomputes the
         layer in the backward (``torch.utils.checkpoint``); ``"dots"`` saves
@@ -425,9 +421,11 @@ def dino_forward(
         ``tp_shard``), heads and the MLP expansion split over ``axis``;
         ``params`` is then the list of that axis's shards from
         :func:`~ucod_dpl_tpu_torch.parallel.tp.shard_dino_params` (one row of
-        it), each on its own device (see :func:`_sharded_forward`).  Not
-        with ``quant`` (ValueError) or ``differentiable``
-        (NotImplementedError).
+        it) or one dict (placed here, differentiably, on this process's
+        first data coordinate: what ``lora_forward`` passes), each on its
+        own device (see :func:`_sharded_forward`).  With ``differentiable``
+        each shard's attention is routed by its heads.  Not with ``quant``
+        (ValueError).
       sp_shard: ``(mesh, axis)``: the sequence-parallel forward (the JAX
         ``sp_shard``): the tokens padded to the ring size and split over
         ``axis``, every token-local operation on its chunk's device and
@@ -440,8 +438,9 @@ def dino_forward(
         process runs its own chunks and its first data coordinate, and the
         ring crosses processes; every process of the ring calls this at the
         same point with the same pixels.  With ``tp_shard`` on the same mesh
-        (of one process) it is the 2D forward, heads and MLP split over
-        ``tp_shard``'s axis inside each chunk.  Not with
+        it is the 2D forward, heads and MLP split over ``tp_shard``'s axis
+        inside each chunk; that axis may cross processes too (one model
+        coordinate a process; see :func:`_sharded_forward`).  Not with
         ``want_cls_attention`` or ``quant`` (ValueError).
       want_cls_attention: also return the last layer's attention
         probabilities of the CLS row over the 1+N keys (the pseudo-label
@@ -471,15 +470,12 @@ def dino_forward(
                              "forward")
         if quant is not None:
             raise ValueError("int8 path is single-chip; sp_shard shards tokens")
-    if tp_shard is not None:
-        if quant is not None:
-            raise ValueError("the int8 path is single-device; tp_shard shards the weights (needs quant=None)")
-        if differentiable:
-            raise NotImplementedError("no path differentiates under tensor parallelism; tp_shard needs "
-                                      "differentiable=False")
+    if tp_shard is not None and quant is not None:
+        raise ValueError("the int8 path is single-device; tp_shard shards the weights (needs quant=None)")
     if sp_shard is not None or tp_shard is not None:
         return _sharded_forward(params, pixels, cfg, tp_shard, sp_shard, dtype=compute_dtype, plain=plain,
-                                remat=remat, key_fold=key_fold, want_cls_attention=want_cls_attention)
+                                differentiable=differentiable, remat=remat, key_fold=key_fold,
+                                want_cls_attention=want_cls_attention)
     b, img_h, img_w, _ = pixels.shape
     gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
     dtype = compute_dtype
@@ -493,16 +489,8 @@ def dino_forward(
         if len(quant["layers"]) != len(params["layers"]):
             raise ValueError(f"quant has {len(quant['layers'])} layers, params {len(params['layers'])}")
     if differentiable:
-        if plain or not packed_layout_ok(cfg.num_heads, cfg.head_dim):
-            # the heads the JAX differentiable_mode routes to _xla_attention:
-            # the plain version under autograd
-            def attention(q, k, v, nh, scale):
-                return multi_head_attention(q, k, v, nh, scale, plain=True)
-        elif cfg.head_dim != HEAD_DIM and pixels.device.type != "cpu":
-            raise NotImplementedError(f"the flash attention backward is built for head_dim {HEAD_DIM}; "
-                                      f"differentiating {cfg.num_heads} heads of {cfg.head_dim} is not ported")
-        else:
-            attention = packed_attention_diff
+        def attention(q, k, v, nh, scale):
+            return differentiable_attention(q, k, v, nh, scale, plain=plain)
 
         def ln_qkv(x, norm, q, k, v, eps):
             h = layer_norm(x, norm, eps)
@@ -587,24 +575,28 @@ def _cls_attention(h, k, q, num_heads: int, head_dim: int, scale: float, dtype) 
 
 
 def _param_grid(params, tp_shard, sp_shard):
-    """``grid[a][m]``: the params of this process's token chunk ``a`` and
-    model shard ``m`` (one chunk without ``sp_shard``, one shard without
-    ``tp_shard``)."""
+    """``grid[a][m]``: the params of this process's ``a``-th token chunk and
+    ``m``-th model shard (one chunk without ``sp_shard``, one shard without
+    ``tp_shard``; every shard of the axis when it stays in the process)."""
     if sp_shard is None:
-        shards = params
-        tp = tp_shard[0].shape[tp_shard[1]]
-        if len(shards) != tp:
-            raise ValueError(f"tp_shard over {tp_shard[1]}={tp} needs {tp} parameter shards; got {len(shards)}")
-        return [list(shards)]
+        mesh, axis = tp_shard
+        if isinstance(params, dict):
+            return [place_model_row(params, mesh, axis)]
+        held = len(mesh.local_block()[axis])
+        if len(params) != held:
+            raise ValueError(f"tp_shard over {axis}={mesh.shape[axis]} needs {held} parameter shards; "
+                             f"got {len(params)}")
+        return [list(params)]
     mesh, axis = sp_shard
     if isinstance(params, dict):
         return sp_param_grid(params, mesh, axis, None if tp_shard is None else tp_shard[1])
-    held = len(mesh.local_block()[axis])
+    block = mesh.local_block()
+    held = len(block[axis])
     if len(params) != held:
         raise ValueError(f"sp_shard over {axis}={mesh.shape[axis]} needs a parameter row per chunk this process "
                          f"holds ({held}); got {len(params)}")
     grid = [[row] if isinstance(row, dict) else list(row) for row in params]
-    tp = 1 if tp_shard is None else tp_shard[0].shape[tp_shard[1]]
+    tp = 1 if tp_shard is None else len(block[tp_shard[1]])
     if any(len(row) != tp for row in grid):
         raise ValueError(f"the 2D forward needs {tp} model shards per chunk")
     return grid
@@ -619,6 +611,7 @@ def _sharded_forward(
     *,
     dtype: torch.dtype,
     plain: bool,
+    differentiable: bool = False,
     remat=False,
     key_fold: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     want_cls_attention: bool = False,
@@ -627,7 +620,8 @@ def _sharded_forward(
     :func:`dino_forward` (JAX ``dino_forward(tp_shard=..., sp_shard=...)``)
     over ``grid[i][m]``, the params of token chunk ``i`` (one without
     ``sp_shard``; on a mesh over processes, this process's chunks) and model
-    shard ``m`` (one without ``tp_shard``), each on its own device.
+    shard ``m`` (one without ``tp_shard``; this process's shards), each on
+    its own device.
 
     Every layer is unfused, as in JAX (LayerNorm, then dense per shard; K6
     never runs).  Under ``sp_shard`` the embedded tokens are padded to the
@@ -653,9 +647,32 @@ def _sharded_forward(
     backward keeping its own slice) and the padding sliced off.  With ``want_cls_attention`` (tensor parallelism
     alone) each shard also takes its heads' CLS-row query and attention
     (:func:`_cls_attention`, the unsharded path's rounding), and the heads
-    are concatenated in shard order."""
+    are concatenated in shard order.  Under ``differentiable`` each shard's
+    attention is routed as :func:`~ucod_dpl_tpu_torch.ops.attention.
+    differentiable_attention` routes it.
+
+    A model axis across processes (one model coordinate a process): every
+    process of a model line holds the chunk's residual stream, the partial
+    sums are added in f32 over the line's subgroup
+    (:func:`~ucod_dpl_tpu_torch.parallel.distributed.model_parallel_sum`,
+    shard order: the subgroup's ranks follow the coordinate) before the
+    rounding, the LayerNorm outputs enter the shards' products through
+    :func:`~ucod_dpl_tpu_torch.parallel.distributed.model_parallel_input`
+    (their gradients summed over the line), and the last layer's key shards
+    are gathered over the line.  Every process of the line then holds the
+    same output and, for a loss computed from it on every process, the
+    whole gradient of every replicated tensor."""
     grid = _param_grid(params, tp_shard, sp_shard)
     n, tp = len(grid), len(grid[0])
+    model_group = LOCAL if tp_shard is None else tp_shard[0].group(tp_shard[1])
+    tp_total = 1 if tp_shard is None else tp_shard[0].shape[tp_shard[1]]
+    if model_group is not LOCAL and tp > 1:
+        raise NotImplementedError(f"a model axis across processes takes one model coordinate a process; this one "
+                                  f"holds {tp} (choose cards per process that keep the axis inside each process or "
+                                  f"give each process one coordinate)")
+    if model_group is not LOCAL and want_cls_attention:
+        raise NotImplementedError("CLS attention under tensor parallelism runs with the model axis inside one "
+                                  "process")
     devs = [[p["pos_embed"].device for p in row] for row in grid]
     home = [row[0] for row in devs]
     b, img_h, img_w, _ = pixels.shape
@@ -668,11 +685,15 @@ def _sharded_forward(
         done: Dict[torch.device, torch.Tensor] = {}
         return [done[d] if d in done else done.setdefault(d, fn(m)) for m, d in enumerate(devs[i])]
 
+    def shard_input(i, x, norm):
+        """LN(x) of chunk i on each shard's device, as the shards' products' input."""
+        return replicated(i, lambda m: model_parallel_input(layer_norm(x.to(devs[i][m]), norm[m], eps), model_group))
+
     def reduce(i, partials, bias):
         acc = partials[0].float()
         for p in partials[1:]:
             acc = acc + p.to(home[i]).float()
-        return acc.to(dtype) + bias.to(dtype)
+        return model_parallel_sum(acc, model_group).to(dtype) + bias.to(dtype)
 
     def gelu(h):
         # tanh-approx GELU in bf16, exact erf in f32 (the JAX split)
@@ -688,12 +709,9 @@ def _sharded_forward(
             mesh, axis = tp_shard
             return [[o] for o in tp_multi_head_attention([q[0] for q in qs], [k[0] for k in ks], [v[0] for v in vs],
                                                          cfg.num_heads, scale=scale, mesh=mesh, axis=axis,
-                                                         plain=plain)]
+                                                         plain=plain, differentiable=differentiable)]
     else:
         mesh, axis = sp_shard
-        if mesh.spans_processes and tp_shard is not None:
-            raise NotImplementedError("the 2D (SP x TP) forward runs in one process; a mesh over processes takes "
-                                      "sp_shard alone")
         ring = mesh.shape[axis]
         xs = split_tokens(x, home, n=ring, positions=mesh.local_block()[axis])
         kv_lens = chunk_kv_lens(seq_len, ring)
@@ -708,7 +726,7 @@ def _sharded_forward(
 
     def layer_fn(li, *xs):
         ls = [[p["layers"][li] for p in row] for row in grid]
-        hs = [replicated(i, lambda m: layer_norm(xs[i].to(devs[i][m]), ls[i][m]["norm1"], eps)) for i in range(n)]
+        hs = [shard_input(i, xs[i], [l["norm1"] for l in ls[i]]) for i in range(n)]
         q, k, v = ([[dense(hs[i][m], ls[i][m][name], dtype) for i in range(n)] for m in range(tp)] for name in "qkv")
         attn = attention(q, k, v)
         out = []
@@ -718,7 +736,7 @@ def _sharded_forward(
             if cfg.use_layerscale:
                 a = a * ls[i][0]["ls1"].to(dtype)
             x = xs[i] + a
-            h2 = replicated(i, lambda m: layer_norm(x.to(devs[i][m]), ls[i][m]["norm2"], eps))
+            h2 = shard_input(i, x, [l["norm2"] for l in ls[i]])
             g = [gelu(dense(h2[m], ls[i][m]["fc1"], dtype)) for m in range(tp)]
             h = reduce(i, [F.linear(g[m], ls[i][m]["fc2"]["w"].to(dtype)) for m in range(tp)], ls[i][0]["fc2"]["b"])
             if cfg.use_layerscale:
@@ -730,18 +748,20 @@ def _sharded_forward(
         xs = _remat(lambda *xs, li=li: layer_fn(li, *xs), remat)(*xs)
 
     last = [[p["layers"][-1] for p in row] for row in grid]
-    hs = [replicated(i, lambda m: layer_norm(xs[i].to(devs[i][m]), last[i][m]["norm1"], eps)) for i in range(n)]
     if key_fold is not None:
+        # the fold is replicated work on the replicated stream: no shard input
         fw, fb = key_fold
-        folded = [dense(hs[i][0], {"w": fw.to(home[i]), "b": fb.to(home[i])}, dtype) for i in range(n)]
+        folded = [dense(layer_norm(xs[i], last[i][0]["norm1"], eps), {"w": fw.to(home[i]), "b": fb.to(home[i])},
+                        dtype) for i in range(n)]
         folded = gather_tokens(folded, seq_len, home[0], group)
         return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
+    hs = [shard_input(i, xs[i], [l["norm1"] for l in last[i]]) for i in range(n)]
     ks = [[dense(hs[i][m], last[i][m]["k"], dtype) for m in range(tp)] for i in range(n)]
-    k = gather_tokens([torch.cat([k_m.to(home[i]) for k_m in ks[i]], dim=-1) for i in range(n)], seq_len, home[0],
-                      group)
+    k = gather_tokens([all_gather_tokens(torch.cat([k_m.to(home[i]) for k_m in ks[i]], dim=-1), model_group, dim=-1)
+                       for i in range(n)], seq_len, home[0], group)
     out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
     if want_cls_attention:
         out["cls_attention"] = torch.cat(
-            [_cls_attention(h, k_m, layer["q"], cfg.num_heads // tp, cfg.head_dim, scale, dtype).to(home[0])
+            [_cls_attention(h, k_m, layer["q"], cfg.num_heads // tp_total, cfg.head_dim, scale, dtype).to(home[0])
              for h, k_m, layer in zip(hs[0], ks[0], last[0])], dim=1)
     return out

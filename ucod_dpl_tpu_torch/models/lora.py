@@ -62,9 +62,10 @@ def lora_forward(dino_params, lora: Lora, pixels, cfg, rank: int = 2, alpha: flo
     """Forward through the LoRA-adapted backbone, always on the differentiated
     routing (``dino_forward(differentiable=True)``: LayerNorm + dense q/k/v,
     attention through the forward-LSE and backward kernels; ``sp_shard=``
-    passes through, the ring of the sequence-parallel forward).  Gradients
-    reach the adapters; the base weights stay frozen as long as they do not
-    require grad."""
+    passes through, the ring of the sequence-parallel forward, and
+    ``tp_shard=``, the merged weights placed on the model shards).
+    Gradients reach the adapters; the base weights stay frozen as long as
+    they do not require grad."""
     from ucod_dpl_tpu_torch.models.dino import dino_forward
 
     return dino_forward(apply_lora(dino_params, lora, rank, alpha), pixels, cfg, differentiable=True, **kwargs)

@@ -109,9 +109,9 @@ def kernels() -> ctypes.CDLL:
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.ucod_attention_fwd.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, f32, ptr]
     lib.ucod_attention_fwd.restype = i32
-    lib.ucod_attention_fwd_lse.argtypes = [ptr] * 5 + [i32, i32, i32, i32, f32, i32, ptr]
+    lib.ucod_attention_fwd_lse.argtypes = [ptr] * 5 + [i32, i32, i32, i32, i32, f32, i32, ptr]
     lib.ucod_attention_fwd_lse.restype = i32
-    lib.ucod_attention_bwd.argtypes = [ptr] * 11 + [i32, i32, i32, i32, f32, i32, ptr]
+    lib.ucod_attention_bwd.argtypes = [ptr] * 11 + [i32, i32, i32, i32, i32, f32, i32, ptr]
     lib.ucod_attention_bwd.restype = i32
     lib.ucod_layernorm_qkv.argtypes = [ptr] * 13 + [i32, i32, f32, ptr]
     lib.ucod_layernorm_qkv.restype = i32

@@ -11,10 +11,13 @@ Hopper kernels, each with its plain PyTorch version beside it:
   dtype, f32-accumulated ``p @ v`` rounded to the input dtype.
 * :func:`packed_attention_fwd_lse` (the same kernel with an f32 log-sum-exp
   output, the port of K2 ``_attention_kernel_headpair_stats``): the forward
-  of the differentiated path.
+  of the differentiated path, at the head dims of :data:`BACKWARD_HEAD_DIMS`.
 * :func:`packed_attention_bwd` (``csrc/attention_bwd.cu``, the port of K3
   ``_attention_bwd_kernel_headpair`` and K4 ``_bwd2d_dq_kernel`` +
-  ``_bwd2d_dkv_kernel``): the flash backward from the saved log-sum-exp.
+  ``_bwd2d_dkv_kernel``): the flash backward from the saved log-sum-exp, at
+  head dims 64 and 128 (the TPU kernels take every head dim of an even
+  count with ``2 * d % 128 == 0``; the ViTs have 64, a tensor-parallel or
+  wider model 128).
 
 * :func:`attention_outproj_residual` (K12, ``csrc/attn_outproj.cu``, the
   port of the TPU prototype ``scripts/microbench/bench_attn_outproj.py::
@@ -25,7 +28,10 @@ Hopper kernels, each with its plain PyTorch version beside it:
   it; no product path does.
 
 :func:`packed_attention_diff` ties the last two together as a
-``torch.autograd.Function`` (the JAX ``_packed_attention_diff`` custom VJP).
+``torch.autograd.Function`` (the JAX ``_packed_attention_diff`` custom VJP);
+a forward that autograd does not record runs K1, as the JAX primal does.
+:func:`differentiable_attention` is the routing of the JAX
+``multi_head_attention`` under ``differentiable_mode``.
 
 :func:`heads_attention` (K5, the port of ``_attention_kernel``) is the same
 forward kernel on the per-head (B*H, L, d) layout, which the JAX dispatch
@@ -48,7 +54,7 @@ import torch
 from ucod_dpl_tpu_torch.ops import _build
 
 _LOG2E = math.log2(math.e)
-HEAD_DIM = 64  # the head dim of the forward with log-sum-exp and of the backward
+BACKWARD_HEAD_DIMS = (64, 128)  # the head dims of the forward with log-sum-exp (K2) and of the backward
 HEADS_DIMS = (16, 32, 64, 128)  # the head dims of the forward (K1, K5)
 
 
@@ -68,7 +74,7 @@ def packed_attention_reference(
     return o.transpose(1, 2).reshape(b, l, d)
 
 
-def _check_kernel_inputs(q, num_heads, head_dims=(HEAD_DIM,), what="packed_attention", **others):
+def _check_kernel_inputs(q, num_heads, head_dims=BACKWARD_HEAD_DIMS, what="packed_attention", **others):
     """Raise unless ``q`` and every tensor of ``others`` (by name) is what the
     attention kernels take: bf16, contiguous, 16-byte aligned, q's shape and
     device, (B, L, num_heads * d) with d in ``head_dims``."""
@@ -182,7 +188,7 @@ def attention_outproj_residual(
         return ref if out is None else out.copy_(ref)
     what = "attention_outproj_residual"
     out = torch.empty_like(q) if out is None else out
-    _check_kernel_inputs(q, num_heads, (HEAD_DIM,), what, k=k, v=v, x=x, out=out)
+    _check_kernel_inputs(q, num_heads, (64,), what, k=k, v=v, x=x, out=out)
     b, l, d = q.shape
     if num_heads % 2 or d % 256 or d > 768:
         raise ValueError(f"{what} kernel needs an even head count and D % 256 == 0, D <= 768; got "
@@ -323,8 +329,9 @@ def packed_attention_fwd_lse(
     kv_len: Optional[int] = None,
     out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(B, L, num_heads * 64) bf16 q/k/v -> (attention output, f32 (B,
-    num_heads, L) log-sum-exp), written into ``out = (o, lse)`` when given.
+    """(B, L, num_heads * d) bf16 q/k/v, d in :data:`BACKWARD_HEAD_DIMS` ->
+    (attention output, f32 (B, num_heads, L) log-sum-exp), written into
+    ``out = (o, lse)`` when given.
 
     ``kv_len`` (1..L, default L): only the keys ``[0, kv_len)`` take part;
     the rest get probability 0 and are not read.  ``out_dtype``: the
@@ -349,7 +356,7 @@ def packed_attention_fwd_lse(
     with torch.cuda.device(q.device):
         err = _build.kernels().ucod_attention_fwd_lse(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), b, l, kv_len,
-            num_heads, float(scale) * _LOG2E, int(dtype == torch.float32),
+            num_heads, q.shape[-1] // num_heads, float(scale) * _LOG2E, int(dtype == torch.float32),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check_cuda(err, "attention_fwd_lse")
@@ -360,15 +367,15 @@ def packed_attention_fwd_lse(
 packed_attention_fwd_lse.launches = 0
 
 
-def bwd_scratch(b: int, l: int, num_heads: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+def bwd_scratch(b: int, l: int, num_heads: int, device, head_dim: int = 64) -> Tuple[torch.Tensor, torch.Tensor]:
     """The backward kernel's f32 scratch, per (batch * head, row) with the
-    rows padded to a multiple of 64: {lse * log2 e, D} and dQ's sums (64 a
-    row), the latter followed by two int32 semaphores per (batch * head,
-    64-row q tile) that order the additions into dQ; all filled by the
-    kernel's pre-pass."""
+    rows padded to a multiple of 64: {lse * log2 e, D} and dQ's sums
+    (``head_dim`` a row), the latter followed by two int32 semaphores per
+    (batch * head, 64-row q tile) that order the additions into dQ; all
+    filled by the kernel's pre-pass."""
     padded = -(-l // 64) * 64
     return (torch.empty(b * num_heads * padded * 2, device=device, dtype=torch.float32),
-            torch.empty(b * num_heads * padded * 64 + b * num_heads * padded // 64 * 2, device=device,
+            torch.empty(b * num_heads * padded * head_dim + b * num_heads * padded // 64 * 2, device=device,
                         dtype=torch.float32))
 
 
@@ -388,7 +395,8 @@ def packed_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of packed attention from its inputs, output
     ``o``, output cotangent ``do`` and saved log-sum-exp, written into ``out``
-    when given; (B, L, num_heads * 64) like q, bf16 or ``out_dtype``
+    when given; (B, L, num_heads * d) like q, d in :data:`BACKWARD_HEAD_DIMS`,
+    bf16 or ``out_dtype``
     (float32 for a ring's partial gradients, summed before they are
     rounded).
 
@@ -408,12 +416,13 @@ def packed_attention_bwd(
     _check_kernel_inputs(q, num_heads, k=k, v=v, o=o, do=do)
     _check_outputs("packed_attention_bwd", q, dtype, dq=grads[0], dk=grads[1], dv=grads[2])
     _check_lse(lse, q, num_heads)
-    b, l, _ = q.shape
-    stats, dq_acc = bwd_scratch(b, l, num_heads, q.device)
+    b, l, dm = q.shape
+    stats, dq_acc = bwd_scratch(b, l, num_heads, q.device, dm // num_heads)
     with torch.cuda.device(q.device):
         err = _build.kernels().ucod_attention_bwd(
             *(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)), b, l, kv_len, num_heads,
-            float(scale), int(dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream,
+            dm // num_heads, float(scale), int(dtype == torch.float32),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check_cuda(err, "attention_bwd")
     packed_attention_bwd.launches += 1
@@ -447,8 +456,28 @@ def packed_attention_diff(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float
 ) -> torch.Tensor:
     """Differentiable packed attention through the forward-LSE and backward
-    kernels on CUDA (their plain versions on the CPU)."""
+    kernels on CUDA (their plain versions on the CPU).  When autograd records
+    nothing (grad mode off, or no input requiring grad) nothing is saved for
+    a backward, and the forward is :func:`packed_attention` (K1), as the JAX
+    ``_packed_attention_diff``'s primal runs its plain kernel: the same
+    output, with no log-sum-exp store."""
+    if not (torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)):
+        return packed_attention(q, k, v, num_heads, scale)
     return PackedAttention.apply(q, k, v, num_heads, scale)
+
+
+def differentiable_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, num_heads: int, scale: float, *, plain: bool = False
+) -> torch.Tensor:
+    """Attention on the differentiated path, routed as the JAX
+    ``multi_head_attention`` routes it under ``differentiable_mode``: the
+    heads :func:`packed_layout_ok` takes through
+    :func:`packed_attention_diff` (on the card: head dims 64 and 128, any
+    other raises), the rest (odd counts, ``2 * hd % 128 != 0``), and
+    everything when ``plain``, through the plain version under autograd."""
+    if plain or not packed_layout_ok(num_heads, q.shape[-1] // num_heads):
+        return multi_head_attention(q, k, v, num_heads, scale, plain=True)
+    return packed_attention_diff(q, k, v, num_heads, scale)
 
 
 def heads_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -486,8 +515,8 @@ heads_attention.launches = 0
 
 def packed_layout_ok(num_heads: int, head_dim: int) -> bool:
     """The JAX dispatch's rule for its packed kernels: an even head count
-    with ``2 * hd % 128 == 0``.  The port's backward is built for one head
-    dim of that set, :data:`HEAD_DIM`."""
+    with ``2 * hd % 128 == 0``.  The port's backward is built for the head
+    dims of that set that a model has, :data:`BACKWARD_HEAD_DIMS`."""
     return num_heads % 2 == 0 and (2 * head_dim) % 128 == 0
 
 
@@ -509,7 +538,7 @@ def multi_head_attention(
     hd = d // num_heads
     if not plain and q.device.type != "cpu":
         return packed_attention(q, k, v, num_heads, scale)
-    if packed_layout_ok(num_heads, hd) and hd == HEAD_DIM:
+    if packed_layout_ok(num_heads, hd) and hd == 64:
         return packed_attention_reference(q, k, v, num_heads, scale)
 
     def split(x):
@@ -529,17 +558,24 @@ def tp_multi_head_attention(
     mesh,
     axis: str = "model",
     plain: bool = False,
+    differentiable: bool = False,
 ) -> List[torch.Tensor]:
     """Tensor-parallel attention, the counterpart of the JAX
     ``tp_multi_head_attention``: the heads are split over ``axis`` of
     ``mesh``, and a sharded (B, L, D) tensor is the list of its shards, shard
     ``m`` holding columns ``[m * D / tp, (m + 1) * D / tp)`` on its device.
     Attention is head-local, so each shard runs :func:`multi_head_attention`
-    on its ``num_heads / tp`` heads with no communication; returns the output
-    shards."""
+    (:func:`differentiable_attention` when ``differentiable``) on its
+    ``num_heads / tp`` heads with no communication; returns the output
+    shards.  On a mesh whose ``axis`` spans processes the lists hold this
+    process's shards (:meth:`~ucod_dpl_tpu_torch.parallel.mesh.Mesh.local_block`)."""
     tp = mesh.shape[axis]
     if num_heads % tp:
         raise ValueError(f"{num_heads} heads not divisible by {axis}={tp}")
-    if not len(qs) == len(ks) == len(vs) == tp:
-        raise ValueError(f"tp_multi_head_attention needs {tp} shards of q/k/v; got {len(qs)}, {len(ks)}, {len(vs)}")
+    held = len(mesh.local_block()[axis])
+    if not len(qs) == len(ks) == len(vs) == held:
+        raise ValueError(f"tp_multi_head_attention needs this process's {held} shards of q/k/v over {axis}={tp}; "
+                         f"got {len(qs)}, {len(ks)}, {len(vs)}")
+    if differentiable:
+        return [differentiable_attention(q, k, v, num_heads // tp, scale, plain=plain) for q, k, v in zip(qs, ks, vs)]
     return [multi_head_attention(q, k, v, num_heads // tp, scale, plain=plain) for q, k, v in zip(qs, ks, vs)]

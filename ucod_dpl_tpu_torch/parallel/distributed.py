@@ -294,30 +294,87 @@ def all_reduce_mean(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 class _AllGatherTokens(torch.autograd.Function):
-    """The token chunks of every rank of a group concatenated along dim 1, in
-    the group's rank order.  The backward returns this rank's own slice of
-    the incoming gradient, without a sum: every rank computes the same loss
-    on the gathered tokens, so each rank's replica already holds the whole
-    gradient of its chunk."""
+    """The chunks of every rank of a group concatenated along ``dim`` (1:
+    tokens, -1: a model axis's feature columns), in the group's rank order.
+    The backward returns this rank's own slice of the incoming gradient,
+    without a sum: every rank computes the same loss on the gathered tensor,
+    so each rank's replica already holds the whole gradient of its chunk."""
 
     @staticmethod
-    def forward(ctx, x, group):
+    def forward(ctx, x, group, dim):
         x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
         dist.all_gather(parts, x, group=group)
-        ctx.index, ctx.width = dist.get_rank(group), x.shape[1]
-        return torch.cat(parts, dim=1)
+        ctx.index, ctx.width, ctx.dim = dist.get_rank(group), x.shape[dim], dim
+        return torch.cat(parts, dim=dim)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad.narrow(1, ctx.index * ctx.width, ctx.width), None
+        return grad.narrow(ctx.dim, ctx.index * ctx.width, ctx.width), None, None
 
 
-def all_gather_tokens(x: torch.Tensor, group) -> torch.Tensor:
+def all_gather_tokens(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
     """(B, c, D) chunks of every rank of ``group`` -> (B, size * c, D), rank
-    order, differentiable (:class:`_AllGatherTokens`); ``x`` over one
-    process."""
-    return _AllGatherTokens.apply(x, group) if group_size(group) > 1 else x
+    order (with ``dim=-1``: (B, c, size * D)), differentiable
+    (:class:`_AllGatherTokens`); ``x`` over one process."""
+    return _AllGatherTokens.apply(x, group, dim) if group_size(group) > 1 else x
+
+
+# The two collectives of a tensor-parallel layer whose model axis crosses
+# processes (Megatron's f and g): every rank of the model group holds the
+# replicated residual stream and computes the same loss from it, so a
+# gradient that reaches a replicated tensor is already whole on each rank,
+# while one that reaches a shard's input holds that shard's part only.
+# model_parallel_input marks where the replicated stream enters the
+# shard-local products (identity forward, the gradients summed over the
+# group in the backward); model_parallel_sum adds the row-parallel products'
+# partial sums (summed over the group forward, the gradient passed on as it
+# is).  Counted in tp_traffic (calls and payload bytes, both directions),
+# read by chip_smoke.py's phase R.
+tp_traffic = {"calls": 0, "bytes": 0}
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, group=group)
+    tp_traffic["calls"] += 1
+    tp_traffic["bytes"] += out.numel() * out.element_size()
+    return out
+
+
+class _ModelParallelInput(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _sum_over(grad, ctx.group), None
+
+
+class _ModelParallelSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def model_parallel_input(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (replicated over ``group``) as the input of shard-local
+    products: the same values; its gradient summed over the group's ranks.
+    ``x`` itself over one process."""
+    return _ModelParallelInput.apply(x, group) if group_size(group) > 1 else x
+
+
+def model_parallel_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of each rank's partial ``x``, replicated on
+    every rank; the gradient passed to each partial as it is.  ``x`` itself
+    over one process."""
+    return _ModelParallelSum.apply(x, group) if group_size(group) > 1 else x
 
 
 def ring_exchange(send: Sequence[torch.Tensor], recv: Sequence[torch.Tensor], group, send_to: Optional[int],

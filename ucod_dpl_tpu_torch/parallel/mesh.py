@@ -203,3 +203,37 @@ def data_sharding(mesh: Mesh, batch_size: Optional[int] = None) -> List[slice]:
         return [slice(None)] * n
     per = batch_size // n
     return [slice(i * per, (i + 1) * per) for i in range(n)]
+
+
+def replicate(mesh: Mesh) -> List[slice]:
+    """The rows each coordinate of the ``data`` axis holds of an array that
+    is replicated (the JAX ``replicate``'s ``PartitionSpec()``): all of
+    them, on every coordinate."""
+    return [slice(None)] * mesh.shape.get("data", 1)
+
+
+def shard_batch(batch: Any, mesh: Mesh) -> List[Any]:
+    """A tree (dicts, lists, tuples) of numpy batch arrays -> one tree of
+    tensors per ``data`` coordinate this process holds (every one on a mesh
+    of one process), each holding that coordinate's rows
+    (:func:`data_sharding`: replicated where the batch does not divide the
+    axis; a scalar replicated) on the coordinate's device (the other axes
+    at this process's first coordinate): the JAX ``shard_batch``'s shards."""
+    block = mesh.local_block()
+    first = {a: v[0] for a, v in block.items()}
+    coords = block.get("data", [0])
+
+    def put(x, d):
+        x = np.asarray(x)
+        rows = data_sharding(mesh, x.shape[0])[d] if x.ndim else slice(None)
+        device = mesh.device(**{**first, **({"data": d} if "data" in mesh.shape else {})})
+        return torch.as_tensor(np.ascontiguousarray(x[rows] if x.ndim else x)).to(device)
+
+    def tree(t, d):
+        if isinstance(t, dict):
+            return {k: tree(v, d) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(tree(v, d) for v in t)
+        return put(t, d)
+
+    return [tree(batch, d) for d in coords]

@@ -48,7 +48,12 @@ on, or the ring would stall).  Padded query rows give finite values that the
 caller slices off.
 
 2D (SP x TP): attention is head-local, so with a head axis each tensor-
-parallel shard rings its own heads over the ``seq`` chunks (in one process).
+parallel shard rings its own heads over the ``seq`` chunks.  The shards a
+process holds ring together, in one :class:`RingAttention` whose hops move
+every shard's k/v chunks in one exchange, so that the backward's exchanges
+run in one autograd node, in one order on every process.  The head axis may
+lie inside each process or across processes (a process then holds its own
+head shards only).
 """
 
 from __future__ import annotations
@@ -128,14 +133,16 @@ class Ring:
         per held position): position i's tensor goes to position i + 1, by a
         device copy inside the process, else sent to the next process, while
         the first position receives from the previous one.  On the card the
-        transfers go through this process's current device."""
+        transfers go through the device of the first list's first position
+        (this process's first card), whichever thread runs the shift (a
+        backward runs in autograd's thread of a device)."""
         out = [[t[a - 1].to(t[a].device) for a in range(1, len(t))] for t in tensors]
         if self.next_rank is None:
             for o, t in zip(out, tensors):
                 o.insert(0, t[-1].to(t[0].device))
             return out
         last = [t[-1] for t in tensors]
-        via = torch.device("cuda", torch.cuda.current_device()) if last[0].is_cuda else last[0].device
+        via = tensors[0][0].device
         send = [x.to(via).contiguous() for x in last]
         recv = [torch.empty_like(x) for x in send]
         D.ring_exchange(send, recv, self.group, self.next_rank, self.prev_rank)
@@ -161,86 +168,110 @@ def _merge(parts: Sequence[Tuple[torch.Tensor, torch.Tensor]], num_heads: int, d
 
 
 def _ring_forward(qs, ks, vs, num_heads: int, scale: float, kv_lens, plain: bool, ring: Ring):
-    """The forward ring over this process's query chunks: per hop one
-    forward with log-sum-exp per pair with a real key, the k/v chunks moved
-    on after each hop but the last; each query chunk's partials merged in
-    chunk order -> (outputs, global log-sum-exps)."""
+    """The forward ring over this process's query chunks of each head group
+    (``qs[g][a]``: group g, held position a): per hop one forward with
+    log-sum-exp per pair with a real key, the k/v chunks of every group moved
+    on together after each hop but the last; each query chunk's partials
+    merged in chunk order -> (outputs, global log-sum-exps), ``[g][a]``."""
     fwd = packed_attention_fwd_lse_reference if plain else packed_attention_fwd_lse
-    n = ring.n
+    n, groups = ring.n, len(qs)
     if n == 1:
         # no ring: one masked call, rounded by the kernel
-        o, lse = fwd(qs[0], ks[0], vs[0], num_heads, scale, kv_len=kv_lens[0])
-        return [o], [lse]
-    parts: List[Dict[int, Tuple[torch.Tensor, torch.Tensor]]] = [{} for _ in qs]
-    kv = [list(ks), list(vs)]
+        res = [fwd(qs[g][0], ks[g][0], vs[g][0], num_heads, scale, kv_len=kv_lens[0]) for g in range(groups)]
+        return [[o] for o, _ in res], [[lse] for _, lse in res]
+    parts: List[List[Dict[int, Tuple[torch.Tensor, torch.Tensor]]]] = [[{} for _ in q] for q in qs]
+    kv = [list(x) for x in (*ks, *vs)]  # group g's k at kv[g], its v at kv[groups + g]
     for t in range(n):
-        for a, i in enumerate(ring.positions):
-            j = (i - t) % n
-            if kv_lens[j]:
-                parts[a][j] = fwd(qs[a], kv[0][a], kv[1][a], num_heads, scale, kv_len=kv_lens[j],
-                                  out_dtype=torch.float32)
+        for g in range(groups):
+            for a, i in enumerate(ring.positions):
+                j = (i - t) % n
+                if kv_lens[j]:
+                    parts[g][a][j] = fwd(qs[g][a], kv[g][a], kv[groups + g][a], num_heads, scale, kv_len=kv_lens[j],
+                                         out_dtype=torch.float32)
         if t < n - 1:
             kv = ring.shift(kv)
     outs, lses = [], []
-    for q, p in zip(qs, parts):
-        o, lse = _merge([p[j] for j in sorted(p)], num_heads, q.dtype)
-        outs.append(o)
-        lses.append(lse)
+    for q_g, p_g in zip(qs, parts):
+        merged = [_merge([p[j] for j in sorted(p)], num_heads, q.dtype) for q, p in zip(q_g, p_g)]
+        outs.append([o for o, _ in merged])
+        lses.append([lse for _, lse in merged])
     return outs, lses
+
+
+def _split(flat, groups: int, m: int):
+    """A flat sequence of ``groups * m`` tensors -> ``[g][a]``."""
+    return [list(flat[g * m:(g + 1) * m]) for g in range(groups)]
 
 
 class RingAttention(torch.autograd.Function):
     """Ring attention whose backward is a ring of flash backwards from the
     saved global output and log-sum-exp (the JAX ring's custom VJP).
     ``apply(meta, *q_chunks, *k_chunks, *v_chunks)`` over this process's
-    chunks, with ``meta = (num_heads, scale, kv_lens, plain, ring)`` -> the
-    output chunks."""
+    chunks of every head group, each of q/k/v flattened group-major, with
+    ``meta = (num_heads, scale, kv_lens, plain, ring, groups)`` -> the output
+    chunks, flattened the same way."""
 
     @staticmethod
     def forward(ctx, meta, *chunks):
-        num_heads, scale, kv_lens, plain, ring = meta
-        m = len(chunks) // 3
-        qs, ks, vs = chunks[:m], chunks[m:2 * m], chunks[2 * m:]
+        num_heads, scale, kv_lens, plain, ring, groups = meta
+        m = len(chunks) // (3 * groups)
+        qs, ks, vs = (_split(chunks[i * groups * m:(i + 1) * groups * m], groups, m) for i in range(3))
         outs, lses = _ring_forward(qs, ks, vs, num_heads, scale, kv_lens, plain, ring)
-        ctx.save_for_backward(*qs, *ks, *vs, *outs, *lses)
+        outs = [o for o_g in outs for o in o_g]
+        ctx.save_for_backward(*chunks, *outs, *(x for l_g in lses for x in l_g))
         ctx.meta = meta
         return tuple(outs)
 
     @staticmethod
     def backward(ctx, *d_outs):
-        num_heads, scale, kv_lens, plain, ring = ctx.meta
+        num_heads, scale, kv_lens, plain, ring, groups = ctx.meta
         saved = ctx.saved_tensors
-        m = len(saved) // 5
-        qs, ks, vs, outs, lses = (saved[i * m:(i + 1) * m] for i in range(5))
+        gm = len(saved) // 5  # chunks of all groups
+        qs, ks, vs, outs, lses = (saved[i * gm:(i + 1) * gm] for i in range(5))
         bwd = packed_attention_bwd_reference if plain else packed_attention_bwd
         f32 = torch.float32
         dos = [torch.zeros_like(o) if d is None else d.contiguous() for o, d in zip(outs, d_outs)]
-        # k, v and their f32 dK/dV accumulators ride the ring together
+        # k, v and their f32 dK/dV accumulators ride the ring together, every
+        # group's in one exchange; flat index g * m + a: group g, position a
+        m = gm // groups
         cur = [list(ks), list(vs), [torch.zeros(k.shape, device=k.device, dtype=f32) for k in ks],
                [torch.zeros(v.shape, device=v.device, dtype=f32) for v in vs]]
-        dq: List[Optional[torch.Tensor]] = [None] * m
+        dq: List[Optional[torch.Tensor]] = [None] * gm
         n = ring.n
+
+        def per_group(lists):  # 4 flat lists -> 4 * groups lists of the held positions, for Ring.shift
+            return [x[g * m:(g + 1) * m] for x in lists for g in range(groups)]
+
+        def flat(lists):  # the inverse of per_group
+            return [[t for g in range(groups) for t in lists[i * groups + g]] for i in range(len(lists) // groups)]
+
         for t in range(n):
-            for a, i in enumerate(ring.positions):
-                j = (i - t) % n
-                if not kv_lens[j]:
-                    continue
-                g = bwd(qs[a], cur[0][a], cur[1][a], outs[a], dos[a], lses[a], num_heads, scale, kv_len=kv_lens[j],
-                        out_dtype=f32)
-                dq[a] = g[0] if dq[a] is None else dq[a] + g[0]
-                cur[2][a] = cur[2][a] + g[1]
-                cur[3][a] = cur[3][a] + g[2]
+            for g in range(groups):
+                for a, i in enumerate(ring.positions):
+                    j = (i - t) % n
+                    if not kv_lens[j]:
+                        continue
+                    x = g * m + a
+                    grads = bwd(qs[x], cur[0][x], cur[1][x], outs[x], dos[x], lses[x], num_heads, scale,
+                                kv_len=kv_lens[j], out_dtype=f32)
+                    dq[x] = grads[0] if dq[x] is None else dq[x] + grads[0]
+                    cur[2][x] = cur[2][x] + grads[1]
+                    cur[3][x] = cur[3][x] + grads[2]
             # after the last hop only the accumulators move, home
-            cur = ring.shift(cur) if t < n - 1 else [None, None, *ring.shift(cur[2:])]
+            cur = flat(ring.shift(per_group(cur))) if t < n - 1 else [None, None,
+                                                                         *flat(ring.shift(per_group(cur[2:])))]
         return (None, *(g.to(q.dtype) for g, q in zip(dq, qs)), *(g.to(k.dtype) for g, k in zip(cur[2], ks)),
                 *(g.to(v.dtype) for g, v in zip(cur[3], vs)))
 
 
-def _ring(qs, ks, vs, num_heads: int, scale: float, kv_lens, plain: bool, ring: Ring) -> List[torch.Tensor]:
-    """One head group's ring; through :class:`RingAttention` when autograd
-    records."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (*qs, *ks, *vs)):
-        return list(RingAttention.apply((num_heads, float(scale), tuple(kv_lens), plain, ring), *qs, *ks, *vs))
+def _ring(qs, ks, vs, num_heads: int, scale: float, kv_lens, plain: bool, ring: Ring) -> List[List[torch.Tensor]]:
+    """The ring of this process's head groups (``qs[g][a]``) -> outputs
+    ``[g][a]``; through :class:`RingAttention` when autograd records."""
+    groups, m = len(qs), len(qs[0])
+    chunks = [t for xs in (qs, ks, vs) for x_g in xs for t in x_g]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in chunks):
+        outs = RingAttention.apply((num_heads, float(scale), tuple(kv_lens), plain, ring, groups), *chunks)
+        return _split(outs, groups, m)
     return _ring_forward(qs, ks, vs, num_heads, scale, kv_lens, plain, ring)[0]
 
 
@@ -268,36 +299,39 @@ def ring_attention(
     and ``plain`` take the kernels' plain versions.
 
     ``h_axis``: the 2D (SP x TP) case.  Each of ``qs``/``ks``/``vs`` is then
-    the list over the ``h_axis`` shards (``num_heads / size`` heads each) of
-    their token chunks, and each shard rings its own heads; returns
-    ``[shard][chunk]``."""
+    the list over this process's ``h_axis`` shards (all of them when the
+    axis stays in the process; ``num_heads / size`` heads each) of their
+    token chunks, and each shard rings its own heads, all shards in one
+    ring; returns ``[shard][chunk]``."""
     n = mesh.shape[axis]
     if h_axis is not None and mesh.shape.get(h_axis, 1) == 1:
         h_axis = None
     if h_axis is not None:
-        if mesh.spans_processes:
-            raise NotImplementedError("2D (SP x TP) ring attention runs in one process; a mesh over processes "
-                                      "rings without a head axis")
         if h_axis == axis:
             raise ValueError(f"h_axis={h_axis!r} must differ from the ring axis {axis!r}")
         tp = mesh.shape[h_axis]
         if num_heads % tp:
             raise ValueError(f"{num_heads} heads not divisible by mesh axis {h_axis}={tp}")
-        if not len(qs) == len(ks) == len(vs) == tp:
-            raise ValueError(f"ring_attention over {h_axis}={tp} needs {tp} head shards; got {len(qs)}")
-        return [ring_attention(q, k, v, num_heads // tp, scale=scale, kv_lens=kv_lens, mesh=mesh, axis=axis,
-                               plain=plain) for q, k, v in zip(qs, ks, vs)]
+        held = len(mesh.local_block()[h_axis])
+        if not len(qs) == len(ks) == len(vs) == held:
+            raise ValueError(f"ring_attention over {h_axis}={tp} needs this process's {held} head shards; "
+                             f"got {len(qs)}")
+        num_heads //= tp
+    else:
+        qs, ks, vs = [qs], [ks], [vs]
     ring = Ring(mesh, axis)
     m = len(ring.positions)
-    if not len(qs) == len(ks) == len(vs) == m or len(kv_lens) != n:
+    if any(not len(q) == len(k) == len(v) == m for q, k, v in zip(qs, ks, vs)) or len(kv_lens) != n:
         raise ValueError(f"ring_attention over {axis}={n} needs this process's {m} chunks of q/k/v and {n} kv_lens; "
-                         f"got {len(qs)}, {len(ks)}, {len(vs)}, {len(kv_lens)}")
+                         f"got {[len(q) for q in qs]}, {[len(k) for k in ks]}, {[len(v) for v in vs]}, "
+                         f"{len(kv_lens)}")
     if kv_lens[0] < 1:
         raise ValueError("ring_attention: the first chunk holds no real token")
     # the kernels take contiguous chunks (a view of a (B, L, D) tensor split
     # along L is not, for B > 1)
-    qs, ks, vs = ([x.contiguous() for x in xs] for xs in (qs, ks, vs))
-    return _ring(qs, ks, vs, num_heads, scale, kv_lens, plain, ring)
+    qs, ks, vs = ([[x.contiguous() for x in x_g] for x_g in xs] for xs in (qs, ks, vs))
+    outs = _ring(qs, ks, vs, num_heads, scale, kv_lens, plain, ring)
+    return outs if h_axis is not None else outs[0]
 
 
 def sp_param_grid(params, mesh: Mesh, axis: str = "seq", tp_axis: Optional[str] = None,
@@ -306,8 +340,9 @@ def sp_param_grid(params, mesh: Mesh, axis: str = "seq", tp_axis: Optional[str] 
     coordinate ``data`` of ``mesh`` (by default this process's first: 0 on a
     mesh of one process): ``grid[a][m]`` is the parameter dict (of
     ``tp_axis`` shard ``m``, the whole ViT without one) on the device at
-    this process's ``a``-th ``axis`` coordinate (every one on a mesh of one
-    process) and ``tp_axis`` coordinate ``m``.  Each distinct (shard,
+    this process's ``a``-th ``axis`` coordinate and ``m``-th ``tp_axis``
+    coordinate (every one on a mesh of one process; any other axis at this
+    process's first coordinate).  Each distinct (shard,
     device) is placed once and shared (one card named several times holds
     one copy of each shard).  The copies are differentiable: a forward of
     LoRA-merged weights places them at each call."""
@@ -317,10 +352,13 @@ def sp_param_grid(params, mesh: Mesh, axis: str = "seq", tp_axis: Optional[str] 
         data = block["data"][0] if "data" in block else 0
     placed: Dict[Any, Dict[str, Any]] = {}
     grid = []
+    # the axes not named take this process's first coordinate (a model axis
+    # without tp_axis: its replica)
+    first = {a: v[0] for a, v in block.items()}
     for i in block[axis]:
         row = []
-        for m in range(tp):
-            coords = {axis: i, **({tp_axis: m} if tp_axis is not None else {})}
+        for m in (block[tp_axis] if tp_axis is not None else range(1)):
+            coords = {**first, axis: i, **({tp_axis: m} if tp_axis is not None else {})}
             if "data" in mesh.shape:
                 coords["data"] = data
             device = mesh.device(**coords)

@@ -15,7 +15,8 @@ torch.profiler breakdown of the backward's kernels.
 * ``--parent DIR``: DIR is a checkout of a parent tree whose attention
   C entries take this tree's arguments (``ucod_attention_fwd`` a head dim,
   ``ucod_attention_fwd_lse`` and ``ucod_attention_bwd`` a key bound and an
-  f32-output flag).  Its kernels are built from DIR by DIR's own
+  f32-output flag; a head dim too, or no head dim, as before head dim 128,
+  read from the parent's own ``_build`` declarations).  Its kernels are built from DIR by DIR's own
   ``ops/_build.py`` and timed against this tree's, interleaved parent,
   this, this, parent, at bs16 L1370 and bs4 L2917; the outputs of the two
   are compared bit for bit (K1, K2's o and log-sum-exp, dq, dk, dv).
@@ -204,6 +205,8 @@ def parent_ab(parent: Path, results: dict) -> None:
     same shapes: whether the outputs are equal bit for bit, and their times
     interleaved parent, this, this, parent."""
     lib = _parent_lib(parent)  # its own _build declares its entries' C signatures
+    # head dim 64, where the parent's forward-LSE and backward entries take a head dim
+    hd = (64,) if len(lib.ucod_attention_fwd_lse.argtypes) == 13 else ()
 
     def fwd(q, k, v):
         o = torch.empty_like(q)
@@ -217,7 +220,8 @@ def parent_ab(parent: Path, results: dict) -> None:
         b, l, _ = q.shape
         lse = torch.empty(b, HEADS, l, device=q.device)
         _build.check_cuda(lib.ucod_attention_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                                     lse.data_ptr(), b, l, l, HEADS, SCALE * A._LOG2E, 0, _stream()),
+                                                     lse.data_ptr(), b, l, l, HEADS, *hd, SCALE * A._LOG2E, 0,
+                                                     _stream()),
                           "parent fwd_lse")
         return o, lse
 
@@ -226,7 +230,7 @@ def parent_ab(parent: Path, results: dict) -> None:
         b, l, _ = q.shape
         stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device)
         _build.check_cuda(lib.ucod_attention_bwd(*(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)),
-                                                 b, l, l, HEADS, SCALE, 0, _stream()), "parent bwd")
+                                                 b, l, l, HEADS, *hd, SCALE, 0, _stream()), "parent bwd")
         return grads
 
     _log(f"parent {parent} against this tree (interleaved parent, this, this, parent):")
@@ -309,8 +313,8 @@ _NO_EXCHANGE_WRITE = """      {
         for (int jb = 0; jb < 8; ++jb) {
           float* half = out + (jb / 4) * 64 * 32;
           const int col = 8 * (jb % 4) + 2 * tq;
-          *reinterpret_cast<float2*>(half + dq_half_offset(row, col)) = make_float2(dq[4 * jb], dq[4 * jb + 1]);
-          *reinterpret_cast<float2*>(half + dq_half_offset(row + 8, col)) = make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);
+          *reinterpret_cast<float2*>(half + dq_half_offset<kHeadDim>(row, col)) = make_float2(dq[4 * jb], dq[4 * jb + 1]);
+          *reinterpret_cast<float2*>(half + dq_half_offset<kHeadDim>(row + 8, col)) = make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);
         }
       }"""
 _EXCHANGE = """      if (c == 0) {
@@ -338,10 +342,10 @@ VARIANTS = {
                     _chain(_sub("      float* out = sm.dq_out[c][i & 1];",
                                 "      float* out = dq_acc + ((int64_t)bh * n_q + (q_first + i) % n_q) * 64 * kHeadDim"
                                 " + c * 32 * 64;"),
-                           _sub("    *reinterpret_cast<float2*>(out + dq_half_offset(row, col)) = make_float2(",
-                                "    atomicAdd(reinterpret_cast<float2*>(out + dq_half_offset(row, col)), make_float2("),
-                           _sub("    *reinterpret_cast<float2*>(out + dq_half_offset(row + 8, col)) = make_float2(",
-                                "    atomicAdd(reinterpret_cast<float2*>(out + dq_half_offset(row + 8, col)), make_float2("),
+                           _sub("    *reinterpret_cast<float2*>(out + dq_half_offset<kHeadDim>(row, col)) = make_float2(",
+                                "    atomicAdd(reinterpret_cast<float2*>(out + dq_half_offset<kHeadDim>(row, col)), make_float2("),
+                           _sub("    *reinterpret_cast<float2*>(out + dq_half_offset<kHeadDim>(row + 8, col)) = make_float2(",
+                                "    atomicAdd(reinterpret_cast<float2*>(out + dq_half_offset<kHeadDim>(row + 8, col)), make_float2("),
                            _sub("make_float2(dq[4 * jb], dq[4 * jb + 1]);\n    atomicAdd",
                                 "make_float2(dq[4 * jb], dq[4 * jb + 1]));\n    atomicAdd"),
                            _sub("make_float2(dq[4 * jb + 2], dq[4 * jb + 3]);\n  }\n}",
@@ -663,13 +667,13 @@ def variants(results: dict, names=None) -> None:
                 this, refs = (lambda: A.packed_attention(q, k, v, HEADS, SCALE)), (ref_o,)
             else:
                 fn = getattr(lib, f"ucod_attention_bwd_{name}")
-                fn.argtypes = [ptr] * 11 + [i32, i32, i32, i32, f32, i32, ptr]
+                fn.argtypes = [ptr] * 11 + [i32, i32, i32, i32, i32, f32, i32, ptr]
 
                 def run(fn=fn):
                     grads = [torch.empty_like(q) for _ in range(3)]
                     stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device)
                     _build.check_cuda(fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)), b, l,
-                                         l, HEADS, SCALE, 0, _stream()), name)
+                                         l, HEADS, 64, SCALE, 0, _stream()), name)
                     return grads
 
                 this, refs = (lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)), ref_g
