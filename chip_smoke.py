@@ -272,8 +272,14 @@ Phases (each raises on failure; any failure exits non-zero):
      756px bs2, forward + backward: each rank's K2 and K3/K4 launches (11
      layers x its shards x its chunks x 2 key chunks), its features within
      2^-6 of max|one-process 2D forward|, the ranks' adapter gradients
-     summed within 1e-3 (norm-relative) of the one-process forward's; ms
-     by CUDA events and the model axis's collectives (calls, bytes).
+     summed within ``R5_GRAD_BOUND`` (2e-2, norm-relative) of the
+     one-process forward's; each rank's gradients of a second forward +
+     backward equal to its first bit for bit, and the 2 x 2 layout run
+     twice (two sets of processes), its summed adapter gradients equal bit
+     for bit across the runs (``parallel/tp.py::to_devices``: the copies
+     of a tensor on two cards of a process add their gradients in shard
+     order); ms by CUDA events and the model axis's collectives (calls,
+     bytes).
   S. (after phase P) the serving forward's two fusion prototypes, on no
      product path: K12 (``attention_outproj_residual``: attention +
      out-projection + bias + layerscale + residual in one kernel) at bs16
@@ -366,7 +372,8 @@ Phases (each raises on failure; any failure exits non-zero):
      absolute floor grows as sqrt(L)); two backwards at bs16 L1370 equal
      bit for bit; both timed at bs16 L1370 against their plain versions,
      SDPA and its backward, and the backward at 12 heads of 64 on the same
-     tensors.  X2: ``lora_forward`` of a ViT of dinov2-base's width and
+     tensors, the backward's ratios to SDPA's backward and to its bound on
+     a line of their own.  X2: ``lora_forward`` of a ViT of dinov2-base's width and
      depth with 6 heads of 128 (seeded weights), bs4 518px: 11 K2 and 11
      K3/K4, the adapters' gradients within 0.1 of the plain path's.  X3:
      dinov2-base ``lora_forward(tp_shard=)`` at bs4 518px over ``{"model":
@@ -3400,6 +3407,11 @@ def phase_x_kernels(gen, dev) -> dict:
     _log(f"  K3/K4 hd{X_HD} bs16 L1370: kernel {out['K3'][0]:.4f} ms, plain {out['K3'][1]:.4f} ms, SDPA backward "
          f"{out['K3_sdpa']:.4f} ms, bound {out['K3_bound'][0]:.4f} ms ({out['K3_bound'][1]}); the backward at 12 heads of 64 on the "
          f"same tensors {out['K3_hd64']:.4f} ms")
+    out["K3_sdpa_ratio"] = out["K3"][0] / out["K3_sdpa"]
+    out["K3_bound_ratio"] = out["K3"][0] / out["K3_bound"][0]
+    _log(f"  K3/K4 hd{X_HD} bs16 L1370 (attention_bwd_d128_kernel): {out['K3'][0]:.4f} ms against SDPA's backward "
+         f"{out['K3_sdpa']:.4f} ms, ratio {out['K3_sdpa_ratio']:.3f}; bound {out['K3_bound'][0]:.4f} ms, ratio "
+         f"{out['K3_bound_ratio']:.3f}")
     return out
 
 
@@ -3533,6 +3545,8 @@ def _x_summary(x: dict) -> dict:
             "x_tp2_lora_grad_rel_diff": x["tp2_grad_rel"], "x_tp4_lora_grad_rel_diff": x["tp4_grad_rel"],
             "x_tp2_lora_fwd_bwd_ms": x["tp2_ms"][0], "x_unsharded_lora_fwd_bwd_ms": x["tp2_ms"][1],
             "x_launches": x["launches"], "x_hd128_bwd_repeats_bitwise": x["kernels"]["repeat"],
+            "x_hd128_bwd_sdpa_ratio": x["kernels"]["K3_sdpa_ratio"],
+            "x_hd128_bwd_bound_ratio": x["kernels"]["K3_bound_ratio"],
             "x_hd64_bwd_same_tensors_ms": x["kernels"]["K3_hd64"], "x_seconds": x["seconds"]}
 
 
@@ -4536,8 +4550,10 @@ def _r5_2d(spec: dict, dev) -> dict:
     loss on its key features: each rank's launches, its features against
     the one-process 2D forward's, and the sum over the ranks of their
     adapter gradients (each rank holds its chunks' and shards' part)
-    against the one-process 2D forward's; ms by CUDA events, all ranks in
-    step."""
+    against the one-process 2D forward's; each rank's gradients of a
+    second forward + backward against its first, bit for bit; rank 0 writes
+    the summed gradients to ``lora_grad_sum.pt`` in ``spec["out"]``; ms by
+    CUDA events, all ranks in step."""
     from ucod_dpl_tpu_torch.parallel import build_mesh, distributed
     from ucod_dpl_tpu_torch.parallel import sp as SP
 
@@ -4624,6 +4640,11 @@ def _r5_2d(spec: dict, dev) -> dict:
     out["lora_launches"] = {k: fn.launches for k, fn in counts.items() if fn.launches}
     g_sum = torch.stack(_world_gather(g)).sum(0)
     f_all = _world_gather(feats.float())
+    again = fwd_bwd(**shard)[1]
+    out["lora_grad_repeat_bitwise"] = [bool(x.item()) for x in _world_gather(
+        torch.tensor([torch.equal(g, again)], device=dev, dtype=torch.int32))]
+    if rank == 0:
+        torch.save(g_sum.cpu(), os.path.join(spec["out"], "lora_grad_sum.pt"))
     out["lora_ms"] = _time_ms(lambda: fwd_bwd(**shard), 3, warmup=1)
     distributed.barrier("R5 LoRA")
     if rank == 0:
@@ -4688,13 +4709,16 @@ def phase_sp_2d(seed: int, smi: str) -> dict:
     forward + backward's launches (11 layers x this rank's shards x its
     chunks x 2 key chunks of K2 and of K3/K4), its features within 2^-6 of
     max|one-process| and its summed adapter gradients within
-    ``R5_GRAD_BOUND`` of the one-process 2D forward's."""
+    ``R5_GRAD_BOUND`` of the one-process 2D forward's; every rank's
+    gradients of a second forward + backward bitwise its first; the 2 x 2
+    layout run twice, in two sets of processes, its summed adapter
+    gradients bitwise across the runs."""
     import shutil
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_sp", "r5")
     shutil.rmtree(root, ignore_errors=True)
     out, fails = {}, []
-    for name, world, cards in (("4x1", 4, 1), ("2x2", 2, 2)):
+    for name, world, cards in (("4x1", 4, 1), ("2x2", 2, 2), ("2x2_again", 2, 2)):
         ranks = _run_ranks({"phase": "R5", "entry": "2d", "out": os.path.join(root, name), "cards": cards,
                             "seed": seed + 50, "mesh": {"seq": 2, "model": 2}, "batch": 2},
                            _rank_env(world, str(_free_port())), worker="--sp-worker")
@@ -4712,18 +4736,30 @@ def phase_sp_2d(seed: int, smi: str) -> dict:
         _log(f"  R5 {name}: the process ring bitwise the one-process 2D ring: {r0['ring_equal']} (one-process ring "
              f"{r0['one_ring_ms']:.3f} ms); features against the one-process 2D forward: max diff "
              f"{r0['features_max_diff']:.6g} (bitwise {r0['features_bitwise']}, max |one-process| "
-             f"{r0['features_max']:.4g}); summed adapter grads norm-relative {r0['lora_grad_rel']:.6g} (bitwise "
+             f"{r0['features_max']:.4g}); summed adapter grads norm-relative {r0['lora_grad_rel']!r} (bitwise "
              f"{r0['lora_grad_bitwise']}, bound {R5_GRAD_BOUND:g}); one-process forward + backward "
-             f"{r0['one_lora_ms']:.3f} ms")
+             f"{r0['one_lora_ms']:.3f} ms; each rank's adapter grads of a second forward + backward bitwise its "
+             f"first: {r0['lora_grad_repeat_bitwise']}")
         if not all(r0["ring_equal"].values()):
             fails.append(f"R5 {name}: the process ring differs from the one-process ring: {r0['ring_equal']}")
         if not r0["features_max_diff"] <= K1_TOL * r0["features_max"]:
             fails.append(f"R5 {name}: features differ by {r0['features_max_diff']}")
         if not (np.isfinite(r0["lora_grad_rel"]) and r0["lora_grad_rel"] <= R5_GRAD_BOUND):
             fails.append(f"R5 {name}: adapter grads {r0['lora_grad_rel']} exceed {R5_GRAD_BOUND}")
+        if not all(r0["lora_grad_repeat_bitwise"]):
+            fails.append(f"R5 {name}: a second forward + backward gave other adapter grads "
+                         f"{r0['lora_grad_repeat_bitwise']}")
         out[name] = {k: r0[k] for k in ("ring_equal", "ring_ms", "one_ring_ms", "lora_ms", "one_lora_ms",
                                         "features_max_diff", "features_bitwise", "lora_grad_rel",
-                                        "lora_grad_bitwise", "lora_launches", "tp_traffic")}
+                                        "lora_grad_bitwise", "lora_grad_repeat_bitwise", "lora_launches",
+                                        "tp_traffic")}
+    first, second = (torch.load(os.path.join(root, d, "lora_grad_sum.pt")) for d in ("2x2", "2x2_again"))
+    out["2x2"]["lora_grad_runs_bitwise"] = torch.equal(first, second)
+    diff = (first - second).abs().max().item()
+    _log(f"  R5 2x2 run twice: summed adapter grads bitwise {out['2x2']['lora_grad_runs_bitwise']} (max diff "
+         f"{diff:.6g})")
+    if not out["2x2"]["lora_grad_runs_bitwise"]:
+        fails.append(f"R5 2x2: the summed adapter grads of two runs differ by up to {diff}")
     if fails:
         raise AssertionError("phase R5: " + "; ".join(fails))
     return out

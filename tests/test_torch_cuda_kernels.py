@@ -176,28 +176,31 @@ def test_attention_backward_repeats(dev):
 
 
 # the LoRA step's shape (bs16 518px) and the 756px one, where a head's 23
-# key tiles walk 46 q tiles
-@pytest.mark.parametrize("b,l", [(16, 1370), (4, 2917)])
-def test_attention_backward_is_deterministic(dev, b, l):
+# key tiles walk 46 q tiles; 12 heads of 64 and 6 of 128 (the head-dim-128
+# kernel) on the same width
+@pytest.mark.parametrize("b,l,hd", [pytest.param(16, 1370, 64, id="16-1370"), pytest.param(4, 2917, 64, id="4-2917"),
+                                    pytest.param(16, 1370, 128, id="16-1370-hd128"),
+                                    pytest.param(4, 2917, 128, id="4-2917-hd128")])
+def test_attention_backward_is_deterministic(dev, b, l, hd):
     """Two backward calls on the same inputs give dq, dk and dv equal bit for
     bit, also when the second call's scratch is memory the first one used
     (its semaphores left at their final counts) and other work runs on the
     card between them; both within the backward's bound of the plain
     version."""
-    nh = 12
+    nh, scale = 768 // hd, hd ** -0.5
     g = torch.Generator(device=dev).manual_seed(b * l)
-    q, k, v, do = (torch.randn(b, l, nh * 64, generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
-    o, lse = packed_attention_fwd_lse(q, k, v, nh, 0.125)
+    q, k, v, do = (torch.randn(b, l, 768, generator=g, device=dev).to(torch.bfloat16) for _ in range(4))
+    o, lse = packed_attention_fwd_lse(q, k, v, nh, scale)
     runs = []
     for _ in range(3):
-        runs.append(packed_attention_bwd(q, k, v, o, do, lse, nh, 0.125,
+        runs.append(packed_attention_bwd(q, k, v, o, do, lse, nh, scale,
                                          out=tuple(torch.full_like(q, float("nan")) for _ in range(3))))
-        packed_attention(q, k, v, nh, 0.125)
+        packed_attention(q, k, v, nh, scale)
     torch.cuda.synchronize()
     for again in runs[1:]:
         for name, x, y in zip(("dq", "dk", "dv"), runs[0], again):
             assert torch.equal(x, y), f"{name} differs between runs by up to {(x.float() - y.float()).abs().max()}"
-    _assert_grads_close(runs[0], packed_attention_bwd_reference(q, k, v, o, do, lse, nh, 0.125))
+    _assert_grads_close(runs[0], packed_attention_bwd_reference(q, k, v, o, do, lse, nh, scale))
 
 
 # the ring's chunk lengths: 2917 (756px) over 4 chunks of 730 and 1370 (518px)

@@ -24,7 +24,7 @@
 //   * a pre-pass writes, per (batch * head, row) padded to a multiple of 64
 //     rows, the pair {lse * log2 e, D} in f32: +inf and 0 for rows >= L, so
 //     a query row past L gets P = 0 with no predicate; it also zeroes the
-//     f32 dQ scratch dq_acc and the int32 semaphores behind it;
+//     f32 dQ scratch dq_acc (head dim 64) and the int32 semaphores behind it;
 //   * the main kernel gives each CTA one 128-key K/V tile of one head: one
 //     producer warp (setmaxnreg down to 24) loads K and V once by TMA, then
 //     streams every 64-row q tile's Q, dO (3-D tensor maps, 128-byte
@@ -71,27 +71,64 @@
 //
 // Head dim 128 (attention_bwd_d128_kernel; the TPU kernels take any head
 // dim with 2 * d % 128 == 0).  The layout above does not fit: K and V of
-// 128 keys take 64 KB, three stages of Q and dO 96 KB, dS^T 16 KB and the
-// doubled dQ hand-off buffers 128 KB, about 300 KB against the 227 KB a CTA
-// may hold; and a consumer thread would hold dK and dV (128 f32), S^T and
-// dP^T (64) and a whole dQ partial (64), about 256 registers against the
-// 240 that setmaxnreg gives it.  So at head dim 128 the kernel keeps the
-// 128 keys a CTA, the five products, the pre-pass, the key bound and the
-// ordered dQ additions, and changes three things:
-//   * two pipeline stages of Q and dO (64 KB);
-//   * dQ in two 64-column halves, each its own wgmma of 32 accumulators: a
-//     warpgroup first computes the other warpgroup's half over its own 64
-//     keys and writes it into that warpgroup's buffer, then its own half,
-//     which it adds to the other's partial in place; the buffer (64 x 64
-//     f32, double-buffered by step parity: 64 KB for both) is then what the
-//     writer reduce-adds into dq_acc, so no separate hand-over copy exists;
-//   * no software pipelining across steps: step i's S and dP are issued
-//     after step i - 1's dQ is handed over, so S^T, dP^T and a dQ half are
-//     never live together (dK, dV, S^T, dP^T and P: about 208 registers).
-// 210 KB of shared memory a CTA.  Two tiles of 64 columns side by side make
-// every 128-column operand (two TMA boxes a tile, as the forward's); a
-// product over the head dim takes 8 k-steps across the two, and dK/dV are
-// two 64-column accumulators each.
+// 128 keys take 64 KB, and a consumer thread holds dK and dV (128 f32)
+// beside S^T and dP^T (64), so a dQ partial of all 128 columns (64 more) and
+// its exchange do not fit in 240 registers.  The kernel keeps the 128 keys
+// a CTA and the two consumer warpgroups of 64 keys, the five products with
+// each score computed once, the pre-pass, the rounding points, the key
+// bound with exact-zero dK/dV rows, the f32 outputs and the ordered dQ
+// additions (one semaphore per (batch * head, q tile, half)), and:
+//   * splits dQ by head-dim halves over all 128 keys (FlashAttention-3's
+//     split of the backward, Shah et al. 2024): both warpgroups store
+//     dS^T (bf16, 64 keys x 64 queries each) into one 16 KB buffer, and
+//     warpgroup c computes dQ[:, 64c : 64c + 64] = dS K[:, 64c : 64c + 64],
+//     one 64 x 64 f32 accumulator (32 registers) over 8 k-steps of 16 keys
+//     with dS read MN-major from shared memory.  The half is complete: it
+//     is staged once for its writer's bulk add, with no partial exchange
+//     and no in-place sum;
+//   * computes a step's dQ one step late: warpgroup c stores step i's dS^T,
+//     then runs step i - 1's dQ product, whose dS^T both warpgroups stored
+//     by then.  The two meet through mbarriers, not a barrier: ds_full[s]
+//     (both warpgroups' dS^T are in ds[s]) and ds_empty[s] (both dQ
+//     products have read it), dS^T double-buffered by step parity, so one
+//     warpgroup may run up to a step ahead of the other and their exp,
+//     dS and staging phases need not coincide (each step's dQ in its own
+//     step, the warpgroups in lock step: variant bwd128_lockstep, 1.01-1.03x
+//     slower here, 1.17-1.23x with three stages and one staging buffer);
+//   * overlaps the q steps: step i + 1's S^T is issued behind step i - 1's
+//     dQ product, before the dQ is waited on and staged, so the tensor
+//     cores have it while the warpgroup stages dQ; step i's dP^T runs while
+//     its P is computed, dV while dS is, dK while dS^T is stored (S^T
+//     issued after the staging instead, variant bwd128_no_overlap: 1.05x
+//     slower).  Registers decide what overlaps: dK + dV (128) + S^T (32) +
+//     the dQ half (32) + dP^T (32) is 224 of the 240, and issuing step
+//     i + 1's dP^T beside its S^T too (variant bwd128_dp_ahead) made ptxas
+//     serialise every wgmma for lack of registers (C7512; 1.6-1.8x
+//     slower).  No product is in flight across the loop's back edge (a
+//     step ends by waiting for S^T): with S^T in flight across it, ptxas
+//     serialised the wgmmas (C7514);
+//   * the first CTA in a tile's order copies its half-tile into dq_acc (a
+//     bulk store, not an add), so the pre-pass does not zero dq_acc, and a
+//     writer frees its staging buffer once the bulk add has read it;
+//   * two Q/dO stages (64 KB), dS^T 32 KB, dQ staging 64 KB (two 16 KB
+//     buffers a half, so a writer may be a step behind): 231,560 bytes a
+//     CTA with the alignment slack, of the 232,448.  Three stages with one
+//     staging buffer a half (the other layout that fits) read 1.01-1.02x
+//     slower (variant bwd128_stages3_dqbufs1).
+// ptxas: 168 registers (the launch bound; setmaxnreg gives the consumers
+// 240), no spills, no C7512/C7514 (build.log).  On an H100 80GB HBM3 at
+// 700 W (tools/attention_ab.py, bs16 L1370, 6 heads of 128) a call takes
+// 0.575-0.593 ms against SDPA's backward's 0.56-0.67 and the five
+// products' bound of 0.233: the main kernel 0.506, the pre-pass 0.030,
+// the dq cast 0.036.  Removing whole products moves it little (no dV and
+// dK: -5%, no dQ product: -5 to -8%, no ex2: -3 to -4%), so neither the
+// tensor cores nor the ex2 unit alone bound it.  What does is not
+// measured (no profiler counter was read): the hypothesis drawn from
+// these ablations is latency and shared-memory traffic, the 64-wide S^T,
+// dP^T and dQ products reading both operands from shared memory.  Two
+// tiles of 64 columns side by side make every 128-column operand (two TMA
+// boxes a tile, as the forward's); a product over the head dim takes 8
+// k-steps across the two, and dK/dV are two 64-column accumulators each.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -134,8 +171,9 @@ struct Smem {  // every tile 1024-byte aligned (128-byte swizzle atoms)
 constexpr size_t kSmemBytes = sizeof(Smem) + 1024;  // + alignment slack
 
 // stats[bh, i] = {lse * log2 e, D = sum_d dO o O} for i < L, {+inf, 0} for
-// L <= i < padded_len, dq_acc's row i of head bh set to zero, and with the
-// first row of a q tile the tile's two semaphores (one per half).  Eight
+// L <= i < padded_len, dq_acc's row i of head bh set to zero (at head dim
+// 64), and with the first row of a q tile the tile's two semaphores (one per
+// half).  Eight
 // lanes take one (padded row, head) unit u: row u / num_heads of batch
 // element b, head u % num_heads, HD / 4 bytes of the packed o/dO row and
 // HD / 2 of each dq_acc half row each.
@@ -156,11 +194,15 @@ __global__ void __launch_bounds__(256)
   // row i % 64 of both halves of tile i / 64 (see dq_half_offset); part p
   // zeroes columns [4p + 32r, 4p + 32r + 4) of the row in half 0 and in
   // half 1, r < HD / 64
-  float* dq_row = dq_acc + (bh * (padded_len / 64) + i / 64) * 64 * HD + (i % 64) * (HD / 2) + 4 * part;
+  // (at head dim 128 the first addition into each half-tile is a plain
+  // copy, so dq_acc is not zeroed)
+  if constexpr (HD == 64) {
+    float* dq_row = dq_acc + (bh * (padded_len / 64) + i / 64) * 64 * HD + (i % 64) * (HD / 2) + 4 * part;
 #pragma unroll
-  for (int r = 0; r < HD / 64; ++r) {
-    reinterpret_cast<float4*>(dq_row + 32 * r)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
-    reinterpret_cast<float4*>(dq_row + 32 * r + 64 * (HD / 2))[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < HD / 64; ++r) {
+      reinterpret_cast<float4*>(dq_row + 32 * r)[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<float4*>(dq_row + 32 * r + 64 * (HD / 2))[0] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
   if (i % 64 == 0 && part < 2) sem[(bh * (padded_len / 64) + i / 64) * 2 + part] = 0;
   float dot = 0.f;
@@ -502,8 +544,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---- head dim 128 ----------------------------------------------------------
 
 constexpr int kD128 = 128;
-constexpr int kStages128 = 2;
-constexpr int kAtom = 64;  // columns of a 128-byte swizzled tile
+constexpr int kStages128 = 2;  // Q/dO stages
+constexpr int kDqBufs128 = 2;  // staging buffers of each dQ half
+constexpr int kAtom = 64;      // columns of a 128-byte swizzled tile
 constexpr uint32_t kKvBytes128 = kBlockK * kD128 * 2;
 constexpr uint32_t kQBytes128 = kBlockQ * kD128 * 2;
 
@@ -512,14 +555,15 @@ struct Smem128 {  // every tile 1024-byte aligned; a 128-column tile is two 64-c
   bf16 v[2 * kBlockK * kAtom];
   bf16 q[kStages128][2 * kBlockQ * kAtom];
   bf16 d_o[kStages128][2 * kBlockQ * kAtom];
-  bf16 ds[kConsumers][64 * kBlockQ];     // dS^T, [key][query], per warpgroup
-  float dq[kConsumers][2][64 * kAtom];   // half c of a step's dQ, by step parity (dq_half_offset<128>)
-  float2 stats[kStages128][kBlockQ];     // {lse * log2 e, D}
+  bf16 ds[2][kBlockK * kBlockQ];               // dS^T, [key][query] of all 128 keys, by step parity
+  float dq[kConsumers][kDqBufs128][64 * kAtom];  // half c of a step's dQ (dq_half_offset<128>)
+  float2 stats[kStages128][kBlockQ];           // {lse * log2 e, D}
   uint64_t kv_full;
   uint64_t full[kStages128], empty[kStages128];
-  uint64_t part_full[kConsumers][2];  // dq[c][s] holds the other warpgroup's partial of half c
-  uint64_t dq_full[kConsumers][2];    // dq[c][s] holds the step's sums of half c
-  uint64_t dq_free[kConsumers][2];    // their addition to dq_acc has completed
+  uint64_t dq_full[kConsumers][kDqBufs128];  // dq[c][s] holds a step's half c
+  uint64_t dq_free[kConsumers][kDqBufs128];  // its addition to dq_acc has read it
+  uint64_t ds_full[2];   // ds[s] holds both warpgroups' dS^T of a step
+  uint64_t ds_empty[2];  // both warpgroups' dQ products have read ds[s]
 };
 constexpr size_t kSmemBytes128 = sizeof(Smem128) + 1024;  // + alignment slack
 static_assert(kSmemBytes128 <= 232448, "the head-dim-128 backward exceeds a CTA's shared memory");
@@ -554,11 +598,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
     for (int c = 0; c < kConsumers; ++c) {
 #pragma unroll
-      for (int s = 0; s < 2; ++s) {
-        ucod::mbar_init(&sm.part_full[c][s], 128);
+      for (int s = 0; s < kDqBufs128; ++s) {
         ucod::mbar_init(&sm.dq_full[c][s], 128);
         ucod::mbar_init(&sm.dq_free[c][s], 1);
       }
+    }
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      ucod::mbar_init(&sm.ds_full[s], kConsumers * 128);
+      ucod::mbar_init(&sm.ds_empty[s], kConsumers * 128);
     }
     ucod::fence_barrier_init();
   }
@@ -589,7 +637,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         ucod::bulk_load(sm.stats[st], stats_h + tile * kBlockQ, kStatBytes, &sm.full[st]);
       }
     } else if (threadIdx.x == 32 || threadIdx.x == 64) {
-      // dQ writer of half c: as attention_bwd_kernel's, 16 KB a step
+      // dQ writer of half c: as attention_bwd_kernel's, 16 KB a step; the
+      // first in a tile's order (rank 0) copies, the others add
       const int c = threadIdx.x / 32 - 1;
       const int n_k = gridDim.x;
       float* dq_head = dq_acc + (int64_t)bh * n_q * 64 * D;
@@ -599,15 +648,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int m = ((tile + 1) * n_k + n_q - 1) / n_q;
         const int rank = (int)blockIdx.x < m ? m - 1 - (int)blockIdx.x : m + n_k - 1 - (int)blockIdx.x;
         const int64_t dst = (int64_t)tile * 64 * D + c * 64 * kAtom;
-        ucod::mbar_wait(&sm.dq_full[c][i & 1], (i >> 1) & 1);
+        const int buf = i % kDqBufs128;
+        ucod::mbar_wait(&sm.dq_full[c][buf], (i / kDqBufs128) & 1);
         while (ucod::ld_acquire_gpu(sem_h + 2 * tile) != rank) {}
         ucod::fence_proxy_async_global();
-        ucod::bulk_reduce_add_f32(dq_head + dst, sm.dq[c][i & 1], 64 * kAtom * 4);
+        if (rank == 0) {
+          ucod::bulk_store(dq_head + dst, sm.dq[c][buf], 64 * kAtom * 4);
+        } else {
+          ucod::bulk_reduce_add_f32(dq_head + dst, sm.dq[c][buf], 64 * kAtom * 4);
+        }
         ucod::bulk_commit();
+        ucod::bulk_wait_read<0>();
+        ucod::mbar_arrive(&sm.dq_free[c][buf]);  // the staging buffer is read: the next step's may go in
         ucod::bulk_wait<0>();
         ucod::fence_proxy_async_global();
         ucod::st_release_gpu(sem_h + 2 * tile, rank + 1);
-        ucod::mbar_arrive(&sm.dq_free[c][i & 1]);
       }
     }
   } else {
@@ -621,8 +676,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     // this warpgroup's 64 keys in each 64-column tile of K and V
     const bf16* k_c[2] = {sm.k + c * 64 * kAtom, sm.k + kBlockK * kAtom + c * 64 * kAtom};
     const bf16* v_c[2] = {sm.v + c * 64 * kAtom, sm.v + kBlockK * kAtom + c * 64 * kAtom};
-    bf16* ds = sm.ds[c];
-    const int key0 = k0 + 64 * c + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+    const bf16* k_half = sm.k + c * kBlockK * kAtom;  // all 128 keys, columns [64c, 64c + 64): dQ's B
+    const int key0 = k0 + 64 * c + 16 * warp + g;     // this thread's keys: key0, key0 + 8
     const bool keys_past_l = k0 + 64 * c + 64 > kv_len;
     const int64_t row_stride = (int64_t)num_heads * D;
     const int row = 16 * warp + g;  // this thread's accumulator rows in a 64-row product: row, row + 8
@@ -633,31 +688,75 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int i = 0; i < 32; ++i) dk_acc[a][i] = dv_acc[a][i] = 0.f;
     }
+    float s[32], dp[32], dq[32];
     ucod::mbar_wait(&sm.kv_full, 0);
 
-    for (int i = 0; i < n_q; ++i) {
+    // S^T = K Q^T of step i: 8 k-steps over the two column tiles, one commit group
+    auto issue_s = [&](int i) {
       const int st = i % kStages128;
-      const int par = i & 1;
-      float s[32], dp[32];
       ucod::mbar_wait(&sm.full[st], (i / kStages128) & 1);
-      const bf16* q_st = sm.q[st];
-      const bf16* do_st = sm.d_o[st];
-      // S^T = K Q^T, dP^T = V dO^T: 8 k-steps over the two column tiles
       ucod::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         ucod::wgmma_m64n64k16_ss<0, 0>(s, ucod::desc_kmajor(k_c[kk / 4], kk % 4),
-                                       ucod::desc_kmajor(q_st + kk / 4 * kBlockQ * kAtom, kk % 4), kk);
+                                       ucod::desc_kmajor(sm.q[st] + kk / 4 * kBlockQ * kAtom, kk % 4), kk);
       }
       ucod::wgmma_commit();
+    };
+
+    // dP^T = V dO^T of step i (its stage loaded), one commit group
+    auto issue_dp = [&](int i) {
+      const bf16* do_st = sm.d_o[i % kStages128];
+      ucod::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         ucod::wgmma_m64n64k16_ss<0, 0>(dp, ucod::desc_kmajor(v_c[kk / 4], kk % 4),
                                        ucod::desc_kmajor(do_st + kk / 4 * kBlockQ * kAtom, kk % 4), kk);
       }
       ucod::wgmma_commit();
-      ucod::wgmma_wait<1>();
-      ucod::fence_regs(s);
+    };
+
+    // dQ[:, 64c : 64c + 64] of step j = dS K[:, 64c : 64c + 64] over all
+    // 128 keys, dS read MN-major (8 k-steps of 16 keys) from ds[j & 1] once
+    // both warpgroups have stored their dS^T there
+    auto issue_dq = [&](int j) {
+      ucod::mbar_wait(&sm.ds_full[j & 1], (j >> 1) & 1);
+      ucod::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBlockK / 16; ++kk) {
+        ucod::wgmma_m64n64k16_ss<1, 1>(dq, ucod::desc_mnmajor(sm.ds[j & 1], kk), ucod::desc_mnmajor(k_half, kk), kk);
+      }
+      ucod::wgmma_commit();
+    };
+
+    // step j's dQ half complete: its dS^T buffer released, the half staged
+    // for the writer once the writer has read step j - kDqBufs128's
+    auto stage_dq = [&](int j) {
+      ucod::fence_regs(dq);
+      ucod::mbar_arrive(&sm.ds_empty[j & 1]);
+      const int buf = j % kDqBufs128;
+      float* out = sm.dq[c][buf];
+      ucod::mbar_wait(&sm.dq_free[c][buf], ((j / kDqBufs128) & 1) ^ 1);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int col = 8 * jj + 2 * tq;
+        *reinterpret_cast<float2*>(out + dq_half_offset<D>(row, col)) = make_float2(dq[4 * jj], dq[4 * jj + 1]);
+        *reinterpret_cast<float2*>(out + dq_half_offset<D>(row + 8, col)) =
+            make_float2(dq[4 * jj + 2], dq[4 * jj + 3]);
+      }
+      ucod::fence_proxy_async();
+      ucod::mbar_arrive(&sm.dq_full[c][buf]);
+    };
+
+    // Step i: its dP^T, P, dV, dS, dK and dS^T store, then step i - 1's dQ
+    // (unless first), with step i + 1's S^T (unless last) issued behind
+    // it.  S^T is complete on entry, and no product is in flight across
+    // the loop's back edge.
+    auto step = [&](int i, auto first, auto last) {
+      const int st = i % kStages128;
+      const bf16* q_st = sm.q[st];
+      const bf16* do_st = sm.d_o[st];
+      issue_dp(i);
       // P^T = exp2(S^T * scale log2 e - lse log2 e): query columns >= L have
       // lse = +inf (P = 0); key rows >= kv_len are zeroed
       const float2* stat = sm.stats[st];
@@ -682,7 +781,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       ucod::wgmma_commit();
-      ucod::wgmma_wait<1>();
+      ucod::wgmma_wait<1>();  // dP^T; dV in flight
       ucod::fence_regs(dp);
 
       // dS^T = P^T o (dP^T - D) * scale
@@ -700,8 +799,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       ucod::wgmma_commit();
 
-      // dS^T into shared memory, [key][query] with the 128-byte swizzle, for
-      // dQ = dS K with dS read MN-major (the previous step's dQ has completed)
+      // dS^T into rows [64c, 64c + 64) of ds[i & 1], [key][query] with the
+      // 128-byte swizzle, once both warpgroups' step i - 2 dQ has read it
+      ucod::mbar_wait(&sm.ds_empty[i & 1], ((i >> 1) & 1) ^ 1);
+      bf16* ds = sm.ds[i & 1] + c * 64 * kBlockQ;
 #pragma unroll
       for (int jb = 0; jb < kBlockQ / 8; ++jb) {
 #pragma unroll
@@ -712,57 +813,46 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
       ucod::fence_proxy_async();
-      ucod::named_sync(kWgBar + c, 128);
-      ucod::wgmma_wait<0>();
-#pragma unroll
-      for (int a = 0; a < 2; ++a) {
-        ucod::fence_regs(dk_acc[a]);
-        ucod::fence_regs(dv_acc[a]);
-      }
-      if (lane == 0) ucod::mbar_arrive(&sm.empty[i % kStages128]);  // Q and dO are read
-
-      // dQ over this warpgroup's keys, the other warpgroup's 64 columns
-      // first (written into its buffer), then this one's (added to the
-      // other's partial in place and handed to the writer)
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int half = hh == 0 ? c ^ 1 : c;
-        const bf16* k_half = sm.k + half * kBlockK * kAtom + c * 64 * kAtom;  // columns [64 half, + 64)
-        float dq[32];
-        ucod::wgmma_fence();
-#pragma unroll
-        for (int kk = 0; kk < 64 / 16; ++kk) {
-          ucod::wgmma_m64n64k16_ss<1, 1>(dq, ucod::desc_mnmajor(ds, kk), ucod::desc_mnmajor(k_half, kk), kk);
-        }
-        ucod::wgmma_commit();
+      ucod::mbar_arrive(&sm.ds_full[i & 1]);
+      if constexpr (!decltype(first)::value) {
+        issue_dq(i - 1);
+        ucod::wgmma_wait<1>();  // dV and dK: their A fragments are free for S^T's accumulators
+      } else {
         ucod::wgmma_wait<0>();
-        ucod::fence_regs(dq);
-        float* buf = sm.dq[half][par];
-        if (hh == 0) {
-          ucod::mbar_wait(&sm.dq_free[half][par], ((i >> 1) & 1) ^ 1);  // the writer has added step i - 2
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int col = 8 * j + 2 * tq;
-            *reinterpret_cast<float2*>(buf + dq_half_offset<D>(row, col)) = make_float2(dq[4 * j], dq[4 * j + 1]);
-            *reinterpret_cast<float2*>(buf + dq_half_offset<D>(row + 8, col)) =
-                make_float2(dq[4 * j + 2], dq[4 * j + 3]);
-          }
-          ucod::mbar_arrive(&sm.part_full[half][par]);
-        } else {
-          ucod::mbar_wait(&sm.part_full[c][par], (i >> 1) & 1);
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int col = 8 * j + 2 * tq;
-            float2* lo = reinterpret_cast<float2*>(buf + dq_half_offset<D>(row, col));
-            float2* hi = reinterpret_cast<float2*>(buf + dq_half_offset<D>(row + 8, col));
-            const float2 x = *lo, y = *hi;
-            *lo = make_float2(dq[4 * j] + x.x, dq[4 * j + 1] + x.y);
-            *hi = make_float2(dq[4 * j + 2] + y.x, dq[4 * j + 3] + y.y);
-          }
-          ucod::fence_proxy_async();
-          ucod::mbar_arrive(&sm.dq_full[c][par]);
-        }
       }
+      if (lane == 0) ucod::mbar_arrive(&sm.empty[st]);  // Q and dO are read
+      if constexpr (!decltype(last)::value) issue_s(i + 1);
+      if constexpr (!decltype(first)::value) {
+        if constexpr (decltype(last)::value) {
+          ucod::wgmma_wait<0>();
+        } else {
+          ucod::wgmma_wait<1>();  // dQ; S^T of step i + 1 in flight
+        }
+        stage_dq(i - 1);
+      }
+      if constexpr (!decltype(last)::value) {
+        ucod::wgmma_wait<0>();
+        ucod::fence_regs(s);
+      }
+    };
+
+    issue_s(0);
+    ucod::wgmma_wait<0>();
+    ucod::fence_regs(s);
+    if (n_q == 1) {
+      step(0, std::true_type{}, std::true_type{});
+    } else {
+      step(0, std::true_type{}, std::false_type{});
+      for (int i = 1; i + 1 < n_q; ++i) step(i, std::false_type{}, std::false_type{});
+      step(n_q - 1, std::false_type{}, std::true_type{});
+    }
+    issue_dq(n_q - 1);
+    ucod::wgmma_wait<0>();
+    stage_dq(n_q - 1);
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      ucod::fence_regs(dk_acc[a]);
+      ucod::fence_regs(dv_acc[a]);
     }
 
     OutT* dk_h = dk + (int64_t)b * seq_len * row_stride + (int64_t)h * D;

@@ -188,6 +188,14 @@ __device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const void* src,
                : "memory");
 }
 
+// Copies `bytes` (a multiple of 16) of shared memory into global memory, as
+// one asynchronous bulk operation of this thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(smem_addr(src)),
+               "r"(bytes)
+               : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
 
 // Wait until at most N of this thread's bulk groups still read shared memory.

@@ -51,7 +51,7 @@ from ucod_dpl_tpu_torch.ops.quant import dense_w8a8, dense_w8a8_pre, quantize_li
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bicubic
 from ucod_dpl_tpu_torch.parallel.distributed import LOCAL, all_gather_tokens, model_parallel_input, model_parallel_sum
 from ucod_dpl_tpu_torch.parallel.sp import chunk_kv_lens, gather_tokens, ring_attention, sp_param_grid, split_tokens
-from ucod_dpl_tpu_torch.parallel.tp import place_model_row
+from ucod_dpl_tpu_torch.parallel.tp import place_model_row, to_devices
 
 
 @dataclass(frozen=True)
@@ -638,7 +638,11 @@ def _sharded_forward(
     once, and the bias is added after that reduce (with one shard this is
     the unsharded dense).  Each shard reads the residual stream from its
     home device, so it is identical on every shard and the result is
-    deterministic.  Work that is replicated (LayerNorm of the residual
+    deterministic; where a chunk's shards sit on several cards of the
+    process, the stream and every parameter read on more than one of them
+    are copied there by :func:`~ucod_dpl_tpu_torch.parallel.tp.to_devices`,
+    whose backward adds the copies' gradients in shard order, so the
+    gradients are deterministic too.  Work that is replicated (LayerNorm of the residual
     stream) runs once per distinct device.  The last layer computes LN1 and
     the key projection (gathered from the shards) or the key fold, per
     chunk; the chunks are gathered on the first chunk's device (on a mesh
@@ -686,8 +690,11 @@ def _sharded_forward(
         return [done[d] if d in done else done.setdefault(d, fn(m)) for m, d in enumerate(devs[i])]
 
     def shard_input(i, x, norm):
-        """LN(x) of chunk i on each shard's device, as the shards' products' input."""
-        return replicated(i, lambda m: model_parallel_input(layer_norm(x.to(devs[i][m]), norm[m], eps), model_group))
+        """LN(x) of chunk i on each shard's device, as the shards' products'
+        input; x reaches the chunk's cards through one ``to_devices``, so its
+        copies' gradients are summed in shard order."""
+        xs_on = to_devices(x, devs[i])
+        return replicated(i, lambda m: model_parallel_input(layer_norm(xs_on[m], norm[m], eps), model_group))
 
     def reduce(i, partials, bias):
         acc = partials[0].float()

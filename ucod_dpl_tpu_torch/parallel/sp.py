@@ -70,7 +70,7 @@ from ucod_dpl_tpu_torch.ops.attention import (
 )
 from ucod_dpl_tpu_torch.parallel import distributed as D
 from ucod_dpl_tpu_torch.parallel.mesh import Mesh
-from ucod_dpl_tpu_torch.parallel.tp import place_shard
+from ucod_dpl_tpu_torch.parallel.tp import place_grid
 
 
 def padded_len(seq_len: int, n: int) -> int:
@@ -345,25 +345,23 @@ def sp_param_grid(params, mesh: Mesh, axis: str = "seq", tp_axis: Optional[str] 
     process's first coordinate).  Each distinct (shard,
     device) is placed once and shared (one card named several times holds
     one copy of each shard).  The copies are differentiable: a forward of
-    LoRA-merged weights places them at each call."""
+    LoRA-merged weights places them at each call, and a leaf read on several
+    cards gets its copies' gradients summed in a fixed order
+    (:func:`~ucod_dpl_tpu_torch.parallel.tp.place_grid`)."""
     tp = mesh.shape[tp_axis] if tp_axis is not None else 1
     block = mesh.local_block()
     if data is None:
         data = block["data"][0] if "data" in block else 0
-    placed: Dict[Any, Dict[str, Any]] = {}
-    grid = []
     # the axes not named take this process's first coordinate (a model axis
     # without tp_axis: its replica)
     first = {a: v[0] for a, v in block.items()}
+    rows = []
     for i in block[axis]:
         row = []
         for m in (block[tp_axis] if tp_axis is not None else range(1)):
             coords = {**first, axis: i, **({tp_axis: m} if tp_axis is not None else {})}
             if "data" in mesh.shape:
                 coords["data"] = data
-            device = mesh.device(**coords)
-            if (m, device) not in placed:
-                placed[(m, device)] = place_shard(params, m, tp, device)
-            row.append(placed[(m, device)])
-        grid.append(row)
-    return grid
+            row.append((m, mesh.device(**coords)))
+        rows.append(row)
+    return place_grid(params, rows, tp)

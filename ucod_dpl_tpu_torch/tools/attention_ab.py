@@ -6,11 +6,11 @@ Run from the repository root on a machine with one NVIDIA GPU::
 
 Always: the card's name and power limit (nvidia-smi), then the forward (K1),
 the forward with log-sum-exp (K2) and the backward (K3/K4) at bs16 L1370 and
-bs4 L2917 (12 heads of 64, bf16), each beside one
-``scaled_dot_product_attention`` call on the same tensors (its backward for
+bs4 L2917 (D 768 bf16: 12 heads of 64 and 6 heads of 128), each beside
+one ``scaled_dot_product_attention`` call on the same tensors (its backward for
 the backward), the forward at K5's shapes (per-head (48, 1370, 64) and the
 tensor-parallel shard's packed (16, 1370, 3 * 64)) beside SDPA, and a
-torch.profiler breakdown of the backward's kernels.
+torch.profiler breakdown of the backward's kernels at each head dim.
 
 * ``--parent DIR``: DIR is a checkout of a parent tree whose attention
   C entries take this tree's arguments (``ucod_attention_fwd`` a head dim,
@@ -18,7 +18,8 @@ torch.profiler breakdown of the backward's kernels.
   f32-output flag; a head dim too, or no head dim, as before head dim 128,
   read from the parent's own ``_build`` declarations).  Its kernels are built from DIR by DIR's own
   ``ops/_build.py`` and timed against this tree's, interleaved parent,
-  this, this, parent, at bs16 L1370 and bs4 L2917; the outputs of the two
+  this, this, parent, at bs16 L1370 and bs4 L2917 and each head dim (128
+  only where the parent's entries take a head dim); the outputs of the two
   are compared bit for bit (K1, K2's o and log-sum-exp, dq, dk, dv).
 * ``--variants [NAME ...]``: variants of this tree's kernels (all, or those
   named), each an edit of its source (``VARIANTS``; the shared flash-loop
@@ -33,13 +34,16 @@ torch.profiler breakdown of the backward's kernels.
   card's own time (``_device_ms``) against K1 at bs16 L1370 and bs4 L2917,
   the row variants also at bs8 L2917.  A structural variant is a
   ``Schedule`` of attention_fwd.cu of its own, instantiated by its entry
-  in this build only.
+  in this build only.  The ``bwd128_`` variants edit the head-dim-128
+  backward and run at head dim 128 (6 heads), the other backward variants
+  at 64.
 * ``--sass``: instruction counts in the SASS of the built attention objects
   (``cuobjdump -sass``), per object and per kernel instantiation: HGMMA
   (wgmma), UTMALDG (TMA loads), UBLKRED (bulk reduce-add), HMMA (mma.sync),
   MUFU.EX2; with ``--variants``, of the variants' objects too; with
   ``--parent``, whether each kernel's SASS is the parent's instruction for
-  instruction.
+  instruction (kernels paired by their mangled names); and each object's
+  ptxas report from ``build.log`` (registers, spills, shared memory).
 
 Exits 1 without a CUDA device.  Times are CUDA-event means over 20 calls
 after 3 warm-ups, each the mean of its two interleaved runs.
@@ -65,7 +69,9 @@ import torch.nn.functional as F
 from ucod_dpl_tpu_torch.ops import _build
 from ucod_dpl_tpu_torch.ops import attention as A
 
-HEADS, SCALE = 12, 0.125
+HEADS, SCALE = 12, 0.125  # head dim 64; at head dim hd: D_MODEL // hd heads, scale hd ** -0.5
+D_MODEL = HEADS * 64
+HEAD_DIMS = (64, 128)  # of the library timings, the traces and the parent A/B
 SHAPES = ((16, 1370), (4, 2917))
 SHAPE_756 = (8, 2917)  # bench_attention_756.py's shape: the row variants are also timed there
 # A forward variant against its plain function: chip_smoke.py's K1 bound,
@@ -126,16 +132,21 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def _inputs(b: int, l: int, seed: int = 0):
+def _hs(hd: int):
+    """(heads, scale) at head dim ``hd`` over D_MODEL columns."""
+    return D_MODEL // hd, hd ** -0.5
+
+
+def _inputs(b: int, l: int, seed: int = 0, hd: int = 64):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn(b, l, HEADS * 64, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
-    o, lse = A.packed_attention_fwd_lse(q, k, v, HEADS, SCALE)
+    q, k, v, do = (torch.randn(b, l, D_MODEL, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    o, lse = A.packed_attention_fwd_lse(q, k, v, *_hs(hd))
     return q, k, v, do, o, lse
 
 
-def _heads(x):
+def _heads(x, hd: int = 64):
     b, l, d = x.shape
-    return x.view(b, l, HEADS, d // HEADS).transpose(1, 2)
+    return x.view(b, l, d // hd, hd).transpose(1, 2)
 
 
 def library(results: dict) -> None:
@@ -152,34 +163,47 @@ def library(results: dict) -> None:
         *(x.view(16, 1370, 3, 64).transpose(1, 2) for x in (q, k, v)), scale=SCALE))
     results["K5 48 heads L1370 d64"] = row
     _log("K5 48 heads L1370 d64: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
+
+
+def library_at(results: dict, hd: int) -> None:
+    """K1, K2 and the backward at head dim ``hd`` beside SDPA, its forward and
+    its backward, on the same tensors; the backward's ratios to SDPA's
+    backward and to its bound."""
+    heads, scale = _hs(hd)
+    tag = "" if hd == 64 else f" hd{hd}"
     for b, l in SHAPES:
-        q, k, v, do, o, lse = _inputs(b, l)
-        hq, hk, hv = (_heads(x).detach().requires_grad_(True) for x in (q, k, v))
-        o_sdpa = F.scaled_dot_product_attention(hq, hk, hv, scale=SCALE)
+        q, k, v, do, o, lse = _inputs(b, l, hd=hd)
+        hq, hk, hv = (_heads(x, hd).detach().requires_grad_(True) for x in (q, k, v))
+        o_sdpa = F.scaled_dot_product_attention(hq, hk, hv, scale=scale)
         row = {
-            "K1": _time_ms(lambda: A.packed_attention(q, k, v, HEADS, SCALE)),
-            "K2": _time_ms(lambda: A.packed_attention_fwd_lse(q, k, v, HEADS, SCALE)),
-            "bwd": _time_ms(lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)),
-            "sdpa_fwd": _time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=SCALE)),
-            "sdpa_bwd": _time_ms(lambda: torch.autograd.grad(o_sdpa, (hq, hk, hv), _heads(do), retain_graph=True)),
+            "K1": _time_ms(lambda: A.packed_attention(q, k, v, heads, scale)),
+            "K2": _time_ms(lambda: A.packed_attention_fwd_lse(q, k, v, heads, scale)),
+            "bwd": _time_ms(lambda: A.packed_attention_bwd(q, k, v, o, do, lse, heads, scale)),
+            "sdpa_fwd": _time_ms(lambda: F.scaled_dot_product_attention(hq, hk, hv, scale=scale)),
+            "sdpa_bwd": _time_ms(lambda: torch.autograd.grad(o_sdpa, (hq, hk, hv), _heads(do, hd), retain_graph=True)),
         }
-        results[f"bs{b} L{l}"] = row
-        _log(f"bs{b} L{l}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items()))
+        # the five products of the backward (2 * B * H * L^2 * hd operations each) at 989 TFLOP/s bf16
+        row["bwd_bound"] = 5 * 2 * b * heads * l * l * hd / 989e12 * 1e3
+        results[f"bs{b} L{l}{tag}"] = row
+        _log(f"bs{b} L{l}{tag}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in row.items())
+             + f"; backward / SDPA backward {row['bwd'] / row['sdpa_bwd']:.3f}, / bound "
+               f"{row['bwd'] / row['bwd_bound']:.3f}")
 
 
-def trace_backward() -> None:
+def trace_backward(hd: int = 64) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    q, k, v, do, o, lse = _inputs(16, 1370)
+    heads, scale = _hs(hd)
+    q, k, v, do, o, lse = _inputs(16, 1370, hd=hd)
     for _ in range(2):
-        A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)
+        A.packed_attention_bwd(q, k, v, o, do, lse, heads, scale)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(5):
-            A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)
+            A.packed_attention_bwd(q, k, v, o, do, lse, heads, scale)
         torch.cuda.synchronize()
-    _log("backward bs16 L1370, device time per call by kernel (torch.profiler, 5 calls):")
+    _log(f"backward bs16 L1370 head dim {hd}, device time per call by kernel (torch.profiler, 5 calls):")
     for e in sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                     key=lambda e: -e.self_device_time_total):
         _log(f"  {e.self_device_time_total / 5e3:.4f} ms  {e.key[:100]}")
@@ -199,20 +223,25 @@ def _parent_lib(parent: Path):
     return _parent_build(parent).kernels()
 
 
-def parent_ab(parent: Path, results: dict) -> None:
+def parent_ab(parent: Path, results: dict, head_dim: int = 64) -> None:
     """The parent's K1, K2 and backward (its C entries taking this tree's
     arguments; the key bound L, bf16 outputs) against this tree's at the
-    same shapes: whether the outputs are equal bit for bit, and their times
-    interleaved parent, this, this, parent."""
+    same shapes and head dim: whether the outputs are equal bit for bit, and
+    their times interleaved parent, this, this, parent."""
     lib = _parent_lib(parent)  # its own _build declares its entries' C signatures
-    # head dim 64, where the parent's forward-LSE and backward entries take a head dim
-    hd = (64,) if len(lib.ucod_attention_fwd_lse.argtypes) == 13 else ()
+    # the head dim, where the parent's forward-LSE and backward entries take one
+    hd = (head_dim,) if len(lib.ucod_attention_fwd_lse.argtypes) == 13 else ()
+    if not hd and head_dim != 64:
+        _log(f"parent {parent}: its backward takes no head dim, so none but 64 (skipped {head_dim})")
+        return
+    HEADS, SCALE = _hs(head_dim)
+    tag = "" if head_dim == 64 else f" hd{head_dim}"
 
     def fwd(q, k, v):
         o = torch.empty_like(q)
         b, l, _ = q.shape
         _build.check_cuda(lib.ucod_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, l, HEADS,
-                                                 64, SCALE * A._LOG2E, _stream()), "parent fwd")
+                                                 head_dim, SCALE * A._LOG2E, _stream()), "parent fwd")
         return o
 
     def fwd_lse(q, k, v):
@@ -228,14 +257,14 @@ def parent_ab(parent: Path, results: dict) -> None:
     def bwd(q, k, v, o, do, lse):
         grads = [torch.empty_like(q) for _ in range(3)]
         b, l, _ = q.shape
-        stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device)
+        stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device, head_dim)
         _build.check_cuda(lib.ucod_attention_bwd(*(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)),
                                                  b, l, l, HEADS, *hd, SCALE, 0, _stream()), "parent bwd")
         return grads
 
-    _log(f"parent {parent} against this tree (interleaved parent, this, this, parent):")
+    _log(f"parent {parent} against this tree at head dim {head_dim} (interleaved parent, this, this, parent):")
     for b, l in SHAPES:
-        q, k, v, do, o, lse = _inputs(b, l)
+        q, k, v, do, o, lse = _inputs(b, l, hd=head_dim)
         old = (fwd(q, k, v), *fwd_lse(q, k, v), *bwd(q, k, v, o, do, lse))
         new = (A.packed_attention(q, k, v, HEADS, SCALE), *A.packed_attention_fwd_lse(q, k, v, HEADS, SCALE),
                *A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE))
@@ -247,10 +276,10 @@ def parent_ab(parent: Path, results: dict) -> None:
             ("bwd", lambda: bwd(q, k, v, o, do, lse), lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)),
         ):
             row[name] = _ab_ms(old_fn, new_fn)
-            _log(f"  bs{b} L{l} {name}: parent {row[name][0]:.4f} ms, this {row[name][1]:.4f} ms "
+            _log(f"  bs{b} L{l}{tag} {name}: parent {row[name][0]:.4f} ms, this {row[name][1]:.4f} ms "
                  f"({row[name][0] / row[name][1]:.3f}x)")
-        _log(f"  bs{b} L{l} equal bit for bit, parent vs this: {equal}")
-        results[f"parent bs{b} L{l}"] = {**row, "equal": equal}
+        _log(f"  bs{b} L{l}{tag} equal bit for bit, parent vs this: {equal}")
+        results[f"parent bs{b} L{l}{tag}"] = {**row, "equal": equal}
 
 
 # ---- variants of this tree's kernels -----------------------------------------
@@ -372,6 +401,69 @@ VARIANTS = {
                                 "dv_acc[kk] += __uint_as_float(pa[kk][0]);"),
                            _sub("ucod::wgmma_m64n64k16_rs<1>(dk_acc, da[kk], ucod::desc_mnmajor(sm.q[st], kk), 1);",
                                 "dk_acc[kk] += __uint_as_float(da[kk][0]);"))),
+    # the head-dim-128 backward (attention_bwd_d128_kernel), run at head dim 128
+    "bwd128_stages3_dqbufs1": ("attention_bwd.cu", "three Q/dO stages and one dQ staging buffer a half (two stages "
+                                                   "and double-buffered staging in this tree)",
+                               _chain(_sub("constexpr int kStages128 = 2;", "constexpr int kStages128 = 3;"),
+                                      _sub("constexpr int kDqBufs128 = 2;", "constexpr int kDqBufs128 = 1;"))),
+    "bwd128_no_overlap": ("attention_bwd.cu", "step i + 1's S^T issued after step i - 1's dQ is staged, not behind "
+                                              "its dQ product",
+                          _chain(_sub("      if constexpr (!decltype(last)::value) issue_s(i + 1);\n", ""),
+                                 _sub("ucod::wgmma_wait<1>();  // dQ; S^T of step i + 1 in flight",
+                                      "ucod::wgmma_wait<0>();"),
+                                 _sub("        ucod::wgmma_wait<0>();\n        ucod::fence_regs(s);\n      }\n",
+                                      "        issue_s(i + 1);\n        ucod::wgmma_wait<0>();\n"
+                                      "        ucod::fence_regs(s);\n      }\n"))),
+    "bwd128_lockstep": ("attention_bwd.cu", "each step's own dQ in the step, after both warpgroups' dS^T (the two "
+                                            "warpgroups in lock step), not one step late",
+                        _chain(_sub("      if constexpr (!decltype(first)::value) {\n        issue_dq(i - 1);",
+                                    "      if constexpr (true) {\n        issue_dq(i);"),
+                               _sub("      if constexpr (!decltype(first)::value) {\n"
+                                    "        if constexpr (decltype(last)::value) {",
+                                    "      if constexpr (true) {\n        if constexpr (decltype(last)::value) {"),
+                               _sub("        stage_dq(i - 1);", "        stage_dq(i);"),
+                               _sub("    issue_dq(n_q - 1);\n    ucod::wgmma_wait<0>();\n    stage_dq(n_q - 1);\n", ""))),
+    "bwd128_dp_ahead": ("attention_bwd.cu", "step i + 1's dP^T issued beside its S^T, behind step i's dQ "
+                                            "(224 accumulator registers live)",
+                        _chain(_sub("      issue_dp(i);\n", ""),
+                               _sub("      ucod::wgmma_wait<1>();  // dP^T; dV in flight\n      ucod::fence_regs(dp);\n", ""),
+                               _sub("issue_s(i + 1);", "{\n        issue_s(i + 1);\n        issue_dp(i + 1);\n      }"),
+                               _sub("ucod::wgmma_wait<1>();  // dQ; S^T of step i + 1 in flight",
+                                    "ucod::wgmma_wait<2>();  // dQ; S^T and dP^T of step i + 1 in flight"),
+                               _sub("        ucod::fence_regs(s);\n      }\n    };\n",
+                                    "        ucod::fence_regs(s);\n        ucod::fence_regs(dp);\n      }\n    };\n"),
+                               _sub("    issue_s(0);\n    ucod::wgmma_wait<0>();\n    ucod::fence_regs(s);\n",
+                                    "    issue_s(0);\n    issue_dp(0);\n    ucod::wgmma_wait<0>();\n"
+                                    "    ucod::fence_regs(s);\n    ucod::fence_regs(dp);\n"))),
+    "bwd128_dq_free_late": ("attention_bwd.cu", "a dQ staging buffer freed once its addition has completed, not "
+                                                "once the addition has read it",
+                            _sub_span("ucod::mbar_arrive(&sm.dq_free[c][buf]);  // the staging buffer is read",
+                                      "\n      }\n    }\n  } else {",
+                                      "ucod::bulk_wait<0>();\n        ucod::fence_proxy_async_global();\n"
+                                      "        ucod::st_release_gpu(sem_h + 2 * tile, rank + 1);\n"
+                                      "        ucod::mbar_arrive(&sm.dq_free[c][buf]);")),
+    "bwd128_no_exp": ("attention_bwd.cu", "diagnostic: P = s * scale - lse, no ex2, at head dim 128",
+                      _sub("s[e] = ucod::exp2_ftz(fmaf(s[e], scale_log2, -stat[8 * (e >> 2) + 2 * tq + (e & 1)].x));",
+                           "s[e] = fmaf(s[e], scale_log2, -stat[8 * (e >> 2) + 2 * tq + (e & 1)].x);")),
+    "bwd128_no_dq_product": ("attention_bwd.cu", "diagnostic: no dQ = dS K product at head dim 128",
+                             _sub("ucod::wgmma_m64n64k16_ss<1, 1>(dq, ucod::desc_mnmajor(sm.ds[j & 1], kk), "
+                                  "ucod::desc_mnmajor(k_half, kk), kk);", "dq[kk] = 0.f;")),
+    "bwd128_no_ds_wait": ("attention_bwd.cu", "diagnostic: a dQ product does not wait for the other warpgroup's "
+                                              "dS^T (dq wrong)",
+                          _drop_lines(r"mbar_wait\(&sm\.ds_full")),
+    "bwd128_no_dkdv": ("attention_bwd.cu", "diagnostic: no dV and dK products at head dim 128",
+                       _chain(_sub("ucod::wgmma_m64n64k16_rs<1>(dv_acc[a], pa[kk], ucod::desc_mnmajor(do_st + a * "
+                                   "kBlockQ * kAtom, kk), 1);", "dv_acc[a][kk] += __uint_as_float(pa[kk][0]);"),
+                              _sub("ucod::wgmma_m64n64k16_rs<1>(dk_acc[a], da[kk], ucod::desc_mnmajor(q_st + a * "
+                                   "kBlockQ * kAtom, kk), 1);", "dk_acc[a][kk] += __uint_as_float(da[kk][0]);"))),
+    "bwd128_unordered": ("attention_bwd.cu", "dQ halves added in arrival order, no semaphore wait or release (dq not "
+                                             "deterministic): what the ordering costs at head dim 128",
+                         _drop_lines(r"ld_acquire_gpu|st_release_gpu")),
+    "bwd128_no_dq_add": ("attention_bwd.cu", "diagnostic: no dQ reduce-add at head dim 128",
+                         _chain(_sub("          ucod::bulk_store(dq_head + dst, sm.dq[c][buf], 64 * kAtom * 4);",
+                                     "          (void)0;"),
+                                _sub("          ucod::bulk_reduce_add_f32(dq_head + dst, sm.dq[c][buf], 64 * kAtom * 4);",
+                                     "          (void)0;"))),
 }
 
 # ---- K1 variants that port the TPU attention prototypes ----------------------
@@ -648,11 +740,15 @@ def variants(results: dict, names=None) -> None:
     names = [n for n in names if n not in PROTO_VARIANTS]
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     _log("variants of this tree's kernels (interleaved this, variant, variant, this):")
-    for b, l in SHAPES if names else ():
-        q, k, v, do, o, lse = _inputs(b, l)
+    for (b, l), hd in [(shape, hd) for hd in (64, 128) for shape in SHAPES] if names else ():
+        at_hd = [n for n in names if n.startswith("bwd128_") == (hd == 128)]
+        if not at_hd:
+            continue
+        HEADS, SCALE = _hs(hd)
+        q, k, v, do, o, lse = _inputs(b, l, hd=hd)
         ref_o = A.packed_attention(q, k, v, HEADS, SCALE)
         ref_g = A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)
-        for name in names:
+        for name in at_hd:
             src_name, what, _ = VARIANTS[name]
             if src_name == "attention_fwd.cu":
                 fn = getattr(lib, f"ucod_attention_fwd_{name}")
@@ -671,15 +767,15 @@ def variants(results: dict, names=None) -> None:
 
                 def run(fn=fn):
                     grads = [torch.empty_like(q) for _ in range(3)]
-                    stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device)
+                    stats, dq_acc = A.bwd_scratch(b, l, HEADS, q.device, hd)
                     _build.check_cuda(fn(*(x.data_ptr() for x in (q, k, v, o, do, lse, stats, dq_acc, *grads)), b, l,
-                                         l, HEADS, 64, SCALE, 0, _stream()), name)
+                                         l, HEADS, hd, SCALE, 0, _stream()), name)
                     return grads
 
                 this, refs = (lambda: A.packed_attention_bwd(q, k, v, o, do, lse, HEADS, SCALE)), ref_g
             diff = max((x.float() - r.float()).abs().max().item() for x, r in zip(run(), refs))
             base_ms, ms = _ab_ms(this, run)
-            _log(f"  bs{b} L{l} {name} ({what}): {ms:.4f} ms against {base_ms:.4f} ms; "
+            _log(f"  bs{b} L{l} hd{hd} {name} ({what}): {ms:.4f} ms against {base_ms:.4f} ms; "
                  f"largest difference {diff:.4g}")
             results[f"variant {name} bs{b} L{l}"] = {"ms": ms, "this_ms": base_ms, "max_abs_diff": diff}
 
@@ -701,38 +797,60 @@ def _sass(obj: Path, label: str, results: dict, ops=SASS_OPS) -> None:
     results[f"sass {label}"] = count(sass)
     _log(f"SASS of {label}: {results[f'sass {label}']}")
     for section in sass.split("Function : ")[1:]:
-        name = section.split(None, 1)[0]
-        kernel = re.search(r"([a-z_]+_kernel)(I.+?Ev)?", name)
+        name = re.sub(r"\d*_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", section.split(None, 1)[0])
+        kernel = re.search(r"([a-z][a-z_0-9]*_kernel)(I.+?Ev)?", name)
         key = f"{label} {kernel.group(1) + (kernel.group(2) or '') if kernel else name[:80]}"
         results[f"sass {key}"] = count(section)
         _log(f"  {key}: {results[f'sass {key}']}")
 
 
-def _sass_streams(obj: Path) -> list:
+def _sass_streams(obj: Path) -> dict:
     """Each kernel function's SASS in ``obj`` as a tuple of its instructions
-    (addresses and names dropped), sorted."""
+    (addresses and names dropped), by its mangled name without the
+    anonymous namespace's tag (a hash of the build's source path)."""
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True, text=True, check=True).stdout
-    streams = []
+    streams = {}
     for section in sass.split("Function : ")[1:]:
+        name = re.sub(r"\d*_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "", section.split(None, 1)[0])
         lines = (re.sub(r"/\*[0-9a-f]{4,}\*/", "", line).split(";")[0].strip() for line in section.splitlines()[1:])
-        streams.append(tuple(line for line in lines if re.match(r"[@A-Z]", line)))
-    return sorted(streams)
+        streams[name] = tuple(line for line in lines if re.match(r"[@A-Z]", line))
+    return streams
 
 
 def sass_against_parent(parent: Path, results: dict, sources=("attention_fwd", "attention_bwd")) -> None:
-    """Whether the kernels of each object of ``sources`` have the parent
-    checkout's SASS instruction for instruction (kernels paired in sorted
-    order), and how many positions differ where they do not."""
+    """Whether each kernel of each object of ``sources`` has the parent
+    checkout's SASS instruction for instruction (kernels paired by their
+    mangled names), and how many positions differ where it does not."""
     path, _ = _build.build()
     parent_path, _ = _parent_build(parent).build()
     for src in sources:
         this, old = _sass_streams(path.parent / f"{src}.o"), _sass_streams(parent_path.parent / f"{src}.o")
-        pairs = [{"instructions": (len(a), len(b)), "differ": sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))}
-                 for a, b in zip(this, old)]
-        results[f"sass {src}.o against the parent"] = {"same": this == old, "kernels": pairs}
+        kernels = {}
+        for name in sorted(set(this) | set(old)):
+            a, b = this.get(name, ()), old.get(name, ())
+            kernel = re.search(r"([a-z][a-z_0-9]*_kernel)(I.+?Ev)?", name)
+            kernels[kernel.group(0) if kernel else name[:80]] = {
+                "same": a == b, "instructions": (len(a), len(b)),
+                "differ": sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))}
+        results[f"sass {src}.o against the parent"] = {"same": this == old, "kernels": kernels}
         _log(f"SASS of {src}.o against the parent's: the same instruction for instruction: {this == old}; "
-             f"per kernel (this, parent; positions that differ): {pairs}")
+             f"per kernel (this, parent; positions that differ): {kernels}")
+
+
+def ptxas_report(results: dict, sources=("attention_fwd", "attention_bwd")) -> None:
+    """ptxas's report (registers, spills, shared memory, C75xx warnings) of
+    each object of ``sources``, from the build's log."""
+    path, _ = _build.build()
+    log_path = path.parent / "build.log"
+    sections = log_path.read_text().split(_build._nvcc() + " ") if log_path.exists() else []
+    for src in sources:
+        lines = [line.strip() for section in sections if f"/{src}.cu " in section.split("\n", 1)[0]
+                 for line in section.splitlines()[1:] if re.search(r"ptxas|spill|C75\d\d", line)]
+        results[f"ptxas {src}"] = lines
+        _log(f"ptxas report of {src}.cu (build.log):")
+        for line in lines:
+            _log(f"  {line}")
 
 
 def sass_counts(results: dict, sources=("attention_fwd", "attention_bwd"), ops=SASS_OPS) -> None:
@@ -758,12 +876,16 @@ def main(argv=None) -> int:
     results = {"card": smi}
     if args.sass:
         sass_counts(results)
+        ptxas_report(results)
         if args.parent is not None:
             sass_against_parent(args.parent, results)
     library(results)
-    trace_backward()
+    for hd in HEAD_DIMS:
+        library_at(results, hd)
+        trace_backward(hd)
     if args.parent is not None:
-        parent_ab(args.parent, results)
+        for hd in HEAD_DIMS:
+            parent_ab(args.parent, results, hd)
     if args.variants is not None:
         variants(results, args.variants)
         if args.sass:  # the variants' objects, as variants() built them
