@@ -279,7 +279,15 @@ Phases (each raises on failure; any failure exits non-zero):
      for bit across the runs (``parallel/tp.py::to_devices``: the copies
      of a tensor on two cards of a process add their gradients in shard
      order); ms by CUDA events and the model axis's collectives (calls,
-     bytes).
+     bytes).  R6: ``dino_forward(tp_shard=)`` of seeded dinov2-base, bf16,
+     bs2, ``{"model": 4}`` across processes: over 2 processes of two cards
+     at 518px (two model coordinates a process: the line's partial sums
+     gathered and folded in shard order) and with ``want_cls_attention``
+     over 4 processes of one card at 224px (each process's heads gathered
+     over the line): each rank launches the packed forward (K5's port) 11
+     times a shard it holds and nothing else, and the features and CLS
+     attention of every rank equal the one-process ``{"model": 4}``
+     forward's (rank 0's card named four times) bit for bit.
   S. (after phase P) the serving forward's two fusion prototypes, on no
      product path: K12 (``attention_outproj_residual``: attention +
      out-projection + bias + layerscale + residual in one kernel) at bs16
@@ -383,6 +391,25 @@ Phases (each raises on failure; any failure exits non-zero):
      (``torch.no_grad``) launches K1 11 times and no K2.  The kernels line
      gives K2 and K3/K4 at head dim 128 their own entries.  ``--only-x``
      runs it alone (after the device check and the build).
+  Y. (after phase K, on its layout) Y1: phase K's 32 JPEGs through
+     ``load_image_batch_transform(..., nthreads=4)`` and their masks
+     through ``load_label_transform``, bit for bit the Pillow + NumPy
+     chain's; which decode path ran (``utils/native.py``'s native decode
+     where ``native/imagepipe.cpp`` builds and passes its decode-parity
+     probe, else Pillow) and img/s by host clock.  Y2:
+     ``LookTwiceEvaluator.look_twice`` on 4 of its images through phase K's
+     entry (dinov2-base, 518px, bf16, ``look_twice_th`` 0.95): K1 and K6
+     11 times each per crop call and nothing else, and each refined mask
+     equal to the one ``run()`` wrote on at least 99.9% of its pixels.  Y3:
+     ``tools.parity.main(--device cuda)`` on a synthetic CHAMELEON layout
+     of 4 images with seeded random dinov2-base at 518px
+     (``--allow-random-backbone``), phase K's seeded decoder and a seeded
+     refiner file, stage 1 and CORAL: a report of 2 rows with finite
+     metrics in [0, 1], the exit code their ``pass`` values give, K1 and
+     K6 launches equal and nothing else; ``--check-assets`` on a layout
+     without ``gt/`` exits 2.  The kernels line gives K1 and K6 their Y2
+     and Y3 launches (``look_twice_launches``, ``parity_tool_launches``).
+     ``--only-y`` runs phases K and Y alone.
 Every kernel is also timed against one PyTorch call of the same function
 where one exists (``scaled_dot_product_attention`` for K1, K2 and K5 (at the
 per-head shape and at the tensor-parallel shard's packed (16, 1370, 3 * 64))
@@ -2055,7 +2082,7 @@ def _host_stack() -> str:
     from ucod_dpl_tpu_torch.utils import native
 
     built = native.get_imagepipe_lib() is not None
-    parts.append("native image pipe " + ("built" if built else "not built (Pillow resizes)"))
+    parts.append("native image pipe " + ("built" if built else "not built (Pillow decodes and resizes)"))
     return ", ".join(parts)
 
 
@@ -2251,6 +2278,194 @@ def phase_eval(seed: int, dev, smi: str, numpy_scorer: bool = False, fam: _Famil
         _log(f"    {e.self_device_time_total / 1e3:8.3f} ms x{e.count:5d}  {e.key[:100]}")
     out["busy"] = busy / wall
     out["argv"], out["root"] = argv, root  # phase P2 runs this entry over 2 ranks
+    return out
+
+
+def _y1_decode(evalk: dict, smi: str) -> dict:
+    """Y1: phase K's 32 JPEGs through ``load_image_batch_transform(...,
+    nthreads=4)`` and their PNG masks through ``load_label_transform``, at
+    the eval's 518px, against the Pillow + NumPy chain bit for bit; which
+    decode path ran, and img/s by host clock beside the Pillow chain's."""
+    from PIL import Image
+
+    from ucod_dpl_tpu_torch.data.transforms import (IMAGENET_MEAN, IMAGENET_STD, load_image_batch_transform,
+                                                    load_label_transform)
+    from ucod_dpl_tpu_torch.utils import native
+
+    root, px = evalk["root"], (DINOV2.size, DINOV2.size)
+    paths = sorted(glob.glob(os.path.join(root, "RefCOD", "SYN", "im", "*.jpg")))
+    gts = sorted(glob.glob(os.path.join(root, "RefCOD", "SYN", "gt", "*.png")))
+    if native.get_imagepipe_lib() is None:
+        route = "Pillow decode and resize (native/imagepipe.cpp does not build here)"
+    elif not native._decode_parity_ok():
+        route = "Pillow decode, native resize (the decode-parity probe failed)"
+    else:
+        route = "native decode + resize + normalise (native/imagepipe.cpp)"
+
+    def pil_image(p):
+        with Image.open(p) as im:
+            arr = np.asarray(im.convert("RGB").resize(px[::-1], Image.BILINEAR), np.float32) / 255.0
+        return ((arr - IMAGENET_MEAN) / IMAGENET_STD).astype(np.float32)
+
+    def pil_label(p):
+        with Image.open(p) as im:
+            return (np.asarray(im.convert("L").resize(px[::-1], Image.BILINEAR), np.float32) / 255.0)[..., None]
+
+    t0 = time.perf_counter()
+    images = load_image_batch_transform(paths, px, nthreads=4)
+    secs = time.perf_counter() - t0
+    labels = np.stack([load_label_transform(p, px) for p in gts])
+    t0 = time.perf_counter()
+    ref = np.stack([pil_image(p) for p in paths])
+    pil_secs = time.perf_counter() - t0
+    ref_labels = np.stack([pil_label(p) for p in gts])
+    equal = bool(np.array_equal(images, ref)) and images.dtype == np.float32
+    labels_equal = bool(np.array_equal(labels, ref_labels)) and labels.dtype == np.float32
+    _log(f"  Y1 decode of {len(paths)} JPEGs at {px[0]}px: {route}; load_image_batch_transform(nthreads=4) "
+         f"{secs:.3f} s ({len(paths) / secs:.2f} img/s), the Pillow + NumPy chain one by one {pil_secs:.3f} s "
+         f"({len(paths) / pil_secs:.2f} img/s), host clock; images bit for bit the chain's {equal}, {len(gts)} "
+         f"masks through load_label_transform {labels_equal} [{smi}]")
+    if not (equal and labels_equal and len(paths) == len(gts) == DINOV2.eval_images):
+        raise AssertionError(f"Y1: {len(paths)} images equal {equal}, {len(gts)} masks equal {labels_equal}")
+    return dict(route=route, img_per_s=len(paths) / secs, pil_img_per_s=len(paths) / pil_secs)
+
+
+def _y2_look_twice(dev, smi: str, evalk: dict) -> dict:
+    """Y2: ``LookTwiceEvaluator.look_twice`` on the card, on phase K's entry
+    (dinov2-base, 518px, bf16, ``look_twice_th`` 0.95, its decoder and
+    feature cache), on 4 of its images: each call's crop calls launch K1
+    and K6 11 times each and nothing else, and each refined mask, resized
+    and binarised as ``run()`` does, equals the mask ``run()`` wrote for
+    that image on at least 99.9% of the pixels."""
+    from PIL import Image
+
+    from ucod_dpl_tpu_torch import cli
+    from ucod_dpl_tpu_torch.engine.eval_loop import LookTwiceEvaluator
+    from ucod_dpl_tpu_torch.engine.runner import Runner
+    from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear_np
+
+    args = cli.parse_args("phase Y", evalk["argv"])
+    cfg = cli.init_cfg(args, mode="eval")
+    cfg.dataset_cfg.valset_cfg.DATASET = "SYN"
+    runner = Runner(cfg, mode="eval", load_from=args.load_from, device=dev)
+    ev = LookTwiceEvaluator(cfg, runner)
+    depth = runner.feature_extractor.config.num_layers - 1
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    preds = os.path.join(evalk["root"], "logs", "preds", "SYN")
+    out = {"launches": dict.fromkeys(counts, 0), "calls": 0, "crops": 0, "agree": []}
+    for i in range(4):
+        item = runner.val_dataset[i]
+        host, event = ev._dispatch_first_pass(item["features"][None])
+        event.synchronize()
+        binary = host.numpy()[0].astype(np.float32)
+        bboxes = ev.process_preds(binary)
+        if bboxes is None:
+            raise AssertionError(f"Y2 image {i}: no bbox to look at again at look_twice_th 0.95")
+        for fn in counts.values():
+            fn.launches = 0
+        before = ev.crop_batches
+        mask = ev.look_twice(item["img_path"], bboxes, binary)
+        torch.cuda.synchronize()
+        calls = ev.crop_batches - before
+        launches = {k: fn.launches for k, fn in counts.items()}
+        want = {**dict.fromkeys(counts, 0), "K1": depth * calls, "K6": depth * calls}
+        lh, lw = item["label"].shape[:2]
+        ours = interpolate_bilinear_np(mask, (lh, lw)) > 0.5
+        stem = os.path.splitext(os.path.basename(item["img_path"]))[0]
+        with Image.open(os.path.join(preds, stem + ".png")) as im:
+            written = np.asarray(im) > 127
+        agree = float((ours == written).mean())
+        _log(f"  Y2 image {i}: {len(bboxes)} bboxes, {calls} crop call(s), launches {launches}; the mask equals run()'s "
+             f"on {agree:.6f} of {lh} x {lw} pixels [{smi}]")
+        if launches != want or calls < 1 or not agree >= 0.999:
+            raise AssertionError(f"Y2 image {i}: launches {launches}, expected {want}; {calls} crop calls; masks "
+                                 f"agree on {agree}")
+        out["calls"] += calls
+        out["crops"] += len(bboxes)
+        out["agree"].append(agree)
+        out["launches"] = {k: out["launches"][k] + v for k, v in launches.items()}
+    return out
+
+
+def _y3_parity(seed: int, smi: str, evalk: dict) -> dict:
+    """Y3: ``tools.parity.main`` on the card (``--device cuda``) over a
+    synthetic CHAMELEON layout of 4 images, seeded random dinov2-base at
+    518px (``--allow-random-backbone``), phase K's seeded decoder and a
+    seeded refiner written by the port: stage 1 and CORAL, a report of 2
+    rows with finite ``ours`` in [0, 1] and the exit code their ``pass``
+    values give, K1 and K6 launched (the same number: 11 each per forward)
+    and nothing else; then ``--check-assets`` on a layout without ``gt/``
+    exits 2."""
+    import shutil
+
+    from ucod_dpl_tpu_torch.models.udlr import init_sparse_refiner, save_refiner_checkpoint
+    from ucod_dpl_tpu_torch.tools import parity
+
+    root = os.path.join(evalk["root"], "parity")
+    shutil.rmtree(root, ignore_errors=True)
+    _write_cod_images(os.path.join(root, "RefCOD"), "CHAMELEON", 4, seed + 90)
+    refiner = os.path.join(root, "refiner.safetensors")
+    save_refiner_checkpoint(refiner, init_sparse_refiner(seed + 3, SERVE_DIM))
+    report = os.path.join(root, "report.json")
+    argv = ["--data-dir", os.path.join(root, "RefCOD"), "--cache-dir", os.path.join(root, "cache"), "--work-dir",
+            os.path.join(root, "work"), "--decoder-v2", os.path.join(evalk["root"], "decoder.safetensors"),
+            "--refiner-v2", refiner, "--datasets", "CHAMELEON", "--allow-random-backbone", "--report", report,
+            "--device", "cuda"]
+    counts = {**_kernel_wrappers(), **_int8_wrappers()}
+    for fn in counts.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    code = None  # the tool ends by sys.exit: its code is checked below
+    try:
+        parity.main(argv)
+    except SystemExit as e:
+        code = e.code
+    secs = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counts.items()}
+    with open(report) as f:
+        rows = json.load(f)
+    _log(f"  Y3 tools.parity on the card: exit {code} in {secs:.3f} s host clock, launches {launches} [{smi}]")
+    for r in rows:
+        _log(f"    {r['stage']} {r['variant']} {r['dataset']}: ours {r['ours']}, pass {r['pass']}")
+    fails = []
+    if [(r["stage"], r["dataset"]) for r in rows] != [("UCOD-DPL", "CHAMELEON"), ("CORAL", "CHAMELEON")]:
+        fails.append(f"rows {[(r['stage'], r['dataset']) for r in rows]}")
+    if not all(np.isfinite(v) and 0.0 <= v <= 1.0 for r in rows for v in r["ours"].values()):
+        fails.append("a metric not finite in [0, 1]")
+    if code != (1 if any(r["pass"] is False for r in rows) else 0):
+        fails.append(f"exit {code} for passes {[r['pass'] for r in rows]}")
+    if not (launches["K1"] == launches["K6"] > 0 and all(v == 0 for k, v in launches.items() if k not in ("K1", "K6"))):
+        fails.append(f"launches {launches}")
+    bad = os.path.join(root, "no_gt")
+    os.makedirs(os.path.join(bad, "CHAMELEON", "im"))
+    shutil.copy(sorted(glob.glob(os.path.join(root, "RefCOD", "CHAMELEON", "im", "*.jpg")))[0],
+                os.path.join(bad, "CHAMELEON", "im"))
+    check = None
+    try:
+        parity.main(["--data-dir", bad, "--cache-dir", os.path.join(root, "cache2"), "--datasets", "CHAMELEON",
+                     "--check-assets"])
+    except SystemExit as e:
+        check = e.code
+    _log(f"  Y3 --check-assets on a layout without gt/: exit {check}")
+    if check != 2:
+        fails.append(f"--check-assets exit {check} on a layout without gt/")
+    if fails:
+        raise AssertionError("Y3: " + "; ".join(fails))
+    return dict(code=code, secs=secs, launches=launches, rows=rows)
+
+
+def phase_y(seed: int, dev, smi: str, evalk: dict) -> dict:
+    """Phase Y, after phase K on its synthetic layout: Y1 the host decode
+    path (``utils/native.py``'s decode or Pillow), Y2 ``look_twice`` per
+    image, Y3 the parity runner (``tools/parity.py``)."""
+    t0 = time.perf_counter()
+    _log("phase Y: the host decode, per-image LookTwice and the parity runner on phase K's layout")
+    out = {"decode": _y1_decode(evalk, smi)}
+    out["look_twice"] = _y2_look_twice(dev, smi, evalk)
+    torch.cuda.empty_cache()
+    out["parity"] = _y3_parity(seed, smi, evalk)
+    out["seconds"] = time.perf_counter() - t0
+    _log(f"  phase Y: {out['seconds']:.1f} s host clock [{smi}]")
     return out
 
 
@@ -4662,9 +4877,59 @@ def _r5_2d(spec: dict, dev) -> dict:
     return out
 
 
+def _r6_tp(spec: dict, dev) -> dict:
+    """R6 in one rank: ``dino_forward(tp_shard=)`` of seeded dinov2-base at
+    full width, bf16, bs``spec["batch"]`` at ``spec["size"]`` px, on
+    ``spec["mesh"]`` over the processes (the model axis across them, this
+    rank's shards on its cards), with ``want_cls_attention``; this rank's
+    launches; every rank's key features (and CLS attention) gathered on
+    rank 0 and held against the one-process forward on rank 0's card named
+    once a coordinate."""
+    from ucod_dpl_tpu_torch.data.feature_extractor import FeatureExtractor
+    from ucod_dpl_tpu_torch.models.dino import dino_forward
+    from ucod_dpl_tpu_torch.parallel import build_mesh, distributed
+
+    mesh = build_mesh(spec["mesh"])
+    rank = distributed.process_index()
+    fe = FeatureExtractor(_fe_cfg(), device=dev, seed=spec["seed"], strict=False)
+    size, cls = spec["size"], spec["cls"]
+    px = torch.from_numpy(np.random.default_rng(spec["seed"] + 1).standard_normal(
+        (spec["batch"], size, size, 3)).astype(np.float32)).to(dev)
+    counts = _kernel_wrappers()
+
+    def fwd(on):
+        with torch.inference_mode():
+            out = dino_forward(fe.params, px, fe.config, compute_dtype=fe.compute_dtype, tp_shard=(on, "model"),
+                               want_cls_attention=cls)
+        return [out["key_features"].float()] + ([out["cls_attention"]] if cls else [])
+
+    for fn in counts.values():
+        fn.launches = 0
+    outs = fwd(mesh)
+    torch.cuda.synchronize()
+    res = {"model": mesh.local_block()["model"], "launches": {k: fn.launches for k, fn in counts.items()}}
+    gathered = [_world_gather(t) for t in outs]
+    res["ms"] = _time_ms(lambda: fwd(mesh), 5, warmup=2)
+    distributed.barrier("R6 forward")
+    if rank == 0:
+        one = build_mesh(spec["mesh"], devices=[dev] * mesh.shape["model"])
+        ref = fwd(one)
+        names = ["features"] + (["cls_attention"] if cls else [])
+        for name, g, r in zip(names, gathered, ref):
+            res[f"{name}_bitwise"] = all(torch.equal(t, r) for t in g)
+            res[f"{name}_ranks_bitwise"] = all(torch.equal(t, g[0]) for t in g)
+            res[f"{name}_max_diff"] = max((t - r).abs().max().item() for t in g)
+            res[f"{name}_finite"] = bool(torch.isfinite(r).all())
+        res["features_max"] = ref[0].abs().max().item()
+        res["one_ms"] = _time_ms(lambda: fwd(one), 5, warmup=2)
+    res["tp_traffic"] = dict(distributed.tp_traffic)
+    distributed.barrier("R6 end")
+    return res
+
+
 def _sp_worker(spec_path: str) -> int:
     """One rank of phase R: join the NCCL group with ``spec["cards"]`` cards,
-    run ``spec["entry"]`` (``ring``: R1, ``lora``: R2/R3, ``2d``: R5) and write
+    run ``spec["entry"]`` (``ring``: R1, ``lora``: R2/R3, ``2d``: R5, ``tp``: R6) and write
     ``result{rank}.json`` to ``spec["out"]``."""
     from ucod_dpl_tpu_torch.parallel import distributed
 
@@ -4677,7 +4942,7 @@ def _sp_worker(spec_path: str) -> int:
     t0 = time.perf_counter()
     res = {"rank": rank, "device": str(dev), "world": distributed.process_count(),
            "backend": str(torch.distributed.get_backend())}
-    res.update({"ring": _r1_ring, "lora": _r_lora, "2d": _r5_2d}[spec["entry"]](spec, dev))
+    res.update({"ring": _r1_ring, "lora": _r_lora, "2d": _r5_2d, "tp": _r6_tp}[spec["entry"]](spec, dev))
     res["secs"] = time.perf_counter() - t0
     distributed.shutdown()
     with open(os.path.join(spec["out"], f"result{rank}.json"), "w") as f:
@@ -4762,6 +5027,55 @@ def phase_sp_2d(seed: int, smi: str) -> dict:
         fails.append(f"R5 2x2: the summed adapter grads of two runs differ by up to {diff}")
     if fails:
         raise AssertionError("phase R5: " + "; ".join(fails))
+    return out
+
+
+# R6's layouts: (name, processes, cards a process, image size, CLS attention)
+R6_LAYOUTS = (("model=4 on 2 x 2", 2, 2, 518, False), ("model=4 CLS on 4 x 1", 4, 1, PL_SIZE, True))
+
+
+def phase_tp_processes(seed: int, smi: str) -> dict:
+    """R6 (with phase R in ``--only-r4``): the TP forward with the model
+    axis across processes (``_r6_tp``), ``{"model": 4}`` of seeded
+    dinov2-base, bf16, bs2: over 2 processes of two cards (two model
+    coordinates a process) at 518px, and with ``want_cls_attention`` over 4
+    processes of one card at 224px.  Each rank launches the packed forward
+    (K5's port: K1 at 3 heads a shard) 11 times a shard it holds and
+    nothing else; the features and CLS attention of every rank equal the
+    one-process ``{"model": 4}`` forward's bit for bit (the line's partial
+    sums folded in shard order, as one process folds them)."""
+    import shutil
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work", "chip_smoke_sp", "r6")
+    shutil.rmtree(root, ignore_errors=True)
+    out, fails = {}, []
+    t0 = time.perf_counter()
+    for name, world, cards, size, cls in R6_LAYOUTS:
+        ranks = _run_ranks({"phase": "R6", "entry": "tp", "out": os.path.join(root, f"{world}x{cards}"),
+                            "cards": cards, "seed": seed + 60, "mesh": {"model": 4}, "batch": 2, "size": size,
+                            "cls": cls}, _rank_env(world, str(_free_port())), worker="--sp-worker")
+        for r in ranks:
+            want = {**{k: 0 for k in r["launches"]}, "K1": 11 * len(r["model"])}
+            _log(f"R6 {name} rank {r['rank']} ({r['device']}; model {r['model']}): launches {r['launches']}, "
+                 f"forward {r['ms']:.3f} ms (CUDA events); model-axis collectives {r['tp_traffic']} [{smi}]")
+            if r["launches"] != want:
+                fails.append(f"R6 {name} rank {r['rank']}: launches {r['launches']}, expected {want}")
+        r0 = ranks[0]
+        checks = ["features"] + (["cls_attention"] if cls else [])
+        _log(f"  R6 {name} at {size}px: " + "; ".join(
+            f"{c} bitwise the one-process forward's {r0[c + '_bitwise']} (max diff {r0[c + '_max_diff']:.6g}), "
+            f"across ranks {r0[c + '_ranks_bitwise']}" for c in checks)
+             + f"; max |features| {r0['features_max']:.4g}; one-process forward {r0['one_ms']:.3f} ms")
+        for c in checks:
+            if not (r0[f"{c}_bitwise"] and r0[f"{c}_ranks_bitwise"] and r0[f"{c}_finite"]):
+                fails.append(f"R6 {name}: {c} bitwise {r0[c + '_bitwise']}, across ranks "
+                             f"{r0[c + '_ranks_bitwise']}, finite {r0[c + '_finite']}, max diff {r0[c + '_max_diff']}")
+        out[name] = {k: r0[k] for k in r0 if k not in ("rank", "device", "world", "backend")}
+        out[name]["launches_by_rank"] = [r["launches"] for r in ranks]
+    out["seconds"] = time.perf_counter() - t0
+    _log(f"  R6: {out['seconds']:.1f} s host clock [{smi}]")
+    if fails:
+        raise AssertionError("phase R6: " + "; ".join(fails))
     return out
 
 
@@ -5013,6 +5327,8 @@ def main(argv=None) -> int:
                         help="run phase W (the DINOv1 family through its entries) alone, on one card")
     parser.add_argument("--only-x", action="store_true",
                         help="run phase X (head dim 128 and tensor parallelism on the differentiated path) alone")
+    parser.add_argument("--only-y", action="store_true",
+                        help="run phase K, then phase Y (the host decode, look_twice and the parity runner), alone")
     args = parser.parse_args(argv)
     if args.dp_worker:
         return _dp_worker(args.dp_worker)
@@ -5026,6 +5342,7 @@ def main(argv=None) -> int:
         phase_build()
         r = phase_sp_processes(args.seed, smi)
         r5 = phase_sp_2d(args.seed, smi)
+        r6 = phase_tp_processes(args.seed, smi)
         part8 = phase_dryrun_processes(smi)
         _log(json.dumps({"card": smi, "dryrun_part8": {k: part8[k] for k in (
                              "loss", "one_process_loss", "lora_grad_norm", "launches", "seconds")},
@@ -5043,7 +5360,7 @@ def main(argv=None) -> int:
                          "sp_2d_lora_busy": r["r3"]["busy"], "sp_2d_lora_peak_gib": r["r3"]["peak_gib"],
                          "sp_2d_lora_grad_rel_diff": r["r3"]["grad_rel decoder + LoRA"],
                          "reference_bs4": r["reference_bs4"], "reference_bs8": r["reference_bs8"],
-                         "sp_tp_2d_processes": r5}))
+                         "sp_tp_2d_processes": r5, "tp_processes": r6}))
         _log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
@@ -5081,6 +5398,17 @@ def main(argv=None) -> int:
         dev = torch.device("cuda", 0)
         x = phase_x(args.seed, dev, torch.Generator(device=dev).manual_seed(args.seed))
         _log(json.dumps({"card": smi, **_x_summary(x)}))
+        _log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
+        return 0
+    if args.only_y:
+        smi = phase_device()
+        phase_build()
+        dev = torch.device("cuda", 0)
+        y = phase_y(args.seed, dev, smi, phase_eval(args.seed, dev, smi))
+        _log(json.dumps({"card": smi, "phase_y_s": y["seconds"], "decode": y["decode"],
+                         "look_twice_launches": y["look_twice"]["launches"],
+                         "parity_launches": y["parity"]["launches"], "parity_exit": y["parity"]["code"]}))
         _log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))
         return 0
@@ -5151,6 +5479,8 @@ def main(argv=None) -> int:
     dry = phase_dryrun(smi)
     torch.cuda.empty_cache()
     evalk = phase_eval(args.seed, dev, smi, numpy_scorer=args.numpy_scorer)
+    torch.cuda.empty_cache()
+    y = phase_y(args.seed, dev, smi, evalk)
     torch.cuda.empty_cache()
     pl = phase_pseudo_labels(args.seed, dev, smi)
     torch.cuda.empty_cache()
@@ -5241,6 +5571,9 @@ def main(argv=None) -> int:
         "remat_dots_grad_max_diff": dots["grad_max_diff"],
         "dryrun_wall_s": dry["wall_s"], "dryrun_part_s": {k: v["seconds"] for k, v in dry.items() if k.isdigit()},
         "soak_wall_s": soaked["wall_s"], "soak_counts": soaked["counts"], **_w_summary(w), **_x_summary(x),
+        "phase_y_s": y["seconds"], "decode_route": y["decode"]["route"], "decode_img_per_s": y["decode"]["img_per_s"],
+        "decode_pil_chain_img_per_s": y["decode"]["pil_img_per_s"], "parity_tool_s": y["parity"]["secs"],
+        "parity_tool_exit": y["parity"]["code"],
         "batch": 16, "image": 518, "dtype": "bfloat16",
     }))
     # each kernel's bound at the shape it was timed at (bs16 L1370, 12 heads
@@ -5288,7 +5621,9 @@ def main(argv=None) -> int:
                 "sp_lora_launches": sp_lora["launches"].get(key, 0),
                 "dryrun_launches": _dryrun_launches(dry, kid),
                 "soak_launches": {v: c.get(_dry_key(kid), 0) for v, c in soaked["launches"].items()},
-                "dinov1_launches": _w_launches(w, key), **device}
+                "dinov1_launches": _w_launches(w, key),
+                "look_twice_launches": y["look_twice"]["launches"].get(key, 0),
+                "parity_tool_launches": y["parity"]["launches"].get(key, 0), **device}
 
     def sp_chunk(kid):
         """K2 and K3/K4 at the ring's 756px chunk, (4, 730, 768), f32 out (phase Q0)."""

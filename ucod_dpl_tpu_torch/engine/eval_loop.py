@@ -241,6 +241,15 @@ class LookTwiceEvaluator:
     def process_preds(self, binary_hw: np.ndarray) -> Optional[List[List[int]]]:
         return find_refine_bboxes(binary_hw, self.img_size, self.look_twice_th, self.expand_type)
 
+    def look_twice(self, img_path, bboxes: List[List[int]], mask_hw: np.ndarray) -> np.ndarray:
+        """One image's LookTwice (the JAX method): cut ``bboxes`` (at
+        ``img_size``) from the image at ``img_path``, run the crops through
+        :meth:`crop_pass` (bucket-padded calls of at most 16: one for up to
+        16 crops) and paste the refined masks into ``mask_hw`` ((H, W)
+        {0, 1}) -> the refined (H, W) float32 mask.  :meth:`run` batches
+        the crops of a whole batch of images instead."""
+        return refine_with_crops(img_path, bboxes, mask_hw, self.img_size, self.crop_pass)
+
     # -- the sweep -------------------------------------------------------------
     def run(self) -> dict:
         """Batched first pass at any val batch size, LookTwice over all the

@@ -648,35 +648,31 @@ def _sharded_forward(
     chunk; the chunks are gathered on the first chunk's device (on a mesh
     over processes, every process embeds the whole image, keeps its own
     chunks, and gathers the others' last over the ring's subgroup, the
-    backward keeping its own slice) and the padding sliced off.  With ``want_cls_attention`` (tensor parallelism
-    alone) each shard also takes its heads' CLS-row query and attention
-    (:func:`_cls_attention`, the unsharded path's rounding), and the heads
-    are concatenated in shard order.  Under ``differentiable`` each shard's
+    backward keeping its own slice) and the padding sliced off.  With
+    ``want_cls_attention`` (tensor parallelism alone) each shard also takes
+    its heads' CLS-row query and attention (:func:`_cls_attention`, the
+    unsharded path's rounding), and the heads are concatenated in shard
+    order.  Under ``differentiable`` each shard's
     attention is routed as :func:`~ucod_dpl_tpu_torch.ops.attention.
     differentiable_attention` routes it.
 
-    A model axis across processes (one model coordinate a process): every
-    process of a model line holds the chunk's residual stream, the partial
-    sums are added in f32 over the line's subgroup
-    (:func:`~ucod_dpl_tpu_torch.parallel.distributed.model_parallel_sum`,
-    shard order: the subgroup's ranks follow the coordinate) before the
-    rounding, the LayerNorm outputs enter the shards' products through
-    :func:`~ucod_dpl_tpu_torch.parallel.distributed.model_parallel_input`
-    (their gradients summed over the line), and the last layer's key shards
-    are gathered over the line.  Every process of the line then holds the
-    same output and, for a loss computed from it on every process, the
-    whole gradient of every replicated tensor."""
+    A model axis across processes (one or more model coordinates a
+    process): every process of a model line holds the chunk's residual
+    stream; the partial sums of every shard of the line are gathered over
+    the line's subgroup and folded left in f32 in shard order before the
+    rounding (:func:`~ucod_dpl_tpu_torch.parallel.distributed.
+    model_parallel_sum`: the subgroup's ranks follow the coordinate), the
+    one-process forward's sum bit for bit; the LayerNorm outputs enter the
+    shards' products through :func:`~ucod_dpl_tpu_torch.parallel.
+    distributed.model_parallel_input` (their gradients summed over the
+    line); the last layer's key shards and CLS attention heads are
+    gathered over the line in shard order.  Every process of the line then
+    holds the same output and, for a loss computed from it on every
+    process, the whole gradient of every replicated tensor."""
     grid = _param_grid(params, tp_shard, sp_shard)
     n, tp = len(grid), len(grid[0])
     model_group = LOCAL if tp_shard is None else tp_shard[0].group(tp_shard[1])
     tp_total = 1 if tp_shard is None else tp_shard[0].shape[tp_shard[1]]
-    if model_group is not LOCAL and tp > 1:
-        raise NotImplementedError(f"a model axis across processes takes one model coordinate a process; this one "
-                                  f"holds {tp} (choose cards per process that keep the axis inside each process or "
-                                  f"give each process one coordinate)")
-    if model_group is not LOCAL and want_cls_attention:
-        raise NotImplementedError("CLS attention under tensor parallelism runs with the model axis inside one "
-                                  "process")
     devs = [[p["pos_embed"].device for p in row] for row in grid]
     home = [row[0] for row in devs]
     b, img_h, img_w, _ = pixels.shape
@@ -684,23 +680,22 @@ def _sharded_forward(
     eps = cfg.layer_norm_eps
     scale = 1.0 / float(np.sqrt(cfg.head_dim))
 
-    def replicated(i, fn):
-        """[fn(m) for each shard of chunk i], computed once per distinct device."""
-        done: Dict[torch.device, torch.Tensor] = {}
-        return [done[d] if d in done else done.setdefault(d, fn(m)) for m, d in enumerate(devs[i])]
-
     def shard_input(i, x, norm):
-        """LN(x) of chunk i on each shard's device, as the shards' products'
-        input; x reaches the chunk's cards through one ``to_devices``, so its
-        copies' gradients are summed in shard order."""
+        """LN(x) of chunk i on each shard's device (computed once per
+        distinct device), as the shards' products' input; x reaches the
+        chunk's cards through one ``to_devices``, so its copies' gradients
+        are summed in shard order."""
         xs_on = to_devices(x, devs[i])
-        return replicated(i, lambda m: model_parallel_input(layer_norm(xs_on[m], norm[m], eps), model_group))
+        ln: Dict[torch.device, torch.Tensor] = {}
+        for m, d in enumerate(devs[i]):
+            if d not in ln:
+                ln[d] = layer_norm(xs_on[m], norm[m], eps)
+        entered = dict(zip(ln, model_parallel_input(list(ln.values()), model_group)))
+        return [entered[d] for d in devs[i]]
 
     def reduce(i, partials, bias):
-        acc = partials[0].float()
-        for p in partials[1:]:
-            acc = acc + p.to(home[i]).float()
-        return model_parallel_sum(acc, model_group).to(dtype) + bias.to(dtype)
+        acc = model_parallel_sum([p.to(home[i]).float() for p in partials], model_group)
+        return acc.to(dtype) + bias.to(dtype)
 
     def gelu(h):
         # tanh-approx GELU in bf16, exact erf in f32 (the JAX split)
@@ -768,7 +763,7 @@ def _sharded_forward(
                        for i in range(n)], seq_len, home[0], group)
     out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
     if want_cls_attention:
-        out["cls_attention"] = torch.cat(
-            [_cls_attention(h, k_m, layer["q"], cfg.num_heads // tp_total, cfg.head_dim, scale, dtype).to(home[0])
-             for h, k_m, layer in zip(hs[0], ks[0], last[0])], dim=1)
+        cls = torch.cat([_cls_attention(h, k_m, layer["q"], cfg.num_heads // tp_total, cfg.head_dim, scale,
+                                        dtype).to(home[0]) for h, k_m, layer in zip(hs[0], ks[0], last[0])], dim=1)
+        out["cls_attention"] = all_gather_tokens(cls, model_group, dim=1)
     return out

@@ -37,6 +37,8 @@ plain run.
 
 from __future__ import annotations
 
+import functools
+import operator
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -58,6 +60,7 @@ LOCAL = _Local()
 _host_group = None  # the gloo group of the host collectives, once a group is up
 _subgroups: Dict[Tuple[int, ...], Any] = {}  # the subgroups made so far, by their global ranks
 _cards = 1  # the cards of each process (maybe_initialize_distributed's ``cards``)
+_first_card: Optional[int] = None  # the index of this process's first card, under a group on CUDA
 
 # device collectives launched by all_reduce_mean_ and all_reduce_sum_ (calls
 # and payload bytes), read by chip_smoke.py's phases P and R
@@ -80,7 +83,7 @@ def maybe_initialize_distributed(device="cuda", cards: int = 1) -> torch.device:
     ``env://``; a group of one started by ``UCOD_DIST=1`` without
     ``MASTER_ADDR`` rendezvous in process.  Without a group the device is
     ``device`` as given."""
-    global _cards
+    global _cards, _first_card
     device = torch.device(device)
     want = int(os.environ.get("WORLD_SIZE", "1")) > 1 or os.environ.get("UCOD_DIST") == "1"
     if not want and not dist.is_initialized():
@@ -98,6 +101,7 @@ def maybe_initialize_distributed(device="cuda", cards: int = 1) -> torch.device:
                                + (": one rank per card" if cards == 1 else ""))
         device = torch.device("cuda", first)
         torch.cuda.set_device(device)
+        _first_card = first
     elif device.type != "cpu":
         raise ValueError(f"no process-group backend for device {device}")
     _cards = cards
@@ -328,53 +332,80 @@ def all_gather_tokens(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
 # model_parallel_input marks where the replicated stream enters the
 # shard-local products (identity forward, the gradients summed over the
 # group in the backward); model_parallel_sum adds the row-parallel products'
-# partial sums (summed over the group forward, the gradient passed on as it
-# is).  Counted in tp_traffic (calls and payload bytes, both directions),
-# read by chip_smoke.py's phase R.
+# partial sums (gathered over the group and folded in shard order forward,
+# the gradient passed on as it is).  A rank may hold several shards, on
+# several cards: the NCCL transfers go through the rank's first card.
+# Counted in tp_traffic (calls and the payload bytes a rank sends, both
+# directions), read by chip_smoke.py's phase R.
 tp_traffic = {"calls": 0, "bytes": 0}
 
 
+def _comm_device(x: torch.Tensor) -> torch.device:
+    """Where a collective over ``x`` runs: the rank's first card for a CUDA
+    tensor (one NCCL communicator a group, whatever card ``x`` is on; an
+    autograd device thread's current card is its own), else ``x``'s device."""
+    return torch.device("cuda", _first_card) if x.is_cuda and _first_card is not None else x.device
+
+
 def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
-    out = x.contiguous().clone()
+    out = x.to(_comm_device(x), copy=True).contiguous()
     dist.all_reduce(out, group=group)
     tp_traffic["calls"] += 1
     tp_traffic["bytes"] += out.numel() * out.element_size()
-    return out
+    return out.to(x.device)
 
 
 class _ModelParallelInput(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
+    """One node for all of a rank's shard inputs, so that the ranks run
+    their backward all-reduces in one order (autograd runs a node per card
+    in that card's thread, in no order across cards)."""
 
     @staticmethod
-    def backward(ctx, grad):
-        return _sum_over(grad, ctx.group), None
+    def forward(ctx, group, *xs):
+        ctx.group = group
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *(_sum_over(g, ctx.group) for g in grads))
 
 
 class _ModelParallelSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        return _sum_over(x, group)
+    def forward(ctx, group, *partials):
+        ctx.n = len(partials)
+        local = torch.stack(partials)
+        dev = _comm_device(local)
+        local = local.to(dev).contiguous()
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, local, group=group)
+        tp_traffic["calls"] += 1
+        tp_traffic["bytes"] += local.numel() * local.element_size()
+        return functools.reduce(operator.add, [t for part in parts for t in part.unbind(0)]).to(partials[0].device)
 
     @staticmethod
     def backward(ctx, grad):
-        return grad, None
+        return (None, *([grad] * ctx.n))
 
 
-def model_parallel_input(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` (replicated over ``group``) as the input of shard-local
-    products: the same values; its gradient summed over the group's ranks.
-    ``x`` itself over one process."""
-    return _ModelParallelInput.apply(x, group) if group_size(group) > 1 else x
-
-
-def model_parallel_sum(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum over ``group`` of each rank's partial ``x``, replicated on
-    every rank; the gradient passed to each partial as it is.  ``x`` itself
+def model_parallel_input(xs: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
+    """``xs`` (each replicated over ``group``) as the inputs of shard-local
+    products: the same values; their gradients summed over the group's
+    ranks, in the order of ``xs``, in one autograd node.  ``xs`` themselves
     over one process."""
-    return _ModelParallelSum.apply(x, group) if group_size(group) > 1 else x
+    return list(_ModelParallelInput.apply(group, *xs)) if group_size(group) > 1 else list(xs)
+
+
+def model_parallel_sum(partials: Sequence[torch.Tensor], group) -> torch.Tensor:
+    """The sum of the partials of every shard of ``group``'s line, each rank
+    giving its own in shard order (on one device), replicated on every
+    rank: the ranks' partials gathered in rank order (the ranks follow the
+    shard coordinate) and folded left, ``((p0 + p1) + p2) + ...``, the sum
+    of one process holding every shard bit for bit; the gradient passed to
+    each partial as it is.  Over one process the fold of ``partials``."""
+    if group_size(group) > 1:
+        return _ModelParallelSum.apply(group, *partials)
+    return functools.reduce(operator.add, partials)
 
 
 def ring_exchange(send: Sequence[torch.Tensor], recv: Sequence[torch.Tensor], group, send_to: Optional[int],
@@ -398,9 +429,10 @@ def ring_exchange(send: Sequence[torch.Tensor], recv: Sequence[torch.Tensor], gr
 
 def shutdown() -> None:
     """Destroy the process groups (tests and workers that start several)."""
-    global _host_group, _cards
+    global _host_group, _cards, _first_card
     if _group_up():
         dist.destroy_process_group()
     _host_group = None
     _subgroups.clear()
     _cards = 1
+    _first_card = None

@@ -14,9 +14,14 @@ takes the NumPy, scipy or Pillow path, which computes the same values.
 * ``cc_label.cpp``: 8-connected labelling and per-component statistics
   (:func:`cc_label`, :func:`cc_stats`), opt-in through ``UCOD_NATIVE_CC=1``
   (``utils/components.py``; scipy is the default);
-* ``imagepipe.cpp``: the PIL-exact bilinear resize (:func:`resize_u8_native`,
-  off with ``UCOD_NATIVE_IO=0``); it links libjpeg and libpng, and where
-  they are missing the transforms resize with Pillow.
+* ``imagepipe.cpp``: the JPEG/PNG decode (:func:`load_image_u8`), the
+  PIL-exact bilinear resize (:func:`resize_u8_native`) and the threaded
+  decode, resize and normalise of a batch (:func:`load_norm_batch_native`),
+  all off with ``UCOD_NATIVE_IO=0``.  It links libjpeg and libpng; where
+  they are missing the transforms decode and resize with Pillow.  The
+  decode is used only where a one-time probe finds it byte-identical to
+  Pillow's on this host (:func:`_decode_parity_ok`); where the probe fails
+  the resize stays native.
 
 These are host paths, not device paths.
 """
@@ -85,7 +90,7 @@ def _load_so(src: str, so: str, ldflags: Tuple[str, ...] = ()) -> Optional[ctype
 
 
 def get_imagepipe_lib() -> Optional[ctypes.CDLL]:
-    """The image-pipe library with the resize entry declared, or None."""
+    """The image-pipe library with its entries declared, or None."""
     global _imagepipe_lib, _imagepipe_tried
     with _lock:
         if _imagepipe_lib is not None or _imagepipe_tried:
@@ -97,11 +102,25 @@ def get_imagepipe_lib() -> Optional[ctypes.CDLL]:
         if lib is None:
             return None
         u8p = ctypes.POINTER(ctypes.c_uint8)
+        i32p = ctypes.POINTER(ctypes.c_int32)
+        f32p = ctypes.POINTER(ctypes.c_float)
+        lib.ip_load_u8.restype = ctypes.c_int32
+        lib.ip_load_u8.argtypes = [
+            ctypes.c_char_p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+            ctypes.POINTER(ctypes.c_void_p), i32p, i32p, i32p,
+        ]
         lib.ip_resize_u8.restype = ctypes.c_int32
         lib.ip_resize_u8.argtypes = [
             u8p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
             u8p, ctypes.c_int32, ctypes.c_int32,
         ]
+        lib.ip_load_norm_batch.restype = ctypes.c_int32
+        lib.ip_load_norm_batch.argtypes = [
+            ctypes.POINTER(ctypes.c_char_p), ctypes.c_int32, ctypes.c_int32,
+            ctypes.c_int32, ctypes.c_int32, f32p, f32p, f32p, ctypes.c_int32,
+        ]
+        lib.ip_free.restype = None
+        lib.ip_free.argtypes = [ctypes.c_void_p]
         _imagepipe_lib = lib
         return _imagepipe_lib
 
@@ -124,6 +143,139 @@ def resize_u8_native(arr: np.ndarray, size_hw: Tuple[int, int]) -> Optional[np.n
     if rc != 0:
         return None
     return dst[..., 0] if squeeze else dst
+
+
+_WANT_CH = {"L": 1, "RGB": 3}
+
+_decode_parity: Optional[bool] = None
+
+
+def _decode_parity_ok() -> bool:
+    """Whether the native JPEG/PNG decode is byte-identical to Pillow's on
+    this host: probed once per process.
+
+    The resize is bit-exact by construction (it reimplements Pillow's
+    resampling), but the decode rests on the system libjpeg matching the
+    libjpeg-turbo that Pillow bundles: another IDCT or upsampling differs
+    by 1 a pixel and would change features, caches and metrics between the
+    native path and Pillow's.  The probe decodes noise and gradient images
+    at 4:2:0 and 4:4:4 subsampling, a grayscale JPEG and an RGB and a
+    palette PNG through both, in RGB and L; any byte that differs turns the
+    native decode off in this process (the resize stays on), with a log
+    line."""
+    global _decode_parity
+    if _decode_parity is not None:
+        return _decode_parity
+    import tempfile
+
+    from PIL import Image
+
+    ok = True
+    try:
+        rng = np.random.default_rng(1234)
+        noise = rng.integers(0, 256, (17, 23, 3), dtype=np.uint8)
+        grad = np.stack(
+            list(np.meshgrid(np.arange(31, dtype=np.uint8) * 8, np.arange(29, dtype=np.uint8) * 8, indexing="ij"))
+            + [np.full((31, 29), 128, np.uint8)],
+            axis=-1,
+        )
+        with tempfile.TemporaryDirectory() as td:
+            cases = []
+            for name, arr, kw in (
+                ("n75.jpg", noise, {"quality": 75}),  # 4:2:0 subsampling
+                ("n95.jpg", noise, {"quality": 95}),  # 4:4:4
+                ("g75.jpg", grad, {"quality": 75}),
+                ("gray.jpg", noise[..., 0], {"quality": 85}),
+                ("rgb.png", noise, {}),
+                ("pal.png", None, {}),
+            ):
+                p = os.path.join(td, name)
+                if arr is None:
+                    Image.fromarray(noise).convert("P", palette=Image.ADAPTIVE).save(p)
+                else:
+                    Image.fromarray(arr).save(p, **kw)
+                cases.append(p)
+            for p in cases:
+                for mode in ("RGB", "L"):
+                    with Image.open(p) as im:
+                        pil = np.asarray(im.convert(mode))
+                    nat = _load_image_u8_unchecked(p, mode)
+                    if nat is None or not np.array_equal(nat[..., 0] if mode == "L" else nat, pil):
+                        ok = False
+                        break
+                if not ok:
+                    break
+    except Exception:
+        ok = False
+    if not ok:
+        import logging
+
+        logging.getLogger("ucod").warning(
+            "native image decode disagrees with Pillow on this host (another system libjpeg or libpng?): the "
+            "native decode is off, Pillow decodes and the native resize stays on; outputs stay bit-identical "
+            "to the Pillow chain."
+        )
+    _decode_parity = ok
+    return ok
+
+
+def load_image_u8(path, mode: str = "RGB", size_hw: Optional[Tuple[int, int]] = None) -> Optional[np.ndarray]:
+    """Decode one JPEG or PNG file, convert it to ``mode`` ("RGB" or "L")
+    and, with ``size_hw``, resize it PIL-BILINEAR-exactly -> (H, W, C)
+    uint8; None when the library is not available, the host fails the
+    decode-parity probe, or the file's container or colour space is outside
+    the native decoder's (the caller then decodes with Pillow)."""
+    if get_imagepipe_lib() is None or not _decode_parity_ok():
+        return None
+    return _load_image_u8_unchecked(path, mode, size_hw)
+
+
+def _load_image_u8_unchecked(path, mode: str = "RGB", size_hw: Optional[Tuple[int, int]] = None):
+    """:func:`load_image_u8` without the parity probe (the probe's own
+    decode); None on any failure."""
+    lib = get_imagepipe_lib()
+    if lib is None:
+        return None
+    dh, dw = size_hw if size_hw is not None else (0, 0)
+    out = ctypes.c_void_p()
+    w, h, c = ctypes.c_int32(), ctypes.c_int32(), ctypes.c_int32()
+    rc = lib.ip_load_u8(str(path).encode(), _WANT_CH[mode], dh, dw, ctypes.byref(out), ctypes.byref(w),
+                        ctypes.byref(h), ctypes.byref(c))
+    if rc != 0:
+        return None
+    try:
+        n = h.value * w.value * c.value
+        arr = np.ctypeslib.as_array(ctypes.cast(out, ctypes.POINTER(ctypes.c_uint8)), shape=(n,))
+        arr = arr.reshape(h.value, w.value, c.value).copy()
+    finally:
+        lib.ip_free(out)
+    return arr
+
+
+def load_norm_batch_native(paths, size_hw: Tuple[int, int], mean, std, mode: str = "RGB",
+                           nthreads: int = 0) -> Optional[np.ndarray]:
+    """Decode, resize and normalise image files into a float32 (N, H, W, C)
+    array on ``nthreads`` native threads (0: one per file up to the core
+    count), bit-identical to the Pillow + NumPy transform chain; None when
+    the library is not available, the host fails the decode-parity probe,
+    ``paths`` is empty, or any file fails (the caller then takes Pillow for
+    the whole batch)."""
+    lib = get_imagepipe_lib()
+    if lib is None or not paths or not _decode_parity_ok():
+        return None
+    want = _WANT_CH[mode]
+    dh, dw = size_hw
+    n = len(paths)
+    if nthreads <= 0:
+        nthreads = min(n, os.cpu_count() or 1)
+    c_paths = (ctypes.c_char_p * n)(*[str(p).encode() for p in paths])
+    mean = np.ascontiguousarray(mean, dtype=np.float32)
+    std = np.ascontiguousarray(std, dtype=np.float32)
+    out = np.empty((n, dh, dw, want), dtype=np.float32)
+    f32p = ctypes.POINTER(ctypes.c_float)
+    rc = lib.ip_load_norm_batch(c_paths, n, want, dh, dw, mean.ctypes.data_as(f32p), std.ctypes.data_as(f32p),
+                                out.ctypes.data_as(f32p), nthreads)
+    return None if rc != 0 else out
 
 
 # ---------------------------------------------------------------------------
