@@ -33,6 +33,7 @@ from ucod_dpl_tpu_torch.ops.quant import quantize_dino_linears
 from ucod_dpl_tpu_torch.parallel.mesh import data_sharding
 from ucod_dpl_tpu_torch.parallel.sp import sp_param_grid
 from ucod_dpl_tpu_torch.parallel.tp import shard_dino_params
+from ucod_dpl_tpu_torch.utils.profiling import annotate
 
 logger = logging.getLogger(__name__)
 
@@ -210,8 +211,11 @@ class FeatureExtractor:
     def _to_host_f32(t: torch.Tensor, what: str) -> np.ndarray:
         """Device tensor -> host float32, raising on non-finite values (a
         non-finite forward evaluates silently as all-background masks)."""
-        arr = t.float().cpu().numpy()
-        if not np.isfinite(arr).all():
+        with annotate("entry.download", bytes=t.numel() * 4):
+            arr = t.float().cpu().numpy()
+        with annotate("entry.check"):
+            finite = np.isfinite(arr).all()
+        if not finite:
             raise FloatingPointError(
                 f"DINO forward produced non-finite {what} "
                 f"({(~np.isfinite(arr)).sum()}/{arr.size} bad) on {t.device} — "
@@ -246,18 +250,21 @@ class FeatureExtractor:
             first = params
             while not isinstance(first, dict):
                 first = first[0]
-            outs.append(dino_forward(params, torch.from_numpy(images[sl]).to(first["pos_embed"].device), self.config,
-                                     compute_dtype=self.compute_dtype, tp_shard=self.tp_shard, sp_shard=sp_shard,
-                                     **kw))
+            with annotate("entry.upload", bytes=images[sl].nbytes):
+                pixels = torch.from_numpy(images[sl]).to(first["pos_embed"].device)
+            outs.append(dino_forward(params, pixels, self.config, compute_dtype=self.compute_dtype,
+                                     tp_shard=self.tp_shard, sp_shard=sp_shard, **kw))
         return outs
 
     def extract(self, images_nhwc: np.ndarray) -> np.ndarray:
         """(B, H, W, 3) normalised images -> (B, h, w, hidden) float32 key
         features on the host, over the mesh's ``data`` coordinates when there
         is a mesh."""
-        with torch.inference_mode():
+        with annotate("entry.extract", images=len(images_nhwc)), torch.inference_mode():
             outs = self._forwards(images_nhwc, quant=self._qparams)
-            return np.concatenate([self._to_host_f32(o["key_features"], "features") for o in outs])
+            features = [self._to_host_f32(o["key_features"], "features") for o in outs]
+            with annotate("entry.concat"):
+                return np.concatenate(features)
 
     def extract_with_attention(self, images_nhwc: np.ndarray):
         """(B, H, W, 3) normalised images -> host float32 ``(key_tokens (B,

@@ -31,6 +31,7 @@ import torch
 from ucod_dpl_tpu_torch.data.transforms import image_transform
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear_np
 from ucod_dpl_tpu_torch.utils.components import bounding_rect, connected_components
+from ucod_dpl_tpu_torch.utils.profiling import annotate
 
 # crop batches are padded to these sizes, as in the JAX package (which
 # compiles one program per size)
@@ -186,9 +187,12 @@ class LookTwiceEvaluator:
 
     @contextlib.contextmanager
     def _stage(self, name: str):
+        """Time a stage into ``split[name]``; under a profiler, also a span of
+        that name (so a ``--profile`` trace names the log line's stages)."""
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(name):
+                yield
         finally:
             self.split[name] += time.perf_counter() - t0
 

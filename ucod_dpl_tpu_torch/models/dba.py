@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear_nhwc
+from ucod_dpl_tpu_torch.utils.profiling import annotate
 
 EMBED_DIM = 64
 
@@ -148,10 +149,11 @@ def fg_logits_live(
     as ``int8_mlp`` says (``dino_forward``); the decoder body stays float32."""
     from ucod_dpl_tpu_torch.models.dino import dino_forward
 
-    last_k = backbone_params["layers"][-1]["k"]
-    fold = key_decoupling_fold(last_k["w"], last_k["b"], params)
-    out = dino_forward(
-        backbone_params, pixels, dino_cfg, compute_dtype=compute_dtype, key_fold=fold, plain=plain,
-        quant=quant, int8_mlp=int8_mlp,
-    )
-    return rev_decoder_forward_decoupled(params, out["folded_features"], size)
+    with annotate("model.fg_logits_live"):
+        last_k = backbone_params["layers"][-1]["k"]
+        fold = key_decoupling_fold(last_k["w"], last_k["b"], params)
+        out = dino_forward(
+            backbone_params, pixels, dino_cfg, compute_dtype=compute_dtype, key_fold=fold, plain=plain,
+            quant=quant, int8_mlp=int8_mlp,
+        )
+        return rev_decoder_forward_decoupled(params, out["folded_features"], size)

@@ -52,6 +52,7 @@ from ucod_dpl_tpu_torch.ops.resize import interpolate_bicubic
 from ucod_dpl_tpu_torch.parallel.distributed import LOCAL, all_gather_tokens, model_parallel_input, model_parallel_sum
 from ucod_dpl_tpu_torch.parallel.sp import chunk_kv_lens, gather_tokens, ring_attention, sp_param_grid, split_tokens
 from ucod_dpl_tpu_torch.parallel.tp import place_model_row, to_devices
+from ucod_dpl_tpu_torch.utils.profiling import annotate
 
 
 @dataclass(frozen=True)
@@ -472,92 +473,93 @@ def dino_forward(
             raise ValueError("int8 path is single-chip; sp_shard shards tokens")
     if tp_shard is not None and quant is not None:
         raise ValueError("the int8 path is single-device; tp_shard shards the weights (needs quant=None)")
-    if sp_shard is not None or tp_shard is not None:
-        return _sharded_forward(params, pixels, cfg, tp_shard, sp_shard, dtype=compute_dtype, plain=plain,
-                                differentiable=differentiable, remat=remat, key_fold=key_fold,
-                                want_cls_attention=want_cls_attention)
-    b, img_h, img_w, _ = pixels.shape
-    gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
-    dtype = compute_dtype
-    eps = cfg.layer_norm_eps
-    scale = 1.0 / float(np.sqrt(cfg.head_dim))
-    if quant is not None:
+    with annotate("model.dino_forward"):
+        if sp_shard is not None or tp_shard is not None:
+            return _sharded_forward(params, pixels, cfg, tp_shard, sp_shard, dtype=compute_dtype, plain=plain,
+                                    differentiable=differentiable, remat=remat, key_fold=key_fold,
+                                    want_cls_attention=want_cls_attention)
+        b, img_h, img_w, _ = pixels.shape
+        gh, gw = img_h // cfg.patch_size, img_w // cfg.patch_size
+        dtype = compute_dtype
+        eps = cfg.layer_norm_eps
+        scale = 1.0 / float(np.sqrt(cfg.head_dim))
+        if quant is not None:
+            if differentiable:
+                raise ValueError("the int8 path is inference-only; differentiable=True needs quant=None")
+            if int8_mlp not in ("split", "whole"):
+                raise ValueError(f"int8_mlp must be 'split' or 'whole'; got {int8_mlp!r}")
+            if len(quant["layers"]) != len(params["layers"]):
+                raise ValueError(f"quant has {len(quant['layers'])} layers, params {len(params['layers'])}")
         if differentiable:
-            raise ValueError("the int8 path is inference-only; differentiable=True needs quant=None")
-        if int8_mlp not in ("split", "whole"):
-            raise ValueError(f"int8_mlp must be 'split' or 'whole'; got {int8_mlp!r}")
-        if len(quant["layers"]) != len(params["layers"]):
-            raise ValueError(f"quant has {len(quant['layers'])} layers, params {len(params['layers'])}")
-    if differentiable:
-        def attention(q, k, v, nh, scale):
-            return differentiable_attention(q, k, v, nh, scale, plain=plain)
+            def attention(q, k, v, nh, scale):
+                return differentiable_attention(q, k, v, nh, scale, plain=plain)
 
-        def ln_qkv(x, norm, q, k, v, eps):
-            h = layer_norm(x, norm, eps)
-            return dense(h, q, dtype), dense(h, k, dtype), dense(h, v, dtype)
-    else:
-        ln_qkv = layernorm_qkv_reference if plain else layernorm_qkv
-
-        def attention(q, k, v, nh, scale):
-            return multi_head_attention(q, k, v, nh, scale, plain=plain)
-
-    def block_int8(x, layer, q8):
-        ln_qkv8 = FL.layernorm_qkv_w8a8_reference if plain else FL.layernorm_qkv_w8a8
-        q, k, v = ln_qkv8(x, layer["norm1"], q8["q"], q8["k"], q8["v"], eps)
-        attn = attention(q, k, v, cfg.num_heads, scale)
-        attn = (FL.dense_quant_w8a8_reference if plain else FL.dense_quant_w8a8)(attn, q8["out"], dtype)
-        if cfg.use_layerscale:
-            attn = attn * layer["ls1"].to(dtype)
-        x = x + attn
-        if int8_mlp == "whole":
-            mlp = FL.layernorm_mlp_w8a8_reference if plain else FL.layernorm_mlp_w8a8
-            h = mlp(x, layer["norm2"], q8["fc1"], q8["fc2"], eps)
+            def ln_qkv(x, norm, q, k, v, eps):
+                h = layer_norm(x, norm, eps)
+                return dense(h, q, dtype), dense(h, k, dtype), dense(h, v, dtype)
         else:
-            fc1 = FL.layernorm_fc1_gelu_w8a8_reference if plain else FL.layernorm_fc1_gelu_w8a8
-            h = dense_w8a8_pre(*fc1(x, layer["norm2"], q8["fc1"], eps), q8["fc2"], dtype)
-        if cfg.use_layerscale:
-            h = h * layer["ls2"].to(dtype)
-        return x + h
+            ln_qkv = layernorm_qkv_reference if plain else layernorm_qkv
 
-    def block(x, layer):
-        q, k, v = ln_qkv(x, layer["norm1"], layer["q"], layer["k"], layer["v"], eps)
-        attn = attention(q, k, v, cfg.num_heads, scale)
-        attn = dense(attn, layer["out"], dtype)
-        if cfg.use_layerscale:
-            attn = attn * layer["ls1"].to(dtype)
-        x = x + attn
-        h = dense(layer_norm(x, layer["norm2"], eps), layer["fc1"], dtype)
-        if dtype == torch.bfloat16:
-            # tanh-approx GELU in bf16, exact erf in f32 (the JAX split)
-            h = F.gelu(h, approximate="tanh")
-        else:
-            h = F.gelu(h.float()).to(dtype)
-        h = dense(h, layer["fc2"], dtype)
-        if cfg.use_layerscale:
-            h = h * layer["ls2"].to(dtype)
-        return x + h
+            def attention(q, k, v, nh, scale):
+                return multi_head_attention(q, k, v, nh, scale, plain=plain)
 
-    run_block = _remat(block, remat)
+        def block_int8(x, layer, q8):
+            ln_qkv8 = FL.layernorm_qkv_w8a8_reference if plain else FL.layernorm_qkv_w8a8
+            q, k, v = ln_qkv8(x, layer["norm1"], q8["q"], q8["k"], q8["v"], eps)
+            attn = attention(q, k, v, cfg.num_heads, scale)
+            attn = (FL.dense_quant_w8a8_reference if plain else FL.dense_quant_w8a8)(attn, q8["out"], dtype)
+            if cfg.use_layerscale:
+                attn = attn * layer["ls1"].to(dtype)
+            x = x + attn
+            if int8_mlp == "whole":
+                mlp = FL.layernorm_mlp_w8a8_reference if plain else FL.layernorm_mlp_w8a8
+                h = mlp(x, layer["norm2"], q8["fc1"], q8["fc2"], eps)
+            else:
+                fc1 = FL.layernorm_fc1_gelu_w8a8_reference if plain else FL.layernorm_fc1_gelu_w8a8
+                h = dense_w8a8_pre(*fc1(x, layer["norm2"], q8["fc1"], eps), q8["fc2"], dtype)
+            if cfg.use_layerscale:
+                h = h * layer["ls2"].to(dtype)
+            return x + h
 
-    x = _embed(params, pixels, cfg, dtype)
-    *layers, last = params["layers"]
-    for i, layer in enumerate(layers):
-        x = run_block(x, layer) if quant is None else block_int8(x, layer, quant["layers"][i])
+        def block(x, layer):
+            q, k, v = ln_qkv(x, layer["norm1"], layer["q"], layer["k"], layer["v"], eps)
+            attn = attention(q, k, v, cfg.num_heads, scale)
+            attn = dense(attn, layer["out"], dtype)
+            if cfg.use_layerscale:
+                attn = attn * layer["ls1"].to(dtype)
+            x = x + attn
+            h = dense(layer_norm(x, layer["norm2"], eps), layer["fc1"], dtype)
+            if dtype == torch.bfloat16:
+                # tanh-approx GELU in bf16, exact erf in f32 (the JAX split)
+                h = F.gelu(h, approximate="tanh")
+            else:
+                h = F.gelu(h.float()).to(dtype)
+            h = dense(h, layer["fc2"], dtype)
+            if cfg.use_layerscale:
+                h = h * layer["ls2"].to(dtype)
+            return x + h
 
-    # the last layer: LN1, then the key projection or the fold (int8: a
-    # plain int8 product, as the JAX package leaves it to XLA; the fold
-    # weight depends on the decoder, so it is quantized here, at each call)
-    h = layer_norm(x, last["norm1"], eps)
-    if key_fold is not None:
-        fw, fb = key_fold
-        fold = {"w": fw, "b": fb}
-        folded = dense(h, fold, dtype) if quant is None else dense_w8a8(h, quantize_linear(fold), dtype)
-        return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
-    k = dense(h, last["k"], dtype) if quant is None else dense_w8a8(h, quant["layers"][-1]["k"], dtype)
-    out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
-    if want_cls_attention:
-        out["cls_attention"] = _cls_attention(h, k, last["q"], cfg.num_heads, cfg.head_dim, scale, dtype)
-    return out
+        run_block = _remat(block, remat)
+
+        x = _embed(params, pixels, cfg, dtype)
+        *layers, last = params["layers"]
+        for i, layer in enumerate(layers):
+            x = run_block(x, layer) if quant is None else block_int8(x, layer, quant["layers"][i])
+
+        # the last layer: LN1, then the key projection or the fold (int8: a
+        # plain int8 product, as the JAX package leaves it to XLA; the fold
+        # weight depends on the decoder, so it is quantized here, at each call)
+        h = layer_norm(x, last["norm1"], eps)
+        if key_fold is not None:
+            fw, fb = key_fold
+            fold = {"w": fw, "b": fb}
+            folded = dense(h, fold, dtype) if quant is None else dense_w8a8(h, quantize_linear(fold), dtype)
+            return {"folded_features": folded[:, 1:].reshape(b, gh, gw, fw.shape[0])}
+        k = dense(h, last["k"], dtype) if quant is None else dense_w8a8(h, quant["layers"][-1]["k"], dtype)
+        out = {"key_tokens": k, "key_features": k[:, 1:].reshape(b, gh, gw, cfg.hidden_size)}
+        if want_cls_attention:
+            out["cls_attention"] = _cls_attention(h, k, last["q"], cfg.num_heads, cfg.head_dim, scale, dtype)
+        return out
 
 
 def _cls_attention(h, k, q, num_heads: int, head_dim: int, scale: float, dtype) -> torch.Tensor:

@@ -35,6 +35,7 @@ from ucod_dpl_tpu_torch.data.transforms import image_transform
 from ucod_dpl_tpu_torch.models.convert import params_to
 from ucod_dpl_tpu_torch.models.dba import RevDecoderParams, fg_logits_live
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear_nhwc, interpolate_bilinear_np
+from ucod_dpl_tpu_torch.utils.profiling import annotate
 
 
 class Predictor:
@@ -98,7 +99,8 @@ class Predictor:
         )
 
     def _fg_logits(self, batch: np.ndarray, size: Optional[int]) -> torch.Tensor:
-        pixels = torch.from_numpy(batch).to(self.device)
+        with annotate("entry.upload", bytes=batch.nbytes):
+            pixels = torch.from_numpy(batch).to(self.device)
         fg, _, _ = fg_logits_live(
             self.fe.params, self.decoder_params, pixels, self.fe.config,
             compute_dtype=self.fe.compute_dtype, size=size, quant=self._qparams,
@@ -108,16 +110,20 @@ class Predictor:
     @torch.inference_mode()
     def _first_pass(self, batch: np.ndarray, soft: bool) -> np.ndarray:
         """Probabilities (``soft``) or uint8 {0, 1} masks at image_size."""
-        up = interpolate_bilinear_nhwc(self._fg_logits(batch, self.feature_size), self.image_size)
-        probs = torch.sigmoid(up[..., 0])
-        return (probs if soft else (probs > 0.5).to(torch.uint8)).cpu().numpy()
+        fg = self._fg_logits(batch, self.feature_size)
+        with annotate("model.upsample"):
+            probs = torch.sigmoid(interpolate_bilinear_nhwc(fg, self.image_size)[..., 0])
+            out = probs if soft else (probs > 0.5).to(torch.uint8)
+        with annotate("entry.download", bytes=out.nbytes):
+            return out.cpu().numpy()
 
     @torch.inference_mode()
     def _crop_pass(self, batch: np.ndarray) -> np.ndarray:
         # LookTwice second pass: masks at the crop's native patch grid, as
         # the eval loop does (loop_UCOD_DPL.py:343-348)
-        fg = self._fg_logits(batch, None)
-        return (torch.sigmoid(fg[..., 0]) > 0.5).float().cpu().numpy()
+        masks = (torch.sigmoid(self._fg_logits(batch, None)[..., 0]) > 0.5).float()
+        with annotate("entry.download", bytes=masks.nbytes):
+            return masks.cpu().numpy()
 
     def _bucket(self, n: int) -> int:
         b = 1
@@ -169,36 +175,42 @@ class Predictor:
             from ucod_dpl_tpu_torch.engine.eval_loop import find_refine_bboxes, refine_with_crops
 
         masks: List[np.ndarray] = []
-        i = 0
-        while i < len(inputs):
-            # decode per chunk: loading the whole list first would hold every
-            # original and normalised array in host memory at once
-            take = min(self.max_batch, len(inputs) - i)
-            loaded = [self._load(x) for x in inputs[i : i + take]]
-            originals = [im for _, im in loaded]
-            if look_twice and any(im is None for im in originals):
-                raise ValueError("look_twice needs the original image: pass paths or uint8 RGB arrays")
-            batch = np.zeros((self._bucket(take), *self.image_size, 3), np.float32)
-            for j, (a, _) in enumerate(loaded):
-                if np.shape(a) != (*self.image_size, 3):
-                    raise ValueError(
-                        f"input {i + j}: expected a path, a uint8 RGB image, or a pre-normalised "
-                        f"{(*self.image_size, 3)} float array; got shape {np.shape(a)}"
-                    )
-                batch[j] = a
-            chunk = [m.astype(np.float32) for m in self._first_pass(batch, soft)[:take]]
-            if look_twice:
-                for k, (mask, img) in enumerate(zip(chunk, originals)):
-                    bboxes = find_refine_bboxes(mask, self.image_size, self.look_twice_th, self.expand_type)
-                    if bboxes is not None:
-                        chunk[k] = refine_with_crops(img, bboxes, mask, self.image_size, self._crop_pass)
-            masks.extend(chunk)
-            i += take
+        with annotate("entry.predict", images=len(inputs)):
+            i = 0
+            while i < len(inputs):
+                # decode per chunk: loading the whole list first would hold every
+                # original and normalised array in host memory at once
+                take = min(self.max_batch, len(inputs) - i)
+                with annotate("entry.load"):
+                    loaded = [self._load(x) for x in inputs[i : i + take]]
+                originals = [im for _, im in loaded]
+                if look_twice and any(im is None for im in originals):
+                    raise ValueError("look_twice needs the original image: pass paths or uint8 RGB arrays")
+                with annotate("entry.fill"):
+                    batch = np.zeros((self._bucket(take), *self.image_size, 3), np.float32)
+                    for j, (a, _) in enumerate(loaded):
+                        if np.shape(a) != (*self.image_size, 3):
+                            raise ValueError(
+                                f"input {i + j}: expected a path, a uint8 RGB image, or a pre-normalised "
+                                f"{(*self.image_size, 3)} float array; got shape {np.shape(a)}"
+                            )
+                        batch[j] = a
+                first = self._first_pass(batch, soft)
+                with annotate("entry.unpack"):
+                    chunk = [m.astype(np.float32) for m in first[:take]]
+                if look_twice:
+                    for k, (mask, img) in enumerate(zip(chunk, originals)):
+                        bboxes = find_refine_bboxes(mask, self.image_size, self.look_twice_th, self.expand_type)
+                        if bboxes is not None:
+                            chunk[k] = refine_with_crops(img, bboxes, mask, self.image_size, self._crop_pass)
+                masks.extend(chunk)
+                i += take
 
-        if output_size is not None:
-            masks = [interpolate_bilinear_np(m, output_size) for m in masks]
-            if not soft:
-                masks = [(m > 0.5).astype(np.float32) for m in masks]
+            if output_size is not None:
+                with annotate("entry.unpack"):
+                    masks = [interpolate_bilinear_np(m, output_size) for m in masks]
+                    if not soft:
+                        masks = [(m > 0.5).astype(np.float32) for m in masks]
         return masks
 
 
