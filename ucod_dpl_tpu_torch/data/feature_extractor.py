@@ -4,7 +4,8 @@ Counterpart of :mod:`ucod_dpl_tpu.data.feature_extractor` (the reference's
 ``data/utils/feature_extractor.py:31-59`` backbone wrapper): local weight
 discovery, strict loading, a compute dtype chosen by device (bf16 on CUDA,
 float32 on the CPU), and host float32 key features that are checked for
-non-finite values.  With a device mesh (``parallel.mesh.build_mesh``) the
+non-finite values, staged through reused host buffers
+(``utils/staging.py``).  With a device mesh (``parallel.mesh.build_mesh``) the
 batch is split over its ``data`` axis; when its ``model`` axis is > 1 the
 backbone runs tensor-parallel (``parallel/tp.py``), when its ``seq`` axis is
 > 1 sequence-parallel (``parallel/sp.py``), and with both 2D.
@@ -34,6 +35,7 @@ from ucod_dpl_tpu_torch.parallel.mesh import data_sharding
 from ucod_dpl_tpu_torch.parallel.sp import sp_param_grid
 from ucod_dpl_tpu_torch.parallel.tp import shard_dino_params
 from ucod_dpl_tpu_torch.utils.profiling import annotate
+from ucod_dpl_tpu_torch.utils.staging import Staging
 
 logger = logging.getLogger(__name__)
 
@@ -155,6 +157,7 @@ class FeatureExtractor:
         self.compute_dtype = compute_dtype
         self.seed = seed
         self.quantize = quantize
+        self._staging = Staging()  # the batch and the features, reused across calls
         masters = params_to(self._load_params(seed), self.device)
         # quantized from the float32 weights: a bf16 copy gives other codes and scales
         self._qparams = quantize_dino_linears(masters) if quantize == "int8" else None
@@ -208,20 +211,38 @@ class FeatureExtractor:
         return init_dino(seed, self.config)
 
     @staticmethod
-    def _to_host_f32(t: torch.Tensor, what: str) -> np.ndarray:
-        """Device tensor -> host float32, raising on non-finite values (a
-        non-finite forward evaluates silently as all-background masks)."""
-        with annotate("entry.download", bytes=t.numel() * 4):
-            arr = t.float().cpu().numpy()
+    def _to_host_f32(t: torch.Tensor, what: str, out: np.ndarray, staging: Staging) -> np.ndarray:
+        """Device tensor -> host float32 ``out``, raising on non-finite
+        values (a non-finite forward evaluates silently as all-background
+        masks).  The check is one reduction on the device; ``t`` crosses
+        the bus once, in its own dtype, into the result buffer of
+        ``staging``, and is upcast on the host into ``out``: exact from
+        bf16."""
         with annotate("entry.check"):
-            finite = np.isfinite(arr).all()
-        if not finite:
+            finite = torch.isfinite(t).all()
+        with annotate("entry.download", bytes=t.numel() * t.element_size()) as span:
+            host = staging.download(t, span=span)
+            ok = bool(finite)  # the one wait: the flag is read behind the download on t's stream
+            if ok:
+                torch.from_numpy(out).copy_(host)
+        if not ok:
             raise FloatingPointError(
                 f"DINO forward produced non-finite {what} "
-                f"({(~np.isfinite(arr)).sum()}/{arr.size} bad) on {t.device} — "
+                f"({int((~torch.isfinite(t)).sum())}/{t.numel()} bad) on {t.device} — "
                 "kernel or numerics regression."
             )
-        return arr
+        return out
+
+    def _gather(self, parts, what: str) -> np.ndarray:
+        """Device parts, in batch order -> one host float32 array, each part
+        written into its rows by :meth:`_to_host_f32`."""
+        with annotate("entry.concat"):
+            out = np.empty((sum(p.shape[0] for p in parts), *parts[0].shape[1:]), np.float32)
+        row = 0
+        for p in parts:
+            self._to_host_f32(p, what, out[row:row + p.shape[0]], self._staging)
+            row += p.shape[0]
+        return out
 
     def _forwards(self, images_nhwc: np.ndarray, sequence_parallel: bool = True, **kw):
         """``dino_forward`` of ``images_nhwc`` on each ``data`` coordinate of
@@ -250,8 +271,11 @@ class FeatureExtractor:
             first = params
             while not isinstance(first, dict):
                 first = first[0]
-            with annotate("entry.upload", bytes=images[sl].nbytes):
-                pixels = torch.from_numpy(images[sl]).to(first["pos_embed"].device)
+            device = first["pos_embed"].device
+            with annotate("entry.upload", bytes=images[sl].nbytes) as span:
+                host = self._staging.take("input", device, images[sl].shape, torch.float32, span=span)
+                host.copy_(torch.from_numpy(images[sl]))
+                pixels = self._staging.upload("input", host, device)
             outs.append(dino_forward(params, pixels, self.config, compute_dtype=self.compute_dtype,
                                      tp_shard=self.tp_shard, sp_shard=sp_shard, **kw))
         return outs
@@ -260,11 +284,9 @@ class FeatureExtractor:
         """(B, H, W, 3) normalised images -> (B, h, w, hidden) float32 key
         features on the host, over the mesh's ``data`` coordinates when there
         is a mesh."""
-        with annotate("entry.extract", images=len(images_nhwc)), torch.inference_mode():
+        with annotate("entry.extract", images=len(images_nhwc)), torch.inference_mode(), self._staging.lock:
             outs = self._forwards(images_nhwc, quant=self._qparams)
-            features = [self._to_host_f32(o["key_features"], "features") for o in outs]
-            with annotate("entry.concat"):
-                return np.concatenate(features)
+            return self._gather([o["key_features"] for o in outs], "features")
 
     def extract_with_attention(self, images_nhwc: np.ndarray):
         """(B, H, W, 3) normalised images -> host float32 ``(key_tokens (B,
@@ -273,11 +295,11 @@ class FeatureExtractor:
         its mesh (under tensor parallelism each shard computes its heads'
         rows; a ``seq`` axis is not used: the parity contract runs
         unsharded, as in JAX).  Always the full-precision forward: an int8 extractor passes
-        no int8 linears (the CLS attention is a parity surface).  Tokens and
-        attention are checked for non-finite values (NaN probabilities would
-        threshold into silently degenerate masks)."""
-        with torch.inference_mode():
+        no int8 linears (the CLS attention is a parity surface).  All three
+        are checked for non-finite values (NaN probabilities would threshold
+        into silently degenerate masks) and staged as :meth:`extract`'s
+        features are."""
+        with torch.inference_mode(), self._staging.lock:
             outs = self._forwards(images_nhwc, sequence_parallel=False, want_cls_attention=True)
-            return (np.concatenate([self._to_host_f32(o["key_tokens"], "key tokens") for o in outs]),
-                    np.concatenate([o["key_features"].float().cpu().numpy() for o in outs]),
-                    np.concatenate([self._to_host_f32(o["cls_attention"], "CLS attention") for o in outs]))
+            return tuple(self._gather([o[key] for o in outs], what) for key, what in (
+                ("key_tokens", "key tokens"), ("key_features", "features"), ("cls_attention", "CLS attention")))

@@ -10,7 +10,9 @@ Counterpart of :class:`ucod_dpl_tpu.serving.Predictor`::
 It runs on the card, ``device="cuda"``, unless the caller passes
 ``device="cpu"``; without a card the default raises at construction.
 
-Batches are padded to power-of-two buckets up to ``max_batch``; the JAX
+Batches are padded to power-of-two buckets up to ``max_batch`` and staged
+through host buffers the Predictor reuses (``utils/staging.py``: pinned on
+CUDA, one for the bucket and one for the result); the JAX
 package's jitted programs (probabilities or masks, and the LookTwice crop
 pass) are eager methods under ``torch.inference_mode()`` around
 :func:`ucod_dpl_tpu_torch.models.dba.fg_logits_live`.  On CUDA the backbone
@@ -36,6 +38,7 @@ from ucod_dpl_tpu_torch.models.convert import params_to
 from ucod_dpl_tpu_torch.models.dba import RevDecoderParams, fg_logits_live
 from ucod_dpl_tpu_torch.ops.resize import interpolate_bilinear_nhwc, interpolate_bilinear_np
 from ucod_dpl_tpu_torch.utils.profiling import annotate
+from ucod_dpl_tpu_torch.utils.staging import Staging, synchronize
 
 
 class Predictor:
@@ -71,6 +74,7 @@ class Predictor:
         self.max_batch = max_batch
         self.look_twice_th = look_twice_th
         self.expand_type = expand_type
+        self._staging = Staging()  # the bucket and the first pass's result, reused across calls
 
     @classmethod
     def from_config(
@@ -98,9 +102,7 @@ class Predictor:
             expand_type=cfg.val_cfg.get("expand_type", "dynamic"),
         )
 
-    def _fg_logits(self, batch: np.ndarray, size: Optional[int]) -> torch.Tensor:
-        with annotate("entry.upload", bytes=batch.nbytes):
-            pixels = torch.from_numpy(batch).to(self.device)
+    def _fg_logits(self, pixels: torch.Tensor, size: Optional[int]) -> torch.Tensor:
         fg, _, _ = fg_logits_live(
             self.fe.params, self.decoder_params, pixels, self.fe.config,
             compute_dtype=self.fe.compute_dtype, size=size, quant=self._qparams,
@@ -108,20 +110,28 @@ class Predictor:
         return fg
 
     @torch.inference_mode()
-    def _first_pass(self, batch: np.ndarray, soft: bool) -> np.ndarray:
-        """Probabilities (``soft``) or uint8 {0, 1} masks at image_size."""
-        fg = self._fg_logits(batch, self.feature_size)
+    def _first_pass(self, batch: torch.Tensor, soft: bool) -> np.ndarray:
+        """Probabilities (``soft``) or uint8 {0, 1} masks at image_size of
+        ``batch``, the staged bucket, in the staged result buffer: valid
+        until the next call, so the caller copies out what it keeps."""
+        with annotate("entry.upload", bytes=batch.nbytes):
+            pixels = self._staging.upload("input", batch, self.device)
+        fg = self._fg_logits(pixels, self.feature_size)
         with annotate("model.upsample"):
             probs = torch.sigmoid(interpolate_bilinear_nhwc(fg, self.image_size)[..., 0])
             out = probs if soft else (probs > 0.5).to(torch.uint8)
-        with annotate("entry.download", bytes=out.nbytes):
-            return out.cpu().numpy()
+        with annotate("entry.download", bytes=out.nbytes) as span:
+            host = self._staging.download(out, span=span)
+            synchronize(self.device)
+            return host.numpy()
 
     @torch.inference_mode()
     def _crop_pass(self, batch: np.ndarray) -> np.ndarray:
         # LookTwice second pass: masks at the crop's native patch grid, as
         # the eval loop does (loop_UCOD_DPL.py:343-348)
-        masks = (torch.sigmoid(self._fg_logits(batch, None)[..., 0]) > 0.5).float()
+        with annotate("entry.upload", bytes=batch.nbytes):
+            pixels = torch.from_numpy(batch).to(self.device)
+        masks = (torch.sigmoid(self._fg_logits(pixels, None)[..., 0]) > 0.5).float()
         with annotate("entry.download", bytes=masks.nbytes):
             return masks.cpu().numpy()
 
@@ -186,18 +196,24 @@ class Predictor:
                 originals = [im for _, im in loaded]
                 if look_twice and any(im is None for im in originals):
                     raise ValueError("look_twice needs the original image: pass paths or uint8 RGB arrays")
-                with annotate("entry.fill"):
-                    batch = np.zeros((self._bucket(take), *self.image_size, 3), np.float32)
-                    for j, (a, _) in enumerate(loaded):
-                        if np.shape(a) != (*self.image_size, 3):
-                            raise ValueError(
-                                f"input {i + j}: expected a path, a uint8 RGB image, or a pre-normalised "
-                                f"{(*self.image_size, 3)} float array; got shape {np.shape(a)}"
-                            )
-                        batch[j] = a
-                first = self._first_pass(batch, soft)
-                with annotate("entry.unpack"):
-                    chunk = [m.astype(np.float32) for m in first[:take]]
+                with self._staging.lock:
+                    with annotate("entry.fill") as span:
+                        bucket = self._staging.take("input", self.device, (self._bucket(take), *self.image_size, 3),
+                                                    torch.float32, span=span)
+                        for j, (a, _) in enumerate(loaded):
+                            if np.shape(a) != (*self.image_size, 3):
+                                raise ValueError(
+                                    f"input {i + j}: expected a path, a uint8 RGB image, or a pre-normalised "
+                                    f"{(*self.image_size, 3)} float array; got shape {np.shape(a)}"
+                                )
+                            # numpy casts other dtypes as assignment did; torch copies on its intra-op threads
+                            bucket[j].copy_(torch.from_numpy(np.ascontiguousarray(a, np.float32)))
+                        bucket[take:].zero_()  # a reused bucket never sends the last call's images
+                    first = self._first_pass(bucket, soft)
+                    with annotate("entry.unpack"):
+                        kept = np.empty((take, *first.shape[1:]), np.float32)  # the one fresh array the caller keeps
+                        torch.from_numpy(kept).copy_(torch.from_numpy(first[:take]))
+                        chunk = list(kept)
                 if look_twice:
                     for k, (mask, img) in enumerate(zip(chunk, originals)):
                         bboxes = find_refine_bboxes(mask, self.image_size, self.look_twice_th, self.expand_type)
